@@ -1,0 +1,6 @@
+from .diffusion_process import AbstractDiffusionProcess
+from .gaussian_diffusion import GaussianDiffusion
+from .generalized_gaussian_diffusion import GeneralizedGaussianDiffusion
+from .unet import Unet
+
+__all__ = ["AbstractDiffusionProcess", "GaussianDiffusion", "GeneralizedGaussianDiffusion", "Unet"]

@@ -1,0 +1,357 @@
+"""Attention ops of the U-Net: plain PyTorch versions, the JAX package's
+dispatch rules, and the wrappers of the hand-written Hopper kernels
+(``csrc/linear_attention.cu``, ``csrc/attention_block_small.cu``).
+
+Counterpart of ``diffusion_model_nemo_tpu/ops/attention.py``. The dispatch
+rules keep the JAX package's shape and dtype conditions, so each U-Net level
+reaches the same kernel as on the TPU; where the JAX package runs an XLA
+composition (linear attention at N < 64), the port runs its plain
+composition. Under a rule that holds, a tensor on the CPU takes the plain
+version and a CUDA tensor launches the kernel or raises. The two TPU
+kernels a rule can reach but the port has not written yet (#7, #8 in
+PERF.md) raise ``NotImplementedError`` on CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+__all__ = [
+    "attention_reference",
+    "linear_attention_reference",
+    "linear_attention_qkv_reference",
+    "linear_attention_tokens_reference",
+    "linear_attention_block_reference",
+    "attention_block_reference",
+    "use_packed_linattn_block",
+    "use_linattn_tokens",
+    "use_small_attn_block",
+    "fused_attention",
+    "fused_linear_attention_qkv",
+    "fused_linear_attention_tokens",
+    "fused_linear_attention_block_packed",
+    "fused_attention_block_small",
+    "linear_attention_block_cuda",
+    "linear_attention_tokens_cuda",
+    "attention_block_small_cuda",
+    "LAUNCHES",
+]
+
+# Launches of each kernel, counted where its wrapper launches it.
+LAUNCHES = {"linear_attention_block": 0, "linear_attention_tokens": 0, "attention_block_small": 0}
+
+_MAX_KERNEL_TOKENS = 4096
+_MIN_KERNEL_TOKENS = 64
+
+
+# ------------------------------------------------------------ plain versions --
+def _gn1(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
+    """flax ``GroupNorm(num_groups=1)`` on [B, N, C]: float32 one-pass stats
+    over (N, C) clipped at zero, float32 normalize + affine, cast back."""
+    xf = x.float()
+    mean = xf.mean(dim=(1, 2), keepdim=True)
+    mean2 = (xf * xf).mean(dim=(1, 2), keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B, N, h, d] (q pre-scaled) → [B, N, h, d]: max-subtracted softmax
+    attention with float32 scores and accumulation."""
+    sim = torch.einsum("bihd,bjhd->bhij", q.float(), k.float())
+    sim = sim - sim.amax(dim=-1, keepdim=True)
+    attn = torch.softmax(sim, dim=-1).to(q.dtype)
+    out = torch.einsum("bhij,bjhd->bihd", attn.float(), v.float())
+    return out.to(q.dtype)
+
+
+def linear_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B, N, h, d] (q softmaxed over d and scaled, k softmaxed over N) →
+    [B, N, h, d]: per-head context kᵀv, rounded to the input dtype, then q·context."""
+    context = torch.einsum("bnhd,bnhe->bhde", k.float(), v.float()).to(q.dtype)
+    out = torch.einsum("bhde,bnhd->bnhe", context.float(), q.float())
+    return out.to(q.dtype)
+
+
+def linear_attention_qkv_reference(
+    qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+) -> torch.Tensor:
+    """Raw qkv [B, N, 3·h·d] → [B, N, h·d]: q softmax over d per head ×scale,
+    k softmax over N, then the per-head linear attention."""
+    B, N, _ = qkv.shape
+    hd = heads * dim_head
+    q = qkv[..., :hd].reshape(B, N, heads, dim_head)
+    k = qkv[..., hd : 2 * hd].reshape(B, N, heads, dim_head)
+    v = qkv[..., 2 * hd :].reshape(B, N, heads, dim_head)
+    q = torch.softmax(q.float(), dim=-1) * scale
+    k = torch.softmax(k.float(), dim=1)
+    out = linear_attention_reference(q.to(qkv.dtype), k.to(qkv.dtype), v)
+    return out.reshape(B, N, hd)
+
+
+def linear_attention_tokens_reference(
+    h: torch.Tensor, w_qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+) -> torch.Tensor:
+    """Pre-normed tokens [B, N, C] · W_qkv [C, 3·h·d] → linear attention →
+    [B, N, h·d] (the plain version of the qkv-fused kernel)."""
+    qkv = h @ w_qkv.to(h.dtype)
+    return linear_attention_qkv_reference(qkv, heads, dim_head, scale)
+
+
+def linear_attention_block_reference(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Whole ``Residual(PreNorm(LinearAttention))`` on [B, N, C]: GroupNorm(1)
+    → qkv → linear attention → out projection + bias → GroupNorm(1) → + x,
+    with the module composition's casts at each seam."""
+    h = _gn1(x, norm_gamma, norm_beta, eps)
+    attn = linear_attention_tokens_reference(h, w_qkv, heads, dim_head, scale)
+    out = attn.to(x.dtype) @ w_out.to(x.dtype) + b_out.to(x.dtype)
+    out = _gn1(out, out_gamma, out_beta, eps)
+    return out + x
+
+
+def attention_block_reference(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """``Residual(PreNorm(Attention))`` on [B, N, C]: GroupNorm(1) → qkv →
+    softmax attention → out projection + bias → + x (no out-norm)."""
+    B, N, C = x.shape
+    hd = heads * dim_head
+    h = _gn1(x, norm_gamma, norm_beta, eps)
+    qkv = (h @ w_qkv.to(h.dtype)).reshape(B, N, 3, heads, dim_head)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = attention_reference(q * scale, k, v).to(x.dtype).reshape(B, N, hd)
+    out = out @ w_out.to(x.dtype) + b_out.to(x.dtype)
+    return out + x
+
+
+# ----------------------------------------------------------- dispatch rules --
+def use_packed_linattn_block(shape, dtype, heads: int, dim_head: int) -> bool:
+    """The JAX package's rule for the whole-block linear-attention kernel
+    (``use_packed_linattn_block``): bf16, C divides 128, N·C/128 ≥ 64."""
+    if dtype != torch.bfloat16:
+        return False
+    B, N, C = shape
+    return (
+        (heads * dim_head) % 128 == 0
+        and C <= 128
+        and 128 % C == 0
+        and (N * C) % 128 == 0
+        and (N * C) // 128 >= 64
+        and _MIN_KERNEL_TOKENS <= N <= _MAX_KERNEL_TOKENS
+    )
+
+
+def use_linattn_tokens(shape, dtype, heads: int, dim_head: int) -> bool:
+    """The JAX package's rule for the qkv-fused linear-attention kernel
+    (``_use_pallas_linattn_tokens``): bf16 and 64 ≤ N ≤ 4096, N % 8 == 0."""
+    return dtype == torch.bfloat16 and _use_linattn_qkv_kernel(shape, heads, dim_head)
+
+
+def _use_linattn_qkv_kernel(shape, heads: int, dim_head: int) -> bool:
+    """The JAX package's rule for TPU kernel #8 (``_use_pallas_linattn``):
+    no dtype condition, so it is the float32 route at N ≥ 64."""
+    B, N, _ = shape
+    return (
+        (heads * dim_head) % 128 == 0
+        and N % 8 == 0
+        and _MIN_KERNEL_TOKENS <= N <= _MAX_KERNEL_TOKENS
+    )
+
+
+def use_small_attn_block(shape, dtype, heads: int, dim_head: int) -> bool:
+    """The JAX package's rule for the bottleneck attention-block kernel
+    (``use_small_attn_block``): bf16, 8 ≤ N ≤ 64, N % 8 == 0, heads·N ≤ 512."""
+    if dtype != torch.bfloat16:
+        return False
+    B, N, C = shape
+    return (heads * dim_head) % 128 == 0 and N % 8 == 0 and 8 <= N <= 64 and heads * N <= 512
+
+
+# -------------------------------------------------------------- entry points --
+def _not_ported(number: int, where: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"this CUDA route is TPU kernel #{number} (diffusion_model_nemo_tpu/ops/"
+        f"attention.py:{where}), not ported yet; see ROADMAP.md"
+    )
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B, N, h, d] (q pre-scaled) → [B, N, h, d]. The JAX package sends
+    N ≥ 1024 to TPU kernel #7; the port raises there on CUDA."""
+    N = q.shape[1]
+    if q.device.type != "cpu" and 1024 <= N <= _MAX_KERNEL_TOKENS:
+        raise _not_ported(7, "_attn_kernel")
+    return attention_reference(q, k, v)
+
+
+def fused_linear_attention_qkv(
+    qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+) -> torch.Tensor:
+    """Raw qkv [B, N, 3·h·d] → [B, N, h·d]. Where the JAX package runs TPU
+    kernel #8 (the float32 route at N ≥ 64) the port raises on CUDA."""
+    if qkv.device.type != "cpu" and _use_linattn_qkv_kernel(qkv.shape, heads, dim_head):
+        raise _not_ported(8, "_linattn_kernel")
+    return linear_attention_qkv_reference(qkv, heads, dim_head, scale)
+
+
+def fused_linear_attention_tokens(
+    h: torch.Tensor, w_qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+) -> torch.Tensor:
+    """Pre-normed tokens [B, N, C] + W_qkv [C, 3·h·d] → [B, N, h·d]."""
+    if use_linattn_tokens(h.shape, h.dtype, heads, dim_head):
+        if h.device.type == "cpu":
+            return linear_attention_tokens_reference(h, w_qkv, heads, dim_head, scale)
+        return linear_attention_tokens_cuda(h, w_qkv, heads, dim_head, scale)
+    qkv = h @ w_qkv.to(h.dtype)
+    return fused_linear_attention_qkv(qkv, heads, dim_head, scale)
+
+
+def fused_linear_attention_block_packed(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Whole ``Residual(PreNorm(LinearAttention))`` block on [B, N, C]
+    where ``use_packed_linattn_block`` holds (callers check it first)."""
+    args = (x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta)
+    if x.device.type == "cpu":
+        return linear_attention_block_reference(*args, heads, dim_head, scale, eps)
+    return linear_attention_block_cuda(*args, heads, dim_head, scale, eps)
+
+
+def fused_attention_block_small(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Whole bottleneck ``Residual(PreNorm(Attention))`` block on [B, N, C]
+    where ``use_small_attn_block`` holds (callers check it first)."""
+    args = (x, norm_gamma, norm_beta, w_qkv, w_out, b_out)
+    if x.device.type == "cpu":
+        return attention_block_reference(*args, heads, dim_head, scale, eps)
+    return attention_block_small_cuda(*args, heads, dim_head, scale, eps)
+
+
+# ------------------------------------------------------------ kernel wrappers --
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _check_tokens(x: torch.Tensor, heads: int, dim_head: int, what: str) -> Tuple[int, int, int]:
+    if not x.is_cuda:
+        raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what} takes bf16 tokens, got {x.dtype}")
+    if x.ndim != 3 or not x.is_contiguous():
+        raise ValueError(f"{what} takes contiguous [B, N, C] tokens, got {tuple(x.shape)}")
+    if (heads, dim_head) != (4, 32):
+        raise ValueError(f"{what} is built for 4 heads x 32, got {heads} x {dim_head}")
+    return tuple(x.shape)
+
+
+def _fold_prenorm(norm_gamma, norm_beta, w_qkv) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold GroupNorm(1)'s affine into the qkv projection, as the TPU kernels
+    do: h·W = ((x−μ)·rstd)·(γ∘W) + β·W. Weights only."""
+    w = w_qkv.float()
+    return (
+        (norm_gamma.float()[:, None] * w).to(torch.bfloat16).contiguous(),
+        (norm_beta.float() @ w).contiguous(),
+    )
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.float().contiguous()
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _linattn_scratch(B: int, N: int, C: int, block: bool, device) -> torch.Tensor:
+    lib = _build.library("linear_attention")
+    fn = lib.dmn_linattn_scratch_floats
+    fn.argtypes = [_CI, _CI, _CI, _CI]
+    fn.restype = ctypes.c_long
+    return torch.empty(fn(B, N, C, int(block)), dtype=torch.float32, device=device)
+
+
+def linear_attention_block_cuda(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Launch the whole-block linear-attention kernel on bf16 [B, N, C]."""
+    B, N, C = _check_tokens(x, heads, dim_head, "linear_attention_block_cuda")
+    hd = heads * dim_head
+    if w_qkv.shape != (C, 3 * hd) or w_out.shape != (hd, C):
+        raise ValueError(f"weights {tuple(w_qkv.shape)}, {tuple(w_out.shape)} do not fit C={C}")
+    wq, bq = _fold_prenorm(norm_gamma, norm_beta, w_qkv)
+    wo = w_out.to(torch.bfloat16).contiguous()
+    bo, og, ob = _f32(b_out), _f32(out_gamma), _f32(out_beta)
+    out = torch.empty_like(x)
+    scratch = _linattn_scratch(B, N, C, True, x.device)
+    _build.launch(
+        "linear_attention", "dmn_linattn_block",
+        [_VP] * 9 + [_CI, _CI, _CI, _CF, _CF, _VP],
+        x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        og.data_ptr(), ob.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, N, C, scale, eps, _stream(x),
+    )
+    LAUNCHES["linear_attention_block"] += 1
+    return out
+
+
+def linear_attention_tokens_cuda(
+    h: torch.Tensor, w_qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+) -> torch.Tensor:
+    """Launch the qkv-fused linear-attention kernel on bf16 [B, N, C]."""
+    B, N, C = _check_tokens(h, heads, dim_head, "linear_attention_tokens_cuda")
+    hd = heads * dim_head
+    if w_qkv.shape != (C, 3 * hd):
+        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} does not fit C={C}")
+    wq = w_qkv.to(torch.bfloat16).contiguous()
+    out = torch.empty((B, N, hd), dtype=torch.bfloat16, device=h.device)
+    scratch = _linattn_scratch(B, N, C, False, h.device)
+    _build.launch(
+        "linear_attention", "dmn_linattn_tokens",
+        [_VP] * 4 + [_CI, _CI, _CI, _CF, _VP],
+        h.data_ptr(), wq.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, N, C, scale, _stream(h),
+    )
+    LAUNCHES["linear_attention_tokens"] += 1
+    return out
+
+
+_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+
+
+def attention_block_small_cuda(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Launch the bottleneck attention-block kernel on bf16 [B, N, C]."""
+    B, N, C = _check_tokens(x, heads, dim_head, "attention_block_small_cuda")
+    hd = heads * dim_head
+    if w_qkv.shape != (C, 3 * hd) or w_out.shape != (hd, C):
+        raise ValueError(f"weights {tuple(w_qkv.shape)}, {tuple(w_out.shape)} do not fit C={C}")
+    smem = 4 * (max(N * C, heads * N * N) + 4 + N * (3 * hd + 1)) + 256
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"[N={N}, C={C}] needs {smem} B of shared memory (> {_SMEM_LIMIT})")
+    wq, bq = _fold_prenorm(norm_gamma, norm_beta, w_qkv)
+    wo = w_out.to(torch.bfloat16).contiguous()
+    bo = _f32(b_out)
+    out = torch.empty_like(x)
+    _build.launch(
+        "attention_block_small", "dmn_attn_block_small",
+        [_VP] * 6 + [_CI, _CI, _CI, _CF, _CF, _VP],
+        x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        out.data_ptr(), B, N, C, scale, eps, _stream(x),
+    )
+    LAUNCHES["attention_block_small"] += 1
+    return out

@@ -1,0 +1,181 @@
+"""The PyTorch port's sampling server on the CPU: HTTP routes, seeded
+determinism, request coalescing, the 400/501 answers, and the standard-library
+PNG codec that replaces the JAX package's Pillow dependency."""
+
+import base64
+import io
+import json
+import threading
+import urllib.error
+import urllib.request
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from diffusion_model_nemo_tpu.utils.image import to_uint8 as jax_pkg_to_uint8
+from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+from diffusion_model_nemo_tpu_torch.models import DDPM
+from diffusion_model_nemo_tpu_torch.serving import BatchingSampler, serve
+from diffusion_model_nemo_tpu_torch.utils.image import (
+    decode_png,
+    encode_png,
+    to_uint8,
+    to_uint8_tensor,
+)
+
+IMG = 8
+MAX_BATCH = 4
+
+
+def _tiny_model():
+    cfg = unet_small_model_config(image_size=IMG, timesteps=10)
+    cfg["diffusion_model"].update(dim=16, dim_mults=[1, 2])
+    cfg["sampler"]["timesteps"] = 10
+    return DDPM(cfg, device="cpu", seed=0)
+
+
+@pytest.fixture(scope="module")
+def server():
+    srv = serve(_tiny_model(), port=0, max_batch=MAX_BATCH, ddim_timesteps=2)
+    srv.start_background()
+    yield srv
+    srv.shutdown()
+
+
+def _call(srv, method, path, payload=None, raw=None):
+    data = raw if raw is not None else (None if payload is None else json.dumps(payload).encode())
+    req = urllib.request.Request(f"http://{srv.host}:{srv.port}{path}", data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def test_healthz_and_stats(server):
+    code, body = _call(server, "GET", "/healthz")
+    assert code == 200 and json.loads(body) == {"status": "ok", "warm": True, "mode": "sample"}
+    code, body = _call(server, "GET", "/stats")
+    stats = json.loads(body)
+    assert code == 200 and stats["max_batch"] == MAX_BATCH
+    assert {"requests", "images", "batches", "avg_batch_fill"} <= set(stats)
+
+
+def test_sample_png_and_npy(server):
+    code, body = _call(server, "POST", "/sample", {"num_images": 2, "format": "png"})
+    assert code == 200
+    images = [decode_png(base64.b64decode(s)) for s in json.loads(body)["images"]]
+    assert len(images) == 2 and all(im.shape == (IMG, IMG, 3) for im in images)
+    code, body = _call(server, "POST", "/sample", {"num_images": 3, "format": "npy"})
+    arr = np.load(io.BytesIO(body))
+    assert code == 200 and arr.shape == (3, IMG, IMG, 3) and arr.dtype == np.uint8
+
+
+def test_seeded_requests_repeat_bit_for_bit(server):
+    def sample(seed):
+        code, body = _call(server, "POST", "/sample", {"num_images": 2, "seed": seed, "format": "npy"})
+        assert code == 200
+        return np.load(io.BytesIO(body))
+
+    a, b, c = sample(11), sample(11), sample(12)
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+
+
+def test_large_request_is_chunked(server):
+    code, body = _call(server, "POST", "/sample", {"num_images": MAX_BATCH + 2, "format": "npy"})
+    assert code == 200 and np.load(io.BytesIO(body)).shape == (MAX_BATCH + 2, IMG, IMG, 3)
+
+
+@pytest.mark.parametrize(
+    "payload,raw",
+    [
+        ({"num_images": 0}, None),
+        ({"num_images": "many"}, None),
+        ({"num_images": 1, "format": "gif"}, None),
+        ({"num_images": 1, "label": 3}, None),  # class labels are not ported
+        ({"num_images": 1, "seed": "abc"}, None),
+        (None, b"{not json"),
+        (None, b"[1, 2]"),
+    ],
+)
+def test_bad_payload_is_a_400(server, payload, raw):
+    code, body = _call(server, "POST", "/sample", payload, raw=raw)
+    assert code == 400, body
+    assert "error" in json.loads(body)
+
+
+def test_unported_routes_and_unknown_paths(server):
+    for path in ("/edit", "/super_resolve", "/vocode"):
+        assert _call(server, "POST", path, {})[0] == 501
+    assert _call(server, "POST", "/nope", {})[0] == 404
+    assert _call(server, "GET", "/nope")[0] == 404
+
+
+def test_concurrent_unseeded_requests_coalesce():
+    batcher = BatchingSampler(_tiny_model(), IMG, max_batch=MAX_BATCH, linger_ms=300.0)
+    batcher.start(warmup=False)
+    try:
+        results = []
+        threads = [
+            threading.Thread(target=lambda: results.append(batcher.submit(1, timeout=120)))
+            for _ in range(3)
+        ]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+        assert [r.shape for r in results] == [(1, IMG, IMG, 3)] * 3
+        stats = batcher.snapshot_stats()
+        assert stats["batches"] == 1 and stats["requests"] == 3 and stats["images"] == 3
+        assert stats["avg_batch_fill"] == pytest.approx(3 / MAX_BATCH)
+    finally:
+        batcher.stop()
+    assert not batcher._worker.is_alive()
+
+
+def test_worker_fault_reaches_the_client_as_an_error():
+    model = _tiny_model()
+    batcher = BatchingSampler(model, IMG, max_batch=MAX_BATCH, linger_ms=1.0)
+    model.sample = lambda **kw: (_ for _ in ()).throw(RuntimeError("device lost"))
+    batcher.start(warmup=False)
+    try:
+        with pytest.raises(RuntimeError, match="device lost"):
+            batcher.submit(1, timeout=60)
+    finally:
+        batcher.stop()
+
+
+def test_uint8_quantization_matches_the_jax_package():
+    x = np.linspace(-0.2, 1.2, 101, dtype=np.float32).reshape(1, 101, 1, 1)
+    expect = jax_pkg_to_uint8(x)
+    np.testing.assert_array_equal(to_uint8(x), expect)
+    np.testing.assert_array_equal(to_uint8_tensor(torch.from_numpy(x)).numpy(), expect)
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 3), (4, 6, 1), (3, 2)])
+def test_png_round_trip(shape):
+    img = np.random.default_rng(0).integers(0, 256, size=shape, dtype=np.uint8)
+    data = encode_png(img)
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    out = decode_png(data)
+    np.testing.assert_array_equal(out, img.reshape(out.shape))
+    # the IDAT payload is a plain zlib stream of filter-0 rows
+    idat = data.index(b"IDAT")
+    (length,) = np.frombuffer(data[idat - 4 : idat], ">u4")
+    rows = zlib.decompress(data[idat + 4 : idat + 4 + int(length)])
+    assert len(rows) == shape[0] * (1 + int(np.prod(shape[1:])))
+
+
+def test_png_decoder_rejects_corruption():
+    data = bytearray(encode_png(np.zeros((2, 2, 3), np.uint8)))
+    with pytest.raises(ValueError, match="signature"):
+        decode_png(b"GIF89a" + bytes(data[6:]))
+    data[-20] ^= 0xFF  # inside IDAT: its CRC no longer holds
+    with pytest.raises(ValueError, match="CRC"):
+        decode_png(bytes(data))
+    with pytest.raises(TypeError):
+        encode_png(np.zeros((2, 2, 3), np.float32))
