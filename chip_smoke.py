@@ -1,30 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving paths on one GPU and check them.
 
     python3 chip_smoke.py            # all phases, one card
 
+Paths: unet_small (bf16, 32 px) on kernels #1-#4; DiT-S/2 (bf16, 64 px) on
+kernel #7; the float32 unet_small on kernels #1 and #8.
+
 Phases:
   1. Print the card (``nvidia-smi`` name and power limit) and build the
-     hand-written Hopper kernels from ``diffusion_model_nemo_tpu_torch/csrc``.
+     hand-written Hopper kernels from ``diffusion_model_nemo_tpu_torch/csrc``
+     (one nvcc per source, all in parallel).
   2. Hold every kernel against its plain PyTorch version on the card, at
-     every shape the unet_small and flagship U-Nets send it at B=64 (inputs
-     recorded from a real forward), in bf16 at rtol = atol = 2e-2 (the JAX
-     package's kernel-test tolerance); time kernel, plain version, a
-     one-call PyTorch yardstick where one exists (CUDA events around 20
-     back-to-back calls, so host launch gaps count where the host is the
-     limit; the logs add the device time per call from torch.profiler), and
-     the least time the card could take (bytes at 3.35 TB/s or operations at
-     the peak rate of their type, whichever is larger).
-  3. One U-Net forward at B=64 per configuration with the kernels, against
-     the same forward with every kernel swapped for its plain version
-     (TF32 off for both); a device-time breakdown of the unet_small forward;
-     the GroupNorm kernel in float32, and a float32 U-Net raising
-     NotImplementedError for the unported kernel #8.
+     every shape the unet_small, flagship, float32 unet_small and DiT-S/2
+     forwards send it at B=64 (inputs recorded from a real forward; #7 also
+     in float32 and #8 also in bf16 at one shape), at rtol = atol = 2e-2 in
+     bf16 (the JAX package's kernel-test tolerance) and 1e-4 in float32
+     (the same math with f32 sums in another order); time kernel, plain
+     version, a one-call PyTorch yardstick where one exists (CUDA events
+     around 20 back-to-back calls, so host launch gaps count where the host
+     is the limit; the logs add the device time per call from
+     torch.profiler), and the least time the card could take (bytes at
+     3.35 TB/s or operations at the peak rate of their type, whichever is
+     larger).
+  3. One U-Net forward at B=64 per bf16 configuration and one DiT-S/2
+     forward with the kernels, against the same forward with every kernel
+     swapped for its plain version (TF32 off for both), with device-time
+     breakdowns of the unet_small and DiT forwards; the float32 route: the
+     GroupNorm kernel in float32, a float32 unet_small forward against its
+     plain path, and a 10-step DDIM chain with #8's launches counted.
   4. The main path: ``SamplingServer`` on unet_small (full width, random
      weights from a seed) with DDIM-50 and max_batch=64 answers /healthz,
      /stats and /sample requests (concurrent png + npy, one seed twice); the
      images decode, the seeded one repeats bit for bit, and every kernel's
      launch count equals its per-forward count x 50 steps x batches.
+     4b. The same on DiT-S/2 at 64 px (full width and depth, seeded random
+     weights with the adaLN-Zero leaves redrawn) with max_batch=32.
   5. A short ancestral chain (p_sample_loop, 10 steps).
 
 The last two lines are a JSON object with one entry per kernel and the
@@ -49,9 +59,22 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 on CUDA cores
 B = 64
 TOL = 2e-2  # kernel vs plain, bf16: tests/test_ops_kernels.py
-UNET_REL_TOL = 3e-2  # whole U-Net, kernels vs plain path, relative L2 in bf16
+F32_TOL = 1e-4  # kernel vs plain, float32: f32 sums in another order
+UNET_REL_TOL = 3e-2  # whole network, kernels vs plain path, relative L2 in bf16
+F32_REL_TOL = 1e-4  # whole float32 U-Net, kernels vs plain path, relative L2
 DDIM_STEPS = 50
+DIT_MAX_BATCH = 32
+DIT_IMG = 64
 SEED = 0
+# The configuration whose forward is each kernel's main path (per-forward sums).
+MAIN_CFG = {
+    "group_norm_silu": "unet_small",
+    "linear_attention_block": "unet_small",
+    "linear_attention_tokens": "unet_small",
+    "attention_block_small": "unet_small",
+    "linear_attention_qkv": "unet_small_f32",
+    "attention": "dit_s2",
+}
 
 
 def log(msg: str) -> None:
@@ -84,7 +107,8 @@ def time_ms(fn, iters: int = 20) -> float:
 # Kernel names of this repository's CUDA sources, as the profiler reports them.
 HAND_KERNELS = (
     "gn_silu_kernel", "xstats_kernel", "kv_kernel", "merge_kernel", "apply_kernel",
-    "outnorm_kernel", "attn_block_small_kernel",
+    "outnorm_kernel", "attn_block_small_kernel", "qkv_kv_kernel", "qkv_apply_kernel",
+    "attn_fwd_kernel",
 )
 
 
@@ -148,11 +172,32 @@ def kernel_table(port):
             "diffusion_model_nemo_tpu_torch/csrc/attention_block_small.cu",
             "diffusion_model_nemo_tpu/ops/attention.py:1103",
         ),
+        "linear_attention_qkv": (
+            A, "linear_attention_qkv_cuda", A.linear_attention_qkv_reference,
+            "diffusion_model_nemo_tpu_torch/csrc/linear_attention.cu",
+            "diffusion_model_nemo_tpu/ops/attention.py:194",
+        ),
+        "attention": (
+            A, "attention_cuda", A.attention_reference,
+            "diffusion_model_nemo_tpu_torch/csrc/attention.cu",
+            "diffusion_model_nemo_tpu/ops/attention.py:57",
+        ),
     }
 
 
+def copy_arg(a, dtype=None):
+    """A copy of a recorded argument that keeps its strides (the DiT's k and
+    v are strided slices of its qkv tensor), optionally in another dtype."""
+    import torch
+
+    if not torch.is_tensor(a):
+        return a
+    out = torch.empty_strided(a.size(), a.stride(), dtype=dtype or a.dtype, device=a.device)
+    return out.copy_(a)
+
+
 def record_calls(port, model, x, t):
-    """One forward; returns {kernel: {shape: [count, cloned args]}}."""
+    """One forward; returns {kernel: {shape: [count, copied args]}}."""
     import torch
 
     table = kernel_table(port)
@@ -166,7 +211,7 @@ def record_calls(port, model, x, t):
                 slot = calls[_name].setdefault(key, [0, None])
                 slot[0] += 1
                 if slot[1] is None:
-                    slot[1] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                    slot[1] = tuple(copy_arg(a) for a in args)
                 return _real(*args)
 
             stack.enter_context(mock.patch.object(mod, attr, recorder))
@@ -186,8 +231,18 @@ def plain_path(port):
 
 def work(name, args):
     """(bytes, operations, operation type) the function must move and do."""
+    import torch
+
     x = args[0]
     es = x.element_size()
+    kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    if name == "attention":  # q, k, v in, out out; q·kᵀ and p·v
+        Bn, Nn, h, d = x.shape
+        return 4 * x.numel() * es, 4 * Bn * h * Nn * Nn * d, kind
+    if name == "linear_attention_qkv":  # qkv in, out out; kᵀv and q·gram per head
+        Bn, Nn, C3 = x.shape
+        hd, dh = C3 // 3, 32
+        return x.numel() * es + Bn * Nn * hd * es, Bn * Nn * 2 * 2 * hd * dh, kind
     if name == "group_norm_silu":
         Bn, H, W, C = x.shape
         n = x.numel()
@@ -217,6 +272,9 @@ def library_fn(name, args):
         g, b = gamma.to(x.dtype), beta.to(x.dtype)
         xc = x.permute(0, 3, 1, 2)
         return lambda: F.silu(F.group_norm(xc, groups, g, b, eps))
+    if name == "attention":
+        q, k, v = (a.transpose(1, 2) for a in args)  # [B, h, N, d] views
+        return lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
     if name == "attention_block_small":
         x, ng, nb, wqkv, wout, bout, heads, dh, scale, eps = args
         Bn, Nn, C = x.shape
@@ -246,12 +304,13 @@ def check_kernels(port, calls_by_cfg):
             mod, attr, plain, _src, _rep = table[name]
             wrapper = getattr(mod, attr)
             for key, (count, args) in sorted(shapes.items()):
+                tol = TOL if args[0].dtype == torch.bfloat16 else F32_TOL
                 out_k = wrapper(*args).float()
                 out_p = plain(*args).float()
                 torch.cuda.synchronize()
                 err = (out_k - out_p).abs()
                 max_err = float(err.max())
-                ok = bool((err <= TOL + TOL * out_p.abs()).all()) and bool(torch.isfinite(out_k).all())
+                ok = bool((err <= tol + tol * out_p.abs()).all()) and bool(torch.isfinite(out_k).all())
                 k_ms = time_ms(lambda: wrapper(*args))
                 p_ms = time_ms(lambda: plain(*args))
                 lib = library_fn(name, args)
@@ -263,8 +322,8 @@ def check_kernels(port, calls_by_cfg):
                 t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
                 bound = max(t_bytes, t_ops)
                 log(
-                    f"[kernel] {cfg_name} {name} {list(key)} x{count}/forward "
-                    f"max_abs_err={max_err:.3e} ok={ok} ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                    f"[kernel] {cfg_name} {name} {list(key)} {str(args[0].dtype)[6:]} x{count}/forward "
+                    f"max_abs_err={max_err:.3e} ok={ok} (tol {tol}) ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                     f"library_ms={'null' if l_ms is None else f'{l_ms:.4f}'} "
                     f"bound_ms={bound:.5f} ({'bytes' if t_bytes >= t_ops else 'operations'}) "
                     f"device_ms(kernel/plain/library)={fmt(d_k)}/{fmt(d_p)}/"
@@ -273,12 +332,12 @@ def check_kernels(port, calls_by_cfg):
                 if not ok:
                     raise AssertionError(
                         f"{name} at {list(key)} disagrees with its plain version "
-                        f"(max |diff| {max_err:.3e}, rtol=atol={TOL})"
+                        f"(max |diff| {max_err:.3e}, rtol=atol={tol})"
                     )
                 r = rows[name]
                 r["max_abs_err"] = max(r["max_abs_err"], max_err)
                 r["shapes"] += 1
-                if cfg_name == "unet_small":  # per-forward sums on the main path
+                if cfg_name == MAIN_CFG[name]:  # per-forward sums on the main path
                     r["ms"] += count * k_ms
                     r["plain_ms"] += count * p_ms
                     r["bound_ms"] += count * bound
@@ -295,62 +354,108 @@ def check_kernels(port, calls_by_cfg):
 
 
 # --------------------------------------------------------------------- phases --
-def build_models(port, device):
-    from diffusion_model_nemo_tpu_torch.config import flagship_model_config, unet_small_model_config
+def redraw_zero_leaves(model, std: float = 0.02) -> None:
+    """adaLN-Zero makes a freshly initialised DiT output exactly zero (every
+    image constant, every kernel check vacuous): redraw each all-zero leaf
+    from a seeded N(0, std²), in params and ema_params alike."""
+    import torch
 
+    g = torch.Generator().manual_seed(SEED)
+    for name in sorted(model.params):
+        p = model.params[name]
+        if bool((p == 0).all()):
+            draw = (torch.randn(p.shape, generator=g) * std).to(p.device)
+            p.copy_(draw)
+            model.ema_params[name].copy_(draw)
+
+
+def build_models(port, device):
+    from diffusion_model_nemo_tpu_torch.config import (
+        dit_small_model_config, flagship_model_config, unet_small_model_config,
+    )
+
+    f32 = unet_small_model_config()
+    f32["diffusion_model"]["dtype"] = "float32"
+    dit = port.DDPM(dit_small_model_config(), device=device, seed=SEED)
+    redraw_zero_leaves(dit)
     return {
         "unet_small": port.DDPM(unet_small_model_config(), device=device, seed=SEED),
         "flagship": port.DDPM(flagship_model_config(), device=device, seed=SEED),
+        "unet_small_f32": port.DDPM(f32, device=device, seed=SEED),
+        "dit_s2": dit,
     }
 
 
-def unet_inputs(device):
+def model_inputs(device, size):
     import torch
 
     g = torch.Generator(device=device).manual_seed(SEED)
-    x = torch.randn(B, 32, 32, 3, generator=g, device=device)
+    x = torch.randn(B, size, size, 3, generator=g, device=device)
     t = torch.randint(0, 1000, (B,), generator=g, device=device, dtype=torch.int32)
     return x, t
 
 
-def check_unet(port, models, x, t):
+def per_forward_counts(calls):
+    """{kernel: launches per forward} for the kernels a forward launched."""
+    return {k: n for k, v in calls.items() if (n := sum(c for c, _ in v.values())) > 0}
+
+
+def derived_calls(calls):
+    """Kernel checks beyond the recorded dtypes: #7 at the DiT's shapes in
+    float32, #8 in bf16 at the float32 U-Net's N=256 shape."""
     import torch
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log("[unet] TF32 off for convolutions and matmuls (cudnn.allow_tf32 = matmul.allow_tf32 = False)")
-    wall = time_ms(lambda: models["unet_small"].forward(x, t), iters=10)
-    total, by_name = device_profile(lambda: models["unet_small"].forward(x, t), iters=5)
+    att = {k: [c, tuple(copy_arg(a, torch.float32) for a in args)]
+           for k, (c, args) in calls["dit_s2"]["attention"].items()}
+    lin = {k: [c, (copy_arg(args[0], torch.bfloat16),) + args[1:]]
+           for k, (c, args) in calls["unet_small_f32"]["linear_attention_qkv"].items() if k[1] == 256}
+    return {"dit_s2_f32": {"attention": att}, "linattn_bf16": {"linear_attention_qkv": lin}}
+
+
+def log_profile(tag, model, x, t):
+    wall = time_ms(lambda: model.forward(x, t), iters=10)
+    total, by_name = device_profile(lambda: model.forward(x, t), iters=5)
     hand = sum(v for n, v in by_name.items() if any(k in n for k in HAND_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[profile] unet_small forward B={B}: wall {wall:.3f} ms (CUDA events), device busy "
+    log(f"[profile] {tag} forward B={B}: wall {wall:.3f} ms (CUDA events), device busy "
         f"{total:.3f} ms ({100 * total / wall:.1f}%), hand kernels {hand:.3f} ms, "
         f"other {total - hand:.3f} ms in {len(by_name)} kernel names")
     for n, v in top:
         log(f"[profile]   {v:.4f} ms  {n[:110]}")
-    for name, model in models.items():
-        out_k = model.forward(x, t)
-        with plain_path(port):
-            out_p = model.forward(x, t)
-        torch.cuda.synchronize()
-        rel = float((out_k - out_p).norm() / out_p.norm())
-        max_abs = float((out_k - out_p).abs().max())
-        finite = bool(torch.isfinite(out_k).all())
-        log(f"[unet] {name} B={B} kernels vs plain: rel_l2={rel:.3e} max_abs={max_abs:.3e} "
-            f"finite={finite} shape={list(out_k.shape)} (tol rel_l2 <= {UNET_REL_TOL})")
-        if not finite or rel > UNET_REL_TOL or tuple(out_k.shape) != (B, 32, 32, 3):
-            raise AssertionError(f"{name} U-Net forward with kernels disagrees with the plain path")
-    check_float32_route(port, x, t)
 
 
-def check_float32_route(port, x, t):
-    """float32 on CUDA: the GroupNorm kernel takes f32 and agrees with its
-    plain version; the U-Net raises NotImplementedError naming TPU kernel #8
-    (the JAX package's float32 linear-attention route), with no torch
-    substitute."""
+def check_forward(port, name, model, x, t, tol):
+    """Forward with kernels against the plain path: relative L2 <= tol."""
     import torch
 
-    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+    out_k = model.forward(x, t)
+    with plain_path(port):
+        out_p = model.forward(x, t)
+    torch.cuda.synchronize()
+    rel = float((out_k - out_p).norm() / out_p.norm())
+    max_abs = float((out_k - out_p).abs().max())
+    finite = bool(torch.isfinite(out_k).all())
+    std = float(out_k.std())
+    log(f"[forward] {name} B={B} kernels vs plain: rel_l2={rel:.3e} max_abs={max_abs:.3e} "
+        f"finite={finite} std={std:.4f} shape={list(out_k.shape)} (tol rel_l2 <= {tol})")
+    if not finite or rel > tol or tuple(out_k.shape) != tuple(x.shape) or not std > 0:
+        raise AssertionError(f"{name} forward with kernels disagrees with the plain path")
+
+
+def check_networks(port, models, inputs):
+    """Phase 3 for the bf16 networks: U-Nets and DiT-S/2."""
+    log_profile("unet_small", models["unet_small"], *inputs["unet_small"])
+    log_profile("dit_s2", models["dit_s2"], *inputs["dit_s2"])
+    for name in ("unet_small", "flagship", "dit_s2"):
+        check_forward(port, name, models[name], *inputs[name], UNET_REL_TOL)
+
+
+def check_float32_route(port, model, x, t, per_forward):
+    """float32 on CUDA: the GroupNorm kernel takes f32 and agrees with its
+    plain version; the float32 unet_small forward agrees with its plain path
+    and launches kernel #8 five times (down 0-2, up 1-2); a 10-step DDIM
+    chain launches it 5 x 10 times. Returns the chain's launch counts."""
+    import torch
 
     g = torch.Generator(device=x.device).manual_seed(SEED)
     xs = torch.randn(B, 32, 32, 32, generator=g, device=x.device)
@@ -359,18 +464,32 @@ def check_float32_route(port, x, t):
     out_k = port.ops.norm.group_norm_silu_cuda(xs, gamma, beta, 8)
     out_p = port.ops.norm.group_norm_silu_reference(xs, gamma, beta, 8)
     err = float((out_k - out_p).abs().max())
-    log(f"[f32] group_norm_silu float32 [64, 32, 32, 32]: max_abs_err={err:.3e} (tol 1e-4)")
-    assert err <= 1e-4, err
-    cfg = unet_small_model_config()
-    cfg["diffusion_model"]["dtype"] = "float32"
-    model = port.DDPM(cfg, device=x.device, seed=SEED)
-    try:
-        model.forward(x, t)
-    except NotImplementedError as e:
-        assert "#8" in str(e), e
-        log(f"[f32] float32 unet_small forward raises NotImplementedError: {e}")
-    else:
-        raise AssertionError("a float32 CUDA U-Net ran without TPU kernel #8's port")
+    log(f"[f32] group_norm_silu float32 [64, 32, 32, 32]: max_abs_err={err:.3e} (tol {F32_TOL})")
+    assert err <= F32_TOL, err
+    assert per_forward.get("linear_attention_qkv") == 5, per_forward
+    port.ops.reset_launch_counts()
+    model.forward(x, t)
+    torch.cuda.synchronize()
+    counts = port.ops.launch_counts()
+    log(f"[f32] unet_small float32 forward launches: {counts}")
+    assert all(counts[k] == per_forward.get(k, 0) for k in counts), (counts, per_forward)
+    check_forward(port, "unet_small_f32", model, x, t, F32_REL_TOL)
+
+    steps = 10
+    sampler_cfg = dict(model.cfg.sampler, eta=0.0, ddim_timesteps=steps,
+                       _target_="diffusion_model_nemo.modules.GeneralizedGaussianDiffusion")
+    model.change_sampler(sampler_cfg)
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.sample(B, 32, generator=torch.Generator(device=x.device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    counts = port.ops.launch_counts()
+    finite = bool(torch.isfinite(out).all())
+    log(f"[f32] DDIM-{steps} float32 unet_small B={B}: {time.perf_counter() - t0:.3f} s, "
+        f"finite={finite}, std={float(out.std()):.4f}, launches={counts}")
+    assert finite and tuple(out.shape) == (B, 32, 32, 3) and float(out.std()) > 0
+    assert all(counts[k] == per_forward.get(k, 0) * steps for k in counts), (counts, per_forward)
+    return counts
 
 
 def http(method, url, payload=None, timeout=600):
@@ -380,7 +499,9 @@ def http(method, url, payload=None, timeout=600):
         return resp.status, resp.read()
 
 
-def check_serving(port, model, per_forward):
+def check_serving(port, tag, model, per_forward, max_batch, size):
+    """/healthz, concurrent png + npy requests, one seed twice, /stats; every
+    kernel's launches equal per-forward x DDIM_STEPS x batches (0 off the path)."""
     import numpy as np
 
     from diffusion_model_nemo_tpu_torch.serving import serve
@@ -388,8 +509,9 @@ def check_serving(port, model, per_forward):
 
     port.ops.reset_launch_counts()
     t0 = time.perf_counter()
-    server = serve(model, port=0, max_batch=B, ddim_timesteps=DDIM_STEPS, use_ema=True)
-    log(f"[serve] DDIM-{DDIM_STEPS} max_batch={B} warm-up batch {time.perf_counter() - t0:.2f} s")
+    server = serve(model, port=0, max_batch=max_batch, ddim_timesteps=DDIM_STEPS, use_ema=True)
+    log(f"[serve] {tag} DDIM-{DDIM_STEPS} max_batch={max_batch} warm-up batch "
+        f"{time.perf_counter() - t0:.2f} s")
     server.start_background()
     base = f"http://{server.host}:{server.port}"
     try:
@@ -398,8 +520,8 @@ def check_serving(port, model, per_forward):
         assert code == 200 and health["status"] == "ok" and health["warm"], health
         results = {}
 
-        def request(tag, payload):
-            results[tag] = http("POST", base + "/sample", payload)
+        def request(key, payload):
+            results[key] = http("POST", base + "/sample", payload)
 
         t1 = time.perf_counter()
         threads = [
@@ -424,26 +546,28 @@ def check_serving(port, model, per_forward):
     assert len(pngs) == 5
     for p in pngs:
         img = decode_png(base64.b64decode(p))
-        assert img.shape == (32, 32, 3) and img.dtype == np.uint8, img.shape
+        assert img.shape == (size, size, 3) and img.dtype == np.uint8, img.shape
     npy = np.load(io.BytesIO(results["npy"][1]))
-    assert npy.shape == (40, 32, 32, 3) and npy.dtype == np.uint8, (npy.shape, npy.dtype)
+    assert npy.shape == (40, size, size, 3) and npy.dtype == np.uint8, (npy.shape, npy.dtype)
     a = np.load(io.BytesIO(results["seed_a"][1]))
     b = np.load(io.BytesIO(results["seed_b"][1]))
-    assert a.shape == (3, 32, 32, 3) and a.dtype == np.uint8
+    assert a.shape == (3, size, size, 3) and a.dtype == np.uint8
     assert np.array_equal(a, b), "the seeded request did not repeat bit for bit"
     assert npy.std() > 0, "served images are constant"
 
     counts = port.ops.launch_counts()
     batches = stats["batches"] + 1  # + the warm-up batch
     images = stats["images"]
-    log(f"[serve] stats={json.dumps(stats)}")
-    log(f"[serve] {stats['requests']} requests, {images} images in {wall:.3f} s: "
-        f"{images / wall:.2f} images/s requested, {B * stats['batches'] / wall:.2f} images/s "
+    log(f"[serve] {tag} stats={json.dumps(stats)}")
+    log(f"[serve] {tag} {stats['requests']} requests, {images} images in {wall:.3f} s: "
+        f"{images / wall:.2f} images/s requested, {max_batch * stats['batches'] / wall:.2f} images/s "
         f"computed, mean latency {stats['avg_request_latency_ms']:.1f} ms; seeded repeat bit-exact")
-    for name, per in per_forward.items():
+    for name, n in counts.items():
+        per = per_forward.get(name, 0)
         expect = per * DDIM_STEPS * batches
-        log(f"[serve] launches {name}: {counts[name]} (expected {per}/forward x {DDIM_STEPS} x {batches})")
-        assert counts[name] == expect and counts[name] > 0, (name, counts[name], expect)
+        log(f"[serve] {tag} launches {name}: {n} (expected {per}/forward x {DDIM_STEPS} x {batches})")
+        assert n == expect, (name, n, expect)
+    assert all(counts[name] > 0 for name in per_forward), counts
     return counts
 
 
@@ -467,8 +591,8 @@ def check_ancestral(port, model, per_forward):
     log(f"[ancestral] p_sample_loop(num_steps={steps}) B={B}: {time.perf_counter() - t0:.3f} s, "
         f"finite={finite}, shape={list(out.shape)}, launches={counts}")
     assert finite and tuple(out.shape) == (B, 32, 32, 3)
-    for name, per in per_forward.items():
-        assert counts[name] == per * steps, (name, counts[name], per * steps)
+    for name, n in counts.items():
+        assert n == per_forward.get(name, 0) * steps, (name, n, per_forward.get(name, 0) * steps)
 
 
 def main() -> int:
@@ -482,49 +606,66 @@ def main() -> int:
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "diffusion_model_nemo_tpu"))
     assert not banned, f"the port loaded {banned}"
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.load_kernels()
-    log(f"[build] 3 kernel libraries (4 kernels) built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds['total']:.2f} s)")
+    libs = _build.load_kernels()
+    log(f"[build] {len(libs)} kernel libraries ({len(kernel_table(port))} kernels) built and loaded "
+        f"in {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds['total']:.2f} s)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("[setup] TF32 off for convolutions and matmuls (cudnn.allow_tf32 = matmul.allow_tf32 = False)")
 
     models = build_models(port, device)
-    x, t = unet_inputs(device)
-    calls = {name: record_calls(port, m, x, t) for name, m in models.items()}
-    per_forward = {k: sum(c for c, _ in v.values()) for k, v in calls["unet_small"].items()}
-    log(f"[path] unet_small launches per forward: {per_forward}; flagship: "
-        f"{ {k: sum(c for c, _ in v.values()) for k, v in calls['flagship'].items()} }")
-    rows = check_kernels(port, calls)
-    check_unet(port, models, x, t)
-    counts = check_serving(port, models["unet_small"], per_forward)
-    check_ancestral(port, models["unet_small"], per_forward)
+    inputs = {name: model_inputs(device, DIT_IMG if name == "dit_s2" else 32) for name in models}
+    calls = {name: record_calls(port, m, *inputs[name]) for name, m in models.items()}
+    per_forward = {name: per_forward_counts(c) for name, c in calls.items()}
+    log(f"[path] launches per forward at B={B}: {per_forward}")
+    assert per_forward["dit_s2"] == {"attention": 12}, per_forward["dit_s2"]
+    rows = check_kernels(port, {**calls, **derived_calls(calls)})
+    check_networks(port, models, inputs)
+    f32_counts = check_float32_route(
+        port, models["unet_small_f32"], *inputs["unet_small_f32"], per_forward["unet_small_f32"]
+    )
+    counts = check_serving(port, "unet_small", models["unet_small"], per_forward["unet_small"], B, 32)
+    dit_counts = check_serving(
+        port, "dit_s2", models["dit_s2"], per_forward["dit_s2"], DIT_MAX_BATCH, DIT_IMG
+    )
+    check_ancestral(port, models["unet_small"], per_forward["unet_small"])
 
+    # Launches from each kernel's main-path run: unet_small serving for #1-#4,
+    # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8.
+    main_counts = dict(counts, attention=dit_counts["attention"],
+                       linear_attention_qkv=f32_counts["linear_attention_qkv"])
+    main_per = {name: per_forward[MAIN_CFG[name]].get(name, 0) for name in rows}
     table = kernel_table(port)
-    per_flagship = {k: sum(c for c, _ in v.values()) for k, v in calls["flagship"].items()}
-    log("[summary] per unet_small forward at B=64 (ms: CUDA events; dev: torch.profiler device time)")
-    log("[summary] | kernel | launches/forward unet_small (flagship) | launches per DDIM-50 batch "
+    log(f"[summary] per forward at B={B} on each kernel's main path (ms: CUDA events; dev: "
+        f"torch.profiler device time); main path: {MAIN_CFG}")
+    log("[summary] | kernel | launches/forward on its path (flagship) | launches in the path's run "
         "| ms | dev ms | bound ms (by) | plain ms | plain dev ms | library ms | library dev ms |")
     for name, r in rows.items():
         by = "bytes" if r["bytes_s"] >= r["ops_s"] else "operations"
         lib_ms = "—" if r["library_ms"] is None else fmt(r["library_ms"])
         lib_dev = "—" if r["library_ms"] is None else fmt(r["library_dev"])
-        log(f"[summary] | {name} | {per_forward[name]} ({per_flagship[name]}) | "
-            f"{per_forward[name] * DDIM_STEPS} | {fmt(r['ms'])} | {fmt(r['dev'])} | "
+        log(f"[summary] | {name} | {main_per[name]} ({per_forward['flagship'].get(name, 0)}) | "
+            f"{main_counts[name]} | {fmt(r['ms'])} | {fmt(r['dev'])} | "
             f"{fmt(r['bound_ms'], 5)} ({by}) | {fmt(r['plain_ms'])} | {fmt(r['plain_dev'])} | "
             f"{lib_ms} | {lib_dev} |")
     kernels = []
     for name, r in rows.items():
         _mod, _attr, _plain, src, rep = table[name]
+        assert main_counts[name] > 0, (name, main_counts)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": counts[name], "max_abs_err": r["max_abs_err"],
+            "launches": main_counts[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_s"] >= r["ops_s"] else "operations",
             "library_ms": r["library_ms"],
         })
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())  # as nvidia-smi gives it, on its own line
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

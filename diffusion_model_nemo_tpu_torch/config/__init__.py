@@ -1,4 +1,5 @@
 from .config import Config, from_dict, to_dict
+from .dit_small import DIT_SMALL_MODEL, dit_small_model_config
 from .registry import TARGET_REGISTRY, get_target, instantiate, register_target
 from .unet_small import UNET_SMALL_MODEL, flagship_model_config, unet_small_model_config
 
@@ -13,4 +14,6 @@ __all__ = [
     "UNET_SMALL_MODEL",
     "unet_small_model_config",
     "flagship_model_config",
+    "DIT_SMALL_MODEL",
+    "dit_small_model_config",
 ]

@@ -1,7 +1,8 @@
 // Linear attention on natural [B, N, C] token rows: the whole
-// Residual(PreNorm(LinearAttention)) block, and the qkv-fused attention core.
+// Residual(PreNorm(LinearAttention)) block, the qkv-fused attention core, and
+// the attention core on a raw qkv tensor.
 //
-// Replaces two TPU kernels of diffusion_model_nemo_tpu/ops/attention.py:
+// Replaces three TPU kernels of diffusion_model_nemo_tpu/ops/attention.py:
 //   * _linattn_block_packed_kernel (launcher _pallas_linattn_block_packed):
 //     GroupNorm(1) with its affine folded into W_qkv -> qkv -> q softmax over
 //     d per head, x scale; k softmax over N -> per-head gram k^T v -> q . gram
@@ -9,6 +10,10 @@
 //   * _linattn_qkv_fused_kernel (launcher _pallas_linattn_qkv_fused): the same
 //     attention core on pre-normed tokens, without the norms, the out
 //     projection or the residual.
+//   * _linattn_kernel (launcher _pallas_linear_attention): the attention core
+//     on a raw qkv [B, N, 384] tensor (q | k | v columns), any dtype. It is
+//     the float32 U-Net's route. Its kv and apply stages load the qkv tile
+//     instead of projecting it; templated on float and bf16.
 // The TPU packed its tokens 128 lanes wide (J = 128/C tokens per row); that
 // is a TPU layout device. Here a token is one row of C channels.
 //
@@ -38,7 +43,11 @@
 //
 // Seams kept from the TPU kernels: bf16 operands for every product with f32
 // accumulation; the prenorm's (x - mu) * rstd rounded to bf16 before the
-// folded affine; q softmax and gram rounded to bf16; f32 out-norm.
+// folded affine; q softmax and gram rounded to bf16; f32 out-norm. The raw-qkv
+// entry rounds q softmax and gram to bf16 only in its bf16 instantiation,
+// where the JAX composition rounds; in float32 every stage stays f32.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -134,6 +143,60 @@ __global__ void xstats_kernel(const __nv_bfloat16* __restrict__ x, float2* xpart
   if (threadIdx.x == 0) xpart[size_t(b) * T + t] = tot;
 }
 
+// Online column max and sum of k's softmax over N, and the per-head gram
+// update, for one tile of `rows` tokens in kv[rows][2*HD] (k then v, f32);
+// k is replaced by exp(k - max). The caller synchronised after filling kv.
+__device__ __forceinline__ void kv_tile_update(float* kv, int rows, float* rescale, float* mrun,
+                                               float* srun, float (&acc)[ACC]) {
+  if (threadIdx.x < HD) {  // one thread per k column: online max and sum
+    const int j = threadIdx.x;
+    float m = mrun[j];
+    for (int r = 0; r < rows; ++r) m = fmaxf(m, kv[r * 2 * HD + j]);
+    const float f = __expf(mrun[j] - m);  // 0 on the first tile
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float e = __expf(kv[r * 2 * HD + j] - m);
+      kv[r * 2 * HD + j] = e;
+      s += e;
+    }
+    srun[j] = srun[j] * f + s;
+    mrun[j] = m;
+    rescale[j] = f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < ACC; ++a) {
+    const int idx = threadIdx.x + a * THREADS;
+    const int hh = idx >> 10, i = (idx >> 5) & 31, jj = idx & 31;
+    const int ck = hh * DH + i, cv = HD + hh * DH + jj;
+    float g = acc[a] * rescale[ck];
+    for (int r = 0; r < rows; ++r) g += kv[r * 2 * HD + ck] * kv[r * 2 * HD + cv];
+    acc[a] = g;
+  }
+}
+
+__device__ __forceinline__ void kv_init(float* mrun, float* srun, float (&acc)[ACC]) {
+  if (threadIdx.x < HD) {
+    mrun[threadIdx.x] = -INFINITY;
+    srun[threadIdx.x] = 0.f;
+  }
+#pragma unroll
+  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
+}
+
+// Chunk k of sample b: its column max, sum and gram, for the merge.
+__device__ __forceinline__ void kv_store(const Scratch& sc, int b, int k, int K,
+                                         const float* mrun, const float* srun,
+                                         const float (&acc)[ACC]) {
+  const size_t bk = size_t(b) * K + k;
+  if (threadIdx.x < HD) {
+    sc.mpart[bk * HD + threadIdx.x] = mrun[threadIdx.x];
+    sc.spart[bk * HD + threadIdx.x] = srun[threadIdx.x];
+  }
+#pragma unroll
+  for (int a = 0; a < ACC; ++a) sc.gpart[bk * GRAM + threadIdx.x + a * THREADS] = acc[a];
+}
+
 // 2. k/v projection, online softmax statistics of k, chunk grams.
 // Dynamic shared memory: h[TN*C] + kv[TN*2*HD] + scale[HD] + m[HD] + s[HD].
 __global__ void kv_kernel(const __nv_bfloat16* __restrict__ x,
@@ -152,13 +215,8 @@ __global__ void kv_kernel(const __nv_bfloat16* __restrict__ x,
   float2 st = make_float2(0.f, 1.f);
   if (prenorm) st = merge_stats(sc.xpart + size_t(b) * T, T, float(N) * C, eps);
 
-  if (threadIdx.x < HD) {
-    mrun[threadIdx.x] = -INFINITY;
-    srun[threadIdx.x] = 0.f;
-  }
   float acc[ACC];
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
+  kv_init(mrun, srun, acc);
 
   const int c_end = min(N, (k + 1) * CHUNK);
   for (int n0 = k * CHUNK; n0 < c_end; n0 += TN) {
@@ -176,44 +234,42 @@ __global__ void kv_kernel(const __nv_bfloat16* __restrict__ x,
       kv[r * 2 * HD + j] = j < HD ? a : dmn::bf16_round(a);  // v is bf16
     }
     __syncthreads();
-    if (threadIdx.x < HD) {  // one thread per k column: online max and sum
-      const int j = threadIdx.x;
-      float m = mrun[j];
-      for (int r = 0; r < rows; ++r) m = fmaxf(m, kv[r * 2 * HD + j]);
-      const float f = __expf(mrun[j] - m);  // 0 on the first tile
-      float s = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float e = __expf(kv[r * 2 * HD + j] - m);
-        kv[r * 2 * HD + j] = e;
-        s += e;
-      }
-      srun[j] = srun[j] * f + s;
-      mrun[j] = m;
-      rescale[j] = f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < ACC; ++a) {
-      const int idx = threadIdx.x + a * THREADS;
-      const int hh = idx >> 10, i = (idx >> 5) & 31, jj = idx & 31;
-      const int ck = hh * DH + i, cv = HD + hh * DH + jj;
-      float g = acc[a] * rescale[ck];
-      for (int r = 0; r < rows; ++r) g += kv[r * 2 * HD + ck] * kv[r * 2 * HD + cv];
-      acc[a] = g;
-    }
+    kv_tile_update(kv, rows, rescale, mrun, srun, acc);
   }
   __syncthreads();
-  const size_t bk = size_t(b) * K + k;
-  if (threadIdx.x < HD) {
-    sc.mpart[bk * HD + threadIdx.x] = mrun[threadIdx.x];
-    sc.spart[bk * HD + threadIdx.x] = srun[threadIdx.x];
-  }
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) sc.gpart[bk * GRAM + threadIdx.x + a * THREADS] = acc[a];
+  kv_store(sc, b, k, K, mrun, srun, acc);
 }
 
-// 3. merge the chunks: gram = bf16(sum_k G_k e^{m_k - M} / sum_k S_k e^{m_k - M}).
-__global__ void merge_kernel(Scratch sc, int K) {
+// 2'. the same stage on a raw qkv tensor: k and v columns loaded, not projected.
+// Dynamic shared memory: kv[TN*2*HD] + scale[HD] + m[HD] + s[HD].
+template <typename T>
+__global__ void qkv_kv_kernel(const T* __restrict__ qkv, Scratch sc, int N) {
+  extern __shared__ float smem[];
+  float* kv = smem;
+  float* rescale = kv + TN * 2 * HD;
+  float* mrun = rescale + HD;
+  float* srun = mrun + HD;
+
+  const int k = blockIdx.x, b = blockIdx.y, K = gridDim.x;
+  float acc[ACC];
+  kv_init(mrun, srun, acc);
+  const int c_end = min(N, (k + 1) * CHUNK);
+  for (int n0 = k * CHUNK; n0 < c_end; n0 += TN) {
+    const int rows = min(TN, c_end - n0);
+    __syncthreads();  // previous tile's kv fully consumed
+    const T* src = qkv + (size_t(b) * N + n0) * QKV + HD;
+    for (int i = threadIdx.x; i < rows * 2 * HD; i += blockDim.x)
+      kv[i] = dmn::to_f32(src[size_t(i / (2 * HD)) * QKV + i % (2 * HD)]);
+    __syncthreads();
+    kv_tile_update(kv, rows, rescale, mrun, srun, acc);
+  }
+  __syncthreads();
+  kv_store(sc, b, k, K, mrun, srun, acc);
+}
+
+// 3. merge the chunks: gram = sum_k G_k e^{m_k - M} / sum_k S_k e^{m_k - M},
+// rounded to bf16 where `round_bf16`.
+__global__ void merge_kernel(Scratch sc, int K, int round_bf16) {
   const int hh = blockIdx.x, b = blockIdx.y;
   for (int e = threadIdx.x; e < DH * DH; e += blockDim.x) {
     const int i = e >> 5;
@@ -227,8 +283,38 @@ __global__ void merge_kernel(Scratch sc, int K) {
       S += sc.spart[bk * HD + ck] * f;
       G += sc.gpart[bk * GRAM + hh * DH * DH + e] * f;
     }
-    sc.gram[size_t(b) * GRAM + hh * DH * DH + e] = dmn::bf16_round(G / S);
+    const float g = G / S;
+    sc.gram[size_t(b) * GRAM + hh * DH * DH + e] = round_bf16 ? dmn::bf16_round(g) : g;
   }
+}
+
+// Per-head softmax over d of the q tile q[rows][HD], times scale, rounded to
+// bf16 where `round_bf16`. The caller synchronised after filling q.
+__device__ __forceinline__ void q_softmax(float* q, int rows, float scale, bool round_bf16) {
+  for (int p = threadIdx.x; p < rows * HEADS; p += blockDim.x) {
+    float* qh = q + (p / HEADS) * HD + (p % HEADS) * DH;
+    float m = -INFINITY;
+    for (int d = 0; d < DH; ++d) m = fmaxf(m, qh[d]);
+    float s = 0.f;
+    for (int d = 0; d < DH; ++d) {
+      const float e = __expf(qh[d] - m);
+      qh[d] = e;
+      s += e;
+    }
+    const float inv = scale / s;
+    for (int d = 0; d < DH; ++d) qh[d] = round_bf16 ? dmn::bf16_round(qh[d] * inv) : qh[d] * inv;
+  }
+}
+
+// Element i = r * HD + j of q_sm . gram (within j's head).
+__device__ __forceinline__ float q_gram(const float* q, const float* gram, int i) {
+  const int r = i / HD, j = i % HD;
+  const int hh = j / DH, jj = j % DH;
+  const float* qh = q + r * HD + hh * DH;
+  const float* gh = gram + hh * DH * DH + jj;
+  float a = 0.f;
+  for (int d = 0; d < DH; ++d) a += qh[d] * gh[d * DH];
+  return a;
 }
 
 // 4. q projection, per-head softmax over d, q . gram, and (block form) the
@@ -265,27 +351,10 @@ __global__ void apply_kernel(const __nv_bfloat16* __restrict__ x,
     q[i] = a;
   }
   __syncthreads();
-  for (int p = threadIdx.x; p < rows * HEADS; p += blockDim.x) {  // softmax over d
-    float* qh = q + (p / HEADS) * HD + (p % HEADS) * DH;
-    float m = -INFINITY;
-    for (int d = 0; d < DH; ++d) m = fmaxf(m, qh[d]);
-    float s = 0.f;
-    for (int d = 0; d < DH; ++d) {
-      const float e = __expf(qh[d] - m);
-      qh[d] = e;
-      s += e;
-    }
-    const float inv = scale / s;
-    for (int d = 0; d < DH; ++d) qh[d] = dmn::bf16_round(qh[d] * inv);
-  }
+  q_softmax(q, rows, scale, true);
   __syncthreads();
   for (int i = threadIdx.x; i < rows * HD; i += blockDim.x) {
-    const int r = i / HD, j = i % HD;
-    const int hh = j / DH, jj = j % DH;
-    const float* qh = q + r * HD + hh * DH;
-    const float* gh = gram + hh * DH * DH + jj;
-    float a = 0.f;
-    for (int d = 0; d < DH; ++d) a += qh[d] * gh[d * DH];
+    const float a = q_gram(q, gram, i);
     if (att_out)
       att_out[(size_t(b) * N + n0) * HD + i] = __float2bfloat16(a);
     else
@@ -307,6 +376,28 @@ __global__ void apply_kernel(const __nv_bfloat16* __restrict__ x,
   if (threadIdx.x == 0) sc.ypart[size_t(b) * T + t] = tot;
 }
 
+// 4'. the apply stage on a raw qkv tensor: q columns loaded, not projected;
+// out [B][N][HD] in T. Dynamic shared memory: q[TN*HD] + gram[GRAM].
+template <typename T>
+__global__ void qkv_apply_kernel(const T* __restrict__ qkv, T* __restrict__ out, Scratch sc,
+                                 int N, float scale) {
+  extern __shared__ float smem[];
+  float* q = smem;
+  float* gram = q + TN * HD;
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int n0 = t * TN, rows = min(TN, N - n0);
+  const T* src = qkv + (size_t(b) * N + n0) * QKV;
+  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x)
+    q[i] = dmn::to_f32(src[size_t(i / HD) * QKV + i % HD]);
+  for (int i = threadIdx.x; i < GRAM; i += blockDim.x) gram[i] = sc.gram[size_t(b) * GRAM + i];
+  __syncthreads();
+  q_softmax(q, rows, scale, std::is_same<T, __nv_bfloat16>::value);
+  __syncthreads();
+  T* dst = out + (size_t(b) * N + n0) * HD;
+  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x)
+    dst[i] = dmn::from_f32<T>(q_gram(q, gram, i));
+}
+
 // 5. GroupNorm(1) of y with its affine, + x, cast to bf16.
 __global__ void outnorm_kernel(const __nv_bfloat16* __restrict__ x,
                                const float* __restrict__ og, const float* __restrict__ ob,
@@ -325,6 +416,25 @@ __global__ void outnorm_kernel(const __nv_bfloat16* __restrict__ x,
 
 size_t kv_smem(int C) { return sizeof(float) * (TN * C + TN * 2 * HD + 3 * HD); }
 size_t apply_smem(int C) { return sizeof(float) * (TN * C + 2 * TN * HD + GRAM); }
+constexpr size_t QKV_KV_SMEM = sizeof(float) * (TN * 2 * HD + 3 * HD);
+constexpr size_t QKV_APPLY_SMEM = sizeof(float) * (TN * HD + GRAM);
+
+template <typename T>
+int linattn_qkv(const void* qkv, void* out, void* scratch, int B, int N, float scale,
+                cudaStream_t stream) {
+  Scratch sc;
+  scratch_layout(B, N, 0, 0, &sc, static_cast<float*>(scratch));
+  const int T_ = ceil_div(N, TN), K = ceil_div(N, CHUNK);
+  const auto* src = static_cast<const T*>(qkv);
+  cudaError_t err = dmn::set_smem((const void*)qkv_kv_kernel<T>, QKV_KV_SMEM);
+  if (err == cudaSuccess) err = dmn::set_smem((const void*)qkv_apply_kernel<T>, QKV_APPLY_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  qkv_kv_kernel<T><<<dim3(K, B), THREADS, QKV_KV_SMEM, stream>>>(src, sc, N);
+  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, std::is_same<T, __nv_bfloat16>::value);
+  qkv_apply_kernel<T><<<dim3(T_, B), THREADS, QKV_APPLY_SMEM, stream>>>(
+      src, static_cast<T*>(out), sc, N, scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -354,7 +464,7 @@ DMN_EXPORT int dmn_linattn_block(const void* x, const void* wqkv, const void* bq
   if (err != cudaSuccess) return static_cast<int>(err);
   xstats_kernel<<<dim3(T, B), THREADS, 0, stream>>>(xb, sc.xpart, N, C);
   kv_kernel<<<dim3(K, B), THREADS, kv_smem(C), stream>>>(xb, wb, bq, sc, N, C, 1, eps);
-  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K);
+  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, 1);
   apply_kernel<<<dim3(T, B), THREADS, apply_smem(C), stream>>>(
       xb, wb, bq, static_cast<const __nv_bfloat16*>(wout), static_cast<const float*>(bout),
       nullptr, sc, N, C, 1, scale, eps);
@@ -378,9 +488,18 @@ DMN_EXPORT int dmn_linattn_tokens(const void* h, const void* wqkv, void* out, vo
   if (err == cudaSuccess) err = dmn::set_smem((const void*)apply_kernel, apply_smem(C));
   if (err != cudaSuccess) return static_cast<int>(err);
   kv_kernel<<<dim3(K, B), THREADS, kv_smem(C), stream>>>(hb, wb, nullptr, sc, N, C, 0, 0.f);
-  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K);
+  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, 1);
   apply_kernel<<<dim3(T, B), THREADS, apply_smem(C), stream>>>(
       hb, wb, nullptr, nullptr, nullptr, static_cast<__nv_bfloat16*>(out), sc, N, C, 0,
       scale, 0.f);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Attention core on a raw qkv tensor: qkv [B,N,384] (f32, or bf16 where
+// `bf16`) -> out [B,N,128] in the same dtype.
+DMN_EXPORT int dmn_linattn_qkv(const void* qkv, void* out, void* scratch, int B, int N, int bf16,
+                               float scale, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (bf16) return linattn_qkv<__nv_bfloat16>(qkv, out, scratch, B, N, scale, stream);
+  return linattn_qkv<float>(qkv, out, scratch, B, N, scale, stream);
 }

@@ -1,6 +1,13 @@
 from .diffusion_process import AbstractDiffusionProcess
+from .dit import DiT
 from .gaussian_diffusion import GaussianDiffusion
 from .generalized_gaussian_diffusion import GeneralizedGaussianDiffusion
 from .unet import Unet
 
-__all__ = ["AbstractDiffusionProcess", "GaussianDiffusion", "GeneralizedGaussianDiffusion", "Unet"]
+__all__ = [
+    "AbstractDiffusionProcess",
+    "DiT",
+    "GaussianDiffusion",
+    "GeneralizedGaussianDiffusion",
+    "Unet",
+]

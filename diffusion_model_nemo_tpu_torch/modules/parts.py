@@ -29,6 +29,7 @@ from ..ops.norm import group_norm_silu
 
 __all__ = [
     "resolve_dtype",
+    "not_ported",
     "Conv2d",
     "ConvTranspose2d",
     "Dense",
@@ -51,6 +52,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.b
 
 def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[dtype] if isinstance(dtype, str) else dtype
+
+
+def not_ported(network: str, option: str, slice_: str) -> NotImplementedError:
+    """The error a network raises for an option of the JAX package that a
+    later slice of the port brings."""
+    return NotImplementedError(
+        f"{network}({option}) is not ported yet; it comes with the {slice_} slice (ROADMAP.md)"
+    )
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:

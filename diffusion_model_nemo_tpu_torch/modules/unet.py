@@ -30,16 +30,11 @@ from .parts import (
     SelfAttentionBlock,
     SinusoidalPositionEmbeddings,
     Upsample,
+    not_ported,
     resolve_dtype,
 )
 
 __all__ = ["Unet"]
-
-
-def _not_ported(option: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Unet({option}) is not ported yet; it comes with the {slice_} slice (ROADMAP.md)"
-    )
 
 
 @register_target("diffusion_model_nemo.modules.Unet")
@@ -70,13 +65,13 @@ class Unet(nn.Module):
     ):
         super().__init__()
         if use_convnext:
-            raise _not_ported("use_convnext=True", "ConvNeXt U-Net")
+            raise not_ported("Unet", "use_convnext=True", "ConvNeXt U-Net")
         if num_classes is not None:
-            raise _not_ported(f"num_classes={num_classes}", "class-conditional DDPM")
+            raise not_ported("Unet", f"num_classes={num_classes}", "class-conditional DDPM")
         if aug_dim:
-            raise _not_ported(f"aug_dim={aug_dim}", "EDM augmentation")
+            raise not_ported("Unet", f"aug_dim={aug_dim}", "EDM augmentation")
         if (tpu_geometry or "off").lower() not in ("off", "none", ""):
-            raise _not_ported(f"tpu_geometry={tpu_geometry!r}", "U-Net geometry options")
+            raise not_ported("Unet", f"tpu_geometry={tpu_geometry!r}", "U-Net geometry options")
         dt = resolve_dtype(dtype)
         self.dtype = dt
         self.channels = channels

@@ -9,7 +9,9 @@ the kernels.
 from . import attention, norm, schedules
 from .attention import (
     attention_block_small_cuda,
+    attention_cuda,
     linear_attention_block_cuda,
+    linear_attention_qkv_cuda,
     linear_attention_tokens_cuda,
 )
 from .norm import group_norm_silu_cuda
@@ -19,6 +21,8 @@ KERNELS = {
     "linear_attention_block": linear_attention_block_cuda,
     "linear_attention_tokens": linear_attention_tokens_cuda,
     "attention_block_small": attention_block_small_cuda,
+    "linear_attention_qkv": linear_attention_qkv_cuda,
+    "attention": attention_cuda,
 }
 _COUNTERS = {name: mod.LAUNCHES for mod in (norm, attention) for name in mod.LAUNCHES}
 

@@ -136,4 +136,5 @@ _ERROR_PREFIX = {
     "group_norm_silu": "gn",
     "linear_attention": "linattn",
     "attention_block_small": "attn_small",
+    "attention": "attn",
 }

@@ -1,15 +1,15 @@
-"""Attention ops of the U-Net: plain PyTorch versions, the JAX package's
-dispatch rules, and the wrappers of the hand-written Hopper kernels
-(``csrc/linear_attention.cu``, ``csrc/attention_block_small.cu``).
+"""Attention ops of the U-Net and the DiT: plain PyTorch versions, the JAX
+package's dispatch rules, and the wrappers of the hand-written Hopper
+kernels (``csrc/linear_attention.cu``, ``csrc/attention_block_small.cu``,
+``csrc/attention.cu``).
 
 Counterpart of ``diffusion_model_nemo_tpu/ops/attention.py``. The dispatch
 rules keep the JAX package's shape and dtype conditions, so each U-Net level
-reaches the same kernel as on the TPU; where the JAX package runs an XLA
-composition (linear attention at N < 64), the port runs its plain
-composition. Under a rule that holds, a tensor on the CPU takes the plain
-version and a CUDA tensor launches the kernel or raises. The two TPU
-kernels a rule can reach but the port has not written yet (#7, #8 in
-PERF.md) raise ``NotImplementedError`` on CUDA.
+and each DiT block reaches the same kernel as on the TPU; where the JAX
+package runs an XLA composition (linear attention at N < 64, softmax
+attention at N < 1024), the port runs its plain composition. Under a rule
+that holds, a tensor on the CPU takes the plain version and a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ __all__ = [
     "use_packed_linattn_block",
     "use_linattn_tokens",
     "use_small_attn_block",
+    "use_attention_kernel",
     "fused_attention",
     "fused_linear_attention_qkv",
     "fused_linear_attention_tokens",
@@ -39,14 +40,23 @@ __all__ = [
     "linear_attention_block_cuda",
     "linear_attention_tokens_cuda",
     "attention_block_small_cuda",
+    "linear_attention_qkv_cuda",
+    "attention_cuda",
     "LAUNCHES",
 ]
 
 # Launches of each kernel, counted where its wrapper launches it.
-LAUNCHES = {"linear_attention_block": 0, "linear_attention_tokens": 0, "attention_block_small": 0}
+LAUNCHES = {
+    "linear_attention_block": 0,
+    "linear_attention_tokens": 0,
+    "attention_block_small": 0,
+    "linear_attention_qkv": 0,
+    "attention": 0,
+}
 
 _MAX_KERNEL_TOKENS = 4096
 _MIN_KERNEL_TOKENS = 64
+_MIN_ATTN_KERNEL_TOKENS = 1024
 
 
 # ------------------------------------------------------------ plain versions --
@@ -177,30 +187,29 @@ def use_small_attn_block(shape, dtype, heads: int, dim_head: int) -> bool:
     return (heads * dim_head) % 128 == 0 and N % 8 == 0 and 8 <= N <= 64 and heads * N <= 512
 
 
+def use_attention_kernel(shape) -> bool:
+    """The JAX package's rule for the softmax-attention kernel (``_use_pallas``
+    without its ``DMN_TPU_PALLAS_ATTN`` opt-in): 1024 ≤ N ≤ 4096 on
+    [B, N, h, d], any dtype."""
+    return _MIN_ATTN_KERNEL_TOKENS <= shape[1] <= _MAX_KERNEL_TOKENS
+
+
 # -------------------------------------------------------------- entry points --
-def _not_ported(number: int, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"this CUDA route is TPU kernel #{number} (diffusion_model_nemo_tpu/ops/"
-        f"attention.py:{where}), not ported yet; see ROADMAP.md"
-    )
-
-
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """[B, N, h, d] (q pre-scaled) → [B, N, h, d]. The JAX package sends
-    N ≥ 1024 to TPU kernel #7; the port raises there on CUDA."""
-    N = q.shape[1]
-    if q.device.type != "cpu" and 1024 <= N <= _MAX_KERNEL_TOKENS:
-        raise _not_ported(7, "_attn_kernel")
+    """[B, N, h, d] (q pre-scaled) → [B, N, h, d]; k and v may be strided
+    views (the DiT's qkv slices)."""
+    if use_attention_kernel(q.shape) and q.device.type != "cpu":
+        return attention_cuda(q, k, v)
     return attention_reference(q, k, v)
 
 
 def fused_linear_attention_qkv(
     qkv: torch.Tensor, heads: int, dim_head: int, scale: float
 ) -> torch.Tensor:
-    """Raw qkv [B, N, 3·h·d] → [B, N, h·d]. Where the JAX package runs TPU
-    kernel #8 (the float32 route at N ≥ 64) the port raises on CUDA."""
-    if qkv.device.type != "cpu" and _use_linattn_qkv_kernel(qkv.shape, heads, dim_head):
-        raise _not_ported(8, "_linattn_kernel")
+    """Raw qkv [B, N, 3·h·d] → [B, N, h·d] (the float32 U-Net's route at
+    N ≥ 64, and any dtype the caller sends)."""
+    if _use_linattn_qkv_kernel(qkv.shape, heads, dim_head) and qkv.device.type != "cpu":
+        return linear_attention_qkv_cuda(qkv, heads, dim_head, scale)
     return linear_attention_qkv_reference(qkv, heads, dim_head, scale)
 
 
@@ -241,7 +250,8 @@ def fused_attention_block_small(
 
 
 # ------------------------------------------------------------ kernel wrappers --
-_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _CI, _CF, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_tokens(x: torch.Tensor, heads: int, dim_head: int, what: str) -> Tuple[int, int, int]:
@@ -354,4 +364,65 @@ def attention_block_small_cuda(
         out.data_ptr(), B, N, C, scale, eps, _stream(x),
     )
     LAUNCHES["attention_block_small"] += 1
+    return out
+
+
+def linear_attention_qkv_cuda(
+    qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+) -> torch.Tensor:
+    """Launch the raw-qkv linear-attention kernel (TPU kernel #8) on a
+    contiguous float32 or bf16 [B, N, 384] tensor → [B, N, 128]."""
+    if not qkv.is_cuda:
+        raise ValueError(f"linear_attention_qkv_cuda needs a CUDA tensor, got {qkv.device}")
+    if qkv.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"linear_attention_qkv_cuda takes float32 or bf16, got {qkv.dtype}")
+    if (heads, dim_head) != (4, 32):
+        raise ValueError(f"linear_attention_qkv_cuda is built for 4 heads x 32, got {heads} x {dim_head}")
+    hd = heads * dim_head
+    if qkv.ndim != 3 or qkv.shape[-1] != 3 * hd or not qkv.is_contiguous():
+        raise ValueError(f"linear_attention_qkv_cuda takes contiguous [B, N, {3 * hd}], got {tuple(qkv.shape)}")
+    B, N, _ = qkv.shape
+    out = torch.empty((B, N, hd), dtype=qkv.dtype, device=qkv.device)
+    scratch = _linattn_scratch(B, N, 0, False, qkv.device)
+    _build.launch(
+        "linear_attention", "dmn_linattn_qkv",
+        [_VP] * 3 + [_CI, _CI, _CI, _CF, _VP],
+        qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, N, int(qkv.dtype == torch.bfloat16), scale, _stream(qkv),
+    )
+    LAUNCHES["linear_attention_qkv"] += 1
+    return out
+
+
+_ATTN_HEAD_DIMS = (32, 64, 128)
+
+
+def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch the softmax-attention kernel (TPU kernel #7) on float32 or bf16
+    [B, N, h, d] tensors (q pre-scaled), read in place with their strides
+    (unit stride along d) → contiguous [B, N, h, d]."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"attention_cuda needs a CUDA tensor, got {name} on {t.device}")
+        if t.dtype != q.dtype or t.dtype not in _KERNEL_DTYPES:
+            raise TypeError(f"attention_cuda takes float32 or bf16 q, k, v of one dtype, got {name} {t.dtype}")
+        if t.shape != q.shape or t.ndim != 4 or t.stride(-1) != 1:
+            raise ValueError(
+                f"attention_cuda takes [B, N, h, d] q, k, v with unit stride along d, got {name} "
+                f"{tuple(t.shape)} strides {t.stride()}"
+            )
+    B, N, H, D = q.shape
+    if D not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"attention_cuda is built for head dims {_ATTN_HEAD_DIMS}, got [B, N, h, d] = {list(q.shape)}")
+    if B * H > 65535:
+        raise ValueError(f"attention_cuda takes at most 65535 (sample, head) pairs, got {B} x {H}")
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    _build.launch(
+        "attention", "dmn_attention",
+        [_VP] * 4 + [_LL] * 9 + [_CI] * 5 + [_VP],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        B, N, H, D, int(q.dtype == torch.bfloat16), _stream(q),
+    )
+    LAUNCHES["attention"] += 1
     return out

@@ -7,10 +7,13 @@ and bf16, and in bf16 (the kernels' working type) also with the JAX
 package's Pallas kernel, run in interpret mode as the JAX package's own
 tests run it. Inputs are made with numpy from a seed and fed to both packages.
 
-Tolerances: float32 at 1e-4 (same math, different summation order); bf16 at
-rtol = atol = 2e-2, the JAX package's own kernel-vs-reference tolerance
+Tolerances: float32 at 1e-4 (same math, different summation order; 1e-5
+for the attention cores #7 and #8, which have no projection in front); bf16
+at rtol = atol = 2e-2, the JAX package's own kernel-vs-reference tolerance
 (tests/test_ops_kernels.py), because the kernels round intermediates to bf16
-at other points than the composition does.
+at other points than the composition does (kernel #7 keeps its
+probabilities in f32, the plain version rounds them to the input dtype
+before p·v).
 """
 
 import dataclasses
@@ -207,6 +210,68 @@ def test_attention_block_small_matches_jax(shape, dtype):
         _close(_np(ours), kernel, tol)
 
 
+# ------------------------------------- kernel 8: linear attention on raw qkv --
+CORE_F32_TOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 256, 3 * HD), (2, 64, 3 * HD)])
+def test_linear_attention_qkv_matches_jax_kernel(shape, dtype):
+    """The port's plain version (what kernel #8 is held against on the card)
+    against the JAX package's Pallas kernel in interpret mode."""
+    qkv = np.random.default_rng(8).standard_normal(shape)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tol = CORE_F32_TOL if dtype == "float32" else BF16_TOL
+    assert TA._use_linattn_qkv_kernel(shape, H, D)
+    ours = TA.fused_linear_attention_qkv(_t(qkv, tdt), H, D, SCALE)
+    assert ours.dtype == tdt and ours.shape == (shape[0], shape[1], HD)
+    kernel = JA._pallas_linear_attention(_j(qkv, jdt), H, D, SCALE, interpret=True)
+    _close(_np(ours), kernel, tol)
+
+
+# --------------------------------------------- kernel 7: softmax attention --
+def _jax_attn_kernel(q, k, v):
+    """The JAX package's Pallas attention kernel (ops/attention.py:_attn_kernel)
+    in interpret mode, around the same pallas_call as its launcher."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    B, N, h, d = q.shape
+
+    def merge(x):
+        return x.transpose(0, 2, 1, 3).reshape(B * h, N, d)
+
+    spec = pl.BlockSpec((1, N, d), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
+    out = pl.pallas_call(
+        JA._attn_kernel,
+        out_shape=jax.ShapeDtypeStruct((B * h, N, d), q.dtype),
+        grid=(B * h,),
+        in_specs=[spec, spec, spec],
+        out_specs=spec,
+        interpret=True,
+    )(merge(q), merge(k), merge(v))
+    return out.reshape(B, h, N, d).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_matches_jax_kernel(dtype):
+    """The port's plain version against the JAX Pallas kernel at N = 1024,
+    the first size the dispatch sends to the kernel; k and v are strided
+    slices of one qkv tensor, as in the DiT."""
+    B, N, h, d = 1, 1024, 2, 64
+    rng = np.random.default_rng(9)
+    qkv = rng.standard_normal((B, N, 3, h, d))
+    q = qkv[:, :, 0] * d**-0.5
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tol = CORE_F32_TOL if dtype == "float32" else BF16_TOL
+    tqkv = _t(qkv, tdt)
+    assert TA.use_attention_kernel((B, N, h, d))
+    ours = TA.fused_attention(_t(q, tdt), tqkv[:, :, 1], tqkv[:, :, 2])
+    assert ours.dtype == tdt and ours.shape == (B, N, h, d)
+    kernel = _jax_attn_kernel(_j(q, jdt), _j(qkv[:, :, 1], jdt), _j(qkv[:, :, 2], jdt))
+    _close(_np(ours), kernel, tol)
+
+
 # ------------------------------------------------------------ dispatch rules --
 _SHAPES = [
     (64, N, C)
@@ -221,17 +286,32 @@ _SHAPES = [
         (TA.use_packed_linattn_block, JA.use_packed_linattn_block, None),
         (TA.use_small_attn_block, JA.use_small_attn_block, None),
         (TA.use_linattn_tokens, JA._use_pallas_linattn_tokens, "tokens"),
+        (TA._use_linattn_qkv_kernel, JA._use_pallas_linattn, "linattn"),
+        (TA.use_attention_kernel, JA._use_pallas, "attn"),
     ],
-    ids=["packed_block", "small_block", "tokens"],
+    ids=["packed_block", "small_block", "tokens", "linattn_qkv", "attention"],
 )
 def test_dispatch_rules_match_jax_on_tpu(monkeypatch, ours, theirs, flag):
     """The port's rules equal the JAX package's shape/dtype conditions as
-    they read on a TPU backend (where they choose the kernels)."""
+    they read on a TPU backend (where they choose the kernels); the
+    attention rule with ``DMN_TPU_PALLAS_ATTN`` (an opt-in below 1024
+    tokens) unset, the qkv rule with ``DMN_TPU_PALLAS_LINATTN`` unset."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.delenv("DMN_TPU_PALLAS_ATTN", raising=False)
+    monkeypatch.delenv("DMN_TPU_PALLAS_LINATTN", raising=False)
     for dtype_t, dtype_j in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
         for shape in _SHAPES:
             if flag == "tokens":
                 expect = theirs(jax.ShapeDtypeStruct(shape, dtype_j), H, D)
+            elif flag == "linattn":
+                qkv = (shape[0], shape[1], 3 * HD)
+                assert ours(qkv, H, D) == theirs(jax.ShapeDtypeStruct(qkv, dtype_j), H, D), qkv
+                continue
+            elif flag == "attn":
+                for heads, d in ((6, 64), (4, 32), (16, 64)):
+                    q = (shape[0], shape[1], heads, d)
+                    assert ours(q) == theirs(jax.ShapeDtypeStruct(q, dtype_j)), q
+                continue
             else:
                 expect = theirs(shape, jnp.dtype(dtype_j), H, D)
             assert ours(shape, dtype_t, H, D) == expect, (shape, dtype_t)
@@ -240,9 +320,9 @@ def test_dispatch_rules_match_jax_on_tpu(monkeypatch, ours, theirs, flag):
 # ------------------------------------------------ no quiet fallback off the CPU --
 def test_non_cpu_tensors_never_reach_a_plain_version():
     """A tensor that is not on the CPU goes to the kernel wrapper, which
-    raises unless it is a CUDA tensor; the unported TPU routes raise
-    NotImplementedError naming their kernel (meta tensors stand in for
-    CUDA ones here)."""
+    raises unless it is a CUDA tensor; the unported FiLM route raises
+    NotImplementedError naming its kernel (meta tensors stand in for CUDA
+    ones here)."""
     meta = dict(device="meta")
     x = torch.empty(2, 8, 8, 32, dtype=torch.bfloat16, **meta)
     g = torch.ones(32, **meta)
@@ -254,12 +334,16 @@ def test_non_cpu_tensors_never_reach_a_plain_version():
     w = torch.empty(32, 3 * HD, **meta)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TA.fused_linear_attention_tokens(tok, w, H, D, SCALE)
-    # float32 at N >= 64 is TPU kernel #8's route: raise, no torch substitute
-    with pytest.raises(NotImplementedError, match="#8"):
+    # float32 at N >= 64 is TPU kernel #8's route: its wrapper, no torch substitute
+    with pytest.raises(ValueError, match="CUDA tensor"):
         TA.fused_linear_attention_tokens(tok.float(), w, H, D, SCALE)
-    q = torch.empty(1, 1024, H, D, **meta)
-    with pytest.raises(NotImplementedError, match="#7"):
-        TA.fused_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TA.fused_linear_attention_qkv(torch.empty(2, 64, 3 * HD, **meta), H, D, SCALE)
+    # N >= 1024 is TPU kernel #7's route, in any dtype
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.empty(1, 1024, H, D, dtype=dt, **meta)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            TA.fused_attention(q, q, q)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -269,3 +353,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     tok = torch.zeros(1, 64, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TA.linear_attention_tokens_cuda(tok, torch.zeros(32, 3 * HD), H, D, SCALE)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TA.linear_attention_qkv_cuda(torch.zeros(1, 64, 3 * HD), H, D, SCALE)
+    q = torch.zeros(1, 1024, 6, 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TA.attention_cuda(q, q, q)
