@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one GPU and check them.
+"""Drive the PyTorch/CUDA port's training and serving paths on one GPU and
+check them.
 
     python3 chip_smoke.py            # all phases, one card
 
-Paths: unet_small (bf16, 32 px) on kernels #1-#4; DiT-S/2 (bf16, 64 px) on
-kernel #7; the float32 unet_small on kernels #1 and #8.
+Paths: unet_small (bf16, 32 px) trained at batch 128 and served, on kernels
+#1-#4, and under the JAX package's two opt-in switches on #6
+(``DMN_TPU_PALLAS_NORM_BM=1``) and #9 (``DMN_TPU_PALLAS_LINATTN_BLOCK=1``);
+``Block(x, scale_shift)`` at unet_small's GroupNorm sites on #5 (and #6
+under its switch); DiT-S/2 (bf16, 64 px) on kernel #7; the float32
+unet_small on kernels #1 and #8.
 
 Phases:
   1. Print the card (``nvidia-smi`` name and power limit) and build the
@@ -36,6 +41,25 @@ Phases:
      4b. The same on DiT-S/2 at 64 px (full width and depth, seeded random
      weights with the adaLN-Zero leaves redrawn) with max_batch=32.
   5. A short ancestral chain (p_sample_loop, 10 steps).
+  6. The training slice at B=128:
+     6a. unet_small and flagship forwards under each switch against the
+         plain path, with the launches per forward equal to those the gates
+         derive (a shapes-only forward on meta tensors);
+     6b. the FiLM path: ``Block(x, scale_shift)`` with per-sample FiLM from a
+         time MLP at each of unet_small's 35 GroupNorm sites, forward and
+         backward, against the plain path; #5 launches 35 times, 0 in the
+         backward (and #6 27 times under its switch);
+     6c. one unet_small training step with kernels against the plain path
+         from the same weights and draws (loss, whole gradient), 0 kernel
+         launches in the backward; per kernel call of the step, the kernel's
+         time against its backward's plain recompute;
+     6d. ``Trainer.fit`` of unet_small for 20 steps on the synthetic set
+         (finite losses, the EMA moved, launches = 20 x per forward), step
+         time, samples/s and the device-busy share of a step; then 5 steps
+         under both switches (#6 = 27, #9 = 1, #3 = 0 per step).
+  Every new kernel (#5, #6 plain and FiLM, #9) is held against its plain
+  version at every shape these paths give it, as in phase 2, and so are
+  #1-#4 at the training step's B=128 shapes.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -47,6 +71,7 @@ from __future__ import annotations
 import base64
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -66,6 +91,14 @@ DDIM_STEPS = 50
 DIT_MAX_BATCH = 32
 DIT_IMG = 64
 SEED = 0
+TRAIN_B = 128  # unet_small's own training batch (examples/configs/ddpm/unet_small.yaml)
+TRAIN_STEPS = 20
+SWITCHED_STEPS = 5
+LOSS_REL_TOL = 1e-2  # training step, kernels vs plain path: loss
+GRAD_REL_TOL = 5e-2  # and the whole gradient, relative L2
+NORM_BM = {"DMN_TPU_PALLAS_NORM_BM": "1"}
+LINATTN_BLOCK = {"DMN_TPU_PALLAS_LINATTN_BLOCK": "1"}
+BOTH = {**NORM_BM, **LINATTN_BLOCK}
 # The configuration whose forward is each kernel's main path (per-forward sums).
 MAIN_CFG = {
     "group_norm_silu": "unet_small",
@@ -74,7 +107,11 @@ MAIN_CFG = {
     "attention_block_small": "unet_small",
     "linear_attention_qkv": "unet_small_f32",
     "attention": "dit_s2",
+    "group_norm_silu_film": "film_block",
+    "group_norm_silu_bm": "unet_small_128_switched",
+    "linear_attention_block_v1": "unet_small_128_switched",
 }
+FILM_KERNELS = ("group_norm_silu_film", "group_norm_silu_bm")
 
 
 def log(msg: str) -> None:
@@ -108,7 +145,8 @@ def time_ms(fn, iters: int = 20) -> float:
 HAND_KERNELS = (
     "gn_silu_kernel", "xstats_kernel", "kv_kernel", "merge_kernel", "apply_kernel",
     "outnorm_kernel", "attn_block_small_kernel", "qkv_kv_kernel", "qkv_apply_kernel",
-    "attn_fwd_kernel",
+    "attn_fwd_kernel", "bm_stats_kernel", "bm_apply_kernel", "v1_kstats_kernel",
+    "v1_gram_kernel", "v1_merge_kernel", "v1_apply_kernel",
 )
 
 
@@ -182,6 +220,21 @@ def kernel_table(port):
             "diffusion_model_nemo_tpu_torch/csrc/attention.cu",
             "diffusion_model_nemo_tpu/ops/attention.py:57",
         ),
+        "group_norm_silu_film": (
+            N, "group_norm_silu_film_cuda", N.group_norm_silu_reference,
+            "diffusion_model_nemo_tpu_torch/csrc/group_norm_silu.cu",
+            "diffusion_model_nemo_tpu/ops/norm.py:101",
+        ),
+        "group_norm_silu_bm": (
+            N, "group_norm_silu_bm_cuda", N.group_norm_silu_reference,
+            "diffusion_model_nemo_tpu_torch/csrc/group_norm_bm.cu",
+            "diffusion_model_nemo_tpu/ops/norm.py:142",
+        ),
+        "linear_attention_block_v1": (
+            A, "linear_attention_block_v1_cuda", A.linear_attention_block_reference,
+            "diffusion_model_nemo_tpu_torch/csrc/linear_attention.cu",
+            "diffusion_model_nemo_tpu/ops/attention.py:353",
+        ),
     }
 
 
@@ -196,8 +249,17 @@ def copy_arg(a, dtype=None):
     return out.copy_(a)
 
 
-def record_calls(port, model, x, t):
-    """One forward; returns {kernel: {shape: [count, copied args]}}."""
+def call_key(name, args):
+    """A recorded call's key: x's shape, and the FiLM scale's shape where
+    the GroupNorm call has one."""
+    key = tuple(args[0].shape)
+    if name in FILM_KERNELS and len(args) > 5 and args[5] is not None:
+        key += ("film",) + tuple(args[5].shape)
+    return key
+
+
+def record_calls(port, model, x, t, run=None):
+    """One forward (or ``run()``); returns {kernel: {key: [count, copied args]}}."""
     import torch
 
     table = kernel_table(port)
@@ -207,7 +269,7 @@ def record_calls(port, model, x, t):
             real = getattr(mod, attr)
 
             def recorder(*args, _name=name, _real=real):
-                key = tuple(args[0].shape)
+                key = call_key(_name, args)
                 slot = calls[_name].setdefault(key, [0, None])
                 slot[0] += 1
                 if slot[1] is None:
@@ -215,7 +277,10 @@ def record_calls(port, model, x, t):
                 return _real(*args)
 
             stack.enter_context(mock.patch.object(mod, attr, recorder))
-        model.forward(x, t)
+        if run is None:
+            model.forward(x, t)
+        else:
+            run()
     torch.cuda.synchronize()
     return calls
 
@@ -243,10 +308,12 @@ def work(name, args):
         Bn, Nn, C3 = x.shape
         hd, dh = C3 // 3, 32
         return x.numel() * es + Bn * Nn * hd * es, Bn * Nn * 2 * 2 * hd * dh, kind
-    if name == "group_norm_silu":
+    if name.startswith("group_norm_silu"):
         Bn, H, W, C = x.shape
         n = x.numel()
-        return 2 * n * es + 2 * C * 4, 11 * n, "f32"
+        film = args[5:7] if len(args) > 5 and args[5] is not None else ()
+        film_bytes = sum(a.numel() * a.element_size() for a in film)
+        return 2 * n * es + 2 * C * 4 + film_bytes, (14 if film else 11) * n, "f32"
     Bn, Nn, C = x.shape
     hd = 128
     if name == "linear_attention_tokens":
@@ -254,7 +321,7 @@ def work(name, args):
         return io_bytes, Bn * Nn * (2 * C * 3 * hd + 2 * 2 * 32 * 32 * 4), "bf16"
     weights = (C * 3 * hd + hd * C + 3 * C) * 4 + 2 * C * 4
     io_bytes = 2 * x.numel() * es + weights
-    if name == "linear_attention_block":
+    if name in ("linear_attention_block", "linear_attention_block_v1"):
         ops = Bn * Nn * (2 * C * 3 * hd + 2 * 2 * 32 * 32 * 4 + 2 * hd * C)
     else:  # attention_block_small
         ops = Bn * (2 * Nn * C * 3 * hd + 2 * 2 * Nn * Nn * hd + 2 * Nn * hd * C)
@@ -267,11 +334,14 @@ def library_fn(name, args):
     import torch
     import torch.nn.functional as F
 
-    if name == "group_norm_silu":
-        x, gamma, beta, groups, eps = args
+    if name.startswith("group_norm_silu"):
+        x, gamma, beta, groups, eps = args[:5]
         g, b = gamma.to(x.dtype), beta.to(x.dtype)
         xc = x.permute(0, 3, 1, 2)
-        return lambda: F.silu(F.group_norm(xc, groups, g, b, eps))
+        if len(args) == 5 or args[5] is None:
+            return lambda: F.silu(F.group_norm(xc, groups, g, b, eps))
+        sc1, sh = ((a.to(x.dtype) + d).permute(0, 3, 1, 2) for a, d in ((args[5], 1), (args[6], 0)))
+        return lambda: F.silu(torch.addcmul(sh, F.group_norm(xc, groups, g, b, eps), sc1))
     if name == "attention":
         q, k, v = (a.transpose(1, 2) for a in args)  # [B, h, N, d] views
         return lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
@@ -386,12 +456,12 @@ def build_models(port, device):
     }
 
 
-def model_inputs(device, size):
+def model_inputs(device, size, batch=B):
     import torch
 
     g = torch.Generator(device=device).manual_seed(SEED)
-    x = torch.randn(B, size, size, 3, generator=g, device=device)
-    t = torch.randint(0, 1000, (B,), generator=g, device=device, dtype=torch.int32)
+    x = torch.randn(batch, size, size, 3, generator=g, device=device)
+    t = torch.randint(0, 1000, (batch,), generator=g, device=device, dtype=torch.int32)
     return x, t
 
 
@@ -436,7 +506,7 @@ def check_forward(port, name, model, x, t, tol):
     max_abs = float((out_k - out_p).abs().max())
     finite = bool(torch.isfinite(out_k).all())
     std = float(out_k.std())
-    log(f"[forward] {name} B={B} kernels vs plain: rel_l2={rel:.3e} max_abs={max_abs:.3e} "
+    log(f"[forward] {name} B={x.shape[0]} kernels vs plain: rel_l2={rel:.3e} max_abs={max_abs:.3e} "
         f"finite={finite} std={std:.4f} shape={list(out_k.shape)} (tol rel_l2 <= {tol})")
     if not finite or rel > tol or tuple(out_k.shape) != tuple(x.shape) or not std > 0:
         raise AssertionError(f"{name} forward with kernels disagrees with the plain path")
@@ -595,6 +665,265 @@ def check_ancestral(port, model, per_forward):
         assert n == per_forward.get(name, 0) * steps, (name, n, per_forward.get(name, 0) * steps)
 
 
+# --------------------------------------------------------- the training slice --
+def switches(env):
+    """The JAX package's opt-in switches, read by the port at call time."""
+    return mock.patch.dict(os.environ, env)
+
+
+def kernel_name(kernel) -> str:
+    return kernel.__name__.removesuffix("_cuda")
+
+
+def derived_counts(port, model, B, size):
+    """Launches per forward the gates choose at this batch under the current
+    switches: a shapes-only forward of the same network on meta tensors,
+    every differentiable kernel call recorded by its wrapper's name."""
+    import torch
+
+    cfg = dict(model.cfg.diffusion_model)
+    net = port.config.get_target(cfg.pop("_target_"))(**cfg).to("meta")
+    counts = {}
+
+    def record(kernel, plain, *args):
+        counts[kernel_name(kernel)] = counts.get(kernel_name(kernel), 0) + 1
+        return plain(*args)
+
+    with mock.patch.object(port.ops.norm, "kernel_call", record), \
+            mock.patch.object(port.ops.attention, "kernel_call", record):
+        net(torch.empty(B, size, size, 3, device="meta"), torch.empty(B, dtype=torch.int32, device="meta"))
+    return counts
+
+
+def assert_counts(tag, counts, expect):
+    full = {k: expect.get(k, 0) for k in counts}
+    log(f"[train] {tag} launches {json.dumps({k: v for k, v in counts.items() if v})} "
+        f"(expected {json.dumps({k: v for k, v in full.items() if v})})")
+    assert counts == full, (tag, counts, full)
+
+
+def check_switched_forwards(port, models, inputs):
+    """6a: unet_small and flagship at B=128 under each switch: launches per
+    forward equal the gates' derivation; output against the plain path."""
+    import torch
+
+    derived = {}
+    for name in ("unet_small", "flagship"):
+        model, (x, t) = models[name], inputs[name]
+        for tag, env in (("NORM_BM", NORM_BM), ("LINATTN_BLOCK", LINATTN_BLOCK)):
+            with switches(env):
+                expect = derived_counts(port, model, x.shape[0], x.shape[1])
+                port.ops.reset_launch_counts()
+                model.forward(x, t)
+                torch.cuda.synchronize()
+                assert_counts(f"{name} B={x.shape[0]} {tag} forward", port.ops.launch_counts(), expect)
+                check_forward(port, f"{name} {tag}", model, x, t, UNET_REL_TOL)
+            derived[(name, tag)] = expect
+    return derived
+
+
+class FilmPath:
+    """``Block(x, scale_shift)`` at each GroupNorm site of a network: per
+    site a bf16 conv3x3 -> GroupNorm -> FiLM -> SiLU block whose per-sample
+    (scale, shift) [B, 1, 1, C] come from a time MLP (Dense of a sinusoidal
+    embedding), seeded random weights. One pass = every site once, forward,
+    then the backward of the mean square of the outputs."""
+
+    def __init__(self, port, sites, device):
+        import torch
+
+        parts = port.modules.parts
+        self.ops = port.ops
+        g = torch.Generator().manual_seed(SEED)
+        dg = torch.Generator(device=device).manual_seed(SEED)
+        self.sites = []
+        for (Bn, H, W, C) in sites:
+            block = parts.Block(C, C, groups=8, dtype=torch.bfloat16)
+            mlp = parts.Dense(128, 2 * C, dtype=torch.bfloat16)
+            block.proj.reset_parameters(g)
+            mlp.reset_parameters(g)
+            x = torch.randn(Bn, H, W, C, generator=dg, device=device).to(torch.bfloat16)
+            self.sites.append((block.to(device), mlp.to(device), x))
+        self.temb = parts.SinusoidalPositionEmbeddings(128)(
+            torch.randint(0, 1000, (sites[0][0],), generator=dg, device=device))
+
+    def forward(self):
+        outs = []
+        for block, mlp, x in self.sites:
+            scale, shift = mlp(self.temb)[:, None, None, :].chunk(2, dim=-1)
+            outs.append(block(x, (scale, shift)))
+        return outs
+
+    def run(self):
+        """Forward and backward; returns (outputs, launches in the forward,
+        launches in the backward)."""
+        import torch
+
+        self.ops.reset_launch_counts()
+        outs = self.forward()
+        torch.cuda.synchronize()
+        fwd = self.ops.launch_counts()
+        loss = sum(o.float().square().mean() for o in outs)
+        self.ops.reset_launch_counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        return outs, fwd, self.ops.launch_counts()
+
+
+def check_film_path(port, path):
+    """6b: the FiLM Block pass with kernels against the plain path; #5 at
+    every site (#6 at the batch-minor ones under NORM_BM); no launch in the
+    backward. Returns the launches of its main run (the forward)."""
+    import torch
+
+    sites = [tuple(x.shape) for _b, _m, x in path.sites]
+    out_k, fwd, bwd = path.run()
+    assert_counts("FiLM Block pass forward", fwd, {"group_norm_silu_film": len(sites)})
+    assert_counts("FiLM Block pass backward", bwd, {})
+    with plain_path(port):
+        out_p = path.forward()
+    k = torch.cat([o.detach().float().flatten() for o in out_k])
+    p = torch.cat([o.float().flatten() for o in out_p])
+    rel = float((k - p).norm() / p.norm())
+    log(f"[train] FiLM Block pass ({len(sites)} sites, B={sites[0][0]}) kernels vs plain: rel_l2={rel:.3e} "
+        f"(tol {UNET_REL_TOL}), finite={bool(torch.isfinite(k).all())}")
+    assert rel <= UNET_REL_TOL and bool(torch.isfinite(k).all())
+    with switches(NORM_BM):
+        n_bm = sum(port.ops.norm.use_norm_bm(s, torch.bfloat16, s[0] * s[3]) for s in sites)
+        _out, fwd_bm, bwd_bm = path.run()
+    assert_counts("FiLM Block pass under NORM_BM forward", fwd_bm,
+                  {"group_norm_silu_bm": n_bm, "group_norm_silu_film": len(sites) - n_bm})
+    assert_counts("FiLM Block pass under NORM_BM backward", bwd_bm, {})
+    return fwd
+
+
+def training_batch(model, B):
+    """A synthetic uint8 batch and seeded draws for one training step."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.data import SyntheticVisionDataset
+
+    ds = SyntheticVisionDataset(image_size=32, channels=3, length=B, seed=SEED)
+    batch = {"image": np.stack([ds[i]["image"] for i in range(B)])}
+    draws = model.draw_training_inputs(batch["image"].shape, torch.Generator(device=model.device).manual_seed(SEED))
+    return batch, draws
+
+
+def step_loss_and_grads(port, model, batch, draws):
+    """(loss, flat gradient, launches in the forward, in the backward)."""
+    import torch
+
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in model.params.items()}
+    port.ops.reset_launch_counts()
+    loss, _ = model.training_step(params, batch, draws)
+    torch.cuda.synchronize()
+    fwd = port.ops.launch_counts()
+    port.ops.reset_launch_counts()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    bwd = port.ops.launch_counts()
+    return float(loss), torch.cat([g.float().flatten() for g in grads]), fwd, bwd
+
+
+def check_training_step(port, model, per_forward):
+    """6c: one unet_small training step at B=128, kernels against the plain
+    path from the same weights and draws."""
+    batch, draws = training_batch(model, TRAIN_B)
+    loss_k, g_k, fwd, bwd = step_loss_and_grads(port, model, batch, draws)
+    assert_counts("training step forward", fwd, per_forward)
+    assert_counts("training step backward", bwd, {})
+    with plain_path(port):
+        loss_p, g_p, _, _ = step_loss_and_grads(port, model, batch, draws)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    rel_grad = float((g_k - g_p).norm() / g_p.norm())
+    log(f"[train] unet_small step B={TRAIN_B}: loss kernels {loss_k:.6f} plain {loss_p:.6f} "
+        f"(rel {rel_loss:.3e}, tol {LOSS_REL_TOL}); whole gradient ({g_k.numel()} values) rel_l2="
+        f"{rel_grad:.3e} (tol {GRAD_REL_TOL}), |g| {float(g_k.norm()):.4f}")
+    assert rel_loss <= LOSS_REL_TOL and rel_grad <= GRAD_REL_TOL
+    return batch, draws
+
+
+def training_kernel_costs(port, model, batch, draws):
+    """Per kernel call of one training step: the kernel's time (forward)
+    against its backward, which recomputes the plain version and
+    differentiates it (CUDA events, summed over the step's calls)."""
+    import torch
+
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in model.params.items()}
+    calls = record_calls(port, None, None, None, run=lambda: model.training_step(params, batch, draws))
+    table = kernel_table(port)
+    fwd_total = bwd_total = 0.0
+    for name, shapes in calls.items():
+        mod, attr, plain, _src, _rep = table[name]
+        for key, (count, args) in sorted(shapes.items()):
+            kernel = getattr(mod, attr)
+            leaves = [a.detach().requires_grad_(True) if torch.is_tensor(a) and a.is_floating_point() else a
+                      for a in args]
+            wrt = [a for a in leaves if torch.is_tensor(a) and a.requires_grad]
+            out = plain(*leaves)
+            cot = torch.randn_like(out)
+
+            def backward():
+                with torch.enable_grad():
+                    torch.autograd.grad(plain(*leaves), wrt, cot)
+
+            k_ms, b_ms = time_ms(lambda: kernel(*args)), time_ms(backward)
+            fwd_total += count * k_ms
+            bwd_total += count * b_ms
+            log(f"[train-cost] {name} {list(key)} x{count}/step kernel {k_ms:.4f} ms, "
+                f"backward (plain recompute + vjp) {b_ms:.4f} ms")
+    log(f"[train-cost] per step at B={TRAIN_B}: hand kernels {fwd_total:.3f} ms (forward), their "
+        f"backwards {bwd_total:.3f} ms (CUDA events, call by call)")
+    return fwd_total, bwd_total
+
+
+def check_fit(port, device, steps, env, expect_per_step):
+    """6d: ``Trainer.fit`` of unet_small at B=128 on the synthetic set."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+
+    cfg = unet_small_model_config()
+    cfg["train_ds"]["name"] = "synthetic"
+    model = port.DDPM(cfg, device=device, seed=SEED)
+    ema0 = {k: v.clone() for k, v in model.ema_params.items()}
+    trainer = port.Trainer(max_steps=steps, log_every_n_steps=5, devices=1, seed=SEED)
+    with switches(env):
+        port.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit(model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = port.ops.launch_counts()
+    tag = "+".join(env) or "default routes"
+    losses = [m["train_loss"] for m in trainer.logged]
+    moved = max(float((model.ema_params[k] - ema0[k]).abs().max()) for k in ema0)
+    log(f"[train] fit {steps} steps B={TRAIN_B} ({tag}): {wall:.2f} s with set-up; logged "
+        f"{json.dumps(trainer.logged)}; EMA moved max |d| {moved:.3e}")
+    assert len(losses) == steps // 5 and all(map(lambda v: v == v and abs(v) < 1e6, losses)), losses
+    assert moved > 0
+    assert_counts(f"fit {steps} steps ({tag})", counts, {k: v * steps for k, v in expect_per_step.items()})
+    return model, trainer, counts
+
+
+def step_profile(port, model):
+    """Wall time per optimizer step (CUDA events over 20 steps), device busy
+    per step (torch.profiler) and its share."""
+    trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+    state = trainer.init_state(model, TRAIN_STEPS)
+    batch, draws = training_batch(model, TRAIN_B)
+    run = lambda: trainer.train_step(model, state, batch, draws)  # noqa: E731
+    wall = time_ms(run, iters=20)
+    total, by_name = device_profile(run, iters=5)
+    hand = sum(v for n, v in by_name.items() if any(k in n for k in HAND_KERNELS))
+    log(f"[train] step B={TRAIN_B}: wall {wall:.3f} ms (CUDA events), {TRAIN_B / wall * 1e3:.1f} samples/s; "
+        f"device busy {total:.3f} ms ({100 * total / wall:.1f}%), hand kernels {hand:.3f} ms, "
+        f"other {total - hand:.3f} ms in {len(by_name)} kernel names")
+    for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[train]   {v:.4f} ms  {n[:110]}")
+
+
 def main() -> int:
     import torch
 
@@ -622,8 +951,25 @@ def main() -> int:
     models = build_models(port, device)
     inputs = {name: model_inputs(device, DIT_IMG if name == "dit_s2" else 32) for name in models}
     calls = {name: record_calls(port, m, *inputs[name]) for name, m in models.items()}
+    # The training slice's shapes at B=128: the default routes (#1-#4), both
+    # switches (#6, #9), and the FiLM Block pass at unet_small's GroupNorm
+    # sites (#5, and #6 FiLM under NORM_BM).
+    inputs128 = {name: model_inputs(device, 32, TRAIN_B) for name in ("unet_small", "flagship")}
+    calls["unet_small_128"] = record_calls(port, models["unet_small"], *inputs128["unet_small"])
+    new = ("group_norm_silu_bm", "linear_attention_block_v1")
+    with switches(BOTH):
+        for name in ("unet_small", "flagship"):
+            rec = record_calls(port, models[name], *inputs128[name])
+            calls[f"{name}_128_switched"] = {k: (v if k in new else {}) for k, v in rec.items()}
+    sites = [key for key, (count, _a) in sorted(calls["unet_small_128"]["group_norm_silu"].items())
+             for _ in range(count)]
+    film = FilmPath(port, sites, device)
+    calls["film_block"] = record_calls(port, None, None, None, run=film.forward)
+    with switches(NORM_BM):
+        rec = record_calls(port, None, None, None, run=film.forward)
+    calls["film_block_bm"] = {k: (v if k == "group_norm_silu_bm" else {}) for k, v in rec.items()}
     per_forward = {name: per_forward_counts(c) for name, c in calls.items()}
-    log(f"[path] launches per forward at B={B}: {per_forward}")
+    log(f"[path] launches per forward (B={B}; *_128*: B={TRAIN_B}; film_block: per pass): {per_forward}")
     assert per_forward["dit_s2"] == {"attention": 12}, per_forward["dit_s2"]
     rows = check_kernels(port, {**calls, **derived_calls(calls)})
     check_networks(port, models, inputs)
@@ -636,13 +982,34 @@ def main() -> int:
     )
     check_ancestral(port, models["unet_small"], per_forward["unet_small"])
 
+    # 6. The training slice.
+    derived = check_switched_forwards(port, models, inputs128)
+    film_counts = check_film_path(port, film)
+    train_per = per_forward["unet_small_128"]
+    batch, draws = check_training_step(port, models["unet_small"], train_per)
+    training_kernel_costs(port, models["unet_small"], batch, draws)
+    step_profile(port, models["unet_small"])
+    check_fit(port, device, TRAIN_STEPS, {}, train_per)
+    with switches(BOTH):
+        switched_per = derived_counts(port, models["unet_small"], TRAIN_B, 32)
+    log(f"[train] per forward under both switches at B={TRAIN_B} (gates): {switched_per}; "
+        f"each switch alone: {json.dumps({'+'.join(k): v for k, v in derived.items()})}")
+    assert switched_per.get("group_norm_silu_bm") == 27 and switched_per.get("linear_attention_block_v1") == 1
+    assert "linear_attention_tokens" not in switched_per, switched_per
+    _m, _t, sw_counts = check_fit(port, device, SWITCHED_STEPS, BOTH, switched_per)
+
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
-    # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8.
+    # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM
+    # Block pass for #5, the 5-step training run under both switches for #6
+    # and #9.
     main_counts = dict(counts, attention=dit_counts["attention"],
-                       linear_attention_qkv=f32_counts["linear_attention_qkv"])
+                       linear_attention_qkv=f32_counts["linear_attention_qkv"],
+                       group_norm_silu_film=film_counts["group_norm_silu_film"],
+                       group_norm_silu_bm=sw_counts["group_norm_silu_bm"],
+                       linear_attention_block_v1=sw_counts["linear_attention_block_v1"])
     main_per = {name: per_forward[MAIN_CFG[name]].get(name, 0) for name in rows}
     table = kernel_table(port)
-    log(f"[summary] per forward at B={B} on each kernel's main path (ms: CUDA events; dev: "
+    log(f"[summary] per forward on each kernel's main path (ms: CUDA events; dev: "
         f"torch.profiler device time); main path: {MAIN_CFG}")
     log("[summary] | kernel | launches/forward on its path (flagship) | launches in the path's run "
         "| ms | dev ms | bound ms (by) | plain ms | plain dev ms | library ms | library dev ms |")
@@ -650,7 +1017,8 @@ def main() -> int:
         by = "bytes" if r["bytes_s"] >= r["ops_s"] else "operations"
         lib_ms = "—" if r["library_ms"] is None else fmt(r["library_ms"])
         lib_dev = "—" if r["library_ms"] is None else fmt(r["library_dev"])
-        log(f"[summary] | {name} | {main_per[name]} ({per_forward['flagship'].get(name, 0)}) | "
+        flag = per_forward["flagship_128_switched" if name in new else "flagship"].get(name, 0)
+        log(f"[summary] | {name} | {main_per[name]} ({flag}) | "
             f"{main_counts[name]} | {fmt(r['ms'])} | {fmt(r['dev'])} | "
             f"{fmt(r['bound_ms'], 5)} ({by}) | {fmt(r['plain_ms'])} | {fmt(r['plain_dev'])} | "
             f"{lib_ms} | {lib_dev} |")

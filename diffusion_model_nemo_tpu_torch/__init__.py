@@ -5,9 +5,14 @@ and never ``jax`` or the JAX package. Its entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on CUDA the U-Net runs through
 hand-written Hopper kernels (``csrc/``, built at first use by
 ``ops/_build.py``), on the CPU through their plain PyTorch versions.
+Training: ``Trainer(...).fit(DDPM(cfg))`` (``training/``).
 """
 
-from . import config, models, modules, ops, serving, utils
+from . import config, data, loss, models, modules, ops, serving, training, utils
 from .models import DDPM
+from .training import Trainer
 
-__all__ = ["config", "models", "modules", "ops", "serving", "utils", "DDPM"]
+__all__ = [
+    "config", "data", "loss", "models", "modules", "ops", "serving", "training", "utils",
+    "DDPM", "Trainer",
+]

@@ -14,6 +14,9 @@
 //     on a raw qkv [B, N, 384] tensor (q | k | v columns), any dtype. It is
 //     the float32 U-Net's route. Its kv and apply stages load the qkv tile
 //     instead of projecting it; templated on float and bf16.
+//   * _linattn_block_kernel, v1 (launcher _pallas_linear_attention_block):
+//     the whole block again, with the prenorm affine NOT folded into W_qkv
+//     and with v1's own rounding points; see "v1" below.
 // The TPU packed its tokens 128 lanes wide (J = 128/C tokens per row); that
 // is a TPU layout device. Here a token is one row of C channels.
 //
@@ -419,6 +422,211 @@ size_t apply_smem(int C) { return sizeof(float) * (TN * C + 2 * TN * HD + GRAM);
 constexpr size_t QKV_KV_SMEM = sizeof(float) * (TN * 2 * HD + 3 * HD);
 constexpr size_t QKV_APPLY_SMEM = sizeof(float) * (TN * HD + GRAM);
 
+// ------------------------------------------------------------------- v1 --
+// TPU kernel #9 computes the block with its own seams (ops/attention.py:
+// 371-428): h = GroupNorm(1) with its affine in f32, rounded to bf16 for the
+// qkv product; q, k and v stay f32; the q softmax subtracts one row max over
+// all h*d columns and then divides by per-head sums; k_sm = exp(k - max) /
+// sum over N in f32, rounded to bf16 with v for the gram; the masked gram,
+// q_sm and attn rounded to bf16 for their products; f32 out-norm. Rounding
+// k_sm before the gram needs k's column max and sum over the whole sample
+// first, so the k/v stage runs twice: v1_kstats (online max and sum per
+// chunk, as kv_kernel) and v1_gram (k_sm and v per tile with the merged
+// statistics, plain per-chunk gram sums). A last merge adds the chunks in a
+// fixed order. xstats and outnorm are shared with the packed form.
+
+// Prenorm rows of sample b with the affine applied in f32, then bf16.
+__device__ __forceinline__ void load_tokens_affine(const __nv_bfloat16* __restrict__ x,
+                                                   const float* __restrict__ ng,
+                                                   const float* __restrict__ nb, float* h, int b,
+                                                   int N, int C, int n0, int rows, float2 st) {
+  const __nv_bfloat16* xs = x + (size_t(b) * N + n0) * C;
+  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+    const int c = i % C;
+    h[i] = dmn::bf16_round((__bfloat162float(xs[i]) - st.x) * st.y * ng[c] + nb[c]);
+  }
+}
+
+// out[r * ncols + j] = h[r] . W[:, col0 + j] for `rows` rows, f32 accumulation.
+__device__ __forceinline__ void project(const float* h, const __nv_bfloat16* __restrict__ w,
+                                        int rows, int C, int col0, int ncols, float* out) {
+  for (int i = threadIdx.x; i < rows * ncols; i += blockDim.x) {
+    const int r = i / ncols, j = i % ncols;
+    const float* hr = h + r * C;
+    float a = 0.f;
+    for (int c = 0; c < C; ++c) a += hr[c] * __bfloat162float(w[size_t(c) * QKV + col0 + j]);
+    out[i] = a;
+  }
+}
+
+// 2a. k projection and its online column max and sum over the chunk.
+// Dynamic shared memory: h[TN*C] + k[TN*HD] + m[HD] + s[HD].
+__global__ void v1_kstats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ng,
+                                 const float* __restrict__ nb, const __nv_bfloat16* __restrict__ w,
+                                 Scratch sc, int N, int C, float eps) {
+  extern __shared__ float smem[];
+  float* h = smem;
+  float* kt = h + TN * C;
+  float* mrun = kt + TN * HD;
+  float* srun = mrun + HD;
+  const int k = blockIdx.x, b = blockIdx.y, K = gridDim.x;
+  const float2 st = merge_stats(sc.xpart + size_t(b) * ceil_div(N, TN), ceil_div(N, TN),
+                                float(N) * C, eps);
+  if (threadIdx.x < HD) {
+    mrun[threadIdx.x] = -INFINITY;
+    srun[threadIdx.x] = 0.f;
+  }
+  const int c_end = min(N, (k + 1) * CHUNK);
+  for (int n0 = k * CHUNK; n0 < c_end; n0 += TN) {
+    const int rows = min(TN, c_end - n0);
+    __syncthreads();  // previous tile consumed
+    load_tokens_affine(x, ng, nb, h, b, N, C, n0, rows, st);
+    __syncthreads();
+    project(h, w, rows, C, HD, HD, kt);
+    __syncthreads();
+    if (threadIdx.x < HD) {
+      const int j = threadIdx.x;
+      float m = mrun[j];
+      for (int r = 0; r < rows; ++r) m = fmaxf(m, kt[r * HD + j]);
+      float s = srun[j] * __expf(mrun[j] - m);  // 0 on the first tile
+      for (int r = 0; r < rows; ++r) s += __expf(kt[r * HD + j] - m);
+      mrun[j] = m;
+      srun[j] = s;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < HD) {
+    const size_t bk = size_t(b) * K + k;
+    sc.mpart[bk * HD + threadIdx.x] = mrun[threadIdx.x];
+    sc.spart[bk * HD + threadIdx.x] = srun[threadIdx.x];
+  }
+}
+
+// 2b. k_sm = bf16(exp(k - M) / S) with the sample's column max M and sum S,
+// v = bf16(v); per-chunk masked gram sums k_sm^T v.
+// Dynamic shared memory: h[TN*C] + kv[TN*2*HD] + M[HD] + S[HD].
+__global__ void v1_gram_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ng,
+                               const float* __restrict__ nb, const __nv_bfloat16* __restrict__ w,
+                               Scratch sc, int N, int C, float eps) {
+  extern __shared__ float smem[];
+  float* h = smem;
+  float* kv = h + TN * C;
+  float* colm = kv + TN * 2 * HD;
+  float* cols = colm + HD;
+  const int k = blockIdx.x, b = blockIdx.y, K = gridDim.x;
+  const float2 st = merge_stats(sc.xpart + size_t(b) * ceil_div(N, TN), ceil_div(N, TN),
+                                float(N) * C, eps);
+  if (threadIdx.x < HD) {  // merge the chunks' column statistics, fixed order
+    const int j = threadIdx.x;
+    float M = -INFINITY;
+    for (int kk = 0; kk < K; ++kk) M = fmaxf(M, sc.mpart[(size_t(b) * K + kk) * HD + j]);
+    float S = 0.f;
+    for (int kk = 0; kk < K; ++kk) {
+      const size_t bk = size_t(b) * K + kk;
+      S += sc.spart[bk * HD + j] * __expf(sc.mpart[bk * HD + j] - M);
+    }
+    colm[j] = M;
+    cols[j] = S;
+  }
+  float acc[ACC];
+#pragma unroll
+  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
+  const int c_end = min(N, (k + 1) * CHUNK);
+  for (int n0 = k * CHUNK; n0 < c_end; n0 += TN) {
+    const int rows = min(TN, c_end - n0);
+    __syncthreads();  // previous tile consumed
+    load_tokens_affine(x, ng, nb, h, b, N, C, n0, rows, st);
+    __syncthreads();
+    project(h, w, rows, C, HD, 2 * HD, kv);
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * 2 * HD; i += blockDim.x) {
+      const int j = i % (2 * HD);
+      kv[i] = j < HD ? dmn::bf16_round(__expf(kv[i] - colm[j]) / cols[j]) : dmn::bf16_round(kv[i]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < ACC; ++a) {
+      const int idx = threadIdx.x + a * THREADS;
+      const int hh = idx >> 10, i = (idx >> 5) & 31, jj = idx & 31;
+      const int ck = hh * DH + i, cv = HD + hh * DH + jj;
+      float g = acc[a];
+      for (int r = 0; r < rows; ++r) g += kv[r * 2 * HD + ck] * kv[r * 2 * HD + cv];
+      acc[a] = g;
+    }
+  }
+  const size_t bk = size_t(b) * K + k;
+#pragma unroll
+  for (int a = 0; a < ACC; ++a) sc.gpart[bk * GRAM + threadIdx.x + a * THREADS] = acc[a];
+}
+
+// 3'. gram = bf16(sum of the chunk grams), fixed order.
+__global__ void v1_merge_kernel(Scratch sc, int K) {
+  const int b = blockIdx.x;
+  for (int e = threadIdx.x; e < GRAM; e += blockDim.x) {
+    float G = 0.f;
+    for (int k = 0; k < K; ++k) G += sc.gpart[(size_t(b) * K + k) * GRAM + e];
+    sc.gram[size_t(b) * GRAM + e] = dmn::bf16_round(G);
+  }
+}
+
+// 4'. q projection; softmax over d with one row max over all h*d columns and
+// per-head sums, x scale, bf16; q_sm . gram -> bf16; out projection + bias
+// -> y (f32) with the tile's partial statistics.
+// Dynamic shared memory: h[TN*C] + q[TN*HD] + att[TN*HD] + gram[GRAM].
+__global__ void v1_apply_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ng,
+                                const float* __restrict__ nb, const __nv_bfloat16* __restrict__ w,
+                                const __nv_bfloat16* __restrict__ wout,
+                                const float* __restrict__ bout, Scratch sc, int N, int C,
+                                float scale, float eps) {
+  extern __shared__ float smem[];
+  __shared__ float red[64];
+  float* h = smem;
+  float* q = h + TN * C;
+  float* att = q + TN * HD;
+  float* gram = att + TN * HD;
+  const int t = blockIdx.x, b = blockIdx.y, T = gridDim.x;
+  const int n0 = t * TN, rows = min(TN, N - n0);
+  const float2 st = merge_stats(sc.xpart + size_t(b) * T, T, float(N) * C, eps);
+  load_tokens_affine(x, ng, nb, h, b, N, C, n0, rows, st);
+  for (int i = threadIdx.x; i < GRAM; i += blockDim.x) gram[i] = sc.gram[size_t(b) * GRAM + i];
+  __syncthreads();
+  project(h, w, rows, C, 0, HD, q);
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    float* qr = q + r * HD;
+    float m = -INFINITY;
+    for (int j = 0; j < HD; ++j) m = fmaxf(m, qr[j]);
+    for (int hh = 0; hh < HEADS; ++hh) {
+      float* qh = qr + hh * DH;
+      float s = 0.f;
+      for (int d = 0; d < DH; ++d) {
+        qh[d] = __expf(qh[d] - m);
+        s += qh[d];
+      }
+      for (int d = 0; d < DH; ++d) qh[d] = dmn::bf16_round(qh[d] / s * scale);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x) att[i] = dmn::bf16_round(q_gram(q, gram, i));
+  __syncthreads();
+  float s = 0.f, ss = 0.f;
+  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+    const int r = i / C, c = i % C;
+    const float* ar = att + r * HD;
+    float a = 0.f;
+    for (int j = 0; j < HD; ++j) a += ar[j] * __bfloat162float(wout[size_t(j) * C + c]);
+    a += bout[c];
+    sc.ybuf[(size_t(b) * N + n0) * C + i] = a;
+    s += a;
+    ss += a * a;
+  }
+  const float2 tot = dmn::block_sum2(s, ss, red);
+  if (threadIdx.x == 0) sc.ypart[size_t(b) * T + t] = tot;
+}
+
+size_t v1_kstats_smem(int C) { return sizeof(float) * (TN * C + TN * HD + 2 * HD); }
+size_t v1_gram_smem(int C) { return sizeof(float) * (TN * C + TN * 2 * HD + 2 * HD); }
+
 template <typename T>
 int linattn_qkv(const void* qkv, void* out, void* scratch, int B, int N, float scale,
                 cudaStream_t stream) {
@@ -468,6 +676,39 @@ DMN_EXPORT int dmn_linattn_block(const void* x, const void* wqkv, const void* bq
   apply_kernel<<<dim3(T, B), THREADS, apply_smem(C), stream>>>(
       xb, wb, bq, static_cast<const __nv_bfloat16*>(wout), static_cast<const float*>(bout),
       nullptr, sc, N, C, 1, scale, eps);
+  outnorm_kernel<<<dim3(T, B), THREADS, 0, stream>>>(
+      xb, static_cast<const float*>(og), static_cast<const float*>(ob),
+      static_cast<__nv_bfloat16*>(out), sc, N, C, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whole block, v1 (TPU kernel #9): x [B,N,C] bf16 -> out [B,N,C] bf16.
+// ng, nb [C] f32 (the prenorm affine, not folded); wqkv [C,384] bf16;
+// wout [128,C] bf16; bout, og, ob [C] f32.
+DMN_EXPORT int dmn_linattn_block_v1(const void* x, const void* ng, const void* nb,
+                                    const void* wqkv, const void* wout, const void* bout,
+                                    const void* og, const void* ob, void* out, void* scratch,
+                                    int B, int N, int C, float scale, float eps, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  Scratch sc;
+  scratch_layout(B, N, C, 1, &sc, static_cast<float*>(scratch));
+  const int T = ceil_div(N, TN), K = ceil_div(N, CHUNK);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* g = static_cast<const float*>(ng);
+  const auto* be = static_cast<const float*>(nb);
+  const auto* wb = static_cast<const __nv_bfloat16*>(wqkv);
+  cudaError_t err = dmn::set_smem((const void*)v1_kstats_kernel, v1_kstats_smem(C));
+  if (err == cudaSuccess) err = dmn::set_smem((const void*)v1_gram_kernel, v1_gram_smem(C));
+  if (err == cudaSuccess) err = dmn::set_smem((const void*)v1_apply_kernel, apply_smem(C));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  xstats_kernel<<<dim3(T, B), THREADS, 0, stream>>>(xb, sc.xpart, N, C);
+  v1_kstats_kernel<<<dim3(K, B), THREADS, v1_kstats_smem(C), stream>>>(xb, g, be, wb, sc, N, C,
+                                                                        eps);
+  v1_gram_kernel<<<dim3(K, B), THREADS, v1_gram_smem(C), stream>>>(xb, g, be, wb, sc, N, C, eps);
+  v1_merge_kernel<<<B, THREADS, 0, stream>>>(sc, K);
+  v1_apply_kernel<<<dim3(T, B), THREADS, apply_smem(C), stream>>>(
+      xb, g, be, wb, static_cast<const __nv_bfloat16*>(wout), static_cast<const float*>(bout),
+      sc, N, C, scale, eps);
   outnorm_kernel<<<dim3(T, B), THREADS, 0, stream>>>(
       xb, static_cast<const float*>(og), static_cast<const float*>(ob),
       static_cast<__nv_bfloat16*>(out), sc, N, C, eps);

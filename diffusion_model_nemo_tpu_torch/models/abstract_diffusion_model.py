@@ -1,12 +1,13 @@
 """Base model: builds the network and the sampler from the config, owns the
-parameters and their EMA copy, and hot-swaps samplers.
+parameters and their EMA copy, sets up the training data, and hot-swaps
+samplers.
 
-Counterpart of the inference part of
-``diffusion_model_nemo_tpu/models/abstract_diffusion_model.py``. Parameters
-are ``state_dict``-style dicts of tensors (``params``, ``ema_params``) on the
-model's device; ``get_model_fn()`` returns ``model_fn(params, x, t)`` that
-runs the network with the given parameters. Training, bits/dim and ``.dmn``
-archives are not ported yet.
+Counterpart of ``diffusion_model_nemo_tpu/models/abstract_diffusion_model.py``
+without bits/dim, sample dumps and ``.dmn`` archives. Parameters are
+``state_dict``-style dicts of float32 tensors (``params``, ``ema_params``) on
+the model's device; ``get_model_fn()`` returns ``model_fn(params, x, t)``
+that runs the network with the given parameters (inference), and
+``train_model_fn`` the same with autograd.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch.func import functional_call
 
 from ..config.config import Config, from_dict
 from ..config.registry import get_target, instantiate
+from ..data.hf_vision_data import build_dataloader
 
 __all__ = ["AbstractDiffusionModel"]
 
@@ -32,6 +34,7 @@ class AbstractDiffusionModel:
         self.seed = int(seed)
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+        self._train_dl = None
 
     # ---- network plumbing -----------------------------------------------------
     def build_network(self) -> torch.nn.Module:
@@ -56,11 +59,28 @@ class AbstractDiffusionModel:
         with torch.inference_mode():
             return functional_call(self.diffusion_model, params, (x, t))
 
+    def train_model_fn(self, params, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """``model_fn`` with autograd on: gradients reach ``params``."""
+        return functional_call(self.diffusion_model, params, (x, t))
+
     def get_model_fn(self):
         return self.model_fn
 
     def forward(self, x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return self.model_fn(self.params, x_t, t)
+
+    # ---- data ------------------------------------------------------------------
+    def setup_training_data(self, train_data_config) -> None:
+        """The JAX package's training-data setup: shuffle on, and a synthetic
+        set defaults to the model's image size and channels."""
+        cfg = from_dict(train_data_config)
+        if "shuffle" in cfg:
+            cfg["shuffle"] = True
+        self._train_dl = None
+        if cfg.get("name") is not None:
+            cfg.setdefault("image_size", self.image_size)
+            cfg.setdefault("channels", self.channels)
+            self._train_dl = build_dataloader(cfg, mode="train")
 
     # ---- sampler hot-swap -----------------------------------------------------
     def change_sampler(self, sampler_cfg) -> None:

@@ -1,16 +1,24 @@
-"""DDPM model, inference part: network + sampler from the config, sampling.
+"""DDPM model: network + sampler + loss from the config, the training step
+and sampling.
 
-Counterpart of ``diffusion_model_nemo_tpu/models/ddpm.py`` (``sample``).
-Training, bits/dim, inpainting, editing and interpolation are not ported yet.
+Counterpart of ``diffusion_model_nemo_tpu/models/ddpm.py`` (``training_step``,
+``sample``). The JAX step splits one key into the flip, t and noise draws;
+here ``draw_training_inputs`` draws them from a ``torch.Generator`` and
+``training_step`` takes them as tensors, so a test can feed both packages
+the same draws (the two RNG streams differ). Min-SNR-γ weighting, offset
+noise, ``pred_v`` training, dropout, bits/dim, inpainting, editing and
+interpolation are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from ..config.registry import instantiate, register_target
+from ..data.hf_vision_data import preprocess_batch
+from ..modules.parts import not_ported
 from .abstract_diffusion_model import AbstractDiffusionModel
 
 __all__ = ["DDPM"]
@@ -22,8 +30,47 @@ class DDPM(AbstractDiffusionModel):
         super().__init__(cfg, device=device, seed=seed)
         self.diffusion_model = self.build_network()
         self.sampler = instantiate(self.cfg.sampler, device=self.device)
+        self.loss = instantiate(self.cfg.get("loss"))
         self.init_params()
 
+    # ---- training ------------------------------------------------------------
+    def _check_training_options(self) -> None:
+        for key in ("snr_gamma", "offset_noise_strength"):
+            if self.cfg.get(key):
+                raise not_ported("DDPM", f"{key}={self.cfg.get(key)}", "training extras")
+        if getattr(self.sampler, "objective", "pred_noise") == "pred_v":
+            raise not_ported("DDPM", "objective='pred_v' training", "training extras")
+        if float(self.cfg.diffusion_model.get("dropout") or 0.0) > 0:
+            raise not_ported("DDPM", "dropout > 0 in training", "training extras")
+        if self.loss is None:
+            raise ValueError("DDPM training needs a `loss` config")
+
+    def draw_training_inputs(self, shape, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        """One step's draws for a batch of images of ``shape`` [B, H, W, C]:
+        the horizontal-flip mask (p = 0.5), t ~ U[0, T) (int32) and the noise."""
+        B = shape[0]
+        dev = self.device
+        return {
+            "flip": torch.rand((B,), generator=generator, device=dev) < 0.5,
+            "t": torch.randint(0, self.timesteps, (B,), generator=generator, device=dev, dtype=torch.int32),
+            "noise": torch.randn(tuple(shape), generator=generator, device=dev, dtype=torch.float32),
+        }
+
+    def training_step(self, params, batch, draws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Algorithm 1 of DDPM on a raw uint8 batch with the step's draws:
+        preprocess (with the flip), then ``training_loss``."""
+        self._check_training_options()
+        x0 = preprocess_batch(batch, self.device, flip=draws["flip"])["pixel_values"]
+        return self.training_loss(params, x0, draws["t"], draws["noise"])
+
+    def training_loss(self, params, x0, t, noise) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """q_sample → network → loss against the true noise (the reference's
+        target for pred_noise and pred_x0 alike)."""
+        x_t = self.sampler.q_sample(x_start=x0, t=t, noise=noise)
+        loss = self.loss(input=self.train_model_fn(params, x_t, t), target=noise)
+        return loss, {"train_loss": loss}
+
+    # ---- sampling ------------------------------------------------------------
     def sample(
         self,
         batch_size: int,

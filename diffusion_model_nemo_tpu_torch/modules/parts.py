@@ -12,13 +12,17 @@ NHWC is contiguous and the kernels' ``[B, N, C]`` views cost nothing.
 
 Kept reference bug: ``Block`` runs conv→norm→act for both 'conv_bn_act' and
 'bn_act_conv'; 'true_bn_act_conv' is the corrected pre-activation order.
-ConvNeXt and FiLM blocks are not ported yet.
+``Block``/``FusedGroupNormSiLU`` take the JAX package's optional FiLM
+``scale_shift`` (kernel #5, or #6 under its switch); no module of the U-Net
+passes one. ConvNeXt blocks and the FiLM modules (``PositionalEncoding``,
+``FeatureWiseLinearModulation``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+import os
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -144,19 +148,26 @@ class GNParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
 
 
+ScaleShift = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
 class FusedGroupNormSiLU(GNParams):
-    """GroupNorm → SiLU as one fused op (Hopper kernel on CUDA)."""
+    """GroupNorm → optional FiLM x·(scale+1)+shift → SiLU as one fused op
+    (Hopper kernel on CUDA)."""
 
     def __init__(self, c, groups=8, eps=1e-5, dtype=torch.float32):
         super().__init__(c)
         self.groups, self.eps, self.dtype = groups, eps, resolve_dtype(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm_silu(x, self.weight, self.bias, self.groups, self.eps).to(self.dtype)
+    def forward(self, x: torch.Tensor, scale_shift: ScaleShift = None) -> torch.Tensor:
+        return group_norm_silu(
+            x, self.weight, self.bias, self.groups, self.eps, scale_shift=scale_shift
+        ).to(self.dtype)
 
 
 class Block(nn.Module):
-    """conv3×3 → GroupNorm → SiLU (dropout is an inference no-op)."""
+    """conv3×3 → GroupNorm → (optional FiLM scale/shift) → SiLU (dropout is
+    not ported: the U-Net raises for dropout > 0 in training)."""
 
     def __init__(self, c_in, c_out, groups=8, order="bn_act_conv", dtype=torch.float32):
         super().__init__()
@@ -167,10 +178,10 @@ class Block(nn.Module):
         norm_c = c_in if order == "true_bn_act_conv" else c_out
         self.norm = FusedGroupNormSiLU(norm_c, groups, 1e-5, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale_shift: ScaleShift = None) -> torch.Tensor:
         if self.order == "true_bn_act_conv":
-            return self.proj(self.norm(x))
-        return self.norm(self.proj(x))
+            return self.proj(self.norm(x, scale_shift))
+        return self.norm(self.proj(x), scale_shift)
 
 
 class ResnetBlock(nn.Module):
@@ -260,8 +271,11 @@ class SelfAttentionBlock(nn.Module):
 
     Dispatch follows the JAX package: the whole-block linear-attention kernel
     where ``use_packed_linattn_block`` holds, the bottleneck attention-block
-    kernel where ``use_small_attn_block`` holds, and the composed modules
-    otherwise (whose linear attention may still reach the qkv-fused kernel).
+    kernel where ``use_small_attn_block`` holds; then, for a linear block
+    under the switch ``DMN_TPU_PALLAS_LINATTN_BLOCK=1`` (read at call time),
+    the whole-block kernel v1 (#9, or the plain block where its rule fails);
+    and the composed modules otherwise (whose linear attention may still
+    reach the qkv-fused kernel).
     """
 
     def __init__(self, c, linear=True, heads=4, dim_head=32, dtype=torch.float32):
@@ -292,6 +306,14 @@ class SelfAttentionBlock(nn.Module):
                 self.heads, self.dim_head, scale, 1e-5,
             )
             return out.reshape(B, H, W, C).to(x.dtype)
+        if self.linear and os.environ.get("DMN_TPU_PALLAS_LINATTN_BLOCK") == "1":
+            out = A.fused_linear_attention_block(
+                x.reshape(shape).to(self.dtype), n.weight, n.bias,
+                a.to_qkv.weight.t(), a.to_out.weight.t(), a.to_out.bias,
+                a.out_norm.weight, a.out_norm.bias,
+                self.heads, self.dim_head, scale, 1e-5,
+            )
+            return out.reshape(B, H, W, C)
         h = A._gn1(x.reshape(shape).to(self.dtype), n.weight, n.bias, 1e-5)
         return self.attn(h.reshape(B, H, W, C)) + x
 

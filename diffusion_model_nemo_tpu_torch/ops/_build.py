@@ -134,6 +134,7 @@ def launch(stem: str, name: str, argtypes, *args) -> None:
 
 _ERROR_PREFIX = {
     "group_norm_silu": "gn",
+    "group_norm_bm": "gn_bm",
     "linear_attention": "linattn",
     "attention_block_small": "attn_small",
     "attention": "attn",

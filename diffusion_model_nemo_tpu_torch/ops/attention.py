@@ -15,11 +15,13 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Tuple
 
 import torch
 
 from . import _build
+from .recompute import kernel_call
 
 __all__ = [
     "attention_reference",
@@ -32,12 +34,15 @@ __all__ = [
     "use_linattn_tokens",
     "use_small_attn_block",
     "use_attention_kernel",
+    "use_linattn_block_v1",
     "fused_attention",
     "fused_linear_attention_qkv",
     "fused_linear_attention_tokens",
     "fused_linear_attention_block_packed",
+    "fused_linear_attention_block",
     "fused_attention_block_small",
     "linear_attention_block_cuda",
+    "linear_attention_block_v1_cuda",
     "linear_attention_tokens_cuda",
     "attention_block_small_cuda",
     "linear_attention_qkv_cuda",
@@ -48,6 +53,7 @@ __all__ = [
 # Launches of each kernel, counted where its wrapper launches it.
 LAUNCHES = {
     "linear_attention_block": 0,
+    "linear_attention_block_v1": 0,
     "linear_attention_tokens": 0,
     "attention_block_small": 0,
     "linear_attention_qkv": 0,
@@ -187,6 +193,15 @@ def use_small_attn_block(shape, dtype, heads: int, dim_head: int) -> bool:
     return (heads * dim_head) % 128 == 0 and N % 8 == 0 and 8 <= N <= 64 and heads * N <= 512
 
 
+def use_linattn_block_v1(shape, dtype, heads: int, dim_head: int) -> bool:
+    """The JAX package's rule for the whole-block kernel #9
+    (``_use_pallas_linattn_block``) as it reads on a TPU: bf16, 64 ≤ N ≤ 4096,
+    N % 8 == 0, h·d % 128 == 0, unless ``DMN_TPU_PALLAS_LINATTN=0``."""
+    if os.environ.get("DMN_TPU_PALLAS_LINATTN") == "0" or dtype != torch.bfloat16:
+        return False
+    return _use_linattn_qkv_kernel(shape, heads, dim_head)
+
+
 def use_attention_kernel(shape) -> bool:
     """The JAX package's rule for the softmax-attention kernel (``_use_pallas``
     without its ``DMN_TPU_PALLAS_ATTN`` opt-in): 1024 ≤ N ≤ 4096 on
@@ -195,11 +210,13 @@ def use_attention_kernel(shape) -> bool:
 
 
 # -------------------------------------------------------------- entry points --
+# Each kernel route is differentiable (``recompute.kernel_call``): its
+# backward recomputes the plain version, as the JAX package's custom_vjp does.
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """[B, N, h, d] (q pre-scaled) → [B, N, h, d]; k and v may be strided
     views (the DiT's qkv slices)."""
-    if use_attention_kernel(q.shape) and q.device.type != "cpu":
-        return attention_cuda(q, k, v)
+    if use_attention_kernel(q.shape):
+        return kernel_call(attention_cuda, attention_reference, q, k, v)
     return attention_reference(q, k, v)
 
 
@@ -208,8 +225,10 @@ def fused_linear_attention_qkv(
 ) -> torch.Tensor:
     """Raw qkv [B, N, 3·h·d] → [B, N, h·d] (the float32 U-Net's route at
     N ≥ 64, and any dtype the caller sends)."""
-    if _use_linattn_qkv_kernel(qkv.shape, heads, dim_head) and qkv.device.type != "cpu":
-        return linear_attention_qkv_cuda(qkv, heads, dim_head, scale)
+    if _use_linattn_qkv_kernel(qkv.shape, heads, dim_head):
+        return kernel_call(
+            linear_attention_qkv_cuda, linear_attention_qkv_reference, qkv, heads, dim_head, scale
+        )
     return linear_attention_qkv_reference(qkv, heads, dim_head, scale)
 
 
@@ -218,9 +237,10 @@ def fused_linear_attention_tokens(
 ) -> torch.Tensor:
     """Pre-normed tokens [B, N, C] + W_qkv [C, 3·h·d] → [B, N, h·d]."""
     if use_linattn_tokens(h.shape, h.dtype, heads, dim_head):
-        if h.device.type == "cpu":
-            return linear_attention_tokens_reference(h, w_qkv, heads, dim_head, scale)
-        return linear_attention_tokens_cuda(h, w_qkv, heads, dim_head, scale)
+        return kernel_call(
+            linear_attention_tokens_cuda, linear_attention_tokens_reference,
+            h, w_qkv, heads, dim_head, scale,
+        )
     qkv = h @ w_qkv.to(h.dtype)
     return fused_linear_attention_qkv(qkv, heads, dim_head, scale)
 
@@ -231,10 +251,26 @@ def fused_linear_attention_block_packed(
 ) -> torch.Tensor:
     """Whole ``Residual(PreNorm(LinearAttention))`` block on [B, N, C]
     where ``use_packed_linattn_block`` holds (callers check it first)."""
-    args = (x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta)
-    if x.device.type == "cpu":
-        return linear_attention_block_reference(*args, heads, dim_head, scale, eps)
-    return linear_attention_block_cuda(*args, heads, dim_head, scale, eps)
+    return kernel_call(
+        linear_attention_block_cuda, linear_attention_block_reference,
+        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+        heads, dim_head, scale, eps,
+    )
+
+
+def fused_linear_attention_block(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """The same block through TPU kernel #9 (v1, prenorm affine unfolded)
+    where ``use_linattn_block_v1`` holds, else the plain composition, as the
+    JAX package's ``fused_linear_attention_block`` (the module's route
+    under ``DMN_TPU_PALLAS_LINATTN_BLOCK=1``)."""
+    args = (x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+            heads, dim_head, scale, eps)
+    if use_linattn_block_v1(x.shape, x.dtype, heads, dim_head):
+        return kernel_call(linear_attention_block_v1_cuda, linear_attention_block_reference, *args)
+    return linear_attention_block_reference(*args)
 
 
 def fused_attention_block_small(
@@ -243,10 +279,10 @@ def fused_attention_block_small(
 ) -> torch.Tensor:
     """Whole bottleneck ``Residual(PreNorm(Attention))`` block on [B, N, C]
     where ``use_small_attn_block`` holds (callers check it first)."""
-    args = (x, norm_gamma, norm_beta, w_qkv, w_out, b_out)
-    if x.device.type == "cpu":
-        return attention_block_reference(*args, heads, dim_head, scale, eps)
-    return attention_block_small_cuda(*args, heads, dim_head, scale, eps)
+    return kernel_call(
+        attention_block_small_cuda, attention_block_reference,
+        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, heads, dim_head, scale, eps,
+    )
 
 
 # ------------------------------------------------------------ kernel wrappers --
@@ -314,6 +350,36 @@ def linear_attention_block_cuda(
         B, N, C, scale, eps, _stream(x),
     )
     LAUNCHES["linear_attention_block"] += 1
+    return out
+
+
+def linear_attention_block_v1_cuda(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Launch the whole-block kernel v1 (TPU kernel #9) on bf16 [B, N, C]:
+    the prenorm affine is applied in f32 before the bf16 qkv product, not
+    folded into W_qkv."""
+    B, N, C = _check_tokens(x, heads, dim_head, "linear_attention_block_v1_cuda")
+    hd = heads * dim_head
+    if w_qkv.shape != (C, 3 * hd) or w_out.shape != (hd, C):
+        raise ValueError(f"weights {tuple(w_qkv.shape)}, {tuple(w_out.shape)} do not fit C={C}")
+    smem = 4 * (32 * C + 2 * 32 * hd + 4 * 32 * 32)  # the apply stage's tiles
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"C={C} needs {smem} B of shared memory (> {_SMEM_LIMIT})")
+    wq = w_qkv.to(torch.bfloat16).contiguous()
+    wo = w_out.to(torch.bfloat16).contiguous()
+    ng, nb, bo, og, ob = (_f32(t) for t in (norm_gamma, norm_beta, b_out, out_gamma, out_beta))
+    out = torch.empty_like(x)
+    scratch = _linattn_scratch(B, N, C, True, x.device)
+    _build.launch(
+        "linear_attention", "dmn_linattn_block_v1",
+        [_VP] * 10 + [_CI, _CI, _CI, _CF, _CF, _VP],
+        x.data_ptr(), ng.data_ptr(), nb.data_ptr(), wq.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        og.data_ptr(), ob.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, N, C, scale, eps, _stream(x),
+    )
+    LAUNCHES["linear_attention_block_v1"] += 1
     return out
 
 

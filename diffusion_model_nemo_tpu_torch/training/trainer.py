@@ -1,0 +1,205 @@
+"""Training loop on one device.
+
+Counterpart of ``diffusion_model_nemo_tpu/training/trainer.py`` (``fit``,
+``_build_update_fn``, ``_apply_precision``). Config fields mirror the
+reference YAML ``trainer`` block. One optimizer step: the model's
+``training_step`` (loss of the network on the step's batch and draws),
+autograd, the global norm of the raw gradients (the ``grad_norm`` metric),
+global-norm clip + AdamW with its schedule (``optim.py``), then the EMA with
+its warm-up at the count of steps done before the update. Parameters,
+optimizer state and EMA live on the model's device and are updated in
+place; the host syncs only at the logging cadence.
+
+Options of the JAX trainer that would change the run and are not ported
+raise at ``fit`` start: gradient accumulation, ``steps_per_execution``,
+post-hoc EMA, any strategy but one device, resume, the profiler,
+checkpoints / exp_manager, and a ``save_every`` (sample dump, bits/dim)
+cadence that ``max_steps`` would cross. The data stream has no
+deterministic resume; the draws come from one ``torch.Generator`` seeded
+with ``seed``.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ..modules.parts import not_ported
+from .ema import ema_update, init_ema
+from .optim import Optimizer, build_optimizer, global_norm
+
+__all__ = ["Trainer", "TrainState"]
+
+log = logging.getLogger(__name__)
+
+_ONE_DEVICE_STRATEGIES = (None, "ddp", "none", "null", "auto", "dp", "single_device")
+
+
+@dataclass
+class TrainState:
+    params: Dict[str, torch.Tensor]
+    ema_params: Dict[str, torch.Tensor]
+    opt_state: Dict[str, Any]
+    step: int = 0
+
+
+class Trainer:
+    def __init__(
+        self,
+        devices: int = -1,
+        num_nodes: int = 1,
+        max_epochs: Optional[int] = None,
+        max_steps: Optional[int] = None,
+        accumulate_grad_batches: int = 1,
+        gradient_clip_val: Optional[float] = 1.0,
+        precision: Any = 32,
+        log_every_n_steps: int = 10,
+        ema_decay: float = 0.9999,
+        seed: int = 42,
+        strategy: Optional[str] = None,
+        steps_per_execution: int = 1,
+        profile_dir: Optional[str] = None,
+        terminate_on_nan: bool = True,
+        posthoc_ema_sigma_rels: Optional[Any] = None,
+        resume_from_checkpoint: Optional[str] = None,
+        enable_checkpointing: bool = False,
+        **_unused,
+    ):
+        self.devices, self.num_nodes = devices, num_nodes
+        self.max_epochs, self.max_steps = max_epochs, max_steps
+        self.accumulate_grad_batches = max(int(accumulate_grad_batches or 1), 1)
+        self.steps_per_execution = max(int(steps_per_execution or 1), 1)
+        self.gradient_clip_val = gradient_clip_val
+        self.precision = precision
+        self.log_every_n_steps = int(log_every_n_steps)
+        self.ema_decay = float(ema_decay)
+        self.seed = int(seed)
+        self.strategy = strategy
+        self.profile_dir = profile_dir
+        self.terminate_on_nan = bool(terminate_on_nan)
+        self.posthoc_ema_sigma_rels = posthoc_ema_sigma_rels
+        self.resume_from_checkpoint = resume_from_checkpoint
+        self.enable_checkpointing = bool(enable_checkpointing)
+        self.global_step = 0
+        self.optimizer: Optional[Optimizer] = None
+        self.lr_schedule = None
+        self.logged: List[Dict[str, float]] = []  # the metrics of each logging step
+
+    # ------------------------------------------------------------------ fit ----
+    def _check_ported(self, model, max_steps: int, resume_state) -> None:
+        def refuse(option: str):
+            raise not_ported("Trainer", option, "training services")
+
+        if self.accumulate_grad_batches > 1:
+            refuse(f"accumulate_grad_batches={self.accumulate_grad_batches}")
+        if self.steps_per_execution > 1:
+            refuse(f"steps_per_execution={self.steps_per_execution}")
+        if self.posthoc_ema_sigma_rels:
+            refuse("posthoc_ema_sigma_rels")
+        strategy = None if self.strategy is None else str(self.strategy).lower()
+        n = int(self.devices)
+        if n in (-1, 0):
+            n = torch.cuda.device_count() if model.device.type == "cuda" else 1
+        if strategy not in _ONE_DEVICE_STRATEGIES or n > 1 or int(self.num_nodes) > 1:
+            refuse(f"strategy={self.strategy!r} on {n} device(s) x {self.num_nodes} node(s)")
+        if resume_state is not None or self.resume_from_checkpoint:
+            refuse("resume")
+        if self.profile_dir:
+            refuse("profile_dir")
+        if self.enable_checkpointing:
+            refuse("checkpoints / exp_manager")
+        save_every = int(model.cfg.get("save_every", 0) or 0)
+        if save_every and max_steps >= save_every:
+            refuse(f"save_every={save_every} within max_steps={max_steps} (sample dump, compute_bpd)")
+
+    def init_state(self, model, max_steps: int) -> TrainState:
+        """Precision, the optimizer and its schedule, and fresh copies of the
+        model's parameters (leaves that require grad) and EMA."""
+        self._apply_precision(model)
+        self.optimizer, self.lr_schedule = build_optimizer(
+            model.cfg.get("optim"), max_steps, grad_clip=self.gradient_clip_val
+        )
+        params = {k: v.detach().clone().requires_grad_(True) for k, v in model.params.items()}
+        return TrainState(params, init_ema(model.ema_params), self.optimizer.init(params))
+
+    def train_step(self, model, state: TrainState, batch, draws) -> Dict[str, torch.Tensor]:
+        """One optimizer step on ``state``, in place; returns the step's
+        metrics as device tensors (``train_loss``, ``grad_norm``)."""
+        loss, metrics = model.training_step(state.params, batch, draws)
+        keys = list(state.params)
+        grads = dict(zip(keys, torch.autograd.grad(loss, [state.params[k] for k in keys])))
+        with torch.no_grad():
+            norm = global_norm(grads)
+            self.optimizer.step(state.params, grads, state.opt_state, grad_norm=norm)
+            ema_update(state.ema_params, state.params, self.ema_decay, state.step)
+        state.step += 1
+        return {k: v.detach() for k, v in metrics.items()} | {"grad_norm": norm}
+
+    def fit(self, model, resume_state: Optional[Dict[str, Any]] = None) -> None:
+        if model._train_dl is None and model.cfg.get("train_ds"):
+            model.setup_training_data(model.cfg.train_ds)
+        train_dl = model._train_dl
+        if train_dl is None:
+            raise ValueError("No training dataloader configured (model.cfg.train_ds)")
+        steps_per_epoch = max(len(train_dl), 1)
+        if self.max_steps:
+            max_steps = int(self.max_steps)
+        elif self.max_epochs:
+            max_steps = steps_per_epoch * int(self.max_epochs)
+        else:
+            raise ValueError("Either max_steps or max_epochs must be set")
+        self._check_ported(model, max_steps, resume_state)
+
+        state = self.init_state(model, max_steps)
+        generator = torch.Generator(device=model.device).manual_seed(self.seed)
+        log.info(f"Starting training: {max_steps} steps ({steps_per_epoch} steps/epoch)")
+        t_last, samples_since, epoch, done = time.perf_counter(), 0, 0, False
+        while not done:
+            for batch in train_dl:
+                if state.step >= max_steps:
+                    done = True
+                    break
+                draws = model.draw_training_inputs(batch["image"].shape, generator)
+                metrics = self.train_step(model, state, batch, draws)
+                self.global_step = state.step
+                samples_since += batch["image"].shape[0]
+                cadence = self.log_every_n_steps
+                if (cadence > 0 and state.step % cadence == 0) or state.step == max_steps:
+                    host = {k: float(v) for k, v in metrics.items()}
+                    if self.terminate_on_nan and not math.isfinite(host["train_loss"]):
+                        raise FloatingPointError(f"Non-finite train_loss at step {state.step}: {host}")
+                    now = time.perf_counter()
+                    host["learning_rate"] = float(self.lr_schedule(state.step))
+                    host["global_step"] = state.step
+                    host["samples_per_sec"] = samples_since / max(now - t_last, 1e-9)
+                    t_last, samples_since = now, 0
+                    self.logged.append(host)
+                    log.info(f"step {state.step}: " + ", ".join(f"{k}={v:.5g}" for k, v in host.items()))
+            epoch += 1
+            if self.max_epochs and epoch >= int(self.max_epochs) and not self.max_steps:
+                done = True
+        model.params = {k: v.detach() for k, v in state.params.items()}
+        model.ema_params = state.ema_params
+        log.info(f"Training finished at step {state.step}")
+
+    def _apply_precision(self, model) -> None:
+        """The reference YAML ``trainer.precision``: 32 keeps the configured
+        network dtype (bf16 for unet_small); 16/bf16 variants set bf16
+        compute (parameters stay float32); anything else warns."""
+        p = str(self.precision).lower().replace("-true", "").replace("-mixed", "")
+        if p in ("32", "32.0", "none", "float32", "fp32"):
+            return
+        if p in ("16", "16.0", "bf16", "bfloat16", "fp16"):
+            net_cfg = model.cfg.get("diffusion_model")
+            if net_cfg is None or str(net_cfg.get("dtype", "float32")) in ("bfloat16", "bf16"):
+                return
+            net_cfg["dtype"] = "bfloat16"
+            model.diffusion_model = model.build_network()
+            log.info(f"trainer.precision={self.precision} -> network compute dtype bfloat16")
+            return
+        log.warning(f"trainer.precision={self.precision!r} is not supported; using the model's dtype")

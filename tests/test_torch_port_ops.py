@@ -150,6 +150,77 @@ def test_group_norm_silu_film_plain_matches_jax():
     _close(_np(ours), ref, F32_TOL)
 
 
+# ------------------------------------------- kernel 5: GN + FiLM + SiLU, NHWC --
+def _jax_gn_film_kernel(x, gamma, beta, scale, shift, groups, eps=1e-5):
+    """The JAX package's Pallas FiLM kernel (ops/norm.py:_kernel_film) in
+    interpret mode, around the same pallas_call as ``_pallas_forward``."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    B, Hh, W, C = x.shape
+    x2 = x.reshape(B, Hh * W, C)
+    spec = pl.BlockSpec((1, Hh * W, C), lambda b: (b, 0, 0), memory_space=pltpu.VMEM)
+    chan = pl.BlockSpec((C,), lambda b: (0,), memory_space=pltpu.VMEM)
+    full = [jnp.broadcast_to(a, x.shape).reshape(B, Hh * W, C) for a in (scale, shift)]
+    out = pl.pallas_call(
+        functools.partial(JN._kernel_film, groups=groups, eps=eps),
+        out_shape=jax.ShapeDtypeStruct(x2.shape, x.dtype),
+        grid=(B,),
+        in_specs=[spec, chan, chan, spec, spec],
+        out_specs=spec,
+        interpret=True,
+    )(x2, gamma, beta, *full)
+    return out.reshape(B, Hh, W, C)
+
+
+FILM_F32_TOL = 1e-5
+
+
+@pytest.mark.parametrize("film", ["per_sample", "full", "per_channel"])
+def test_group_norm_silu_film_matches_jax(film):
+    """The port's plain version of kernel #5 against the JAX reference in
+    float32 (1e-5: the same one-pass statistics, summed in another order)
+    and against the JAX Pallas FiLM kernel in bf16 (2e-2)."""
+    B, Hh, W, C, groups = 2, 8, 8, 32, 8
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((B, Hh, W, C)) * 2.0 + 0.5
+    g, b = 1.0 + 0.1 * rng.standard_normal(C), 0.1 * rng.standard_normal(C)
+    sshape = {"per_sample": (B, 1, 1, C), "full": (B, Hh, W, C), "per_channel": (1, 1, 1, C)}[film]
+    sc, sh = rng.standard_normal(sshape) * 0.5, rng.standard_normal(sshape) * 0.5
+    f = torch.float32
+    ours = TN.group_norm_silu(_t(x, f), _t(g, f), _t(b, f), groups, scale_shift=(_t(sc, f), _t(sh, f)))
+    jf = [_j(a, jnp.float32) for a in (x, g, b, sc, sh)]
+    ref = _JGN(jf[0], jf[1], jf[2], groups, 1e-5, jf[3], jf[4])
+    _close(_np(ours), ref, FILM_F32_TOL)
+    bf = torch.bfloat16
+    ours_b = TN.group_norm_silu(_t(x, bf), _t(g, f), _t(b, f), groups, scale_shift=(_t(sc, f), _t(sh, f)))
+    kernel = _jax_gn_film_kernel(_j(x, jnp.bfloat16), *jf[1:3], *jf[3:], groups)
+    _close(_np(ours_b), kernel, BF16_TOL)
+
+
+# ---------------------------------------- kernel 6: batch-minor GN(+FiLM)+SiLU --
+@pytest.mark.parametrize("shape", [(128, 8, 8, 32), (128, 4, 4, 64), (256, 4, 4, 32)])
+def test_group_norm_silu_batch_minor_matches_jax_kernel(shape):
+    """The port's plain version (what kernel #6 is held against on the card)
+    against the JAX Pallas batch-minor kernel in interpret mode, at the
+    shapes and tolerances of tests/test_ops_kernels.py (bf16, atol 2e-2
+    plain, 5e-2 with FiLM)."""
+    B, Hh, W, C = shape
+    rng = np.random.default_rng(12)
+    x, g, b = rng.standard_normal(shape), rng.standard_normal(C), rng.standard_normal(C)
+    sc, sh = rng.standard_normal((B, 1, 1, C)), rng.standard_normal((B, 1, 1, C))
+    jx = _j(x, jnp.bfloat16)
+    jg, jb, jsc, jsh = (_j(a, jnp.float32) for a in (g, b, sc, sh))
+    f = torch.float32
+    tx = _t(x, torch.bfloat16)
+    ours = TN.group_norm_silu_reference(tx, _t(g, f), _t(b, f), 8)
+    kernel = JN._pallas_forward_bm(jx, jg, jb, 8, 1e-5, interpret=True)
+    np.testing.assert_allclose(_np(ours), np.asarray(kernel, np.float32), atol=2e-2)
+    ours_f = TN.group_norm_silu_reference(tx, _t(g, f), _t(b, f), 8, 1e-5, _t(sc, f), _t(sh, f))
+    kernel_f = JN._pallas_forward_bm(jx, jg, jb, 8, 1e-5, jsc, jsh, interpret=True)
+    np.testing.assert_allclose(_np(ours_f), np.asarray(kernel_f, np.float32), atol=5e-2)
+
+
 # ------------------------------------------- kernel 2: packed linattn block --
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 256, 32), (2, 128, 64)])
@@ -208,6 +279,25 @@ def test_attention_block_small_matches_jax(shape, dtype):
     if dtype == "bfloat16":
         kernel = JA._pallas_attn_block_small(*jargs, H, D, SCALE, 1e-5, interpret=True)
         _close(_np(ours), kernel, tol)
+
+
+# ------------------------------------- kernel 9: whole linattn block, v1 --
+@pytest.mark.parametrize("shape", [(2, 64, 64), (2, 256, 32)])
+def test_linear_attention_block_v1_matches_jax(shape):
+    """The port's plain block (what kernel #9 is held against on the card)
+    against the JAX Pallas v1 kernel in interpret mode in bf16 (2e-2), and
+    against the JAX composition in float32 (1e-5)."""
+    B, N, C = shape
+    p = _block_params(13, C)
+    x = np.random.default_rng(14).standard_normal(shape) * 0.5
+    names = ("ng", "nb", "wqkv", "wout", "bout", "og", "ob")
+    tw = [_t(p[k], torch.float32) for k in names]
+    jw = [_j(p[k], jnp.float32) for k in names]
+    ours = TA.linear_attention_block_reference(_t(x, torch.bfloat16), *tw, H, D, SCALE)
+    kernel = JA._pallas_linear_attention_block(_j(x, jnp.bfloat16), *jw, H, D, SCALE, 1e-5, interpret=True)
+    _close(_np(ours), kernel, BF16_TOL)
+    ours32 = TA.linear_attention_block_reference(_t(x, torch.float32), *tw, H, D, SCALE)
+    _close(_np(ours32), _JBLOCK(_j(x, jnp.float32), *jw, H, D, SCALE), FILM_F32_TOL)
 
 
 # ------------------------------------- kernel 8: linear attention on raw qkv --
@@ -317,18 +407,80 @@ def test_dispatch_rules_match_jax_on_tpu(monkeypatch, ours, theirs, flag):
             assert ours(shape, dtype_t, H, D) == expect, (shape, dtype_t)
 
 
+def _jax_bm_rule_inputs(shape, dtype_j, scale_shape):
+    x = jax.ShapeDtypeStruct(shape, dtype_j)
+    return x, (None if scale_shape is None else np.zeros(scale_shape, np.float32))
+
+
+@pytest.mark.parametrize("flag", ["1", "interpret", "0", None])
+def test_norm_bm_rule_matches_jax_on_tpu(monkeypatch, flag):
+    """``use_norm_bm`` equals the JAX package's ``_use_pallas_bm`` as it reads
+    on a TPU, under each value of ``DMN_TPU_PALLAS_NORM_BM``, with and
+    without FiLM (per sample, per channel)."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    if flag is None:
+        monkeypatch.delenv("DMN_TPU_PALLAS_NORM_BM", raising=False)
+    else:
+        monkeypatch.setenv("DMN_TPU_PALLAS_NORM_BM", flag)
+    for B in (64, 128, 256):
+        for HW in (4, 8, 16, 32):
+            for C in (32, 64, 128, 256):
+                for dt_t, dt_j in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+                    for sshape in (None, (B, 1, 1, C), (1, 1, 1, C)):
+                        shape = (B, HW, HW, C)
+                        x, sc = _jax_bm_rule_inputs(shape, dt_j, sshape)
+                        ours = TN.use_norm_bm(shape, dt_t, None if sc is None else sc.size)
+                        assert ours == JN._use_pallas_bm(x, sc), (shape, dt_t, sshape)
+
+
+@pytest.mark.parametrize("flag", [None, "0", "1"])
+def test_linattn_block_v1_rule_matches_jax_on_tpu(monkeypatch, flag):
+    """``use_linattn_block_v1`` equals ``_use_pallas_linattn_block`` as it
+    reads on a TPU (``DMN_TPU_PALLAS_LINATTN=0`` turns it off)."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    if flag is None:
+        monkeypatch.delenv("DMN_TPU_PALLAS_LINATTN", raising=False)
+    else:
+        monkeypatch.setenv("DMN_TPU_PALLAS_LINATTN", flag)
+    for dt_t, dt_j in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+        for shape in _SHAPES:
+            expect = JA._use_pallas_linattn_block(jax.ShapeDtypeStruct(shape, dt_j), H, D)
+            assert TA.use_linattn_block_v1(shape, dt_t, H, D) == expect, (shape, dt_t)
+
+
+def test_switched_routes_never_reach_a_plain_version(monkeypatch):
+    """Under the two switches a tensor off the CPU goes to kernel #6's or #9's
+    wrapper, which raises unless it is a CUDA tensor (meta stands in)."""
+    monkeypatch.setenv("DMN_TPU_PALLAS_NORM_BM", "1")
+    meta = dict(device="meta")
+    x = torch.empty(128, 8, 8, 32, dtype=torch.bfloat16, **meta)
+    g = torch.ones(32, **meta)
+    with pytest.raises(ValueError, match="group_norm_silu_bm_cuda needs a CUDA tensor"):
+        TN.group_norm_silu(x, g, g, 8)
+    per_sample = torch.empty(128, 1, 1, 32, **meta)
+    with pytest.raises(ValueError, match="group_norm_silu_bm_cuda needs a CUDA tensor"):
+        TN.group_norm_silu(x, g, g, 8, scale_shift=(per_sample, per_sample))
+    full = torch.empty(128, 8, 8, 32, **meta)  # not per (sample, channel): kernel #5
+    with pytest.raises(ValueError, match="group_norm_silu_film_cuda needs a CUDA tensor"):
+        TN.group_norm_silu(x, g, g, 8, scale_shift=(full, full))
+    tok = torch.empty(2, 64, 64, dtype=torch.bfloat16, **meta)
+    w = torch.empty(64, 3 * HD, **meta)
+    wo, v = torch.empty(HD, 64, **meta), torch.empty(64, **meta)
+    with pytest.raises(ValueError, match="linear_attention_block_v1_cuda needs a CUDA tensor"):
+        TA.fused_linear_attention_block(tok, v, v, w, wo, v, v, v, H, D, SCALE)
+
+
 # ------------------------------------------------ no quiet fallback off the CPU --
 def test_non_cpu_tensors_never_reach_a_plain_version():
     """A tensor that is not on the CPU goes to the kernel wrapper, which
-    raises unless it is a CUDA tensor; the unported FiLM route raises
-    NotImplementedError naming its kernel (meta tensors stand in for CUDA
-    ones here)."""
+    raises unless it is a CUDA tensor; the FiLM route goes to kernel #5's
+    wrapper (meta tensors stand in for CUDA ones here)."""
     meta = dict(device="meta")
     x = torch.empty(2, 8, 8, 32, dtype=torch.bfloat16, **meta)
     g = torch.ones(32, **meta)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TN.group_norm_silu(x, g, g, 8)
-    with pytest.raises(NotImplementedError, match="#5"):
+    with pytest.raises(ValueError, match="group_norm_silu_film_cuda needs a CUDA tensor"):
         TN.group_norm_silu(x, g, g, 8, scale_shift=(x, x))
     tok = torch.empty(2, 256, 32, dtype=torch.bfloat16, **meta)
     w = torch.empty(32, 3 * HD, **meta)

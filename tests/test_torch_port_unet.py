@@ -12,6 +12,7 @@ qkv-fused route at 8×8, and the bottleneck attention block at 8×8.
 import os
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 import jax
@@ -30,7 +31,10 @@ from diffusion_model_nemo_tpu_torch.modules.generalized_gaussian_diffusion impor
     GeneralizedGaussianDiffusion,
 )
 from diffusion_model_nemo_tpu_torch.modules.unet import Unet
+from diffusion_model_nemo_tpu.modules.parts import Block as JBlock
+from diffusion_model_nemo_tpu_torch.modules.parts import Block, SelfAttentionBlock
 from diffusion_model_nemo_tpu_torch.ops import attention as TA
+from diffusion_model_nemo_tpu_torch.ops import norm as TN
 from diffusion_model_nemo_tpu_torch.utils.weights import from_flax_params, to_flax_params
 
 REPO = Path(__file__).resolve().parents[1]
@@ -237,3 +241,117 @@ def test_port_import_loads_neither_jax_nor_the_jax_package():
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
+
+
+# ---------------------------------------------------- FiLM Block (kernel #5) --
+@pytest.mark.parametrize("film", ["per_sample", "full"])
+def test_block_with_scale_shift_matches_jax(film):
+    """``Block(x, scale_shift)`` (conv → GroupNorm → FiLM → SiLU) against the
+    JAX ``Block`` with the same weights through the weight carrier, float32
+    (1e-4: a 3×3 conv summed in another order, then the GroupNorm)."""
+    B, S, C_in, C = 2, 8, 16, 32
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((B, S, S, C_in)).astype(np.float32)
+    sshape = (B, 1, 1, C) if film == "per_sample" else (B, S, S, C)
+    sc = (0.5 * rng.standard_normal(sshape)).astype(np.float32)
+    sh = (0.5 * rng.standard_normal(sshape)).astype(np.float32)
+    jblock = JBlock(C, groups=8)
+    params = jblock.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
+    params = jax.tree.map(lambda a: np.asarray(a) + 0.1 * rng.standard_normal(np.shape(a)).astype(np.float32), params)
+    ref = jblock.apply({"params": params}, jnp.asarray(x), scale_shift=(jnp.asarray(sc), jnp.asarray(sh)))
+    block = Block(C_in, C, groups=8)
+    block.load_state_dict(from_flax_params(params, block))
+    with torch.no_grad():
+        ours = block(torch.from_numpy(x), (torch.from_numpy(sc), torch.from_numpy(sh)))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- routes under the switches --
+_SWITCHES = ("DMN_TPU_PALLAS_NORM_BM", "DMN_TPU_PALLAS_LINATTN_BLOCK", "DMN_TPU_PALLAS_LINATTN")
+
+
+def _route_counts(monkeypatch, dim_mults, B, env):
+    """Kernel launches per forward that the dispatch chooses for a tensor off
+    the CPU: the bf16 U-Net runs on meta tensors (shapes only) with every
+    differentiable kernel call recorded by its wrapper's name."""
+    for k in _SWITCHES:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    counts = Counter()
+
+    def record(kernel, plain, *args):
+        counts[kernel.__name__.removesuffix("_cuda")] += 1
+        return plain(*args)
+
+    monkeypatch.setattr(TN, "kernel_call", record)
+    monkeypatch.setattr(TA, "kernel_call", record)
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+
+    cfg = dict(unet_small_model_config()["diffusion_model"], dim_mults=dim_mults)
+    cfg.pop("_target_")
+    net = Unet(**cfg).to("meta")
+    out = net(torch.empty(B, 32, 32, 3, device="meta"), torch.empty(B, dtype=torch.int32, device="meta"))
+    assert out.shape == (B, 32, 32, 3)
+    return dict(counts)
+
+
+_BM, _V1 = {"DMN_TPU_PALLAS_NORM_BM": "1"}, {"DMN_TPU_PALLAS_LINATTN_BLOCK": "1"}
+_ROUTES = [
+    # unet_small [1, 2, 4, 8]: 35 GroupNorm sites, 8 of them at C = 256
+    ("unet_small", (1, 2, 4, 8), 128, {}, dict(group_norm_silu=35, linear_attention_block=4,
+                                               linear_attention_tokens=1, attention_block_small=1)),
+    ("unet_small", (1, 2, 4, 8), 128, _BM, dict(group_norm_silu_bm=27, group_norm_silu=8, linear_attention_block=4,
+                                                linear_attention_tokens=1, attention_block_small=1)),
+    ("unet_small", (1, 2, 4, 8), 128, _V1, dict(group_norm_silu=35, linear_attention_block=4,
+                                                linear_attention_block_v1=1, attention_block_small=1)),
+    ("unet_small", (1, 2, 4, 8), 128, {**_BM, **_V1}, dict(
+        group_norm_silu_bm=27, group_norm_silu=8, linear_attention_block=4,
+        linear_attention_block_v1=1, attention_block_small=1)),
+    # B % 128 != 0: no batch-minor site
+    ("unet_small", (1, 2, 4, 8), 64, {**_BM, **_V1}, dict(group_norm_silu=35, linear_attention_block=4,
+                                                          linear_attention_block_v1=1, attention_block_small=1)),
+    # DMN_TPU_PALLAS_LINATTN=0 turns #9 off: its block runs the plain composition
+    ("unet_small", (1, 2, 4, 8), 128, {**_V1, "DMN_TPU_PALLAS_LINATTN": "0"}, dict(
+        group_norm_silu=35, linear_attention_block=4, attention_block_small=1)),
+    # flagship [1, 2, 2, 2]: every site at C <= 128
+    ("flagship", (1, 2, 2, 2), 128, {}, dict(group_norm_silu=35, linear_attention_block=3,
+                                             linear_attention_tokens=2, attention_block_small=1)),
+    ("flagship", (1, 2, 2, 2), 128, {**_BM, **_V1}, dict(group_norm_silu_bm=35, linear_attention_block=3,
+                                                         linear_attention_block_v1=2, attention_block_small=1)),
+]
+
+
+@pytest.mark.parametrize("name,dim_mults,B,env,expect", _ROUTES,
+                         ids=[f"{r[0]}-B{r[2]}-{'+'.join(sorted(r[3])) or 'default'}" for r in _ROUTES])
+def test_kernel_routes_under_the_switches(monkeypatch, name, dim_mults, B, env, expect):
+    assert _route_counts(monkeypatch, list(dim_mults), B, env) == expect
+
+
+def test_linear_block_switch_keeps_the_math_and_the_gradients(monkeypatch):
+    """``DMN_TPU_PALLAS_LINATTN_BLOCK=1`` routes a linear SelfAttentionBlock to
+    the whole-block call (#9 or its plain block); in float32 on the CPU it
+    computes the composed block to 1e-5 and gives every parameter a
+    gradient that matches the composed path's."""
+    monkeypatch.delenv("DMN_TPU_PALLAS_LINATTN_BLOCK", raising=False)
+    blk = SelfAttentionBlock(32, linear=True)
+    g = torch.Generator().manual_seed(3)
+    for p in blk.parameters():
+        with torch.no_grad():
+            p.add_(0.1 * torch.randn(p.shape, generator=g))
+    blk.attn.to_qkv.reset_parameters(g)
+    blk.attn.to_out.reset_parameters(g)
+    x = torch.randn(2, 8, 8, 32, generator=g)
+    grads = []
+    for switch in (None, "1"):
+        if switch:
+            monkeypatch.setenv("DMN_TPU_PALLAS_LINATTN_BLOCK", switch)
+        blk.zero_grad()
+        out = blk(x)
+        out.square().sum().backward()
+        grads.append((out.detach(), {n: p.grad.clone() for n, p in blk.named_parameters()}))
+    (o0, g0), (o1, g1) = grads
+    torch.testing.assert_close(o1, o0, rtol=1e-5, atol=1e-5)
+    assert set(g0) == set(g1) and len(g1) == 7
+    for n in g0:
+        torch.testing.assert_close(g1[n], g0[n], rtol=1e-4, atol=1e-5, msg=n)
