@@ -9,7 +9,8 @@ Paths: unet_small (bf16, 32 px) trained at batch 128 and served, on kernels
 (``DMN_TPU_PALLAS_NORM_BM=1``) and #9 (``DMN_TPU_PALLAS_LINATTN_BLOCK=1``);
 ``Block(x, scale_shift)`` at unet_small's GroupNorm sites on #5 (and #6
 under its switch); DiT-S/2 (bf16, 64 px) on kernel #7; the float32
-unet_small on kernels #1 and #8.
+unet_small on kernels #1 and #8; the kernel microbenchmarks
+(``diffusion_model_nemo_tpu_torch/tools/``) on #10-#13.
 
 Phases:
   1. Print the card (``nvidia-smi`` name and power limit) and build the
@@ -60,6 +61,17 @@ Phases:
   Every new kernel (#5, #6 plain and FiLM, #9) is held against its plain
   version at every shape these paths give it, as in phase 2, and so are
   #1-#4 at the training step's B=128 shapes.
+  7. The tools path: the three microbenchmarks' ``run()`` at their full
+     shapes (``microbench_attn``: composed, #9, #10 at [128,1024,32] and
+     [128,256,64]; ``microbench_conv``: cuDNN and #11 at six shapes;
+     ``microbench_attn_lanes``: #3 and #12 at the attention shapes, #13 at
+     [4096|8192|32768, 128]), their lines logged as ``[tool]``; every
+     kernel's launches equal the calls the tools made; #10-#13 held against
+     their plain versions at every shape the tools give them (bf16 2e-2),
+     #10-#12 also in float32 at one shape (1e-4), #13 bit for bit, and timed
+     as in phase 2; ``conv3x3_tap_split`` under ``DMN_TPU_TAP_SPLIT_CONV=1``
+     launches #11 once forward and nothing backward, its gradients against
+     autograd through the plain conv.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -110,8 +122,18 @@ MAIN_CFG = {
     "group_norm_silu_film": "film_block",
     "group_norm_silu_bm": "unet_small_128_switched",
     "linear_attention_block_v1": "unet_small_128_switched",
+    "linear_attention_block_v2": "tools",
+    "conv3x3": "tools",
+    "linear_attention_v4": "tools",
+    "transpose2d": "tools",
 }
 FILM_KERNELS = ("group_norm_silu_film", "group_norm_silu_bm")
+TOOL_KERNELS = ("linear_attention_block_v2", "conv3x3", "linear_attention_v4", "transpose2d")
+TOOL_REPS, TOOL_ROUNDS = 10, 3  # the tools' timing in phase 7 (their CLI defaults: 50, 5)
+EXACT = ("transpose2d",)  # moves bits: held bit for bit
+# The tool shape (recorded call key) at which #10-#12 are also held in float32.
+TOOL_F32_KEYS = {"linear_attention_block_v2": (128, 256, 64), "linear_attention_v4": (128, 128, 128),
+                 "conv3x3": (128, 16, 16, 32, 32)}
 
 
 def log(msg: str) -> None:
@@ -146,7 +168,7 @@ HAND_KERNELS = (
     "gn_silu_kernel", "xstats_kernel", "kv_kernel", "merge_kernel", "apply_kernel",
     "outnorm_kernel", "attn_block_small_kernel", "qkv_kv_kernel", "qkv_apply_kernel",
     "attn_fwd_kernel", "bm_stats_kernel", "bm_apply_kernel", "v1_kstats_kernel",
-    "v1_gram_kernel", "v1_merge_kernel", "v1_apply_kernel",
+    "v1_gram_kernel", "v1_merge_kernel", "v1_apply_kernel", "conv3x3_kernel", "transpose2d_kernel",
 )
 
 
@@ -188,7 +210,7 @@ def add(acc, v):
 # --------------------------------------------------------------- kernel table --
 def kernel_table(port):
     """name -> (wrapper module, wrapper attribute, plain version, source, TPU kernel)."""
-    A, N = port.ops.attention, port.ops.norm
+    A, N, C, T = port.ops.attention, port.ops.norm, port.ops.conv, port.ops.transpose
     return {
         "group_norm_silu": (
             N, "group_norm_silu_cuda", N.group_norm_silu_reference,
@@ -235,6 +257,26 @@ def kernel_table(port):
             "diffusion_model_nemo_tpu_torch/csrc/linear_attention.cu",
             "diffusion_model_nemo_tpu/ops/attention.py:353",
         ),
+        "linear_attention_block_v2": (
+            A, "linear_attention_block_v2_cuda", A.linear_attention_block_v2_reference,
+            "diffusion_model_nemo_tpu_torch/csrc/linear_attention.cu",
+            "diffusion_model_nemo_tpu/ops/attention.py:535",
+        ),
+        "conv3x3": (
+            C, "conv3x3_cuda", C.conv3x3_reference,
+            "diffusion_model_nemo_tpu_torch/csrc/conv3x3.cu",
+            "diffusion_model_nemo_tpu/ops/conv.py:75",
+        ),
+        "linear_attention_v4": (
+            A, "linear_attention_v4_cuda", A.linear_attention_v4_reference,
+            "diffusion_model_nemo_tpu_torch/csrc/linear_attention.cu",
+            "tools/microbench_attn_lanes.py:33",
+        ),
+        "transpose2d": (
+            T, "transpose2d_cuda", T.transpose2d_reference,
+            "diffusion_model_nemo_tpu_torch/csrc/transpose.cu",
+            "tools/microbench_attn_lanes.py:94",
+        ),
     }
 
 
@@ -251,10 +293,12 @@ def copy_arg(a, dtype=None):
 
 def call_key(name, args):
     """A recorded call's key: x's shape, and the FiLM scale's shape where
-    the GroupNorm call has one."""
+    the GroupNorm call has one, F where the conv has it."""
     key = tuple(args[0].shape)
     if name in FILM_KERNELS and len(args) > 5 and args[5] is not None:
         key += ("film",) + tuple(args[5].shape)
+    if name == "conv3x3":
+        key += (args[1].shape[-1],)
     return key
 
 
@@ -314,18 +358,30 @@ def work(name, args):
         film = args[5:7] if len(args) > 5 and args[5] is not None else ()
         film_bytes = sum(a.numel() * a.element_size() for a in film)
         return 2 * n * es + 2 * C * 4 + film_bytes, (14 if film else 11) * n, "f32"
-    Bn, Nn, C = x.shape
+    if name == "conv3x3":  # x, w, b in, y out; 9·C MACs per output
+        w, b = args[1], args[2]
+        Bn, H, W, C = x.shape
+        y_bytes = Bn * H * W * w.shape[-1] * es
+        wb_bytes = sum(a.numel() * a.element_size() for a in (w, b) if a is not None)
+        return x.numel() * es + y_bytes + wb_bytes, 2 * Bn * H * W * 9 * C * w.shape[-1], kind
+    if name == "transpose2d":  # each element read once and written once
+        return 2 * x.numel() * es, 0, kind
+    if name == "linear_attention_v4":  # x is [B, N·C/128, 128]; N is args[2]
+        Bn, Nn = x.shape[0], args[2]
+        C = x.numel() // (Bn * Nn)
+    else:
+        Bn, Nn, C = x.shape
     hd = 128
-    if name == "linear_attention_tokens":
+    if name in ("linear_attention_tokens", "linear_attention_v4"):
         io_bytes = x.numel() * es + Bn * Nn * hd * es + C * 3 * hd * 4
-        return io_bytes, Bn * Nn * (2 * C * 3 * hd + 2 * 2 * 32 * 32 * 4), "bf16"
+        return io_bytes, Bn * Nn * (2 * C * 3 * hd + 2 * 2 * 32 * 32 * 4), kind
     weights = (C * 3 * hd + hd * C + 3 * C) * 4 + 2 * C * 4
     io_bytes = 2 * x.numel() * es + weights
-    if name in ("linear_attention_block", "linear_attention_block_v1"):
+    if name in ("linear_attention_block", "linear_attention_block_v1", "linear_attention_block_v2"):
         ops = Bn * Nn * (2 * C * 3 * hd + 2 * 2 * 32 * 32 * 4 + 2 * hd * C)
     else:  # attention_block_small
         ops = Bn * (2 * Nn * C * 3 * hd + 2 * 2 * Nn * Nn * hd + 2 * Nn * hd * C)
-    return io_bytes, ops, "bf16"
+    return io_bytes, ops, kind
 
 
 def library_fn(name, args):
@@ -358,6 +414,13 @@ def library_fn(name, args):
             return F.linear(o.transpose(1, 2).reshape(Bn, Nn, heads * dh), wo, bo) + x
 
         return run
+    if name == "conv3x3":  # cuDNN on a channels_last view of the NHWC data
+        from diffusion_model_nemo_tpu_torch.tools.microbench_conv import library_conv
+
+        return library_conv(*args)
+    if name == "transpose2d":
+        x = args[0]
+        return lambda: x.t().contiguous()
     return None
 
 
@@ -374,7 +437,7 @@ def check_kernels(port, calls_by_cfg):
             mod, attr, plain, _src, _rep = table[name]
             wrapper = getattr(mod, attr)
             for key, (count, args) in sorted(shapes.items()):
-                tol = TOL if args[0].dtype == torch.bfloat16 else F32_TOL
+                tol = 0.0 if name in EXACT else TOL if args[0].dtype == torch.bfloat16 else F32_TOL
                 out_k = wrapper(*args).float()
                 out_p = plain(*args).float()
                 torch.cuda.synchronize()
@@ -924,6 +987,85 @@ def step_profile(port, model):
         log(f"[train]   {v:.4f} ms  {n[:110]}")
 
 
+# ------------------------------------------------------------- the tools path --
+def run_tools():
+    """The three kernel microbenchmarks at their full shapes; their rows."""
+    from diffusion_model_nemo_tpu_torch.tools import microbench_attn, microbench_attn_lanes, microbench_conv
+
+    rows = []
+    for tool in (microbench_attn, microbench_conv, microbench_attn_lanes):
+        t0 = time.perf_counter()
+        tool_rows = tool.run(device="cuda", reps=TOOL_REPS, rounds=TOOL_ROUNDS)
+        log(f"[tool] {tool.__name__.rsplit('.', 1)[-1]} (reps={TOOL_REPS}, rounds={TOOL_ROUNDS}, "
+            f"{time.perf_counter() - t0:.1f} s; {card_line()}):")
+        for line in tool.report(tool_rows):
+            log(f"[tool]   {line}")
+        rows += tool_rows
+    return rows
+
+
+def check_tools(port):
+    """Phase 7: the tools path. Returns (kernel rows of #10-#13, launches in
+    the tools' run, launches per pass over the tool shapes)."""
+    import torch
+
+    rows = []
+    port.ops.reset_launch_counts()
+    calls = record_calls(port, None, None, None, run=lambda: rows.extend(run_tools()))
+    counts = port.ops.launch_counts()
+    made = {name: sum(c for c, _ in v.values()) for name, v in calls.items()}
+    log(f"[tool] launches in the tools' run: {json.dumps({k: v for k, v in counts.items() if v})} "
+        f"(calls the tools made: {json.dumps({k: v for k, v in made.items() if v})})")
+    assert counts == made, (counts, made)
+    assert all(counts[name] > 0 for name in TOOL_KERNELS), counts
+    assert all(r["exact"] for r in rows if r["arm"] == "transpose"), "kernel #13 is not bit for bit"
+    assert all(r["us"] > 0 for r in rows), rows
+    # One call per shape the tools gave each kernel (one pass over the tool
+    # shapes), and #10-#12 in float32 at one shape each.
+    per_shape = {name: {k: [1, args] for k, (_c, args) in calls[name].items()} for name in TOOL_KERNELS}
+    f32 = {name: {key: [1, tuple(copy_arg(a, torch.float32) for a in per_shape[name][key][1])]}
+           for name, key in TOOL_F32_KEYS.items()}
+    checked = check_kernels(port, {"tools": per_shape, "tools_f32": f32})
+    per_pass = {name: len(per_shape[name]) for name in TOOL_KERNELS}
+    return {name: checked[name] for name in TOOL_KERNELS}, counts, per_pass
+
+
+def check_tap_split_backward(port, device):
+    """Phase 7: ``conv3x3_tap_split`` under ``DMN_TPU_TAP_SPLIT_CONV=1`` at the
+    level-0 tool shape launches #11 once in the forward and nothing in the
+    backward (the plain conv's recompute), with gradients equal to autograd
+    through the plain conv (relative L2, bf16)."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.tools.microbench_conv import inputs
+
+    C = port.ops.conv
+    args = inputs((128, 32, 32, 32, 32), device)
+    cot = torch.randn(128, 32, 32, 32, generator=torch.Generator(device=device).manual_seed(SEED),
+                      device=device).to(torch.bfloat16)
+
+    def grads(fn):
+        leaves = [a.detach().requires_grad_(True) for a in args]
+        port.ops.reset_launch_counts()
+        out = fn(*leaves)
+        torch.cuda.synchronize()
+        fwd = port.ops.launch_counts()
+        port.ops.reset_launch_counts()
+        g = torch.autograd.grad(out, leaves, cot)
+        torch.cuda.synchronize()
+        return g, fwd, port.ops.launch_counts()
+
+    with switches({"DMN_TPU_TAP_SPLIT_CONV": "1"}):
+        g_k, fwd, bwd = grads(C.conv3x3_tap_split)
+    assert_counts("conv3x3_tap_split [128,32,32,32->32] forward", fwd, {"conv3x3": 1})
+    assert_counts("conv3x3_tap_split [128,32,32,32->32] backward", bwd, {})
+    g_p, _f, _b = grads(C.conv3x3_reference)
+    rel = [float((a.float() - b.float()).norm() / b.float().norm()) for a, b in zip(g_k, g_p)]
+    log(f"[tool] conv3x3_tap_split gradients (x, w, b) vs autograd through the plain conv: rel_l2 "
+        f"{', '.join(f'{r:.3e}' for r in rel)} (tol {LOSS_REL_TOL})")
+    assert all(r <= LOSS_REL_TOL for r in rel), rel
+
+
 def main() -> int:
     import torch
 
@@ -998,19 +1140,25 @@ def main() -> int:
     assert "linear_attention_tokens" not in switched_per, switched_per
     _m, _t, sw_counts = check_fit(port, device, SWITCHED_STEPS, BOTH, switched_per)
 
+    # 7. The tools path (#10-#13).
+    tool_rows, tool_counts, per_forward["tools"] = check_tools(port)
+    rows.update(tool_rows)
+    check_tap_split_backward(port, device)
+
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM
     # Block pass for #5, the 5-step training run under both switches for #6
-    # and #9.
+    # and #9, the tools' run for #10-#13.
     main_counts = dict(counts, attention=dit_counts["attention"],
                        linear_attention_qkv=f32_counts["linear_attention_qkv"],
                        group_norm_silu_film=film_counts["group_norm_silu_film"],
                        group_norm_silu_bm=sw_counts["group_norm_silu_bm"],
-                       linear_attention_block_v1=sw_counts["linear_attention_block_v1"])
+                       linear_attention_block_v1=sw_counts["linear_attention_block_v1"],
+                       **{name: tool_counts[name] for name in TOOL_KERNELS})
     main_per = {name: per_forward[MAIN_CFG[name]].get(name, 0) for name in rows}
     table = kernel_table(port)
-    log(f"[summary] per forward on each kernel's main path (ms: CUDA events; dev: "
-        f"torch.profiler device time); main path: {MAIN_CFG}")
+    log(f"[summary] per forward on each kernel's main path (per pass over the tool shapes for "
+        f"#10-#13; ms: CUDA events; dev: torch.profiler device time); main path: {MAIN_CFG}")
     log("[summary] | kernel | launches/forward on its path (flagship) | launches in the path's run "
         "| ms | dev ms | bound ms (by) | plain ms | plain dev ms | library ms | library dev ms |")
     for name, r in rows.items():

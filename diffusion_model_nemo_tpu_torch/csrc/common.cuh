@@ -11,6 +11,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define DMN_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Every library can name its error codes for the wrapper's message.
@@ -43,6 +45,18 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// An f32 intermediate cast to the compute dtype T and back: bf16_round for
+// bf16, the value itself for float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32<T>(from_f32<T>(v));
+}
+
+template <typename T>
+__host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<T, __nv_bfloat16>::value;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

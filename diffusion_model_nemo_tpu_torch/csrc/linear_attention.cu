@@ -17,6 +17,19 @@
 //   * _linattn_block_kernel, v1 (launcher _pallas_linear_attention_block):
 //     the whole block again, with the prenorm affine NOT folded into W_qkv
 //     and with v1's own rounding points; see "v1" below.
+//   * _linattn_block_kernel_v2 (launcher _pallas_linear_attention_block_v2):
+//     the same block with every product's operands in x's dtype. In bf16 its
+//     function is v1's, seam for seam; in float32 every stage stays f32. So
+//     it runs v1's stages, instantiated for x's dtype. The TPU kernel took G
+//     samples per grid step to batch its token GEMMs on the MXU; that was a
+//     VMEM/MXU blocking with no counterpart here, where every (tile, sample)
+//     is a block of its own.
+//   * _v4_kernel (tools/microbench_attn_lanes.py, launcher v4_call): the
+//     qkv-fused attention core on x viewed as [B, N*C/128, 128], so that the
+//     TPU's (8, 128) tiles carry no lane padding. On the card the packed view
+//     and [B, N, C] token rows are the same bytes, so the packing has no
+//     counterpart: dmn_linattn_v4 reads the buffer as token rows and runs the
+//     qkv-fused stages, instantiated for x's dtype (v4 runs in x's dtype).
 // The TPU packed its tokens 128 lanes wide (J = 128/C tokens per row); that
 // is a TPU layout device. Here a token is one row of C channels.
 //
@@ -46,9 +59,11 @@
 //
 // Seams kept from the TPU kernels: bf16 operands for every product with f32
 // accumulation; the prenorm's (x - mu) * rstd rounded to bf16 before the
-// folded affine; q softmax and gram rounded to bf16; f32 out-norm. The raw-qkv
-// entry rounds q softmax and gram to bf16 only in its bf16 instantiation,
-// where the JAX composition rounds; in float32 every stage stays f32.
+// folded affine; q softmax and gram rounded to bf16; f32 out-norm. The stages
+// are templated on the token dtype T and round with dmn::round_to<T>, which
+// is the identity for float: the entries of #8, #10 and #12 round only in
+// their bf16 instantiations, as the JAX kernels do (x's dtype), and keep
+// every stage f32 in float32. #2, #3 and #9 run the bf16 instantiations.
 
 #include <type_traits>
 
@@ -118,32 +133,32 @@ __device__ __forceinline__ float2 merge_stats(const float2* part, int T, float c
 }
 
 // Load `rows` tokens of sample b from token n0 into h[rows][C] (f32): the
-// prenorm output rounded to bf16 (block form) or the bf16 input as is.
-__device__ __forceinline__ void load_tokens(const __nv_bfloat16* __restrict__ x, float* h,
-                                            int b, int N, int C, int n0, int rows,
-                                            bool prenorm, float2 st) {
-  const __nv_bfloat16* xs = x + (size_t(b) * N + n0) * C;
+// prenorm output rounded to T (block form) or the input as is.
+template <typename T>
+__device__ __forceinline__ void load_tokens(const T* __restrict__ x, float* h, int b, int N, int C,
+                                            int n0, int rows, bool prenorm, float2 st) {
+  const T* xs = x + (size_t(b) * N + n0) * C;
   for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const float v = __bfloat162float(xs[i]);
-    h[i] = prenorm ? dmn::bf16_round((v - st.x) * st.y) : v;
+    const float v = dmn::to_f32(xs[i]);
+    h[i] = prenorm ? dmn::round_to<T>((v - st.x) * st.y) : v;
   }
 }
 
 // 1. partial statistics of x per 32-token tile.
-__global__ void xstats_kernel(const __nv_bfloat16* __restrict__ x, float2* xpart, int N,
-                              int C) {
+template <typename T>
+__global__ void xstats_kernel(const T* __restrict__ x, float2* xpart, int N, int C) {
   __shared__ float red[64];
-  const int t = blockIdx.x, b = blockIdx.y, T = gridDim.x;
+  const int t = blockIdx.x, b = blockIdx.y, nt = gridDim.x;
   const int n0 = t * TN, rows = min(TN, N - n0);
-  const __nv_bfloat16* xs = x + (size_t(b) * N + n0) * C;
+  const T* xs = x + (size_t(b) * N + n0) * C;
   float s = 0.f, ss = 0.f;
   for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const float v = __bfloat162float(xs[i]);
+    const float v = dmn::to_f32(xs[i]);
     s += v;
     ss += v * v;
   }
   const float2 tot = dmn::block_sum2(s, ss, red);
-  if (threadIdx.x == 0) xpart[size_t(b) * T + t] = tot;
+  if (threadIdx.x == 0) xpart[size_t(b) * nt + t] = tot;
 }
 
 // Online column max and sum of k's softmax over N, and the per-head gram
@@ -202,9 +217,10 @@ __device__ __forceinline__ void kv_store(const Scratch& sc, int b, int k, int K,
 
 // 2. k/v projection, online softmax statistics of k, chunk grams.
 // Dynamic shared memory: h[TN*C] + kv[TN*2*HD] + scale[HD] + m[HD] + s[HD].
-__global__ void kv_kernel(const __nv_bfloat16* __restrict__ x,
-                          const __nv_bfloat16* __restrict__ w,  // [C][QKV]
-                          const float* __restrict__ bias,       // [QKV] or null
+template <typename T>
+__global__ void kv_kernel(const T* __restrict__ x,
+                          const T* __restrict__ w,          // [C][QKV]
+                          const float* __restrict__ bias,   // [QKV] or null
                           Scratch sc, int N, int C, int prenorm, float eps) {
   extern __shared__ float smem[];
   float* h = smem;
@@ -214,9 +230,9 @@ __global__ void kv_kernel(const __nv_bfloat16* __restrict__ x,
   float* srun = mrun + HD;
 
   const int k = blockIdx.x, b = blockIdx.y, K = gridDim.x;
-  const int T = ceil_div(N, TN);
+  const int nt = ceil_div(N, TN);
   float2 st = make_float2(0.f, 1.f);
-  if (prenorm) st = merge_stats(sc.xpart + size_t(b) * T, T, float(N) * C, eps);
+  if (prenorm) st = merge_stats(sc.xpart + size_t(b) * nt, nt, float(N) * C, eps);
 
   float acc[ACC];
   kv_init(mrun, srun, acc);
@@ -232,9 +248,9 @@ __global__ void kv_kernel(const __nv_bfloat16* __restrict__ x,
       const int col = HD + j;  // k and v columns of qkv
       float a = 0.f;
       const float* hr = h + r * C;
-      for (int c = 0; c < C; ++c) a += hr[c] * __bfloat162float(w[size_t(c) * QKV + col]);
+      for (int c = 0; c < C; ++c) a += hr[c] * dmn::to_f32(w[size_t(c) * QKV + col]);
       if (bias) a += bias[col];
-      kv[r * 2 * HD + j] = j < HD ? a : dmn::bf16_round(a);  // v is bf16
+      kv[r * 2 * HD + j] = j < HD ? a : dmn::round_to<T>(a);  // v is in T
     }
     __syncthreads();
     kv_tile_update(kv, rows, rescale, mrun, srun, acc);
@@ -323,12 +339,13 @@ __device__ __forceinline__ float q_gram(const float* q, const float* gram, int i
 // 4. q projection, per-head softmax over d, q . gram, and (block form) the
 // out projection. Dynamic shared memory: h[TN*C] + q[TN*HD] + att[TN*HD]
 // + gram[GRAM].
-__global__ void apply_kernel(const __nv_bfloat16* __restrict__ x,
-                             const __nv_bfloat16* __restrict__ w,     // [C][QKV]
-                             const float* __restrict__ bias,          // [QKV] or null
-                             const __nv_bfloat16* __restrict__ wout,  // [HD][C] or null
-                             const float* __restrict__ bout,          // [C] or null
-                             __nv_bfloat16* __restrict__ att_out,     // [B][N][HD] or null
+template <typename T>
+__global__ void apply_kernel(const T* __restrict__ x,
+                             const T* __restrict__ w,         // [C][QKV]
+                             const float* __restrict__ bias,  // [QKV] or null
+                             const T* __restrict__ wout,      // [HD][C] or null
+                             const float* __restrict__ bout,  // [C] or null
+                             T* __restrict__ att_out,         // [B][N][HD] or null
                              Scratch sc, int N, int C, int prenorm, float scale, float eps) {
   extern __shared__ float smem[];
   __shared__ float red[64];
@@ -337,10 +354,10 @@ __global__ void apply_kernel(const __nv_bfloat16* __restrict__ x,
   float* att = q + TN * HD;
   float* gram = att + TN * HD;
 
-  const int t = blockIdx.x, b = blockIdx.y, T = gridDim.x;
+  const int t = blockIdx.x, b = blockIdx.y, nt = gridDim.x;
   const int n0 = t * TN, rows = min(TN, N - n0);
   float2 st = make_float2(0.f, 1.f);
-  if (prenorm) st = merge_stats(sc.xpart + size_t(b) * T, T, float(N) * C, eps);
+  if (prenorm) st = merge_stats(sc.xpart + size_t(b) * nt, nt, float(N) * C, eps);
   load_tokens(x, h, b, N, C, n0, rows, prenorm, st);
   for (int i = threadIdx.x; i < GRAM; i += blockDim.x) gram[i] = sc.gram[size_t(b) * GRAM + i];
   __syncthreads();
@@ -349,19 +366,19 @@ __global__ void apply_kernel(const __nv_bfloat16* __restrict__ x,
     const int r = i / HD, j = i % HD;
     float a = 0.f;
     const float* hr = h + r * C;
-    for (int c = 0; c < C; ++c) a += hr[c] * __bfloat162float(w[size_t(c) * QKV + j]);
+    for (int c = 0; c < C; ++c) a += hr[c] * dmn::to_f32(w[size_t(c) * QKV + j]);
     if (bias) a += bias[j];
     q[i] = a;
   }
   __syncthreads();
-  q_softmax(q, rows, scale, true);
+  q_softmax(q, rows, scale, dmn::is_bf16<T>());
   __syncthreads();
   for (int i = threadIdx.x; i < rows * HD; i += blockDim.x) {
     const float a = q_gram(q, gram, i);
     if (att_out)
-      att_out[(size_t(b) * N + n0) * HD + i] = __float2bfloat16(a);
+      att_out[(size_t(b) * N + n0) * HD + i] = dmn::from_f32<T>(a);
     else
-      att[i] = dmn::bf16_round(a);
+      att[i] = dmn::round_to<T>(a);
   }
   if (att_out) return;  // qkv-fused form ends here (uniform across the block)
   __syncthreads();
@@ -370,13 +387,13 @@ __global__ void apply_kernel(const __nv_bfloat16* __restrict__ x,
     const int r = i / C, c = i % C;
     const float* ar = att + r * HD;
     float a = bout[c];
-    for (int j = 0; j < HD; ++j) a += ar[j] * __bfloat162float(wout[size_t(j) * C + c]);
+    for (int j = 0; j < HD; ++j) a += ar[j] * dmn::to_f32(wout[size_t(j) * C + c]);
     sc.ybuf[(size_t(b) * N + n0) * C + i] = a;
     s += a;
     ss += a * a;
   }
   const float2 tot = dmn::block_sum2(s, ss, red);
-  if (threadIdx.x == 0) sc.ypart[size_t(b) * T + t] = tot;
+  if (threadIdx.x == 0) sc.ypart[size_t(b) * nt + t] = tot;
 }
 
 // 4'. the apply stage on a raw qkv tensor: q columns loaded, not projected;
@@ -394,26 +411,26 @@ __global__ void qkv_apply_kernel(const T* __restrict__ qkv, T* __restrict__ out,
     q[i] = dmn::to_f32(src[size_t(i / HD) * QKV + i % HD]);
   for (int i = threadIdx.x; i < GRAM; i += blockDim.x) gram[i] = sc.gram[size_t(b) * GRAM + i];
   __syncthreads();
-  q_softmax(q, rows, scale, std::is_same<T, __nv_bfloat16>::value);
+  q_softmax(q, rows, scale, dmn::is_bf16<T>());
   __syncthreads();
   T* dst = out + (size_t(b) * N + n0) * HD;
   for (int i = threadIdx.x; i < rows * HD; i += blockDim.x)
     dst[i] = dmn::from_f32<T>(q_gram(q, gram, i));
 }
 
-// 5. GroupNorm(1) of y with its affine, + x, cast to bf16.
-__global__ void outnorm_kernel(const __nv_bfloat16* __restrict__ x,
-                               const float* __restrict__ og, const float* __restrict__ ob,
-                               __nv_bfloat16* __restrict__ out, Scratch sc, int N, int C,
-                               float eps) {
-  const int t = blockIdx.x, b = blockIdx.y, T = gridDim.x;
+// 5. GroupNorm(1) of y with its affine, + x, cast to T.
+template <typename T>
+__global__ void outnorm_kernel(const T* __restrict__ x, const float* __restrict__ og,
+                               const float* __restrict__ ob, T* __restrict__ out, Scratch sc,
+                               int N, int C, float eps) {
+  const int t = blockIdx.x, b = blockIdx.y, nt = gridDim.x;
   const int n0 = t * TN, rows = min(TN, N - n0);
-  const float2 st = merge_stats(sc.ypart + size_t(b) * T, T, float(N) * C, eps);
+  const float2 st = merge_stats(sc.ypart + size_t(b) * nt, nt, float(N) * C, eps);
   const size_t base = (size_t(b) * N + n0) * C;
   for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
     const int c = i % C;
     const float y = (sc.ybuf[base + i] - st.x) * st.y * og[c] + ob[c];
-    out[base + i] = __float2bfloat16(y + __bfloat162float(x[base + i]));
+    out[base + i] = dmn::from_f32<T>(y + dmn::to_f32(x[base + i]));
   }
 }
 
@@ -433,37 +450,42 @@ constexpr size_t QKV_APPLY_SMEM = sizeof(float) * (TN * HD + GRAM);
 // first, so the k/v stage runs twice: v1_kstats (online max and sum per
 // chunk, as kv_kernel) and v1_gram (k_sm and v per tile with the merged
 // statistics, plain per-chunk gram sums). A last merge adds the chunks in a
-// fixed order. xstats and outnorm are shared with the packed form.
+// fixed order. xstats and outnorm are shared with the packed form. The
+// stages are templated on T, x's dtype: v1 runs them in bf16; v2 (#10) in
+// x's dtype, where float keeps every rounding point above at f32.
 
-// Prenorm rows of sample b with the affine applied in f32, then bf16.
-__device__ __forceinline__ void load_tokens_affine(const __nv_bfloat16* __restrict__ x,
+// Prenorm rows of sample b with the affine applied in f32, then T.
+template <typename T>
+__device__ __forceinline__ void load_tokens_affine(const T* __restrict__ x,
                                                    const float* __restrict__ ng,
                                                    const float* __restrict__ nb, float* h, int b,
                                                    int N, int C, int n0, int rows, float2 st) {
-  const __nv_bfloat16* xs = x + (size_t(b) * N + n0) * C;
+  const T* xs = x + (size_t(b) * N + n0) * C;
   for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
     const int c = i % C;
-    h[i] = dmn::bf16_round((__bfloat162float(xs[i]) - st.x) * st.y * ng[c] + nb[c]);
+    h[i] = dmn::round_to<T>((dmn::to_f32(xs[i]) - st.x) * st.y * ng[c] + nb[c]);
   }
 }
 
 // out[r * ncols + j] = h[r] . W[:, col0 + j] for `rows` rows, f32 accumulation.
-__device__ __forceinline__ void project(const float* h, const __nv_bfloat16* __restrict__ w,
-                                        int rows, int C, int col0, int ncols, float* out) {
+template <typename T>
+__device__ __forceinline__ void project(const float* h, const T* __restrict__ w, int rows, int C,
+                                        int col0, int ncols, float* out) {
   for (int i = threadIdx.x; i < rows * ncols; i += blockDim.x) {
     const int r = i / ncols, j = i % ncols;
     const float* hr = h + r * C;
     float a = 0.f;
-    for (int c = 0; c < C; ++c) a += hr[c] * __bfloat162float(w[size_t(c) * QKV + col0 + j]);
+    for (int c = 0; c < C; ++c) a += hr[c] * dmn::to_f32(w[size_t(c) * QKV + col0 + j]);
     out[i] = a;
   }
 }
 
 // 2a. k projection and its online column max and sum over the chunk.
 // Dynamic shared memory: h[TN*C] + k[TN*HD] + m[HD] + s[HD].
-__global__ void v1_kstats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ng,
-                                 const float* __restrict__ nb, const __nv_bfloat16* __restrict__ w,
-                                 Scratch sc, int N, int C, float eps) {
+template <typename T>
+__global__ void v1_kstats_kernel(const T* __restrict__ x, const float* __restrict__ ng,
+                                 const float* __restrict__ nb, const T* __restrict__ w, Scratch sc,
+                                 int N, int C, float eps) {
   extern __shared__ float smem[];
   float* h = smem;
   float* kt = h + TN * C;
@@ -502,12 +524,13 @@ __global__ void v1_kstats_kernel(const __nv_bfloat16* __restrict__ x, const floa
   }
 }
 
-// 2b. k_sm = bf16(exp(k - M) / S) with the sample's column max M and sum S,
-// v = bf16(v); per-chunk masked gram sums k_sm^T v.
+// 2b. k_sm = T(exp(k - M) / S) with the sample's column max M and sum S,
+// v = T(v); per-chunk masked gram sums k_sm^T v.
 // Dynamic shared memory: h[TN*C] + kv[TN*2*HD] + M[HD] + S[HD].
-__global__ void v1_gram_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ng,
-                               const float* __restrict__ nb, const __nv_bfloat16* __restrict__ w,
-                               Scratch sc, int N, int C, float eps) {
+template <typename T>
+__global__ void v1_gram_kernel(const T* __restrict__ x, const float* __restrict__ ng,
+                               const float* __restrict__ nb, const T* __restrict__ w, Scratch sc,
+                               int N, int C, float eps) {
   extern __shared__ float smem[];
   float* h = smem;
   float* kv = h + TN * C;
@@ -541,7 +564,7 @@ __global__ void v1_gram_kernel(const __nv_bfloat16* __restrict__ x, const float*
     __syncthreads();
     for (int i = threadIdx.x; i < rows * 2 * HD; i += blockDim.x) {
       const int j = i % (2 * HD);
-      kv[i] = j < HD ? dmn::bf16_round(__expf(kv[i] - colm[j]) / cols[j]) : dmn::bf16_round(kv[i]);
+      kv[i] = j < HD ? dmn::round_to<T>(__expf(kv[i] - colm[j]) / cols[j]) : dmn::round_to<T>(kv[i]);
     }
     __syncthreads();
 #pragma unroll
@@ -559,34 +582,35 @@ __global__ void v1_gram_kernel(const __nv_bfloat16* __restrict__ x, const float*
   for (int a = 0; a < ACC; ++a) sc.gpart[bk * GRAM + threadIdx.x + a * THREADS] = acc[a];
 }
 
-// 3'. gram = bf16(sum of the chunk grams), fixed order.
+// 3'. gram = T(sum of the chunk grams), fixed order.
+template <typename T>
 __global__ void v1_merge_kernel(Scratch sc, int K) {
   const int b = blockIdx.x;
   for (int e = threadIdx.x; e < GRAM; e += blockDim.x) {
     float G = 0.f;
     for (int k = 0; k < K; ++k) G += sc.gpart[(size_t(b) * K + k) * GRAM + e];
-    sc.gram[size_t(b) * GRAM + e] = dmn::bf16_round(G);
+    sc.gram[size_t(b) * GRAM + e] = dmn::round_to<T>(G);
   }
 }
 
 // 4'. q projection; softmax over d with one row max over all h*d columns and
-// per-head sums, x scale, bf16; q_sm . gram -> bf16; out projection + bias
-// -> y (f32) with the tile's partial statistics.
+// per-head sums, x scale, T; q_sm . gram -> T; out projection + bias -> y
+// (f32) with the tile's partial statistics.
 // Dynamic shared memory: h[TN*C] + q[TN*HD] + att[TN*HD] + gram[GRAM].
-__global__ void v1_apply_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ng,
-                                const float* __restrict__ nb, const __nv_bfloat16* __restrict__ w,
-                                const __nv_bfloat16* __restrict__ wout,
-                                const float* __restrict__ bout, Scratch sc, int N, int C,
-                                float scale, float eps) {
+template <typename T>
+__global__ void v1_apply_kernel(const T* __restrict__ x, const float* __restrict__ ng,
+                                const float* __restrict__ nb, const T* __restrict__ w,
+                                const T* __restrict__ wout, const float* __restrict__ bout,
+                                Scratch sc, int N, int C, float scale, float eps) {
   extern __shared__ float smem[];
   __shared__ float red[64];
   float* h = smem;
   float* q = h + TN * C;
   float* att = q + TN * HD;
   float* gram = att + TN * HD;
-  const int t = blockIdx.x, b = blockIdx.y, T = gridDim.x;
+  const int t = blockIdx.x, b = blockIdx.y, nt = gridDim.x;
   const int n0 = t * TN, rows = min(TN, N - n0);
-  const float2 st = merge_stats(sc.xpart + size_t(b) * T, T, float(N) * C, eps);
+  const float2 st = merge_stats(sc.xpart + size_t(b) * nt, nt, float(N) * C, eps);
   load_tokens_affine(x, ng, nb, h, b, N, C, n0, rows, st);
   for (int i = threadIdx.x; i < GRAM; i += blockDim.x) gram[i] = sc.gram[size_t(b) * GRAM + i];
   __syncthreads();
@@ -603,25 +627,25 @@ __global__ void v1_apply_kernel(const __nv_bfloat16* __restrict__ x, const float
         qh[d] = __expf(qh[d] - m);
         s += qh[d];
       }
-      for (int d = 0; d < DH; ++d) qh[d] = dmn::bf16_round(qh[d] / s * scale);
+      for (int d = 0; d < DH; ++d) qh[d] = dmn::round_to<T>(qh[d] / s * scale);
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x) att[i] = dmn::bf16_round(q_gram(q, gram, i));
+  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x) att[i] = dmn::round_to<T>(q_gram(q, gram, i));
   __syncthreads();
   float s = 0.f, ss = 0.f;
   for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
     const int r = i / C, c = i % C;
     const float* ar = att + r * HD;
     float a = 0.f;
-    for (int j = 0; j < HD; ++j) a += ar[j] * __bfloat162float(wout[size_t(j) * C + c]);
+    for (int j = 0; j < HD; ++j) a += ar[j] * dmn::to_f32(wout[size_t(j) * C + c]);
     a += bout[c];
     sc.ybuf[(size_t(b) * N + n0) * C + i] = a;
     s += a;
     ss += a * a;
   }
   const float2 tot = dmn::block_sum2(s, ss, red);
-  if (threadIdx.x == 0) sc.ypart[size_t(b) * T + t] = tot;
+  if (threadIdx.x == 0) sc.ypart[size_t(b) * nt + t] = tot;
 }
 
 size_t v1_kstats_smem(int C) { return sizeof(float) * (TN * C + TN * HD + 2 * HD); }
@@ -632,15 +656,67 @@ int linattn_qkv(const void* qkv, void* out, void* scratch, int B, int N, float s
                 cudaStream_t stream) {
   Scratch sc;
   scratch_layout(B, N, 0, 0, &sc, static_cast<float*>(scratch));
-  const int T_ = ceil_div(N, TN), K = ceil_div(N, CHUNK);
+  const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
   const auto* src = static_cast<const T*>(qkv);
   cudaError_t err = dmn::set_smem((const void*)qkv_kv_kernel<T>, QKV_KV_SMEM);
   if (err == cudaSuccess) err = dmn::set_smem((const void*)qkv_apply_kernel<T>, QKV_APPLY_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   qkv_kv_kernel<T><<<dim3(K, B), THREADS, QKV_KV_SMEM, stream>>>(src, sc, N);
-  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, std::is_same<T, __nv_bfloat16>::value);
-  qkv_apply_kernel<T><<<dim3(T_, B), THREADS, QKV_APPLY_SMEM, stream>>>(
+  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, dmn::is_bf16<T>());
+  qkv_apply_kernel<T><<<dim3(nt, B), THREADS, QKV_APPLY_SMEM, stream>>>(
       src, static_cast<T*>(out), sc, N, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The qkv-fused attention core (#3 in bf16, #12 in x's dtype).
+template <typename T>
+int linattn_tokens(const void* h, const void* wqkv, void* out, void* scratch, int B, int N, int C,
+                   float scale, cudaStream_t stream) {
+  Scratch sc;
+  scratch_layout(B, N, C, 0, &sc, static_cast<float*>(scratch));
+  const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
+  const auto* hb = static_cast<const T*>(h);
+  const auto* wb = static_cast<const T*>(wqkv);
+  cudaError_t err = dmn::set_smem((const void*)kv_kernel<T>, kv_smem(C));
+  if (err == cudaSuccess) err = dmn::set_smem((const void*)apply_kernel<T>, apply_smem(C));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kv_kernel<T><<<dim3(K, B), THREADS, kv_smem(C), stream>>>(hb, wb, nullptr, sc, N, C, 0, 0.f);
+  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, dmn::is_bf16<T>());
+  apply_kernel<T><<<dim3(nt, B), THREADS, apply_smem(C), stream>>>(
+      hb, wb, nullptr, nullptr, nullptr, static_cast<T*>(out), sc, N, C, 0, scale, 0.f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The whole block with the prenorm affine unfolded (#9 in bf16, #10 in x's
+// dtype).
+template <typename T>
+int linattn_block_unfolded(const void* x, const void* ng, const void* nb, const void* wqkv,
+                           const void* wout, const void* bout, const void* og, const void* ob,
+                           void* out, void* scratch, int B, int N, int C, float scale, float eps,
+                           cudaStream_t stream) {
+  Scratch sc;
+  scratch_layout(B, N, C, 1, &sc, static_cast<float*>(scratch));
+  const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
+  const auto* xt = static_cast<const T*>(x);
+  const auto* g = static_cast<const float*>(ng);
+  const auto* be = static_cast<const float*>(nb);
+  const auto* wt = static_cast<const T*>(wqkv);
+  cudaError_t err = dmn::set_smem((const void*)v1_kstats_kernel<T>, v1_kstats_smem(C));
+  if (err == cudaSuccess) err = dmn::set_smem((const void*)v1_gram_kernel<T>, v1_gram_smem(C));
+  if (err == cudaSuccess) err = dmn::set_smem((const void*)v1_apply_kernel<T>, apply_smem(C));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  xstats_kernel<T><<<dim3(nt, B), THREADS, 0, stream>>>(xt, sc.xpart, N, C);
+  v1_kstats_kernel<T><<<dim3(K, B), THREADS, v1_kstats_smem(C), stream>>>(xt, g, be, wt, sc, N,
+                                                                           C, eps);
+  v1_gram_kernel<T><<<dim3(K, B), THREADS, v1_gram_smem(C), stream>>>(xt, g, be, wt, sc, N, C,
+                                                                       eps);
+  v1_merge_kernel<T><<<B, THREADS, 0, stream>>>(sc, K);
+  v1_apply_kernel<T><<<dim3(nt, B), THREADS, apply_smem(C), stream>>>(
+      xt, g, be, wt, static_cast<const T*>(wout), static_cast<const float*>(bout), sc, N, C, scale,
+      eps);
+  outnorm_kernel<T><<<dim3(nt, B), THREADS, 0, stream>>>(
+      xt, static_cast<const float*>(og), static_cast<const float*>(ob), static_cast<T*>(out), sc,
+      N, C, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -660,25 +736,26 @@ DMN_EXPORT int dmn_linattn_block(const void* x, const void* wqkv, const void* bq
                                  const void* wout, const void* bout, const void* og,
                                  const void* ob, void* out, void* scratch, int B, int N,
                                  int C, float scale, float eps, void* stream_) {
+  using BF = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   Scratch sc;
   scratch_layout(B, N, C, 1, &sc, static_cast<float*>(scratch));
-  const int T = ceil_div(N, TN), K = ceil_div(N, CHUNK);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const __nv_bfloat16*>(wqkv);
+  const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
+  const auto* xb = static_cast<const BF*>(x);
+  const auto* wb = static_cast<const BF*>(wqkv);
   const auto* bq = static_cast<const float*>(bqkv);
-  cudaError_t err = dmn::set_smem((const void*)kv_kernel, kv_smem(C));
-  if (err == cudaSuccess) err = dmn::set_smem((const void*)apply_kernel, apply_smem(C));
+  cudaError_t err = dmn::set_smem((const void*)kv_kernel<BF>, kv_smem(C));
+  if (err == cudaSuccess) err = dmn::set_smem((const void*)apply_kernel<BF>, apply_smem(C));
   if (err != cudaSuccess) return static_cast<int>(err);
-  xstats_kernel<<<dim3(T, B), THREADS, 0, stream>>>(xb, sc.xpart, N, C);
-  kv_kernel<<<dim3(K, B), THREADS, kv_smem(C), stream>>>(xb, wb, bq, sc, N, C, 1, eps);
+  xstats_kernel<BF><<<dim3(nt, B), THREADS, 0, stream>>>(xb, sc.xpart, N, C);
+  kv_kernel<BF><<<dim3(K, B), THREADS, kv_smem(C), stream>>>(xb, wb, bq, sc, N, C, 1, eps);
   merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, 1);
-  apply_kernel<<<dim3(T, B), THREADS, apply_smem(C), stream>>>(
-      xb, wb, bq, static_cast<const __nv_bfloat16*>(wout), static_cast<const float*>(bout),
-      nullptr, sc, N, C, 1, scale, eps);
-  outnorm_kernel<<<dim3(T, B), THREADS, 0, stream>>>(
-      xb, static_cast<const float*>(og), static_cast<const float*>(ob),
-      static_cast<__nv_bfloat16*>(out), sc, N, C, eps);
+  apply_kernel<BF><<<dim3(nt, B), THREADS, apply_smem(C), stream>>>(
+      xb, wb, bq, static_cast<const BF*>(wout), static_cast<const float*>(bout), nullptr, sc, N,
+      C, 1, scale, eps);
+  outnorm_kernel<BF><<<dim3(nt, B), THREADS, 0, stream>>>(
+      xb, static_cast<const float*>(og), static_cast<const float*>(ob), static_cast<BF*>(out), sc,
+      N, C, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -689,51 +766,44 @@ DMN_EXPORT int dmn_linattn_block_v1(const void* x, const void* ng, const void* n
                                     const void* wqkv, const void* wout, const void* bout,
                                     const void* og, const void* ob, void* out, void* scratch,
                                     int B, int N, int C, float scale, float eps, void* stream_) {
+  return linattn_block_unfolded<__nv_bfloat16>(x, ng, nb, wqkv, wout, bout, og, ob, out, scratch,
+                                               B, N, C, scale, eps,
+                                               static_cast<cudaStream_t>(stream_));
+}
+
+// Whole block, v2 (TPU kernel #10): x [B,N,C] f32, or bf16 where `bf16` ->
+// out [B,N,C] in x's dtype. ng, nb [C] f32; wqkv [C,384] and wout [128,C] in
+// x's dtype; bout, og, ob [C] f32.
+DMN_EXPORT int dmn_linattn_block_v2(const void* x, const void* ng, const void* nb,
+                                    const void* wqkv, const void* wout, const void* bout,
+                                    const void* og, const void* ob, void* out, void* scratch,
+                                    int B, int N, int C, int bf16, float scale, float eps,
+                                    void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  Scratch sc;
-  scratch_layout(B, N, C, 1, &sc, static_cast<float*>(scratch));
-  const int T = ceil_div(N, TN), K = ceil_div(N, CHUNK);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* g = static_cast<const float*>(ng);
-  const auto* be = static_cast<const float*>(nb);
-  const auto* wb = static_cast<const __nv_bfloat16*>(wqkv);
-  cudaError_t err = dmn::set_smem((const void*)v1_kstats_kernel, v1_kstats_smem(C));
-  if (err == cudaSuccess) err = dmn::set_smem((const void*)v1_gram_kernel, v1_gram_smem(C));
-  if (err == cudaSuccess) err = dmn::set_smem((const void*)v1_apply_kernel, apply_smem(C));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  xstats_kernel<<<dim3(T, B), THREADS, 0, stream>>>(xb, sc.xpart, N, C);
-  v1_kstats_kernel<<<dim3(K, B), THREADS, v1_kstats_smem(C), stream>>>(xb, g, be, wb, sc, N, C,
-                                                                        eps);
-  v1_gram_kernel<<<dim3(K, B), THREADS, v1_gram_smem(C), stream>>>(xb, g, be, wb, sc, N, C, eps);
-  v1_merge_kernel<<<B, THREADS, 0, stream>>>(sc, K);
-  v1_apply_kernel<<<dim3(T, B), THREADS, apply_smem(C), stream>>>(
-      xb, g, be, wb, static_cast<const __nv_bfloat16*>(wout), static_cast<const float*>(bout),
-      sc, N, C, scale, eps);
-  outnorm_kernel<<<dim3(T, B), THREADS, 0, stream>>>(
-      xb, static_cast<const float*>(og), static_cast<const float*>(ob),
-      static_cast<__nv_bfloat16*>(out), sc, N, C, eps);
-  return static_cast<int>(cudaGetLastError());
+  if (bf16)
+    return linattn_block_unfolded<__nv_bfloat16>(x, ng, nb, wqkv, wout, bout, og, ob, out,
+                                                 scratch, B, N, C, scale, eps, stream);
+  return linattn_block_unfolded<float>(x, ng, nb, wqkv, wout, bout, og, ob, out, scratch, B, N,
+                                       C, scale, eps, stream);
 }
 
 // Attention core on pre-normed tokens: h [B,N,C] bf16, wqkv [C,384] bf16 ->
 // out [B,N,128] bf16.
 DMN_EXPORT int dmn_linattn_tokens(const void* h, const void* wqkv, void* out, void* scratch,
                                   int B, int N, int C, float scale, void* stream_) {
+  return linattn_tokens<__nv_bfloat16>(h, wqkv, out, scratch, B, N, C, scale,
+                                       static_cast<cudaStream_t>(stream_));
+}
+
+// The same core on the lane-packed view (TPU kernel #12): x [B, N*C/128, 128]
+// is [B,N,C] token rows, byte for byte. x and wqkv [C,384] f32, or bf16 where
+// `bf16` -> out [B,N,128] in x's dtype.
+DMN_EXPORT int dmn_linattn_v4(const void* x, const void* wqkv, void* out, void* scratch, int B,
+                              int N, int C, int bf16, float scale, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  Scratch sc;
-  scratch_layout(B, N, C, 0, &sc, static_cast<float*>(scratch));
-  const int T = ceil_div(N, TN), K = ceil_div(N, CHUNK);
-  const auto* hb = static_cast<const __nv_bfloat16*>(h);
-  const auto* wb = static_cast<const __nv_bfloat16*>(wqkv);
-  cudaError_t err = dmn::set_smem((const void*)kv_kernel, kv_smem(C));
-  if (err == cudaSuccess) err = dmn::set_smem((const void*)apply_kernel, apply_smem(C));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kv_kernel<<<dim3(K, B), THREADS, kv_smem(C), stream>>>(hb, wb, nullptr, sc, N, C, 0, 0.f);
-  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, 1);
-  apply_kernel<<<dim3(T, B), THREADS, apply_smem(C), stream>>>(
-      hb, wb, nullptr, nullptr, nullptr, static_cast<__nv_bfloat16*>(out), sc, N, C, 0,
-      scale, 0.f);
-  return static_cast<int>(cudaGetLastError());
+  if (bf16)
+    return linattn_tokens<__nv_bfloat16>(x, wqkv, out, scratch, B, N, C, scale, stream);
+  return linattn_tokens<float>(x, wqkv, out, scratch, B, N, C, scale, stream);
 }
 
 // Attention core on a raw qkv tensor: qkv [B,N,384] (f32, or bf16 where

@@ -138,4 +138,6 @@ _ERROR_PREFIX = {
     "linear_attention": "linattn",
     "attention_block_small": "attn_small",
     "attention": "attn",
+    "conv3x3": "conv",
+    "transpose": "transpose",
 }

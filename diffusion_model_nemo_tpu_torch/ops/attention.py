@@ -35,14 +35,20 @@ __all__ = [
     "use_small_attn_block",
     "use_attention_kernel",
     "use_linattn_block_v1",
+    "linear_attention_v4_reference",
+    "linear_attention_block_v2_reference",
     "fused_attention",
     "fused_linear_attention_qkv",
     "fused_linear_attention_tokens",
     "fused_linear_attention_block_packed",
     "fused_linear_attention_block",
     "fused_attention_block_small",
+    "linear_attention_block_v2",
+    "linear_attention_v4",
     "linear_attention_block_cuda",
     "linear_attention_block_v1_cuda",
+    "linear_attention_block_v2_cuda",
+    "linear_attention_v4_cuda",
     "linear_attention_tokens_cuda",
     "attention_block_small_cuda",
     "linear_attention_qkv_cuda",
@@ -54,6 +60,8 @@ __all__ = [
 LAUNCHES = {
     "linear_attention_block": 0,
     "linear_attention_block_v1": 0,
+    "linear_attention_block_v2": 0,
+    "linear_attention_v4": 0,
     "linear_attention_tokens": 0,
     "attention_block_small": 0,
     "linear_attention_qkv": 0,
@@ -120,6 +128,16 @@ def linear_attention_tokens_reference(
     return linear_attention_qkv_reference(qkv, heads, dim_head, scale)
 
 
+def linear_attention_v4_reference(
+    x_packed: torch.Tensor, w_qkv: torch.Tensor, n_tokens: int, heads: int, dim_head: int,
+    scale: float,
+) -> torch.Tensor:
+    """Tokens [B, N, C] viewed lane-packed as [B, N·C/128, 128] → [B, N, h·d]:
+    the view back to token rows, then ``linear_attention_tokens_reference``."""
+    h = x_packed.reshape(x_packed.shape[0], n_tokens, -1)
+    return linear_attention_tokens_reference(h, w_qkv, heads, dim_head, scale)
+
+
 def linear_attention_block_reference(
     x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
     heads: int, dim_head: int, scale: float, eps: float = 1e-5,
@@ -132,6 +150,35 @@ def linear_attention_block_reference(
     out = attn.to(x.dtype) @ w_out.to(x.dtype) + b_out.to(x.dtype)
     out = _gn1(out, out_gamma, out_beta, eps)
     return out + x
+
+
+def linear_attention_block_v2_reference(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """The whole block with TPU kernel #10's seams (``_linattn_block_kernel_v2``):
+    every product takes operands in x's dtype with f32 sums (h, q_sm, k_sm,
+    v, the per-head gram and attn rounded to it; q's softmax with one row max
+    over all h·d columns), while the norms, the out projection's sum, the
+    out-norm and the residual stay f32 and are cast to x's dtype once. In
+    float32 it is ``linear_attention_block_reference``'s math. In bf16 that
+    composition also rounds the out projection and the out-norm's output
+    before a bf16 residual add, and so lands up to ~2 bf16 steps from the
+    exact block where the out-norm's output cancels x; v2 does not."""
+    dt = x.dtype
+    B, N, _ = x.shape
+    hd = heads * dim_head
+    xf = x.float()
+    h = _gn1(xf, norm_gamma, norm_beta, eps).to(dt).float()
+    q, k, v = (h @ w_qkv.to(dt).float()).split(hd, dim=-1)
+    qe = torch.exp(q - q.amax(dim=-1, keepdim=True)).reshape(B, N, heads, dim_head)
+    q_sm = (qe / qe.sum(dim=-1, keepdim=True) * scale).to(dt).float()
+    k_sm = torch.softmax(k, dim=1).to(dt).float().reshape(B, N, heads, dim_head)
+    v = v.to(dt).float().reshape(B, N, heads, dim_head)
+    gram = torch.einsum("bnhd,bnhe->bhde", k_sm, v).to(dt).float()
+    attn = torch.einsum("bnhd,bhde->bnhe", q_sm, gram).to(dt).float().reshape(B, N, hd)
+    y = attn @ w_out.to(dt).float() + b_out.float()
+    return (_gn1(y, out_gamma, out_beta, eps) + xf).to(dt)
 
 
 def attention_block_reference(
@@ -273,6 +320,33 @@ def fused_linear_attention_block(
     return linear_attention_block_reference(*args)
 
 
+def linear_attention_block_v2(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """The whole block through TPU kernel #10 (v2) on float32 or bf16
+    [B, N, C]: the JAX package's ``_pallas_linear_attention_block_v2``,
+    reached only by its microbenchmark (``tools/microbench_attn.py``)."""
+    return kernel_call(
+        linear_attention_block_v2_cuda, linear_attention_block_v2_reference,
+        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+        heads, dim_head, scale, eps,
+    )
+
+
+def linear_attention_v4(
+    x_packed: torch.Tensor, w_qkv: torch.Tensor, n_tokens: int, heads: int, dim_head: int,
+    scale: float,
+) -> torch.Tensor:
+    """qkv projection + linear attention on tokens viewed lane-packed as
+    [B, N·C/128, 128] → [B, N, h·d], through TPU kernel #12 (``v4_call`` of
+    ``tools/microbench_attn_lanes.py``)."""
+    return kernel_call(
+        linear_attention_v4_cuda, linear_attention_v4_reference,
+        x_packed, w_qkv, n_tokens, heads, dim_head, scale,
+    )
+
+
 def fused_attention_block_small(
     x, norm_gamma, norm_beta, w_qkv, w_out, b_out,
     heads: int, dim_head: int, scale: float, eps: float = 1e-5,
@@ -290,11 +364,14 @@ _VP, _CI, _CF, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lon
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_tokens(x: torch.Tensor, heads: int, dim_head: int, what: str) -> Tuple[int, int, int]:
+def _check_tokens(
+    x: torch.Tensor, heads: int, dim_head: int, what: str, dtypes=(torch.bfloat16,)
+) -> Tuple[int, int, int]:
     if not x.is_cuda:
         raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what} takes bf16 tokens, got {x.dtype}")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{what} takes {names} tokens, got {x.dtype}")
     if x.ndim != 3 or not x.is_contiguous():
         raise ValueError(f"{what} takes contiguous [B, N, C] tokens, got {tuple(x.shape)}")
     if (heads, dim_head) != (4, 32):
@@ -360,27 +437,61 @@ def linear_attention_block_v1_cuda(
     """Launch the whole-block kernel v1 (TPU kernel #9) on bf16 [B, N, C]:
     the prenorm affine is applied in f32 before the bf16 qkv product, not
     folded into W_qkv."""
-    B, N, C = _check_tokens(x, heads, dim_head, "linear_attention_block_v1_cuda")
+    ops, (B, N, C) = _unfolded_block_operands(
+        "linear_attention_block_v1_cuda", (torch.bfloat16,),
+        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head,
+    )
+    _build.launch(
+        "linear_attention", "dmn_linattn_block_v1",
+        [_VP] * 10 + [_CI, _CI, _CI, _CF, _CF, _VP],
+        *(t.data_ptr() for t in ops), B, N, C, scale, eps, _stream(x),
+    )
+    LAUNCHES["linear_attention_block_v1"] += 1
+    return ops[8]  # out
+
+
+def linear_attention_block_v2_cuda(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Launch the whole-block kernel v2 (TPU kernel #10) on float32 or bf16
+    [B, N, C]: v1's stages with every product's operands in x's dtype (the
+    weights rounded to it), so float32 stays float32 throughout; in bf16 it
+    computes v1's function."""
+    ops, (B, N, C) = _unfolded_block_operands(
+        "linear_attention_block_v2_cuda", _KERNEL_DTYPES,
+        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head,
+    )
+    _build.launch(
+        "linear_attention", "dmn_linattn_block_v2",
+        [_VP] * 10 + [_CI, _CI, _CI, _CI, _CF, _CF, _VP],
+        *(t.data_ptr() for t in ops), B, N, C, int(x.dtype == torch.bfloat16), scale, eps,
+        _stream(x),
+    )
+    LAUNCHES["linear_attention_block_v2"] += 1
+    return ops[8]  # out
+
+
+def _unfolded_block_operands(
+    what, dtypes, x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int,
+):
+    """Checks and operands of kernels #9 and #10, in their C entries' order:
+    weights in x's dtype, the prenorm affine unfolded in f32, then the
+    output and the scratch. Returns (operands, (B, N, C))."""
+    B, N, C = _check_tokens(x, heads, dim_head, what, dtypes)
     hd = heads * dim_head
     if w_qkv.shape != (C, 3 * hd) or w_out.shape != (hd, C):
         raise ValueError(f"weights {tuple(w_qkv.shape)}, {tuple(w_out.shape)} do not fit C={C}")
     smem = 4 * (32 * C + 2 * 32 * hd + 4 * 32 * 32)  # the apply stage's tiles
     if smem > _SMEM_LIMIT:
         raise ValueError(f"C={C} needs {smem} B of shared memory (> {_SMEM_LIMIT})")
-    wq = w_qkv.to(torch.bfloat16).contiguous()
-    wo = w_out.to(torch.bfloat16).contiguous()
+    wq = w_qkv.to(x.dtype).contiguous()
+    wo = w_out.to(x.dtype).contiguous()
     ng, nb, bo, og, ob = (_f32(t) for t in (norm_gamma, norm_beta, b_out, out_gamma, out_beta))
     out = torch.empty_like(x)
     scratch = _linattn_scratch(B, N, C, True, x.device)
-    _build.launch(
-        "linear_attention", "dmn_linattn_block_v1",
-        [_VP] * 10 + [_CI, _CI, _CI, _CF, _CF, _VP],
-        x.data_ptr(), ng.data_ptr(), nb.data_ptr(), wq.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        og.data_ptr(), ob.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        B, N, C, scale, eps, _stream(x),
-    )
-    LAUNCHES["linear_attention_block_v1"] += 1
-    return out
+    return (x, ng, nb, wq, wo, bo, og, ob, out, scratch), (B, N, C)
 
 
 def linear_attention_tokens_cuda(
@@ -401,6 +512,38 @@ def linear_attention_tokens_cuda(
         B, N, C, scale, _stream(h),
     )
     LAUNCHES["linear_attention_tokens"] += 1
+    return out
+
+
+def linear_attention_v4_cuda(
+    x_packed: torch.Tensor, w_qkv: torch.Tensor, n_tokens: int, heads: int, dim_head: int,
+    scale: float,
+) -> torch.Tensor:
+    """Launch the qkv-fused linear attention on the lane-packed view (TPU
+    kernel #12): float32 or bf16 x_packed [B, R, 128] holding [B, N, C]
+    tokens row-major (R·128 = N·C, C divides 128) → [B, N, 128] in x's
+    dtype. The kernel reads the same bytes as token rows."""
+    what = "linear_attention_v4_cuda"
+    if x_packed.ndim != 3 or x_packed.shape[-1] != 128:
+        raise ValueError(f"{what} takes [B, R, 128] packed tokens, got {tuple(x_packed.shape)}")
+    B, R, L = x_packed.shape
+    if (R * L) % n_tokens or 128 % ((R * L) // n_tokens):
+        raise ValueError(f"{what}: [B, {R}, {L}] does not hold {n_tokens} tokens of C | 128 channels")
+    C = (R * L) // n_tokens
+    _check_tokens(x_packed, heads, dim_head, what, _KERNEL_DTYPES)
+    hd = heads * dim_head
+    if w_qkv.shape != (C, 3 * hd):
+        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} does not fit C={C}")
+    wq = w_qkv.to(x_packed.dtype).contiguous()
+    out = torch.empty((B, n_tokens, hd), dtype=x_packed.dtype, device=x_packed.device)
+    scratch = _linattn_scratch(B, n_tokens, C, False, x_packed.device)
+    _build.launch(
+        "linear_attention", "dmn_linattn_v4",
+        [_VP] * 4 + [_CI] * 4 + [_CF, _VP],
+        x_packed.data_ptr(), wq.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, n_tokens, C, int(x_packed.dtype == torch.bfloat16), scale, _stream(x_packed),
+    )
+    LAUNCHES["linear_attention_v4"] += 1
     return out
 
 

@@ -1,0 +1,157 @@
+"""The port's kernel microbenchmarks (``diffusion_model_nemo_tpu_torch/tools``)
+on the CPU, at tiny shapes.
+
+On the CPU every kernel call runs its plain version, so these tests check the
+tools' arms, rows and printed lines, and hold the arms that have a JAX
+counterpart to it (inputs from numpy seeds fed to both packages); the times
+they print are the host's and say nothing of the card. bf16 at rtol = atol =
+2e-2, the JAX package's kernel-test tolerance.
+"""
+
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusion_model_nemo_tpu.ops import attention as JA
+from diffusion_model_nemo_tpu_torch.ops import conv as TC
+from diffusion_model_nemo_tpu_torch.tools import microbench_attn as MA
+from diffusion_model_nemo_tpu_torch.tools import microbench_attn_lanes as ML
+from diffusion_model_nemo_tpu_torch.tools import microbench_conv as MC
+
+REPO = Path(__file__).resolve().parents[1]
+BF16_TOL = 2e-2
+FAST = dict(device="cpu", reps=1, rounds=1)
+
+
+def _finite_rows(rows):
+    assert rows and all(math.isfinite(r["us"]) and r["us"] > 0 and r["device"] == "cpu" for r in rows)
+
+
+def test_microbench_attn_runs_on_cpu():
+    rows = MA.run(shapes=[(2, 64, 32), (2, 64, 64)], **FAST)
+    _finite_rows(rows)
+    assert [(r["shape"], r["arm"]) for r in rows] == [
+        ([2, 64, C], arm) for C in (32, 64) for arm in ("composed", "v1", "v2")
+    ]
+    # v2's max |diff| against composed is that of the two arms' outputs, which
+    # agree at rtol = atol = 2e-2
+    for row in (r for r in rows if "max_abs_diff" in r):
+        B, N, C = row["shape"]
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal((B, N, C))).float().bfloat16()
+        arms = MA.arms(C, torch.device("cpu"))
+        v2, composed = arms["v2"](x).float(), arms["composed"](x).float()
+        torch.testing.assert_close(v2, composed, rtol=BF16_TOL, atol=BF16_TOL)
+        assert row["max_abs_diff"] == float((v2 - composed).abs().max())
+    lines = MA.report(rows)
+    assert lines[0].startswith("[2,64,32] composed") and lines[-1].startswith("[2,64,64] v2 max|d|=")
+
+
+def test_microbench_attn_composed_arm_matches_jax():
+    """The tool's composed arm against the JAX tool's composition on the
+    same weights: GroupNorm(1), qkv, ``fused_linear_attention_qkv``, out
+    projection, GroupNorm(1), + x (bf16, 2e-2)."""
+    B, N, C = 2, 64, 32
+    x = np.random.default_rng(3).standard_normal((B, N, C))
+    ng, nb, wqkv, wout, bout, og, ob = (t.numpy() for t in MA._weights(C, torch.device("cpu")))
+    ours = MA.arms(C, torch.device("cpu"))["composed"](torch.from_numpy(x).float().bfloat16())
+    jx = jnp.asarray(x, jnp.float32).astype(jnp.bfloat16)
+    h = JA._gn1(jx, ng, nb, 1e-5)
+    attn = JA.fused_linear_attention_qkv(jnp.dot(h, wqkv.astype(h.dtype)), 4, 32, 32**-0.5)
+    out = jnp.dot(attn.astype(jx.dtype), wout.astype(jx.dtype)) + bout.astype(jx.dtype)
+    ref = JA._gn1(out, og, ob, 1e-5) + jx
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_microbench_conv_runs_on_cpu():
+    rows = MC.run(shapes=[(2, 8, 8, 32, 32), (2, 8, 8, 32, 16)], **FAST)
+    _finite_rows(rows)
+    assert [r["arm"] for r in rows] == ["conv2d", "conv3x3"] * 2
+    assert all(r["max_abs_diff"] <= BF16_TOL for r in rows if r["arm"] == "conv3x3")
+    assert rows[0]["gflop"] == 2 * 2 * 8 * 8 * 9 * 32 * 32 / 1e9
+    lines = MC.report(rows)
+    assert lines[0].startswith("[2,8,8,32->32] conv2d") and lines[1].startswith("   conv3x3:")
+
+
+def test_microbench_conv_library_arm_computes_the_same_conv():
+    """The yardstick ``F.conv2d`` call on the channels_last view computes
+    what ``conv3x3_reference`` computes (bf16, 2e-2)."""
+    x, w, b = MC.inputs((2, 8, 8, 32, 16), torch.device("cpu"))
+    lib = MC.library_conv(x, w, b)().permute(0, 2, 3, 1)
+    torch.testing.assert_close(lib.float(), TC.conv3x3_reference(x, w, b).float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_microbench_attn_lanes_runs_on_cpu():
+    rows = ML.run(shapes=[(2, 64, 32)], transposes=[(64, 128), (96, 128)], **FAST)
+    _finite_rows(rows)
+    assert [r["arm"] for r in rows] == ["v3", "v4", "transpose", "transpose"]
+    assert all(r["max_abs_diff"] <= BF16_TOL for r in rows[:2])
+    assert all(r["exact"] and r["copy_us"] > 0 for r in rows[2:])
+    lines = ML.report(rows)
+    assert lines[1].startswith("[2,64,32] v4:") and lines[2].startswith("transpose [64,128] bf16")
+
+
+def test_v4_call_is_the_tokens_function_on_the_packed_view():
+    """``v4_call`` on [B, N, C] equals the qkv-fused linear attention on the
+    same tokens: the packed view holds the same bytes."""
+    B, N, C = 2, 64, 64
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((B, N, C))).float().bfloat16()
+    w = torch.from_numpy(rng.standard_normal((C, 384)) * 0.1).float()
+    from diffusion_model_nemo_tpu_torch.ops import attention as TA
+
+    ours = ML.v4_call(x, w, 4, 32, 32**-0.5)
+    torch.testing.assert_close(ours, TA.linear_attention_tokens_reference(x, w, 4, 32, 32**-0.5), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "tool,argv,expect",
+    [
+        (MA, ["--shape", "2", "64", "32"], "[2,64,32] v2 max|d|="),
+        (MC, ["2", "8", "8", "32", "32"], "[2,8,8,32->32] conv2d"),
+        (ML, ["--shape", "2", "64", "32", "--transpose", "64", "128"], "transpose [64,128] bf16"),
+    ],
+    ids=["attn", "conv", "attn_lanes"],
+)
+def test_tool_main_prints_the_jax_tools_lines(capsys, tool, argv, expect):
+    assert tool.main(argv + ["--device", "cpu", "--reps", "1", "--rounds", "1"]) == 0
+    out = capsys.readouterr().out
+    assert expect in out
+
+
+def test_microbench_conv_rejects_a_partial_shape():
+    with pytest.raises(SystemExit):
+        MC.main(["2", "8", "8", "32", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", ["microbench_attn", "microbench_conv", "microbench_attn_lanes"])
+def test_tool_runs_as_a_module_without_jax(name):
+    """``python -m diffusion_model_nemo_tpu_torch.tools.<name>`` in a fresh
+    interpreter (this one has JAX loaded by conftest): it runs, and neither
+    JAX nor the JAX package is imported."""
+    small = {
+        "microbench_attn": ["--shape", "2", "64", "32"],
+        "microbench_conv": ["2", "8", "8", "32", "32"],
+        "microbench_attn_lanes": ["--shape", "2", "64", "32", "--transpose", "64", "128"],
+    }[name]
+    argv = ["x", *small, "--device", "cpu", "--reps", "1", "--rounds", "1"]
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = {argv!r}\n"
+        "try:\n"
+        f"    runpy.run_module('diffusion_model_nemo_tpu_torch.tools.{name}', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'diffusion_model_nemo_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=300,
+                         capture_output=True, text=True)
+    assert "us" in out.stdout

@@ -234,6 +234,8 @@ def test_port_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import sys, diffusion_model_nemo_tpu_torch, diffusion_model_nemo_tpu_torch.serving\n"
         "import diffusion_model_nemo_tpu_torch.modules.dit, diffusion_model_nemo_tpu_torch.config.dit_small\n"
+        "import diffusion_model_nemo_tpu_torch.tools.microbench_attn, diffusion_model_nemo_tpu_torch.tools.microbench_conv\n"
+        "import diffusion_model_nemo_tpu_torch.tools.microbench_attn_lanes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "
         "'diffusion_model_nemo_tpu'))\n"
         "assert not bad, bad\n"
