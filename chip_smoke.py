@@ -27,7 +27,9 @@ Phases:
      is the limit; the logs add the device time per call from
      torch.profiler), and the least time the card could take (bytes at
      3.35 TB/s or operations at the peak rate of their type, whichever is
-     larger).
+     larger). #7 is also held in bf16 at shapes the DiT does not send (a
+     ragged N at d = 32 and 64, d = 128, N = 4096, k and v cut from one qkv
+     tensor as the DiT cuts them) and #4 at N = 8, 64 and 32 and at C = 48.
   3. One U-Net forward at B=64 per bf16 configuration and one DiT-S/2
      forward with the kernels, against the same forward with every kernel
      swapped for its plain version (TF32 off for both), with device-time
@@ -56,8 +58,11 @@ Phases:
          time against its backward's plain recompute;
      6d. ``Trainer.fit`` of unet_small for 20 steps on the synthetic set
          (finite losses, the EMA moved, launches = 20 x per forward), step
-         time, samples/s and the device-busy share of a step; then 5 steps
-         under both switches (#6 = 27, #9 = 1, #3 = 0 per step).
+         time, samples/s and the device-busy share of a step; after the
+         20 steps the weights each attention layer's kernel derives from
+         its parameters (prenorm fold, casts, re-layouts), kept per
+         parameter version, equal a fresh derivation bit for bit; then 5
+         steps under both switches (#6 = 27, #9 = 1, #3 = 0 per step).
   Every new kernel (#5, #6 plain and FiLM, #9) is held against its plain
   version at every shape these paths give it, as in phase 2, and so are
   #1-#4 at the training step's B=128 shapes.
@@ -94,6 +99,9 @@ from unittest import mock
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 on CUDA cores
+# Softmax attention's second limit: one exp2 per score, 16 a clock on each of
+# the 132 SMs' special-function units, at the 1.98 GHz boost clock.
+PEAK_EXP2_PER_S = 16 * 132 * 1.98e9
 B = 64
 TOL = 2e-2  # kernel vs plain, bf16: tests/test_ops_kernels.py
 F32_TOL = 1e-4  # kernel vs plain, float32: f32 sums in another order
@@ -167,7 +175,7 @@ def time_ms(fn, iters: int = 20) -> float:
 HAND_KERNELS = (
     "gn_silu_kernel", "xstats_kernel", "kv_kernel", "merge_kernel", "apply_kernel",
     "outnorm_kernel", "attn_block_small_kernel", "qkv_kv_kernel", "qkv_apply_kernel",
-    "attn_fwd_kernel", "bm_stats_kernel", "bm_apply_kernel", "v1_kstats_kernel",
+    "attn_wgmma_kernel", "attn_mma_kernel", "attn_f32_kernel", "bm_stats_kernel", "bm_apply_kernel", "v1_kstats_kernel",
     "v1_gram_kernel", "v1_merge_kernel", "v1_apply_kernel", "conv3x3_kernel", "transpose2d_kernel",
 )
 
@@ -194,8 +202,11 @@ def device_profile(fn, iters: int = 10):
 def device_ms(fn):
     """Device time per call from the profiler; None ("not measured") when
     the trace holds no device time."""
-    total = device_profile(fn)[0]
-    return total if total > 0 else None
+    for _ in range(2):  # a trace now and then comes back without device events: ask once more
+        total = device_profile(fn)[0]
+        if total > 0:
+            return total
+    return None
 
 
 def fmt(v, digits=4) -> str:
@@ -287,8 +298,12 @@ def copy_arg(a, dtype=None):
 
     if not torch.is_tensor(a):
         return a
-    out = torch.empty_strided(a.size(), a.stride(), dtype=dtype or a.dtype, device=a.device)
-    return out.copy_(a)
+    # Recorded inside a forward, which runs in inference mode: the copy is made
+    # a normal tensor, as the served parameters are (it tracks a version, so
+    # the wrappers keep what they derive from it, as on the main path).
+    with torch.inference_mode(False):
+        out = torch.empty_strided(a.size(), a.stride(), dtype=dtype or a.dtype, device=a.device)
+        return out.copy_(a)
 
 
 def call_key(name, args):
@@ -454,11 +469,15 @@ def check_kernels(port, calls_by_cfg):
                 nbytes, ops, kind = work(name, args)
                 t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
                 bound = max(t_bytes, t_ops)
+                exp2 = ""
+                if name == "attention":  # B h N^2 exponentials
+                    Bn, Nn, h, _d = args[0].shape
+                    exp2 = f" exp2_bound_ms={Bn * h * Nn * Nn / PEAK_EXP2_PER_S * 1e3:.5f}"
                 log(
                     f"[kernel] {cfg_name} {name} {list(key)} {str(args[0].dtype)[6:]} x{count}/forward "
                     f"max_abs_err={max_err:.3e} ok={ok} (tol {tol}) ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                     f"library_ms={'null' if l_ms is None else f'{l_ms:.4f}'} "
-                    f"bound_ms={bound:.5f} ({'bytes' if t_bytes >= t_ops else 'operations'}) "
+                    f"bound_ms={bound:.5f} ({'bytes' if t_bytes >= t_ops else 'operations'}){exp2} "
                     f"device_ms(kernel/plain/library)={fmt(d_k)}/{fmt(d_p)}/"
                     f"{'null' if lib is None else fmt(d_l)}"
                 )
@@ -543,6 +562,37 @@ def derived_calls(calls):
     lin = {k: [c, (copy_arg(args[0], torch.bfloat16),) + args[1:]]
            for k, (c, args) in calls["unet_small_f32"]["linear_attention_qkv"].items() if k[1] == 256}
     return {"dit_s2_f32": {"attention": att}, "linattn_bf16": {"linear_attention_qkv": lin}}
+
+
+# ragged N (mma.sync form, then the wgmma form), d=128, N=4096
+ATTN_EXTRA_SHAPES = ((2, 1100, 3, 32), (2, 1100, 2, 64), (2, 1024, 2, 128), (1, 4096, 2, 64))
+# one padded m16 tile, four, two, and a C that is padded to a multiple of 32
+SMALL_BLOCK_EXTRA_SHAPES = ((4, 8, 64), (4, 64, 128), (3, 32, 256), (3, 16, 48))
+
+
+def extra_calls(device):
+    """Kernel checks at shapes no network of the smoke sends: #7 in bf16 with
+    k and v cut from one [B, N, 3, h, d] qkv tensor as the DiT cuts them,
+    #4 at the ends and the middle of its gate. Seeded inputs."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=device) * std
+
+    att = {}
+    for Bn, Nn, h, d in ATTN_EXTRA_SHAPES:
+        qkv = randn(Bn, Nn, 3, h, d).to(torch.bfloat16)
+        att[(Bn, Nn, h, d)] = [1, (qkv[:, :, 0] * d**-0.5, qkv[:, :, 1], qkv[:, :, 2])]
+    small = {}
+    for Bn, Nn, C in SMALL_BLOCK_EXTRA_SHAPES:
+        small[(Bn, Nn, C)] = [1, (
+            randn(Bn, Nn, C, std=0.5).to(torch.bfloat16), 1.0 + randn(C, std=0.1), randn(C, std=0.1),
+            randn(C, 384, std=C**-0.5), randn(128, C, std=128**-0.5), randn(C, std=0.1),
+            4, 32, 32**-0.5, 1e-5,
+        )]
+    return {"attention_extra": {"attention": att}, "small_block_extra": {"attention_block_small": small}}
 
 
 def log_profile(tag, model, x, t):
@@ -952,6 +1002,8 @@ def check_fit(port, device, steps, env, expect_per_step):
     model = port.DDPM(cfg, device=device, seed=SEED)
     ema0 = {k: v.clone() for k, v in model.ema_params.items()}
     trainer = port.Trainer(max_steps=steps, log_every_n_steps=5, devices=1, seed=SEED)
+    states, init_state = [], trainer.init_state
+    trainer.init_state = lambda m, n: states.append(init_state(m, n)) or states[-1]
     with switches(env):
         port.ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -967,7 +1019,42 @@ def check_fit(port, device, steps, env, expect_per_step):
     assert len(losses) == steps // 5 and all(map(lambda v: v == v and abs(v) < 1e6, losses)), losses
     assert moved > 0
     assert_counts(f"fit {steps} steps ({tag})", counts, {k: v * steps for k, v in expect_per_step.items()})
+    check_derived_weights(port, model, states[0].params, tag)
     return model, trainer, counts
+
+
+def check_derived_weights(port, model, params, tag):
+    """After training: what each attention layer's kernel derives from its
+    parameters (the prenorm fold, casts, re-layouts; kept per parameter
+    version) equals, for the very tensors the optimizer updated in place, a
+    fresh derivation bit for bit."""
+    import torch
+
+    A = port.ops.attention
+    parts = port.modules.parts
+    layers = 0
+    for name, mod in model.diffusion_model.named_modules():
+        if not isinstance(mod, parts.SelfAttentionBlock):
+            continue
+        ng, nb = params[f"{name}.norm.weight"], params[f"{name}.norm.bias"]
+        wqkv, wout = params[f"{name}.attn.to_qkv.weight"].t(), params[f"{name}.attn.to_out.weight"].t()
+        bout = params[f"{name}.attn.to_out.bias"]
+
+        def derive():
+            if mod.linear:
+                return (*A._fold_prenorm(ng, nb, wqkv), A._cast_weight(wqkv, torch.bfloat16),
+                        A._cast_weight(wout, torch.bfloat16))
+            return A._small_block_weights(ng, nb, wqkv, wout, bout)
+
+        with torch.no_grad():
+            kept = derive()
+            with mock.patch.object(A._derived, "enabled", False):
+                fresh = derive()
+        assert all(torch.equal(a, b) for a, b in zip(kept, fresh)), f"stale derived weights at {name}"
+        layers += 1
+    log(f"[train] fit ({tag}): derived weights of {layers} attention layers equal a fresh derivation "
+        f"bit for bit; cache {A._derived.stats()}")
+    assert layers > 0
 
 
 def step_profile(port, model):
@@ -1113,7 +1200,7 @@ def main() -> int:
     per_forward = {name: per_forward_counts(c) for name, c in calls.items()}
     log(f"[path] launches per forward (B={B}; *_128*: B={TRAIN_B}; film_block: per pass): {per_forward}")
     assert per_forward["dit_s2"] == {"attention": 12}, per_forward["dit_s2"]
-    rows = check_kernels(port, {**calls, **derived_calls(calls)})
+    rows = check_kernels(port, {**calls, **derived_calls(calls), **extra_calls(device)})
     check_networks(port, models, inputs)
     f32_counts = check_float32_route(
         port, models["unet_small_f32"], *inputs["unet_small_f32"], per_forward["unet_small_f32"]

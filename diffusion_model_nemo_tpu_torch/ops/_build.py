@@ -5,13 +5,16 @@ together) into a shared library with a plain C interface, and loaded with
 ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 The build runs at first use, into ``_build/`` beside this package (listed in
 ``.gitignore``); a library's file name carries the hash of its sources, so an
 edited source is rebuilt and a stale library is never loaded. A failed
-build raises with the compiler's output. Only the repository's own sources
-are compiled.
+build raises with the compiler's output; a successful one leaves it (every
+kernel's registers, shared memory and spills) in ``<name>-<hash>.log``. Only
+the repository's own sources are compiled; ``csrc/attention.cu`` includes
+``<cuda.h>`` for the tensor-map types and fetches libcuda's
+``cuTensorMapEncodeTiled`` at run time, so nothing links against libcuda.
 """
 
 from __future__ import annotations
@@ -24,10 +27,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Tuple
 
 __all__ = [
-    "load_kernels", "build_kernels", "library", "launch", "CSRC_DIR", "BUILD_DIR", "build_seconds",
+    "load_kernels", "build_kernels", "library", "launch", "c_function", "CSRC_DIR", "BUILD_DIR", "build_seconds",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
@@ -36,10 +39,12 @@ BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xptxas", "-v",  # registers, shared memory and spills of every kernel, kept in <library>.log
 ]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], Callable] = {}  # (library, C function) -> typed function
 build_seconds = {"total": 0.0}
 
 
@@ -96,6 +101,7 @@ def build_kernels() -> Dict[str, Path]:
                 errors.append(f"--- nvcc {stem}.cu (exit {proc.returncode}) ---\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)
         build_seconds["total"] += time.perf_counter() - t0
         if errors:
@@ -116,19 +122,31 @@ def library(stem: str) -> ctypes.CDLL:
     return load_kernels()[stem]
 
 
+def c_function(stem: str, name: str, argtypes, restype):
+    """C function ``name`` of library ``stem`` with its argument and result
+    types set, made once per function and then reused: ctypes keeps the types
+    on the function object, so setting them on every call would race between
+    threads and cost host time."""
+    fn = _functions.get((stem, name))
+    if fn is None:
+        lib = library(stem)
+        with _lock:
+            fn = _functions.get((stem, name))
+            if fn is None:
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+                _functions[(stem, name)] = fn
+    return fn
+
+
 def launch(stem: str, name: str, argtypes, *args) -> None:
     """Call one C launcher of library ``stem`` and raise if it returns a
     CUDA error (a refused launch never runs, and a later synchronize would
-    not report it)."""
-    lib = library(stem)
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    rc = fn(*args)
+    not report it). ``argtypes`` are read at the launcher's first call."""
+    rc = c_function(stem, name, argtypes, ctypes.c_int)(*args)
     if rc != 0:
-        err = getattr(lib, f"dmn_{_ERROR_PREFIX[stem]}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
+        err = c_function(stem, f"dmn_{_ERROR_PREFIX[stem]}_error_string", [ctypes.c_int], ctypes.c_char_p)
         raise RuntimeError(f"{stem}.cu:{name} failed: CUDA error {rc} ({err(rc).decode()})")
 
 

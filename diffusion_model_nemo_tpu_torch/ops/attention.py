@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Tuple
+import weakref
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -53,6 +54,10 @@ __all__ = [
     "attention_block_small_cuda",
     "linear_attention_qkv_cuda",
     "attention_cuda",
+    "check_attention_alignment",
+    "small_block_smem_bytes",
+    "fragment_order",
+    "fragment_order_inverse",
     "LAUNCHES",
 ]
 
@@ -379,14 +384,116 @@ def _check_tokens(
     return tuple(x.shape)
 
 
-def _fold_prenorm(norm_gamma, norm_beta, w_qkv) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold GroupNorm(1)'s affine into the qkv projection, as the TPU kernels
-    do: h·W = ((x−μ)·rstd)·(γ∘W) + β·W. Weights only."""
+class _DerivedWeights:
+    """Tensors a wrapper derives from parameters alone (the prenorm fold, a
+    cast, a re-layout), kept per parameter version so that a forward does
+    not redo them.
+
+    An entry is keyed on the identity of each source tensor (of its base
+    where the caller passes a view such as ``weight.t()``: a view is a new
+    object on every call but shares its base's version counter) and holds
+    the sources by weak reference with their ``_version`` at the time. It is
+    used again only while every reference still gives the same object (an
+    ``id`` alone, like a ``data_ptr``, can be taken over by a new tensor)
+    at the same version: an optimizer's in-place step, ``load_state_dict``
+    and the EMA's ``copy_`` all raise ``_version``. A source that tracks no
+    version (an inference tensor) is never cached. An entry goes when one of
+    its sources is collected."""
+
+    def __init__(self) -> None:
+        self._entries: Dict[tuple, tuple] = {}
+        self.enabled = True
+        self.hits = self.misses = 0
+
+    def get(self, kind: str, sources: Sequence[torch.Tensor], make: Callable[[], object]):
+        if not self.enabled:
+            return make()
+        roots = [t if t._base is None else t._base for t in sources]
+        try:
+            versions = [r._version for r in roots]
+        except RuntimeError:  # inference tensors do not track a version
+            return make()
+        key = (kind,) + tuple(
+            (id(r), tuple(t.shape), t.stride(), t.storage_offset()) for r, t in zip(roots, sources)
+        )
+        entry = self._entries.get(key)
+        if entry is not None:
+            refs, seen, value = entry
+            if seen == versions and all(ref() is r for ref, r in zip(refs, roots)):
+                self.hits += 1
+                return value
+        self.misses += 1
+        value = make()
+        entries = self._entries
+
+        def drop(_ref, key=key):
+            entries.pop(key, None)
+
+        entries[key] = (tuple(weakref.ref(r, drop) for r in roots), versions, value)
+        return value
+
+    def stats(self) -> Dict[str, int]:
+        return {"entries": len(self._entries), "hits": self.hits, "misses": self.misses}
+
+
+_derived = _DerivedWeights()
+
+
+def _fold(norm_gamma, norm_beta, w_qkv) -> Tuple[torch.Tensor, torch.Tensor]:
     w = w_qkv.float()
     return (
         (norm_gamma.float()[:, None] * w).to(torch.bfloat16).contiguous(),
         (norm_beta.float() @ w).contiguous(),
     )
+
+
+def _fold_prenorm(norm_gamma, norm_beta, w_qkv) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold GroupNorm(1)'s affine into the qkv projection, as the TPU kernels
+    do: h·W = ((x−μ)·rstd)·(γ∘W) + β·W. Weights only, so kept per parameter
+    version."""
+    sources = (norm_gamma, norm_beta, w_qkv)
+    return _derived.get("fold_prenorm", sources, lambda: _fold(*sources))
+
+
+def _cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` contiguous in ``dtype``, kept per parameter version."""
+    return _derived.get(f"cast:{dtype}", (w,), lambda: w.to(dtype).contiguous())
+
+
+def fragment_order(w: torch.Tensor) -> torch.Tensor:
+    """A projection weight [K, J] (J % 8 == 0) laid out as [K'/32, J/8, 32, 8],
+    K' = K rounded up to 32 with zero rows: for each pair of k16 steps and
+    each n8 tile of output columns, the 8 values each of the 32 lanes feeds
+    to ``mma.m16n8k16`` as its B fragments (lane = 4·g + t holds, for column
+    8·nt + g, rows 2t, 2t+1, 2t+8, 2t+9 of the first step, then of the
+    second), so a lane's share is one 16-byte load and a warp's load 512
+    contiguous bytes. A pure permutation of the (padded) weight;
+    ``fragment_order_inverse`` undoes it."""
+    K, J = w.shape
+    if K % 32:
+        w = torch.nn.functional.pad(w, (0, 0, 0, 32 - K % 32))
+        K = w.shape[0]
+    # k = 32·kp + 16·step + 8·half + 2·t + j;  column = 8·nt + g
+    v = w.reshape(K // 32, 2, 2, 4, 2, J // 8, 8)  # kp, step, half, t, j, nt, g
+    return v.permute(0, 5, 6, 3, 1, 2, 4).reshape(K // 32, J // 8, 32, 8).contiguous()
+
+
+def fragment_order_inverse(f: torch.Tensor) -> torch.Tensor:
+    """[K'/32, J/8, 32, 8] in fragment order back to [K', J]."""
+    kp, nt = f.shape[:2]
+    v = f.reshape(kp, nt, 8, 4, 2, 2, 2)  # kp, nt, g, t, step, half, j
+    return v.permute(0, 4, 5, 3, 6, 1, 2).reshape(kp * 32, nt * 8).contiguous()
+
+
+def _small_block_weights(norm_gamma, norm_beta, w_qkv, w_out, b_out):
+    """Kernel #4's weight operands: γ∘W_qkv and W_out in bf16 in fragment
+    order, β·W_qkv [3·hd] and b_out [C] in f32, kept per parameter version."""
+
+    def make():
+        wq, bq = _fold(norm_gamma, norm_beta, w_qkv)
+        return fragment_order(wq), bq, fragment_order(w_out.to(torch.bfloat16)), _f32(b_out)
+
+    return _derived.get("attn_block_small", (norm_gamma, norm_beta, w_qkv, w_out, b_out), make)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -398,10 +505,7 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _linattn_scratch(B: int, N: int, C: int, block: bool, device) -> torch.Tensor:
-    lib = _build.library("linear_attention")
-    fn = lib.dmn_linattn_scratch_floats
-    fn.argtypes = [_CI, _CI, _CI, _CI]
-    fn.restype = ctypes.c_long
+    fn = _build.c_function("linear_attention", "dmn_linattn_scratch_floats", [_CI] * 4, ctypes.c_long)
     return torch.empty(fn(B, N, C, int(block)), dtype=torch.float32, device=device)
 
 
@@ -415,7 +519,7 @@ def linear_attention_block_cuda(
     if w_qkv.shape != (C, 3 * hd) or w_out.shape != (hd, C):
         raise ValueError(f"weights {tuple(w_qkv.shape)}, {tuple(w_out.shape)} do not fit C={C}")
     wq, bq = _fold_prenorm(norm_gamma, norm_beta, w_qkv)
-    wo = w_out.to(torch.bfloat16).contiguous()
+    wo = _cast_weight(w_out, torch.bfloat16)
     bo, og, ob = _f32(b_out), _f32(out_gamma), _f32(out_beta)
     out = torch.empty_like(x)
     scratch = _linattn_scratch(B, N, C, True, x.device)
@@ -486,8 +590,8 @@ def _unfolded_block_operands(
     smem = 4 * (32 * C + 2 * 32 * hd + 4 * 32 * 32)  # the apply stage's tiles
     if smem > _SMEM_LIMIT:
         raise ValueError(f"C={C} needs {smem} B of shared memory (> {_SMEM_LIMIT})")
-    wq = w_qkv.to(x.dtype).contiguous()
-    wo = w_out.to(x.dtype).contiguous()
+    wq = _cast_weight(w_qkv, x.dtype)
+    wo = _cast_weight(w_out, x.dtype)
     ng, nb, bo, og, ob = (_f32(t) for t in (norm_gamma, norm_beta, b_out, out_gamma, out_beta))
     out = torch.empty_like(x)
     scratch = _linattn_scratch(B, N, C, True, x.device)
@@ -502,7 +606,7 @@ def linear_attention_tokens_cuda(
     hd = heads * dim_head
     if w_qkv.shape != (C, 3 * hd):
         raise ValueError(f"w_qkv {tuple(w_qkv.shape)} does not fit C={C}")
-    wq = w_qkv.to(torch.bfloat16).contiguous()
+    wq = _cast_weight(w_qkv, torch.bfloat16)
     out = torch.empty((B, N, hd), dtype=torch.bfloat16, device=h.device)
     scratch = _linattn_scratch(B, N, C, False, h.device)
     _build.launch(
@@ -550,6 +654,24 @@ def linear_attention_v4_cuda(
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 
+def small_block_smem_bytes(N: int, C: int, heads: int = 4, dim_head: int = 32) -> int:
+    """Shared memory kernel #4 needs for [N, C] tokens: h [NP, CP + 8], qkv
+    [NP, 3·hd + 8] and the attention output [NP, hd + 8] in bf16, NP = N
+    rounded up to 16 and CP = C rounded up to 32 (rows padded by 16 bytes),
+    and 256 B of reduction scratch. Raises for a shape outside the kernel's range."""
+    hd = heads * dim_head
+    if not (8 <= N <= 64 and N % 8 == 0 and heads * N <= 512):
+        raise ValueError(
+            f"attention_block_small_cuda takes 8 <= N <= 64, N % 8 == 0, heads*N <= 512; got [N={N}, C={C}]"
+        )
+    if C % 8:
+        raise ValueError(f"attention_block_small_cuda takes C % 8 == 0 (16-byte rows); got [N={N}, C={C}]")
+    smem = 2 * (-(-N // 16) * 16) * ((-(-C // 32) * 32 + 8) + (3 * hd + 8) + (hd + 8)) + 256
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"[N={N}, C={C}] needs {smem} B of shared memory (> {_SMEM_LIMIT})")
+    return smem
+
+
 def attention_block_small_cuda(
     x, norm_gamma, norm_beta, w_qkv, w_out, b_out,
     heads: int, dim_head: int, scale: float, eps: float = 1e-5,
@@ -559,12 +681,10 @@ def attention_block_small_cuda(
     hd = heads * dim_head
     if w_qkv.shape != (C, 3 * hd) or w_out.shape != (hd, C):
         raise ValueError(f"weights {tuple(w_qkv.shape)}, {tuple(w_out.shape)} do not fit C={C}")
-    smem = 4 * (max(N * C, heads * N * N) + 4 + N * (3 * hd + 1)) + 256
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"[N={N}, C={C}] needs {smem} B of shared memory (> {_SMEM_LIMIT})")
-    wq, bq = _fold_prenorm(norm_gamma, norm_beta, w_qkv)
-    wo = w_out.to(torch.bfloat16).contiguous()
-    bo = _f32(b_out)
+    small_block_smem_bytes(N, C, heads, dim_head)
+    if x.data_ptr() % 16:
+        raise ValueError(f"attention_block_small_cuda takes 16-byte aligned tokens, got {tuple(x.shape)} at {x.data_ptr():#x}")
+    wq, bq, wo, bo = _small_block_weights(norm_gamma, norm_beta, w_qkv, w_out, b_out)
     out = torch.empty_like(x)
     _build.launch(
         "attention_block_small", "dmn_attn_block_small",
@@ -606,10 +726,23 @@ def linear_attention_qkv_cuda(
 _ATTN_HEAD_DIMS = (32, 64, 128)
 
 
+def check_attention_alignment(name: str, t: torch.Tensor) -> None:
+    """Kernel #7 reads bf16 q, k and v in place, in 16-byte pieces (TMA
+    tensor maps at d = 64, cp.async otherwise): the base address and the byte
+    strides over (B, N, h) must be multiples of 16, as they are for the DiT's
+    slices of its [B, N, 3, h, d] qkv tensor."""
+    if t.data_ptr() % 16 or any((s * t.element_size()) % 16 for s in t.stride()[:3]):
+        raise ValueError(
+            f"attention_cuda takes bf16 {name} with a 16-byte aligned base and strides over (B, N, h), got "
+            f"{tuple(t.shape)} strides {t.stride()} at offset {t.storage_offset()} (address {t.data_ptr():#x})"
+        )
+
+
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Launch the softmax-attention kernel (TPU kernel #7) on float32 or bf16
     [B, N, h, d] tensors (q pre-scaled), read in place with their strides
-    (unit stride along d) → contiguous [B, N, h, d]."""
+    (unit stride along d) → contiguous [B, N, h, d]. bf16 runs on the tensor
+    cores, float32 on the CUDA cores."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"attention_cuda needs a CUDA tensor, got {name} on {t.device}")
@@ -620,6 +753,9 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
                 f"attention_cuda takes [B, N, h, d] q, k, v with unit stride along d, got {name} "
                 f"{tuple(t.shape)} strides {t.stride()}"
             )
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_attention_alignment(name, t)
     B, N, H, D = q.shape
     if D not in _ATTN_HEAD_DIMS:
         raise ValueError(f"attention_cuda is built for head dims {_ATTN_HEAD_DIMS}, got [B, N, h, d] = {list(q.shape)}")

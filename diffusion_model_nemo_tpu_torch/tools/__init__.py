@@ -9,6 +9,10 @@ JAX tool's lines) and ``main(argv)``:
 Timing is CUDA events around ``reps`` back-to-back calls, the median of
 ``rounds``; on the CPU (``--device cpu``, for the tests) the host clock, which
 times PyTorch's CPU kernels and says nothing of the card.
+
+``check_attention`` is not a microbenchmark of the JAX package but the short
+card check of kernels #7 and #4 to run first after an edit of their sources
+(``python -m diffusion_model_nemo_tpu_torch.tools.check_attention``).
 """
 
 from __future__ import annotations

@@ -797,3 +797,286 @@ def test_kernel_registry_holds_all_thirteen_kernels():
     assert all(TOPS.KERNELS[name].__name__ == f"{name}_cuda" for name in TOPS.KERNELS)
     TOPS.reset_launch_counts()
     assert set(TOPS.launch_counts().values()) == {0}
+
+
+# ------------------------- kernel 7 on the tensor cores: its seams, emulated --
+def _emulate_attention_mma(q, k, v, tile):
+    """Pure-torch copy of the tensor-core kernel's arithmetic
+    (csrc/attention.cu:attn_mma_kernel): keys in tiles of ``tile`` (the last
+    one ragged, its missing keys at -inf), f32 scores of bf16 operands, an
+    online softmax in base 2 with a running row max and an f32 row sum, the
+    *unnormalised* probabilities rounded to bf16 for p·v, one division at
+    the end."""
+    log2e = 1.4426950408889634
+    B, N, h, d = q.shape
+    qf, kf, vf = (a.float().permute(0, 2, 1, 3) for a in (q, k, v))  # [B, h, N, d]
+    m = torch.full((B, h, N, 1), -torch.inf)
+    l = torch.zeros(B, h, N, 1)
+    o = torch.zeros(B, h, N, d)
+    for n0 in range(0, N, tile):
+        s = qf @ kf[:, :, n0 : n0 + tile].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        f = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2(s * log2e - m_new * log2e)
+        l = l * f + p.sum(dim=-1, keepdim=True)
+        o = o * f + p.to(q.dtype).float() @ vf[:, :, n0 : n0 + tile]
+        m = m_new
+    return (o / l).permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("shape", [(1, 1024, 2, 64), (1, 1100, 2, 32), (1, 1024, 1, 128)])
+def test_attention_tensor_core_seams_stay_inside_the_kernel_tolerance(shape, tile):
+    """The redesigned kernel #7 feeds p·v the unnormalised probabilities in
+    bf16 and divides by an f32 row sum, where the plain version (and the JAX
+    kernel) normalise first: one bf16 rounding per term apart. Emulated here
+    from numpy-seeded inputs, with k and v strided slices of one qkv tensor
+    and a ragged N, it stays inside rtol = atol = 2e-2 of both."""
+    B, N, h, d = shape
+    qkv = np.random.default_rng(41).standard_normal((B, N, 3, h, d))
+    tqkv = _t(qkv, torch.bfloat16)
+    q, k, v = _t(qkv[:, :, 0] * d**-0.5, torch.bfloat16), tqkv[:, :, 1], tqkv[:, :, 2]
+    assert not k.is_contiguous() and TA.use_attention_kernel(shape)
+    ours = _emulate_attention_mma(q, k, v, tile)
+    assert ours.dtype == torch.bfloat16 and ours.shape == shape
+    _close(_np(ours), _np(TA.attention_reference(q, k, v)), BF16_TOL)
+    jq, jk, jv = (_j(a, jnp.bfloat16) for a in (qkv[:, :, 0] * d**-0.5, qkv[:, :, 1], qkv[:, :, 2]))
+    _close(_np(ours), _jax_attn_kernel(jq, jk, jv), BF16_TOL)
+
+
+def test_attention_wrapper_refuses_misaligned_bf16_operands():
+    """Kernel #7 copies 16-byte pieces of bf16 rows: a base or a stride over
+    (B, N, h) that is no multiple of 16 bytes is refused with the shape."""
+    qkv = torch.zeros(1, 1024, 3, 2, 64, dtype=torch.bfloat16)
+    for name, t in (("q", qkv[:, :, 0]), ("k", qkv[:, :, 1]), ("v", qkv[:, :, 2])):
+        TA.check_attention_alignment(name, t)  # the DiT's slices pass
+    flat = torch.zeros(4 + 1024 * 2 * 64, dtype=torch.bfloat16)
+    shifted = flat[4:].reshape(1, 1024, 2, 64)  # base 8 bytes off
+    with pytest.raises(ValueError, match=r"bf16 k with a 16-byte aligned base.*\(1, 1024, 2, 64\)"):
+        TA.check_attention_alignment("k", shifted)
+    odd = torch.zeros(1, 1024, 2, 68, dtype=torch.bfloat16)[..., :64]  # rows of 136 bytes
+    with pytest.raises(ValueError, match=r"bf16 v .*\(1, 1024, 2, 64\) strides \(139264, 136, 68, 1\)"):
+        TA.check_attention_alignment("v", odd)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TA.attention_cuda(shifted, shifted, shifted)
+
+
+# ------------------- kernel 4 on the tensor cores: operands, gate, emulation --
+def _emulate_small_block(x, wq_f, bq, wo_f, bo, scale, eps=1e-5):
+    """Kernel #4's arithmetic from the operands its wrapper derives (the
+    folded weights in fragment order, read back through the inverse layout),
+    with the kernel's seams: (x−μ)·rstd, q, k, v, the probabilities and the
+    attention output rounded to bf16, f32 sums, the residual added in f32."""
+    B, N, C = x.shape
+    bf = lambda a: a.to(torch.bfloat16).float()  # noqa: E731
+    wq, wo = TA.fragment_order_inverse(wq_f).float()[:C], TA.fragment_order_inverse(wo_f).float()
+    xf = x.float()
+    mean = xf.mean(dim=(1, 2), keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=(1, 2), keepdim=True) - mean * mean, min=0.0)
+    h = bf((xf - mean) * torch.rsqrt(var + eps))
+    qkv = bf(h @ wq + bq).reshape(B, N, 3, H, D)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    s = torch.einsum("bihd,bjhd->bhij", q, k) * scale
+    p = bf(torch.softmax(s, dim=-1))
+    att = bf(torch.einsum("bhij,bjhd->bihd", p, v)).reshape(B, N, HD)
+    return (att @ wo + bo + xf).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 64), (2, 8, 32), (2, 24, 96), (1, 64, 128), (2, 16, 48)])
+def test_small_block_operands_compute_the_block(shape):
+    """The wrapper's derived operands (γ∘W_qkv and W_out in fragment order,
+    β·W_qkv, b_out) with the kernel's seams give the plain block within 2e-2."""
+    C = shape[-1]
+    p = _block_params(43, C)
+    x = _t(np.random.default_rng(44).standard_normal(shape) * 0.5, torch.bfloat16)
+    w = [_t(p[k], torch.float32) for k in ("ng", "nb", "wqkv", "wout", "bout")]
+    wq_f, bq, wo_f, bo = TA._small_block_weights(*w)
+    assert wq_f.shape == (-(-C // 32), 3 * HD // 8, 32, 8) and wq_f.dtype == torch.bfloat16 and wq_f.is_contiguous()
+    assert wo_f.shape == (HD // 32, C // 8, 32, 8) and wo_f.dtype == torch.bfloat16 and wo_f.is_contiguous()
+    assert bq.dtype == bo.dtype == torch.float32
+    ours = _emulate_small_block(x, wq_f, bq, wo_f, bo, SCALE)
+    _close(_np(ours), _np(TA.attention_block_reference(x, *w, H, D, SCALE)), BF16_TOL)
+
+
+@pytest.mark.parametrize("shape", [(256, 384), (128, 64), (32, 8)])
+def test_fragment_order_layout_is_a_pure_permutation(shape):
+    """The weight re-layout moves bits and nothing else (a bitwise round
+    trip), and puts each lane's mma B fragments where the kernel reads them."""
+    K, J = shape
+    w = _t(np.random.default_rng(45).standard_normal(shape), torch.bfloat16)
+    f = TA.fragment_order(w)
+    assert f.shape == (K // 32, J // 8, 32, 8) and f.is_contiguous()
+    assert torch.equal(TA.fragment_order_inverse(f), w)
+    assert torch.equal(f.flatten().sort().values, w.flatten().sort().values)
+    # lane (g, t) of pair kp, tile nt: column 8 nt + g; rows 2t, 2t+1, 2t+8, 2t+9 of each step
+    kp, nt, g, t = K // 32 - 1, J // 8 - 1, 5, 2
+    rows = [32 * kp + 16 * step + 8 * half + 2 * t + j for step in (0, 1) for half in (0, 1) for j in (0, 1)]
+    assert torch.equal(f[kp, nt, 4 * g + t], w[rows, 8 * nt + g])
+    # a K that is no multiple of 32 gains zero rows, and nothing else moves
+    odd = TA.fragment_order_inverse(TA.fragment_order(w[:K - 8]))
+    assert torch.equal(odd[:K - 8], w[:K - 8]) and not odd[K - 8:].any()
+
+
+@pytest.mark.parametrize("N,C", [(4, 64), (72, 64), (12, 64), (16, 44)])
+def test_small_block_wrapper_refuses_shapes_outside_its_gate(N, C):
+    with pytest.raises(ValueError, match=rf"attention_block_small_cuda takes .*got \[N={N}, C={C}\]"):
+        TA.small_block_smem_bytes(N, C)
+
+
+def test_small_block_shared_memory_follows_the_kernel_layout():
+    assert TA.small_block_smem_bytes(16, 256) == 2 * 16 * (264 + 392 + 136) + 256
+    assert TA.small_block_smem_bytes(16, 48) == TA.small_block_smem_bytes(16, 64)  # k padded to 32
+    assert TA.small_block_smem_bytes(8, 64) == TA.small_block_smem_bytes(16, 64)  # padded to one m16 tile
+    with pytest.raises(ValueError, match=r"\[N=64, C=4096\] needs \d+ B of shared memory"):
+        TA.small_block_smem_bytes(64, 4096)
+    x = torch.zeros(2, 16, 64, dtype=torch.bfloat16)
+    c, w, wo = torch.zeros(64), torch.zeros(64, 3 * HD), torch.zeros(HD, 64)
+    with pytest.raises(ValueError, match="attention_block_small_cuda needs a CUDA tensor"):
+        TA.attention_block_small_cuda(x, c, c, w, wo, c, H, D, SCALE)
+
+
+# ------------------------------------- derived weights per parameter version --
+def _fold_sources(C=32, seed=46):
+    p = _block_params(seed, C)
+    return [_t(p[k], torch.float32) for k in ("ng", "nb", "wqkv")]
+
+
+def test_derived_weights_come_back_at_the_same_version():
+    ng, nb, w = _fold_sources()
+    a = TA._fold_prenorm(ng, nb, w)
+    b = TA._fold_prenorm(ng, nb, w)
+    assert a[0] is b[0] and a[1] is b[1]
+    # the module passes weight.t(): a new view object each call, one base
+    wt = w.t().contiguous()
+    c, d = TA._fold_prenorm(ng, nb, wt.t()), TA._fold_prenorm(ng, nb, wt.t())
+    assert c[0] is d[0] and c[0] is not a[0] and torch.equal(c[0], a[0])
+    assert TA._cast_weight(w, torch.bfloat16) is TA._cast_weight(w, torch.bfloat16)
+    assert TA._cast_weight(w, torch.float32) is not TA._cast_weight(w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("how", ["add_", "foreach", "copy_", "load_state_dict", "view"])
+def test_derived_weights_follow_in_place_updates(how):
+    lin = torch.nn.Linear(32, 3 * HD, bias=False)  # weight [384, 32], as Conv1x1 holds it
+    ng, nb = torch.ones(32), torch.zeros(32)
+    w = lin.weight.detach()
+    before = TA._fold_prenorm(ng, nb, w.t())
+    with torch.no_grad():
+        if how == "add_":
+            w.add_(1.0)
+        elif how == "foreach":  # the optimizer's step
+            torch._foreach_add_([w], [torch.ones_like(w)])
+        elif how == "copy_":  # the EMA's update of a parameter
+            lin.weight.copy_(w + 1.0)
+        elif how == "load_state_dict":
+            lin.load_state_dict({"weight": w + 1.0})
+        else:
+            w.t()[0].add_(1.0)  # through another view of the same base
+    after = TA._fold_prenorm(ng, nb, w.t())
+    assert after[0] is not before[0] and not torch.equal(after[0], before[0])
+    assert torch.equal(after[0], TA._fold(ng, nb, w.t())[0])
+    assert TA._fold_prenorm(ng, nb, w.t())[0] is after[0]
+
+
+def test_derived_weights_are_not_taken_over_by_a_tensor_on_the_same_storage():
+    ng, nb, w = _fold_sources()
+    first = TA._fold_prenorm(ng, nb, w)
+    twin = torch.empty(0).set_(w.untyped_storage(), 0, w.shape, w.stride())  # same data_ptr, new tensor
+    assert twin.data_ptr() == w.data_ptr() and twin._base is None
+    with torch.no_grad():
+        twin.mul_(2.0)  # bumps the twin's version only: w's entry would be stale for it
+    second = TA._fold_prenorm(ng, nb, twin)
+    assert second[0] is not first[0] and torch.equal(second[0], TA._fold(ng, nb, twin)[0])
+
+
+def test_derived_weights_go_with_their_sources_and_skip_inference_tensors():
+    ng, nb, w = _fold_sources(seed=47)
+    n0 = TA._derived.stats()["entries"]
+    TA._fold_prenorm(ng, nb, w)
+    assert TA._derived.stats()["entries"] == n0 + 1
+    del w
+    assert TA._derived.stats()["entries"] == n0
+    with torch.inference_mode():
+        inf = torch.ones(32, 3 * HD)  # tracks no version: never kept
+    a, b = TA._fold_prenorm(ng, nb, inf), TA._fold_prenorm(ng, nb, inf)
+    assert a[0] is not b[0] and torch.equal(a[0], b[0])
+    assert TA._derived.stats()["entries"] == n0
+
+
+def _train_two_steps_through_the_small_block(monkeypatch, cached: bool):
+    """Two optimizer steps of a bf16 U-Net (8x8, dim 16: its mid attention is
+    N = 16, C = 32) whose bottleneck block runs, on the CPU, an emulation of
+    kernel #4 fed by the wrapper's derived operands."""
+    import diffusion_model_nemo_tpu_torch as port
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+    from diffusion_model_nemo_tpu_torch.data import SyntheticVisionDataset
+    from diffusion_model_nemo_tpu_torch.ops.recompute import _KernelCall
+
+    calls = []
+
+    def emulated(x, ng, nb, wqkv, wout, bout, heads, dim_head, scale, eps=1e-5):
+        calls.append(tuple(x.shape))
+        return _emulate_small_block(x, *TA._small_block_weights(ng, nb, wqkv, wout, bout), scale, eps)
+
+    def kernel_call(kernel, plain, *args):
+        run = emulated if kernel is TA.attention_block_small_cuda else plain
+        return _KernelCall.apply(run, plain, *args)
+
+    monkeypatch.setattr(TA, "kernel_call", kernel_call)
+    monkeypatch.setattr(TA._derived, "enabled", cached)
+    cfg = unet_small_model_config(image_size=8)
+    cfg["diffusion_model"].update(dim=16, dim_mults=[1, 2], resnet_block_groups=4, input_dim=8, dtype="bfloat16")
+    model = port.DDPM(cfg, device="cpu", seed=3)
+    trainer = port.Trainer(max_steps=2, devices=1, seed=3)
+    state = trainer.init_state(model, 2)
+    ds = SyntheticVisionDataset(image_size=8, channels=3, length=4, seed=3)
+    batch = {"image": np.stack([ds[i]["image"] for i in range(4)])}
+    losses = []
+    for step in range(2):
+        draws = model.draw_training_inputs(batch["image"].shape, torch.Generator().manual_seed(step))
+        losses.append(float(trainer.train_step(model, state, batch, draws)["train_loss"]))
+    assert calls == [(4, 16, 32)] * 2, calls
+    return losses, {k: v.detach().clone() for k, v in state.params.items()}
+
+
+def test_training_with_derived_weights_kept_equals_training_without(monkeypatch):
+    """The second step must see the first step's in-place optimizer update:
+    with the cache on, losses and every parameter equal the run that derives
+    the weights anew on every call, bit for bit."""
+    hits0 = TA._derived.stats()["hits"]
+    kept_losses, kept = _train_two_steps_through_the_small_block(monkeypatch, True)
+    assert TA._derived.stats()["hits"] == hits0  # every step is a new parameter version
+    fresh_losses, fresh = _train_two_steps_through_the_small_block(monkeypatch, False)
+    assert kept_losses == fresh_losses and all(np.isfinite(kept_losses))
+    assert all(torch.equal(kept[k], fresh[k]) for k in kept)
+
+
+def test_c_launchers_are_typed_once(monkeypatch):
+    """``_build.launch`` sets a launcher's ctypes signature at its first call
+    and reuses the typed function afterwards."""
+    import ctypes
+    import types
+
+    from diffusion_model_nemo_tpu_torch.ops import _build
+
+    class Fn:
+        sets = 0
+        rc = 0
+
+        def __setattr__(self, name, value):
+            if name == "argtypes":
+                type(self).sets += 1
+            object.__setattr__(self, name, value)
+
+        def __call__(self, *args):
+            return self.rc
+
+    lib = types.SimpleNamespace(dmn_fake=Fn(), dmn_attn_error_string=lambda code: b"refused")
+    monkeypatch.setattr(_build, "library", lambda stem: lib)
+    monkeypatch.setattr(_build, "_functions", {})
+    for _ in range(3):
+        _build.launch("attention", "dmn_fake", [ctypes.c_int], 1)
+    assert Fn.sets == 1 and lib.dmn_fake.restype is ctypes.c_int
+    assert _build.c_function("attention", "dmn_fake", [ctypes.c_int], ctypes.c_int) is lib.dmn_fake
+    Fn.rc = 9
+    with pytest.raises(RuntimeError, match=r"attention.cu:dmn_fake failed: CUDA error 9 \(refused\)"):
+        _build.launch("attention", "dmn_fake", [ctypes.c_int], 1)

@@ -155,3 +155,25 @@ def test_tool_runs_as_a_module_without_jax(name):
     out = subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=300,
                          capture_output=True, text=True)
     assert "us" in out.stdout
+
+
+def test_check_attention_needs_a_card_and_reads_ptxas_reports(tmp_path, monkeypatch, capsys):
+    """The card check of kernels #7 and #4 refuses to run without a CUDA
+    device (it never falls back to the plain versions), and reads a build
+    log's per-kernel resource lines."""
+    from diffusion_model_nemo_tpu_torch.ops import _build
+    from diffusion_model_nemo_tpu_torch.tools import check_attention as CA
+
+    assert CA.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    (tmp_path / "attention-0123.log").write_text(
+        "ptxas info    : Compiling entry function 'attn_wgmma_kernel' for 'sm_90a'\n"
+        "ptxas info    : Function properties for attn_wgmma_kernel\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 122 registers, used 1 barriers\n"
+    )
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert list(CA.ptxas_report("attention")) == [
+        ("attn_wgmma_kernel", "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | "
+                              "Used 122 registers, used 1 barriers")
+    ]
