@@ -27,9 +27,13 @@ Phases:
      is the limit; the logs add the device time per call from
      torch.profiler), and the least time the card could take (bytes at
      3.35 TB/s or operations at the peak rate of their type, whichever is
-     larger). #7 is also held in bf16 at shapes the DiT does not send (a
+     larger). #11 and #6 also log their device time by kernel name at every
+     shape, and a #6 call must run exactly one kernel (no transpose or
+     copy). #7 is also held in bf16 at shapes the DiT does not send (a
      ragged N at d = 32 and 64, d = 128, N = 4096, k and v cut from one qkv
      tensor as the DiT cuts them) and #4 at N = 8, 64 and 32 and at C = 48.
+     #9 computes #10's function in bf16 and is held against #10's plain
+     version (``linear_attention_block_v2_reference``).
   3. One U-Net forward at B=64 per bf16 configuration and one DiT-S/2
      forward with the kernels, against the same forward with every kernel
      swapped for its plain version (TF32 off for both), with device-time
@@ -74,7 +78,8 @@ Phases:
      kernel's launches equal the calls the tools made; #10-#13 held against
      their plain versions at every shape the tools give them (bf16 2e-2),
      #10-#12 also in float32 at one shape (1e-4), #13 bit for bit, and timed
-     as in phase 2; ``conv3x3_tap_split`` under ``DMN_TPU_TAP_SPLIT_CONV=1``
+     as in phase 2, and #9 at the two shapes microbench_attn gives it; #11's
+     sum over the six conv shapes against cuDNN's; ``conv3x3_tap_split`` under ``DMN_TPU_TAP_SPLIT_CONV=1``
      launches #11 once forward and nothing backward, its gradients against
      autograd through the plain conv.
 
@@ -97,8 +102,13 @@ import urllib.request
 from contextlib import ExitStack
 from unittest import mock
 
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 on CUDA cores
+# The measurement every card check of the port shares (CUDA events, profiler
+# device time by kernel name, the work a kernel's function must do); outside
+# the repository this import fails, and so does the script.
+from diffusion_model_nemo_tpu_torch.tools.profiling import (
+    PEAK_BYTES_PER_S, PEAK_OPS, device_ms, device_profile, kernel_launches, queued_us, time_ms, work,
+)
+
 # Softmax attention's second limit: one exp2 per score, 16 a clock on each of
 # the 132 SMs' special-function units, at the 1.98 GHz boost clock.
 PEAK_EXP2_PER_S = 16 * 132 * 1.98e9
@@ -156,57 +166,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    import torch
-
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 # Kernel names of this repository's CUDA sources, as the profiler reports them.
 HAND_KERNELS = (
     "gn_silu_kernel", "xstats_kernel", "kv_kernel", "merge_kernel", "apply_kernel",
     "outnorm_kernel", "attn_block_small_kernel", "qkv_kv_kernel", "qkv_apply_kernel",
-    "attn_wgmma_kernel", "attn_mma_kernel", "attn_f32_kernel", "bm_stats_kernel", "bm_apply_kernel", "v1_kstats_kernel",
-    "v1_gram_kernel", "v1_merge_kernel", "v1_apply_kernel", "conv3x3_kernel", "transpose2d_kernel",
+    "attn_wgmma_kernel", "attn_mma_kernel", "attn_f32_kernel", "gn_bm_kernel", "v1_kstats_kernel",
+    "v1_gram_kernel", "v1_merge_kernel", "v1_apply_kernel", "conv3x3_mma_kernel", "conv3x3_wgmma_kernel",
+    "conv3x3_f32_kernel", "transpose2d_kernel",
 )
-
-
-def device_profile(fn, iters: int = 10):
-    """Device time per call of everything ``fn`` runs on the card, from a
-    torch.profiler trace: (total ms per call, {kernel name: ms per call})."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    return sum(by_name.values()), by_name
-
-
-def device_ms(fn):
-    """Device time per call from the profiler; None ("not measured") when
-    the trace holds no device time."""
-    for _ in range(2):  # a trace now and then comes back without device events: ask once more
-        total = device_profile(fn)[0]
-        if total > 0:
-            return total
-    return None
+# Kernels whose device time is also logged by kernel name at every checked
+# shape (redesigned in this form: #11 on the tensor cores, #6 as one launch).
+BY_NAME = ("conv3x3", "group_norm_silu_bm")
 
 
 def fmt(v, digits=4) -> str:
@@ -263,8 +233,8 @@ def kernel_table(port):
             "diffusion_model_nemo_tpu_torch/csrc/group_norm_bm.cu",
             "diffusion_model_nemo_tpu/ops/norm.py:142",
         ),
-        "linear_attention_block_v1": (
-            A, "linear_attention_block_v1_cuda", A.linear_attention_block_reference,
+        "linear_attention_block_v1": (  # #10's function in bf16: v2's seams
+            A, "linear_attention_block_v1_cuda", A.linear_attention_block_v2_reference,
             "diffusion_model_nemo_tpu_torch/csrc/linear_attention.cu",
             "diffusion_model_nemo_tpu/ops/attention.py:353",
         ),
@@ -351,52 +321,6 @@ def plain_path(port):
     for mod, attr, plain, _src, _rep in kernel_table(port).values():
         stack.enter_context(mock.patch.object(mod, attr, plain))
     return stack
-
-
-def work(name, args):
-    """(bytes, operations, operation type) the function must move and do."""
-    import torch
-
-    x = args[0]
-    es = x.element_size()
-    kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
-    if name == "attention":  # q, k, v in, out out; q·kᵀ and p·v
-        Bn, Nn, h, d = x.shape
-        return 4 * x.numel() * es, 4 * Bn * h * Nn * Nn * d, kind
-    if name == "linear_attention_qkv":  # qkv in, out out; kᵀv and q·gram per head
-        Bn, Nn, C3 = x.shape
-        hd, dh = C3 // 3, 32
-        return x.numel() * es + Bn * Nn * hd * es, Bn * Nn * 2 * 2 * hd * dh, kind
-    if name.startswith("group_norm_silu"):
-        Bn, H, W, C = x.shape
-        n = x.numel()
-        film = args[5:7] if len(args) > 5 and args[5] is not None else ()
-        film_bytes = sum(a.numel() * a.element_size() for a in film)
-        return 2 * n * es + 2 * C * 4 + film_bytes, (14 if film else 11) * n, "f32"
-    if name == "conv3x3":  # x, w, b in, y out; 9·C MACs per output
-        w, b = args[1], args[2]
-        Bn, H, W, C = x.shape
-        y_bytes = Bn * H * W * w.shape[-1] * es
-        wb_bytes = sum(a.numel() * a.element_size() for a in (w, b) if a is not None)
-        return x.numel() * es + y_bytes + wb_bytes, 2 * Bn * H * W * 9 * C * w.shape[-1], kind
-    if name == "transpose2d":  # each element read once and written once
-        return 2 * x.numel() * es, 0, kind
-    if name == "linear_attention_v4":  # x is [B, N·C/128, 128]; N is args[2]
-        Bn, Nn = x.shape[0], args[2]
-        C = x.numel() // (Bn * Nn)
-    else:
-        Bn, Nn, C = x.shape
-    hd = 128
-    if name in ("linear_attention_tokens", "linear_attention_v4"):
-        io_bytes = x.numel() * es + Bn * Nn * hd * es + C * 3 * hd * 4
-        return io_bytes, Bn * Nn * (2 * C * 3 * hd + 2 * 2 * 32 * 32 * 4), kind
-    weights = (C * 3 * hd + hd * C + 3 * C) * 4 + 2 * C * 4
-    io_bytes = 2 * x.numel() * es + weights
-    if name in ("linear_attention_block", "linear_attention_block_v1", "linear_attention_block_v2"):
-        ops = Bn * Nn * (2 * C * 3 * hd + 2 * 2 * 32 * 32 * 4 + 2 * hd * C)
-    else:  # attention_block_small
-        ops = Bn * (2 * Nn * C * 3 * hd + 2 * 2 * Nn * Nn * hd + 2 * Nn * hd * C)
-    return io_bytes, ops, kind
 
 
 def library_fn(name, args):
@@ -486,6 +410,16 @@ def check_kernels(port, calls_by_cfg):
                         f"{name} at {list(key)} disagrees with its plain version "
                         f"(max |diff| {max_err:.3e}, rtol=atol={tol})"
                     )
+                if name in BY_NAME:
+                    _total, by_name = device_profile(lambda: wrapper(*args))
+                    launched = kernel_launches(lambda: wrapper(*args))
+                    q_k = queued_us(lambda: wrapper(*args)) / 1e3
+                    q_l = None if lib is None else queued_us(lib) / 1e3
+                    log(f"[kernel]   {name} {list(key)} device ms by kernel name: "
+                        f"{json.dumps({n[:60]: round(v, 5) for n, v in by_name.items()})}; one call runs {launched}; "
+                        f"queued events kernel {q_k:.5f} library {'null' if q_l is None else f'{q_l:.5f}'} ms")
+                    if name == "group_norm_silu_bm":  # one launch, no transpose or copy kernel
+                        assert len(launched) == 1 and "gn_bm_kernel" in launched[0], (key, launched)
                 r = rows[name]
                 r["max_abs_err"] = max(r["max_abs_err"], max_err)
                 r["shapes"] += 1
@@ -1109,12 +1043,20 @@ def check_tools(port):
     assert all(r["us"] > 0 for r in rows), rows
     # One call per shape the tools gave each kernel (one pass over the tool
     # shapes), and #10-#12 in float32 at one shape each.
-    per_shape = {name: {k: [1, args] for k, (_c, args) in calls[name].items()} for name in TOOL_KERNELS}
+    # #9 is also held (against v2's seams) at the shapes microbench_attn gives it.
+    per_shape = {name: {k: [1, args] for k, (_c, args) in calls[name].items()}
+                 for name in TOOL_KERNELS + ("linear_attention_block_v1",)}
+    assert len(per_shape["linear_attention_block_v1"]) == 2, per_shape["linear_attention_block_v1"].keys()
     f32 = {name: {key: [1, tuple(copy_arg(a, torch.float32) for a in per_shape[name][key][1])]}
            for name, key in TOOL_F32_KEYS.items()}
     checked = check_kernels(port, {"tools": per_shape, "tools_f32": f32})
     per_pass = {name: len(per_shape[name]) for name in TOOL_KERNELS}
-    return {name: checked[name] for name in TOOL_KERNELS}, counts, per_pass
+    tool_sums = {k: sum(r["us"] for r in rows if r["tool"] == "microbench_conv" and r["arm"] == arm)
+                 for k, arm in (("kernel", "conv3x3"), ("cudnn", "cudnn"))}
+    log(f"[tool] conv3x3 over the six tool shapes (CUDA events, the tool's median): kernel "
+        f"{tool_sums['kernel']:.2f} us, cuDNN {tool_sums['cudnn']:.2f} us")
+    v1_err = checked["linear_attention_block_v1"]["max_abs_err"]
+    return {name: checked[name] for name in TOOL_KERNELS}, counts, per_pass, v1_err
 
 
 def check_tap_split_backward(port, device):
@@ -1228,8 +1170,9 @@ def main() -> int:
     _m, _t, sw_counts = check_fit(port, device, SWITCHED_STEPS, BOTH, switched_per)
 
     # 7. The tools path (#10-#13).
-    tool_rows, tool_counts, per_forward["tools"] = check_tools(port)
+    tool_rows, tool_counts, per_forward["tools"], v1_err = check_tools(port)
     rows.update(tool_rows)
+    rows["linear_attention_block_v1"]["max_abs_err"] = max(rows["linear_attention_block_v1"]["max_abs_err"], v1_err)
     check_tap_split_backward(port, device)
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,

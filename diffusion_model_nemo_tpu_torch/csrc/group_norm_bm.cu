@@ -1,128 +1,242 @@
-// Batch-minor GroupNorm (+ FiLM) + SiLU, in place on a [HW, C, B] buffer.
+// Batch-minor GroupNorm (+ FiLM) + SiLU: the switched route's kernel, one
+// block per sample, one read of x and one write of y.
 //
 // Replaces the TPU kernel diffusion_model_nemo_tpu/ops/norm.py:_kernel_bm
-// (launcher _pallas_forward_bm). The launcher transposes x [B, H, W, C] to
-// [HW, C, B] (samples on the fastest axis), runs the kernel on that buffer
-// in place, and transposes back; the Python wrapper does the same two
-// transposes. Statistics are per (group, sample) in f32, in the one-pass
-// form E[x^2] - E[x]^2 clipped at 0; then, as the TPU kernel folds them,
-// a = rstd * gamma, b = beta - mean * a, with FiLM a *= scale + 1 and
-// b = b * (scale + 1) + shift (scale and shift per (channel, sample), as
-// [C, B] f32), y = x * a + b, SiLU, cast to the buffer's type.
+// (launcher _pallas_forward_bm). On the TPU, x lay batch-minor ([HW, C, B],
+// 128 samples on the lanes, a bitcast of XLA's layout) and one grid step
+// held a [HW, C, 128] block in VMEM: per-channel f32 sums and sums of
+// squares over HW, the C/G channels of each group folded, the one-pass
+// variance E[x^2] - E[x]^2 clipped at 0, a = rstd * gamma, b = beta - mean *
+// a, FiLM per (sample, channel) as a * (scale + 1) and b * (scale + 1) +
+// shift, y = x * a + b, SiLU, all in one HBM read and one write. The
+// batch-minor layout was the TPU's way to fill its lanes; on the card it
+// would be two strided copies of the tensor, so it goes, and the one read
+// and one write stay.
 //
-// What bounds it on the H100: bytes (~10 flops per element against 4-6
-// bytes). The TPU kernel held a [HW, C, 128] block in VMEM and read it
-// twice there. Here a (group, sample) slice is spread over many blocks, so
-// the statistics are a reduction across blocks: two launches. A block owns
-// 32 samples (threadIdx.x, the fastest axis, so a warp reads 32 neighbouring
-// samples of one (pixel, channel)) of one group, and one of `splits` ranges
-// of that group's (pixel, channel) rows; its 8 warps stride over the range.
-//   1. bm_stats: partial sum / sum of squares per (split, group, sample).
-//   2. bm_apply: merges the splits in a fixed order (results do not depend
-//      on scheduling), normalises its range in place.
-// The wrapper picks `splits` so that a call fills the 132 SMs about four
-// times over; the second read of x mostly hits L2.
+// What bounds it on the H100: bytes (~12 flops per element against 4-8
+// bytes). A sample's [HW, C] slab is contiguous in NHWC and, at every shape
+// the gate admits (H*W*C*128*itemsize <= 12 MiB), at most 96 KiB: it comes
+// into shared memory whole, by 16-byte cp.async, and x is read from device
+// memory once.
+//   1. Each thread owns one piece column (V consecutive channels, 16 bytes)
+//      and a fixed set of pixels (rows), and sums its V channels over them.
+//   2. The partials are reduced per channel in a fixed order (rows split
+//      over S threads a channel, then the S sums in order), then the C/G
+//      channels of each group are folded in order: the result does not
+//      depend on scheduling, and the order is the TPU kernel's (channels,
+//      then groups).
+//   3. Per channel a and b, FiLM read in place through (sample, channel)
+//      strides (f32 or x's type).
+//   4. y = x * a + b, SiLU, from shared memory to y by 16-byte stores.
+// Where C * itemsize is not a multiple of 16 (or x is not 16-byte aligned)
+// a piece is one element and the copies are plain loads.
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int SAMPLES = 32;  // samples per block (threadIdx.x)
-constexpr int ROWS = 8;      // warps per block (threadIdx.y)
+constexpr int THREADS = 512;
 
-__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+struct Film {
+  const void* scale;  // null: no FiLM
+  const void* shift;
+  long scale_sample, scale_channel;  // element strides
+  long shift_sample, shift_channel;
+};
 
-// Row range [r0, r1) of split `sp`, over the n = HW * cg rows of a group.
-__device__ __forceinline__ int2 split_range(int n, int splits, int sp) {
-  const int per = ceil_div(n, splits);
-  return make_int2(min(n, sp * per), min(n, (sp + 1) * per));
+__device__ __forceinline__ float film_at(const void* p, int bf16, long i) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
 }
 
-template <typename T>
-__global__ void bm_stats_kernel(const T* __restrict__ x, float2* __restrict__ part, int HW,
-                                int C, int B, int groups) {
-  __shared__ float2 red[ROWS][SAMPLES];
-  const int s = blockIdx.x * SAMPLES + threadIdx.x;
-  const int g = blockIdx.y, sp = blockIdx.z, splits = gridDim.z;
-  const int cg = C / groups;
-  const int2 rng = split_range(HW * cg, splits, sp);
-  float a = 0.f, q = 0.f;
-  for (int r = rng.x + threadIdx.y; r < rng.y; r += ROWS) {
-    const int hw = r / cg, c = g * cg + r % cg;
-    const float v = dmn::to_f32(x[(static_cast<size_t>(hw) * C + c) * B + s]);
-    a += v;
-    q += v * v;
+__host__ __device__ inline int align16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// The V elements of one piece as f32 (one 16-byte load where V fills 16 bytes).
+template <typename T, int V>
+__device__ __forceinline__ void load_piece(const T* p, float (&e)[V]) {
+  if (V * sizeof(T) == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int v = 0; v < V; ++v) e[v] = dmn::to_f32(t[v]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) e[v] = dmn::to_f32(p[v]);
   }
-  red[threadIdx.y][threadIdx.x] = make_float2(a, q);
+}
+
+// V: elements per piece (16 / sizeof(T), or 1).
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+gn_bm_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ gamma,
+             const float* __restrict__ beta, Film film, int film_bf16, int HW, int C, int groups,
+             float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = C / V;                // pieces per pixel
+  const int rows = THREADS / P;       // pixel rows walked in parallel
+  const int S = THREADS / C;          // threads per channel in the reduction
+  const int n = HW * P;               // pieces in the slab
+  T* xs = reinterpret_cast<T*>(smem);
+  float* part = reinterpret_cast<float*>(smem + align16(HW * C * sizeof(T)));  // [2][rows][C]
+  float* red = part + 2 * rows * C;   // [2][S][C]
+  float* chs = red + 2 * S * C;       // [2][C]: per-channel sums
+  float* coef = chs + 2 * C;          // [2][C]: a, b
+  float* gst = coef + 2 * C;          // [2][groups]: mean, rstd
+  const int b = blockIdx.x;
+  const T* xb = x + size_t(b) * HW * C;
+  T* yb = y + size_t(b) * HW * C;
+  const int tid = threadIdx.x;
+
+  // 0. The slab into shared memory.
+  if (V * sizeof(T) == 16) {
+    const uint32_t dst = dmn::smem_u32(xs);
+    for (int i = tid; i < n; i += THREADS) dmn::cp_async16(dst + 16 * i, xb + size_t(V) * i, true);
+    dmn::cp_async_commit();
+    dmn::cp_async_wait<0>();
+  } else {
+    for (int i = tid; i < n; i += THREADS) xs[i] = xb[i];
+  }
   __syncthreads();
-  if (threadIdx.y == 0) {
-    float2 t = red[0][threadIdx.x];
-    for (int w = 1; w < ROWS; ++w) {  // fixed order: deterministic
-      t.x += red[w][threadIdx.x].x;
-      t.y += red[w][threadIdx.x].y;
-    }
-    part[(static_cast<size_t>(sp) * groups + g) * B + s] = t;
-  }
-}
 
-template <typename T>
-__global__ void bm_apply_kernel(T* __restrict__ x, const float* __restrict__ gamma,
-                                const float* __restrict__ beta, const float* __restrict__ scale,
-                                const float* __restrict__ shift, const float2* __restrict__ part,
-                                int HW, int C, int B, int groups, float eps) {
-  const int s = blockIdx.x * SAMPLES + threadIdx.x;
-  const int g = blockIdx.y, sp = blockIdx.z, splits = gridDim.z;
+  // 1. Per-thread sums of its V channels over its rows.
+  const int pc = tid % P, r = tid / P;
+  const bool active = r < rows;
+  float s[V], q[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) s[v] = q[v] = 0.f;
+  if (active) {
+    for (int i = r * P + pc; i < n; i += rows * P) {
+      float e[V];
+      load_piece<T, V>(xs + i * V, e);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        s[v] += e[v];
+        q[v] += e[v] * e[v];
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      part[r * C + pc * V + v] = s[v];
+      part[(rows + r) * C + pc * V + v] = q[v];
+    }
+  }
+  __syncthreads();
+  // 2. Per channel: S threads each sum every S-th row, then one sums the S.
+  if (tid < S * C) {
+    const int c = tid % C, k = tid / C;
+    float a = 0.f, aq = 0.f;
+    for (int rr = k; rr < rows; rr += S) {
+      a += part[rr * C + c];
+      aq += part[(rows + rr) * C + c];
+    }
+    red[k * C + c] = a;
+    red[(S + k) * C + c] = aq;
+  }
+  __syncthreads();
+  if (tid < C) {
+    float a = 0.f, aq = 0.f;
+    for (int k = 0; k < S; ++k) {
+      a += red[k * C + tid];
+      aq += red[(S + k) * C + tid];
+    }
+    chs[tid] = a;
+    chs[C + tid] = aq;
+  }
+  __syncthreads();
   const int cg = C / groups;
-  float sum = 0.f, sq = 0.f;
-  for (int k = 0; k < splits; ++k) {
-    const float2 t = part[(static_cast<size_t>(k) * groups + g) * B + s];
-    sum += t.x;
-    sq += t.y;
-  }
-  const float2 st = dmn::fast_variance_stats(sum, sq, static_cast<float>(HW) * cg, eps);
-  const int2 rng = split_range(HW * cg, splits, sp);
-  for (int r = rng.x + threadIdx.y; r < rng.y; r += ROWS) {
-    const int hw = r / cg, c = g * cg + r % cg;
-    float a = st.y * gamma[c];
-    float b = beta[c] - st.x * a;
-    if (scale) {
-      const float f = scale[static_cast<size_t>(c) * B + s] + 1.f;
-      a *= f;
-      b = b * f + shift[static_cast<size_t>(c) * B + s];
+  if (tid < groups) {  // fold the group's channels in order
+    float a = 0.f, aq = 0.f;
+    for (int c = tid * cg; c < (tid + 1) * cg; ++c) {
+      a += chs[c];
+      aq += chs[C + c];
     }
-    const size_t i = (static_cast<size_t>(hw) * C + c) * B + s;
-    const float y = dmn::to_f32(x[i]) * a + b;
-    x[i] = dmn::from_f32<T>(y / (1.f + __expf(-y)));
+    const float2 st = dmn::fast_variance_stats(a, aq, static_cast<float>(HW) * cg, eps);
+    gst[tid] = st.x;
+    gst[groups + tid] = st.y;
+  }
+  __syncthreads();
+  // 3. Per channel a and b, with FiLM.
+  if (tid < C) {
+    const int g = tid / cg;
+    float a = gst[groups + g] * gamma[tid];
+    float bb = beta[tid] - gst[g] * a;
+    if (film.scale) {
+      const float f = film_at(film.scale, film_bf16, b * film.scale_sample + tid * film.scale_channel) + 1.f;
+      a *= f;
+      bb = bb * f + film_at(film.shift, film_bf16, b * film.shift_sample + tid * film.shift_channel);
+    }
+    coef[tid] = a;
+    coef[C + tid] = bb;
+  }
+  __syncthreads();
+  // 4. y = silu(x * a + b), V channels a piece, the thread's own columns.
+  if (!active) return;
+  float ca[V], cb[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    ca[v] = coef[pc * V + v];
+    cb[v] = coef[C + pc * V + v];
+  }
+  for (int i = r * P + pc; i < n; i += rows * P) {
+    float e[V];
+    load_piece<T, V>(xs + i * V, e);
+    uint4 u;
+    T* o = V * sizeof(T) == 16 ? reinterpret_cast<T*>(&u) : yb + size_t(V) * i;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float h = e[v] * ca[v] + cb[v];
+      o[v] = dmn::from_f32<T>(h / (1.f + __expf(-h)));
+    }
+    if (V * sizeof(T) == 16) *reinterpret_cast<uint4*>(yb + size_t(V) * i) = u;
   }
 }
 
-template <typename T>
-int launch(void* x, const void* gamma, const void* beta, const void* scale, const void* shift,
-           void* part, int HW, int C, int B, int groups, int splits, float eps,
-           cudaStream_t stream) {
-  const dim3 grid(B / SAMPLES, groups, splits), block(SAMPLES, ROWS);
-  auto* p = static_cast<float2*>(part);
-  bm_stats_kernel<T><<<grid, block, 0, stream>>>(static_cast<const T*>(x), p, HW, C, B, groups);
-  bm_apply_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<T*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const float*>(scale), static_cast<const float*>(shift), p, HW, C, B, groups,
-      eps);
+// Dynamic shared memory of a launch: the slab, the partials, the reduction,
+// the coefficients and the group statistics.
+template <typename T, int V>
+size_t smem_bytes(int HW, int C, int groups) {
+  const int rows = THREADS / (C / V), S = THREADS / C;
+  return align16(HW * C * sizeof(T)) + sizeof(float) * (2 * rows * C + 2 * S * C + 4 * C + 2 * groups);
+}
+
+template <typename T, int V>
+int launch(const void* x, void* y, const void* gamma, const void* beta, const Film& film,
+           int film_bf16, int B, int HW, int C, int groups, float eps, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, V>(HW, C, groups);
+  const cudaError_t err = dmn::set_smem((const void*)gn_bm_kernel<T, V>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_bm_kernel<T, V><<<B, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), film, film_bf16, HW, C, groups, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* x, void* y, const void* gamma, const void* beta, const Film& film,
+             int film_bf16, int B, int HW, int C, int groups, float eps, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (C % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return launch<T, V>(x, y, gamma, beta, film, film_bf16, B, HW, C, groups, eps, stream);
+  return launch<T, 1>(x, y, gamma, beta, film, film_bf16, B, HW, C, groups, eps, stream);
 }
 
 }  // namespace
 
 DMN_DEFINE_ERROR_STRING(dmn_gn_bm)
 
-// x: [HW, C, B] (bf16 where dtype == 1, else f32), normalised in place;
-// gamma, beta: [C] f32; scale, shift: [C, B] f32 or null; part: splits *
-// groups * B float2 of scratch. B is a multiple of 32.
-DMN_EXPORT int dmn_group_norm_bm(void* x, const void* gamma, const void* beta, const void* scale,
-                                 const void* shift, void* part, int HW, int C, int B, int groups,
-                                 int splits, float eps, int dtype, void* stream) {
+// x, y: [B, HW, C] (bf16 where dtype == 1, else f32), y a new tensor; gamma,
+// beta: [C] f32; scale, shift: per (sample, channel), read at element strides
+// (sample, channel), f32 (film_dtype 0) or bf16 (film_dtype 1), or null.
+// C <= 512 and HW * C * itemsize <= 96 KiB (the gate's bound): with the
+// partials that is at most ~140 KB of shared memory.
+DMN_EXPORT int dmn_group_norm_bm(const void* x, void* y, const void* gamma, const void* beta,
+                                 const void* scale, const void* shift, long scale_sample,
+                                 long scale_channel, long shift_sample, long shift_channel, int B,
+                                 int HW, int C, int groups, float eps, int dtype, int film_dtype,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Film film{scale, shift, scale_sample, scale_channel, shift_sample, shift_channel};
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, gamma, beta, scale, shift, part, HW, C, B, groups, splits,
-                                 eps, st);
-  return launch<float>(x, gamma, beta, scale, shift, part, HW, C, B, groups, splits, eps, st);
+    return dispatch<__nv_bfloat16>(x, y, gamma, beta, film, film_dtype, B, HW, C, groups, eps, st);
+  return dispatch<float>(x, y, gamma, beta, film, film_dtype, B, HW, C, groups, eps, st);
 }

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..config.registry import register_target
 from ..ops import attention as A
-from .parts import Conv2d, Dense, SinusoidalPositionEmbeddings, not_ported, resolve_dtype
+from .parts import Conv2d, Dense, SinusoidalPositionEmbeddings, not_ported, remat_call, resolve_dtype
 
 __all__ = ["DiT", "DiTBlock", "sincos_position_embedding_2d", "depth_to_space"]
 
@@ -106,9 +106,10 @@ class DiTBlock(nn.Module):
 @register_target("diffusion_model_nemo.modules.DiT", "diffusion_model_nemo_tpu.modules.DiT")
 class DiT(nn.Module):
     """Diffusion Transformer; drop-in for ``Unet`` in the DDPM family.
-    ``input_dim``, ``dropout``, ``remat``, ``moe_every``,
-    ``moe_capacity_factor`` and ``context_vocab`` are accepted for config
-    compatibility (dropout and remat are inference no-ops)."""
+    ``input_dim``, ``dropout``, ``moe_every``, ``moe_capacity_factor`` and
+    ``context_vocab`` are accepted for config compatibility (dropout is an
+    inference no-op). ``remat`` recomputes each block's activations in the
+    backward (``parts.remat_call``), as the JAX package's ``nn.remat`` does."""
 
     def __init__(
         self,
@@ -147,6 +148,7 @@ class DiT(nn.Module):
             raise not_ported("DiT", f"seq_axis_name={seq_axis_name!r}", "sequence-parallel ring attention")
         dt = resolve_dtype(dtype)
         self.dtype, self.dim, self.patch_size = dt, dim, int(patch_size)
+        self.remat = bool(remat)
         p = self.patch_size
         self.out_dim = out_dim if out_dim is not None else channels * (2 if learned_variance else 1)
         self.patch_embed = Conv2d(channels, dim, p, stride=p, dtype=dt)
@@ -193,7 +195,8 @@ class DiT(nn.Module):
         t = self.time_sinusoid(time.reshape(-1))
         c = self.time_dense1(F.silu(self.time_dense0(t.to(self.dtype))))
         for i in range(self.depth):
-            tok = getattr(self, f"block_{i}")(tok, c)
+            blk = getattr(self, f"block_{i}")
+            tok = remat_call(blk, tok, c) if self.remat else blk(tok, c)
         sh, sc = self.final_mod(F.silu(c)).chunk(2, dim=-1)
         out = self.final_linear(_modulate(_layer_norm(tok), sh, sc))
         return depth_to_space(out.reshape(B, h, w, p * p * self.out_dim), p).float()

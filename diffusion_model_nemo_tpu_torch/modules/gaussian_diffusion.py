@@ -31,9 +31,10 @@ class PMeanVariance(NamedTuple):
 
 def batched_t(t, x: torch.Tensor) -> torch.Tensor:
     """The network's time input is an int32 [B]; the process math takes a
-    Python int (the sampling loops) or a [B] tensor."""
-    if torch.is_tensor(t) and t.ndim > 0:
-        return t
+    Python int (the sampling loops), a 0-d tensor (broadcast on its device,
+    no host sync) or a [B] tensor."""
+    if torch.is_tensor(t):
+        return t if t.ndim > 0 else t.to(device=x.device, dtype=torch.int32).expand(x.shape[0])
     return torch.full((x.shape[0],), int(t), dtype=torch.int32, device=x.device)
 
 
@@ -111,14 +112,20 @@ class GaussianDiffusion(AbstractDiffusionProcess):
         return PMeanVariance(mean, None, log_variance, x_recon)
 
     def p_sample(self, model_fn, params, x, t, generator=None, noise=None):
-        """One ancestral step; no noise at t = 0. ``noise`` may be injected
-        (tests feed both packages the same draws)."""
+        """One ancestral step; no noise where t = 0. ``t`` is a Python int
+        (the sampling loops: no tensor, no host sync, no draw at t = 0) or a
+        0-d or [B] tensor, masked per sample as the JAX package does.
+        ``noise`` may be injected (tests feed both packages the same draws)."""
         out = self.p_mean_variance(model_fn, params, x, t)
-        if int(t) == 0:
+        if not torch.is_tensor(t) and int(t) == 0:
             return out.mean
         if noise is None:
             noise = _randn(x.shape, generator, x.device)
-        return out.mean + torch.exp(0.5 * out.log_variance) * noise
+        step = torch.exp(0.5 * out.log_variance) * noise
+        if torch.is_tensor(t):
+            mask = (t.to(x.device) != 0).to(step.dtype)
+            step = step * (mask.reshape(-1, *((1,) * (x.ndim - 1))) if t.ndim else mask)
+        return out.mean + step
 
     def p_sample_loop(
         self,

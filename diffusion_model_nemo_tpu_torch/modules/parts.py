@@ -27,6 +27,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as A
 from ..ops.norm import group_norm_silu
@@ -34,6 +36,7 @@ from ..ops.norm import group_norm_silu
 __all__ = [
     "resolve_dtype",
     "not_ported",
+    "remat_call",
     "Conv2d",
     "ConvTranspose2d",
     "Dense",
@@ -64,6 +67,25 @@ def not_ported(network: str, option: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
         f"{network}({option}) is not ported yet; it comes with the {slice_} slice (ROADMAP.md)"
     )
+
+
+def remat_call(module: nn.Module, *args):
+    """``module(*args)`` with its activations recomputed in the backward
+    instead of kept (the JAX package's ``nn.remat`` around a block class),
+    where autograd records: ``torch.utils.checkpoint``, non-reentrant. The
+    module's parameters go in as explicit inputs and the recompute runs under
+    ``functional_call`` with them, so it reads the tensors the forward read,
+    also when the forward itself ran under ``functional_call`` (training).
+    Elsewhere (sampling, ``no_grad``) a plain call."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    names, tensors = zip(*[*module.named_parameters(), *module.named_buffers()])
+    n = len(names)
+
+    def run(*flat):
+        return functional_call(module, dict(zip(names, flat[:n])), flat[n:])
+
+    return checkpoint(run, *tensors, *args, use_reentrant=False)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:

@@ -31,6 +31,7 @@ from .parts import (
     SinusoidalPositionEmbeddings,
     Upsample,
     not_ported,
+    remat_call,
     resolve_dtype,
 )
 
@@ -41,7 +42,9 @@ __all__ = ["Unet"]
 class Unet(nn.Module):
     """Reference-parity U-Net. Arguments mirror the JAX package's
     (``input_dim``, ``convnext_mult`` and ``dropout`` are accepted for
-    config compatibility; dropout is inactive at inference)."""
+    config compatibility; dropout is inactive at inference). ``remat``
+    recomputes each ResNet block's activations in the backward
+    (``parts.remat_call``), as the JAX package's ``nn.remat`` does."""
 
     def __init__(
         self,
@@ -77,6 +80,7 @@ class Unet(nn.Module):
         self.channels = channels
         self.with_time_emb = with_time_emb
         self.resnet_block_order = resnet_block_order
+        self.remat = bool(remat)
         dim_mults = tuple(dim_mults) if dim_mults is not None else (1, 2, 4, 8)
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
@@ -138,28 +142,29 @@ class Unet(nn.Module):
             t = F.gelu(t, approximate="tanh")  # flax nn.gelu is the tanh form
             t = self.time_dense1(t)
 
+        block = remat_call if self.remat else (lambda m, *a: m(*a))
         skips = []
         for ind in range(self.num_resolutions):
-            x = getattr(self, f"down_{ind}_block1")(x, t)
-            x = getattr(self, f"down_{ind}_block2")(x, t)
+            x = block(getattr(self, f"down_{ind}_block1"), x, t)
+            x = block(getattr(self, f"down_{ind}_block2"), x, t)
             x = getattr(self, f"down_{ind}_attn")(x)
             skips.append(x)
             if ind < self.num_resolutions - 1:
                 x = getattr(self, f"down_{ind}_downsample")(x)
 
-        x = self.mid_block1(x, t)
+        x = block(self.mid_block1, x, t)
         x = self.mid_attn(x)
-        x = self.mid_block2(x, t)
+        x = block(self.mid_block2, x, t)
 
         for ind in range(self.n_up):
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = getattr(self, f"up_{ind}_block1")(x, t)
-            x = getattr(self, f"up_{ind}_block2")(x, t)
+            x = block(getattr(self, f"up_{ind}_block1"), x, t)
+            x = block(getattr(self, f"up_{ind}_block2"), x, t)
             x = getattr(self, f"up_{ind}_attn")(x)
             if ind < self.num_resolutions - 1:
                 x = getattr(self, f"up_{ind}_upsample")(x)
 
-        x = self.final_block(x, None)
+        x = block(self.final_block, x, None)
         if self.resnet_block_order == "bn_act_conv":
             x = self.final_norm(x)
         return self.final_conv(x).float()

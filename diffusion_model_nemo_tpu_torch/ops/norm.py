@@ -17,7 +17,6 @@ plain version, as the JAX package's ``custom_vjp`` does.
 from __future__ import annotations
 
 import ctypes
-import math
 import os
 from typing import Optional, Tuple
 
@@ -184,39 +183,50 @@ def group_norm_silu_film_cuda(
     return out
 
 
-def _bm_splits(B: int, HW: int, C: int, groups: int) -> int:
-    """Ranges each (group, 32 samples) slice is split into: enough blocks to
-    fill the 132 SMs about four times, at least 64 rows a range."""
-    blocks = (B // 32) * groups
-    return max(1, min(math.ceil(4 * 132 / blocks), math.ceil(HW * (C // groups) / 64)))
+_BM_SLAB_BYTES = _BM_VMEM_BYTES // _BM_LANES  # a sample's [HW, C] slab: kernel #6 holds it in shared memory
 
 
 def group_norm_silu_bm_cuda(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int, eps: float = 1e-5,
     scale: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch kernel #6 (batch-minor GroupNorm(+FiLM)+SiLU) as the TPU
-    launcher runs it: x [B,H,W,C] transposed to [HW, C, B], normalised there
-    in place, transposed back. FiLM scale/shift hold B·C elements (per
-    sample and channel) and go to the kernel as [C, B] float32."""
-    B, H, W, C = _check(x, gamma, beta, groups, "group_norm_silu_bm_cuda")
-    if B % 32:
-        raise ValueError(f"group_norm_silu_bm_cuda takes a batch that is a multiple of 32, got {B}")
-    film = ()
+    """Launch kernel #6 (batch-minor GroupNorm(+FiLM)+SiLU) on NHWC ``x``:
+    one block per sample holds the sample's [HW, C] slab (at most 96 KiB, the
+    gate's bound) in shared memory, so x is read once and y written once,
+    with no transpose. FiLM scale/shift hold B·C elements (per sample and
+    channel), float32 or x's dtype, read in place through their (sample,
+    channel) strides."""
+    what = "group_norm_silu_bm_cuda"
+    B, H, W, C = _check(x, gamma, beta, groups, what)
+    if C > 512 or H * W * C * x.element_size() > _BM_SLAB_BYTES:
+        raise ValueError(f"{what} holds a sample in shared memory: C <= 512 and H*W*C*itemsize <= "
+                         f"{_BM_SLAB_BYTES} bytes, got {tuple(x.shape)} {x.dtype}")
+    film = (None, None, 0, 0, 0, 0)
+    film_bf16 = 0
     if scale is not None:
         if scale.numel() != B * C or shift.numel() != B * C:
             raise ValueError(f"FiLM scale/shift must hold B*C = {B * C} elements per sample and channel")
-        film = tuple(t.reshape(B, C).t().float().contiguous() for t in (scale, shift))
-    xt = x.reshape(B, H * W, C).permute(1, 2, 0).contiguous()  # [HW, C, B]
-    splits = _bm_splits(B, H * W, C, groups)
-    part = torch.empty((splits, groups, B, 2), dtype=torch.float32, device=x.device)
-    sc, sh = film if film else (None, None)
+        sc, sh = (_film_per_sample(t, x, name) for t, name in ((scale, "scale"), (shift, "shift")))
+        if sc.dtype != sh.dtype:
+            sh = sh.to(sc.dtype)
+        film = (sc.data_ptr(), sh.data_ptr(), sc.stride(0), sc.stride(1), sh.stride(0), sh.stride(1))
+        film_bf16 = int(sc.dtype == torch.bfloat16)
+    out = torch.empty_like(x)
     _build.launch(
         "group_norm_bm", "dmn_group_norm_bm",
-        [_VP] * 6 + [_CI] * 5 + [_CF, _CI, _VP],
-        xt.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        None if sc is None else sc.data_ptr(), None if sh is None else sh.data_ptr(),
-        part.data_ptr(), H * W, C, B, groups, splits, eps, _DTYPE_CODES[x.dtype], _stream(x),
+        [_VP] * 6 + [_CL] * 4 + [_CI] * 4 + [_CF, _CI, _CI, _VP],
+        x.data_ptr(), out.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *film,
+        B, H * W, C, groups, eps, _DTYPE_CODES[x.dtype], film_bf16, _stream(x),
     )
     LAUNCHES["group_norm_silu_bm"] += 1
-    return xt.permute(2, 0, 1).reshape(B, H, W, C).contiguous()
+    return out
+
+
+def _film_per_sample(t: torch.Tensor, x: torch.Tensor, name: str) -> torch.Tensor:
+    """A B·C-element FiLM tensor as a [B, C] view (a copy only where no
+    view has those two strides), in float32 or x's dtype (another dtype is
+    cast to float32)."""
+    if t.device != x.device:
+        raise ValueError(f"{name} must be on {x.device}, got {t.device}")
+    v = t.reshape(x.shape[0], x.shape[3])
+    return v if v.dtype in (torch.float32, x.dtype) else v.float()

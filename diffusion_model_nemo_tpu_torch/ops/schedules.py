@@ -168,9 +168,10 @@ def compute_schedule_constants(
 
 def extract(table: torch.Tensor, t: Union[int, torch.Tensor], ndim: int) -> torch.Tensor:
     """Gather per-example constants and shape them to broadcast over ``ndim``
-    dims: a scalar ``t`` (the sampling loops) gives ``[1, ..., 1]``, a ``[B]``
-    ``t`` (training, bits/dim) gives ``[B, 1, ..., 1]``."""
-    if not torch.is_tensor(t) or t.ndim == 0:
+    dims: a scalar ``t`` (a Python int in the sampling loops, or a 0-d
+    tensor, gathered on its device without a host sync) gives ``[1, ..., 1]``,
+    a ``[B]`` ``t`` (training, bits/dim) gives ``[B, 1, ..., 1]``."""
+    if not torch.is_tensor(t):
         return table[int(t)].reshape((1,) * ndim)
-    out = table.gather(0, t.to(device=table.device, dtype=torch.long))
-    return out.reshape(t.shape[0], *((1,) * (ndim - 1)))
+    out = table.gather(0, t.reshape(-1).to(device=table.device, dtype=torch.long))
+    return out.reshape(out.shape[0] if t.ndim else 1, *((1,) * (ndim - 1)))

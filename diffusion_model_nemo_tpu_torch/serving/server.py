@@ -6,9 +6,12 @@ Counterpart of ``diffusion_model_nemo_tpu/serving/server.py``:
   a partial batch is padded and the surplus discarded.
 - **Request coalescing.** Unseeded requests coalesce into one device batch (linger window + size cap); a seeded request runs in
   a batch of its own, so its images are a function of (weights, seed, n).
-- **One device owner, one-deep pipeline.** One worker thread enqueues batch
-  k+1 on the card before it copies batch k to the host, so the copy and the
-  per-request work overlap the next batch's compute.
+- **One device owner; a batch is answered when its own chain ends.** One
+  worker thread runs a batch's sampling chain (here the host loop that
+  enqueues its steps, not one asynchronous call as in the JAX server), then
+  answers that batch's requests before it starts the next chain. On CUDA
+  the device → host copy of a batch is enqueued, non-blocking into pinned
+  memory, right behind its last step, with an event that marks its end.
 
 Endpoints (standard library ``http.server``):
   GET  /healthz  → {"status": "ok", "warm": ..., "mode": "sample"}
@@ -157,21 +160,33 @@ class BatchingSampler:
         seed = np.random.SeedSequence([self.base_seed, self._batch_counter]).generate_state(1)[0]
         return self._generator(int(seed))
 
-    def _dispatch_sample(self, generator: torch.Generator) -> torch.Tensor:
-        """Enqueue one fixed-shape batch on the device; returns the device
-        tensor without waiting for it, quantized to uint8 on the device (4x
-        fewer bytes to copy than float32)."""
+    def _dispatch_sample(self, generator: torch.Generator):
+        """Enqueue one fixed-shape batch, quantized to uint8 on the device (4x
+        fewer bytes to copy than float32), and its copy to the host; returns
+        (host tensor, event) without waiting: on CUDA the copy goes into
+        pinned memory, non-blocking, and the event marks its end; elsewhere
+        the tensor is already on the host and the event is None."""
         out = self.model.sample(
             batch_size=self.max_batch,
             image_size=self.image_size,
             generator=generator,
             use_ema=self.use_ema,
         )
-        return to_uint8_tensor(out)
+        images = to_uint8_tensor(out)
+        if images.device.type != "cuda":
+            return images.cpu(), None
+        host = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
+        host.copy_(images, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
     @staticmethod
-    def _to_host(images_dev: torch.Tensor) -> np.ndarray:
-        return images_dev.cpu().numpy()  # waits for the device
+    def _to_host(dispatched) -> np.ndarray:
+        host, done = dispatched
+        if done is not None:
+            done.synchronize()  # waits for the batch's chain and its copy
+        return host.numpy()
 
     def _take_group(self) -> List[_Request]:
         """Pop a coalescable group; seeded requests go alone."""
@@ -191,11 +206,10 @@ class BatchingSampler:
                 break
         return group
 
-    def _complete(self, pending) -> None:
-        """Copy a dispatched batch to the host and hand out the slices."""
-        group, images_dev, t0 = pending
+    def _complete(self, group: List[_Request], dispatched, t0: float) -> None:
+        """Wait for a dispatched batch's copy and hand out the slices."""
         try:
-            images = self._to_host(images_dev)
+            images = self._to_host(dispatched)
             device_ms = (time.perf_counter() - t0) * 1e3
             total, off, now = sum(r.num_images for r in group), 0, time.perf_counter()
             for r in group:
@@ -215,45 +229,35 @@ class BatchingSampler:
                 r.done.set()
 
     def _run(self) -> None:
-        # One-deep pipeline: dispatch batch k+1 before materializing batch k.
-        pending = None
         while True:
-            group = None
             with self._cv:
-                while not self._queue and not self._stop and pending is None:
+                while not self._queue and not self._stop:
                     self._cv.wait()
                 if self._stop:
                     queued, self._queue = self._queue, []
-                elif self._queue:
-                    deadline = self._queue[0].enqueued_at + self.linger_s
-                    while (remaining := deadline - time.perf_counter()) > 0:
-                        self._cv.wait(timeout=remaining)
-                    group = self._take_group()
-            if self._stop:
-                if pending is not None:
-                    self._complete(pending)
-                for r in queued:
-                    r.error = "server shutting down"
-                    r.done.set()
-                return
-            dispatched = None
-            if group is not None:
-                try:
-                    gen = (
-                        self._generator(group[0].seed)
-                        if group[0].seed is not None
-                        else self._next_generator()
-                    )
-                    t0 = time.perf_counter()
-                    dispatched = (group, self._dispatch_sample(gen), t0)
-                except Exception as e:  # worker boundary: report to every waiter
-                    log.exception("sample dispatch failed")
-                    for r in group:
-                        r.error = f"{type(e).__name__}: {e}"
+                    for r in queued:
+                        r.error = "server shutting down"
                         r.done.set()
-            if pending is not None:
-                self._complete(pending)
-            pending = dispatched
+                    return
+                deadline = self._queue[0].enqueued_at + self.linger_s
+                while (remaining := deadline - time.perf_counter()) > 0:
+                    self._cv.wait(timeout=remaining)
+                group = self._take_group()
+            try:
+                gen = (
+                    self._generator(group[0].seed)
+                    if group[0].seed is not None
+                    else self._next_generator()
+                )
+                t0 = time.perf_counter()
+                dispatched = self._dispatch_sample(gen)
+            except Exception as e:  # worker boundary: report to every waiter
+                log.exception("sample dispatch failed")
+                for r in group:
+                    r.error = f"{type(e).__name__}: {e}"
+                    r.done.set()
+                continue
+            self._complete(group, dispatched, t0)
 
     def snapshot_stats(self) -> Dict[str, Any]:
         s = dict(self.stats)

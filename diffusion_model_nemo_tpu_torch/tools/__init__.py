@@ -10,9 +10,13 @@ Timing is CUDA events around ``reps`` back-to-back calls, the median of
 ``rounds``; on the CPU (``--device cpu``, for the tests) the host clock, which
 times PyTorch's CPU kernels and says nothing of the card.
 
-``check_attention`` is not a microbenchmark of the JAX package but the short
-card check of kernels #7 and #4 to run first after an edit of their sources
-(``python -m diffusion_model_nemo_tpu_torch.tools.check_attention``).
+``check_attention`` and ``check_conv_norm`` are not microbenchmarks of the
+JAX package but the short card checks of kernels #7 and #4, and #11 and #6,
+to run first after an edit of their sources (``python -m
+diffusion_model_nemo_tpu_torch.tools.check_attention``). They and
+``chip_smoke.py`` measure through ``profiling``; ``ab_chip.py`` runs another
+checkout's serving load and ``chip_smoke.py`` with that measurement, for A/B
+runs on one card.
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..ops import _build
 from ..ops import attention as A
+from .profiling import device_profile, time_ms
 
 ATTENTION_SHAPES = (  # [B, N, h, d]
     (2, 1024, 2, 64), (2, 1100, 3, 32), (2, 1100, 2, 64), (1, 1030, 1, 64), (1, 40, 1, 64),
@@ -43,30 +44,6 @@ def ptxas_report(stem: str):
                 info = [ln.replace("ptxas info    : ", "").strip() for ln in lines[i + 1 : i + 4]
                         if "Used" in ln or "spill" in ln]
                 yield line.split("'")[1], " | ".join(info)
-
-
-def time_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_us(fn, iters: int = 10) -> float:
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / iters
 
 
 def agrees(name: str, out: torch.Tensor, ref: torch.Tensor, tol: float) -> bool:
@@ -112,7 +89,8 @@ def main() -> int:
                      A.attention_block_reference(*args), 2e-2)
         ms = time_ms(lambda: A.attention_block_small_cuda(*args), 50)
         print(f"[time] attention_block_small {[B, N, C]}: {ms:.4f} ms by CUDA events (the wrapper's host time "
-              f"counts), device {device_us(lambda: A.attention_block_small_cuda(*args)):.2f} us", flush=True)
+              f"counts), device {device_profile(lambda: A.attention_block_small_cuda(*args))[0] * 1e3:.2f} us",
+              flush=True)
     print("all agree" if ok else "FAILED")
     return 0 if ok else 1
 

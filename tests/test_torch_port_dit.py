@@ -16,6 +16,8 @@ packages round every Dense output and each modulate step to bf16, at
 slightly different points.
 """
 
+from unittest.mock import patch
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from diffusion_model_nemo_tpu.modules.generalized_gaussian_diffusion import (
     GeneralizedGaussianDiffusion as JGeneralized,
 )
 from diffusion_model_nemo_tpu.modules.unet import depth_to_space as j_depth_to_space
+from diffusion_model_nemo_tpu_torch.modules import parts
 from diffusion_model_nemo_tpu_torch.modules.dit import DiT, depth_to_space, sincos_position_embedding_2d
 from diffusion_model_nemo_tpu_torch.modules.generalized_gaussian_diffusion import (
     GeneralizedGaussianDiffusion,
@@ -220,3 +223,34 @@ def test_dit_ddpm_samples_through_the_server_on_cpu():
         batcher.stop()
     assert a.shape == (2, 8, 8, 3) and a.dtype == np.uint8
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dit_remat_gives_bit_equal_outputs_and_gradients(dtype):
+    """``remat=True`` (each DiT block checkpointed, as the JAX ``nn.remat``)
+    changes neither the forward nor any parameter's gradient, bit for bit,
+    through ``functional_call`` with a parameter dict as training runs it
+    (every leaf drawn non-zero, so no adaLN-Zero gradient is vacuous)."""
+    kw = dict(dim=32, depth=2, heads=2, patch_size=2, channels=3, time_freq_dim=32, dtype=dtype)
+    nets = [DiT(**kw, remat=r) for r in (False, True)]
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in nets[0].parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    nets[1].load_state_dict(nets[0].state_dict())
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 3)).astype(np.float32))
+    t = torch.tensor([3, 517], dtype=torch.int32)
+    results = []
+    with patch.object(parts, "checkpoint", wraps=parts.checkpoint) as spy:
+        for net in nets:
+            params = {k: v.detach().clone().requires_grad_(True) for k, v in net.state_dict().items()}
+            out = torch.func.functional_call(net, params, (x, t))
+            grads = torch.autograd.grad(out.square().mean(), list(params.values()))
+            results.append((out.detach(), dict(zip(params, grads))))
+    assert spy.call_count == kw["depth"]  # the remat net's blocks, once each
+    (o0, g0), (o1, g1) = results
+    assert torch.equal(o0, o1) and float(o0.abs().max()) > 0
+    assert set(g0) == set(g1)
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name

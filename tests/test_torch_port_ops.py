@@ -290,8 +290,10 @@ def test_attention_block_small_matches_jax(shape, dtype):
 # ------------------------------------- kernel 9: whole linattn block, v1 --
 @pytest.mark.parametrize("shape", [(2, 64, 64), (2, 256, 32)])
 def test_linear_attention_block_v1_matches_jax(shape):
-    """The port's plain block (what kernel #9 is held against on the card)
-    against the JAX Pallas v1 kernel in interpret mode in bf16 (2e-2), and
+    """The port's plain block (the CPU route of ``fused_linear_attention_block``
+    and the backward of #9) and #10's plain version (what kernel #9 is held
+    against on the card: #9 computes #10's function in bf16) against the JAX
+    Pallas v1 kernel in interpret mode in bf16 (2e-2), and the plain block
     against the JAX composition in float32 (1e-5)."""
     B, N, C = shape
     p = _block_params(13, C)
@@ -302,8 +304,24 @@ def test_linear_attention_block_v1_matches_jax(shape):
     ours = TA.linear_attention_block_reference(_t(x, torch.bfloat16), *tw, H, D, SCALE)
     kernel = JA._pallas_linear_attention_block(_j(x, jnp.bfloat16), *jw, H, D, SCALE, 1e-5, interpret=True)
     _close(_np(ours), kernel, BF16_TOL)
+    v2 = TA.linear_attention_block_v2_reference(_t(x, torch.bfloat16), *tw, H, D, SCALE)
+    _close(_np(v2), kernel, BF16_TOL)
     ours32 = TA.linear_attention_block_reference(_t(x, torch.float32), *tw, H, D, SCALE)
     _close(_np(ours32), _JBLOCK(_j(x, jnp.float32), *jw, H, D, SCALE), FILM_F32_TOL)
+
+
+def test_chip_smoke_holds_kernel_9_against_the_v2_reference():
+    """On the card chip_smoke.py holds kernel #9 (v1) against #10's plain
+    version, whose seams #9 computes in bf16, not against the module
+    composition (which #9 would miss at the microbenchmark's inputs)."""
+    import diffusion_model_nemo_tpu_torch as port
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_table", _REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    table = smoke.kernel_table(port)
+    assert table["linear_attention_block_v1"][2] is TA.linear_attention_block_v2_reference
+    assert table["linear_attention_block_v2"][2] is TA.linear_attention_block_v2_reference
 
 
 # ------------------------------------- kernel 8: linear attention on raw qkv --
@@ -504,6 +522,30 @@ def test_non_cpu_tensors_never_reach_a_plain_version():
             TA.fused_attention(q, q, q)
 
 
+@pytest.mark.parametrize("film", [False, True])
+def test_norm_bm_wrapper_needs_a_cuda_tensor(film):
+    """Kernel #6's wrapper takes no CPU tensor: the CPU runs the plain
+    version through ``group_norm_silu``, never a substitute inside it."""
+    x = torch.zeros(128, 4, 4, 32, dtype=torch.bfloat16)
+    g = torch.ones(32)
+    ss = (torch.zeros(128, 1, 1, 32), torch.zeros(128, 1, 1, 32)) if film else ()
+    with pytest.raises(ValueError, match="group_norm_silu_bm_cuda needs a CUDA tensor"):
+        TN.group_norm_silu_bm_cuda(x, g, g, 8, 1e-5, *ss)
+
+
+def test_norm_bm_reads_a_per_sample_film_in_place():
+    """A [B, 1, 1, C] FiLM cut from a time MLP's [B, 1, 1, 2C] output goes
+    to kernel #6 as a [B, C] view of the same memory at strides (2C, 1)."""
+    x = torch.zeros(4, 2, 2, 8, dtype=torch.bfloat16)
+    for dt in (torch.float32, torch.bfloat16):
+        scale, shift = torch.randn(4, 1, 1, 16).to(dt).chunk(2, dim=-1)
+        for t in (scale, shift):
+            v = TN._film_per_sample(t, x, "scale")
+            assert v.shape == (4, 8) and v.stride() == (16, 1) and v.data_ptr() == t.data_ptr()
+    v = TN._film_per_sample(torch.zeros(4, 8, dtype=torch.float16), x, "scale")
+    assert v.dtype == torch.float32
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros(1, 4, 4, 32)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -606,6 +648,123 @@ def test_conv3x3_tap_split_gradient_matches_autograd_through_plain(monkeypatch):
     torch.testing.assert_close(out_k, out_p, rtol=0, atol=0)
     for a, b_ in zip(g_k, g_p):
         torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+_PACK_SHAPES = [(2, 6, 5, 48, 40), (2, 4, 4, 32, 16), (1, 3, 7, 70, 136), (2, 5, 3, 3, 8)]
+
+
+@pytest.mark.parametrize("shape", _PACK_SHAPES)
+def test_conv3x3_weight_repack_round_trips_bitwise(shape):
+    """The bf16 kernel's B operand (``pack_conv3x3_weights``: K in (chunk of
+    32 channels, tap, channel) order, C and F zero-padded, fragment order) is
+    a permutation: ``unpack_conv3x3_weights`` gives [3, 3, C, F] back bit for
+    bit."""
+    C, Fo = shape[3:]
+    w = _t(np.random.default_rng(35).standard_normal((3, 3, C, Fo)), torch.bfloat16)
+    packed = TC.pack_conv3x3_weights(w)
+    assert packed.shape == (-(-C // 32) * 9, -(-Fo // 32) * 4, 32, 8) and packed.dtype == w.dtype
+    assert torch.equal(TC.unpack_conv3x3_weights(packed, C, Fo), w)
+
+
+def _emulate_conv3x3_mma(x, packed, C, Fo):
+    """Pure-torch copy of the K loop of ``csrc/conv3x3.cu:conv3x3_mma_kernel``
+    over its packed weights: per chunk of 32 input channels (C zero-padded)
+    and per tap, the SAME-padded input shifted by the tap times that (chunk,
+    tap)'s k32 slice of the weight, read from fragment order as the
+    mma.m16n8k16 B fragments lay it out (lane 4g + t holds, for column
+    8j + g, rows 2t, 2t+1, 2t+8, 2t+9 of k16 step 0, then of step 1),
+    accumulated in f32."""
+    B, H, W, _ = x.shape
+    kp, n8 = packed.shape[:2]
+    Cp = kp // 9 * 32
+    xp = torch.nn.functional.pad(x.float(), (0, Cp - C, 1, 1, 1, 1))
+    acc = torch.zeros(B, H, W, n8 * 8)
+    for chunk in range(Cp // 32):
+        for tap in range(9):
+            ky, kx = divmod(tap, 3)
+            frag = packed[chunk * 9 + tap].float()  # [n8, 32, 8]
+            wk = torch.zeros(32, n8 * 8)
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                rows = [16 * s + 8 * h + 2 * t + j for s in (0, 1) for h in (0, 1) for j in (0, 1)]
+                for jt in range(n8):
+                    wk[rows, 8 * jt + g] = frag[jt, lane]
+            band = xp[:, ky:ky + H, kx:kx + W, chunk * 32:(chunk + 1) * 32]
+            acc += band @ wk
+    return acc[..., :Fo]
+
+
+@pytest.mark.parametrize("shape", _PACK_SHAPES)
+def test_conv3x3_kernel_k_order_over_the_packed_weights_is_the_conv(shape):
+    """The tensor-core kernel's arithmetic, emulated in f32 over the packed
+    layout (chunk x tap K order, zero padding), plus the bias equals
+    ``conv3x3_reference`` in float32 within 1e-5 (the same products summed
+    in another order)."""
+    x, w, b = _conv_inputs(shape, seed=36)
+    tx, tw, tb = _t(x, torch.float32), _t(w, torch.float32), _t(b, torch.float32)
+    packed = TC.pack_conv3x3_weights(tw)
+    ours = _emulate_conv3x3_mma(tx, packed, shape[3], shape[4]) + tb
+    torch.testing.assert_close(ours, TC.conv3x3_reference(tx, tw, tb), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", _PACK_SHAPES)
+def test_conv3x3_wgmma_weight_repack_round_trips_bitwise(shape):
+    """The wgmma form's B operand (``pack_conv3x3_weights_wgmma``: per chunk
+    of 32 channels and output tile, 5 K-major atoms of 64 k in the 128-byte
+    swizzle) is a permutation of the padded weight:
+    ``unpack_conv3x3_weights_wgmma`` gives [3, 3, C, F] back bit for bit at
+    both n-tiles of the form, and the swizzle moves only whole 16-byte
+    pieces within a row."""
+    C, Fo = shape[3:]
+    w = _t(np.random.default_rng(37).standard_normal((3, 3, C, Fo)), torch.bfloat16)
+    for nt in (64, 128):
+        packed = TC.pack_conv3x3_weights_wgmma(w, nt)
+        assert packed.shape == (-(-C // 32), -(-Fo // nt), 5, nt, 64) and packed.dtype == w.dtype
+        assert torch.equal(TC.unpack_conv3x3_weights_wgmma(packed, C, Fo), w)
+
+
+def _emulate_conv3x3_wgmma(x, packed, C, Fo):
+    """Pure-torch copy of the K loop of ``csrc/conv3x3.cu:conv3x3_wgmma_kernel``
+    over its packed weights: per chunk of 32 input channels (C zero-padded)
+    and per k16 step s (tap s // 2, channels 16 (s % 2) ..), the SAME-padded
+    input shifted by the tap times B[k][n] read as the wgmma descriptor
+    reads it: atom s // 4, k = 16 (s % 4) + i in it, row n, 16-byte piece
+    k // 8 found at position (k // 8) XOR (n % 8); accumulated in f32."""
+    B, H, W, _ = x.shape
+    q, nft, _, nt, _ = packed.shape
+    xp = torch.nn.functional.pad(x.float(), (0, q * 32 - C, 1, 1, 1, 1))
+    n = torch.arange(nt)
+    acc = torch.zeros(B, H, W, nft * nt)
+    for chunk in range(q):
+        for s in range(18):
+            ky, kx = divmod(s // 2, 3)
+            bk = torch.zeros(16, nft * nt)
+            for i in range(16):
+                k = 16 * (s % 4) + i
+                pos = ((k // 8) ^ (n % 8)) * 8 + k % 8
+                bk[i] = packed[chunk, :, s // 4, n, pos].float().reshape(-1)
+            c0 = chunk * 32 + 16 * (s % 2)
+            acc += xp[:, ky:ky + H, kx:kx + W, c0:c0 + 16] @ bk
+    return acc[..., :Fo]
+
+
+@pytest.mark.parametrize("shape", _PACK_SHAPES)
+def test_conv3x3_wgmma_k_order_over_the_packed_weights_is_the_conv(shape):
+    """The wgmma form's arithmetic, emulated in f32 over its packed layout
+    (atoms, swizzle, zero padding), plus the bias equals
+    ``conv3x3_reference`` in float32 within 1e-5."""
+    x, w, b = _conv_inputs(shape, seed=38)
+    tx, tw, tb = _t(x, torch.float32), _t(w, torch.float32), _t(b, torch.float32)
+    packed = TC.pack_conv3x3_weights_wgmma(tw, 64 if shape[4] <= 64 else 128)
+    ours = _emulate_conv3x3_wgmma(tx, packed, shape[3], shape[4]) + tb
+    torch.testing.assert_close(ours, TC.conv3x3_reference(tx, tw, tb), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("Fo,route", [(8, "mma"), (32, "mma"), (63, "mma"),
+                                      (64, "wgmma"), (128, "wgmma"), (200, "wgmma")])
+def test_conv3x3_route(Fo, route):
+    """The bf16 kernel's form, by F alone: wgmma where F >= 64."""
+    assert TC.conv3x3_route(Fo) == route
 
 
 # ------------------------------------- kernel 10: whole linattn block, v2 --

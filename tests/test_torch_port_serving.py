@@ -6,6 +6,7 @@ import base64
 import io
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 import zlib
@@ -147,6 +148,50 @@ def test_worker_fault_reaches_the_client_as_an_error():
             batcher.submit(1, timeout=60)
     finally:
         batcher.stop()
+
+
+class _FixedTimeModel:
+    """A model whose ``sample()`` takes a fixed host time, as the port's
+    host-bound sampling chain does."""
+
+    device = "cpu"
+
+    def __init__(self, seconds: float):
+        self.seconds = seconds
+
+    def sample(self, batch_size, image_size, generator=None, use_ema=True):
+        time.sleep(self.seconds)
+        return torch.rand(batch_size, image_size, image_size, 3, generator=generator)
+
+
+def test_a_batch_is_answered_when_its_own_chain_ends():
+    """Two full-batch unseeded requests submitted together run as two
+    batches; the first is answered after one batch time, not after the
+    second batch's chain as well (under 1.5x one batch time)."""
+    batch_s = 0.5
+    batcher = BatchingSampler(_FixedTimeModel(batch_s), IMG, max_batch=MAX_BATCH, linger_ms=1.0)
+    batcher.start(warmup=False)
+    try:
+        latencies, shapes = [], []
+
+        def request():
+            t0 = time.perf_counter()
+            shapes.append(batcher.submit(MAX_BATCH, timeout=60).shape)
+            latencies.append(time.perf_counter() - t0)
+
+        threads = [threading.Thread(target=request) for _ in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        batcher.stop()
+    assert shapes == [(MAX_BATCH, IMG, IMG, 3)] * 2
+    assert batcher.snapshot_stats()["batches"] == 2
+    first, second = sorted(latencies)
+    assert first < 1.5 * batch_s, latencies
+    assert second >= 2 * batch_s, latencies
 
 
 def test_uint8_quantization_matches_the_jax_package():

@@ -177,3 +177,53 @@ def test_check_attention_needs_a_card_and_reads_ptxas_reports(tmp_path, monkeypa
         ("attn_wgmma_kernel", "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | "
                               "Used 122 registers, used 1 barriers")
     ]
+
+
+def test_check_conv_norm_needs_a_card(capsys):
+    """The card check of kernels #11 and #6 refuses to run without a CUDA
+    device (it never falls back to the plain versions), and its edge shapes
+    take both forms of the bf16 conv."""
+    from diffusion_model_nemo_tpu_torch.ops import conv as TC
+    from diffusion_model_nemo_tpu_torch.tools import check_conv_norm as CCN
+
+    assert CCN.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    routes = {TC.conv3x3_route(Fo) for _B, _H, _W, _C, Fo in CCN.CONV_EDGE_SHAPES}
+    assert routes == {"mma", "wgmma"}
+
+
+def test_ab_chip_needs_a_card_and_replaces_every_measurement(capsys):
+    """The A/B runner refuses to run without a CUDA device, before it touches
+    the import path; every function it lends to a checkout's chip_smoke is in
+    the shared measurement module, and this checkout's chip_smoke measures
+    through that module."""
+    from diffusion_model_nemo_tpu_torch.tools import ab_chip as AB
+    from diffusion_model_nemo_tpu_torch.tools import profiling as P
+
+    path = list(sys.path)
+    assert AB.main([str(REPO)]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    assert sys.path == path
+    assert all(callable(getattr(P, name)) for name in AB.MEASUREMENT)
+    smoke = (REPO / "chip_smoke.py").read_text()
+    assert "from diffusion_model_nemo_tpu_torch.tools.profiling import" in smoke
+    assert not any(f"def {name}(" in smoke for name in AB.MEASUREMENT)
+
+
+def test_conv_bound_over_the_tool_shapes():
+    """The shared bound (``profiling.bound_us``: bytes at 3.35 TB/s or bf16
+    operations at 989 TFLOP/s, the larger) of the 3x3 conv over the
+    microbenchmark's six shapes, with its bf16 x, w and b, is 65.44 us, and
+    only 128->128 is bound by its operations."""
+    from diffusion_model_nemo_tpu_torch.tools import profiling as P
+
+    total, by_ops = 0.0, []
+    for B, H, W, C, Fo in MC.SHAPES:
+        args = tuple(torch.empty(s, dtype=torch.bfloat16, device="meta")
+                     for s in ((B, H, W, C), (3, 3, C, Fo), (Fo,)))
+        nbytes, ops, kind = P.work("conv3x3", args)
+        assert kind == "bf16" and ops == 2 * B * H * W * 9 * C * Fo
+        total += P.bound_us("conv3x3", args)
+        if ops / P.PEAK_OPS[kind] > nbytes / P.PEAK_BYTES_PER_S:
+            by_ops.append(C)
+    assert abs(total - 65.44) < 0.01 and by_ops == [128]

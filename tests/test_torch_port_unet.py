@@ -14,6 +14,7 @@ import subprocess
 import sys
 from collections import Counter
 from pathlib import Path
+from unittest.mock import patch
 
 import jax
 import jax.numpy as jnp
@@ -26,15 +27,17 @@ from diffusion_model_nemo_tpu.modules.generalized_gaussian_diffusion import (
 )
 from diffusion_model_nemo_tpu.modules.gaussian_diffusion import GaussianDiffusion as JGaussian
 from diffusion_model_nemo_tpu.modules.unet import Unet as JUnet
-from diffusion_model_nemo_tpu_torch.modules.gaussian_diffusion import GaussianDiffusion
+from diffusion_model_nemo_tpu_torch.modules.gaussian_diffusion import GaussianDiffusion, batched_t
 from diffusion_model_nemo_tpu_torch.modules.generalized_gaussian_diffusion import (
     GeneralizedGaussianDiffusion,
 )
 from diffusion_model_nemo_tpu_torch.modules.unet import Unet
 from diffusion_model_nemo_tpu.modules.parts import Block as JBlock
+from diffusion_model_nemo_tpu_torch.modules import parts
 from diffusion_model_nemo_tpu_torch.modules.parts import Block, SelfAttentionBlock
 from diffusion_model_nemo_tpu_torch.ops import attention as TA
 from diffusion_model_nemo_tpu_torch.ops import norm as TN
+from diffusion_model_nemo_tpu_torch.ops import schedules as TS
 from diffusion_model_nemo_tpu_torch.utils.weights import from_flax_params, to_flax_params
 
 REPO = Path(__file__).resolve().parents[1]
@@ -184,6 +187,77 @@ def test_ancestral_chain_with_injected_noise_matches_jax_step(f32_pair):
         tfn, None, torch.from_numpy(x), 7, noise=torch.from_numpy(noise)
     )
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("t", [[0, 5], [5, 0], 0, 5], ids=["batch-0-5", "batch-5-0", "scalar-0", "scalar-5"])
+def test_p_sample_masks_the_noise_per_sample_like_jax(f32_pair, t):
+    """``p_sample`` at a [B] or 0-d tensor ``t`` against the JAX ``p_sample``
+    (its mask ``1 - (t == 0)``), the JAX draw ``jax.random.normal(key, ...)``
+    passed to the port as ``noise=``: a sample at t = 0 gets the mean, one at
+    t > 0 the mean plus noise."""
+    japply, params, tnet = f32_pair
+    jfn, tfn = _model_fns(japply, params, tnet)
+    x = np.random.default_rng(8).standard_normal((2, IMG, IMG, 3)).astype(np.float32)
+    t = np.asarray(t, np.int32)
+    key = jax.random.PRNGKey(9)
+    ref = JGaussian(20, "cosine").p_sample(jfn, params, jnp.asarray(x), jnp.asarray(t), key)
+    noise = np.array(jax.random.normal(key, x.shape, jnp.float32))
+    proc = GaussianDiffusion(20, "cosine", device="cpu")
+    tt = torch.from_numpy(t)
+    ours = proc.p_sample(tfn, None, torch.from_numpy(x), tt, noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=F32_TOL, rtol=F32_TOL)
+    mean = proc.p_mean_variance(tfn, None, torch.from_numpy(x), tt).mean
+    for i, ti in enumerate(np.broadcast_to(t, (2,))):
+        assert torch.equal(ours[i], mean[i]) == (ti == 0), (t, i)
+
+
+def test_extract_takes_a_0d_tensor_without_a_host_int():
+    table = torch.arange(10, dtype=torch.float32) * 0.5
+    for t in range(10):
+        out = TS.extract(table, torch.tensor(t), 4)
+        assert out.shape == (1, 1, 1, 1) and torch.equal(out, TS.extract(table, t, 4))
+    with patch.object(torch.Tensor, "__int__", side_effect=AssertionError("int() of a tensor")):
+        TS.extract(table, torch.tensor(3), 4)
+        batched_t(torch.tensor(3, dtype=torch.int32), torch.zeros(2, 1))
+
+
+def _remat_pair(net_cls, kwargs):
+    nets = [net_cls(**kwargs, remat=r) for r in (False, True)]
+    nets[0].reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():  # every leaf non-zero (the DiT's adaLN-Zero layers start at 0)
+        for p in nets[0].parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    nets[1].load_state_dict(nets[0].state_dict())
+    return nets
+
+
+def _remat_outputs_and_grads(net, x, t):
+    """Forward and every parameter's gradient as training computes them:
+    ``functional_call`` with a parameter dict (models/abstract_diffusion_model.py)."""
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in net.state_dict().items()}
+    out = torch.func.functional_call(net, params, (x, t))
+    grads = torch.autograd.grad(out.square().mean(), list(params.values()))
+    return out.detach(), dict(zip(params, grads))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unet_remat_gives_bit_equal_outputs_and_gradients(dtype):
+    """``remat=True`` (each ResNet block checkpointed, as the JAX ``nn.remat``)
+    changes neither the forward nor any gradient, bit for bit; under
+    ``no_grad`` it is a plain call."""
+    plain, remat = _remat_pair(Unet, dict(NET, dtype=dtype))
+    x, t = (torch.from_numpy(a) for a in _inputs(seed=10))
+    out0, g0 = _remat_outputs_and_grads(plain, x, t)
+    with patch.object(parts, "checkpoint", wraps=parts.checkpoint) as spy:
+        out1, g1 = _remat_outputs_and_grads(remat, x, t)
+        assert spy.call_count == 2 * 2 + 2 + 2 + 1  # down 0-1, mid, up 0, final block
+        with torch.no_grad():
+            remat(x, t)
+        assert spy.call_count == 9
+    assert torch.equal(out0, out1)
+    assert set(g0) == set(g1) and len(g0) == len(plain.state_dict())
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
 
 
 def test_unported_unet_options_raise():
