@@ -28,12 +28,17 @@ Phases:
      torch.profiler), and the least time the card could take (bytes at
      3.35 TB/s or operations at the peak rate of their type, whichever is
      larger). #11 and #6 also log their device time by kernel name at every
-     shape, and a #6 call must run exactly one kernel (no transpose or
-     copy). #7 is also held in bf16 at shapes the DiT does not send (a
+     shape. #7 is also held in bf16 at shapes the DiT does not send (a
      ragged N at d = 32 and 64, d = 128, N = 4096, k and v cut from one qkv
      tensor as the DiT cuts them) and #4 at N = 8, 64 and 32 and at C = 48.
      #9 computes #10's function in bf16 and is held against #10's plain
-     version (``linear_attention_block_v2_reference``).
+     version (``linear_attention_block_v2_reference``); #2 against its own
+     (``linear_attention_block_packed_reference``, the TPU kernel's seams).
+     #2, #9 and #10 are also held at the corners of their gates
+     ([2,4096,32], [2,4096,128] in the recompute form, [3,100,128] ragged,
+     [2,64,128]; #10 also in float32 at [2,4096,32]) and log their device
+     time by kernel name. A #2, #9, #10 or #6 call must run exactly one
+     kernel (no copy or memset) and repeat bit for bit.
   3. One U-Net forward at B=64 per bf16 configuration and one DiT-S/2
      forward with the kernels, against the same forward with every kernel
      swapped for its plain version (TF32 off for both), with device-time
@@ -168,15 +173,21 @@ def card_line() -> str:
 
 # Kernel names of this repository's CUDA sources, as the profiler reports them.
 HAND_KERNELS = (
-    "gn_silu_kernel", "xstats_kernel", "kv_kernel", "merge_kernel", "apply_kernel",
-    "outnorm_kernel", "attn_block_small_kernel", "qkv_kv_kernel", "qkv_apply_kernel",
-    "attn_wgmma_kernel", "attn_mma_kernel", "attn_f32_kernel", "gn_bm_kernel", "v1_kstats_kernel",
-    "v1_gram_kernel", "v1_merge_kernel", "v1_apply_kernel", "conv3x3_mma_kernel", "conv3x3_wgmma_kernel",
-    "conv3x3_f32_kernel", "transpose2d_kernel",
+    "gn_silu_kernel", "linattn_block_kernel", "kv_kernel", "merge_kernel", "apply_kernel",
+    "attn_block_small_kernel", "qkv_kv_kernel", "qkv_apply_kernel",
+    "attn_wgmma_kernel", "attn_mma_kernel", "attn_f32_kernel", "gn_bm_kernel",
+    "conv3x3_mma_kernel", "conv3x3_wgmma_kernel", "conv3x3_f32_kernel", "transpose2d_kernel",
 )
 # Kernels whose device time is also logged by kernel name at every checked
-# shape (redesigned in this form: #11 on the tensor cores, #6 as one launch).
-BY_NAME = ("conv3x3", "group_norm_silu_bm")
+# shape (redesigned in this form: #11 on the tensor cores, #6 as one launch,
+# #2, #9 and #10 as one cluster launch).
+BY_NAME = ("conv3x3", "group_norm_silu_bm", "linear_attention_block", "linear_attention_block_v1",
+           "linear_attention_block_v2")
+# Kernels a call of which must run exactly this one device kernel (no
+# transpose, copy or memset), and repeat bit for bit.
+ONE_LAUNCH = {"group_norm_silu_bm": "gn_bm_kernel", "linear_attention_block": "linattn_block_kernel",
+              "linear_attention_block_v1": "linattn_block_kernel",
+              "linear_attention_block_v2": "linattn_block_kernel"}
 
 
 def fmt(v, digits=4) -> str:
@@ -198,8 +209,8 @@ def kernel_table(port):
             "diffusion_model_nemo_tpu_torch/csrc/group_norm_silu.cu",
             "diffusion_model_nemo_tpu/ops/norm.py:92",
         ),
-        "linear_attention_block": (
-            A, "linear_attention_block_cuda", A.linear_attention_block_reference,
+        "linear_attention_block": (  # the packed TPU kernel's own seams
+            A, "linear_attention_block_cuda", A.linear_attention_block_packed_reference,
             "diffusion_model_nemo_tpu_torch/csrc/linear_attention.cu",
             "diffusion_model_nemo_tpu/ops/attention.py:842",
         ),
@@ -418,8 +429,13 @@ def check_kernels(port, calls_by_cfg):
                     log(f"[kernel]   {name} {list(key)} device ms by kernel name: "
                         f"{json.dumps({n[:60]: round(v, 5) for n, v in by_name.items()})}; one call runs {launched}; "
                         f"queued events kernel {q_k:.5f} library {'null' if q_l is None else f'{q_l:.5f}'} ms")
-                    if name == "group_norm_silu_bm":  # one launch, no transpose or copy kernel
-                        assert len(launched) == 1 and "gn_bm_kernel" in launched[0], (key, launched)
+                    # One launch, no transpose, copy or memset; not asserted after the
+                    # tools' run (phase 7), where one-call profiler traces come back
+                    # empty: the tools' shapes are also held in phase 2 (LINATTN_EXTRA).
+                    if name in ONE_LAUNCH and not cfg_name.startswith("tools"):
+                        assert len(launched) == 1 and ONE_LAUNCH[name] in launched[0], (key, launched)
+                    if name in ONE_LAUNCH:
+                        assert torch.equal(wrapper(*args), out_k.to(args[0].dtype)), f"{name} {key} does not repeat"
                 r = rows[name]
                 r["max_abs_err"] = max(r["max_abs_err"], max_err)
                 r["shapes"] += 1
@@ -502,13 +518,28 @@ def derived_calls(calls):
 ATTN_EXTRA_SHAPES = ((2, 1100, 3, 32), (2, 1100, 2, 64), (2, 1024, 2, 128), (1, 4096, 2, 64))
 # one padded m16 tile, four, two, and a C that is padded to a multiple of 32
 SMALL_BLOCK_EXTRA_SHAPES = ((4, 8, 64), (4, 64, 128), (3, 32, 256), (3, 16, 48))
+# The whole-block kernels #2, #9, #10 at the corners of their gates: N = 4096
+# resident (C = 32) and in the recompute form (C = 128), a ragged N, one CTA;
+# #10 also in float32 in the recompute form.
+# #9 and #10 also at the microbenchmark's shapes, for the one-launch check
+# (phase 7's one-call profiler traces come back empty).
+_LINATTN_CORNERS = ((2, 4096, 32), (2, 4096, 128), (3, 100, 128), (2, 64, 128))
+_TOOL_SHAPES = ((128, 1024, 32), (128, 256, 64))
+LINATTN_EXTRA = {
+    "linear_attention_block": [(s, "bf16") for s in _LINATTN_CORNERS],
+    "linear_attention_block_v1": [(s, "bf16") for s in _LINATTN_CORNERS + _TOOL_SHAPES],
+    "linear_attention_block_v2": [(s, "bf16") for s in _LINATTN_CORNERS + _TOOL_SHAPES] + [((2, 4096, 32), "f32")],
+}
 
 
 def extra_calls(device):
     """Kernel checks at shapes no network of the smoke sends: #7 in bf16 with
     k and v cut from one [B, N, 3, h, d] qkv tensor as the DiT cuts them,
-    #4 at the ends and the middle of its gate. Seeded inputs."""
+    #4 at the ends and the middle of its gate, #2, #9 and #10 at the corners
+    of theirs. Seeded inputs."""
     import torch
+
+    from diffusion_model_nemo_tpu_torch.tools.check_linattn import block_args
 
     g = torch.Generator(device=device).manual_seed(SEED)
 
@@ -526,7 +557,11 @@ def extra_calls(device):
             randn(C, 384, std=C**-0.5), randn(128, C, std=128**-0.5), randn(C, std=0.1),
             4, 32, 32**-0.5, 1e-5,
         )]
-    return {"attention_extra": {"attention": att}, "small_block_extra": {"attention_block_small": small}}
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    block = {name: {(*shape, dt): [1, block_args(shape, dtypes[dt], g, device)] for shape, dt in shapes}
+             for name, shapes in LINATTN_EXTRA.items()}
+    return {"attention_extra": {"attention": att}, "small_block_extra": {"attention_block_small": small},
+            "linattn_block_extra": block}
 
 
 def log_profile(tag, model, x, t):
@@ -975,9 +1010,10 @@ def check_derived_weights(port, model, params, tag):
         bout = params[f"{name}.attn.to_out.bias"]
 
         def derive():
-            if mod.linear:
-                return (*A._fold_prenorm(ng, nb, wqkv), A._cast_weight(wqkv, torch.bfloat16),
-                        A._cast_weight(wout, torch.bfloat16))
+            if mod.linear:  # #2 (folded), #9 (unfolded), #3
+                return tuple(t for folded in (True, False)
+                             for t in A._linattn_block_weights(folded, torch.bfloat16, ng, nb, wqkv, wout)
+                             if t is not None) + (A._cast_weight(wqkv, torch.bfloat16),)
             return A._small_block_weights(ng, nb, wqkv, wout, bout)
 
         with torch.no_grad():

@@ -2,72 +2,110 @@
 // Residual(PreNorm(LinearAttention)) block, the qkv-fused attention core, and
 // the attention core on a raw qkv tensor.
 //
-// Replaces three TPU kernels of diffusion_model_nemo_tpu/ops/attention.py:
+// Replaces these TPU kernels of diffusion_model_nemo_tpu/ops/attention.py:
 //   * _linattn_block_packed_kernel (launcher _pallas_linattn_block_packed):
 //     GroupNorm(1) with its affine folded into W_qkv -> qkv -> q softmax over
 //     d per head, x scale; k softmax over N -> per-head gram k^T v -> q . gram
 //     -> out projection + bias -> GroupNorm(1) with affine -> + x.
-//   * _linattn_qkv_fused_kernel (launcher _pallas_linattn_qkv_fused): the same
+//   * _linattn_block_kernel, v1 (launcher _pallas_linear_attention_block) and
+//     _linattn_block_kernel_v2 (launcher _pallas_linear_attention_block_v2):
+//     the same block with the prenorm affine applied in f32 before the qkv
+//     product (not folded) and no qkv bias. v2 gives every product operands
+//     in x's dtype; in bf16 its function is v1's, seam for seam, so both run
+//     one kernel, instantiated for x's dtype.
+//   * _linattn_qkv_fused_kernel (launcher _pallas_linattn_qkv_fused): the
 //     attention core on pre-normed tokens, without the norms, the out
 //     projection or the residual.
 //   * _linattn_kernel (launcher _pallas_linear_attention): the attention core
-//     on a raw qkv [B, N, 384] tensor (q | k | v columns), any dtype. It is
-//     the float32 U-Net's route. Its kv and apply stages load the qkv tile
-//     instead of projecting it; templated on float and bf16.
-//   * _linattn_block_kernel, v1 (launcher _pallas_linear_attention_block):
-//     the whole block again, with the prenorm affine NOT folded into W_qkv
-//     and with v1's own rounding points; see "v1" below.
-//   * _linattn_block_kernel_v2 (launcher _pallas_linear_attention_block_v2):
-//     the same block with every product's operands in x's dtype. In bf16 its
-//     function is v1's, seam for seam; in float32 every stage stays f32. So
-//     it runs v1's stages, instantiated for x's dtype. The TPU kernel took G
-//     samples per grid step to batch its token GEMMs on the MXU; that was a
-//     VMEM/MXU blocking with no counterpart here, where every (tile, sample)
-//     is a block of its own.
+//     on a raw qkv [B, N, 384] tensor (q | k | v columns), any dtype; the
+//     float32 U-Net's route.
 //   * _v4_kernel (tools/microbench_attn_lanes.py, launcher v4_call): the
-//     qkv-fused attention core on x viewed as [B, N*C/128, 128], so that the
-//     TPU's (8, 128) tiles carry no lane padding. On the card the packed view
-//     and [B, N, C] token rows are the same bytes, so the packing has no
-//     counterpart: dmn_linattn_v4 reads the buffer as token rows and runs the
-//     qkv-fused stages, instantiated for x's dtype (v4 runs in x's dtype).
-// The TPU packed its tokens 128 lanes wide (J = 128/C tokens per row); that
-// is a TPU layout device. Here a token is one row of C channels.
+//     qkv-fused core on x viewed as [B, N*C/128, 128], so that the TPU's
+//     (8, 128) tiles carry no lane padding. On the card the packed view and
+//     [B, N, C] token rows are the same bytes: dmn_linattn_v4 reads the
+//     buffer as token rows and runs the qkv-fused stages in x's dtype.
+// The TPU packed its tokens 128 lanes wide and took G samples per grid step
+// so that its matrix unit saw tall operands: both are VMEM/MXU blockings with
+// no counterpart here. On the card a sample is spread over a thread-block
+// cluster instead, and the block's token GEMMs run on the tensor cores.
 //
-// What bounds it on the H100: a sample's f32 qkv is N * 384 * 4 bytes
-// (1.5 MB at N = 1024). The TPU kept it in VMEM; 227 KB of shared memory
-// cannot. So the kernels stream token tiles and recompute qkv where needed,
-// and nothing of qkv reaches device memory:
-//   1. xstats   (grid tiles x B): partial sum / sum of squares of x per
-//      32-token tile (prenorm statistics; block form only).
-//   2. kv       (grid chunks x B): each block projects k and v for its
-//      128-token chunk, 32 tokens at a time, keeps an online column max and
-//      sum for k's softmax over N, and accumulates the 4 per-head 32 x 32
-//      grams in registers, rescaled whenever a column max grows.
-//   3. merge    (grid heads x B): combines the chunks' (max, sum, gram) into
-//      the softmax-normalised gram, rounded to bf16 like the TPU kernel.
-//   4. apply    (grid tiles x B): projects q, takes its per-head softmax,
-//      multiplies by the gram; the qkv-fused form writes this [N, 128]
-//      output, the block form goes on through the out projection and writes
-//      y (f32) with its tile's partial statistics.
-//   5. outnorm  (grid tiles x B, block form): GroupNorm(1) of y + x.
-// Partial sums are combined in a fixed order, so results do not depend on
-// scheduling. The bytes that must move are x and the output (a few MB at
-// B = 64); the streamed scratch (y and the chunk grams) adds about as much
-// again, and the projections run on CUDA cores in f32 from bf16 operands,
-// so this simple form is bound by CUDA-core FMA throughput, not by memory.
-// Tensor cores (wgmma) and TMA are the next step.
+// The whole block (#2, #9, #10): one launch, one cluster per sample.
+//   What bounds it on the H100: at unet_small's four #2 calls (B = 64) the
+//   block moves ~17 MB (x in, out back: ~5 us at 3.35 TB/s) and does ~6
+//   GFLOP (~6 us at the bf16 peak). A sample's intermediates fit in the
+//   shared memory of a few SMs, so nothing but x and the output has to touch
+//   device memory; what is left to bound the kernel is the latency of a chain
+//   of dependent stages, three of which need the whole sample (the prenorm's
+//   statistics, k's softmax over N and its gram, the out-norm's statistics).
+//   Design:
+//   - A cluster of min(8, ceil(N / 128)) CTAs holds one sample; CTA r owns
+//     the token slab [r * slab, (r + 1) * slab). The three sample-wide
+//     reductions go through distributed shared memory: each CTA publishes its
+//     partial, cluster.sync(), and the partials are added in rank order, so
+//     every CTA (and every run) gets the same bits. The 4 x 32 x 32 gram is
+//     reduce-scattered (rank r adds up rows r, r + cluster, ..., 16 bytes a
+//     load) and then gathered, rounded: a CTA reads each remote byte once.
+//   - Each CTA walks its slab in 64-token tiles (four m16 tiles); every
+//     product is mma.sync.m16n8k16 with f32 accumulation: qkv = h W (the
+//     weights' B fragments straight from L2 in fragment order, one 16-byte
+//     load a lane, as csrc/attention_block_small.cu, all k steps of a
+//     product asked for at once), the per-head gram k_sm^T v (both operands
+//     by ldmatrix.trans from the tile), q_sm . gram and att W_out.
+//   - Stages: (1) x statistics; (2) k's column max and sum over the slab,
+//     online, merged over the cluster; (3) k_sm and v recomputed per tile
+//     (a projection on the tensor cores costs less than holding an f32 k),
+//     rounded, and the slab's gram; the cluster's grams added in rank order
+//     and rounded; (4) q, its softmax (one max over the 128 columns, per-head
+//     sums), att = q_sm . gram, y = att W_out + b_out with y's statistics;
+//     (5) out = GroupNorm(y) + x, 16 bytes a thread.
+//   - "Resident": where the slab's h and f32 y fit in shared memory (with
+//     the tile buffers, at most 227 KB), x is read once into it (cp.async)
+//     and y is kept for stage 5. Otherwise ("recompute", e.g. [4096, 128])
+//     each stage reloads its x tile from device memory (L2) and normalises it
+//     again, and stage 4 runs twice: for y's statistics, then to write the
+//     output. The launch plan (cluster, slab, bytes, mode) is the wrapper's
+//     (ops/attention.py:linattn_block_plan); block_layout() below is its
+//     mirror and the entries refuse a plan that disagrees with it.
+//   - What is left is latency: a CTA's stages are a chain of L2 round trips
+//     and barriers, whatever the batch (on the H100 a one-wave call takes
+//     ~33 us with one 64-token tile a CTA, [64, 64, 128], and ~45 us with two,
+//     [64, 256, 64]: tools/check_linattn.py). So the
+//     kernel is held to 128 registers and, on the main path, ~115 KB of
+//     shared memory (the f32 partial gram takes the k_sm|v tile's place), two
+//     CTAs an SM: at [64, 1024, 32] its 512 CTAs run in two waves, not four.
+//   - float32 (#10 in float32): the same kernel and stages, with each
+//     product's 16 x 8 output tile computed by f32 FMAs on the CUDA cores in
+//     the mma fragment layout (no TF32: the 1e-4 gate), weights row major.
+//   Seams kept from the TPU kernels: the prenorm's (x - mu) * rstd rounded to
+//   bf16 before the folded affine (#2), or the affine applied in f32 before
+//   the rounding (#9, #10); qkv (+ the folded bias) in f32; q_sm = exp(q -
+//   rowmax) * (scale / headsum), k_sm = exp(k - M) * (1 / S) and v rounded to
+//   x's dtype (a reciprocal where the TPU kernel divides: one f32 rounding
+//   apart, before a bf16 one); the gram, masked to its diagonal blocks,
+//   rounded; att rounded;
+//   y = att W_out + b_out, the out-norm and the residual in f32, cast once.
+//   Padded tokens (N not a multiple of 16) enter no max, sum or gram.
 //
-// Seams kept from the TPU kernels: bf16 operands for every product with f32
-// accumulation; the prenorm's (x - mu) * rstd rounded to bf16 before the
-// folded affine; q softmax and gram rounded to bf16; f32 out-norm. The stages
-// are templated on the token dtype T and round with dmn::round_to<T>, which
-// is the identity for float: the entries of #8, #10 and #12 round only in
-// their bf16 instantiations, as the JAX kernels do (x's dtype), and keep
-// every stage f32 in float32. #2, #3 and #9 run the bf16 instantiations.
+// The attention core (#3, #8, #12) still streams 32-token tiles through
+// three launches with f32 CUDA-core FMAs and a scratch round trip:
+//   1. kv    (grid chunks x B): each block projects (or loads) k and v for
+//      its 128-token chunk, keeps an online column max and sum for k's
+//      softmax over N, and accumulates the 4 per-head 32 x 32 grams.
+//   2. merge (grid heads x B): combines the chunks' (max, sum, gram) into the
+//      softmax-normalised gram, rounded to bf16 like the TPU kernel.
+//   3. apply (grid tiles x B): projects (or loads) q, takes its per-head
+//      softmax, multiplies by the gram and writes [N, 128].
+// Its stages are templated on the token dtype T and round with
+// dmn::round_to<T>, the identity for float: #8 and #12 round only in their
+// bf16 instantiations and stay f32 in float32; #3 runs in bf16.
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -82,83 +120,38 @@ constexpr int GRAM = HEADS * DH * DH;  // 4096
 constexpr int ACC = GRAM / THREADS;    // 16 gram entries per thread
 
 struct Scratch {
-  float2* xpart;  // [B][T]        prenorm partial sums (block form)
-  float* mpart;   // [B][K][HD]    chunk column max of k
-  float* spart;   // [B][K][HD]    chunk column sum of exp(k - max)
-  float* gpart;   // [B][K][GRAM]  chunk grams, relative to the chunk max
-  float* gram;    // [B][GRAM]     merged, softmax-normalised gram
-  float* ybuf;    // [B][N][C]     out projection (block form)
-  float2* ypart;  // [B][T]        partial sums of y (block form)
+  float* mpart;  // [B][K][HD]    chunk column max of k
+  float* spart;  // [B][K][HD]    chunk column sum of exp(k - max)
+  float* gpart;  // [B][K][GRAM]  chunk grams, relative to the chunk max
+  float* gram;   // [B][GRAM]     merged, softmax-normalised gram
 };
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Scratch layout, in floats; shared by the launcher and the Python wrapper.
-inline size_t scratch_layout(int B, int N, int C, int block, Scratch* s, float* base) {
-  const int T = ceil_div(N, TN), K = ceil_div(N, CHUNK);
+// Scratch layout of the attention core, in floats; shared by the launchers
+// and the Python wrapper.
+inline size_t scratch_layout(int B, int N, Scratch* s, float* base) {
+  const int K = ceil_div(N, CHUNK);
   size_t off = 0;
   auto take = [&](size_t n) {
     float* p = base ? base + off : nullptr;
     off += (n + 3) & ~size_t(3);  // keep 16-byte alignment
     return p;
   };
-  float* xpart = take(size_t(B) * T * 2);
   float* mpart = take(size_t(B) * K * HD);
   float* spart = take(size_t(B) * K * HD);
   float* gpart = take(size_t(B) * K * GRAM);
   float* gram = take(size_t(B) * GRAM);
-  float* ybuf = block ? take(size_t(B) * N * C) : nullptr;
-  float* ypart = block ? take(size_t(B) * T * 2) : nullptr;
-  if (s) {
-    s->xpart = reinterpret_cast<float2*>(xpart);
-    s->mpart = mpart;
-    s->spart = spart;
-    s->gpart = gpart;
-    s->gram = gram;
-    s->ybuf = ybuf;
-    s->ypart = reinterpret_cast<float2*>(ypart);
-  }
+  if (s) *s = Scratch{mpart, spart, gpart, gram};
   return off;
 }
 
-// (mean, rstd) of one sample from its T partial sums, in a fixed order.
-__device__ __forceinline__ float2 merge_stats(const float2* part, int T, float count,
-                                              float eps) {
-  float s = 0.f, ss = 0.f;
-  for (int t = 0; t < T; ++t) {
-    s += part[t].x;
-    ss += part[t].y;
-  }
-  return dmn::fast_variance_stats(s, ss, count, eps);
-}
-
-// Load `rows` tokens of sample b from token n0 into h[rows][C] (f32): the
-// prenorm output rounded to T (block form) or the input as is.
+// Load `rows` tokens of sample b from token n0 into h[rows][C] (f32).
 template <typename T>
 __device__ __forceinline__ void load_tokens(const T* __restrict__ x, float* h, int b, int N, int C,
-                                            int n0, int rows, bool prenorm, float2 st) {
+                                            int n0, int rows) {
   const T* xs = x + (size_t(b) * N + n0) * C;
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const float v = dmn::to_f32(xs[i]);
-    h[i] = prenorm ? dmn::round_to<T>((v - st.x) * st.y) : v;
-  }
-}
-
-// 1. partial statistics of x per 32-token tile.
-template <typename T>
-__global__ void xstats_kernel(const T* __restrict__ x, float2* xpart, int N, int C) {
-  __shared__ float red[64];
-  const int t = blockIdx.x, b = blockIdx.y, nt = gridDim.x;
-  const int n0 = t * TN, rows = min(TN, N - n0);
-  const T* xs = x + (size_t(b) * N + n0) * C;
-  float s = 0.f, ss = 0.f;
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const float v = dmn::to_f32(xs[i]);
-    s += v;
-    ss += v * v;
-  }
-  const float2 tot = dmn::block_sum2(s, ss, red);
-  if (threadIdx.x == 0) xpart[size_t(b) * nt + t] = tot;
+  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) h[i] = dmn::to_f32(xs[i]);
 }
 
 // Online column max and sum of k's softmax over N, and the per-head gram
@@ -215,13 +208,12 @@ __device__ __forceinline__ void kv_store(const Scratch& sc, int b, int k, int K,
   for (int a = 0; a < ACC; ++a) sc.gpart[bk * GRAM + threadIdx.x + a * THREADS] = acc[a];
 }
 
-// 2. k/v projection, online softmax statistics of k, chunk grams.
+// 1. k/v projection, online softmax statistics of k, chunk grams.
 // Dynamic shared memory: h[TN*C] + kv[TN*2*HD] + scale[HD] + m[HD] + s[HD].
 template <typename T>
 __global__ void kv_kernel(const T* __restrict__ x,
-                          const T* __restrict__ w,          // [C][QKV]
-                          const float* __restrict__ bias,   // [QKV] or null
-                          Scratch sc, int N, int C, int prenorm, float eps) {
+                          const T* __restrict__ w,  // [C][QKV]
+                          Scratch sc, int N, int C) {
   extern __shared__ float smem[];
   float* h = smem;
   float* kv = h + TN * C;
@@ -230,10 +222,6 @@ __global__ void kv_kernel(const T* __restrict__ x,
   float* srun = mrun + HD;
 
   const int k = blockIdx.x, b = blockIdx.y, K = gridDim.x;
-  const int nt = ceil_div(N, TN);
-  float2 st = make_float2(0.f, 1.f);
-  if (prenorm) st = merge_stats(sc.xpart + size_t(b) * nt, nt, float(N) * C, eps);
-
   float acc[ACC];
   kv_init(mrun, srun, acc);
 
@@ -241,15 +229,18 @@ __global__ void kv_kernel(const T* __restrict__ x,
   for (int n0 = k * CHUNK; n0 < c_end; n0 += TN) {
     const int rows = min(TN, c_end - n0);
     __syncthreads();  // previous tile's kv fully consumed
-    load_tokens(x, h, b, N, C, n0, rows, prenorm, st);
+    load_tokens(x, h, b, N, C, n0, rows);
     __syncthreads();
     for (int i = threadIdx.x; i < rows * 2 * HD; i += blockDim.x) {
       const int r = i / (2 * HD), j = i % (2 * HD);
       const int col = HD + j;  // k and v columns of qkv
       float a = 0.f;
       const float* hr = h + r * C;
+      // Unrolled by 32: left to itself, nvcc 12.8 compiled this loop into a form
+      // that made #3 at [64, 64, 64] take 0.133 ms of device time instead of
+      // 0.091 (chip_smoke's kernel table, H100 80GB HBM3 at 700 W).
+#pragma unroll 32
       for (int c = 0; c < C; ++c) a += hr[c] * dmn::to_f32(w[size_t(c) * QKV + col]);
-      if (bias) a += bias[col];
       kv[r * 2 * HD + j] = j < HD ? a : dmn::round_to<T>(a);  // v is in T
     }
     __syncthreads();
@@ -259,7 +250,7 @@ __global__ void kv_kernel(const T* __restrict__ x,
   kv_store(sc, b, k, K, mrun, srun, acc);
 }
 
-// 2'. the same stage on a raw qkv tensor: k and v columns loaded, not projected.
+// 1'. the same stage on a raw qkv tensor: k and v columns loaded, not projected.
 // Dynamic shared memory: kv[TN*2*HD] + scale[HD] + m[HD] + s[HD].
 template <typename T>
 __global__ void qkv_kv_kernel(const T* __restrict__ qkv, Scratch sc, int N) {
@@ -286,7 +277,7 @@ __global__ void qkv_kv_kernel(const T* __restrict__ qkv, Scratch sc, int N) {
   kv_store(sc, b, k, K, mrun, srun, acc);
 }
 
-// 3. merge the chunks: gram = sum_k G_k e^{m_k - M} / sum_k S_k e^{m_k - M},
+// 2. merge the chunks: gram = sum_k G_k e^{m_k - M} / sum_k S_k e^{m_k - M},
 // rounded to bf16 where `round_bf16`.
 __global__ void merge_kernel(Scratch sc, int K, int round_bf16) {
   const int hh = blockIdx.x, b = blockIdx.y;
@@ -336,29 +327,20 @@ __device__ __forceinline__ float q_gram(const float* q, const float* gram, int i
   return a;
 }
 
-// 4. q projection, per-head softmax over d, q . gram, and (block form) the
-// out projection. Dynamic shared memory: h[TN*C] + q[TN*HD] + att[TN*HD]
-// + gram[GRAM].
+// 3. q projection, per-head softmax over d, q . gram -> out [B][N][HD] in T.
+// Dynamic shared memory: h[TN*C] + q[TN*HD] + gram[GRAM].
 template <typename T>
 __global__ void apply_kernel(const T* __restrict__ x,
-                             const T* __restrict__ w,         // [C][QKV]
-                             const float* __restrict__ bias,  // [QKV] or null
-                             const T* __restrict__ wout,      // [HD][C] or null
-                             const float* __restrict__ bout,  // [C] or null
-                             T* __restrict__ att_out,         // [B][N][HD] or null
-                             Scratch sc, int N, int C, int prenorm, float scale, float eps) {
+                             const T* __restrict__ w,  // [C][QKV]
+                             T* __restrict__ att_out, Scratch sc, int N, int C, float scale) {
   extern __shared__ float smem[];
-  __shared__ float red[64];
   float* h = smem;
   float* q = h + TN * C;
-  float* att = q + TN * HD;
-  float* gram = att + TN * HD;
+  float* gram = q + TN * HD;
 
-  const int t = blockIdx.x, b = blockIdx.y, nt = gridDim.x;
+  const int t = blockIdx.x, b = blockIdx.y;
   const int n0 = t * TN, rows = min(TN, N - n0);
-  float2 st = make_float2(0.f, 1.f);
-  if (prenorm) st = merge_stats(sc.xpart + size_t(b) * nt, nt, float(N) * C, eps);
-  load_tokens(x, h, b, N, C, n0, rows, prenorm, st);
+  load_tokens(x, h, b, N, C, n0, rows);
   for (int i = threadIdx.x; i < GRAM; i += blockDim.x) gram[i] = sc.gram[size_t(b) * GRAM + i];
   __syncthreads();
 
@@ -367,36 +349,16 @@ __global__ void apply_kernel(const T* __restrict__ x,
     float a = 0.f;
     const float* hr = h + r * C;
     for (int c = 0; c < C; ++c) a += hr[c] * dmn::to_f32(w[size_t(c) * QKV + j]);
-    if (bias) a += bias[j];
     q[i] = a;
   }
   __syncthreads();
   q_softmax(q, rows, scale, dmn::is_bf16<T>());
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x) {
-    const float a = q_gram(q, gram, i);
-    if (att_out)
-      att_out[(size_t(b) * N + n0) * HD + i] = dmn::from_f32<T>(a);
-    else
-      att[i] = dmn::round_to<T>(a);
-  }
-  if (att_out) return;  // qkv-fused form ends here (uniform across the block)
-  __syncthreads();
-  float s = 0.f, ss = 0.f;
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const int r = i / C, c = i % C;
-    const float* ar = att + r * HD;
-    float a = bout[c];
-    for (int j = 0; j < HD; ++j) a += ar[j] * dmn::to_f32(wout[size_t(j) * C + c]);
-    sc.ybuf[(size_t(b) * N + n0) * C + i] = a;
-    s += a;
-    ss += a * a;
-  }
-  const float2 tot = dmn::block_sum2(s, ss, red);
-  if (threadIdx.x == 0) sc.ypart[size_t(b) * nt + t] = tot;
+  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x)
+    att_out[(size_t(b) * N + n0) * HD + i] = dmn::from_f32<T>(q_gram(q, gram, i));
 }
 
-// 4'. the apply stage on a raw qkv tensor: q columns loaded, not projected;
+// 3'. the apply stage on a raw qkv tensor: q columns loaded, not projected;
 // out [B][N][HD] in T. Dynamic shared memory: q[TN*HD] + gram[GRAM].
 template <typename T>
 __global__ void qkv_apply_kernel(const T* __restrict__ qkv, T* __restrict__ out, Scratch sc,
@@ -418,244 +380,16 @@ __global__ void qkv_apply_kernel(const T* __restrict__ qkv, T* __restrict__ out,
     dst[i] = dmn::from_f32<T>(q_gram(q, gram, i));
 }
 
-// 5. GroupNorm(1) of y with its affine, + x, cast to T.
-template <typename T>
-__global__ void outnorm_kernel(const T* __restrict__ x, const float* __restrict__ og,
-                               const float* __restrict__ ob, T* __restrict__ out, Scratch sc,
-                               int N, int C, float eps) {
-  const int t = blockIdx.x, b = blockIdx.y, nt = gridDim.x;
-  const int n0 = t * TN, rows = min(TN, N - n0);
-  const float2 st = merge_stats(sc.ypart + size_t(b) * nt, nt, float(N) * C, eps);
-  const size_t base = (size_t(b) * N + n0) * C;
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const int c = i % C;
-    const float y = (sc.ybuf[base + i] - st.x) * st.y * og[c] + ob[c];
-    out[base + i] = dmn::from_f32<T>(y + dmn::to_f32(x[base + i]));
-  }
-}
-
 size_t kv_smem(int C) { return sizeof(float) * (TN * C + TN * 2 * HD + 3 * HD); }
-size_t apply_smem(int C) { return sizeof(float) * (TN * C + 2 * TN * HD + GRAM); }
+size_t apply_smem(int C) { return sizeof(float) * (TN * C + TN * HD + GRAM); }
 constexpr size_t QKV_KV_SMEM = sizeof(float) * (TN * 2 * HD + 3 * HD);
 constexpr size_t QKV_APPLY_SMEM = sizeof(float) * (TN * HD + GRAM);
-
-// ------------------------------------------------------------------- v1 --
-// TPU kernel #9 computes the block with its own seams (ops/attention.py:
-// 371-428): h = GroupNorm(1) with its affine in f32, rounded to bf16 for the
-// qkv product; q, k and v stay f32; the q softmax subtracts one row max over
-// all h*d columns and then divides by per-head sums; k_sm = exp(k - max) /
-// sum over N in f32, rounded to bf16 with v for the gram; the masked gram,
-// q_sm and attn rounded to bf16 for their products; f32 out-norm. Rounding
-// k_sm before the gram needs k's column max and sum over the whole sample
-// first, so the k/v stage runs twice: v1_kstats (online max and sum per
-// chunk, as kv_kernel) and v1_gram (k_sm and v per tile with the merged
-// statistics, plain per-chunk gram sums). A last merge adds the chunks in a
-// fixed order. xstats and outnorm are shared with the packed form. The
-// stages are templated on T, x's dtype: v1 runs them in bf16; v2 (#10) in
-// x's dtype, where float keeps every rounding point above at f32.
-
-// Prenorm rows of sample b with the affine applied in f32, then T.
-template <typename T>
-__device__ __forceinline__ void load_tokens_affine(const T* __restrict__ x,
-                                                   const float* __restrict__ ng,
-                                                   const float* __restrict__ nb, float* h, int b,
-                                                   int N, int C, int n0, int rows, float2 st) {
-  const T* xs = x + (size_t(b) * N + n0) * C;
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const int c = i % C;
-    h[i] = dmn::round_to<T>((dmn::to_f32(xs[i]) - st.x) * st.y * ng[c] + nb[c]);
-  }
-}
-
-// out[r * ncols + j] = h[r] . W[:, col0 + j] for `rows` rows, f32 accumulation.
-template <typename T>
-__device__ __forceinline__ void project(const float* h, const T* __restrict__ w, int rows, int C,
-                                        int col0, int ncols, float* out) {
-  for (int i = threadIdx.x; i < rows * ncols; i += blockDim.x) {
-    const int r = i / ncols, j = i % ncols;
-    const float* hr = h + r * C;
-    float a = 0.f;
-    for (int c = 0; c < C; ++c) a += hr[c] * dmn::to_f32(w[size_t(c) * QKV + col0 + j]);
-    out[i] = a;
-  }
-}
-
-// 2a. k projection and its online column max and sum over the chunk.
-// Dynamic shared memory: h[TN*C] + k[TN*HD] + m[HD] + s[HD].
-template <typename T>
-__global__ void v1_kstats_kernel(const T* __restrict__ x, const float* __restrict__ ng,
-                                 const float* __restrict__ nb, const T* __restrict__ w, Scratch sc,
-                                 int N, int C, float eps) {
-  extern __shared__ float smem[];
-  float* h = smem;
-  float* kt = h + TN * C;
-  float* mrun = kt + TN * HD;
-  float* srun = mrun + HD;
-  const int k = blockIdx.x, b = blockIdx.y, K = gridDim.x;
-  const float2 st = merge_stats(sc.xpart + size_t(b) * ceil_div(N, TN), ceil_div(N, TN),
-                                float(N) * C, eps);
-  if (threadIdx.x < HD) {
-    mrun[threadIdx.x] = -INFINITY;
-    srun[threadIdx.x] = 0.f;
-  }
-  const int c_end = min(N, (k + 1) * CHUNK);
-  for (int n0 = k * CHUNK; n0 < c_end; n0 += TN) {
-    const int rows = min(TN, c_end - n0);
-    __syncthreads();  // previous tile consumed
-    load_tokens_affine(x, ng, nb, h, b, N, C, n0, rows, st);
-    __syncthreads();
-    project(h, w, rows, C, HD, HD, kt);
-    __syncthreads();
-    if (threadIdx.x < HD) {
-      const int j = threadIdx.x;
-      float m = mrun[j];
-      for (int r = 0; r < rows; ++r) m = fmaxf(m, kt[r * HD + j]);
-      float s = srun[j] * __expf(mrun[j] - m);  // 0 on the first tile
-      for (int r = 0; r < rows; ++r) s += __expf(kt[r * HD + j] - m);
-      mrun[j] = m;
-      srun[j] = s;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < HD) {
-    const size_t bk = size_t(b) * K + k;
-    sc.mpart[bk * HD + threadIdx.x] = mrun[threadIdx.x];
-    sc.spart[bk * HD + threadIdx.x] = srun[threadIdx.x];
-  }
-}
-
-// 2b. k_sm = T(exp(k - M) / S) with the sample's column max M and sum S,
-// v = T(v); per-chunk masked gram sums k_sm^T v.
-// Dynamic shared memory: h[TN*C] + kv[TN*2*HD] + M[HD] + S[HD].
-template <typename T>
-__global__ void v1_gram_kernel(const T* __restrict__ x, const float* __restrict__ ng,
-                               const float* __restrict__ nb, const T* __restrict__ w, Scratch sc,
-                               int N, int C, float eps) {
-  extern __shared__ float smem[];
-  float* h = smem;
-  float* kv = h + TN * C;
-  float* colm = kv + TN * 2 * HD;
-  float* cols = colm + HD;
-  const int k = blockIdx.x, b = blockIdx.y, K = gridDim.x;
-  const float2 st = merge_stats(sc.xpart + size_t(b) * ceil_div(N, TN), ceil_div(N, TN),
-                                float(N) * C, eps);
-  if (threadIdx.x < HD) {  // merge the chunks' column statistics, fixed order
-    const int j = threadIdx.x;
-    float M = -INFINITY;
-    for (int kk = 0; kk < K; ++kk) M = fmaxf(M, sc.mpart[(size_t(b) * K + kk) * HD + j]);
-    float S = 0.f;
-    for (int kk = 0; kk < K; ++kk) {
-      const size_t bk = size_t(b) * K + kk;
-      S += sc.spart[bk * HD + j] * __expf(sc.mpart[bk * HD + j] - M);
-    }
-    colm[j] = M;
-    cols[j] = S;
-  }
-  float acc[ACC];
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
-  const int c_end = min(N, (k + 1) * CHUNK);
-  for (int n0 = k * CHUNK; n0 < c_end; n0 += TN) {
-    const int rows = min(TN, c_end - n0);
-    __syncthreads();  // previous tile consumed
-    load_tokens_affine(x, ng, nb, h, b, N, C, n0, rows, st);
-    __syncthreads();
-    project(h, w, rows, C, HD, 2 * HD, kv);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * 2 * HD; i += blockDim.x) {
-      const int j = i % (2 * HD);
-      kv[i] = j < HD ? dmn::round_to<T>(__expf(kv[i] - colm[j]) / cols[j]) : dmn::round_to<T>(kv[i]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < ACC; ++a) {
-      const int idx = threadIdx.x + a * THREADS;
-      const int hh = idx >> 10, i = (idx >> 5) & 31, jj = idx & 31;
-      const int ck = hh * DH + i, cv = HD + hh * DH + jj;
-      float g = acc[a];
-      for (int r = 0; r < rows; ++r) g += kv[r * 2 * HD + ck] * kv[r * 2 * HD + cv];
-      acc[a] = g;
-    }
-  }
-  const size_t bk = size_t(b) * K + k;
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) sc.gpart[bk * GRAM + threadIdx.x + a * THREADS] = acc[a];
-}
-
-// 3'. gram = T(sum of the chunk grams), fixed order.
-template <typename T>
-__global__ void v1_merge_kernel(Scratch sc, int K) {
-  const int b = blockIdx.x;
-  for (int e = threadIdx.x; e < GRAM; e += blockDim.x) {
-    float G = 0.f;
-    for (int k = 0; k < K; ++k) G += sc.gpart[(size_t(b) * K + k) * GRAM + e];
-    sc.gram[size_t(b) * GRAM + e] = dmn::round_to<T>(G);
-  }
-}
-
-// 4'. q projection; softmax over d with one row max over all h*d columns and
-// per-head sums, x scale, T; q_sm . gram -> T; out projection + bias -> y
-// (f32) with the tile's partial statistics.
-// Dynamic shared memory: h[TN*C] + q[TN*HD] + att[TN*HD] + gram[GRAM].
-template <typename T>
-__global__ void v1_apply_kernel(const T* __restrict__ x, const float* __restrict__ ng,
-                                const float* __restrict__ nb, const T* __restrict__ w,
-                                const T* __restrict__ wout, const float* __restrict__ bout,
-                                Scratch sc, int N, int C, float scale, float eps) {
-  extern __shared__ float smem[];
-  __shared__ float red[64];
-  float* h = smem;
-  float* q = h + TN * C;
-  float* att = q + TN * HD;
-  float* gram = att + TN * HD;
-  const int t = blockIdx.x, b = blockIdx.y, nt = gridDim.x;
-  const int n0 = t * TN, rows = min(TN, N - n0);
-  const float2 st = merge_stats(sc.xpart + size_t(b) * nt, nt, float(N) * C, eps);
-  load_tokens_affine(x, ng, nb, h, b, N, C, n0, rows, st);
-  for (int i = threadIdx.x; i < GRAM; i += blockDim.x) gram[i] = sc.gram[size_t(b) * GRAM + i];
-  __syncthreads();
-  project(h, w, rows, C, 0, HD, q);
-  __syncthreads();
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    float* qr = q + r * HD;
-    float m = -INFINITY;
-    for (int j = 0; j < HD; ++j) m = fmaxf(m, qr[j]);
-    for (int hh = 0; hh < HEADS; ++hh) {
-      float* qh = qr + hh * DH;
-      float s = 0.f;
-      for (int d = 0; d < DH; ++d) {
-        qh[d] = __expf(qh[d] - m);
-        s += qh[d];
-      }
-      for (int d = 0; d < DH; ++d) qh[d] = dmn::round_to<T>(qh[d] / s * scale);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x) att[i] = dmn::round_to<T>(q_gram(q, gram, i));
-  __syncthreads();
-  float s = 0.f, ss = 0.f;
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const int r = i / C, c = i % C;
-    const float* ar = att + r * HD;
-    float a = 0.f;
-    for (int j = 0; j < HD; ++j) a += ar[j] * dmn::to_f32(wout[size_t(j) * C + c]);
-    a += bout[c];
-    sc.ybuf[(size_t(b) * N + n0) * C + i] = a;
-    s += a;
-    ss += a * a;
-  }
-  const float2 tot = dmn::block_sum2(s, ss, red);
-  if (threadIdx.x == 0) sc.ypart[size_t(b) * nt + t] = tot;
-}
-
-size_t v1_kstats_smem(int C) { return sizeof(float) * (TN * C + TN * HD + 2 * HD); }
-size_t v1_gram_smem(int C) { return sizeof(float) * (TN * C + TN * 2 * HD + 2 * HD); }
 
 template <typename T>
 int linattn_qkv(const void* qkv, void* out, void* scratch, int B, int N, float scale,
                 cudaStream_t stream) {
   Scratch sc;
-  scratch_layout(B, N, 0, 0, &sc, static_cast<float*>(scratch));
+  scratch_layout(B, N, &sc, static_cast<float*>(scratch));
   const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
   const auto* src = static_cast<const T*>(qkv);
   cudaError_t err = dmn::set_smem((const void*)qkv_kv_kernel<T>, QKV_KV_SMEM);
@@ -673,118 +407,812 @@ template <typename T>
 int linattn_tokens(const void* h, const void* wqkv, void* out, void* scratch, int B, int N, int C,
                    float scale, cudaStream_t stream) {
   Scratch sc;
-  scratch_layout(B, N, C, 0, &sc, static_cast<float*>(scratch));
+  scratch_layout(B, N, &sc, static_cast<float*>(scratch));
   const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
   const auto* hb = static_cast<const T*>(h);
   const auto* wb = static_cast<const T*>(wqkv);
   cudaError_t err = dmn::set_smem((const void*)kv_kernel<T>, kv_smem(C));
   if (err == cudaSuccess) err = dmn::set_smem((const void*)apply_kernel<T>, apply_smem(C));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kv_kernel<T><<<dim3(K, B), THREADS, kv_smem(C), stream>>>(hb, wb, nullptr, sc, N, C, 0, 0.f);
+  kv_kernel<T><<<dim3(K, B), THREADS, kv_smem(C), stream>>>(hb, wb, sc, N, C);
   merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, dmn::is_bf16<T>());
   apply_kernel<T><<<dim3(nt, B), THREADS, apply_smem(C), stream>>>(
-      hb, wb, nullptr, nullptr, nullptr, static_cast<T*>(out), sc, N, C, 0, scale, 0.f);
+      hb, wb, static_cast<T*>(out), sc, N, C, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The whole block with the prenorm affine unfolded (#9 in bf16, #10 in x's
-// dtype).
+// ------------------------------------------------ the whole block (#2, #9, #10) --
+constexpr int TILE = 64;          // tokens per tile
+constexpr int MT = TILE / 16;     // m16 tiles per tile
+constexpr int PAD = 8;            // elements of row padding: 16 bytes in bf16
+constexpr int KVS = 2 * HD + PAD;  // k_sm | v row (stage 3); q row (stage 4)
+constexpr int AS = HD + PAD;      // attention-output row
+constexpr int GS = DH + PAD;      // gram row
+constexpr int WARPS = THREADS / 32;
+constexpr int MISC_BYTES = 512;   // block_sum2 scratch and the two cluster slots
+constexpr int MAX_CLUSTER = 8;    // the portable cluster size
+constexpr size_t SMEM_LIMIT = 232448;
+
+// Byte offsets of the block kernel's shared memory; ops/attention.py:
+// _linattn_block_smem is its mirror.
+struct Layout {
+  size_t misc, colst, gram, a, b, h, y, total;  // the f32 partial gram lives in region a
+  int hs, c8, rows_h;
+};
+
+__host__ __device__ inline Layout block_layout(int C, int slab, int resident, int esize) {
+  Layout L;
+  L.hs = ((C + 31) & ~31) + PAD;  // the qkv product walks k in pairs of k16 steps
+  L.c8 = (C + 7) & ~7;            // the out projection's n8 tiles
+  L.rows_h = resident ? ceil_div(slab, TILE) * TILE : TILE;
+  const int rows_y = resident ? slab : 0;
+  size_t off = 0;
+  auto take = [&](size_t n) {
+    const size_t at = off;
+    off += (n + 15) & ~size_t(15);
+    return at;
+  };
+  L.misc = take(MISC_BYTES);
+  L.colst = take(sizeof(float) * 4 * HD);
+  L.gram = take(size_t(HEADS) * DH * GS * esize);
+  L.a = take(size_t(TILE) * KVS * esize);
+  L.b = take(size_t(TILE) * AS * esize);
+  L.h = take(size_t(L.rows_h) * L.hs * esize);
+  L.y = take(sizeof(float) * rows_y * L.c8);
+  L.total = off;
+  return L;
+}
+
+struct BlockArgs {
+  const void* x;
+  const void* wqkv;    // bf16: fragment order [Cp/32][48][32][8]; float: [C][384]
+  const float* bqkv;   // [384] (folded prenorm) or null
+  const float* ng;     // [C] prenorm affine applied before the product, or null (folded)
+  const float* nb;
+  const void* wout;    // bf16: fragment order [4][C8/8][32][8]; float: [128][C8]
+  const float* bout;   // [C]
+  const float* og;     // [C]
+  const float* ob;     // [C]
+  void* out;
+  int N, C, cluster, slab, resident;
+  float scale, eps;
+};
+
+// The B fragments of k16 steps 2 kp and 2 kp + 1 of n8 tile nt, for this
+// lane, from a weight in fragment order with `ntiles` n8 tiles.
+__device__ __forceinline__ uint4 ldg_fragments(const __nv_bfloat16* w, int kp, int nt, int ntiles,
+                                               int lane) {
+  return __ldg(reinterpret_cast<const uint4*>(w) + (size_t(kp) * ntiles + nt) * 32 + lane);
+}
+
+// A fragment (16 x 16) of rows m0.., columns k0.. of a bf16 tile with row stride s.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* base, int s, int m0,
+                                       int k0, int lane) {
+  dmn::ldmatrix_x4(a, dmn::smem_u32(base + (m0 + (lane & 15)) * s + k0 + (lane >> 4) * 8));
+}
+
+// A fragment of a transposed tile: A[m][k] = base[(k0 + k) * s + m0 + m].
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const __nv_bfloat16* base, int s, int m0,
+                                         int k0, int lane) {
+  dmn::ldmatrix_x4_trans(a, dmn::smem_u32(base + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * s + m0 +
+                                          ((lane >> 3) & 1) * 8));
+}
+
+// B fragments at k16 step k0 of B[k][n] = base[k * s + n], n8 tiles n0 and
+// n0 + 8: (b[0], b[1]) of the first, (b[2], b[3]) of the second.
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const __nv_bfloat16* base, int s, int k0,
+                                       int n0, int lane) {
+  dmn::ldmatrix_x4_trans(b, dmn::smem_u32(base + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * s + n0 +
+                                          (lane >> 4) * 8));
+}
+
+// float32: the 16 x 8 output tile (m0.., n0..) of A . B by f32 FMAs, each
+// lane owning the four elements of its mma C fragment.
+template <class FA, class FB>
+__device__ __forceinline__ void fma_tile(float (&d)[4], int K, FA fa, FB fb, int m0, int n0,
+                                         int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < K; ++k) {
+    const float a0 = fa(m0 + g, k), a1 = fa(m0 + g + 8, k);
+    const float b0 = fb(k, n0 + 2 * t), b1 = fb(k, n0 + 2 * t + 1);
+    d[0] += a0 * b0;
+    d[1] += a0 * b1;
+    d[2] += a1 * b0;
+    d[3] += a1 * b1;
+  }
+}
+
+// acc[mt][j] += A . W over the tile's MT m16 tiles and the NT n8 tiles from
+// nt0: A [TILE][K] in shared memory (row stride as; bf16: zero columns up
+// to K rounded to 32), W a weight of `ntiles` n8 tiles (see BlockArgs).
+template <typename T, int NT>
+__device__ __forceinline__ void tile_product(float (&acc)[MT][NT][4], const T* a, int as, int K,
+                                             const T* w, int ntiles, int nt0, int lane) {
+  if constexpr (dmn::is_bf16<T>()) {
+    // The B fragments of KG pairs of k16 steps are asked for at once, so that
+    // a product with K <= 128 waits for L2 once, not once a step.
+    constexpr int KG = 4;
+    const int kpairs = ceil_div(K, 32);
+    for (int kp0 = 0; kp0 < kpairs; kp0 += KG) {
+      uint4 bw[KG][NT];
+#pragma unroll
+      for (int i = 0; i < KG; ++i)
+        if (kp0 + i < kpairs) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) bw[i][j] = ldg_fragments(w, kp0 + i, nt0 + j, ntiles, lane);
+        }
+#pragma unroll
+      for (int i = 0; i < KG; ++i) {
+        if (kp0 + i >= kpairs) break;
+        const int k0 = (kp0 + i) * 32;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t f[4];
+          load_a(f, a, as, mt * 16, k0, lane);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) dmn::mma_bf16(acc[mt][j], f, bw[i][j].x, bw[i][j].y);
+          load_a(f, a, as, mt * 16, k0 + 16, lane);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) dmn::mma_bf16(acc[mt][j], f, bw[i][j].z, bw[i][j].w);
+        }
+      }
+    }
+  } else {
+    const int ld = 8 * ntiles;
+    for (int mt = 0; mt < MT; ++mt)
+      for (int j = 0; j < NT; ++j)
+        fma_tile(acc[mt][j], K, [&](int m, int k) { return a[m * as + k]; },
+                 [&](int k, int n) { return w[size_t(k) * ld + n]; }, mt * 16, (nt0 + j) * 8, lane);
+  }
+}
+
+template <int M, int NT>
+__device__ __forceinline__ void zero(float (&acc)[M][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// Two neighbouring elements of a tile row, rounded to T.
 template <typename T>
-int linattn_block_unfolded(const void* x, const void* ng, const void* nb, const void* wqkv,
-                           const void* wout, const void* bout, const void* og, const void* ob,
-                           void* out, void* scratch, int B, int N, int C, float scale, float eps,
-                           cudaStream_t stream) {
-  Scratch sc;
-  scratch_layout(B, N, C, 1, &sc, static_cast<float*>(scratch));
-  const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
-  const auto* xt = static_cast<const T*>(x);
-  const auto* g = static_cast<const float*>(ng);
-  const auto* be = static_cast<const float*>(nb);
-  const auto* wt = static_cast<const T*>(wqkv);
-  cudaError_t err = dmn::set_smem((const void*)v1_kstats_kernel<T>, v1_kstats_smem(C));
-  if (err == cudaSuccess) err = dmn::set_smem((const void*)v1_gram_kernel<T>, v1_gram_smem(C));
-  if (err == cudaSuccess) err = dmn::set_smem((const void*)v1_apply_kernel<T>, apply_smem(C));
+__device__ __forceinline__ void store2(T* dst, float a, float b) {
+  if constexpr (dmn::is_bf16<T>())
+    *reinterpret_cast<uint32_t*>(dst) = dmn::pack_bf16(a, b);
+  else
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+// Columns c0 .. c0 + V - 1 (16 bytes) of row r of the slab [rows][C] of x,
+// as f32; zeros outside it. `vec`: C is a multiple of V, 16-byte loads.
+template <typename T, int V = 16 / sizeof(T)>
+__device__ __forceinline__ void load_x(float (&f)[V], const T* xs, int r, int c0, int rows, int C,
+                                       bool vec) {
+  if (vec && r < rows && c0 < C) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(xs + size_t(r) * C + c0));
+    const T* v = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int e = 0; e < V; ++e) f[e] = dmn::to_f32(v[e]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    f[e] = (r < rows && c0 + e < C) ? dmn::to_f32(xs[size_t(r) * C + c0 + e]) : 0.f;
+}
+
+template <typename T, int V = 16 / sizeof(T)>
+__device__ __forceinline__ void store_chunk(T* dst, const float (&f)[V]) {
+  T v[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) v[e] = dmn::from_f32<T>(f[e]);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+}
+
+// The block's sum of (a, b) added over the cluster in rank order; every
+// thread of every CTA gets the same bits. `slot` is this CTA's published
+// partial, read by the others after the cluster barrier and not written again.
+__device__ __forceinline__ float2 cluster_sum2(float a, float b, float* red, float2* slot,
+                                               cg::cluster_group& cluster, int cs) {
+  const float2 tot = dmn::block_sum2(a, b, red);
+  if (threadIdx.x == 0) *slot = tot;
+  cluster.sync();
+  float2 o[MAX_CLUSTER];
+#pragma unroll
+  for (int q = 0; q < MAX_CLUSTER; ++q)
+    if (q < cs) o[q] = *cluster.map_shared_rank(slot, q);
+  float2 r = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int q = 0; q < MAX_CLUSTER; ++q)
+    if (q < cs) {
+      r.x += o[q].x;
+      r.y += o[q].y;
+    }
+  return r;
+}
+
+// One cluster of `cluster` CTAs per sample: see the note at the top.
+template <typename T, bool FOLD>
+__global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockArgs p) {
+  extern __shared__ float4 block_smem[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(block_smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = p.cluster, rank = int(cluster.block_rank());
+  const int b = blockIdx.x / cs, N = p.N, C = p.C;
+  const int n0 = rank * p.slab, rows = min(p.slab, N - n0);
+  const Layout L = block_layout(C, p.slab, p.resident, sizeof(T));
+  float* red = reinterpret_cast<float*>(smem + L.misc);
+  float2* slots = reinterpret_cast<float2*>(red + 64);  // x's sums, y's sums
+  float* colm = reinterpret_cast<float*>(smem + L.colst);  // this slab's k column max
+  float* cols = colm + HD;                                 // ... and sum of exp(k - max)
+  float* colM = cols + HD;                                 // the sample's
+  float* colR = colM + HD;                                 // 1 / the sample's sum
+  T* gram = reinterpret_cast<T*>(smem + L.gram);  // [HEADS][DH][GS]
+  T* abuf = reinterpret_cast<T*>(smem + L.a);     // [TILE][KVS]: k_sm | v, then q_sm
+  float* gpart = reinterpret_cast<float*>(smem + L.a);  // between them, the slab's f32 gram
+  float* qraw = reinterpret_cast<float*>(smem + L.a);  // f32 q, rows at the same bytes as abuf's
+  const int QR = KVS * int(sizeof(T)) / 4;
+  T* att = reinterpret_cast<T*>(smem + L.b);   // [TILE][AS]
+  T* hbuf = reinterpret_cast<T*>(smem + L.h);  // [rows_h][hs]: the slab's h, or one tile's
+  float* ybuf = reinterpret_cast<float*>(smem + L.y);  // [slab][c8] (resident)
+  const int HS = L.hs, C8 = L.c8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const T* __restrict__ xs = static_cast<const T*>(p.x) + (size_t(b) * N + n0) * C;
+  T* __restrict__ os = static_cast<T*>(p.out) + (size_t(b) * N + n0) * C;
+  const T* __restrict__ wq = static_cast<const T*>(p.wqkv);
+  const T* __restrict__ wo = static_cast<const T*>(p.wout);
+  const float* __restrict__ bq = p.bqkv;
+  const int ntile = ceil_div(rows, TILE);
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = C % V == 0;
+  const float count = float(N) * C;
+
+  // 1. x's statistics over the sample; resident: x into shared memory, its
+  // padding (rows past the slab, columns past C) zero.
+  float2 st;
+  {
+    float s = 0.f, ss = 0.f;
+    auto add = [&](const float (&f)[V]) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        s += f[e];
+        ss += f[e] * f[e];
+      }
+    };
+    if (p.resident && vec) {  // every 16-byte piece in flight at once (cp.async), zeros as padding
+      const int cpr = HS / V;
+      for (int i = threadIdx.x; i < L.rows_h * cpr; i += THREADS) {
+        const int r = i / cpr, c0 = (i % cpr) * V;
+        const bool in = r < rows && c0 < C;
+        dmn::cp_async16(dmn::smem_u32(hbuf + r * HS + c0), in ? xs + size_t(r) * C + c0 : xs, in);
+      }
+      dmn::cp_async_commit();
+      dmn::cp_async_wait<0>();
+      __syncthreads();
+      for (int i = threadIdx.x; i < rows * (C / V); i += THREADS) {
+        const uint4 u = *reinterpret_cast<const uint4*>(hbuf + (i / (C / V)) * HS + (i % (C / V)) * V);
+        const T* v = reinterpret_cast<const T*>(&u);
+        float f[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) f[e] = dmn::to_f32(v[e]);
+        add(f);
+      }
+    } else {
+      const int cpr = p.resident ? HS / V : ceil_div(C, V);
+      const int rr = p.resident ? L.rows_h : rows;
+#pragma unroll 4
+      for (int i = threadIdx.x; i < rr * cpr; i += THREADS) {
+        const int r = i / cpr, c0 = (i % cpr) * V;
+        float f[V];
+        load_x<T>(f, xs, r, c0, rows, C, vec);
+        add(f);
+        if (p.resident) store_chunk<T>(hbuf + r * HS + c0, f);
+      }
+    }
+    const float2 tot = cluster_sum2(s, ss, red, slots, cluster, cs);
+    st = dmn::fast_variance_stats(tot.x, tot.y, count, p.eps);
+  }
+  auto prenorm = [&](float v, int c) {
+    float h = (v - st.x) * st.y;
+    if constexpr (!FOLD) h = h * p.ng[c] + p.nb[c];
+    return h;
+  };
+  if (p.resident && vec) {
+    for (int i = threadIdx.x; i < rows * (C / V); i += THREADS) {
+      const int c0 = (i % (C / V)) * V;
+      uint4* piece = reinterpret_cast<uint4*>(hbuf + (i / (C / V)) * HS + c0);
+      uint4 u = *piece;
+      T* v = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = dmn::from_f32<T>(prenorm(dmn::to_f32(v[e]), c0 + e));
+      *piece = u;
+    }
+  } else if (p.resident) {
+    for (int i = threadIdx.x; i < rows * C; i += THREADS) {
+      T* e = hbuf + (i / C) * HS + i % C;
+      *e = dmn::from_f32<T>(prenorm(dmn::to_f32(*e), i % C));
+    }
+  }
+  // The h rows of tile ti. Recompute: loaded again and normalised. Callers
+  // synchronise before (the tile buffers' last readers are done).
+  auto h_tile = [&](int ti) -> const T* {
+    if (p.resident) return hbuf + ti * TILE * HS;
+    const int cpr = HS / V;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < TILE * cpr; i += THREADS) {
+      const int r = i / cpr, c0 = (i % cpr) * V, row = ti * TILE + r;
+      float f[V];
+      load_x<T>(f, xs, row, c0, rows, C, vec);
+#pragma unroll
+      for (int e = 0; e < V; ++e) f[e] = (row < rows && c0 + e < C) ? prenorm(f[e], c0 + e) : 0.f;
+      store_chunk<T>(hbuf + r * HS + c0, f);
+    }
+    __syncthreads();
+    return hbuf;
+  };
+
+  // 2. k's column max and sum of exp(k - max) over the slab, online; warp w
+  // owns k columns 16w .. 16w + 15 (lane: 16w + 8j + 2t + e).
+  {
+    float mrun[2][2], srun[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mrun[j][e] = -INFINITY;
+        srun[j][e] = 0.f;
+      }
+    for (int ti = 0; ti < ntile; ++ti) {
+      __syncthreads();
+      const T* h = h_tile(ti);
+      float bias[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) bias[j][e] = FOLD ? __ldg(bq + HD + 16 * warp + 8 * j + 2 * t + e) : 0.f;
+      float acc[MT][2][4];
+      zero(acc);
+      tile_product<T, 2>(acc, h, HS, C, wq, QKV / 8, HD / 8 + 2 * warp, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float b_ = bias[j][e];
+          float m = -INFINITY;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              acc[mt][j][2 * r + e] += b_;
+              if (ti * TILE + mt * 16 + g + 8 * r < rows) m = fmaxf(m, acc[mt][j][2 * r + e]);
+            }
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+          const float mn = fmaxf(mrun[j][e], m);  // finite: the tile has a token
+          float s = 0.f;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              if (ti * TILE + mt * 16 + g + 8 * r < rows) s += __expf(acc[mt][j][2 * r + e] - mn);
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+          srun[j][e] = srun[j][e] * __expf(mrun[j][e] - mn) + s;
+          mrun[j][e] = mn;
+        }
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 16 * warp + 8 * j + 2 * t + e;
+          colm[col] = mrun[j][e];
+          cols[col] = srun[j][e];
+        }
+    }
+    cluster.sync();
+    if (threadIdx.x < HD) {  // the sample's M and S, ranks in order
+      const int j = threadIdx.x;
+      float m[MAX_CLUSTER], sr[MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < cs) {
+          m[q] = cluster.map_shared_rank(colm, q)[j];
+          sr[q] = cluster.map_shared_rank(cols, q)[j];
+        }
+      float M = -INFINITY, S = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < cs) M = fmaxf(M, m[q]);
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < cs) S += sr[q] * __expf(m[q] - M);
+      colM[j] = M;
+      colR[j] = 1.f / S;
+    }
+  }
+
+  // 3. k_sm = T(exp(k - M) / S) and v = T(v) per tile (warp w: columns 32w ..
+  // 32w + 31 of k | v, in two halves), zero on padded tokens; the slab's per-head gram, warp
+  // w owning head w / 2, k rows 16 (w % 2) .. + 15, all 32 v columns.
+  {
+    const int hh = warp >> 1, mh = warp & 1;
+    float gacc[1][4][4];
+    zero(gacc);
+    for (int ti = 0; ti < ntile; ++ti) {
+      __syncthreads();
+      const T* h = h_tile(ti);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // 16 columns at a time: registers for two CTAs an SM
+      float bias[2][2], cm[2][2], cr[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 32 * warp + 16 * half + 8 * j + 2 * t + e;
+          bias[j][e] = FOLD ? __ldg(bq + HD + c) : 0.f;
+          cm[j][e] = c < HD ? colM[c] : 0.f;
+          cr[j][e] = c < HD ? colR[c] : 0.f;
+        }
+      float acc[MT][2][4];
+      zero(acc);
+      tile_product<T, 2>(acc, h, HS, C, wq, QKV / 8, HD / 8 + 4 * warp + 2 * half, lane);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = mt * 16 + g + 8 * r, c = 32 * warp + 16 * half + 8 * j + 2 * t;
+            const bool in = ti * TILE + row < rows;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float a = acc[mt][j][2 * r + e] + bias[j][e];
+              v[e] = !in ? 0.f
+                         : c < HD ? dmn::round_to<T>(__expf(a - cm[j][e]) * cr[j][e])
+                                  : dmn::round_to<T>(a);
+            }
+            store2(abuf + row * KVS + c, v[0], v[1]);
+          }
+      }
+      __syncthreads();
+      if constexpr (dmn::is_bf16<T>()) {
+#pragma unroll
+        for (int ks = 0; ks < TILE / 16; ++ks) {
+          uint32_t a[4];
+          load_a_t(a, abuf, KVS, hh * DH + mh * 16, ks * 16, lane);
+#pragma unroll
+          for (int dp = 0; dp < 2; ++dp) {
+            uint32_t bv[4];
+            load_b(bv, abuf, KVS, ks * 16, HD + hh * DH + dp * 16, lane);
+            dmn::mma_bf16(gacc[0][2 * dp], a, bv[0], bv[1]);
+            dmn::mma_bf16(gacc[0][2 * dp + 1], a, bv[2], bv[3]);
+          }
+        }
+      } else {
+        for (int j = 0; j < 4; ++j)
+          fma_tile(gacc[0][j], TILE, [&](int m, int k) { return abuf[k * KVS + hh * DH + m]; },
+                   [&](int k, int n) { return abuf[k * KVS + HD + hh * DH + n]; }, mh * 16, 8 * j, lane);
+      }
+    }
+    __syncthreads();  // the last tile's k_sm and v are read: gpart takes their place
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          gpart[hh * DH * DH + (mh * 16 + g + 8 * r) * DH + 8 * j + 2 * t + e] = gacc[0][j][2 * r + e];
+    cluster.sync();
+    // Gram row rho (head rho / 32, k channel rho % 32) is added up by rank
+    // rho % cs, four columns a thread, the ranks' partials in rank order; the
+    // others then copy the rounded row from it.
+    const int owned = ceil_div(HEADS * DH - rank, cs);
+    for (int i = threadIdx.x; i < owned * (DH / 4); i += THREADS) {
+      const int rho = rank + (i >> 3) * cs, c4 = (i & 7) * 4;
+      float4 part[MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < cs)
+          part[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(gpart, q) + rho * DH + c4);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < cs) {
+          v.x += part[q].x;
+          v.y += part[q].y;
+          v.z += part[q].z;
+          v.w += part[q].w;
+        }
+      store2(gram + rho * GS + c4, dmn::round_to<T>(v.x), dmn::round_to<T>(v.y));
+      store2(gram + rho * GS + c4 + 2, dmn::round_to<T>(v.z), dmn::round_to<T>(v.w));
+    }
+    cluster.sync();
+    constexpr int RV = DH * int(sizeof(T)) / 16;  // 16-byte pieces of a gram row
+    for (int i = threadIdx.x; i < HEADS * DH * RV; i += THREADS) {
+      const int rho = i / RV, owner = rho % cs;
+      if (owner == rank) continue;
+      uint4* dst = reinterpret_cast<uint4*>(gram + rho * GS) + i % RV;
+      *dst = *cluster.map_shared_rank(dst, owner);
+    }
+  }
+
+  // 4. q, its softmax, att = q_sm . gram, y = att W_out + b_out. mode 0:
+  // keep y (resident) and sum it; 1: sum it; 2: write the output with y's
+  // statistics yst. Returns this thread's (sum, sum of squares) of y.
+  auto attention_pass = [&](int mode, float2 yst) {
+    float s = 0.f, ss = 0.f;
+    for (int ti = 0; ti < ntile; ++ti) {
+      __syncthreads();
+      const T* h = h_tile(ti);
+      {  // q columns 16w .. 16w + 15, f32
+        float2 bias[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          bias[j] = FOLD ? __ldg(reinterpret_cast<const float2*>(bq + 16 * warp + 8 * j + 2 * t))
+                         : make_float2(0.f, 0.f);
+        float acc[MT][2][4];
+        zero(acc);
+        tile_product<T, 2>(acc, h, HS, C, wq, QKV / 8, 2 * warp, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              *reinterpret_cast<float2*>(qraw + (mt * 16 + g + 8 * r) * QR + 16 * warp + 8 * j + 2 * t) =
+                  make_float2(acc[mt][j][2 * r] + bias[j].x, acc[mt][j][2 * r + 1] + bias[j].y);
+      }
+      __syncthreads();
+      // one max over the token's 128 columns, per-head sums (lanes 8h .. 8h + 7
+      // hold head h); q_sm written over the row's own bytes
+      {
+        constexpr int RW = TILE / WARPS;  // rows of a warp, taken together
+        float e[RW][4];
+#pragma unroll
+        for (int k = 0; k < RW; ++k) {
+          const float4 q = *reinterpret_cast<const float4*>(qraw + (warp + k * WARPS) * QR + 4 * lane);
+          e[k][0] = q.x, e[k][1] = q.y, e[k][2] = q.z, e[k][3] = q.w;
+        }
+#pragma unroll
+        for (int k = 0; k < RW; ++k) {
+          const float m = dmn::warp_max(fmaxf(fmaxf(e[k][0], e[k][1]), fmaxf(e[k][2], e[k][3])));
+          float hs = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) hs += (e[k][c] = __expf(e[k][c] - m));
+#pragma unroll
+          for (int o = 1; o < 8; o <<= 1) hs += __shfl_xor_sync(0xffffffffu, hs, o);
+          const float inv = p.scale / hs;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) e[k][c] = dmn::round_to<T>(e[k][c] * inv);
+        }
+        __syncwarp();  // every lane has read its rows before they are written over
+#pragma unroll
+        for (int k = 0; k < RW; ++k)
+#pragma unroll
+          for (int c = 0; c < 4; c += 2)
+            store2(abuf + (warp + k * WARPS) * KVS + 4 * lane + c, e[k][c], e[k][c + 1]);
+      }
+      __syncthreads();
+      {  // att of head w / 2, columns 16 (w % 2) .. + 15 of the head
+        const int hh = warp >> 1, nh = warp & 1;
+        float acc[MT][2][4];
+        zero(acc);
+        if constexpr (dmn::is_bf16<T>()) {
+#pragma unroll
+          for (int ks = 0; ks < DH / 16; ++ks) {
+            uint32_t bg[4];
+            load_b(bg, gram + hh * DH * GS, GS, ks * 16, nh * 16, lane);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              uint32_t a[4];
+              load_a(a, abuf, KVS, mt * 16, hh * DH + ks * 16, lane);
+              dmn::mma_bf16(acc[mt][0], a, bg[0], bg[1]);
+              dmn::mma_bf16(acc[mt][1], a, bg[2], bg[3]);
+            }
+          }
+        } else {
+          for (int mt = 0; mt < MT; ++mt)
+            for (int j = 0; j < 2; ++j)
+              fma_tile(acc[mt][j], DH, [&](int m, int k) { return abuf[m * KVS + hh * DH + k]; },
+                       [&](int k, int n) { return gram[(hh * DH + k) * GS + n]; }, mt * 16,
+                       nh * 16 + 8 * j, lane);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              store2(att + (mt * 16 + g + 8 * r) * AS + hh * DH + nh * 16 + 8 * j + 2 * t,
+                     dmn::round_to<T>(acc[mt][j][2 * r]), dmn::round_to<T>(acc[mt][j][2 * r + 1]));
+      }
+      __syncthreads();
+      // y: n8 tiles nt0 .. nt0 + NY - 1 of the C8 / 8 (std::integral_constant NY)
+      auto project_out = [&](auto ny, int nt0) {
+        constexpr int NY = decltype(ny)::value;
+        float bo[NY][2];
+#pragma unroll
+        for (int j = 0; j < NY; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = (nt0 + j) * 8 + 2 * t + e;
+            bo[j][e] = col < C ? __ldg(p.bout + col) : 0.f;
+          }
+        float acc[MT][NY][4];
+        zero(acc);
+        tile_product<T, NY>(acc, att, AS, HD, wo, C8 / 8, nt0, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < NY; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int row = ti * TILE + mt * 16 + g + 8 * r, col = (nt0 + j) * 8 + 2 * t + e;
+                if (row >= rows || col >= C) continue;
+                const float y = acc[mt][j][2 * r + e] + bo[j][e];
+                if (mode == 2) {
+                  const float o = ((y - yst.x) * yst.y) * p.og[col] + p.ob[col] +
+                                  dmn::to_f32(xs[size_t(row) * C + col]);
+                  os[size_t(row) * C + col] = dmn::from_f32<T>(o);
+                  continue;
+                }
+                s += y;
+                ss += y * y;
+                if (mode == 0) ybuf[row * C8 + col] = y;
+              }
+      };
+      const int nty = C8 / 8, pairs = nty / 2;
+      if (pairs >= WARPS) {  // wide C: two n8 tiles a warp, one wait for their fragments
+        for (int pi = warp; pi < pairs; pi += WARPS) project_out(std::integral_constant<int, 2>{}, 2 * pi);
+        if (nty % 2 && warp == pairs % WARPS) project_out(std::integral_constant<int, 1>{}, nty - 1);
+      } else {
+        for (int nt = warp; nt < nty; nt += WARPS) project_out(std::integral_constant<int, 1>{}, nt);
+      }
+    }
+    return make_float2(s, ss);
+  };
+
+  // 5. y's statistics over the sample, then out = GroupNorm(y) + x.
+  if (p.resident) {
+    const float2 part = attention_pass(0, make_float2(0.f, 0.f));
+    const float2 tot = cluster_sum2(part.x, part.y, red, slots + 1, cluster, cs);
+    const float2 yst = dmn::fast_variance_stats(tot.x, tot.y, count, p.eps);
+    const int cpr = ceil_div(C, V);
+    int cl = -1;  // the columns whose affine is in og_, ob_ (a thread's columns change only if cpr
+                  // does not divide THREADS)
+    float og_[V], ob_[V];
+#pragma unroll 4
+    for (int i = threadIdx.x; i < rows * cpr; i += THREADS) {
+      const int r = i / cpr, c0 = (i % cpr) * V;
+      if (c0 != cl) {
+        cl = c0;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          og_[e] = __ldg(p.og + min(c0 + e, C - 1));
+          ob_[e] = __ldg(p.ob + min(c0 + e, C - 1));
+        }
+      }
+      float f[V];
+      load_x<T>(f, xs, r, c0, rows, C, vec);
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        f[e] += ((ybuf[r * C8 + min(c0 + e, C - 1)] - yst.x) * yst.y) * og_[e] + ob_[e];
+      if (vec) {
+        store_chunk<T>(os + size_t(r) * C + c0, f);
+      } else {
+        for (int e = 0; e < V && c0 + e < C; ++e) os[size_t(r) * C + c0 + e] = dmn::from_f32<T>(f[e]);
+      }
+    }
+  } else {
+    const float2 part = attention_pass(1, make_float2(0.f, 0.f));
+    const float2 tot = cluster_sum2(part.x, part.y, red, slots + 1, cluster, cs);
+    attention_pass(2, dmn::fast_variance_stats(tot.x, tot.y, count, p.eps));
+  }
+  cluster.sync();  // no CTA leaves while another may still read its shared memory
+}
+
+// The launch plan the wrapper computed, checked against this file's layout.
+bool plan_ok(int B, int N, int C, int cluster, int slab, int resident, int smem, int esize) {
+  if (B < 1 || N < 1 || C < 1 || cluster < 1 || cluster > MAX_CLUSTER || slab < 1) return false;
+  if (size_t(cluster) * slab < size_t(N) || size_t(cluster - 1) * slab >= size_t(N)) return false;
+  if (size_t(B) * cluster > 0x7fffffff) return false;
+  const size_t total = block_layout(C, slab, resident, esize).total;
+  return total == size_t(smem) && total <= SMEM_LIMIT;
+}
+
+template <typename T, bool FOLD>
+int launch_block(const BlockArgs& p, int B, int smem, cudaStream_t stream) {
+  if (!plan_ok(B, p.N, p.C, p.cluster, p.slab, p.resident, smem, sizeof(T)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = linattn_block_kernel<T, FOLD>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  xstats_kernel<T><<<dim3(nt, B), THREADS, 0, stream>>>(xt, sc.xpart, N, C);
-  v1_kstats_kernel<T><<<dim3(K, B), THREADS, v1_kstats_smem(C), stream>>>(xt, g, be, wt, sc, N,
-                                                                           C, eps);
-  v1_gram_kernel<T><<<dim3(K, B), THREADS, v1_gram_smem(C), stream>>>(xt, g, be, wt, sc, N, C,
-                                                                       eps);
-  v1_merge_kernel<T><<<B, THREADS, 0, stream>>>(sc, K);
-  v1_apply_kernel<T><<<dim3(nt, B), THREADS, apply_smem(C), stream>>>(
-      xt, g, be, wt, static_cast<const T*>(wout), static_cast<const float*>(bout), sc, N, C, scale,
-      eps);
-  outnorm_kernel<T><<<dim3(nt, B), THREADS, 0, stream>>>(
-      xt, static_cast<const float*>(og), static_cast<const float*>(ob), static_cast<T*>(out), sc,
-      N, C, eps);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(B) * p.cluster);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = size_t(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(p.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+int block_unfolded(const void* x, const void* ng, const void* nb, const void* wqkv, const void* wout,
+                   const void* bout, const void* og, const void* ob, void* out, int B, int N, int C,
+                   int bf16, int cluster, int slab, int resident, int smem, float scale, float eps,
+                   void* stream) {
+  const BlockArgs p{x, wqkv, nullptr, static_cast<const float*>(ng), static_cast<const float*>(nb),
+                    wout, static_cast<const float*>(bout), static_cast<const float*>(og),
+                    static_cast<const float*>(ob), out, N, C, cluster, slab, resident, scale, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) return launch_block<__nv_bfloat16, false>(p, B, smem, s);
+  return launch_block<float, false>(p, B, smem, s);
 }
 
 }  // namespace
 
 DMN_DEFINE_ERROR_STRING(dmn_linattn)
 
-// Floats of scratch the launchers below need.
-DMN_EXPORT long dmn_linattn_scratch_floats(int B, int N, int C, int block) {
-  return static_cast<long>(scratch_layout(B, N, C, block, nullptr, nullptr));
+// Floats of scratch the attention-core launchers below need.
+DMN_EXPORT long dmn_linattn_scratch_floats(int B, int N) {
+  return static_cast<long>(scratch_layout(B, N, nullptr, nullptr));
 }
 
-// Whole block: x [B,N,C] bf16 -> out [B,N,C] bf16. wqkv [C,384] bf16 holds
-// the prenorm gamma folded in, bqkv [384] f32 = beta @ W_qkv; wout [128,C]
-// bf16; bout, og, ob [C] f32.
+// Shared-memory bytes of the whole-block kernel for a plan (the wrapper's
+// linattn_block_plan computes the same; element size 2 for bf16, 4 for f32).
+DMN_EXPORT long dmn_linattn_block_smem(int C, int slab, int resident, int esize) {
+  return static_cast<long>(block_layout(C, slab, resident, esize).total);
+}
+
+// Whole block (#2), one launch: x [B,N,C] bf16 (16-byte aligned) -> out
+// [B,N,C] bf16. wqkv: gamma * W_qkv in bf16, fragment order (zero rows up to
+// C rounded to 32); bqkv [384] f32 = beta @ W_qkv; wout: W_out [128, C8] in
+// bf16 (zero columns past C), fragment order; bout, og, ob [C] f32. The plan
+// (cluster, slab, resident, smem) is linattn_block_plan's.
 DMN_EXPORT int dmn_linattn_block(const void* x, const void* wqkv, const void* bqkv,
                                  const void* wout, const void* bout, const void* og,
-                                 const void* ob, void* out, void* scratch, int B, int N,
-                                 int C, float scale, float eps, void* stream_) {
-  using BF = __nv_bfloat16;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  Scratch sc;
-  scratch_layout(B, N, C, 1, &sc, static_cast<float*>(scratch));
-  const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
-  const auto* xb = static_cast<const BF*>(x);
-  const auto* wb = static_cast<const BF*>(wqkv);
-  const auto* bq = static_cast<const float*>(bqkv);
-  cudaError_t err = dmn::set_smem((const void*)kv_kernel<BF>, kv_smem(C));
-  if (err == cudaSuccess) err = dmn::set_smem((const void*)apply_kernel<BF>, apply_smem(C));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  xstats_kernel<BF><<<dim3(nt, B), THREADS, 0, stream>>>(xb, sc.xpart, N, C);
-  kv_kernel<BF><<<dim3(K, B), THREADS, kv_smem(C), stream>>>(xb, wb, bq, sc, N, C, 1, eps);
-  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, 1);
-  apply_kernel<BF><<<dim3(nt, B), THREADS, apply_smem(C), stream>>>(
-      xb, wb, bq, static_cast<const BF*>(wout), static_cast<const float*>(bout), nullptr, sc, N,
-      C, 1, scale, eps);
-  outnorm_kernel<BF><<<dim3(nt, B), THREADS, 0, stream>>>(
-      xb, static_cast<const float*>(og), static_cast<const float*>(ob), static_cast<BF*>(out), sc,
-      N, C, eps);
-  return static_cast<int>(cudaGetLastError());
+                                 const void* ob, void* out, int B, int N, int C, int cluster,
+                                 int slab, int resident, int smem, float scale, float eps,
+                                 void* stream) {
+  const BlockArgs p{x, wqkv, static_cast<const float*>(bqkv), nullptr, nullptr, wout,
+                    static_cast<const float*>(bout), static_cast<const float*>(og),
+                    static_cast<const float*>(ob), out, N, C, cluster, slab, resident, scale, eps};
+  return launch_block<__nv_bfloat16, true>(p, B, smem, static_cast<cudaStream_t>(stream));
 }
 
-// Whole block, v1 (TPU kernel #9): x [B,N,C] bf16 -> out [B,N,C] bf16.
-// ng, nb [C] f32 (the prenorm affine, not folded); wqkv [C,384] bf16;
-// wout [128,C] bf16; bout, og, ob [C] f32.
+// Whole block, v1 (#9): x [B,N,C] bf16 -> out bf16; ng, nb [C] f32 (the
+// prenorm affine, not folded); wqkv, wout as for #2 without the fold.
 DMN_EXPORT int dmn_linattn_block_v1(const void* x, const void* ng, const void* nb,
                                     const void* wqkv, const void* wout, const void* bout,
-                                    const void* og, const void* ob, void* out, void* scratch,
-                                    int B, int N, int C, float scale, float eps, void* stream_) {
-  return linattn_block_unfolded<__nv_bfloat16>(x, ng, nb, wqkv, wout, bout, og, ob, out, scratch,
-                                               B, N, C, scale, eps,
-                                               static_cast<cudaStream_t>(stream_));
+                                    const void* og, const void* ob, void* out, int B, int N, int C,
+                                    int cluster, int slab, int resident, int smem, float scale,
+                                    float eps, void* stream) {
+  return block_unfolded(x, ng, nb, wqkv, wout, bout, og, ob, out, B, N, C, 1, cluster, slab,
+                        resident, smem, scale, eps, stream);
 }
 
-// Whole block, v2 (TPU kernel #10): x [B,N,C] f32, or bf16 where `bf16` ->
-// out [B,N,C] in x's dtype. ng, nb [C] f32; wqkv [C,384] and wout [128,C] in
-// x's dtype; bout, og, ob [C] f32.
+// Whole block, v2 (#10): x [B,N,C] f32, or bf16 where `bf16` -> out in x's
+// dtype. bf16: as v1. float32: wqkv [C,384] and wout [128,C8] f32 row major.
 DMN_EXPORT int dmn_linattn_block_v2(const void* x, const void* ng, const void* nb,
                                     const void* wqkv, const void* wout, const void* bout,
-                                    const void* og, const void* ob, void* out, void* scratch,
-                                    int B, int N, int C, int bf16, float scale, float eps,
-                                    void* stream_) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (bf16)
-    return linattn_block_unfolded<__nv_bfloat16>(x, ng, nb, wqkv, wout, bout, og, ob, out,
-                                                 scratch, B, N, C, scale, eps, stream);
-  return linattn_block_unfolded<float>(x, ng, nb, wqkv, wout, bout, og, ob, out, scratch, B, N,
-                                       C, scale, eps, stream);
+                                    const void* og, const void* ob, void* out, int B, int N, int C,
+                                    int bf16, int cluster, int slab, int resident, int smem,
+                                    float scale, float eps, void* stream) {
+  return block_unfolded(x, ng, nb, wqkv, wout, bout, og, ob, out, B, N, C, bf16, cluster, slab,
+                        resident, smem, scale, eps, stream);
 }
 
 // Attention core on pre-normed tokens: h [B,N,C] bf16, wqkv [C,384] bf16 ->
@@ -801,8 +1229,7 @@ DMN_EXPORT int dmn_linattn_tokens(const void* h, const void* wqkv, void* out, vo
 DMN_EXPORT int dmn_linattn_v4(const void* x, const void* wqkv, void* out, void* scratch, int B,
                               int N, int C, int bf16, float scale, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (bf16)
-    return linattn_tokens<__nv_bfloat16>(x, wqkv, out, scratch, B, N, C, scale, stream);
+  if (bf16) return linattn_tokens<__nv_bfloat16>(x, wqkv, out, scratch, B, N, C, scale, stream);
   return linattn_tokens<float>(x, wqkv, out, scratch, B, N, C, scale, stream);
 }
 

@@ -15,6 +15,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 from typing import Tuple
 
@@ -38,6 +39,9 @@ __all__ = [
     "use_linattn_block_v1",
     "linear_attention_v4_reference",
     "linear_attention_block_v2_reference",
+    "linear_attention_block_packed_reference",
+    "linattn_block_plan",
+    "LinattnBlockPlan",
     "fused_attention",
     "fused_linear_attention_qkv",
     "fused_linear_attention_tokens",
@@ -171,11 +175,43 @@ def linear_attention_block_v2_reference(
     before a bf16 residual add, and so lands up to ~2 bf16 steps from the
     exact block where the out-norm's output cancels x; v2 does not."""
     dt = x.dtype
+    h = _gn1(x.float(), norm_gamma, norm_beta, eps).to(dt).float()
+    qkv = h @ w_qkv.to(dt).float()
+    return _block_from_qkv(x, qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head, scale, eps)
+
+
+def linear_attention_block_packed_reference(
+    x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+    heads: int, dim_head: int, scale: float, eps: float = 1e-5,
+) -> torch.Tensor:
+    """The whole block with TPU kernel #2's seams (``_linattn_block_packed_kernel``):
+    the prenorm's (x − μ)·rstd rounded to x's dtype, then the folded affine
+    h·(γ∘W_qkv) + β·W_qkv (γ∘W_qkv rounded, β·W_qkv and the sum f32); from
+    qkv on, #10's seams (``_block_from_qkv``): a row-max q softmax, k_sm, v,
+    the masked gram and att rounded, f32 y, out-norm and residual, cast
+    once. The module composition (``linear_attention_block_reference``)
+    instead rounds after the affine and rounds y, the out-norm and the
+    residual sum: up to two bf16 steps from this kernel's function."""
+    dt = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=(1, 2), keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=(1, 2), keepdim=True) - mean * mean, min=0.0)
+    h = ((xf - mean) * torch.rsqrt(var + eps)).to(dt).float()
+    w = w_qkv.float()
+    qkv = h @ (norm_gamma.float()[:, None] * w).to(dt).float() + norm_beta.float() @ w
+    return _block_from_qkv(x, qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head, scale, eps)
+
+
+def _block_from_qkv(x, qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head, scale, eps):
+    """The block after its f32 qkv [B, N, 3·h·d], as the whole-block kernels
+    compute it: q softmax with one max over the token's h·d columns and
+    per-head sums, ×scale; k softmax over N; q_sm, k_sm, v, the per-head gram
+    and att rounded to x's dtype; y = att·W_out + b_out, the out-norm and the
+    residual in f32, cast to x's dtype once."""
+    dt = x.dtype
     B, N, _ = x.shape
     hd = heads * dim_head
-    xf = x.float()
-    h = _gn1(xf, norm_gamma, norm_beta, eps).to(dt).float()
-    q, k, v = (h @ w_qkv.to(dt).float()).split(hd, dim=-1)
+    q, k, v = qkv.split(hd, dim=-1)
     qe = torch.exp(q - q.amax(dim=-1, keepdim=True)).reshape(B, N, heads, dim_head)
     q_sm = (qe / qe.sum(dim=-1, keepdim=True) * scale).to(dt).float()
     k_sm = torch.softmax(k, dim=1).to(dt).float().reshape(B, N, heads, dim_head)
@@ -183,7 +219,7 @@ def linear_attention_block_v2_reference(
     gram = torch.einsum("bnhd,bnhe->bhde", k_sm, v).to(dt).float()
     attn = torch.einsum("bnhd,bhde->bnhe", q_sm, gram).to(dt).float().reshape(B, N, hd)
     y = attn @ w_out.to(dt).float() + b_out.float()
-    return (_gn1(y, out_gamma, out_beta, eps) + xf).to(dt)
+    return (_gn1(y, out_gamma, out_beta, eps) + x.float()).to(dt)
 
 
 def attention_block_reference(
@@ -392,14 +428,6 @@ def _fold(norm_gamma, norm_beta, w_qkv) -> Tuple[torch.Tensor, torch.Tensor]:
     )
 
 
-def _fold_prenorm(norm_gamma, norm_beta, w_qkv) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold GroupNorm(1)'s affine into the qkv projection, as the TPU kernels
-    do: h·W = ((x−μ)·rstd)·(γ∘W) + β·W. Weights only, so kept per parameter
-    version."""
-    sources = (norm_gamma, norm_beta, w_qkv)
-    return _derived.get("fold_prenorm", sources, lambda: _fold(*sources))
-
-
 def _cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``w`` contiguous in ``dtype``, kept per parameter version."""
     return _derived.get(f"cast:{dtype}", (w,), lambda: w.to(dtype).contiguous())
@@ -424,33 +452,159 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _linattn_scratch(B: int, N: int, C: int, block: bool, device) -> torch.Tensor:
-    fn = _build.c_function("linear_attention", "dmn_linattn_scratch_floats", [_CI] * 4, ctypes.c_long)
-    return torch.empty(fn(B, N, C, int(block)), dtype=torch.float32, device=device)
+def _linattn_scratch(B: int, N: int, device) -> torch.Tensor:
+    fn = _build.c_function("linear_attention", "dmn_linattn_scratch_floats", [_CI] * 2, ctypes.c_long)
+    return torch.empty(fn(B, N), dtype=torch.float32, device=device)
+
+
+# ------------------------------------------------- the whole-block kernel's plan --
+_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+_BLOCK_TILE = 64  # tokens per tile (csrc/linear_attention.cu: TILE)
+_BLOCK_MAX_CLUSTER = 8  # the portable cluster size
+_BLOCK_TOKENS_PER_CTA = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class LinattnBlockPlan:
+    """How the whole-block kernel (#2, #9, #10) lays one sample out: a
+    cluster of ``cluster`` CTAs, CTA r owning tokens [r·slab, (r+1)·slab);
+    ``smem_bytes`` of shared memory a CTA; ``resident``: the slab's h and f32
+    y stay in shared memory, else every stage reloads its x tiles and y is
+    computed twice."""
+
+    cluster: int
+    slab: int
+    smem_bytes: int
+    resident: bool
+
+
+def _linattn_block_smem(C: int, slab: int, resident: bool, esize: int) -> int:
+    """Shared memory of one CTA of the whole-block kernel: the mirror of
+    ``block_layout`` in ``csrc/linear_attention.cu`` (the C entries refuse a
+    plan whose bytes differ). Regions, each rounded up to 16 bytes: 512 of
+    reduction scratch, the k column statistics (4 × 128 f32), the gram
+    [4][32][40], the k_sm|v / q tile [64][264] (which also holds the slab's
+    f32 partial gram between stages), the attention-output tile [64][136]
+    (all in x's dtype), h ([slab rounded up to 64] or [64] rows of C rounded
+    up to 32, + 8) and, resident, f32 y [slab][C rounded up to 8]."""
+    def take(n: int) -> int:
+        return (n + 15) // 16 * 16
+
+    hs = -(-C // 32) * 32 + 8
+    c8 = -(-C // 8) * 8
+    rows_h = -(-slab // _BLOCK_TILE) * _BLOCK_TILE if resident else _BLOCK_TILE
+    rows_y = slab if resident else 0
+    return (take(512) + take(4 * 4 * 128) + take(4 * 32 * 40 * esize)
+            + take(_BLOCK_TILE * 264 * esize) + take(_BLOCK_TILE * 136 * esize)
+            + take(rows_h * hs * esize) + take(4 * rows_y * c8))
+
+
+def linattn_block_plan(N: int, C: int, dtype) -> LinattnBlockPlan:
+    """The whole-block kernel's launch plan for [·, N, C] tokens of ``dtype``
+    (bf16 or float32): ``min(8, ceil(N / 128))`` CTAs a sample, each owning
+    ``ceil(N / cluster)`` tokens; resident where that fits in one H100 CTA's
+    232,448 bytes, else the recompute form. Raises ``ValueError`` where even
+    the recompute form does not fit (C above 1280 in bf16, 384 in
+    float32): the wrappers never fall back."""
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"the whole-block linear-attention kernel takes float32 or bf16, got {dtype}")
+    if N < 1 or C < 1:
+        raise ValueError(f"the whole-block linear-attention kernel needs N, C >= 1, got [N={N}, C={C}]")
+    cluster = min(_BLOCK_MAX_CLUSTER, -(-N // _BLOCK_TOKENS_PER_CTA))
+    slab = -(-N // cluster)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    for resident in (True, False):
+        smem = _linattn_block_smem(C, slab, resident, esize)
+        if smem <= _SMEM_LIMIT:
+            return LinattnBlockPlan(cluster, slab, smem, resident)
+    raise ValueError(
+        f"the whole-block linear-attention kernel at [N={N}, C={C}] {str(dtype).removeprefix('torch.')} "
+        f"needs {smem} B of shared memory a CTA even in its recompute form (> {_SMEM_LIMIT})"
+    )
+
+
+def _linattn_block_weights(folded: bool, dtype, norm_gamma, norm_beta, w_qkv, w_out):
+    """The whole-block kernel's weight operands, kept per parameter version:
+    W_qkv [C, 384] (γ∘W_qkv where ``folded``) and W_out [128, C] with zero
+    columns up to C rounded to 8; in bf16 both in fragment order, in float32
+    row major; and β·W_qkv [384] f32 where ``folded`` (else None)."""
+    C = w_out.shape[1]
+    sources = (norm_gamma, norm_beta, w_qkv, w_out) if folded else (w_qkv, w_out)
+
+    def make():
+        if folded:
+            wq, bq = _fold(norm_gamma, norm_beta, w_qkv)
+        else:
+            wq, bq = w_qkv.to(dtype).contiguous(), None
+        wo = torch.nn.functional.pad(w_out.to(dtype), (0, -C % 8))
+        if dtype == torch.bfloat16:
+            return fragment_order(wq), bq, fragment_order(wo)
+        return wq.contiguous(), bq, wo.contiguous()
+
+    return _derived.get(f"linattn_block:{int(folded)}:{dtype}", sources, make)
+
+
+def _block_operands(what, dtypes, folded, x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma,
+                    out_beta, heads: int, dim_head: int):
+    """Checks, launch plan and operands of the whole-block kernel. The plan
+    comes first, so a shape it refuses raises ``ValueError`` on any device.
+    Returns (plan, (B, N, C), weights, f32 vectors, output)."""
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{what} takes {names} tokens, got {x.dtype}")
+    if x.ndim != 3:
+        raise ValueError(f"{what} takes contiguous [B, N, C] tokens, got {tuple(x.shape)}")
+    plan = linattn_block_plan(x.shape[1], x.shape[2], x.dtype)
+    B, N, C = _check_tokens(x, heads, dim_head, what, dtypes)
+    hd = heads * dim_head
+    if w_qkv.shape != (C, 3 * hd) or w_out.shape != (hd, C):
+        raise ValueError(f"weights {tuple(w_qkv.shape)}, {tuple(w_out.shape)} do not fit C={C}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what} takes 16-byte aligned tokens, got {tuple(x.shape)} at {x.data_ptr():#x}")
+    weights = _linattn_block_weights(folded, x.dtype, norm_gamma, norm_beta, w_qkv, w_out)
+    vectors = tuple(_f32(t) for t in (norm_gamma, norm_beta, b_out, out_gamma, out_beta))
+    return plan, (B, N, C), weights, vectors, torch.empty_like(x)
+
+
+def _plan_args(plan: LinattnBlockPlan):
+    return plan.cluster, plan.slab, int(plan.resident), plan.smem_bytes
 
 
 def linear_attention_block_cuda(
     x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
     heads: int, dim_head: int, scale: float, eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Launch the whole-block linear-attention kernel on bf16 [B, N, C]."""
-    B, N, C = _check_tokens(x, heads, dim_head, "linear_attention_block_cuda")
-    hd = heads * dim_head
-    if w_qkv.shape != (C, 3 * hd) or w_out.shape != (hd, C):
-        raise ValueError(f"weights {tuple(w_qkv.shape)}, {tuple(w_out.shape)} do not fit C={C}")
-    wq, bq = _fold_prenorm(norm_gamma, norm_beta, w_qkv)
-    wo = _cast_weight(w_out, torch.bfloat16)
-    bo, og, ob = _f32(b_out), _f32(out_gamma), _f32(out_beta)
-    out = torch.empty_like(x)
-    scratch = _linattn_scratch(B, N, C, True, x.device)
+    """Launch the whole-block linear-attention kernel (TPU kernel #2, the
+    prenorm affine folded into W_qkv) on bf16 [B, N, C]: one launch, one
+    thread-block cluster a sample (``linattn_block_plan``)."""
+    plan, (B, N, C), (wq, bq, wo), (_ng, _nb, bo, og, ob), out = _block_operands(
+        "linear_attention_block_cuda", (torch.bfloat16,), True,
+        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head,
+    )
     _build.launch(
         "linear_attention", "dmn_linattn_block",
-        [_VP] * 9 + [_CI, _CI, _CI, _CF, _CF, _VP],
+        [_VP] * 8 + [_CI] * 7 + [_CF, _CF, _VP],
         x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        og.data_ptr(), ob.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        B, N, C, scale, eps, _stream(x),
+        og.data_ptr(), ob.data_ptr(), out.data_ptr(), B, N, C, *_plan_args(plan), scale, eps, _stream(x),
     )
     LAUNCHES["linear_attention_block"] += 1
+    return out
+
+
+def _launch_unfolded(what, entry, dtypes, x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma,
+                     out_beta, heads, dim_head, scale, eps):
+    plan, (B, N, C), (wq, _bq, wo), (ng, nb, bo, og, ob), out = _block_operands(
+        what, dtypes, False, x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
+        heads, dim_head,
+    )
+    dtype_arg = [int(x.dtype == torch.bfloat16)] if entry == "dmn_linattn_block_v2" else []
+    _build.launch(
+        "linear_attention", entry,
+        [_VP] * 9 + [_CI] * (7 + len(dtype_arg)) + [_CF, _CF, _VP],
+        x.data_ptr(), ng.data_ptr(), nb.data_ptr(), wq.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        og.data_ptr(), ob.data_ptr(), out.data_ptr(), B, N, C, *dtype_arg, *_plan_args(plan),
+        scale, eps, _stream(x),
+    )
     return out
 
 
@@ -460,18 +614,13 @@ def linear_attention_block_v1_cuda(
 ) -> torch.Tensor:
     """Launch the whole-block kernel v1 (TPU kernel #9) on bf16 [B, N, C]:
     the prenorm affine is applied in f32 before the bf16 qkv product, not
-    folded into W_qkv."""
-    ops, (B, N, C) = _unfolded_block_operands(
-        "linear_attention_block_v1_cuda", (torch.bfloat16,),
-        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head,
-    )
-    _build.launch(
-        "linear_attention", "dmn_linattn_block_v1",
-        [_VP] * 10 + [_CI, _CI, _CI, _CF, _CF, _VP],
-        *(t.data_ptr() for t in ops), B, N, C, scale, eps, _stream(x),
+    folded into W_qkv; #10's kernel and function in bf16."""
+    out = _launch_unfolded(
+        "linear_attention_block_v1_cuda", "dmn_linattn_block_v1", (torch.bfloat16,),
+        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head, scale, eps,
     )
     LAUNCHES["linear_attention_block_v1"] += 1
-    return ops[8]  # out
+    return out
 
 
 def linear_attention_block_v2_cuda(
@@ -479,43 +628,15 @@ def linear_attention_block_v2_cuda(
     heads: int, dim_head: int, scale: float, eps: float = 1e-5,
 ) -> torch.Tensor:
     """Launch the whole-block kernel v2 (TPU kernel #10) on float32 or bf16
-    [B, N, C]: v1's stages with every product's operands in x's dtype (the
-    weights rounded to it), so float32 stays float32 throughout; in bf16 it
-    computes v1's function."""
-    ops, (B, N, C) = _unfolded_block_operands(
-        "linear_attention_block_v2_cuda", _KERNEL_DTYPES,
-        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head,
-    )
-    _build.launch(
-        "linear_attention", "dmn_linattn_block_v2",
-        [_VP] * 10 + [_CI, _CI, _CI, _CI, _CF, _CF, _VP],
-        *(t.data_ptr() for t in ops), B, N, C, int(x.dtype == torch.bfloat16), scale, eps,
-        _stream(x),
+    [B, N, C]: every product's operands in x's dtype (the weights rounded to
+    it), so float32 stays float32 throughout (its products on f32 FMAs); in
+    bf16 it computes v1's function."""
+    out = _launch_unfolded(
+        "linear_attention_block_v2_cuda", "dmn_linattn_block_v2", _KERNEL_DTYPES,
+        x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head, scale, eps,
     )
     LAUNCHES["linear_attention_block_v2"] += 1
-    return ops[8]  # out
-
-
-def _unfolded_block_operands(
-    what, dtypes, x, norm_gamma, norm_beta, w_qkv, w_out, b_out, out_gamma, out_beta,
-    heads: int, dim_head: int,
-):
-    """Checks and operands of kernels #9 and #10, in their C entries' order:
-    weights in x's dtype, the prenorm affine unfolded in f32, then the
-    output and the scratch. Returns (operands, (B, N, C))."""
-    B, N, C = _check_tokens(x, heads, dim_head, what, dtypes)
-    hd = heads * dim_head
-    if w_qkv.shape != (C, 3 * hd) or w_out.shape != (hd, C):
-        raise ValueError(f"weights {tuple(w_qkv.shape)}, {tuple(w_out.shape)} do not fit C={C}")
-    smem = 4 * (32 * C + 2 * 32 * hd + 4 * 32 * 32)  # the apply stage's tiles
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"C={C} needs {smem} B of shared memory (> {_SMEM_LIMIT})")
-    wq = _cast_weight(w_qkv, x.dtype)
-    wo = _cast_weight(w_out, x.dtype)
-    ng, nb, bo, og, ob = (_f32(t) for t in (norm_gamma, norm_beta, b_out, out_gamma, out_beta))
-    out = torch.empty_like(x)
-    scratch = _linattn_scratch(B, N, C, True, x.device)
-    return (x, ng, nb, wq, wo, bo, og, ob, out, scratch), (B, N, C)
+    return out
 
 
 def linear_attention_tokens_cuda(
@@ -528,7 +649,7 @@ def linear_attention_tokens_cuda(
         raise ValueError(f"w_qkv {tuple(w_qkv.shape)} does not fit C={C}")
     wq = _cast_weight(w_qkv, torch.bfloat16)
     out = torch.empty((B, N, hd), dtype=torch.bfloat16, device=h.device)
-    scratch = _linattn_scratch(B, N, C, False, h.device)
+    scratch = _linattn_scratch(B, N, h.device)
     _build.launch(
         "linear_attention", "dmn_linattn_tokens",
         [_VP] * 4 + [_CI, _CI, _CI, _CF, _VP],
@@ -560,7 +681,7 @@ def linear_attention_v4_cuda(
         raise ValueError(f"w_qkv {tuple(w_qkv.shape)} does not fit C={C}")
     wq = w_qkv.to(x_packed.dtype).contiguous()
     out = torch.empty((B, n_tokens, hd), dtype=x_packed.dtype, device=x_packed.device)
-    scratch = _linattn_scratch(B, n_tokens, C, False, x_packed.device)
+    scratch = _linattn_scratch(B, n_tokens, x_packed.device)
     _build.launch(
         "linear_attention", "dmn_linattn_v4",
         [_VP] * 4 + [_CI] * 4 + [_CF, _VP],
@@ -570,8 +691,6 @@ def linear_attention_v4_cuda(
     LAUNCHES["linear_attention_v4"] += 1
     return out
 
-
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 
 def small_block_smem_bytes(N: int, C: int, heads: int = 4, dim_head: int = 32) -> int:
@@ -632,7 +751,7 @@ def linear_attention_qkv_cuda(
         raise ValueError(f"linear_attention_qkv_cuda takes contiguous [B, N, {3 * hd}], got {tuple(qkv.shape)}")
     B, N, _ = qkv.shape
     out = torch.empty((B, N, hd), dtype=qkv.dtype, device=qkv.device)
-    scratch = _linattn_scratch(B, N, 0, False, qkv.device)
+    scratch = _linattn_scratch(B, N, qkv.device)
     _build.launch(
         "linear_attention", "dmn_linattn_qkv",
         [_VP] * 3 + [_CI, _CI, _CI, _CF, _VP],

@@ -1,0 +1,137 @@
+"""Short card check of the whole-block linear-attention kernels #2, #9 and
+#10 (``csrc/linear_attention.cu``: one launch, one thread-block cluster a
+sample), for the first chip call after an edit of that source or of
+``csrc/mma.cuh``:
+
+    python -m diffusion_model_nemo_tpu_torch.tools.check_linattn
+
+It builds the kernels, prints what ptxas reported for the source (registers,
+shared memory, spills), then holds each kernel against its plain version at
+the shapes its paths give it (unet_small B=64 for #2, the switched unet_small
+B=128 and the microbenchmark for #9, the microbenchmark for #10) and at the
+corners of the gates ([2,4096,32], [2,4096,128], [3,100,128] with a ragged
+last m16 tile, [2,64,128]): #2 against ``linear_attention_block_packed_reference``,
+#9 and #10 against ``linear_attention_block_v2_reference``, at rtol = atol =
+2e-2 in bf16 and 1e-4 for #10 in float32. Every call must run exactly one
+device kernel and repeat bit for bit, and the plan's shared-memory bytes must
+equal the source's own layout (``dmn_linattn_block_smem``). At the path shapes it times each
+kernel by torch.profiler device time and by CUDA events around calls queued
+behind a spin kernel (``profiling``), beside its bound and, summed over a
+path, the device time of the five-launch form that came before (``PERF.md``,
+kernel table). About a minute on one H100. Exits non-zero if a check fails. No CPU
+mode: a CPU tensor never reaches a kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import sys
+
+import torch
+
+from ..ops import _build
+from ..ops import attention as A
+from .check_attention import ptxas_report
+from .profiling import bound_us, device_profile, kernel_launches, queued_us
+
+HEADS, DIM_HEAD = 4, 32
+# kernel -> (wrapper, plain version)
+KERNELS = {
+    "linear_attention_block": ("linear_attention_block_cuda", "linear_attention_block_packed_reference"),
+    "linear_attention_block_v1": ("linear_attention_block_v1_cuda", "linear_attention_block_v2_reference"),
+    "linear_attention_block_v2": ("linear_attention_block_v2_cuda", "linear_attention_block_v2_reference"),
+}
+TOOL_SHAPES = ((128, 1024, 32), (128, 256, 64))  # the microbenchmark's (#9 and #10)
+PATH_SHAPES = {  # [B, N, C] of each kernel's main path: one call each a pass
+    "linear_attention_block": ((64, 1024, 32), (64, 256, 64), (64, 64, 128), (64, 256, 32)),
+    "linear_attention_block_v1": ((128, 64, 64),),  # unet_small B=128 under its switch
+    "linear_attention_block_v2": TOOL_SHAPES,
+}
+# The corners of the gates, and #9 at the microbenchmark's shapes.
+CORNER_SHAPES = ((2, 4096, 32), (2, 4096, 128), (3, 100, 128), (2, 64, 128))
+F32_SHAPES = ((128, 256, 64), (2, 4096, 32))  # #10 in float32: resident, then the recompute form
+# The five-launch form's device ms per main-path pass (PERF.md kernel table,
+# NVIDIA H100 80GB HBM3 at 700 W): #2 over its four unet_small calls, #9 over
+# one switched forward, #10 over the two microbenchmark shapes.
+OLD_DEV_MS = {"linear_attention_block": 1.1876, "linear_attention_block_v1": 0.1824,
+              "linear_attention_block_v2": 1.7724}
+
+
+def block_args(shape, dtype, gen, device="cuda"):
+    """Seeded inputs of one block call: x, the prenorm and out-norm affines,
+    W_qkv, W_out, b_out, then heads, dim_head, scale, eps."""
+    B, N, C = shape
+
+    def randn(*s, std=1.0):
+        return torch.randn(*s, generator=gen, device=device) * std
+
+    return (randn(B, N, C, std=0.5).to(dtype), 1.0 + randn(C, std=0.1), randn(C, std=0.1),
+            randn(C, 384, std=C**-0.5), randn(128, C, std=128**-0.5), randn(C, std=0.1),
+            1.0 + randn(C, std=0.1), randn(C, std=0.1), HEADS, DIM_HEAD, DIM_HEAD**-0.5, 1e-5)
+
+
+def format_row(row: dict) -> str:
+    """One checked call as a line: the hold, the launch count, the repeat,
+    and where timed the device time, the queued-events time and the bound."""
+    line = (f"[check] {row['kernel']} {list(row['shape'])} {row['dtype']} plan={row['plan']} "
+            f"max_abs_err={row['max_abs_err']:.3e} ok={row['ok']} (rtol = atol = {row['tol']}) "
+            f"kernels/call={row['kernels']} repeat_bitwise={row['repeat']} plan_bytes_mirrored={row['mirrored']}")
+    if "dev_us" in row:
+        line += (f" | dev {row['dev_us']:.2f} us, queued {row['queued_us']:.2f} us, "
+                 f"bound {row['bound_us']:.3f} us")
+    return line
+
+
+def check(name: str, shape, dtype, gen, timed: bool) -> dict:
+    wrapper, plain = (getattr(A, attr) for attr in KERNELS[name])
+    args = block_args(shape, dtype, gen)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    out, ref = wrapper(*args), plain(*args)
+    err = (out.float() - ref.float()).abs()
+    ok = bool((err <= tol + tol * ref.float().abs()).all()) and bool(torch.isfinite(out.float()).all())
+    launched = kernel_launches(lambda: wrapper(*args))
+    one = len(launched) == 1 and "linattn_block_kernel" in launched[0]
+    repeat = bool(torch.equal(wrapper(*args), out))
+    plan = A.linattn_block_plan(shape[1], shape[2], dtype)
+    smem_fn = _build.c_function("linear_attention", "dmn_linattn_block_smem", [ctypes.c_int] * 4, ctypes.c_long)
+    mirrored = smem_fn(shape[2], plan.slab, int(plan.resident), 2 if dtype == torch.bfloat16 else 4) == plan.smem_bytes
+    row = {"kernel": name, "shape": shape, "dtype": str(dtype).removeprefix("torch."),
+           "plan": f"{plan.cluster}x{plan.slab}{'' if plan.resident else ' recompute'} {plan.smem_bytes} B",
+           "max_abs_err": float(err.max()), "ok": ok and one and repeat and mirrored, "tol": tol,
+           "kernels": len(launched) if one else launched, "repeat": repeat, "mirrored": mirrored}
+    if timed:
+        row["dev_us"] = device_profile(lambda: wrapper(*args))[0] * 1e3
+        row["queued_us"] = queued_us(lambda: wrapper(*args))
+        row["bound_us"] = bound_us(name, args)
+    print(format_row(row), flush=True)
+    return row
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("check_linattn: no CUDA device", file=sys.stderr)
+        return 2
+    _build.load_kernels()
+    print(f"[build] nvcc {_build.build_seconds['total']:.2f} s")
+    for kernel, info in ptxas_report("linear_attention"):
+        print(f"[ptxas] {kernel[:96]}: {info}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ok = True
+    for name in KERNELS:
+        rows = [check(name, shape, torch.bfloat16, gen, True) for shape in PATH_SHAPES[name]]
+        untimed = CORNER_SHAPES + (TOOL_SHAPES if name == "linear_attention_block_v1" else ())
+        rows += [check(name, shape, torch.bfloat16, gen, False) for shape in untimed]
+        if name == "linear_attention_block_v2":
+            rows += [check(name, shape, torch.float32, gen, shape == F32_SHAPES[0]) for shape in F32_SHAPES]
+        ok &= all(r["ok"] for r in rows)
+        path = [r for r in rows if r["dtype"] == "bfloat16" and "dev_us" in r]
+        dev = sum(r["dev_us"] for r in path) / 1e3
+        print(f"[time] {name} per main-path pass ({len(path)} calls): dev {dev:.4f} ms, queued "
+              f"{sum(r['queued_us'] for r in path) / 1e3:.4f} ms, bound {sum(r['bound_us'] for r in path) / 1e3:.5f} "
+              f"ms; the five-launch form before it {OLD_DEV_MS[name]} ms (PERF.md kernel table)", flush=True)
+    print("all agree" if ok else "FAILED")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

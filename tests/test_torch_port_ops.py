@@ -324,6 +324,142 @@ def test_chip_smoke_holds_kernel_9_against_the_v2_reference():
     assert table["linear_attention_block_v2"][2] is TA.linear_attention_block_v2_reference
 
 
+@pytest.mark.parametrize("shape", [(2, 1024, 32), (2, 256, 64), (2, 64, 128), (2, 256, 32), (2, 100, 128)])
+def test_linear_attention_block_packed_reference_is_the_jax_kernels_function(shape):
+    """#2's plain version (what chip_smoke.py holds kernel #2 against) against
+    the JAX packed kernel in interpret mode, at unet_small's four #2 shapes
+    and a ragged N: within the bf16 kernel tolerance, and strictly closer to
+    it than the module composition, which rounds after the prenorm affine
+    and rounds y, the out-norm and the residual sum (about one bf16 step
+    against two)."""
+    p = _block_params(2, shape[-1])
+    x = np.random.default_rng(3).standard_normal(shape) * 0.5
+    names = ("ng", "nb", "wqkv", "wout", "bout", "og", "ob")
+    targs = (_t(x, torch.bfloat16), *[_t(p[k], torch.float32) for k in names])
+    jargs = (_j(x, jnp.bfloat16), *[_j(p[k], jnp.float32) for k in names])
+    kernel = np.asarray(JA._pallas_linattn_block_packed(*jargs, H, D, SCALE, 1e-5, interpret=True), np.float32)
+    ours = _np(TA.linear_attention_block_packed_reference(*targs, H, D, SCALE))
+    composed = _np(TA.linear_attention_block_reference(*targs, H, D, SCALE))
+    _close(ours, kernel, BF16_TOL)
+    assert np.abs(ours - kernel).max() < np.abs(composed - kernel).max()
+
+
+def test_chip_smoke_holds_kernel_2_against_its_own_reference():
+    """chip_smoke.py holds kernel #2 against the packed TPU kernel's seams;
+    the entry point keeps the module composition for the CPU and for the
+    backward's recompute, as the JAX package's custom_vjp does."""
+    import diffusion_model_nemo_tpu_torch as port
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_table", _REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.kernel_table(port)["linear_attention_block"][2] is TA.linear_attention_block_packed_reference
+    p = _block_params(5, 32)
+    args = (_t(np.random.default_rng(6).standard_normal((2, 256, 32)), torch.bfloat16),
+            *[_t(p[k], torch.float32) for k in ("ng", "nb", "wqkv", "wout", "bout", "og", "ob")])
+    torch.testing.assert_close(TA.fused_linear_attention_block_packed(*args, H, D, SCALE),
+                               TA.linear_attention_block_reference(*args, H, D, SCALE), rtol=0, atol=0)
+
+
+# --------------------------------- the whole-block kernel's launch plan (#2, #9, #10) --
+def _admitted(gate):
+    """(N, C, dtype) that a whole-block kernel's callers send it: #2's gate
+    (C divides 128), #9's gate (no C condition: C = 1 .. 1024 here; the
+    U-Net's widest linear-attention level is 256), the microbenchmark's
+    shapes for #10 in bf16 and float32."""
+    if gate == "packed":
+        return [(N, C, torch.bfloat16) for C in (1, 2, 4, 8, 16, 32, 64, 128) for N in range(64, 4097)
+                if TA.use_packed_linattn_block((1, N, C), torch.bfloat16, H, D)]
+    if gate == "v1":
+        return [(N, C, torch.bfloat16) for N in range(64, 4097, 8) for C in range(1, 1025, 7)]
+    from diffusion_model_nemo_tpu_torch.tools import microbench_attn as MA
+
+    return [(N, C, dt) for _B, N, C in MA.SHAPES for dt in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("gate", ["packed", "v1", "microbench"])
+def test_linattn_block_plan_covers_every_admitted_shape(gate):
+    """For every shape a caller sends the whole-block kernel, the plan gives
+    each of the cluster's CTAs a non-empty contiguous slab, the slabs cover
+    all N tokens once, the cluster stays portable (at most 8 CTAs) and a
+    CTA's shared memory fits one H100 CTA's 232,448 bytes."""
+    shapes = _admitted(gate)
+    assert shapes
+    for N, C, dt in shapes:
+        plan = TA.linattn_block_plan(N, C, dt)
+        assert 1 <= plan.cluster <= 8 and plan.cluster == min(8, -(-N // 128)), (N, C, plan)
+        assert plan.cluster * plan.slab >= N > (plan.cluster - 1) * plan.slab, (N, C, plan)
+        assert plan.smem_bytes <= 232448, (N, C, plan)
+        esize = 2 if dt == torch.bfloat16 else 4
+        assert plan.smem_bytes == TA._linattn_block_smem(C, plan.slab, plan.resident, esize)
+
+
+def test_linattn_block_plan_keeps_the_main_path_resident():
+    """unet_small's four #2 calls and the microbenchmark's two shapes keep
+    their slab in shared memory; N = 4096 at C = 128 takes the recompute form."""
+    for N, C in ((1024, 32), (256, 64), (64, 128), (256, 32)):
+        plan = TA.linattn_block_plan(N, C, torch.bfloat16)
+        assert plan.resident and plan.slab <= 128 and plan.smem_bytes <= 232448 // 2 - 1024, plan
+    assert TA.linattn_block_plan(1024, 32, torch.bfloat16).cluster == 8
+    assert not TA.linattn_block_plan(4096, 128, torch.bfloat16).resident
+    assert TA.linattn_block_plan(256, 64, torch.float32).resident
+
+
+def test_linattn_block_plan_mirrors_the_kernel_source():
+    """The plan's constants are the kernel's (csrc/linear_attention.cu):
+    tile, row padding, reduction scratch and the portable cluster bound."""
+    import re
+
+    src = (_REPO / "diffusion_model_nemo_tpu_torch" / "csrc" / "linear_attention.cu").read_text()
+    const = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const["TILE"] == TA._BLOCK_TILE == 64 and const["PAD"] == 8 and const["MISC_BYTES"] == 512
+    assert const["MAX_CLUSTER"] == TA._BLOCK_MAX_CLUSTER == 8
+    assert "constexpr size_t SMEM_LIMIT = 232448;" in src and TA._SMEM_LIMIT == 232448
+
+
+_REFUSED = [
+    ("linear_attention_block_cuda", (2, 64, 2048), torch.bfloat16, "shared memory"),
+    ("linear_attention_block_v1_cuda", (2, 64, 1536), torch.bfloat16, "shared memory"),
+    ("linear_attention_block_v2_cuda", (2, 64, 512), torch.float32, "shared memory"),
+    ("linear_attention_block_v2_cuda", (2, 0, 32), torch.bfloat16, "N, C >= 1"),
+]
+
+
+@pytest.mark.parametrize("wrapper,shape,dtype,match", _REFUSED, ids=[f"{w}-{s}" for w, s, _d, _m in _REFUSED])
+def test_whole_block_wrappers_raise_where_the_plan_refuses(wrapper, shape, dtype, match):
+    """A shape the plan refuses raises ValueError in the wrapper, on any
+    device and before anything is launched: there is no other route."""
+    B, N, C = shape
+    with pytest.raises(ValueError, match=match):
+        TA.linattn_block_plan(N, C, dtype)
+    v = torch.zeros(C)
+    before = TOPS.launch_counts()
+    with pytest.raises(ValueError, match=match):
+        getattr(TA, wrapper)(torch.zeros(shape, dtype=dtype), v, v, torch.zeros(C, 3 * HD), torch.zeros(HD, C),
+                             v, v, v, H, D, SCALE)
+    assert TOPS.launch_counts() == before
+
+
+@pytest.mark.parametrize("folded", [True, False])
+@pytest.mark.parametrize("C", [32, 40, 128])
+def test_whole_block_weight_operands_hold_the_weights(folded, C):
+    """The whole-block kernel's weight operands in bf16 are W_qkv (γ∘W_qkv
+    where folded, with β·W_qkv) and W_out zero-padded to C rounded up to 8,
+    in fragment order: the inverse permutation gives them back bit for bit."""
+    p = {k: _t(v, torch.float32) for k, v in _block_params(48, C).items()}
+    wq, bq, wo = TA._linattn_block_weights(folded, torch.bfloat16, p["ng"], p["nb"], p["wqkv"], p["wout"])
+    ref_q = (p["ng"][:, None] * p["wqkv"]).bfloat16() if folded else p["wqkv"].bfloat16()
+    assert torch.equal(TA.fragment_order_inverse(wq)[:C], ref_q)
+    assert (bq is None) == (not folded)
+    if folded:
+        torch.testing.assert_close(bq, p["nb"] @ p["wqkv"], rtol=0, atol=0)
+    c8 = -(-C // 8) * 8
+    out = TA.fragment_order_inverse(wo)
+    assert out.shape == (HD, c8) and torch.equal(out[:, :C], p["wout"].bfloat16()) and not out[:, C:].any()
+    wq32, bq32, wo32 = TA._linattn_block_weights(False, torch.float32, p["ng"], p["nb"], p["wqkv"], p["wout"])
+    assert torch.equal(wq32, p["wqkv"]) and bq32 is None and torch.equal(wo32[:, :C], p["wout"])
+
+
 # ------------------------------------- kernel 8: linear attention on raw qkv --
 CORE_F32_TOL = 1e-5
 
@@ -1100,15 +1236,30 @@ def _fold_sources(C=32, seed=46):
     return [_t(p[k], torch.float32) for k in ("ng", "nb", "wqkv")]
 
 
+_WOUT = _t(_block_params(45, 32)["wout"], torch.float32)
+
+
+def _block_weights(ng, nb, w_qkv):
+    """Kernel #2's derived operands (γ∘W_qkv in fragment order, β·W_qkv,
+    W_out in fragment order), kept per parameter version."""
+    return TA._linattn_block_weights(True, torch.bfloat16, ng, nb, w_qkv, _WOUT)
+
+
+def _folded(wq):
+    """γ∘W_qkv [32, 384] back from kernel #2's fragment order."""
+    return TA.fragment_order_inverse(wq)[:32]
+
+
 def test_derived_weights_come_back_at_the_same_version():
     ng, nb, w = _fold_sources()
-    a = TA._fold_prenorm(ng, nb, w)
-    b = TA._fold_prenorm(ng, nb, w)
+    a = _block_weights(ng, nb, w)
+    b = _block_weights(ng, nb, w)
     assert a[0] is b[0] and a[1] is b[1]
     # the module passes weight.t(): a new view object each call, one base
     wt = w.t().contiguous()
-    c, d = TA._fold_prenorm(ng, nb, wt.t()), TA._fold_prenorm(ng, nb, wt.t())
+    c, d = _block_weights(ng, nb, wt.t()), _block_weights(ng, nb, wt.t())
     assert c[0] is d[0] and c[0] is not a[0] and torch.equal(c[0], a[0])
+    assert torch.equal(_folded(a[0]), TA._fold(ng, nb, w)[0])
     assert TA._cast_weight(w, torch.bfloat16) is TA._cast_weight(w, torch.bfloat16)
     assert TA._cast_weight(w, torch.float32) is not TA._cast_weight(w, torch.bfloat16)
 
@@ -1118,7 +1269,7 @@ def test_derived_weights_follow_in_place_updates(how):
     lin = torch.nn.Linear(32, 3 * HD, bias=False)  # weight [384, 32], as Conv1x1 holds it
     ng, nb = torch.ones(32), torch.zeros(32)
     w = lin.weight.detach()
-    before = TA._fold_prenorm(ng, nb, w.t())
+    before = _block_weights(ng, nb, w.t())
     with torch.no_grad():
         if how == "add_":
             w.add_(1.0)
@@ -1130,33 +1281,33 @@ def test_derived_weights_follow_in_place_updates(how):
             lin.load_state_dict({"weight": w + 1.0})
         else:
             w.t()[0].add_(1.0)  # through another view of the same base
-    after = TA._fold_prenorm(ng, nb, w.t())
+    after = _block_weights(ng, nb, w.t())
     assert after[0] is not before[0] and not torch.equal(after[0], before[0])
-    assert torch.equal(after[0], TA._fold(ng, nb, w.t())[0])
-    assert TA._fold_prenorm(ng, nb, w.t())[0] is after[0]
+    assert torch.equal(_folded(after[0]), TA._fold(ng, nb, w.t())[0])
+    assert _block_weights(ng, nb, w.t())[0] is after[0]
 
 
 def test_derived_weights_are_not_taken_over_by_a_tensor_on_the_same_storage():
     ng, nb, w = _fold_sources()
-    first = TA._fold_prenorm(ng, nb, w)
+    first = _block_weights(ng, nb, w)
     twin = torch.empty(0).set_(w.untyped_storage(), 0, w.shape, w.stride())  # same data_ptr, new tensor
     assert twin.data_ptr() == w.data_ptr() and twin._base is None
     with torch.no_grad():
         twin.mul_(2.0)  # bumps the twin's version only: w's entry would be stale for it
-    second = TA._fold_prenorm(ng, nb, twin)
-    assert second[0] is not first[0] and torch.equal(second[0], TA._fold(ng, nb, twin)[0])
+    second = _block_weights(ng, nb, twin)
+    assert second[0] is not first[0] and torch.equal(_folded(second[0]), TA._fold(ng, nb, twin)[0])
 
 
 def test_derived_weights_go_with_their_sources_and_skip_inference_tensors():
     ng, nb, w = _fold_sources(seed=47)
     n0 = TA._derived.stats()["entries"]
-    TA._fold_prenorm(ng, nb, w)
+    _block_weights(ng, nb, w)
     assert TA._derived.stats()["entries"] == n0 + 1
     del w
     assert TA._derived.stats()["entries"] == n0
     with torch.inference_mode():
         inf = torch.ones(32, 3 * HD)  # tracks no version: never kept
-    a, b = TA._fold_prenorm(ng, nb, inf), TA._fold_prenorm(ng, nb, inf)
+    a, b = _block_weights(ng, nb, inf), _block_weights(ng, nb, inf)
     assert a[0] is not b[0] and torch.equal(a[0], b[0])
     assert TA._derived.stats()["entries"] == n0
 

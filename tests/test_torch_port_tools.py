@@ -227,3 +227,33 @@ def test_conv_bound_over_the_tool_shapes():
         if ops / P.PEAK_OPS[kind] > nbytes / P.PEAK_BYTES_PER_S:
             by_ops.append(C)
     assert abs(total - 65.44) < 0.01 and by_ops == [128]
+
+
+def test_check_linattn_needs_a_card_and_formats_its_rows(capsys):
+    """The card check of kernels #2, #9 and #10 refuses to run without a CUDA
+    device (it never falls back to the plain versions); a checked call is one
+    line with its hold, launches, repeat and, where timed, its device time
+    beside the bound; its path shapes are the plan's resident ones and its
+    seeded inputs have the block's shapes."""
+    from diffusion_model_nemo_tpu_torch.ops import attention as TA
+    from diffusion_model_nemo_tpu_torch.tools import check_linattn as CL
+
+    assert CL.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    row = {"kernel": "linear_attention_block", "shape": (64, 1024, 32), "dtype": "bfloat16",
+           "plan": "8x128 90624 B", "max_abs_err": 0.015625, "ok": True, "tol": 0.02, "kernels": 1,
+           "repeat": True, "mirrored": True}
+    line = CL.format_row(row)
+    assert line == ("[check] linear_attention_block [64, 1024, 32] bfloat16 plan=8x128 90624 B "
+                    "max_abs_err=1.562e-02 ok=True (rtol = atol = 0.02) kernels/call=1 repeat_bitwise=True "
+                    "plan_bytes_mirrored=True")
+    timed = CL.format_row(dict(row, dev_us=70.25, queued_us=71.5, bound_us=3.257))
+    assert timed == line + " | dev 70.25 us, queued 71.50 us, bound 3.257 us"
+    assert set(CL.KERNELS) == {"linear_attention_block", "linear_attention_block_v1", "linear_attention_block_v2"}
+    assert all(callable(getattr(TA, attr)) for pair in CL.KERNELS.values() for attr in pair)
+    for shapes in CL.PATH_SHAPES.values():
+        assert all(TA.linattn_block_plan(N, C, torch.bfloat16).resident for _B, N, C in shapes)
+    assert not TA.linattn_block_plan(4096, 128, torch.bfloat16).resident  # a corner takes the other form
+    args = CL.block_args((2, 100, 40), torch.bfloat16, torch.Generator().manual_seed(0), "cpu")
+    assert args[0].shape == (2, 100, 40) and args[0].dtype == torch.bfloat16
+    assert args[3].shape == (40, 384) and args[4].shape == (128, 40) and args[8:] == (4, 32, 32**-0.5, 1e-5)
