@@ -31,6 +31,7 @@
 // Where C * itemsize is not a multiple of 16 (or x is not 16-byte aligned)
 // a piece is one element and the copies are plain loads.
 
+#include "group_norm.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -44,26 +45,9 @@ struct Film {
   long shift_sample, shift_channel;
 };
 
-__device__ __forceinline__ float film_at(const void* p, int bf16, long i) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
-
-__host__ __device__ inline int align16(int bytes) { return (bytes + 15) / 16 * 16; }
-
-// The V elements of one piece as f32 (one 16-byte load where V fills 16 bytes).
-template <typename T, int V>
-__device__ __forceinline__ void load_piece(const T* p, float (&e)[V]) {
-  if (V * sizeof(T) == 16) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int v = 0; v < V; ++v) e[v] = dmn::to_f32(t[v]);
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v) e[v] = dmn::to_f32(p[v]);
-  }
-}
+using dmn::align16;
+using dmn::film_at;
+using dmn::load_piece;
 
 // V: elements per piece (16 / sizeof(T), or 1).
 template <typename T, int V>
@@ -122,27 +106,7 @@ gn_bm_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict
   }
   __syncthreads();
   // 2. Per channel: S threads each sum every S-th row, then one sums the S.
-  if (tid < S * C) {
-    const int c = tid % C, k = tid / C;
-    float a = 0.f, aq = 0.f;
-    for (int rr = k; rr < rows; rr += S) {
-      a += part[rr * C + c];
-      aq += part[(rows + rr) * C + c];
-    }
-    red[k * C + c] = a;
-    red[(S + k) * C + c] = aq;
-  }
-  __syncthreads();
-  if (tid < C) {
-    float a = 0.f, aq = 0.f;
-    for (int k = 0; k < S; ++k) {
-      a += red[k * C + tid];
-      aq += red[(S + k) * C + tid];
-    }
-    chs[tid] = a;
-    chs[C + tid] = aq;
-  }
-  __syncthreads();
+  dmn::channel_sums(part, red, chs, rows, C, THREADS);
   const int cg = C / groups;
   if (tid < groups) {  // fold the group's channels in order
     float a = 0.f, aq = 0.f;

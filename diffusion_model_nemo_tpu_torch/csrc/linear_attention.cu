@@ -16,20 +16,21 @@
 //   * _linattn_qkv_fused_kernel (launcher _pallas_linattn_qkv_fused): the
 //     attention core on pre-normed tokens, without the norms, the out
 //     projection or the residual.
-//   * _linattn_kernel (launcher _pallas_linear_attention): the attention core
-//     on a raw qkv [B, N, 384] tensor (q | k | v columns), any dtype; the
-//     float32 U-Net's route.
 //   * _v4_kernel (tools/microbench_attn_lanes.py, launcher v4_call): the
 //     qkv-fused core on x viewed as [B, N*C/128, 128], so that the TPU's
 //     (8, 128) tiles carry no lane padding. On the card the packed view and
-//     [B, N, C] token rows are the same bytes: dmn_linattn_v4 reads the
-//     buffer as token rows and runs the qkv-fused stages in x's dtype.
+//     [B, N, C] token rows are the same bytes: the wrapper hands the buffer
+//     to the qkv-fused core as token rows, in x's dtype.
+//   * _linattn_kernel (launcher _pallas_linear_attention): the attention core
+//     on a raw qkv [B, N, 384] tensor (q | k | v columns), any dtype; the
+//     float32 U-Net's route.
 // The TPU packed its tokens 128 lanes wide and took G samples per grid step
 // so that its matrix unit saw tall operands: both are VMEM/MXU blockings with
 // no counterpart here. On the card a sample is spread over a thread-block
-// cluster instead, and the block's token GEMMs run on the tensor cores.
+// cluster instead, and the token GEMMs run on the tensor cores.
 //
-// The whole block (#2, #9, #10): one launch, one cluster per sample.
+// The whole block (#2, #9, #10) and the qkv-fused core (#3, #12): one launch,
+// one cluster per sample (linattn_block_kernel; the core is its CORE mode).
 //   What bounds it on the H100: at unet_small's four #2 calls (B = 64) the
 //   block moves ~17 MB (x in, out back: ~5 us at 3.35 TB/s) and does ~6
 //   GFLOP (~6 us at the bf16 peak). A sample's intermediates fit in the
@@ -39,10 +40,10 @@
 //   statistics, k's softmax over N and its gram, the out-norm's statistics).
 //   Design:
 //   - A cluster of min(8, ceil(N / 128)) CTAs holds one sample; CTA r owns
-//     the token slab [r * slab, (r + 1) * slab). The three sample-wide
-//     reductions go through distributed shared memory: each CTA publishes its
-//     partial, cluster.sync(), and the partials are added in rank order, so
-//     every CTA (and every run) gets the same bits. The 4 x 32 x 32 gram is
+//     the token slab [r * slab, (r + 1) * slab). The sample-wide reductions
+//     go through distributed shared memory: each CTA publishes its partial,
+//     cluster.sync(), and the partials are added in rank order, so every CTA
+//     (and every run) gets the same bits. The 4 x 32 x 32 gram is
 //     reduce-scattered (rank r adds up rows r, r + cluster, ..., 16 bytes a
 //     load) and then gathered, rounded: a CTA reads each remote byte once.
 //   - Each CTA walks its slab in 64-token tiles (four m16 tiles); every
@@ -58,14 +59,17 @@
 //     and rounded; (4) q, its softmax (one max over the 128 columns, per-head
 //     sums), att = q_sm . gram, y = att W_out + b_out with y's statistics;
 //     (5) out = GroupNorm(y) + x, 16 bytes a thread.
-//   - "Resident": where the slab's h and f32 y fit in shared memory (with
-//     the tile buffers, at most 227 KB), x is read once into it (cp.async)
-//     and y is kept for stage 5. Otherwise ("recompute", e.g. [4096, 128])
-//     each stage reloads its x tile from device memory (L2) and normalises it
-//     again, and stage 4 runs twice: for y's statistics, then to write the
-//     output. The launch plan (cluster, slab, bytes, mode) is the wrapper's
-//     (ops/attention.py:linattn_block_plan); block_layout() below is its
-//     mirror and the entries refuse a plan that disagrees with it.
+//   - CORE (#3, #12): h is already normed, so there is no stage 1 and no
+//     bias; stages 2-4 as above, and stage 4 writes att [B, N, 128] in h's
+//     dtype from the att tile, 16 bytes a thread, instead of projecting it.
+//   - "Resident": where the slab's h (and, but for CORE, f32 y) fit in
+//     shared memory (with the tile buffers, at most 227 KB), x is read once
+//     into it (cp.async) and y is kept for stage 5. Otherwise ("recompute",
+//     e.g. [4096, 128]) each stage reloads its x tile from device memory (L2)
+//     and normalises it again, and stage 4 runs twice: for y's statistics,
+//     then to write the output. The launch plan (cluster, slab, bytes, mode)
+//     is the wrapper's (ops/attention.py:linattn_block_plan); block_layout()
+//     below is its mirror and the entries refuse a plan that disagrees.
 //   - What is left is latency: a CTA's stages are a chain of L2 round trips
 //     and barriers, whatever the batch (on the H100 a one-wave call takes
 //     ~33 us with one 64-token tile a CTA, [64, 64, 128], and ~45 us with two,
@@ -73,7 +77,7 @@
 //     kernel is held to 128 registers and, on the main path, ~115 KB of
 //     shared memory (the f32 partial gram takes the k_sm|v tile's place), two
 //     CTAs an SM: at [64, 1024, 32] its 512 CTAs run in two waves, not four.
-//   - float32 (#10 in float32): the same kernel and stages, with each
+//   - float32 (#10 and #12 in float32): the same kernel and stages, with each
 //     product's 16 x 8 output tile computed by f32 FMAs on the CUDA cores in
 //     the mma fragment layout (no TF32: the 1e-4 gate), weights row major.
 //   Seams kept from the TPU kernels: the prenorm's (x - mu) * rstd rounded to
@@ -82,22 +86,23 @@
 //   rowmax) * (scale / headsum), k_sm = exp(k - M) * (1 / S) and v rounded to
 //   x's dtype (a reciprocal where the TPU kernel divides: one f32 rounding
 //   apart, before a bf16 one); the gram, masked to its diagonal blocks,
-//   rounded; att rounded;
+//   rounded; att rounded (#3 and #12: att is the output, q_sm . gram in f32
+//   cast once);
 //   y = att W_out + b_out, the out-norm and the residual in f32, cast once.
 //   Padded tokens (N not a multiple of 16) enter no max, sum or gram.
 //
-// The attention core (#3, #8, #12) still streams 32-token tiles through
+// The attention core on a raw qkv tensor (#8) streams 32-token tiles through
 // three launches with f32 CUDA-core FMAs and a scratch round trip:
-//   1. kv    (grid chunks x B): each block projects (or loads) k and v for
-//      its 128-token chunk, keeps an online column max and sum for k's
-//      softmax over N, and accumulates the 4 per-head 32 x 32 grams.
+//   1. kv    (grid chunks x B): each block loads k and v for its 128-token
+//      chunk, keeps an online column max and sum for k's softmax over N, and
+//      accumulates the 4 per-head 32 x 32 grams, relative to the chunk max.
 //   2. merge (grid heads x B): combines the chunks' (max, sum, gram) into the
-//      softmax-normalised gram, rounded to bf16 like the TPU kernel.
-//   3. apply (grid tiles x B): projects (or loads) q, takes its per-head
-//      softmax, multiplies by the gram and writes [N, 128].
+//      softmax-normalised gram, rounded to bf16 in the bf16 instantiation.
+//   3. apply (grid tiles x B): loads q, takes its per-head softmax,
+//      multiplies by the gram and writes [N, 128].
 // Its stages are templated on the token dtype T and round with
-// dmn::round_to<T>, the identity for float: #8 and #12 round only in their
-// bf16 instantiations and stay f32 in float32; #3 runs in bf16.
+// dmn::round_to<T>, the identity for float: #8 stays f32 in float32 and
+// rounds only in its bf16 instantiation.
 
 #include <cooperative_groups.h>
 
@@ -144,14 +149,6 @@ inline size_t scratch_layout(int B, int N, Scratch* s, float* base) {
   float* gram = take(size_t(B) * GRAM);
   if (s) *s = Scratch{mpart, spart, gpart, gram};
   return off;
-}
-
-// Load `rows` tokens of sample b from token n0 into h[rows][C] (f32).
-template <typename T>
-__device__ __forceinline__ void load_tokens(const T* __restrict__ x, float* h, int b, int N, int C,
-                                            int n0, int rows) {
-  const T* xs = x + (size_t(b) * N + n0) * C;
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) h[i] = dmn::to_f32(xs[i]);
 }
 
 // Online column max and sum of k's softmax over N, and the per-head gram
@@ -208,49 +205,8 @@ __device__ __forceinline__ void kv_store(const Scratch& sc, int b, int k, int K,
   for (int a = 0; a < ACC; ++a) sc.gpart[bk * GRAM + threadIdx.x + a * THREADS] = acc[a];
 }
 
-// 1. k/v projection, online softmax statistics of k, chunk grams.
-// Dynamic shared memory: h[TN*C] + kv[TN*2*HD] + scale[HD] + m[HD] + s[HD].
-template <typename T>
-__global__ void kv_kernel(const T* __restrict__ x,
-                          const T* __restrict__ w,  // [C][QKV]
-                          Scratch sc, int N, int C) {
-  extern __shared__ float smem[];
-  float* h = smem;
-  float* kv = h + TN * C;
-  float* rescale = kv + TN * 2 * HD;
-  float* mrun = rescale + HD;
-  float* srun = mrun + HD;
-
-  const int k = blockIdx.x, b = blockIdx.y, K = gridDim.x;
-  float acc[ACC];
-  kv_init(mrun, srun, acc);
-
-  const int c_end = min(N, (k + 1) * CHUNK);
-  for (int n0 = k * CHUNK; n0 < c_end; n0 += TN) {
-    const int rows = min(TN, c_end - n0);
-    __syncthreads();  // previous tile's kv fully consumed
-    load_tokens(x, h, b, N, C, n0, rows);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * 2 * HD; i += blockDim.x) {
-      const int r = i / (2 * HD), j = i % (2 * HD);
-      const int col = HD + j;  // k and v columns of qkv
-      float a = 0.f;
-      const float* hr = h + r * C;
-      // Unrolled by 32: left to itself, nvcc 12.8 compiled this loop into a form
-      // that made #3 at [64, 64, 64] take 0.133 ms of device time instead of
-      // 0.091 (chip_smoke's kernel table, H100 80GB HBM3 at 700 W).
-#pragma unroll 32
-      for (int c = 0; c < C; ++c) a += hr[c] * dmn::to_f32(w[size_t(c) * QKV + col]);
-      kv[r * 2 * HD + j] = j < HD ? a : dmn::round_to<T>(a);  // v is in T
-    }
-    __syncthreads();
-    kv_tile_update(kv, rows, rescale, mrun, srun, acc);
-  }
-  __syncthreads();
-  kv_store(sc, b, k, K, mrun, srun, acc);
-}
-
-// 1'. the same stage on a raw qkv tensor: k and v columns loaded, not projected.
+// 1. k and v columns loaded from the raw qkv tensor, online softmax statistics
+// of k, chunk grams.
 // Dynamic shared memory: kv[TN*2*HD] + scale[HD] + m[HD] + s[HD].
 template <typename T>
 __global__ void qkv_kv_kernel(const T* __restrict__ qkv, Scratch sc, int N) {
@@ -327,39 +283,8 @@ __device__ __forceinline__ float q_gram(const float* q, const float* gram, int i
   return a;
 }
 
-// 3. q projection, per-head softmax over d, q . gram -> out [B][N][HD] in T.
-// Dynamic shared memory: h[TN*C] + q[TN*HD] + gram[GRAM].
-template <typename T>
-__global__ void apply_kernel(const T* __restrict__ x,
-                             const T* __restrict__ w,  // [C][QKV]
-                             T* __restrict__ att_out, Scratch sc, int N, int C, float scale) {
-  extern __shared__ float smem[];
-  float* h = smem;
-  float* q = h + TN * C;
-  float* gram = q + TN * HD;
-
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int n0 = t * TN, rows = min(TN, N - n0);
-  load_tokens(x, h, b, N, C, n0, rows);
-  for (int i = threadIdx.x; i < GRAM; i += blockDim.x) gram[i] = sc.gram[size_t(b) * GRAM + i];
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x) {
-    const int r = i / HD, j = i % HD;
-    float a = 0.f;
-    const float* hr = h + r * C;
-    for (int c = 0; c < C; ++c) a += hr[c] * dmn::to_f32(w[size_t(c) * QKV + j]);
-    q[i] = a;
-  }
-  __syncthreads();
-  q_softmax(q, rows, scale, dmn::is_bf16<T>());
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x)
-    att_out[(size_t(b) * N + n0) * HD + i] = dmn::from_f32<T>(q_gram(q, gram, i));
-}
-
-// 3'. the apply stage on a raw qkv tensor: q columns loaded, not projected;
-// out [B][N][HD] in T. Dynamic shared memory: q[TN*HD] + gram[GRAM].
+// 3. q columns loaded from the raw qkv tensor, per-head softmax over d,
+// q . gram -> out [B][N][HD] in T. Dynamic shared memory: q[TN*HD] + gram[GRAM].
 template <typename T>
 __global__ void qkv_apply_kernel(const T* __restrict__ qkv, T* __restrict__ out, Scratch sc,
                                  int N, float scale) {
@@ -380,8 +305,6 @@ __global__ void qkv_apply_kernel(const T* __restrict__ qkv, T* __restrict__ out,
     dst[i] = dmn::from_f32<T>(q_gram(q, gram, i));
 }
 
-size_t kv_smem(int C) { return sizeof(float) * (TN * C + TN * 2 * HD + 3 * HD); }
-size_t apply_smem(int C) { return sizeof(float) * (TN * C + TN * HD + GRAM); }
 constexpr size_t QKV_KV_SMEM = sizeof(float) * (TN * 2 * HD + 3 * HD);
 constexpr size_t QKV_APPLY_SMEM = sizeof(float) * (TN * HD + GRAM);
 
@@ -402,25 +325,6 @@ int linattn_qkv(const void* qkv, void* out, void* scratch, int B, int N, float s
   return static_cast<int>(cudaGetLastError());
 }
 
-// The qkv-fused attention core (#3 in bf16, #12 in x's dtype).
-template <typename T>
-int linattn_tokens(const void* h, const void* wqkv, void* out, void* scratch, int B, int N, int C,
-                   float scale, cudaStream_t stream) {
-  Scratch sc;
-  scratch_layout(B, N, &sc, static_cast<float*>(scratch));
-  const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
-  const auto* hb = static_cast<const T*>(h);
-  const auto* wb = static_cast<const T*>(wqkv);
-  cudaError_t err = dmn::set_smem((const void*)kv_kernel<T>, kv_smem(C));
-  if (err == cudaSuccess) err = dmn::set_smem((const void*)apply_kernel<T>, apply_smem(C));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kv_kernel<T><<<dim3(K, B), THREADS, kv_smem(C), stream>>>(hb, wb, sc, N, C);
-  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, dmn::is_bf16<T>());
-  apply_kernel<T><<<dim3(nt, B), THREADS, apply_smem(C), stream>>>(
-      hb, wb, static_cast<T*>(out), sc, N, C, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ------------------------------------------------ the whole block (#2, #9, #10) --
 constexpr int TILE = 64;          // tokens per tile
 constexpr int MT = TILE / 16;     // m16 tiles per tile
@@ -434,18 +338,18 @@ constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 constexpr size_t SMEM_LIMIT = 232448;
 
 // Byte offsets of the block kernel's shared memory; ops/attention.py:
-// _linattn_block_smem is its mirror.
+// _linattn_block_smem is its mirror. `core`: the CORE mode keeps no y.
 struct Layout {
   size_t misc, colst, gram, a, b, h, y, total;  // the f32 partial gram lives in region a
   int hs, c8, rows_h;
 };
 
-__host__ __device__ inline Layout block_layout(int C, int slab, int resident, int esize) {
+__host__ __device__ inline Layout block_layout(int C, int slab, int resident, int esize, int core) {
   Layout L;
   L.hs = ((C + 31) & ~31) + PAD;  // the qkv product walks k in pairs of k16 steps
   L.c8 = (C + 7) & ~7;            // the out projection's n8 tiles
   L.rows_h = resident ? ceil_div(slab, TILE) * TILE : TILE;
-  const int rows_y = resident ? slab : 0;
+  const int rows_y = resident && !core ? slab : 0;
   size_t off = 0;
   auto take = [&](size_t n) {
     const size_t at = off;
@@ -466,14 +370,14 @@ __host__ __device__ inline Layout block_layout(int C, int slab, int resident, in
 struct BlockArgs {
   const void* x;
   const void* wqkv;    // bf16: fragment order [Cp/32][48][32][8]; float: [C][384]
-  const float* bqkv;   // [384] (folded prenorm) or null
+  const float* bqkv;   // [384] (folded prenorm) or null (unfolded, CORE)
   const float* ng;     // [C] prenorm affine applied before the product, or null (folded)
   const float* nb;
-  const void* wout;    // bf16: fragment order [4][C8/8][32][8]; float: [128][C8]
+  const void* wout;    // bf16: fragment order [4][C8/8][32][8]; float: [128][C8]; CORE: null
   const float* bout;   // [C]
   const float* og;     // [C]
   const float* ob;     // [C]
-  void* out;
+  void* out;           // [B, N, C]; CORE: att [B, N, 128]
   int N, C, cluster, slab, resident;
   float scale, eps;
 };
@@ -632,16 +536,19 @@ __device__ __forceinline__ float2 cluster_sum2(float a, float b, float* red, flo
   return r;
 }
 
-// One cluster of `cluster` CTAs per sample: see the note at the top.
-template <typename T, bool FOLD>
+// One cluster of `cluster` CTAs per sample: see the note at the top. FOLD:
+// the prenorm affine is folded into W_qkv and bqkv (#2); CORE: no prenorm,
+// no bias, att is the output (#3, #12); neither: the affine applied (#9, #10).
+template <typename T, bool FOLD, bool CORE>
 __global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockArgs p) {
+  static_assert(!(FOLD && CORE), "the core has no prenorm to fold");
   extern __shared__ float4 block_smem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(block_smem);
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = p.cluster, rank = int(cluster.block_rank());
   const int b = blockIdx.x / cs, N = p.N, C = p.C;
   const int n0 = rank * p.slab, rows = min(p.slab, N - n0);
-  const Layout L = block_layout(C, p.slab, p.resident, sizeof(T));
+  const Layout L = block_layout(C, p.slab, p.resident, sizeof(T), CORE);
   float* red = reinterpret_cast<float*>(smem + L.misc);
   float2* slots = reinterpret_cast<float2*>(red + 64);  // x's sums, y's sums
   float* colm = reinterpret_cast<float*>(smem + L.colst);  // this slab's k column max
@@ -668,9 +575,9 @@ __global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockAr
   const bool vec = C % V == 0;
   const float count = float(N) * C;
 
-  // 1. x's statistics over the sample; resident: x into shared memory, its
-  // padding (rows past the slab, columns past C) zero.
-  float2 st;
+  // 1. x's statistics over the sample (not in CORE); resident: x into shared
+  // memory, its padding (rows past the slab, columns past C) zero.
+  float2 st = make_float2(0.f, 1.f);
   {
     float s = 0.f, ss = 0.f;
     auto add = [&](const float (&f)[V]) {
@@ -690,7 +597,7 @@ __global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockAr
       dmn::cp_async_commit();
       dmn::cp_async_wait<0>();
       __syncthreads();
-      for (int i = threadIdx.x; i < rows * (C / V); i += THREADS) {
+      for (int i = threadIdx.x; i < (CORE ? 0 : rows * (C / V)); i += THREADS) {
         const uint4 u = *reinterpret_cast<const uint4*>(hbuf + (i / (C / V)) * HS + (i % (C / V)) * V);
         const T* v = reinterpret_cast<const T*>(&u);
         float f[V];
@@ -698,7 +605,7 @@ __global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockAr
         for (int e = 0; e < V; ++e) f[e] = dmn::to_f32(v[e]);
         add(f);
       }
-    } else {
+    } else if (!CORE || p.resident) {
       const int cpr = p.resident ? HS / V : ceil_div(C, V);
       const int rr = p.resident ? L.rows_h : rows;
 #pragma unroll 4
@@ -710,28 +617,33 @@ __global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockAr
         if (p.resident) store_chunk<T>(hbuf + r * HS + c0, f);
       }
     }
-    const float2 tot = cluster_sum2(s, ss, red, slots, cluster, cs);
-    st = dmn::fast_variance_stats(tot.x, tot.y, count, p.eps);
+    if constexpr (!CORE) {
+      const float2 tot = cluster_sum2(s, ss, red, slots, cluster, cs);
+      st = dmn::fast_variance_stats(tot.x, tot.y, count, p.eps);
+    }
   }
   auto prenorm = [&](float v, int c) {
+    if constexpr (CORE) return v;
     float h = (v - st.x) * st.y;
     if constexpr (!FOLD) h = h * p.ng[c] + p.nb[c];
     return h;
   };
-  if (p.resident && vec) {
-    for (int i = threadIdx.x; i < rows * (C / V); i += THREADS) {
-      const int c0 = (i % (C / V)) * V;
-      uint4* piece = reinterpret_cast<uint4*>(hbuf + (i / (C / V)) * HS + c0);
-      uint4 u = *piece;
-      T* v = reinterpret_cast<T*>(&u);
+  if constexpr (!CORE) {  // the resident slab normalised in place (CORE: h is the input)
+    if (p.resident && vec) {
+      for (int i = threadIdx.x; i < rows * (C / V); i += THREADS) {
+        const int c0 = (i % (C / V)) * V;
+        uint4* piece = reinterpret_cast<uint4*>(hbuf + (i / (C / V)) * HS + c0);
+        uint4 u = *piece;
+        T* v = reinterpret_cast<T*>(&u);
 #pragma unroll
-      for (int e = 0; e < V; ++e) v[e] = dmn::from_f32<T>(prenorm(dmn::to_f32(v[e]), c0 + e));
-      *piece = u;
-    }
-  } else if (p.resident) {
-    for (int i = threadIdx.x; i < rows * C; i += THREADS) {
-      T* e = hbuf + (i / C) * HS + i % C;
-      *e = dmn::from_f32<T>(prenorm(dmn::to_f32(*e), i % C));
+        for (int e = 0; e < V; ++e) v[e] = dmn::from_f32<T>(prenorm(dmn::to_f32(v[e]), c0 + e));
+        *piece = u;
+      }
+    } else if (p.resident) {
+      for (int i = threadIdx.x; i < rows * C; i += THREADS) {
+        T* e = hbuf + (i / C) * HS + i % C;
+        *e = dmn::from_f32<T>(prenorm(dmn::to_f32(*e), i % C));
+      }
     }
   }
   // The h rows of tile ti. Recompute: loaded again and normalised. Callers
@@ -1031,6 +943,16 @@ __global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockAr
                      dmn::round_to<T>(acc[mt][j][2 * r]), dmn::round_to<T>(acc[mt][j][2 * r + 1]));
       }
       __syncthreads();
+      if constexpr (CORE) {  // att is the output: its tile rows, 16 bytes a thread
+        constexpr int PR = HD / V;
+        T* __restrict__ ob = static_cast<T*>(p.out) + (size_t(b) * N + n0 + ti * TILE) * HD;
+        for (int i = threadIdx.x; i < TILE * PR; i += THREADS) {
+          const int r = i / PR, c0 = (i % PR) * V;
+          if (ti * TILE + r < rows)
+            *reinterpret_cast<uint4*>(ob + size_t(r) * HD + c0) = *reinterpret_cast<const uint4*>(att + r * AS + c0);
+        }
+        continue;
+      }
       // y: n8 tiles nt0 .. nt0 + NY - 1 of the C8 / 8 (std::integral_constant NY)
       auto project_out = [&](auto ny, int nt0) {
         constexpr int NY = decltype(ny)::value;
@@ -1079,7 +1001,9 @@ __global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockAr
   };
 
   // 5. y's statistics over the sample, then out = GroupNorm(y) + x.
-  if (p.resident) {
+  if (CORE) {
+    attention_pass(1, make_float2(0.f, 0.f));
+  } else if (p.resident) {
     const float2 part = attention_pass(0, make_float2(0.f, 0.f));
     const float2 tot = cluster_sum2(part.x, part.y, red, slots + 1, cluster, cs);
     const float2 yst = dmn::fast_variance_stats(tot.x, tot.y, count, p.eps);
@@ -1118,19 +1042,19 @@ __global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockAr
 }
 
 // The launch plan the wrapper computed, checked against this file's layout.
-bool plan_ok(int B, int N, int C, int cluster, int slab, int resident, int smem, int esize) {
+bool plan_ok(int B, int N, int C, int cluster, int slab, int resident, int smem, int esize, int core) {
   if (B < 1 || N < 1 || C < 1 || cluster < 1 || cluster > MAX_CLUSTER || slab < 1) return false;
   if (size_t(cluster) * slab < size_t(N) || size_t(cluster - 1) * slab >= size_t(N)) return false;
   if (size_t(B) * cluster > 0x7fffffff) return false;
-  const size_t total = block_layout(C, slab, resident, esize).total;
+  const size_t total = block_layout(C, slab, resident, esize, core).total;
   return total == size_t(smem) && total <= SMEM_LIMIT;
 }
 
-template <typename T, bool FOLD>
+template <typename T, bool FOLD, bool CORE = false>
 int launch_block(const BlockArgs& p, int B, int smem, cudaStream_t stream) {
-  if (!plan_ok(B, p.N, p.C, p.cluster, p.slab, p.resident, smem, sizeof(T)))
+  if (!plan_ok(B, p.N, p.C, p.cluster, p.slab, p.resident, smem, sizeof(T), CORE))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = linattn_block_kernel<T, FOLD>;
+  auto kernel = linattn_block_kernel<T, FOLD, CORE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -1166,15 +1090,16 @@ int block_unfolded(const void* x, const void* ng, const void* nb, const void* wq
 
 DMN_DEFINE_ERROR_STRING(dmn_linattn)
 
-// Floats of scratch the attention-core launchers below need.
+// Floats of scratch the raw-qkv launcher (#8) needs.
 DMN_EXPORT long dmn_linattn_scratch_floats(int B, int N) {
   return static_cast<long>(scratch_layout(B, N, nullptr, nullptr));
 }
 
 // Shared-memory bytes of the whole-block kernel for a plan (the wrapper's
-// linattn_block_plan computes the same; element size 2 for bf16, 4 for f32).
-DMN_EXPORT long dmn_linattn_block_smem(int C, int slab, int resident, int esize) {
-  return static_cast<long>(block_layout(C, slab, resident, esize).total);
+// linattn_block_plan computes the same; element size 2 for bf16, 4 for f32;
+// `core` for the CORE mode).
+DMN_EXPORT long dmn_linattn_block_smem(int C, int slab, int resident, int esize, int core) {
+  return static_cast<long>(block_layout(C, slab, resident, esize, core).total);
 }
 
 // Whole block (#2), one launch: x [B,N,C] bf16 (16-byte aligned) -> out
@@ -1215,22 +1140,20 @@ DMN_EXPORT int dmn_linattn_block_v2(const void* x, const void* ng, const void* n
                         resident, smem, scale, eps, stream);
 }
 
-// Attention core on pre-normed tokens: h [B,N,C] bf16, wqkv [C,384] bf16 ->
-// out [B,N,128] bf16.
-DMN_EXPORT int dmn_linattn_tokens(const void* h, const void* wqkv, void* out, void* scratch,
-                                  int B, int N, int C, float scale, void* stream_) {
-  return linattn_tokens<__nv_bfloat16>(h, wqkv, out, scratch, B, N, C, scale,
-                                       static_cast<cudaStream_t>(stream_));
-}
-
-// The same core on the lane-packed view (TPU kernel #12): x [B, N*C/128, 128]
-// is [B,N,C] token rows, byte for byte. x and wqkv [C,384] f32, or bf16 where
-// `bf16` -> out [B,N,128] in x's dtype.
-DMN_EXPORT int dmn_linattn_v4(const void* x, const void* wqkv, void* out, void* scratch, int B,
-                              int N, int C, int bf16, float scale, void* stream_) {
+// Attention core on pre-normed tokens (#3 in bf16; #12, the same bytes as
+// token rows, in x's dtype), one launch: h [B,N,C] f32, or bf16 where `bf16`
+// (16-byte aligned) -> out [B,N,128] in h's dtype. wqkv: bf16 W_qkv [C,384]
+// in fragment order (zero rows up to C rounded to 32); float32: [C,384] row
+// major. The plan (cluster, slab, resident, smem) is linattn_block_plan's in
+// its core mode.
+DMN_EXPORT int dmn_linattn_tokens(const void* h, const void* wqkv, void* out, int B, int N, int C,
+                                  int bf16, int cluster, int slab, int resident, int smem,
+                                  float scale, void* stream_) {
+  const BlockArgs p{h, wqkv, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    out, N, C, cluster, slab, resident, scale, 0.f};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (bf16) return linattn_tokens<__nv_bfloat16>(x, wqkv, out, scratch, B, N, C, scale, stream);
-  return linattn_tokens<float>(x, wqkv, out, scratch, B, N, C, scale, stream);
+  if (bf16) return launch_block<__nv_bfloat16, false, true>(p, B, smem, stream);
+  return launch_block<float, false, true>(p, B, smem, stream);
 }
 
 // Attention core on a raw qkv tensor: qkv [B,N,384] (f32, or bf16 where

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 from typing import Tuple
 
@@ -30,6 +31,7 @@ __all__ = [
     "linear_attention_reference",
     "linear_attention_qkv_reference",
     "linear_attention_tokens_reference",
+    "linear_attention_tokens_fused_reference",
     "linear_attention_block_reference",
     "attention_block_reference",
     "use_packed_linattn_block",
@@ -38,6 +40,7 @@ __all__ = [
     "use_attention_kernel",
     "use_linattn_block_v1",
     "linear_attention_v4_reference",
+    "linear_attention_v4_fused_reference",
     "linear_attention_block_v2_reference",
     "linear_attention_block_packed_reference",
     "linattn_block_plan",
@@ -137,6 +140,21 @@ def linear_attention_tokens_reference(
     return linear_attention_qkv_reference(qkv, heads, dim_head, scale)
 
 
+def linear_attention_tokens_fused_reference(
+    h: torch.Tensor, w_qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+) -> torch.Tensor:
+    """The qkv-fused core with TPU kernel #3's seams (``_linattn_qkv_fused_kernel``):
+    qkv = h·W_qkv in f32 from operands in h's dtype, then ``_attend`` (q_sm,
+    k_sm after the softmax over all N, v and the per-head gram rounded to
+    h's dtype), q_sm·gram in f32 cast once. What kernel #3 is held against
+    on the card. The module composition (``linear_attention_tokens_reference``)
+    rounds qkv to bf16 before both softmaxes instead: at outputs under 0.1
+    about half its elements sit one bf16 step from the kernel's function."""
+    dt = h.dtype
+    qkv = h.float() @ w_qkv.to(dt).float()
+    return _attend(qkv, dt, heads, dim_head, scale).to(dt)
+
+
 def linear_attention_v4_reference(
     x_packed: torch.Tensor, w_qkv: torch.Tensor, n_tokens: int, heads: int, dim_head: int,
     scale: float,
@@ -145,6 +163,17 @@ def linear_attention_v4_reference(
     the view back to token rows, then ``linear_attention_tokens_reference``."""
     h = x_packed.reshape(x_packed.shape[0], n_tokens, -1)
     return linear_attention_tokens_reference(h, w_qkv, heads, dim_head, scale)
+
+
+def linear_attention_v4_fused_reference(
+    x_packed: torch.Tensor, w_qkv: torch.Tensor, n_tokens: int, heads: int, dim_head: int,
+    scale: float,
+) -> torch.Tensor:
+    """#12 with the TPU kernel's seams (``_v4_kernel``: #3's math on the
+    packed view): the view back to token rows, then
+    ``linear_attention_tokens_fused_reference``."""
+    h = x_packed.reshape(x_packed.shape[0], n_tokens, -1)
+    return linear_attention_tokens_fused_reference(h, w_qkv, heads, dim_head, scale)
 
 
 def linear_attention_block_reference(
@@ -209,7 +238,17 @@ def _block_from_qkv(x, qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head, 
     and att rounded to x's dtype; y = att·W_out + b_out, the out-norm and the
     residual in f32, cast to x's dtype once."""
     dt = x.dtype
-    B, N, _ = x.shape
+    attn = _attend(qkv, dt, heads, dim_head, scale).to(dt).float()
+    y = attn @ w_out.to(dt).float() + b_out.float()
+    return (_gn1(y, out_gamma, out_beta, eps) + x.float()).to(dt)
+
+
+def _attend(qkv: torch.Tensor, dt, heads: int, dim_head: int, scale: float) -> torch.Tensor:
+    """f32 qkv [B, N, 3·h·d] → f32 q_sm·gram [B, N, h·d], with the TPU
+    kernels' seams: q softmax with one max over the token's h·d columns and
+    per-head sums, ×scale; k softmax over N; q_sm, k_sm, v and the per-head
+    gram rounded to ``dt``; the product in f32, not rounded."""
+    B, N, _ = qkv.shape
     hd = heads * dim_head
     q, k, v = qkv.split(hd, dim=-1)
     qe = torch.exp(q - q.amax(dim=-1, keepdim=True)).reshape(B, N, heads, dim_head)
@@ -217,9 +256,7 @@ def _block_from_qkv(x, qkv, w_out, b_out, out_gamma, out_beta, heads, dim_head, 
     k_sm = torch.softmax(k, dim=1).to(dt).float().reshape(B, N, heads, dim_head)
     v = v.to(dt).float().reshape(B, N, heads, dim_head)
     gram = torch.einsum("bnhd,bnhe->bhde", k_sm, v).to(dt).float()
-    attn = torch.einsum("bnhd,bhde->bnhe", q_sm, gram).to(dt).float().reshape(B, N, hd)
-    y = attn @ w_out.to(dt).float() + b_out.float()
-    return (_gn1(y, out_gamma, out_beta, eps) + x.float()).to(dt)
+    return torch.einsum("bnhd,bhde->bnhe", q_sm, gram).reshape(B, N, hd)
 
 
 def attention_block_reference(
@@ -466,11 +503,12 @@ _BLOCK_TOKENS_PER_CTA = 128
 
 @dataclasses.dataclass(frozen=True)
 class LinattnBlockPlan:
-    """How the whole-block kernel (#2, #9, #10) lays one sample out: a
-    cluster of ``cluster`` CTAs, CTA r owning tokens [r·slab, (r+1)·slab);
-    ``smem_bytes`` of shared memory a CTA; ``resident``: the slab's h and f32
-    y stay in shared memory, else every stage reloads its x tiles and y is
-    computed twice."""
+    """How the whole-block kernel (#2, #9, #10, and in its core mode #3 and
+    #12) lays one sample out: a cluster of ``cluster`` CTAs, CTA r owning
+    tokens [r·slab, (r+1)·slab); ``smem_bytes`` of shared memory a CTA;
+    ``resident``: the slab's h (and, but in the core mode, f32 y) stay in
+    shared memory, else every stage reloads its x tiles and y is computed
+    twice."""
 
     cluster: int
     slab: int
@@ -478,7 +516,7 @@ class LinattnBlockPlan:
     resident: bool
 
 
-def _linattn_block_smem(C: int, slab: int, resident: bool, esize: int) -> int:
+def _linattn_block_smem(C: int, slab: int, resident: bool, esize: int, core: bool = False) -> int:
     """Shared memory of one CTA of the whole-block kernel: the mirror of
     ``block_layout`` in ``csrc/linear_attention.cu`` (the C entries refuse a
     plan whose bytes differ). Regions, each rounded up to 16 bytes: 512 of
@@ -486,26 +524,29 @@ def _linattn_block_smem(C: int, slab: int, resident: bool, esize: int) -> int:
     [4][32][40], the k_sm|v / q tile [64][264] (which also holds the slab's
     f32 partial gram between stages), the attention-output tile [64][136]
     (all in x's dtype), h ([slab rounded up to 64] or [64] rows of C rounded
-    up to 32, + 8) and, resident, f32 y [slab][C rounded up to 8]."""
+    up to 32, + 8) and, resident and not ``core``, f32 y [slab][C rounded up
+    to 8]."""
     def take(n: int) -> int:
         return (n + 15) // 16 * 16
 
     hs = -(-C // 32) * 32 + 8
     c8 = -(-C // 8) * 8
     rows_h = -(-slab // _BLOCK_TILE) * _BLOCK_TILE if resident else _BLOCK_TILE
-    rows_y = slab if resident else 0
+    rows_y = slab if resident and not core else 0
     return (take(512) + take(4 * 4 * 128) + take(4 * 32 * 40 * esize)
             + take(_BLOCK_TILE * 264 * esize) + take(_BLOCK_TILE * 136 * esize)
             + take(rows_h * hs * esize) + take(4 * rows_y * c8))
 
 
-def linattn_block_plan(N: int, C: int, dtype) -> LinattnBlockPlan:
+@functools.lru_cache(maxsize=None)  # a pure function of its arguments, asked for at every call
+def linattn_block_plan(N: int, C: int, dtype, core: bool = False) -> LinattnBlockPlan:
     """The whole-block kernel's launch plan for [·, N, C] tokens of ``dtype``
-    (bf16 or float32): ``min(8, ceil(N / 128))`` CTAs a sample, each owning
-    ``ceil(N / cluster)`` tokens; resident where that fits in one H100 CTA's
-    232,448 bytes, else the recompute form. Raises ``ValueError`` where even
-    the recompute form does not fit (C above 1280 in bf16, 384 in
-    float32): the wrappers never fall back."""
+    (bf16 or float32), in its core mode (#3, #12: no y kept) where ``core``:
+    ``min(8, ceil(N / 128))`` CTAs a sample, each owning ``ceil(N / cluster)``
+    tokens; resident where that fits in one H100 CTA's 232,448 bytes, else
+    the recompute form. Raises ``ValueError`` where even the recompute form
+    does not fit (C above 1280 in bf16, 384 in float32): the wrappers never
+    fall back."""
     if dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the whole-block linear-attention kernel takes float32 or bf16, got {dtype}")
     if N < 1 or C < 1:
@@ -514,7 +555,7 @@ def linattn_block_plan(N: int, C: int, dtype) -> LinattnBlockPlan:
     slab = -(-N // cluster)
     esize = 2 if dtype == torch.bfloat16 else 4
     for resident in (True, False):
-        smem = _linattn_block_smem(C, slab, resident, esize)
+        smem = _linattn_block_smem(C, slab, resident, esize, core)
         if smem <= _SMEM_LIMIT:
             return LinattnBlockPlan(cluster, slab, smem, resident)
     raise ValueError(
@@ -639,23 +680,47 @@ def linear_attention_block_v2_cuda(
     return out
 
 
+def _linattn_core_weights(w_qkv: torch.Tensor, dtype) -> torch.Tensor:
+    """The core mode's weight operand, kept per parameter version: W_qkv
+    [C, 384] in ``dtype``, in fragment order (zero rows up to C rounded to
+    32) in bf16, row major in float32."""
+
+    def make():
+        w = w_qkv.to(dtype)
+        return fragment_order(w) if dtype == torch.bfloat16 else w.contiguous()
+
+    return _derived.get(f"linattn_core:{dtype}", (w_qkv,), make)
+
+
+def _launch_core(what, h: torch.Tensor, w_qkv: torch.Tensor, B: int, N: int, C: int, scale: float):
+    """The qkv-fused core (#3, #12) on [B, N, C] token rows ``h`` (checked
+    by the caller): one launch of the whole-block kernel in its core mode,
+    one cluster a sample (``linattn_block_plan(..., core=True)``)."""
+    plan = linattn_block_plan(N, C, h.dtype, core=True)
+    if w_qkv.shape != (C, 384):
+        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} does not fit C={C}")
+    if h.data_ptr() % 16:
+        raise ValueError(f"{what} takes 16-byte aligned tokens, got {tuple(h.shape)} at {h.data_ptr():#x}")
+    wq = _linattn_core_weights(w_qkv, h.dtype)
+    out = torch.empty((B, N, 128), dtype=h.dtype, device=h.device)
+    _build.launch(
+        "linear_attention", "dmn_linattn_tokens",
+        [_VP] * 3 + [_CI] * 8 + [_CF, _VP],
+        h.data_ptr(), wq.data_ptr(), out.data_ptr(), B, N, C, int(h.dtype == torch.bfloat16),
+        *_plan_args(plan), scale, _stream(h),
+    )
+    return out
+
+
 def linear_attention_tokens_cuda(
     h: torch.Tensor, w_qkv: torch.Tensor, heads: int, dim_head: int, scale: float
 ) -> torch.Tensor:
-    """Launch the qkv-fused linear-attention kernel on bf16 [B, N, C]."""
-    B, N, C = _check_tokens(h, heads, dim_head, "linear_attention_tokens_cuda")
-    hd = heads * dim_head
-    if w_qkv.shape != (C, 3 * hd):
-        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} does not fit C={C}")
-    wq = _cast_weight(w_qkv, torch.bfloat16)
-    out = torch.empty((B, N, hd), dtype=torch.bfloat16, device=h.device)
-    scratch = _linattn_scratch(B, N, h.device)
-    _build.launch(
-        "linear_attention", "dmn_linattn_tokens",
-        [_VP] * 4 + [_CI, _CI, _CI, _CF, _VP],
-        h.data_ptr(), wq.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        B, N, C, scale, _stream(h),
-    )
+    """Launch the qkv-fused linear-attention kernel (TPU kernel #3) on bf16
+    [B, N, C]: one launch, one thread-block cluster a sample (the whole-block
+    kernel's core mode)."""
+    what = "linear_attention_tokens_cuda"
+    B, N, C = _check_tokens(h, heads, dim_head, what)
+    out = _launch_core(what, h, w_qkv, B, N, C, scale)
     LAUNCHES["linear_attention_tokens"] += 1
     return out
 
@@ -667,7 +732,9 @@ def linear_attention_v4_cuda(
     """Launch the qkv-fused linear attention on the lane-packed view (TPU
     kernel #12): float32 or bf16 x_packed [B, R, 128] holding [B, N, C]
     tokens row-major (R·128 = N·C, C divides 128) → [B, N, 128] in x's
-    dtype. The kernel reads the same bytes as token rows."""
+    dtype. The kernel is #3's (the core mode of the whole-block kernel) and
+    reads the same bytes as token rows; float32 runs its products on f32
+    FMAs."""
     what = "linear_attention_v4_cuda"
     if x_packed.ndim != 3 or x_packed.shape[-1] != 128:
         raise ValueError(f"{what} takes [B, R, 128] packed tokens, got {tuple(x_packed.shape)}")
@@ -676,21 +743,9 @@ def linear_attention_v4_cuda(
         raise ValueError(f"{what}: [B, {R}, {L}] does not hold {n_tokens} tokens of C | 128 channels")
     C = (R * L) // n_tokens
     _check_tokens(x_packed, heads, dim_head, what, _KERNEL_DTYPES)
-    hd = heads * dim_head
-    if w_qkv.shape != (C, 3 * hd):
-        raise ValueError(f"w_qkv {tuple(w_qkv.shape)} does not fit C={C}")
-    wq = w_qkv.to(x_packed.dtype).contiguous()
-    out = torch.empty((B, n_tokens, hd), dtype=x_packed.dtype, device=x_packed.device)
-    scratch = _linattn_scratch(B, n_tokens, x_packed.device)
-    _build.launch(
-        "linear_attention", "dmn_linattn_v4",
-        [_VP] * 4 + [_CI] * 4 + [_CF, _VP],
-        x_packed.data_ptr(), wq.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        B, n_tokens, C, int(x_packed.dtype == torch.bfloat16), scale, _stream(x_packed),
-    )
+    out = _launch_core(what, x_packed, w_qkv, B, n_tokens, C, scale)
     LAUNCHES["linear_attention_v4"] += 1
     return out
-
 
 
 def small_block_smem_bytes(N: int, C: int, heads: int = 4, dim_head: int = 32) -> int:

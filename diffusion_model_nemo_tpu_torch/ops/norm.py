@@ -17,6 +17,8 @@ plain version, as the JAX package's ``custom_vjp`` does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -31,6 +33,8 @@ __all__ = [
     "group_norm_silu_cuda",
     "group_norm_silu_film_cuda",
     "group_norm_silu_bm_cuda",
+    "group_norm_plan",
+    "GroupNormPlan",
     "use_norm_bm",
     "LAUNCHES",
 ]
@@ -131,18 +135,111 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# ------------------------------------------------------ kernel #1/#5's plan --
+_SMEM_LIMIT = 232448  # bytes of shared memory one H100 CTA may use
+_GN_THREADS = 256  # csrc/group_norm_silu.cu: THREADS
+_GN_MAX_CLUSTER = 8  # the portable cluster size
+_GN_SHARE_BYTES = 32 * 1024  # the most of a sample's slab one CTA takes: a cluster only above it
+_GN_KREG = 4  # 16-byte pieces a thread holds in the register form
+_GN_FORMS = ("twice", "shared", "registers")  # csrc/group_norm_silu.cu: Form
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupNormPlan:
+    """How kernel #1/#5 lays one sample's [HW, C] slab out: a cluster of
+    ``cluster`` CTAs, CTA r owning pixels [r·pixels, (r+1)·pixels);
+    ``vec``: 16-byte pieces (else one element a piece); ``smem_bytes`` of
+    shared memory a CTA; ``form``: where a CTA keeps its share between the
+    statistics and the output pass, ``"registers"`` (at most 4 pieces a
+    thread), ``"shared"`` (shared memory) or ``"twice"`` (nowhere: read
+    again, from L2)."""
+
+    cluster: int
+    pixels: int
+    vec: bool
+    smem_bytes: int
+    form: str
+
+
+def _group_norm_smem(C: int, pixels: int, form: str, esize: int, vec: bool) -> int:
+    """Shared memory of one CTA of kernel #1/#5: the mirror of ``gn_layout``
+    in ``csrc/group_norm_silu.cu`` (the C entry refuses a plan whose bytes
+    differ). The share of x (form ``"shared"``, rounded up to 16 bytes),
+    then f32 partials [2][rows][C] (rows = 256 / pieces a pixel, at least
+    1), the reduction [2][S][C] (S = 256 / C, at least 1), the per-channel
+    sums [2][C], γ, β and a per-sample FiLM [4][C] and the coefficients
+    [2][C], the whole rounded up to 16 bytes."""
+    pieces = C // (16 // esize) if vec else C
+    rows = max(1, _GN_THREADS // pieces)
+    S = max(1, _GN_THREADS // C)
+    share = -(-pixels * C * esize // 16) * 16 if form == "shared" else 0
+    return -(-(share + 4 * (2 * rows * C + 2 * S * C + 8 * C)) // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of its arguments, asked for at every call
+def group_norm_plan(HW: int, C: int, groups: int, dtype, vec: bool = True) -> GroupNormPlan:
+    """Kernel #1/#5's launch plan for a sample of [HW, C] in ``dtype`` (bf16
+    or float32): one CTA a sample up to a 32 KB slab, else a cluster of
+    ``min(8, HW, ceil(slab bytes / 32 KB))`` CTAs, each owning
+    ``ceil(HW / cluster)`` pixels (a cluster launch costs more than the SMs
+    it fills at these sizes); the share in registers where a thread holds at
+    most 4 of its 16-byte pieces, else in shared memory where it fits one
+    H100 CTA's 232,448 bytes with the reduction arrays, else read twice.
+    ``vec`` (16-byte pieces) needs C·itemsize % 16 == 0. Raises
+    ``ValueError`` only where even the per-channel arrays do not fit (C
+    above ~4,800)."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"the GroupNorm kernel takes float32 or bf16, got {dtype}")
+    if HW < 1 or C < 1 or groups < 1 or C % groups:
+        raise ValueError(f"the GroupNorm kernel needs HW, C >= 1 and groups dividing C, got "
+                         f"[HW={HW}, C={C}, groups={groups}]")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    vec = vec and (C * esize) % 16 == 0
+    cluster = min(_GN_MAX_CLUSTER, HW, max(1, -(-HW * C * esize // _GN_SHARE_BYTES)))
+    pixels = -(-HW // cluster)
+    cluster = -(-HW // pixels)
+    forms = ["shared", "twice"]
+    pieces = C * esize // 16
+    if vec and pieces <= _GN_THREADS and -(-pixels // (_GN_THREADS // pieces)) <= _GN_KREG:
+        forms.insert(0, "registers")
+    for form in forms:
+        smem = _group_norm_smem(C, pixels, form, esize, vec)
+        if smem <= _SMEM_LIMIT:
+            return GroupNormPlan(cluster, pixels, vec, smem, form)
+    raise ValueError(
+        f"the GroupNorm kernel at [HW={HW}, C={C}] {str(dtype).removeprefix('torch.')} needs {smem} B "
+        f"of shared memory a CTA for its per-channel arrays (> {_SMEM_LIMIT})"
+    )
+
+
+def _launch(x: torch.Tensor, gamma, beta, groups: int, eps: float, film) -> torch.Tensor:
+    """One launch of kernel #1/#5 on checked NHWC ``x``; ``film`` = (scale,
+    shift, scale strides (sample, pixel), shift strides, film dtype code),
+    or None."""
+    B, H, W, C = x.shape
+    out = torch.empty_like(x)
+    vec = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    plan = group_norm_plan(H * W, C, groups, x.dtype, vec)
+    if film is None:
+        film = (None, None, 0, 0, 0, 0, 0)
+    _build.launch(
+        "group_norm_silu", "dmn_group_norm_silu",
+        [_VP] * 5 + [_CL] * 4 + [_VP] + [_CI] * 4 + [_CF] + [_CI] * 7 + [_VP],
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *film[:6], out.data_ptr(),
+        B, H * W, C, groups, eps, _DTYPE_CODES[x.dtype], film[6], int(plan.vec), plan.cluster,
+        plan.pixels, _GN_FORMS.index(plan.form), plan.smem_bytes, _stream(x),
+    )
+    return out
+
+
 def group_norm_silu_cuda(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int, eps: float = 1e-5
 ) -> torch.Tensor:
-    """Launch kernel #1 (GroupNorm+SiLU) on NHWC ``x`` (bf16 or f32)."""
-    B, H, W, C = _check(x, gamma, beta, groups, "group_norm_silu_cuda")
-    out = torch.empty_like(x)
-    _build.launch(
-        "group_norm_silu", "dmn_group_norm_silu",
-        [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CF, _CI, _VP],
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        B, H * W, C, groups, eps, _DTYPE_CODES[x.dtype], _stream(x),
-    )
+    """Launch kernel #1 (GroupNorm+SiLU) on NHWC ``x`` (bf16 or f32): one
+    launch, a sample on one CTA or a thread-block cluster
+    (``group_norm_plan``)."""
+    _check(x, gamma, beta, groups, "group_norm_silu_cuda")
+    out = _launch(x, gamma, beta, groups, eps, None)
     LAUNCHES["group_norm_silu"] += 1
     return out
 
@@ -163,22 +260,17 @@ def group_norm_silu_film_cuda(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int, eps: float,
     scale: torch.Tensor, shift: torch.Tensor,
 ) -> torch.Tensor:
-    """Launch kernel #5 (GroupNorm+FiLM+SiLU) on NHWC ``x``; ``scale`` and
-    ``shift`` broadcast to x's shape ([B,1,1,C], [B,H,W,C], ...), float32 or
-    x's dtype, read in place where their strides allow."""
-    B, H, W, C = _check(x, gamma, beta, groups, "group_norm_silu_film_cuda")
+    """Launch kernel #5 (GroupNorm+FiLM+SiLU), #1's kernel with FiLM, on
+    NHWC ``x``; ``scale`` and ``shift`` broadcast to x's shape ([B,1,1,C],
+    [B,H,W,C], ...), float32 or x's dtype, read in place where their strides
+    allow (a per-sample FiLM is folded into the per-channel coefficients)."""
+    _check(x, gamma, beta, groups, "group_norm_silu_film_cuda")
     sc, sh = _film_view(scale, x, "scale"), _film_view(shift, x, "shift")
     if sc.dtype != sh.dtype:
         sh = sh.to(sc.dtype)
-    out = torch.empty_like(x)
-    _build.launch(
-        "group_norm_silu", "dmn_group_norm_silu_film",
-        [_VP] * 5 + [_CL] * 4 + [_VP] + [_CI] * 4 + [_CF, _CI, _CI, _VP],
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-        sc.stride(0), sc.stride(2), sh.stride(0), sh.stride(2), out.data_ptr(),
-        B, H * W, C, groups, eps, _DTYPE_CODES[x.dtype], int(sc.dtype == torch.bfloat16),
-        _stream(x),
-    )
+    film = (sc.data_ptr(), sh.data_ptr(), sc.stride(0), sc.stride(2), sh.stride(0), sh.stride(2),
+            int(sc.dtype == torch.bfloat16))
+    out = _launch(x, gamma, beta, groups, eps, film)
     LAUNCHES["group_norm_silu_film"] += 1
     return out
 

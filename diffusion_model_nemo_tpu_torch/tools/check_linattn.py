@@ -1,7 +1,7 @@
 """Short card check of the whole-block linear-attention kernels #2, #9 and
-#10 (``csrc/linear_attention.cu``: one launch, one thread-block cluster a
-sample), for the first chip call after an edit of that source or of
-``csrc/mma.cuh``:
+#10 and of its core mode, #3 and #12 (``csrc/linear_attention.cu``: one
+launch, one thread-block cluster a sample), for the first chip call after an
+edit of that source or of ``csrc/mma.cuh``:
 
     python -m diffusion_model_nemo_tpu_torch.tools.check_linattn
 
@@ -12,14 +12,21 @@ B=128 and the microbenchmark for #9, the microbenchmark for #10) and at the
 corners of the gates ([2,4096,32], [2,4096,128], [3,100,128] with a ragged
 last m16 tile, [2,64,128]): #2 against ``linear_attention_block_packed_reference``,
 #9 and #10 against ``linear_attention_block_v2_reference``, at rtol = atol =
-2e-2 in bf16 and 1e-4 for #10 in float32. Every call must run exactly one
-device kernel and repeat bit for bit, and the plan's shared-memory bytes must
-equal the source's own layout (``dmn_linattn_block_smem``). At the path shapes it times each
-kernel by torch.profiler device time and by CUDA events around calls queued
-behind a spin kernel (``profiling``), beside its bound and, summed over a
-path, the device time of the five-launch form that came before (``PERF.md``,
-kernel table). About a minute on one H100. Exits non-zero if a check fails. No CPU
-mode: a CPU tensor never reaches a kernel.
+2e-2 in bf16 and 1e-4 for #10 in float32. #3 runs at unet_small's
+[64,64,64] and at the corners of its gate ([2,4096,32], [2,4096,128],
+[2,4096,256] in the core's recompute form, [3,104,128], [2,64,128]), #12 at
+the microbenchmark's two shapes in bf16 and at one in float32, both against
+``linear_attention_tokens_fused_reference`` (the TPU kernel's seams), with
+a seam check in bf16 besides the tolerance: max |diff| at most one bf16
+step at the output's scale (2^-7 max |ref|), at most 2% of the elements
+differing. Every call must run exactly one device kernel and repeat bit for
+bit, and the plan's shared-memory bytes must equal the source's own layout
+(``dmn_linattn_block_smem``). At the path shapes it times each kernel by
+torch.profiler device time and by CUDA events around calls queued behind a
+spin kernel (``profiling``), beside its bound and, summed over a path, the
+device time of the form that came before (``PERF.md``, kernel table). About
+a minute on one H100. Exits non-zero if a check fails. No CPU mode: a CPU
+tensor never reaches a kernel.
 """
 
 from __future__ import annotations
@@ -40,21 +47,34 @@ KERNELS = {
     "linear_attention_block": ("linear_attention_block_cuda", "linear_attention_block_packed_reference"),
     "linear_attention_block_v1": ("linear_attention_block_v1_cuda", "linear_attention_block_v2_reference"),
     "linear_attention_block_v2": ("linear_attention_block_v2_cuda", "linear_attention_block_v2_reference"),
+    "linear_attention_tokens": ("linear_attention_tokens_cuda", "linear_attention_tokens_fused_reference"),
+    "linear_attention_v4": ("linear_attention_v4_cuda", "linear_attention_v4_fused_reference"),
 }
+CORE = ("linear_attention_tokens", "linear_attention_v4")  # the core mode, held to the seams too
+SEAM_DIFFER = 0.02
 TOOL_SHAPES = ((128, 1024, 32), (128, 256, 64))  # the microbenchmark's (#9 and #10)
 PATH_SHAPES = {  # [B, N, C] of each kernel's main path: one call each a pass
     "linear_attention_block": ((64, 1024, 32), (64, 256, 64), (64, 64, 128), (64, 256, 32)),
     "linear_attention_block_v1": ((128, 64, 64),),  # unet_small B=128 under its switch
     "linear_attention_block_v2": TOOL_SHAPES,
+    "linear_attention_tokens": ((64, 64, 64),),  # unet_small B=64
+    "linear_attention_v4": TOOL_SHAPES,
 }
 # The corners of the gates, and #9 at the microbenchmark's shapes.
 CORNER_SHAPES = ((2, 4096, 32), (2, 4096, 128), (3, 100, 128), (2, 64, 128))
-F32_SHAPES = ((128, 256, 64), (2, 4096, 32))  # #10 in float32: resident, then the recompute form
-# The five-launch form's device ms per main-path pass (PERF.md kernel table,
-# NVIDIA H100 80GB HBM3 at 700 W): #2 over its four unet_small calls, #9 over
-# one switched forward, #10 over the two microbenchmark shapes.
+CORE_CORNER_SHAPES = ((2, 4096, 32), (2, 4096, 128), (2, 4096, 256), (3, 104, 128), (2, 64, 128))
+F32_SHAPES = {  # float32: resident, then the recompute form (#10); #12 at one tool shape
+    "linear_attention_block_v2": ((128, 256, 64), (2, 4096, 32)),
+    "linear_attention_v4": ((128, 256, 64),),
+}
+# The form before each kernel's redesign, device ms per main-path pass
+# (PERF.md kernel table, NVIDIA H100 80GB HBM3 at 700 W): the five-launch
+# block for #2 over its four unet_small calls, #9 over one switched forward
+# and #10 over the two microbenchmark shapes; the three-launch core for #3 at
+# unet_small's one call and #12 over the two microbenchmark shapes.
 OLD_DEV_MS = {"linear_attention_block": 1.1876, "linear_attention_block_v1": 0.1824,
-              "linear_attention_block_v2": 1.7724}
+              "linear_attention_block_v2": 1.7724, "linear_attention_tokens": 0.0904,
+              "linear_attention_v4": 1.1011}
 
 
 def block_args(shape, dtype, gen, device="cuda"):
@@ -70,12 +90,25 @@ def block_args(shape, dtype, gen, device="cuda"):
             1.0 + randn(C, std=0.1), randn(C, std=0.1), HEADS, DIM_HEAD, DIM_HEAD**-0.5, 1e-5)
 
 
+def core_args(name: str, shape, dtype, gen, device="cuda"):
+    """Seeded inputs of one core call: h ~ N(0, 1) (normed tokens), W_qkv ~
+    N(0, 1/C); #12 takes h on its lane-packed view and N."""
+    B, N, C = shape
+    h = torch.randn(B, N, C, generator=gen, device=device).to(dtype)
+    w = torch.randn(C, 384, generator=gen, device=device) * C**-0.5
+    if name == "linear_attention_v4":
+        return h.reshape(B, N * C // 128, 128), w, N, HEADS, DIM_HEAD, DIM_HEAD**-0.5
+    return h, w, HEADS, DIM_HEAD, DIM_HEAD**-0.5
+
+
 def format_row(row: dict) -> str:
     """One checked call as a line: the hold, the launch count, the repeat,
     and where timed the device time, the queued-events time and the bound."""
     line = (f"[check] {row['kernel']} {list(row['shape'])} {row['dtype']} plan={row['plan']} "
             f"max_abs_err={row['max_abs_err']:.3e} ok={row['ok']} (rtol = atol = {row['tol']}) "
             f"kernels/call={row['kernels']} repeat_bitwise={row['repeat']} plan_bytes_mirrored={row['mirrored']}")
+    if "seam_step" in row:
+        line += f" | seam: max_abs_err <= {row['seam_step']:.3e} (one bf16 step), differ {row['differ']:.4f}"
     if "dev_us" in row:
         line += (f" | dev {row['dev_us']:.2f} us, queued {row['queued_us']:.2f} us, "
                  f"bound {row['bound_us']:.3f} us")
@@ -84,21 +117,27 @@ def format_row(row: dict) -> str:
 
 def check(name: str, shape, dtype, gen, timed: bool) -> dict:
     wrapper, plain = (getattr(A, attr) for attr in KERNELS[name])
-    args = block_args(shape, dtype, gen)
+    core = name in CORE
+    args = core_args(name, shape, dtype, gen) if core else block_args(shape, dtype, gen)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     out, ref = wrapper(*args), plain(*args)
     err = (out.float() - ref.float()).abs()
     ok = bool((err <= tol + tol * ref.float().abs()).all()) and bool(torch.isfinite(out.float()).all())
+    seam = {}
+    if core and dtype == torch.bfloat16:
+        seam = {"seam_step": 2.0**-7 * float(ref.float().abs().max()), "differ": float((err > 0).float().mean())}
+        ok &= float(err.max()) <= seam["seam_step"] and seam["differ"] <= SEAM_DIFFER
     launched = kernel_launches(lambda: wrapper(*args))
     one = len(launched) == 1 and "linattn_block_kernel" in launched[0]
     repeat = bool(torch.equal(wrapper(*args), out))
-    plan = A.linattn_block_plan(shape[1], shape[2], dtype)
-    smem_fn = _build.c_function("linear_attention", "dmn_linattn_block_smem", [ctypes.c_int] * 4, ctypes.c_long)
-    mirrored = smem_fn(shape[2], plan.slab, int(plan.resident), 2 if dtype == torch.bfloat16 else 4) == plan.smem_bytes
+    plan = A.linattn_block_plan(shape[1], shape[2], dtype, core=core)
+    smem_fn = _build.c_function("linear_attention", "dmn_linattn_block_smem", [ctypes.c_int] * 5, ctypes.c_long)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    mirrored = smem_fn(shape[2], plan.slab, int(plan.resident), esize, int(core)) == plan.smem_bytes
     row = {"kernel": name, "shape": shape, "dtype": str(dtype).removeprefix("torch."),
            "plan": f"{plan.cluster}x{plan.slab}{'' if plan.resident else ' recompute'} {plan.smem_bytes} B",
            "max_abs_err": float(err.max()), "ok": ok and one and repeat and mirrored, "tol": tol,
-           "kernels": len(launched) if one else launched, "repeat": repeat, "mirrored": mirrored}
+           "kernels": len(launched) if one else launched, "repeat": repeat, "mirrored": mirrored, **seam}
     if timed:
         row["dev_us"] = device_profile(lambda: wrapper(*args))[0] * 1e3
         row["queued_us"] = queued_us(lambda: wrapper(*args))
@@ -119,16 +158,17 @@ def main() -> int:
     ok = True
     for name in KERNELS:
         rows = [check(name, shape, torch.bfloat16, gen, True) for shape in PATH_SHAPES[name]]
-        untimed = CORNER_SHAPES + (TOOL_SHAPES if name == "linear_attention_block_v1" else ())
+        untimed = {"linear_attention_block_v1": CORNER_SHAPES + TOOL_SHAPES, "linear_attention_tokens":
+                   CORE_CORNER_SHAPES, "linear_attention_v4": ()}.get(name, CORNER_SHAPES)
         rows += [check(name, shape, torch.bfloat16, gen, False) for shape in untimed]
-        if name == "linear_attention_block_v2":
-            rows += [check(name, shape, torch.float32, gen, shape == F32_SHAPES[0]) for shape in F32_SHAPES]
+        f32 = F32_SHAPES.get(name, ())
+        rows += [check(name, shape, torch.float32, gen, shape == f32[0]) for shape in f32]
         ok &= all(r["ok"] for r in rows)
         path = [r for r in rows if r["dtype"] == "bfloat16" and "dev_us" in r]
         dev = sum(r["dev_us"] for r in path) / 1e3
         print(f"[time] {name} per main-path pass ({len(path)} calls): dev {dev:.4f} ms, queued "
               f"{sum(r['queued_us'] for r in path) / 1e3:.4f} ms, bound {sum(r['bound_us'] for r in path) / 1e3:.5f} "
-              f"ms; the five-launch form before it {OLD_DEV_MS[name]} ms (PERF.md kernel table)", flush=True)
+              f"ms; the form before its redesign {OLD_DEV_MS[name]} ms (PERF.md kernel table)", flush=True)
     print("all agree" if ok else "FAILED")
     return 0 if ok else 1
 

@@ -227,6 +227,144 @@ def test_group_norm_silu_batch_minor_matches_jax_kernel(shape):
     np.testing.assert_allclose(_np(ours_f), np.asarray(kernel_f, np.float32), atol=5e-2)
 
 
+# ------------------------------------------ kernels 1 and 5: the cluster plan --
+def _gn_shapes():
+    """(HW, C, groups, dtype, vec): the U-Net's GroupNorm sites and a grid
+    beyond them (odd pixel counts, C that takes element-wise pieces, wide C)."""
+    return [(H * W, C, 4 if C % 8 else 8, dt, vec)
+            for dt in (torch.bfloat16, torch.float32) for vec in (True, False)
+            for H, W in ((1, 1), (1, 3), (4, 4), (7, 5), (8, 8), (16, 16), (32, 32), (64, 64), (128, 128))
+            for C in (8, 12, 16, 24, 32, 36, 48, 64, 96, 128, 256, 512, 1024, 2048, 4096)]
+
+
+def test_group_norm_plan_covers_every_shape():
+    """For every shape, #1's plan gives each of a portable cluster's CTAs a
+    non-empty contiguous range of pixels, the ranges cover the sample once,
+    a CTA's shared memory fits one H100 CTA and equals the mirror of the
+    kernel's layout, 16-byte pieces are used only where a pixel's row is
+    whole pieces, the share sits in registers only where a thread holds at
+    most 4 of them, and it is read twice only where shared memory cannot
+    hold it."""
+    for HW, C, groups, dt, vec in _gn_shapes():
+        plan = TN.group_norm_plan(HW, C, groups, dt, vec)
+        esize = 2 if dt == torch.bfloat16 else 4
+        assert 1 <= plan.cluster <= min(8, HW), (HW, C, plan)
+        assert plan.cluster * plan.pixels >= HW > (plan.cluster - 1) * plan.pixels, (HW, C, plan)
+        assert plan.vec == (vec and (C * esize) % 16 == 0), (HW, C, plan)
+        assert plan.smem_bytes <= 232448 and plan.smem_bytes % 16 == 0, (HW, C, plan)
+        assert plan.smem_bytes == TN._group_norm_smem(C, plan.pixels, plan.form, esize, plan.vec)
+        pieces = C * esize // 16
+        threads, kreg = TN._GN_THREADS, TN._GN_KREG
+        in_regs = plan.vec and pieces <= threads and -(-plan.pixels // (threads // pieces)) <= kreg
+        assert (plan.form == "registers") == in_regs, (HW, C, plan)
+        fits = TN._group_norm_smem(C, plan.pixels, "shared", esize, plan.vec) <= 232448
+        assert (plan.form == "twice") == (not in_regs and not fits), (HW, C, plan)
+
+
+def test_group_norm_plan_keeps_a_sample_on_one_cta_up_to_32_kb():
+    """At unet_small's GroupNorm sites (B = 64) a sample is one CTA up to 32
+    KB (a cluster launch costs more than the SMs it fills at these sizes),
+    its share in registers where a thread holds at most 4 pieces; the 64 KB
+    [32,32,32] site takes a cluster of 2 with its shares in shared memory;
+    float32 [32,32,32] (128 KB) a cluster of 4; a 1 MB sample takes 8 CTAs
+    with 128 KB shares in shared memory; a 4 MB sample takes 8 CTAs and the
+    form that reads it twice."""
+    sites = {(32, 32, 32): (2, "shared"), (16, 16, 32): (1, "registers"), (16, 16, 64): (1, "shared"),
+             (8, 8, 64): (1, "registers"), (8, 8, 128): (1, "registers"), (4, 4, 128): (1, "registers"),
+             (4, 4, 256): (1, "registers")}
+    for (H, W, C), (cluster, form) in sites.items():
+        plan = TN.group_norm_plan(H * W, C, 8, torch.bfloat16)
+        assert (plan.cluster, plan.form) == (cluster, form) and plan.vec, ((H, W, C), plan)
+    f32 = TN.group_norm_plan(32 * 32, 32, 8, torch.float32)
+    assert f32.cluster == 4 and f32.form == "shared"
+    mid = TN.group_norm_plan(64 * 64, 128, 8, torch.bfloat16)
+    assert mid.cluster == 8 and mid.form == "shared"
+    big = TN.group_norm_plan(128 * 128, 128, 8, torch.bfloat16)
+    assert big.cluster == 8 and big.form == "twice" and big.pixels == 2048
+
+
+def test_group_norm_plan_mirrors_the_kernel_source():
+    """The plan's constants are the kernel's (csrc/group_norm_silu.cu):
+    threads a CTA, the portable cluster bound, the register form's pieces a
+    thread, the forms' codes and the shared-memory limit."""
+    import re
+
+    src = (_REPO / "diffusion_model_nemo_tpu_torch" / "csrc" / "group_norm_silu.cu").read_text()
+    const = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const["THREADS"] == TN._GN_THREADS == 256 and const["MAX_CLUSTER"] == TN._GN_MAX_CLUSTER == 8
+    assert const["KREG"] == TN._GN_KREG == 4
+    assert "constexpr size_t SMEM_LIMIT = 232448;" in src and TN._SMEM_LIMIT == 232448
+    forms = dict(re.findall(r"(TWICE|SHARED|REGISTERS) = (\d)", src))
+    assert [forms[k] for k in ("TWICE", "SHARED", "REGISTERS")] == ["0", "1", "2"]
+    assert TN._GN_FORMS == ("twice", "shared", "registers")
+
+
+@pytest.mark.parametrize("HW,C,groups,dtype,match", [
+    (64, 8192, 8, torch.bfloat16, "shared memory"),
+    (64, 6144, 8, torch.float32, "shared memory"),
+    (64, 30, 8, torch.bfloat16, "groups dividing C"),
+    (0, 32, 8, torch.bfloat16, "HW, C >= 1"),
+])
+def test_group_norm_plan_refuses_what_does_not_fit(HW, C, groups, dtype, match):
+    """The plan raises ValueError only where even the per-channel arrays do
+    not fit (C above ~4,800) or the shape is no GroupNorm; C = 4096 fits."""
+    with pytest.raises(ValueError, match=match):
+        TN.group_norm_plan(HW, C, groups, dtype)
+    assert TN.group_norm_plan(HW or 64, 4096, 8, dtype).smem_bytes <= 232448
+
+
+def _emulate_gn_kernel(x, gamma, beta, groups, eps, cluster, scale=None, shift=None):
+    """Pure-torch copy of kernel #1/#5's arithmetic (csrc/group_norm_silu.cu):
+    per-channel f32 sums over each CTA's range of pixels, the cluster's
+    added in rank order, then the C/G channels of each group (the kernel
+    adds those by a shuffle tree: another f32 order); a = rstd·γ,
+    b = β − mean·a; a per-sample FiLM folded into (a, b), a per-pixel one
+    applied per element; y = silu(x·a + b), cast once."""
+    B, H, W, C = x.shape
+    HW, cg = H * W, C // groups
+    xf = x.float().reshape(B, HW, C)
+    pixels = -(-HW // cluster)
+    s = ss = 0.0
+    for r in range(0, HW, pixels):  # rank order
+        s = s + xf[:, r : r + pixels].sum(1)
+        ss = ss + xf[:, r : r + pixels].square().sum(1)
+    gs, gss = s.reshape(B, groups, cg).sum(-1), ss.reshape(B, groups, cg).sum(-1)
+    mean = gs / (HW * cg)
+    rstd = torch.rsqrt(torch.clamp(gss / (HW * cg) - mean * mean, min=0.0) + eps)
+    a = rstd.repeat_interleave(cg, -1) * gamma
+    b = beta - mean.repeat_interleave(cg, -1) * a
+    per_pixel = scale is not None and scale.shape[1] * scale.shape[2] > 1
+    if scale is not None and not per_pixel:
+        s1 = scale.float().reshape(B, C) + 1.0
+        a, b = a * s1, b * s1 + shift.float().reshape(B, C)
+    y = xf * a[:, None] + b[:, None]
+    if per_pixel:
+        y = y * (scale.float().reshape(B, HW, C) + 1.0) + shift.float().reshape(B, HW, C)
+    return (y / (1.0 + torch.exp(-y))).to(x.dtype).reshape(B, H, W, C)
+
+
+@pytest.mark.parametrize("film", ["none", "per sample", "per pixel"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm_kernel_arithmetic_stays_inside_the_kernel_tolerance(film, dtype):
+    """Kernel #1/#5's arithmetic, emulated (folded coefficients, the cluster's
+    sums in rank order), against the plain version it is held to on the
+    card: within the kernel tolerance, 1e-4 in float32 and 2e-2 in bf16."""
+    B, H, W, C = 2, 16, 16, 64
+    rng = np.random.default_rng(22)
+    tdt = getattr(torch, dtype)
+    x = _t(rng.standard_normal((B, H, W, C)) * 2 + 0.5, tdt)
+    gamma, beta = (_t(1.0 + 0.1 * rng.standard_normal(C), torch.float32), _t(0.1 * rng.standard_normal(C), torch.float32))
+    film_args = ()
+    if film != "none":
+        fs = (B, 1, 1, C) if film == "per sample" else (B, H, W, C)
+        film_args = tuple(_t(0.5 * rng.standard_normal(fs), tdt) for _ in range(2))
+    plan = TN.group_norm_plan(H * W, C, 8, tdt)
+    ours = _emulate_gn_kernel(x, gamma, beta, 8, 1e-5, plan.cluster, *film_args)
+    ref = TN.group_norm_silu_reference(x, gamma, beta, 8, 1e-5, *film_args)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    _close(_np(ours), _np(ref), tol)
+
+
 # ------------------------------------------- kernel 2: packed linattn block --
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 256, 32), (2, 128, 64)])
@@ -265,6 +403,50 @@ def test_linear_attention_tokens_matches_jax(dtype):
         assert TA.use_linattn_tokens((B, N, C), torch.bfloat16, H, D)
         entry = TA.fused_linear_attention_tokens(_t(h, tdt), _t(w, torch.float32), H, D, SCALE)
         torch.testing.assert_close(entry, ours, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64), (2, 256, 32), (2, 1024, 32), (3, 128, 128)])
+def test_linear_attention_tokens_fused_reference_is_the_jax_kernels_function(shape):
+    """#3's seam-true plain version (what chip_smoke.py holds kernels #3 and
+    #12 against) against the JAX qkv-fused kernel in interpret mode, bf16
+    h ~ N(0, 1) and W ~ N(0, 1)/sqrt(C) from seed 4: within 2.5e-4 absolute
+    (outputs are under 0.1, where rtol = atol = 2e-2 would say nothing), at
+    most 1% of the elements differing, and a mean |diff| strictly below the
+    module composition's, which rounds qkv to bf16 before both softmaxes."""
+    B, N, C = shape
+    rng = np.random.default_rng(4)
+    h = _t(rng.standard_normal(shape), torch.bfloat16)
+    w = _t(rng.standard_normal((C, 3 * HD)) / np.sqrt(C), torch.bfloat16)
+    kernel = np.asarray(
+        JA._pallas_linattn_qkv_fused(_j(_np(h), jnp.bfloat16), _j(_np(w), jnp.bfloat16), H, D, SCALE,
+                                     interpret=True), np.float32)
+    ours = np.abs(_np(TA.linear_attention_tokens_fused_reference(h, w, H, D, SCALE)) - kernel)
+    composed = np.abs(_np(TA.linear_attention_tokens_reference(h, w, H, D, SCALE)) - kernel)
+    assert ours.max() <= 2.5e-4 and (ours > 0).mean() <= 0.01, (ours.max(), (ours > 0).mean())
+    assert ours.mean() < composed.mean()
+
+
+def test_chip_smoke_holds_kernels_3_and_12_against_the_seam_reference():
+    """chip_smoke.py holds kernel #3 against the TPU kernel's seams and #12
+    against the same function on its packed view; the entry point keeps the
+    module composition for the CPU and for the backward's recompute."""
+    import diffusion_model_nemo_tpu_torch as port
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_table", _REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    table = smoke.kernel_table(port)
+    assert table["linear_attention_tokens"][2] is TA.linear_attention_tokens_fused_reference
+    assert table["linear_attention_v4"][2] is TA.linear_attention_v4_fused_reference
+    assert set(smoke.SEAM) == {"linear_attention_tokens", "linear_attention_v4"}
+    rng = np.random.default_rng(8)
+    h = _t(rng.standard_normal((2, 64, 64)), torch.bfloat16)
+    w = _t(rng.standard_normal((64, 3 * HD)) * 0.125, torch.float32)
+    fused = TA.linear_attention_tokens_fused_reference(h, w, H, D, SCALE)
+    packed = TA.linear_attention_v4_fused_reference(h.reshape(2, 32, 128), w, 64, H, D, SCALE)
+    assert torch.equal(packed, fused) and fused.dtype == torch.bfloat16
+    torch.testing.assert_close(TA.fused_linear_attention_tokens(h, w, H, D, SCALE),
+                               TA.linear_attention_tokens_reference(h, w, H, D, SCALE), rtol=0, atol=0)
 
 
 # ---------------------------------------- kernel 4: small attention block --
@@ -372,26 +554,33 @@ def _admitted(gate):
                 if TA.use_packed_linattn_block((1, N, C), torch.bfloat16, H, D)]
     if gate == "v1":
         return [(N, C, torch.bfloat16) for N in range(64, 4097, 8) for C in range(1, 1025, 7)]
+    if gate == "tokens":  # #3's gate: any C (here 1 .. 1280, the most the core mode holds in bf16)
+        return [(N, C, torch.bfloat16) for N in range(64, 4097, 8) for C in range(1, 1281, 9)
+                if TA.use_linattn_tokens((1, N, C), torch.bfloat16, H, D)]
     from diffusion_model_nemo_tpu_torch.tools import microbench_attn as MA
+    from diffusion_model_nemo_tpu_torch.tools import microbench_attn_lanes as ML
 
-    return [(N, C, dt) for _B, N, C in MA.SHAPES for dt in (torch.bfloat16, torch.float32)]
+    tool = MA.SHAPES if gate == "microbench" else ML.SHAPES
+    return [(N, C, dt) for _B, N, C in tool for dt in (torch.bfloat16, torch.float32)]
 
 
-@pytest.mark.parametrize("gate", ["packed", "v1", "microbench"])
+@pytest.mark.parametrize("gate", ["packed", "v1", "microbench", "tokens", "lanes"])
 def test_linattn_block_plan_covers_every_admitted_shape(gate):
-    """For every shape a caller sends the whole-block kernel, the plan gives
-    each of the cluster's CTAs a non-empty contiguous slab, the slabs cover
-    all N tokens once, the cluster stays portable (at most 8 CTAs) and a
-    CTA's shared memory fits one H100 CTA's 232,448 bytes."""
+    """For every shape a caller sends the whole-block kernel (and, for #3's
+    gate and #12's microbenchmark, its core mode), the plan gives each of
+    the cluster's CTAs a non-empty contiguous slab, the slabs cover all N
+    tokens once, the cluster stays portable (at most 8 CTAs) and a CTA's
+    shared memory fits one H100 CTA's 232,448 bytes."""
     shapes = _admitted(gate)
+    core = gate in ("tokens", "lanes")
     assert shapes
     for N, C, dt in shapes:
-        plan = TA.linattn_block_plan(N, C, dt)
+        plan = TA.linattn_block_plan(N, C, dt, core=core)
         assert 1 <= plan.cluster <= 8 and plan.cluster == min(8, -(-N // 128)), (N, C, plan)
         assert plan.cluster * plan.slab >= N > (plan.cluster - 1) * plan.slab, (N, C, plan)
         assert plan.smem_bytes <= 232448, (N, C, plan)
         esize = 2 if dt == torch.bfloat16 else 4
-        assert plan.smem_bytes == TA._linattn_block_smem(C, plan.slab, plan.resident, esize)
+        assert plan.smem_bytes == TA._linattn_block_smem(C, plan.slab, plan.resident, esize, core)
 
 
 def test_linattn_block_plan_keeps_the_main_path_resident():
@@ -403,6 +592,20 @@ def test_linattn_block_plan_keeps_the_main_path_resident():
     assert TA.linattn_block_plan(1024, 32, torch.bfloat16).cluster == 8
     assert not TA.linattn_block_plan(4096, 128, torch.bfloat16).resident
     assert TA.linattn_block_plan(256, 64, torch.float32).resident
+
+
+def test_linattn_core_plan_keeps_no_y():
+    """The core mode (#3, #12) keeps h alone: unet_small's one #3 call is one
+    resident CTA a sample with room for two CTAs an SM; a slab too large to
+    keep (N = 4096 at C = 256) takes the recompute form; the core's bytes are
+    the block's without the f32 y."""
+    plan = TA.linattn_block_plan(64, 64, torch.bfloat16, core=True)
+    assert plan.cluster == 1 and plan.slab == 64 and plan.resident and plan.smem_bytes <= 232448 // 2 - 1024
+    assert TA.linattn_block_plan(4096, 128, torch.bfloat16, core=True).resident
+    assert not TA.linattn_block_plan(4096, 256, torch.bfloat16, core=True).resident
+    assert TA.linattn_block_plan(104, 128, torch.bfloat16, core=True).slab == 104
+    block, core = (TA._linattn_block_smem(64, 64, True, 2, c) for c in (False, True))
+    assert block - core == 4 * 64 * 64
 
 
 def test_linattn_block_plan_mirrors_the_kernel_source():
@@ -423,6 +626,15 @@ _REFUSED = [
     ("linear_attention_block_v2_cuda", (2, 64, 512), torch.float32, "shared memory"),
     ("linear_attention_block_v2_cuda", (2, 0, 32), torch.bfloat16, "N, C >= 1"),
 ]
+
+
+@pytest.mark.parametrize("N,C,dtype", [(64, 1312, torch.bfloat16), (64, 416, torch.float32)])
+def test_linattn_core_plan_refuses_what_does_not_fit(N, C, dtype):
+    """Past the core mode's shared memory (C above 1280 in bf16, 384 in
+    float32) the plan raises ValueError; there is no other route."""
+    with pytest.raises(ValueError, match="shared memory"):
+        TA.linattn_block_plan(N, C, dtype, core=True)
+    TA.linattn_block_plan(N, C - 32, dtype, core=True)
 
 
 @pytest.mark.parametrize("wrapper,shape,dtype,match", _REFUSED, ids=[f"{w}-{s}" for w, s, _d, _m in _REFUSED])
@@ -1260,8 +1472,9 @@ def test_derived_weights_come_back_at_the_same_version():
     c, d = _block_weights(ng, nb, wt.t()), _block_weights(ng, nb, wt.t())
     assert c[0] is d[0] and c[0] is not a[0] and torch.equal(c[0], a[0])
     assert torch.equal(_folded(a[0]), TA._fold(ng, nb, w)[0])
-    assert TA._cast_weight(w, torch.bfloat16) is TA._cast_weight(w, torch.bfloat16)
-    assert TA._cast_weight(w, torch.float32) is not TA._cast_weight(w, torch.bfloat16)
+    assert TA._linattn_core_weights(w, torch.bfloat16) is TA._linattn_core_weights(w, torch.bfloat16)
+    assert TA._linattn_core_weights(w, torch.float32) is not TA._linattn_core_weights(w, torch.bfloat16)
+    assert torch.equal(TA.fragment_order_inverse(TA._linattn_core_weights(w, torch.bfloat16))[:32], w.bfloat16())
 
 
 @pytest.mark.parametrize("how", ["add_", "foreach", "copy_", "load_state_dict", "view"])

@@ -164,22 +164,30 @@ class _FixedTimeModel:
         return torch.rand(batch_size, image_size, image_size, 3, generator=generator)
 
 
-def test_a_batch_is_answered_when_its_own_chain_ends():
-    """Two full-batch unseeded requests submitted together run as two
-    batches; the first is answered after one batch time, not after the
-    second batch's chain as well (under 1.5x one batch time)."""
+@pytest.mark.parametrize("second_delay_ms", [0, 50])
+def test_a_batch_is_answered_when_its_own_chain_ends(second_delay_ms):
+    """Two full-batch unseeded requests run as two batches, and the first
+    is answered when its own chain ends: at least 0.8 batch times before
+    the second, not together with it after both chains. Both submits are
+    released by one barrier, the second ``second_delay_ms`` later, and
+    every time is read against one common start taken before the barrier,
+    so the checks hold whatever the threads' start delays: the second
+    answer comes at least two batch times after that start."""
     batch_s = 0.5
     batcher = BatchingSampler(_FixedTimeModel(batch_s), IMG, max_batch=MAX_BATCH, linger_ms=1.0)
     batcher.start(warmup=False)
     try:
-        latencies, shapes = [], []
+        answered, shapes = [], []
+        barrier = threading.Barrier(2)
 
-        def request():
-            t0 = time.perf_counter()
+        def request(delay_s):
+            barrier.wait(timeout=60)
+            time.sleep(delay_s)
             shapes.append(batcher.submit(MAX_BATCH, timeout=60).shape)
-            latencies.append(time.perf_counter() - t0)
+            answered.append(time.perf_counter())
 
-        threads = [threading.Thread(target=request) for _ in range(2)]
+        threads = [threading.Thread(target=request, args=(d,)) for d in (0.0, second_delay_ms / 1e3)]
+        start = time.perf_counter()
         for th in threads:
             th.start()
         for th in threads:
@@ -189,9 +197,9 @@ def test_a_batch_is_answered_when_its_own_chain_ends():
         batcher.stop()
     assert shapes == [(MAX_BATCH, IMG, IMG, 3)] * 2
     assert batcher.snapshot_stats()["batches"] == 2
-    first, second = sorted(latencies)
-    assert first < 1.5 * batch_s, latencies
-    assert second >= 2 * batch_s, latencies
+    first, second = sorted(t - start for t in answered)
+    assert second - first >= 0.8 * batch_s, (first, second)
+    assert second >= 2 * batch_s, (first, second)
 
 
 def test_uint8_quantization_matches_the_jax_package():

@@ -180,16 +180,24 @@ def test_check_attention_needs_a_card_and_reads_ptxas_reports(tmp_path, monkeypa
 
 
 def test_check_conv_norm_needs_a_card(capsys):
-    """The card check of kernels #11 and #6 refuses to run without a CUDA
-    device (it never falls back to the plain versions), and its edge shapes
-    take both forms of the bf16 conv."""
+    """The card check of kernels #11, #6, #1 and #5 refuses to run without a
+    CUDA device (it never falls back to the plain versions), its edge shapes
+    take both forms of the bf16 conv, #1's sites are unet_small's 35 a
+    forward, and its corners take all three of #1's forms (a share in
+    registers, in shared memory, a slab read twice), the shared one also
+    with element-wise pieces."""
     from diffusion_model_nemo_tpu_torch.ops import conv as TC
+    from diffusion_model_nemo_tpu_torch.ops import norm as TN
     from diffusion_model_nemo_tpu_torch.tools import check_conv_norm as CCN
 
     assert CCN.main() == 2
     assert "no CUDA device" in capsys.readouterr().err
     routes = {TC.conv3x3_route(Fo) for _B, _H, _W, _C, Fo in CCN.CONV_EDGE_SHAPES}
     assert routes == {"mma", "wgmma"}
+    assert sum(CCN.GN_SITES.values()) == 35
+    plans = [TN.group_norm_plan(H * W, C, 8 if C % 8 == 0 else 4, dt)
+             for (_B, H, W, C), dt, _px in CCN.GN_CORNERS]
+    assert {(p.form, p.vec) for p in plans} >= {("registers", True), ("shared", True), ("shared", False), ("twice", True)}
 
 
 def test_ab_chip_needs_a_card_and_replaces_every_measurement(capsys):
@@ -249,11 +257,20 @@ def test_check_linattn_needs_a_card_and_formats_its_rows(capsys):
                     "plan_bytes_mirrored=True")
     timed = CL.format_row(dict(row, dev_us=70.25, queued_us=71.5, bound_us=3.257))
     assert timed == line + " | dev 70.25 us, queued 71.50 us, bound 3.257 us"
-    assert set(CL.KERNELS) == {"linear_attention_block", "linear_attention_block_v1", "linear_attention_block_v2"}
+    assert set(CL.KERNELS) == {"linear_attention_block", "linear_attention_block_v1", "linear_attention_block_v2",
+                               "linear_attention_tokens", "linear_attention_v4"}
     assert all(callable(getattr(TA, attr)) for pair in CL.KERNELS.values() for attr in pair)
-    for shapes in CL.PATH_SHAPES.values():
-        assert all(TA.linattn_block_plan(N, C, torch.bfloat16).resident for _B, N, C in shapes)
+    for name, shapes in CL.PATH_SHAPES.items():
+        core = name in CL.CORE
+        assert all(TA.linattn_block_plan(N, C, torch.bfloat16, core=core).resident for _B, N, C in shapes)
     assert not TA.linattn_block_plan(4096, 128, torch.bfloat16).resident  # a corner takes the other form
+    assert not all(TA.linattn_block_plan(N, C, torch.bfloat16, core=True).resident
+                   for _B, N, C in CL.CORE_CORNER_SHAPES)
+    seam = CL.format_row(dict(row, seam_step=7.0e-4, differ=0.0025))
+    assert seam == line + " | seam: max_abs_err <= 7.000e-04 (one bf16 step), differ 0.0025"
+    h, w, N = CL.core_args("linear_attention_v4", (2, 64, 32), torch.bfloat16, torch.Generator().manual_seed(0),
+                           "cpu")[:3]
+    assert h.shape == (2, 16, 128) and w.shape == (32, 384) and N == 64
     args = CL.block_args((2, 100, 40), torch.bfloat16, torch.Generator().manual_seed(0), "cpu")
     assert args[0].shape == (2, 100, 40) and args[0].dtype == torch.bfloat16
     assert args[3].shape == (40, 384) and args[4].shape == (128, 40) and args[8:] == (4, 32, 32**-0.5, 1e-5)
