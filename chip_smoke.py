@@ -36,18 +36,22 @@ Phases:
      (``linear_attention_block_packed_reference``, the TPU kernel's seams);
      #3 and #12 (the whole-block kernel's core mode) against theirs
      (``linear_attention_tokens_fused_reference``, through the packed view
-     for #12), with a seam check in bf16 besides the tolerance: max |diff|
+     for #12), and #8 (the whole-block kernel's raw mode) against its
+     own (``linear_attention_qkv_fused_reference``: f32 throughout, one
+     cast), with a seam check in bf16 besides the tolerance: max |diff|
      at most one bf16 step at the output's scale (2^-7 max |ref|) and at
      most 2% of the elements differing. #2, #9 and #10 are also held at the
      corners of their gates ([2,4096,32], [2,4096,128] in the recompute
      form, [3,100,128] ragged, [2,64,128]; #10 also in float32 at
      [2,4096,32]), #3 at [2,4096,32], [2,4096,128], [2,4096,256] (the
-     core's recompute form), [3,104,128] ragged and [2,64,128], #12 at the
+     core's recompute form), [3,104,128] ragged and [2,64,128], #8 in both
+     dtypes at [2,4096,384] (a cluster of 16, reloading its tiles),
+     [3,104,384] ragged and [2,64,384], #12 at the
      microbenchmark's shapes, #1 and #5 in float32 at [64,32,32,32], at
      B = 1, at bf16 [1,64,64,128] (a cluster's shares in shared memory), at
      bf16 [1,128,128,128] (a slab beyond a cluster's shared memory: read
      twice) and at C = 48. These log their device time by
-     kernel name. A #1, #2, #3, #5, #6, #9, #10 or #12 call must run
+     kernel name. A #1, #2, #3, #5, #6, #8, #9, #10 or #12 call must run
      exactly one kernel (no copy or memset) and repeat bit for bit.
   3. One U-Net forward at B=64 per bf16 configuration and one DiT-S/2
      forward with the kernels, against the same forward with every kernel
@@ -92,7 +96,8 @@ Phases:
      [4096|8192|32768, 128]), their lines logged as ``[tool]``; every
      kernel's launches equal the calls the tools made; #10-#13 held against
      their plain versions at every shape the tools give them (bf16 2e-2),
-     #10-#12 also in float32 at one shape (1e-4), #13 bit for bit, and timed
+     #10-#12 also in float32 at one shape (1e-4), #13 bit for bit (also in
+     float32 at [4096,128] and at a ragged [1000,96] in bf16), and timed
      as in phase 2, and #9 at the two shapes microbench_attn gives it; #11's
      sum over the six conv shapes against cuDNN's; ``conv3x3_tap_split`` under ``DMN_TPU_TAP_SPLIT_CONV=1``
      launches #11 once forward and nothing backward, its gradients against
@@ -164,9 +169,12 @@ FILM_KERNELS = ("group_norm_silu_film", "group_norm_silu_bm")
 TOOL_KERNELS = ("linear_attention_block_v2", "conv3x3", "linear_attention_v4", "transpose2d")
 TOOL_REPS, TOOL_ROUNDS = 10, 3  # the tools' timing in phase 7 (their CLI defaults: 50, 5)
 EXACT = ("transpose2d",)  # moves bits: held bit for bit
-# The tool shape (recorded call key) at which #10-#12 are also held in float32.
+# The tool shape (recorded call key) at which #10-#13 are also held in float32.
 TOOL_F32_KEYS = {"linear_attention_block_v2": (128, 256, 64), "linear_attention_v4": (128, 128, 128),
-                 "conv3x3": (128, 16, 16, 32, 32)}
+                 "conv3x3": (128, 16, 16, 32, 32), "transpose2d": (4096, 128)}
+# #13 also at a shape whose rows are not a multiple of its 128-row tile and
+# whose columns are not a whole column tile, in bf16.
+TRANSPOSE_RAGGED = (1000, 96)
 
 
 def log(msg: str) -> None:
@@ -183,21 +191,21 @@ def card_line() -> str:
 
 # Kernel names of this repository's CUDA sources, as the profiler reports them.
 HAND_KERNELS = (
-    "gn_silu_kernel", "linattn_block_kernel", "merge_kernel",
-    "attn_block_small_kernel", "qkv_kv_kernel", "qkv_apply_kernel",
+    "gn_silu_kernel", "linattn_block_kernel", "attn_block_small_kernel",
     "attn_wgmma_kernel", "attn_mma_kernel", "attn_f32_kernel", "gn_bm_kernel",
     "conv3x3_mma_kernel", "conv3x3_wgmma_kernel", "conv3x3_f32_kernel", "transpose2d_kernel",
 )
 # Kernels a call of which must run exactly this one device kernel (no
 # transpose, copy or memset), and repeat bit for bit (redesigned in this
-# form: #6 as one launch, #2, #9, #10, #3 and #12 as one cluster launch, #1
-# and #5 as one launch, a sample on a CTA or a cluster).
+# form: #6 as one launch, #2, #9, #10, #3, #12 and #8 as one cluster launch,
+# #1 and #5 as one launch, a sample on a CTA or a cluster).
 ONE_LAUNCH = {"group_norm_silu": "gn_silu_kernel", "group_norm_silu_film": "gn_silu_kernel",
               "group_norm_silu_bm": "gn_bm_kernel", "linear_attention_block": "linattn_block_kernel",
               "linear_attention_block_v1": "linattn_block_kernel",
               "linear_attention_block_v2": "linattn_block_kernel",
               "linear_attention_tokens": "linattn_block_kernel",
-              "linear_attention_v4": "linattn_block_kernel"}
+              "linear_attention_v4": "linattn_block_kernel",
+              "linear_attention_qkv": "linattn_block_kernel"}
 # Kernels whose device time is also logged by kernel name at every checked
 # shape: those above, and #11 (on the tensor cores).
 BY_NAME = ("conv3x3",) + tuple(ONE_LAUNCH)
@@ -205,7 +213,7 @@ BY_NAME = ("conv3x3",) + tuple(ONE_LAUNCH)
 # |diff| within one bf16 step at the output's scale (2^-7 max |ref|), at most
 # SEAM_DIFFER of the elements differing (rtol = atol = 2e-2 says nothing at
 # outputs under 0.1).
-SEAM = ("linear_attention_tokens", "linear_attention_v4")
+SEAM = ("linear_attention_tokens", "linear_attention_v4", "linear_attention_qkv")
 SEAM_DIFFER = 0.02
 
 
@@ -243,8 +251,8 @@ def kernel_table(port):
             "diffusion_model_nemo_tpu_torch/csrc/attention_block_small.cu",
             "diffusion_model_nemo_tpu/ops/attention.py:1103",
         ),
-        "linear_attention_qkv": (
-            A, "linear_attention_qkv_cuda", A.linear_attention_qkv_reference,
+        "linear_attention_qkv": (  # the TPU kernel's own seams: f32 throughout, one cast
+            A, "linear_attention_qkv_cuda", A.linear_attention_qkv_fused_reference,
             "diffusion_model_nemo_tpu_torch/csrc/linear_attention.cu",
             "diffusion_model_nemo_tpu/ops/attention.py:194",
         ),
@@ -562,6 +570,10 @@ CORE_EXTRA = {
     "linear_attention_tokens": ((2, 4096, 32), (2, 4096, 128), (2, 4096, 256), (3, 104, 128), (2, 64, 128)),
     "linear_attention_v4": _TOOL_SHAPES,
 }
+# #8 (the raw mode) at the corners of its gate (64 <= N <= 4096, N % 8 ==
+# 0), in both dtypes: N = 4096 on a cluster of 16 in the reload form, a
+# ragged N (N % 16 != 0), one CTA a sample.
+QKV_EXTRA = ((2, 4096, 384), (3, 104, 384), (2, 64, 384))
 # #1 and #5 beyond the U-Net's sites: float32, B = 1, a cluster holding its
 # shares in shared memory (bf16 [1,64,64,128]), a slab beyond a cluster's
 # shared memory (bf16 [1,128,128,128], 4 MB: read twice), C = 48.
@@ -572,8 +584,8 @@ NORM_EXTRA = (((64, 32, 32, 32), "f32"), ((1, 32, 32, 32), "bf16"), ((1, 64, 64,
 def extra_calls(device):
     """Kernel checks at shapes no network of the smoke sends: #7 in bf16 with
     k and v cut from one [B, N, 3, h, d] qkv tensor as the DiT cuts them,
-    #4 at the ends and the middle of its gate, #2, #9 and #10 at the corners
-    of theirs. Seeded inputs."""
+    #4 at the ends and the middle of its gate, #2, #9, #10, #3 and #8 at the
+    corners of theirs. Seeded inputs."""
     import torch
 
     from diffusion_model_nemo_tpu_torch.tools.check_linattn import block_args
@@ -605,6 +617,8 @@ def extra_calls(device):
                 h = h.reshape(Bn, Nn * C // 128, 128)
             block[name][(Bn, Nn, C)] = [1, (h, w) + ((Nn,) if name == "linear_attention_v4" else ())
                                         + (4, 32, 32**-0.5)]
+    block["linear_attention_qkv"] = {(*shape, dt): [1, (randn(*shape).to(dtypes[dt]), 4, 32, 32**-0.5)]
+                                     for shape in QKV_EXTRA for dt in dtypes}
     norm = {"group_norm_silu": {}, "group_norm_silu_film": {}}
     for (Bn, H, W, C), dt in NORM_EXTRA:
         x = randn(Bn, H, W, C).to(dtypes[dt])
@@ -1130,14 +1144,17 @@ def check_tools(port):
     assert all(r["exact"] for r in rows if r["arm"] == "transpose"), "kernel #13 is not bit for bit"
     assert all(r["us"] > 0 for r in rows), rows
     # One call per shape the tools gave each kernel (one pass over the tool
-    # shapes), and #10-#12 in float32 at one shape each.
+    # shapes), #10-#13 in float32 at one shape each, and #13 at a ragged shape.
     # #9 is also held (against v2's seams) at the shapes microbench_attn gives it.
     per_shape = {name: {k: [1, args] for k, (_c, args) in calls[name].items()}
                  for name in TOOL_KERNELS + ("linear_attention_block_v1",)}
     assert len(per_shape["linear_attention_block_v1"]) == 2, per_shape["linear_attention_block_v1"].keys()
     f32 = {name: {key: [1, tuple(copy_arg(a, torch.float32) for a in per_shape[name][key][1])]}
            for name, key in TOOL_F32_KEYS.items()}
-    checked = check_kernels(port, {"tools": per_shape, "tools_f32": f32})
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ragged = torch.randn(*TRANSPOSE_RAGGED, generator=gen, device="cuda").to(torch.bfloat16)
+    checked = check_kernels(port, {"tools": per_shape, "tools_f32": f32,
+                                   "tools_ragged": {"transpose2d": {TRANSPOSE_RAGGED: [1, (ragged,)]}}})
     per_pass = {name: len(per_shape[name]) for name in TOOL_KERNELS}
     tool_sums = {k: sum(r["us"] for r in rows if r["tool"] == "microbench_conv" and r["arm"] == arm)
                  for k, arm in (("kernel", "conv3x3"), ("cudnn", "cudnn"))}

@@ -91,18 +91,41 @@
 //   y = att W_out + b_out, the out-norm and the residual in f32, cast once.
 //   Padded tokens (N not a multiple of 16) enter no max, sum or gram.
 //
-// The attention core on a raw qkv tensor (#8) streams 32-token tiles through
-// three launches with f32 CUDA-core FMAs and a scratch round trip:
-//   1. kv    (grid chunks x B): each block loads k and v for its 128-token
-//      chunk, keeps an online column max and sum for k's softmax over N, and
-//      accumulates the 4 per-head 32 x 32 grams, relative to the chunk max.
-//   2. merge (grid heads x B): combines the chunks' (max, sum, gram) into the
-//      softmax-normalised gram, rounded to bf16 in the bf16 instantiation.
-//   3. apply (grid tiles x B): loads q, takes its per-head softmax,
-//      multiplies by the gram and writes [N, 128].
-// Its stages are templated on the token dtype T and round with
-// dmn::round_to<T>, the identity for float: #8 stays f32 in float32 and
-// rounds only in its bf16 instantiation.
+// The attention core on a raw qkv tensor (#8): the RAW mode of the same
+// kernel, one launch, one cluster a sample: ceil(N / 128) CTAs up to N =
+// 256, else min(16, ceil(N / 64)) (above 8 a non-portable cluster size,
+// which the H100 takes).
+//   What bounds it on the H100: bytes. At the float32 U-Net's five calls (B =
+//   64; N = 1024, 256, 256, 64, 64) it reads qkv and writes the output, ~0.22
+//   GB (~65 us at 3.35 TB/s), against ~1.7 GFLOP of f32 FMAs (~26 us at 67
+//   TFLOP/s). Its old form took three launches and a global scratch round trip
+//   (~9x the bound).
+//   Design: stages 2-4 of the core mode with q, k and v loaded, not
+//   projected. CTA r loads its slab's k, v and q rows (16-byte cp.async
+//   pieces, each row padded by 16 bytes, three commit groups in that order),
+//   so that the statistics start when k has landed while v and q are still
+//   in flight, and qkv is read from device memory once ("resident": up to
+//   128 tokens a CTA, ~206 KB in float32, a CTA an SM; a 64-token slab is
+//   ~105 KB and two CTAs share an SM, one loading while the other computes:
+//   faster where the sample is large enough for clusters of 8-16).
+//   Otherwise each stage reloads its 64-token tiles (k twice: statistics,
+//   then the gram; the second read comes from L2).
+//   Stages: (2) k's column max and sum over the slab, merged over the
+//   cluster in rank order; (3) k_sm = exp(k - M) / S computed once per
+//   element into an f32 buffer, then the slab's per-head gram k_sm^T v,
+//   reduce-scattered over the cluster in rank order and gathered; (4) q's
+//   softmax over each head (one max over the token's 128 columns, as the TPU
+//   kernel takes it) into an f32 buffer, transposed, then q_sm . gram. Both
+//   products keep a register block a thread (4 x 8 of the gram, 4 tokens x 8
+//   channels of the output), so that each 16-byte shared-memory load feeds
+//   16 to 32 FMAs: with a value a load, as a thread-per-(token, head) form
+//   has it, the products were bound by shared-memory loads and instruction
+//   issue, not by the FMAs, and more warps a CTA did not help.
+//   Arithmetic is f32 in both dtypes, on f32 FMAs: the TPU kernel converts q,
+//   k and v to f32, keeps q_sm, k_sm and the masked gram in f32 and casts the
+//   output once (a bf16 mma would round q_sm and k_sm where it does not). bf16
+//   changes how tokens are loaded and stored, and adds an f32 buffer for k_sm
+//   and q_sm (float32 writes them over k's own rows).
 
 #include <cooperative_groups.h>
 
@@ -118,212 +141,9 @@ constexpr int HEADS = 4;
 constexpr int DH = 32;            // dim_head
 constexpr int HD = HEADS * DH;    // 128
 constexpr int QKV = 3 * HD;       // 384
-constexpr int TN = 32;            // tokens per tile
-constexpr int CHUNK = 128;        // tokens per kv block
 constexpr int THREADS = 256;
-constexpr int GRAM = HEADS * DH * DH;  // 4096
-constexpr int ACC = GRAM / THREADS;    // 16 gram entries per thread
-
-struct Scratch {
-  float* mpart;  // [B][K][HD]    chunk column max of k
-  float* spart;  // [B][K][HD]    chunk column sum of exp(k - max)
-  float* gpart;  // [B][K][GRAM]  chunk grams, relative to the chunk max
-  float* gram;   // [B][GRAM]     merged, softmax-normalised gram
-};
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// Scratch layout of the attention core, in floats; shared by the launchers
-// and the Python wrapper.
-inline size_t scratch_layout(int B, int N, Scratch* s, float* base) {
-  const int K = ceil_div(N, CHUNK);
-  size_t off = 0;
-  auto take = [&](size_t n) {
-    float* p = base ? base + off : nullptr;
-    off += (n + 3) & ~size_t(3);  // keep 16-byte alignment
-    return p;
-  };
-  float* mpart = take(size_t(B) * K * HD);
-  float* spart = take(size_t(B) * K * HD);
-  float* gpart = take(size_t(B) * K * GRAM);
-  float* gram = take(size_t(B) * GRAM);
-  if (s) *s = Scratch{mpart, spart, gpart, gram};
-  return off;
-}
-
-// Online column max and sum of k's softmax over N, and the per-head gram
-// update, for one tile of `rows` tokens in kv[rows][2*HD] (k then v, f32);
-// k is replaced by exp(k - max). The caller synchronised after filling kv.
-__device__ __forceinline__ void kv_tile_update(float* kv, int rows, float* rescale, float* mrun,
-                                               float* srun, float (&acc)[ACC]) {
-  if (threadIdx.x < HD) {  // one thread per k column: online max and sum
-    const int j = threadIdx.x;
-    float m = mrun[j];
-    for (int r = 0; r < rows; ++r) m = fmaxf(m, kv[r * 2 * HD + j]);
-    const float f = __expf(mrun[j] - m);  // 0 on the first tile
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float e = __expf(kv[r * 2 * HD + j] - m);
-      kv[r * 2 * HD + j] = e;
-      s += e;
-    }
-    srun[j] = srun[j] * f + s;
-    mrun[j] = m;
-    rescale[j] = f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) {
-    const int idx = threadIdx.x + a * THREADS;
-    const int hh = idx >> 10, i = (idx >> 5) & 31, jj = idx & 31;
-    const int ck = hh * DH + i, cv = HD + hh * DH + jj;
-    float g = acc[a] * rescale[ck];
-    for (int r = 0; r < rows; ++r) g += kv[r * 2 * HD + ck] * kv[r * 2 * HD + cv];
-    acc[a] = g;
-  }
-}
-
-__device__ __forceinline__ void kv_init(float* mrun, float* srun, float (&acc)[ACC]) {
-  if (threadIdx.x < HD) {
-    mrun[threadIdx.x] = -INFINITY;
-    srun[threadIdx.x] = 0.f;
-  }
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
-}
-
-// Chunk k of sample b: its column max, sum and gram, for the merge.
-__device__ __forceinline__ void kv_store(const Scratch& sc, int b, int k, int K,
-                                         const float* mrun, const float* srun,
-                                         const float (&acc)[ACC]) {
-  const size_t bk = size_t(b) * K + k;
-  if (threadIdx.x < HD) {
-    sc.mpart[bk * HD + threadIdx.x] = mrun[threadIdx.x];
-    sc.spart[bk * HD + threadIdx.x] = srun[threadIdx.x];
-  }
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) sc.gpart[bk * GRAM + threadIdx.x + a * THREADS] = acc[a];
-}
-
-// 1. k and v columns loaded from the raw qkv tensor, online softmax statistics
-// of k, chunk grams.
-// Dynamic shared memory: kv[TN*2*HD] + scale[HD] + m[HD] + s[HD].
-template <typename T>
-__global__ void qkv_kv_kernel(const T* __restrict__ qkv, Scratch sc, int N) {
-  extern __shared__ float smem[];
-  float* kv = smem;
-  float* rescale = kv + TN * 2 * HD;
-  float* mrun = rescale + HD;
-  float* srun = mrun + HD;
-
-  const int k = blockIdx.x, b = blockIdx.y, K = gridDim.x;
-  float acc[ACC];
-  kv_init(mrun, srun, acc);
-  const int c_end = min(N, (k + 1) * CHUNK);
-  for (int n0 = k * CHUNK; n0 < c_end; n0 += TN) {
-    const int rows = min(TN, c_end - n0);
-    __syncthreads();  // previous tile's kv fully consumed
-    const T* src = qkv + (size_t(b) * N + n0) * QKV + HD;
-    for (int i = threadIdx.x; i < rows * 2 * HD; i += blockDim.x)
-      kv[i] = dmn::to_f32(src[size_t(i / (2 * HD)) * QKV + i % (2 * HD)]);
-    __syncthreads();
-    kv_tile_update(kv, rows, rescale, mrun, srun, acc);
-  }
-  __syncthreads();
-  kv_store(sc, b, k, K, mrun, srun, acc);
-}
-
-// 2. merge the chunks: gram = sum_k G_k e^{m_k - M} / sum_k S_k e^{m_k - M},
-// rounded to bf16 where `round_bf16`.
-__global__ void merge_kernel(Scratch sc, int K, int round_bf16) {
-  const int hh = blockIdx.x, b = blockIdx.y;
-  for (int e = threadIdx.x; e < DH * DH; e += blockDim.x) {
-    const int i = e >> 5;
-    const int ck = hh * DH + i;
-    float M = -INFINITY;
-    for (int k = 0; k < K; ++k) M = fmaxf(M, sc.mpart[(size_t(b) * K + k) * HD + ck]);
-    float S = 0.f, G = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const size_t bk = size_t(b) * K + k;
-      const float f = __expf(sc.mpart[bk * HD + ck] - M);
-      S += sc.spart[bk * HD + ck] * f;
-      G += sc.gpart[bk * GRAM + hh * DH * DH + e] * f;
-    }
-    const float g = G / S;
-    sc.gram[size_t(b) * GRAM + hh * DH * DH + e] = round_bf16 ? dmn::bf16_round(g) : g;
-  }
-}
-
-// Per-head softmax over d of the q tile q[rows][HD], times scale, rounded to
-// bf16 where `round_bf16`. The caller synchronised after filling q.
-__device__ __forceinline__ void q_softmax(float* q, int rows, float scale, bool round_bf16) {
-  for (int p = threadIdx.x; p < rows * HEADS; p += blockDim.x) {
-    float* qh = q + (p / HEADS) * HD + (p % HEADS) * DH;
-    float m = -INFINITY;
-    for (int d = 0; d < DH; ++d) m = fmaxf(m, qh[d]);
-    float s = 0.f;
-    for (int d = 0; d < DH; ++d) {
-      const float e = __expf(qh[d] - m);
-      qh[d] = e;
-      s += e;
-    }
-    const float inv = scale / s;
-    for (int d = 0; d < DH; ++d) qh[d] = round_bf16 ? dmn::bf16_round(qh[d] * inv) : qh[d] * inv;
-  }
-}
-
-// Element i = r * HD + j of q_sm . gram (within j's head).
-__device__ __forceinline__ float q_gram(const float* q, const float* gram, int i) {
-  const int r = i / HD, j = i % HD;
-  const int hh = j / DH, jj = j % DH;
-  const float* qh = q + r * HD + hh * DH;
-  const float* gh = gram + hh * DH * DH + jj;
-  float a = 0.f;
-  for (int d = 0; d < DH; ++d) a += qh[d] * gh[d * DH];
-  return a;
-}
-
-// 3. q columns loaded from the raw qkv tensor, per-head softmax over d,
-// q . gram -> out [B][N][HD] in T. Dynamic shared memory: q[TN*HD] + gram[GRAM].
-template <typename T>
-__global__ void qkv_apply_kernel(const T* __restrict__ qkv, T* __restrict__ out, Scratch sc,
-                                 int N, float scale) {
-  extern __shared__ float smem[];
-  float* q = smem;
-  float* gram = q + TN * HD;
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int n0 = t * TN, rows = min(TN, N - n0);
-  const T* src = qkv + (size_t(b) * N + n0) * QKV;
-  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x)
-    q[i] = dmn::to_f32(src[size_t(i / HD) * QKV + i % HD]);
-  for (int i = threadIdx.x; i < GRAM; i += blockDim.x) gram[i] = sc.gram[size_t(b) * GRAM + i];
-  __syncthreads();
-  q_softmax(q, rows, scale, dmn::is_bf16<T>());
-  __syncthreads();
-  T* dst = out + (size_t(b) * N + n0) * HD;
-  for (int i = threadIdx.x; i < rows * HD; i += blockDim.x)
-    dst[i] = dmn::from_f32<T>(q_gram(q, gram, i));
-}
-
-constexpr size_t QKV_KV_SMEM = sizeof(float) * (TN * 2 * HD + 3 * HD);
-constexpr size_t QKV_APPLY_SMEM = sizeof(float) * (TN * HD + GRAM);
-
-template <typename T>
-int linattn_qkv(const void* qkv, void* out, void* scratch, int B, int N, float scale,
-                cudaStream_t stream) {
-  Scratch sc;
-  scratch_layout(B, N, &sc, static_cast<float*>(scratch));
-  const int nt = ceil_div(N, TN), K = ceil_div(N, CHUNK);
-  const auto* src = static_cast<const T*>(qkv);
-  cudaError_t err = dmn::set_smem((const void*)qkv_kv_kernel<T>, QKV_KV_SMEM);
-  if (err == cudaSuccess) err = dmn::set_smem((const void*)qkv_apply_kernel<T>, QKV_APPLY_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  qkv_kv_kernel<T><<<dim3(K, B), THREADS, QKV_KV_SMEM, stream>>>(src, sc, N);
-  merge_kernel<<<dim3(HEADS, B), THREADS, 0, stream>>>(sc, K, dmn::is_bf16<T>());
-  qkv_apply_kernel<T><<<dim3(nt, B), THREADS, QKV_APPLY_SMEM, stream>>>(
-      src, static_cast<T*>(out), sc, N, scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ------------------------------------------------ the whole block (#2, #9, #10) --
 constexpr int TILE = 64;          // tokens per tile
@@ -536,11 +356,11 @@ __device__ __forceinline__ float2 cluster_sum2(float a, float b, float* red, flo
   return r;
 }
 
-// One cluster of `cluster` CTAs per sample: see the note at the top. FOLD:
+// The stages of the block and the core modes: see the note at the top. FOLD:
 // the prenorm affine is folded into W_qkv and bqkv (#2); CORE: no prenorm,
 // no bias, att is the output (#3, #12); neither: the affine applied (#9, #10).
 template <typename T, bool FOLD, bool CORE>
-__global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockArgs p) {
+__device__ __forceinline__ void block_stages(const BlockArgs& p) {
   static_assert(!(FOLD && CORE), "the core has no prenorm to fold");
   extern __shared__ float4 block_smem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(block_smem);
@@ -1041,21 +861,411 @@ __global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockAr
   cluster.sync();  // no CTA leaves while another may still read its shared memory
 }
 
+// ------------------------------------------------ the raw-qkv core (#8) --
+constexpr int RAW_TILE = 64;                  // tokens of a reloaded tile
+constexpr int RAW_MAX_CLUSTER = 16;           // the H100's largest (non-portable) cluster
+constexpr int ROW_GROUPS = THREADS / HD;      // stage 2: a k column's rows split two ways
+constexpr int FRS = HD + 4;                   // f32 k_sm row (floats)
+// The raw mode's f32 grams: a head's 32 rows of DH + 4 floats, the heads
+// GHS floats apart, so that the rows' 16-byte pieces spread over the bank
+// groups.
+constexpr int GRS = DH + 4;
+constexpr int GHS = DH * GRS + 4;
+constexpr int RAW_GRAM_BYTES = HEADS * GHS * 4;
+
+// Byte offsets of the raw mode's shared memory; ops/attention.py:
+// _linattn_raw_smem is its mirror. k, v and q rows of `rows` tokens (the
+// slab rounded up to 64, or one 64-token tile), padded by 16 bytes; f32
+// k_sm [rows][FRS] and then q_sm transposed [HD][rows + 4] live in k's
+// region in float32 and in region f in bf16; the slab's partial gram takes
+// k's place, the sample's gram v's.
+struct RawLayout {
+  size_t colst, groups, k, v, q, f, total;
+  int rs, rows;
+};
+
+__host__ __device__ inline RawLayout raw_layout(int slab, int resident, int esize) {
+  auto most = [](size_t a, size_t b) { return a > b ? a : b; };
+  RawLayout L;
+  L.rs = HD + 16 / esize;
+  L.rows = resident ? ceil_div(slab, TILE) * TILE : RAW_TILE;
+  const size_t tokens = size_t(L.rows) * L.rs * esize;
+  const size_t f32 = most(size_t(L.rows) * FRS * 4, size_t(HD) * (L.rows + 4) * 4);
+  size_t off = 0;
+  auto take = [&](size_t n) {
+    const size_t at = off;
+    off += (n + 15) & ~size_t(15);
+    return at;
+  };
+  L.colst = take(sizeof(float) * 4 * HD);
+  L.groups = take(sizeof(float) * (ROW_GROUPS - 1) * 2 * HD);
+  L.k = take(most(most(tokens, RAW_GRAM_BYTES), esize == 4 ? f32 : 0));
+  L.v = take(most(tokens, RAW_GRAM_BYTES));
+  L.q = take(tokens);
+  L.f = take(esize == 4 ? 0 : f32);
+  L.total = off;
+  return L;
+}
+
+// M consecutive elements from shared memory as f32, 16 bytes a load.
+template <typename T, int M>
+__device__ __forceinline__ void load_row(float (&f)[M], const T* s) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int u = 0; u < M / V; ++u) {
+    const uint4 w = *reinterpret_cast<const uint4*>(s + u * V);
+    const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+    for (int j = 0; j < V; ++j) f[u * V + j] = dmn::to_f32(e[j]);
+  }
+}
+
+// M consecutive elements stored in T, 16 bytes a store.
+template <typename T, int M>
+__device__ __forceinline__ void store_row(T* d, const float (&f)[M]) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int u = 0; u < M / V; ++u) {
+    T v[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = dmn::from_f32<T>(f[u * V + j]);
+    *reinterpret_cast<uint4*>(d + u * V) = *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// The RAW mode (#8): stages 2-4 on q, k and v loaded from qkv [B, N, 384]
+// rows, f32 arithmetic, the output cast once; see the note at the top.
+template <typename T>
+__device__ __forceinline__ void raw_stages(const BlockArgs& p) {
+  extern __shared__ float4 block_smem[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(block_smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = p.cluster, rank = int(cluster.block_rank());
+  const int b = blockIdx.x / cs, N = p.N;
+  const int n0 = rank * p.slab, rows = min(p.slab, N - n0);
+  const RawLayout L = raw_layout(p.slab, p.resident, sizeof(T));
+  float* colm = reinterpret_cast<float*>(smem + L.colst);  // this slab's k column max
+  float* cols = colm + HD;                                 // ... and sum of exp(k - max)
+  float* colM = cols + HD;                                 // the sample's
+  float* colR = colM + HD;                                 // 1 / the sample's sum
+  float* groups = reinterpret_cast<float*>(smem + L.groups);  // row group 1's max and sum; stage 4's head maxes
+  T* kb = reinterpret_cast<T*>(smem + L.k);
+  T* vb = reinterpret_cast<T*>(smem + L.v);
+  T* qb = reinterpret_cast<T*>(smem + L.q);
+  float* fb = reinterpret_cast<float*>(smem + (dmn::is_bf16<T>() ? L.f : L.k));  // k_sm, then q_sm^T
+  float* gpart = reinterpret_cast<float*>(smem + L.k);  // the slab's gram, once k is read
+  float* gram = reinterpret_cast<float*>(smem + L.v);   // the sample's, once v is read
+  const int RS = L.rs, TS = L.rows + 4, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T* __restrict__ src = static_cast<const T*>(p.x) + (size_t(b) * N + n0) * QKV;
+  T* __restrict__ dst = static_cast<T*>(p.out) + (size_t(b) * N + n0) * HD;
+  constexpr int V = 16 / sizeof(T), PR = HD / V;  // 16-byte pieces of a row's q, k or v
+
+  // Slab rows t0 .. t0 + nr - 1 of columns [col, col + HD) into buf; one commit group.
+  auto fetch = [&](T* buf, int col, int t0, int nr) {
+    for (int i = threadIdx.x; i < nr * PR; i += THREADS) {
+      const int r = i / PR, c = (i % PR) * V;
+      dmn::cp_async16(dmn::smem_u32(buf + r * RS + c), src + size_t(t0 + r) * QKV + col + c, true);
+    }
+    dmn::cp_async_commit();
+  };
+
+  // 2. k's column max and sum of exp(k - max) over the slab, online over
+  // tiles: column c2, the rows of parity grp.
+  const int c2 = threadIdx.x & (HD - 1), grp = threadIdx.x >> 7;
+  float m = -INFINITY, s = 0.f;
+  auto stats = [&](const T* kt, int nr) {
+    float tm = -INFINITY;
+#pragma unroll 8
+    for (int r = grp; r < nr; r += ROW_GROUPS) tm = fmaxf(tm, dmn::to_f32(kt[r * RS + c2]));
+    if (tm > m) {  // exp(-inf) = 0 on the first tile
+      s *= __expf(m - tm);
+      m = tm;
+    }
+#pragma unroll 8
+    for (int r = grp; r < nr; r += ROW_GROUPS) s += __expf(dmn::to_f32(kt[r * RS + c2]) - m);
+  };
+  if (p.resident) {  // every piece in flight at once: k, then v, then q
+    fetch(kb, HD, 0, rows);
+    fetch(vb, 2 * HD, 0, rows);
+    fetch(qb, 0, 0, rows);
+    dmn::cp_async_wait<2>();
+    __syncthreads();
+    stats(kb, rows);
+  } else {
+    for (int t0 = 0; t0 < rows; t0 += RAW_TILE) {
+      const int nr = min(RAW_TILE, rows - t0);
+      __syncthreads();
+      fetch(kb, HD, t0, nr);
+      dmn::cp_async_wait<0>();
+      __syncthreads();
+      stats(kb, nr);
+    }
+  }
+  if (grp) {
+    groups[c2] = m;
+    groups[HD + c2] = s;
+  }
+  __syncthreads();
+  if (!grp) {  // row 0 is even: m is finite; m1 is -inf only for a one-token slab
+    const float m1 = groups[c2], s1 = groups[HD + c2], M = fmaxf(m, m1);
+    colm[c2] = M;
+    cols[c2] = s * __expf(m - M) + s1 * __expf(m1 - M);
+  }
+  if (cs == 1) {  // the slab is the sample: the merge below would give these bits
+    __syncthreads();
+    if (threadIdx.x < HD) {
+      colM[threadIdx.x] = colm[threadIdx.x];
+      colR[threadIdx.x] = 1.f / cols[threadIdx.x];
+    }
+  } else {
+    cluster.sync();
+    if (threadIdx.x < HD) {  // the sample's M and 1 / S, ranks in order
+      const int j = threadIdx.x;
+      float mq[RAW_MAX_CLUSTER], sq[RAW_MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < RAW_MAX_CLUSTER; ++q)
+        if (q < cs) {
+          mq[q] = cluster.map_shared_rank(colm, q)[j];
+          sq[q] = cluster.map_shared_rank(cols, q)[j];
+        }
+      float M = -INFINITY, S = 0.f;
+#pragma unroll
+      for (int q = 0; q < RAW_MAX_CLUSTER; ++q)
+        if (q < cs) M = fmaxf(M, mq[q]);
+#pragma unroll
+      for (int q = 0; q < RAW_MAX_CLUSTER; ++q)
+        if (q < cs) S += sq[q] * __expf(mq[q] - M);
+      colM[j] = M;
+      colR[j] = 1.f / S;
+    }
+  }
+  __syncthreads();
+
+  // 3. k_sm = exp(k - M) / S in f32 (a reciprocal where the TPU kernel
+  // divides: one f32 rounding apart), each element once, into fb; then the
+  // slab's gram k_sm^T v: warp w takes head w % 4 and the rows of parity
+  // w / 4, lane (ib, jb) k channels 4 ib .. 4 ib + 3 against v channels 8 jb
+  // .. 8 jb + 7 (32 FMAs a 16-byte k piece and two v pieces); the two row
+  // halves added after (into the sample's gram itself on a one-CTA cluster).
+  {
+    const float Mc = colM[c2], Rc = colR[c2];
+    auto k_softmax = [&](const T* kt, int nr) {
+#pragma unroll 4
+      for (int r = grp; r < nr; r += ROW_GROUPS) fb[r * FRS + c2] = __expf(dmn::to_f32(kt[r * RS + c2]) - Mc) * Rc;
+    };
+    const int hr = warp >> 2, hh = warp & (HEADS - 1), ib = lane >> 2, jb = lane & 3;
+    float g[4][8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) g[a][j] = 0.f;
+    auto gram_rows = [&](const T* vt, int nr) {
+#pragma unroll 2
+      for (int r = hr; r < nr; r += 2) {
+        const float4 k4 = *reinterpret_cast<const float4*>(fb + r * FRS + hh * DH + 4 * ib);
+        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+        float vv[8];
+        load_row<T, 8>(vv, vt + r * RS + hh * DH + 8 * jb);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) g[a][j] += kk[a] * vv[j];
+      }
+    };
+    if (p.resident) {
+      dmn::cp_async_wait<1>();
+      __syncthreads();
+      k_softmax(kb, rows);
+      __syncthreads();
+      gram_rows(vb, rows);
+    } else {
+      for (int t0 = 0; t0 < rows; t0 += RAW_TILE) {
+        const int nr = min(RAW_TILE, rows - t0);
+        __syncthreads();
+        fetch(kb, HD, t0, nr);
+        fetch(vb, 2 * HD, t0, nr);
+        dmn::cp_async_wait<0>();
+        __syncthreads();
+        k_softmax(kb, nr);
+        __syncthreads();
+        gram_rows(vb, nr);
+      }
+    }
+    __syncthreads();  // every k_sm and v read: the grams take their place
+    float* part = (cs == 1 ? gram : gpart) + hh * GHS + 4 * ib * GRS + 8 * jb;
+    if (hr) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          *reinterpret_cast<float4*>(part + a * GRS + 4 * u) =
+              make_float4(g[a][4 * u], g[a][4 * u + 1], g[a][4 * u + 2], g[a][4 * u + 3]);
+    }
+    __syncthreads();
+    if (!hr) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float4* e = reinterpret_cast<float4*>(part + a * GRS + 4 * u);
+          const float4 o = *e;
+          *e = make_float4(g[a][4 * u] + o.x, g[a][4 * u + 1] + o.y, g[a][4 * u + 2] + o.z, g[a][4 * u + 3] + o.w);
+        }
+    }
+  }
+  if (cs > 1) {
+    // Gram row rho (head rho / 32, k channel rho % 32) is added up by rank
+    // rho % cs, four columns a thread, the ranks' partials in rank order;
+    // the others then copy the row from it.
+    auto grow = [](int rho) { return (rho >> 5) * GHS + (rho & (DH - 1)) * GRS; };
+    cluster.sync();
+    const int owned = ceil_div(HEADS * DH - rank, cs);
+    for (int i = threadIdx.x; i < owned * (DH / 4); i += THREADS) {
+      const int rho = rank + (i >> 3) * cs, at = grow(rho) + (i & 7) * 4;
+      float4 part[RAW_MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < RAW_MAX_CLUSTER; ++q)
+        if (q < cs) part[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(gpart, q) + at);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < RAW_MAX_CLUSTER; ++q)
+        if (q < cs) {
+          v.x += part[q].x;
+          v.y += part[q].y;
+          v.z += part[q].z;
+          v.w += part[q].w;
+        }
+      *reinterpret_cast<float4*>(gram + at) = v;
+    }
+    cluster.sync();  // every partial read: k's region is free again
+    for (int i = threadIdx.x; i < HEADS * DH * (DH / 4); i += THREADS) {
+      const int rho = i >> 3, owner = rho % cs;
+      if (owner == rank) continue;
+      float4* d = reinterpret_cast<float4*>(gram + grow(rho) + (i & 7) * 4);
+      *d = *cluster.map_shared_rank(d, owner);
+    }
+  }
+
+  // 4. q's softmax over each head, with one max over the token's 128
+  // columns as the TPU kernel takes it, times scale, written transposed
+  // (q_sm^T [HD][TS] in fb; warp w: head w % 4, a token a lane); then
+  // att = q_sm . gram, f32, cast once: lane (tb, jb) of warp w, head w / 2,
+  // takes tokens 4 tb .. 4 tb + 3 against v channels 8 jb .. 8 jb + 7 (32
+  // FMAs a 16-byte q piece and two gram pieces), 64 tokens a pass. The
+  // rows are staged in q's region and written whole, 16 bytes a thread:
+  // written from the register blocks, each store would fill half a sector
+  // of eight rows, and the stores took longer than the FMAs.
+  auto q_softmax = [&](const T* qt, int nr) {
+    const int hq = warp & (HEADS - 1);
+    for (int p0 = 0; p0 < nr; p0 += 64) {
+      const int tl = (warp >> 2) * 32 + lane, t = p0 + tl;
+      float q[DH];
+      if (t < nr) {
+        load_row<T, DH>(q, qt + t * RS + hq * DH);
+      } else {
+#pragma unroll
+        for (int d = 0; d < DH; ++d) q[d] = 0.f;
+      }
+      float mx = q[0];
+#pragma unroll
+      for (int d = 1; d < DH; ++d) mx = fmaxf(mx, q[d]);
+      __syncthreads();  // the last pass's head maxes are read
+      groups[tl * HEADS + hq] = mx;
+      __syncthreads();
+      const float4 m4 = *reinterpret_cast<const float4*>(groups + tl * HEADS);
+      mx = fmaxf(fmaxf(m4.x, m4.y), fmaxf(m4.z, m4.w));
+      float hs = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) hs += (q[d] = __expf(q[d] - mx));
+      const float inv = p.scale / hs;
+      if (t < nr) {
+#pragma unroll
+        for (int d = 0; d < DH; ++d) fb[(hq * DH + d) * TS + t] = q[d] * inv;
+      }
+    }
+  };
+  auto attend = [&](int t0, int nr) {
+    const int hp = warp >> 1, jb = lane & 3;
+    const float* gh = gram + hp * GHS + 8 * jb;
+    for (int tb = ((warp & 1) << 3) + (lane >> 2); 4 * tb < nr; tb += 16) {
+      float acc[4][8];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[t][j] = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < DH; ++i) {
+        const float4 qa = *reinterpret_cast<const float4*>(fb + (hp * DH + i) * TS + 4 * tb);
+        const float4 ga = *reinterpret_cast<const float4*>(gh + i * GRS);
+        const float4 gc = *reinterpret_cast<const float4*>(gh + i * GRS + 4);
+        const float qq[4] = {qa.x, qa.y, qa.z, qa.w};
+        const float gg[8] = {ga.x, ga.y, ga.z, ga.w, gc.x, gc.y, gc.z, gc.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[t][j] += qq[t] * gg[j];
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) store_row<T, 8>(qb + (4 * tb + t) * RS + hp * DH + 8 * jb, acc[t]);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nr * PR; i += THREADS) {
+      const int r = i / PR, c = (i % PR) * V;
+      *reinterpret_cast<uint4*>(dst + size_t(t0 + r) * HD + c) = *reinterpret_cast<const uint4*>(qb + r * RS + c);
+    }
+  };
+  if (p.resident) {
+    dmn::cp_async_wait<0>();
+    __syncthreads();
+    q_softmax(qb, rows);
+    __syncthreads();
+    attend(0, rows);
+  } else {
+    for (int t0 = 0; t0 < rows; t0 += RAW_TILE) {
+      const int nr = min(RAW_TILE, rows - t0);
+      __syncthreads();
+      fetch(qb, 0, t0, nr);
+      dmn::cp_async_wait<0>();
+      __syncthreads();
+      q_softmax(qb, nr);
+      __syncthreads();
+      attend(t0, nr);
+    }
+  }
+  cluster.sync();  // no CTA leaves while another may still read its shared memory
+}
+
+// One cluster of `cluster` CTAs per sample (see the note at the top); RAW:
+// the attention core on a raw qkv tensor (#8).
+template <typename T, bool FOLD, bool CORE, bool RAW = false>
+__global__ void __launch_bounds__(THREADS, 2) linattn_block_kernel(const BlockArgs p) {
+  if constexpr (RAW)
+    raw_stages<T>(p);
+  else
+    block_stages<T, FOLD, CORE>(p);
+}
+
 // The launch plan the wrapper computed, checked against this file's layout.
-bool plan_ok(int B, int N, int C, int cluster, int slab, int resident, int smem, int esize, int core) {
-  if (B < 1 || N < 1 || C < 1 || cluster < 1 || cluster > MAX_CLUSTER || slab < 1) return false;
+// mode: 0 the block, 1 the core, 2 the raw-qkv core (C = 384).
+bool plan_ok(int B, int N, int C, int cluster, int slab, int resident, int smem, int esize, int mode) {
+  if (B < 1 || N < 1 || C < 1 || cluster < 1 || cluster > (mode == 2 ? RAW_MAX_CLUSTER : MAX_CLUSTER) || slab < 1)
+    return false;
   if (size_t(cluster) * slab < size_t(N) || size_t(cluster - 1) * slab >= size_t(N)) return false;
   if (size_t(B) * cluster > 0x7fffffff) return false;
-  const size_t total = block_layout(C, slab, resident, esize, core).total;
+  if (mode == 2 && C != QKV) return false;
+  const size_t total = mode == 2 ? raw_layout(slab, resident, esize).total
+                                 : block_layout(C, slab, resident, esize, mode).total;
   return total == size_t(smem) && total <= SMEM_LIMIT;
 }
 
-template <typename T, bool FOLD, bool CORE = false>
+template <typename T, bool FOLD, bool CORE = false, bool RAW = false>
 int launch_block(const BlockArgs& p, int B, int smem, cudaStream_t stream) {
-  if (!plan_ok(B, p.N, p.C, p.cluster, p.slab, p.resident, smem, sizeof(T), CORE))
+  if (!plan_ok(B, p.N, p.C, p.cluster, p.slab, p.resident, smem, sizeof(T), RAW ? 2 : int(CORE)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = linattn_block_kernel<T, FOLD, CORE>;
+  auto kernel = linattn_block_kernel<T, FOLD, CORE, RAW>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && p.cluster > MAX_CLUSTER)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(unsigned(B) * p.cluster);
@@ -1090,16 +1300,12 @@ int block_unfolded(const void* x, const void* ng, const void* nb, const void* wq
 
 DMN_DEFINE_ERROR_STRING(dmn_linattn)
 
-// Floats of scratch the raw-qkv launcher (#8) needs.
-DMN_EXPORT long dmn_linattn_scratch_floats(int B, int N) {
-  return static_cast<long>(scratch_layout(B, N, nullptr, nullptr));
-}
-
 // Shared-memory bytes of the whole-block kernel for a plan (the wrapper's
 // linattn_block_plan computes the same; element size 2 for bf16, 4 for f32;
-// `core` for the CORE mode).
-DMN_EXPORT long dmn_linattn_block_smem(int C, int slab, int resident, int esize, int core) {
-  return static_cast<long>(block_layout(C, slab, resident, esize, core).total);
+// mode 0 the block, 1 the core, 2 the raw-qkv core).
+DMN_EXPORT long dmn_linattn_block_smem(int C, int slab, int resident, int esize, int mode) {
+  if (mode == 2) return static_cast<long>(raw_layout(slab, resident, esize).total);
+  return static_cast<long>(block_layout(C, slab, resident, esize, mode).total);
 }
 
 // Whole block (#2), one launch: x [B,N,C] bf16 (16-byte aligned) -> out
@@ -1156,11 +1362,15 @@ DMN_EXPORT int dmn_linattn_tokens(const void* h, const void* wqkv, void* out, in
   return launch_block<float, false, true>(p, B, smem, stream);
 }
 
-// Attention core on a raw qkv tensor: qkv [B,N,384] (f32, or bf16 where
-// `bf16`) -> out [B,N,128] in the same dtype.
-DMN_EXPORT int dmn_linattn_qkv(const void* qkv, void* out, void* scratch, int B, int N, int bf16,
-                               float scale, void* stream_) {
+// Attention core on a raw qkv tensor (#8), one launch: qkv [B,N,384] (f32,
+// or bf16 where `bf16`; 16-byte aligned) -> out [B,N,128] in the same dtype.
+// The plan (cluster, slab, resident, smem) is linattn_block_plan's in its
+// raw mode.
+DMN_EXPORT int dmn_linattn_qkv(const void* qkv, void* out, int B, int N, int bf16, int cluster,
+                               int slab, int resident, int smem, float scale, void* stream_) {
+  const BlockArgs p{qkv, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    out, N, QKV, cluster, slab, resident, scale, 0.f};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (bf16) return linattn_qkv<__nv_bfloat16>(qkv, out, scratch, B, N, scale, stream);
-  return linattn_qkv<float>(qkv, out, scratch, B, N, scale, stream);
+  if (bf16) return launch_block<__nv_bfloat16, false, false, true>(p, B, smem, stream);
+  return launch_block<float, false, false, true>(p, B, smem, stream);
 }

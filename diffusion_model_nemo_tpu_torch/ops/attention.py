@@ -30,6 +30,7 @@ __all__ = [
     "attention_reference",
     "linear_attention_reference",
     "linear_attention_qkv_reference",
+    "linear_attention_qkv_fused_reference",
     "linear_attention_tokens_reference",
     "linear_attention_tokens_fused_reference",
     "linear_attention_block_reference",
@@ -129,6 +130,20 @@ def linear_attention_qkv_reference(
     k = torch.softmax(k.float(), dim=1)
     out = linear_attention_reference(q.to(qkv.dtype), k.to(qkv.dtype), v)
     return out.reshape(B, N, hd)
+
+
+def linear_attention_qkv_fused_reference(
+    qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+) -> torch.Tensor:
+    """The raw-qkv core with TPU kernel #8's seams (``_linattn_kernel``): q, k
+    and v taken in f32; q softmax over each head with one max over the
+    token's h·d columns, ×scale; k softmax over N; the per-head gram kᵀ_sm·v
+    and q_sm·gram in f32, cast to qkv's dtype once. What kernel #8 is held
+    against on the card. The module composition
+    (``linear_attention_qkv_reference``) rounds q_sm, k_sm and the context to
+    bf16: at outputs under 0.1 about a third of its elements sit one bf16
+    step from the kernel's function. In float32 the two are the same math."""
+    return _attend(qkv.float(), torch.float32, heads, dim_head, scale).to(qkv.dtype)
 
 
 def linear_attention_tokens_reference(
@@ -349,7 +364,8 @@ def fused_linear_attention_qkv(
     qkv: torch.Tensor, heads: int, dim_head: int, scale: float
 ) -> torch.Tensor:
     """Raw qkv [B, N, 3·h·d] → [B, N, h·d] (the float32 U-Net's route at
-    N ≥ 64, and any dtype the caller sends)."""
+    N ≥ 64, and any dtype the caller sends). The CPU and the backward's
+    recompute take the module composition, as the JAX ``_linattn_bwd`` does."""
     if _use_linattn_qkv_kernel(qkv.shape, heads, dim_head):
         return kernel_call(
             linear_attention_qkv_cuda, linear_attention_qkv_reference, qkv, heads, dim_head, scale
@@ -489,26 +505,27 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _linattn_scratch(B: int, N: int, device) -> torch.Tensor:
-    fn = _build.c_function("linear_attention", "dmn_linattn_scratch_floats", [_CI] * 2, ctypes.c_long)
-    return torch.empty(fn(B, N), dtype=torch.float32, device=device)
-
-
 # ------------------------------------------------- the whole-block kernel's plan --
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _BLOCK_TILE = 64  # tokens per tile (csrc/linear_attention.cu: TILE)
 _BLOCK_MAX_CLUSTER = 8  # the portable cluster size
 _BLOCK_TOKENS_PER_CTA = 128
+_RAW_MAX_CLUSTER = 16  # the raw mode's largest cluster (csrc/linear_attention.cu: RAW_MAX_CLUSTER)
+# The raw mode's largest N at 128 tokens a CTA. On the H100 at the U-Net's B = 64, half-size CTAs
+# spill [64, 256] into a second, partial wave; from [64, 512] on, 64-token slabs at two CTAs an SM are
+# the faster plan (``tools/check_linattn.py`` times both plans: ``[sweep]`` lines).
+_RAW_WIDE_SLABS = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class LinattnBlockPlan:
-    """How the whole-block kernel (#2, #9, #10, and in its core mode #3 and
-    #12) lays one sample out: a cluster of ``cluster`` CTAs, CTA r owning
-    tokens [r·slab, (r+1)·slab); ``smem_bytes`` of shared memory a CTA;
-    ``resident``: the slab's h (and, but in the core mode, f32 y) stay in
-    shared memory, else every stage reloads its x tiles and y is computed
-    twice."""
+    """How the whole-block kernel (#2, #9, #10, in its core mode #3 and #12,
+    in its raw mode #8) lays one sample out: a cluster of ``cluster`` CTAs,
+    CTA r owning tokens [r·slab, (r+1)·slab); ``smem_bytes`` of shared memory
+    a CTA; ``resident``: the slab's h (and, but in the core mode, f32 y; in
+    the raw mode its q, k and v) stay in shared memory, else every stage
+    reloads its tiles (x, and y is computed twice; the raw mode's k is read
+    twice)."""
 
     cluster: int
     slab: int
@@ -538,24 +555,56 @@ def _linattn_block_smem(C: int, slab: int, resident: bool, esize: int, core: boo
             + take(rows_h * hs * esize) + take(4 * rows_y * c8))
 
 
+_RAW_GRAM_BYTES = 4 * (32 * (32 + 4) + 4) * 4  # the raw mode's f32 gram: 4 heads of 32 rows of 36, +4
+
+
+def _linattn_raw_smem(slab: int, resident: bool, esize: int) -> int:
+    """Shared memory of one CTA of the whole-block kernel's raw mode (#8): the
+    mirror of ``raw_layout`` in ``csrc/linear_attention.cu``. Regions, each
+    rounded up to 16 bytes: the k column statistics (4 × 128 f32), row group
+    1's max and sum (2 × 128 f32), and k, v and q rows of 128 elements + 16
+    bytes (the slab rounded up to 64 tokens where resident, else one
+    64-token tile); k's and v's regions hold at least the f32 gram (18,496
+    bytes), and an f32 region holds k_sm [rows][132] and then q_sm
+    transposed [128][rows + 4]: k's own region in float32, one more in bf16."""
+    def take(n: int) -> int:
+        return (n + 15) // 16 * 16
+
+    rows = -(-slab // _BLOCK_TILE) * _BLOCK_TILE if resident else _BLOCK_TILE
+    tokens = rows * (128 + 16 // esize) * esize
+    f32 = max(rows * 132 * 4, 128 * (rows + 4) * 4)
+    k = max(tokens, _RAW_GRAM_BYTES, f32 if esize == 4 else 0)
+    return (take(4 * 4 * 128) + take(2 * 4 * 128) + take(k) + take(max(tokens, _RAW_GRAM_BYTES))
+            + take(tokens) + take(0 if esize == 4 else f32))
+
+
 @functools.lru_cache(maxsize=None)  # a pure function of its arguments, asked for at every call
-def linattn_block_plan(N: int, C: int, dtype, core: bool = False) -> LinattnBlockPlan:
+def linattn_block_plan(N: int, C: int, dtype, core: bool = False, raw: bool = False) -> LinattnBlockPlan:
     """The whole-block kernel's launch plan for [·, N, C] tokens of ``dtype``
-    (bf16 or float32), in its core mode (#3, #12: no y kept) where ``core``:
-    ``min(8, ceil(N / 128))`` CTAs a sample, each owning ``ceil(N / cluster)``
-    tokens; resident where that fits in one H100 CTA's 232,448 bytes, else
-    the recompute form. Raises ``ValueError`` where even the recompute form
-    does not fit (C above 1280 in bf16, 384 in float32): the wrappers never
-    fall back."""
+    (bf16 or float32), in its core mode (#3, #12: no y kept) where ``core``,
+    in its raw mode (#8: q, k and v loaded from [·, N, 384] rows, C = 384)
+    where ``raw``: ``min(8, ceil(N / 128))`` CTAs a sample (raw: ``ceil(N /
+    128)`` up to N = 256, else ``min(16, ceil(N / 64))``), each owning
+    ``ceil(N / cluster)`` tokens; resident where that fits in one H100 CTA's
+    232,448 bytes, else the recompute (raw: reload) form. Raises
+    ``ValueError`` where even that form does not fit (C above 1280 in bf16,
+    384 in float32; never in the raw mode): the wrappers never fall back."""
     if dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the whole-block linear-attention kernel takes float32 or bf16, got {dtype}")
     if N < 1 or C < 1:
         raise ValueError(f"the whole-block linear-attention kernel needs N, C >= 1, got [N={N}, C={C}]")
-    cluster = min(_BLOCK_MAX_CLUSTER, -(-N // _BLOCK_TOKENS_PER_CTA))
+    if raw and C != 384:
+        raise ValueError(f"the raw-qkv mode takes [N, 384] qkv rows, got C={C}")
+    if raw:  # up to N = 256 128 tokens a CTA (a CTA an SM), else 64 (two), on up to 16 CTAs
+        per_cta = _BLOCK_TOKENS_PER_CTA if N <= _RAW_WIDE_SLABS else _BLOCK_TILE
+        cluster = min(_RAW_MAX_CLUSTER, -(-N // per_cta))
+    else:
+        cluster = min(_BLOCK_MAX_CLUSTER, -(-N // _BLOCK_TOKENS_PER_CTA))
     slab = -(-N // cluster)
     esize = 2 if dtype == torch.bfloat16 else 4
     for resident in (True, False):
-        smem = _linattn_block_smem(C, slab, resident, esize, core)
+        smem = (_linattn_raw_smem(slab, resident, esize) if raw
+                else _linattn_block_smem(C, slab, resident, esize, core))
         if smem <= _SMEM_LIMIT:
             return LinattnBlockPlan(cluster, slab, smem, resident)
     raise ValueError(
@@ -794,26 +843,38 @@ def linear_attention_qkv_cuda(
     qkv: torch.Tensor, heads: int, dim_head: int, scale: float
 ) -> torch.Tensor:
     """Launch the raw-qkv linear-attention kernel (TPU kernel #8) on a
-    contiguous float32 or bf16 [B, N, 384] tensor → [B, N, 128]."""
+    contiguous, 16-byte aligned float32 or bf16 [B, N, 384] tensor → [B, N,
+    128]: one launch, one thread-block cluster a sample (the whole-block
+    kernel's raw mode, ``linattn_block_plan(..., raw=True)``), f32 arithmetic
+    in both dtypes, the output cast once."""
+    what = "linear_attention_qkv_cuda"
     if not qkv.is_cuda:
-        raise ValueError(f"linear_attention_qkv_cuda needs a CUDA tensor, got {qkv.device}")
+        raise ValueError(f"{what} needs a CUDA tensor, got {qkv.device}")
     if qkv.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"linear_attention_qkv_cuda takes float32 or bf16, got {qkv.dtype}")
+        raise TypeError(f"{what} takes float32 or bf16, got {qkv.dtype}")
     if (heads, dim_head) != (4, 32):
-        raise ValueError(f"linear_attention_qkv_cuda is built for 4 heads x 32, got {heads} x {dim_head}")
+        raise ValueError(f"{what} is built for 4 heads x 32, got {heads} x {dim_head}")
     hd = heads * dim_head
     if qkv.ndim != 3 or qkv.shape[-1] != 3 * hd or not qkv.is_contiguous():
-        raise ValueError(f"linear_attention_qkv_cuda takes contiguous [B, N, {3 * hd}], got {tuple(qkv.shape)}")
+        raise ValueError(f"{what} takes contiguous [B, N, {3 * hd}], got {tuple(qkv.shape)}")
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"{what} takes a 16-byte aligned qkv, got {tuple(qkv.shape)} at {qkv.data_ptr():#x}")
+    out = _launch_qkv(qkv, linattn_block_plan(qkv.shape[1], 3 * hd, qkv.dtype, raw=True), scale)
+    LAUNCHES["linear_attention_qkv"] += 1
+    return out
+
+
+def _launch_qkv(qkv: torch.Tensor, plan: LinattnBlockPlan, scale: float) -> torch.Tensor:
+    """#8's one launch on checked [B, N, 384] ``qkv`` with a raw-mode plan
+    (the wrapper's, or another one that ``tools/check_linattn.py`` times)."""
     B, N, _ = qkv.shape
-    out = torch.empty((B, N, hd), dtype=qkv.dtype, device=qkv.device)
-    scratch = _linattn_scratch(B, N, qkv.device)
+    out = torch.empty((B, N, 128), dtype=qkv.dtype, device=qkv.device)
     _build.launch(
         "linear_attention", "dmn_linattn_qkv",
-        [_VP] * 3 + [_CI, _CI, _CI, _CF, _VP],
-        qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        B, N, int(qkv.dtype == torch.bfloat16), scale, _stream(qkv),
+        [_VP] * 2 + [_CI] * 7 + [_CF, _VP],
+        qkv.data_ptr(), out.data_ptr(), B, N, int(qkv.dtype == torch.bfloat16), *_plan_args(plan),
+        scale, _stream(qkv),
     )
-    LAUNCHES["linear_attention_qkv"] += 1
     return out
 
 

@@ -1,7 +1,8 @@
 """Short card check of the whole-block linear-attention kernels #2, #9 and
-#10 and of its core mode, #3 and #12 (``csrc/linear_attention.cu``: one
-launch, one thread-block cluster a sample), for the first chip call after an
-edit of that source or of ``csrc/mma.cuh``:
+#10, of its core mode, #3 and #12, and of its raw mode, #8
+(``csrc/linear_attention.cu``: one launch, one thread-block cluster a
+sample), for the first chip call after an edit of that source or of
+``csrc/mma.cuh``:
 
     python -m diffusion_model_nemo_tpu_torch.tools.check_linattn
 
@@ -19,8 +20,16 @@ the microbenchmark's two shapes in bf16 and at one in float32, both against
 ``linear_attention_tokens_fused_reference`` (the TPU kernel's seams), with
 a seam check in bf16 besides the tolerance: max |diff| at most one bf16
 step at the output's scale (2^-7 max |ref|), at most 2% of the elements
-differing. Every call must run exactly one device kernel and repeat bit for
-bit, and the plan's shared-memory bytes must equal the source's own layout
+differing. #8 runs in float32 (1e-4) and bf16 (2e-2 and the seam check) at
+the float32 U-Net's three shapes ([64,1024|256|64,384]) and at the corners
+of its gate ([2,4096,384] on a cluster of 16 in the reload form,
+[3,104,384] with N % 16 != 0, [2,64,384]), against
+``linear_attention_qkv_fused_reference`` (f32 throughout, one cast), all
+timed; then, at the float32 U-Net's shapes and [64,512,384], #8's time on
+both raw plans, 128 and 64 tokens a CTA (``[sweep]`` lines: the plan takes
+128 up to N = 256). Every call must run exactly one device kernel and
+repeat bit for bit, and the plan's shared-memory bytes must equal the
+source's own layout
 (``dmn_linattn_block_smem``). At the path shapes it times each kernel by
 torch.profiler device time and by CUDA events around calls queued behind a
 spin kernel (``profiling``), beside its bound and, summed over a path, the
@@ -49,8 +58,10 @@ KERNELS = {
     "linear_attention_block_v2": ("linear_attention_block_v2_cuda", "linear_attention_block_v2_reference"),
     "linear_attention_tokens": ("linear_attention_tokens_cuda", "linear_attention_tokens_fused_reference"),
     "linear_attention_v4": ("linear_attention_v4_cuda", "linear_attention_v4_fused_reference"),
+    "linear_attention_qkv": ("linear_attention_qkv_cuda", "linear_attention_qkv_fused_reference"),
 }
-CORE = ("linear_attention_tokens", "linear_attention_v4")  # the core mode, held to the seams too
+CORE = ("linear_attention_tokens", "linear_attention_v4")  # the core mode
+SEAM = CORE + ("linear_attention_qkv",)  # held to the TPU kernel's seams in bf16 too
 SEAM_DIFFER = 0.02
 TOOL_SHAPES = ((128, 1024, 32), (128, 256, 64))  # the microbenchmark's (#9 and #10)
 PATH_SHAPES = {  # [B, N, C] of each kernel's main path: one call each a pass
@@ -59,7 +70,11 @@ PATH_SHAPES = {  # [B, N, C] of each kernel's main path: one call each a pass
     "linear_attention_block_v2": TOOL_SHAPES,
     "linear_attention_tokens": ((64, 64, 64),),  # unet_small B=64
     "linear_attention_v4": TOOL_SHAPES,
+    "linear_attention_qkv": ((64, 1024, 384), (64, 256, 384), (64, 64, 384)),  # the float32 unet_small B=64
 }
+PATH_DTYPE = {"linear_attention_qkv": torch.float32}  # the others' main path is bf16
+PATH_CALLS = {(64, 256, 384): 2, (64, 64, 384): 2}  # #8's calls a forward at a shape, where more than one
+QKV_CORNER_SHAPES = ((2, 4096, 384), (3, 104, 384), (2, 64, 384))
 # The corners of the gates, and #9 at the microbenchmark's shapes.
 CORNER_SHAPES = ((2, 4096, 32), (2, 4096, 128), (3, 100, 128), (2, 64, 128))
 CORE_CORNER_SHAPES = ((2, 4096, 32), (2, 4096, 128), (2, 4096, 256), (3, 104, 128), (2, 64, 128))
@@ -71,10 +86,11 @@ F32_SHAPES = {  # float32: resident, then the recompute form (#10); #12 at one t
 # (PERF.md kernel table, NVIDIA H100 80GB HBM3 at 700 W): the five-launch
 # block for #2 over its four unet_small calls, #9 over one switched forward
 # and #10 over the two microbenchmark shapes; the three-launch core for #3 at
-# unet_small's one call and #12 over the two microbenchmark shapes.
+# unet_small's one call and #12 over the two microbenchmark shapes; #8's
+# three launches over the float32 unet_small's five calls.
 OLD_DEV_MS = {"linear_attention_block": 1.1876, "linear_attention_block_v1": 0.1824,
               "linear_attention_block_v2": 1.7724, "linear_attention_tokens": 0.0904,
-              "linear_attention_v4": 1.1011}
+              "linear_attention_v4": 1.1011, "linear_attention_qkv": 0.6025}
 
 
 def block_args(shape, dtype, gen, device="cuda"):
@@ -101,6 +117,17 @@ def core_args(name: str, shape, dtype, gen, device="cuda"):
     return h, w, HEADS, DIM_HEAD, DIM_HEAD**-0.5
 
 
+def qkv_args(shape, dtype, gen, device="cuda"):
+    """Seeded inputs of one #8 call: raw qkv ~ N(0, 1) (a 1x1 conv of normed
+    features), then heads, dim_head, scale."""
+    return torch.randn(*shape, generator=gen, device=device).to(dtype), HEADS, DIM_HEAD, DIM_HEAD**-0.5
+
+
+def plan(name: str, shape, dtype):
+    """The launch plan of kernel ``name`` for a [B, N, C] call."""
+    return A.linattn_block_plan(shape[1], shape[2], dtype, core=name in CORE, raw=name == "linear_attention_qkv")
+
+
 def format_row(row: dict) -> str:
     """One checked call as a line: the hold, the launch count, the repeat,
     and where timed the device time, the queued-events time and the bound."""
@@ -117,25 +144,26 @@ def format_row(row: dict) -> str:
 
 def check(name: str, shape, dtype, gen, timed: bool) -> dict:
     wrapper, plain = (getattr(A, attr) for attr in KERNELS[name])
-    core = name in CORE
-    args = core_args(name, shape, dtype, gen) if core else block_args(shape, dtype, gen)
+    core, raw = name in CORE, name == "linear_attention_qkv"
+    args = (qkv_args(shape, dtype, gen) if raw else core_args(name, shape, dtype, gen) if core
+            else block_args(shape, dtype, gen))
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     out, ref = wrapper(*args), plain(*args)
     err = (out.float() - ref.float()).abs()
     ok = bool((err <= tol + tol * ref.float().abs()).all()) and bool(torch.isfinite(out.float()).all())
     seam = {}
-    if core and dtype == torch.bfloat16:
+    if name in SEAM and dtype == torch.bfloat16:
         seam = {"seam_step": 2.0**-7 * float(ref.float().abs().max()), "differ": float((err > 0).float().mean())}
         ok &= float(err.max()) <= seam["seam_step"] and seam["differ"] <= SEAM_DIFFER
     launched = kernel_launches(lambda: wrapper(*args))
     one = len(launched) == 1 and "linattn_block_kernel" in launched[0]
     repeat = bool(torch.equal(wrapper(*args), out))
-    plan = A.linattn_block_plan(shape[1], shape[2], dtype, core=core)
+    lp = plan(name, shape, dtype)
     smem_fn = _build.c_function("linear_attention", "dmn_linattn_block_smem", [ctypes.c_int] * 5, ctypes.c_long)
     esize = 2 if dtype == torch.bfloat16 else 4
-    mirrored = smem_fn(shape[2], plan.slab, int(plan.resident), esize, int(core)) == plan.smem_bytes
+    mirrored = smem_fn(shape[2], lp.slab, int(lp.resident), esize, 2 if raw else int(core)) == lp.smem_bytes
     row = {"kernel": name, "shape": shape, "dtype": str(dtype).removeprefix("torch."),
-           "plan": f"{plan.cluster}x{plan.slab}{'' if plan.resident else ' recompute'} {plan.smem_bytes} B",
+           "plan": f"{lp.cluster}x{lp.slab}{'' if lp.resident else ' recompute'} {lp.smem_bytes} B",
            "max_abs_err": float(err.max()), "ok": ok and one and repeat and mirrored, "tol": tol,
            "kernels": len(launched) if one else launched, "repeat": repeat, "mirrored": mirrored, **seam}
     if timed:
@@ -144,6 +172,25 @@ def check(name: str, shape, dtype, gen, timed: bool) -> dict:
         row["bound_us"] = bound_us(name, args)
     print(format_row(row), flush=True)
     return row
+
+
+def sweep_raw_slabs(gen) -> None:
+    """#8 in float32 at [64, 64|256|512|1024, 384] on the raw plan with 128
+    tokens a CTA (a CTA an SM) and with 64 (two CTAs an SM), each held
+    against the seam-true reference; device time by torch.profiler."""
+    for N in (64, 256, 512, 1024):
+        qkv = torch.randn(64, N, 384, generator=gen, device="cuda")
+        ref = A.linear_attention_qkv_fused_reference(qkv, HEADS, DIM_HEAD, DIM_HEAD**-0.5)
+        parts = []
+        for slab in (128, 64):
+            cluster = min(A._RAW_MAX_CLUSTER, -(-N // slab))
+            tokens = -(-N // cluster)
+            lp = A.LinattnBlockPlan(cluster, tokens, A._linattn_raw_smem(tokens, True, 4), True)
+            run = lambda: A._launch_qkv(qkv, lp, DIM_HEAD**-0.5)  # noqa: E731
+            err = float((run() - ref).abs().max())
+            assert err <= 1e-4, (N, slab, err)
+            parts.append(f"{slab} tokens a CTA ({cluster}x{tokens}) dev {device_profile(run)[0] * 1e3:.2f} us")
+        print(f"[sweep] linear_attention_qkv [64, {N}, 384] float32: " + " | ".join(parts), flush=True)
 
 
 def main() -> int:
@@ -157,18 +204,26 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
     for name in KERNELS:
-        rows = [check(name, shape, torch.bfloat16, gen, True) for shape in PATH_SHAPES[name]]
-        untimed = {"linear_attention_block_v1": CORNER_SHAPES + TOOL_SHAPES, "linear_attention_tokens":
-                   CORE_CORNER_SHAPES, "linear_attention_v4": ()}.get(name, CORNER_SHAPES)
-        rows += [check(name, shape, torch.bfloat16, gen, False) for shape in untimed]
-        f32 = F32_SHAPES.get(name, ())
-        rows += [check(name, shape, torch.float32, gen, shape == f32[0]) for shape in f32]
+        pdt = PATH_DTYPE.get(name, torch.bfloat16)
+        rows = [check(name, shape, pdt, gen, True) for shape in PATH_SHAPES[name]]
+        path = list(rows)
+        if name == "linear_attention_qkv":  # bf16 at the path shapes, both dtypes at the corners, all timed
+            rows += [check(name, shape, torch.bfloat16, gen, True) for shape in PATH_SHAPES[name]]
+            rows += [check(name, shape, dt, gen, True) for shape in QKV_CORNER_SHAPES
+                     for dt in (torch.bfloat16, torch.float32)]
+        else:
+            untimed = {"linear_attention_block_v1": CORNER_SHAPES + TOOL_SHAPES, "linear_attention_tokens":
+                       CORE_CORNER_SHAPES, "linear_attention_v4": ()}.get(name, CORNER_SHAPES)
+            rows += [check(name, shape, torch.bfloat16, gen, False) for shape in untimed]
+            f32 = F32_SHAPES.get(name, ())
+            rows += [check(name, shape, torch.float32, gen, shape == f32[0]) for shape in f32]
         ok &= all(r["ok"] for r in rows)
-        path = [r for r in rows if r["dtype"] == "bfloat16" and "dev_us" in r]
-        dev = sum(r["dev_us"] for r in path) / 1e3
-        print(f"[time] {name} per main-path pass ({len(path)} calls): dev {dev:.4f} ms, queued "
-              f"{sum(r['queued_us'] for r in path) / 1e3:.4f} ms, bound {sum(r['bound_us'] for r in path) / 1e3:.5f} "
-              f"ms; the form before its redesign {OLD_DEV_MS[name]} ms (PERF.md kernel table)", flush=True)
+        calls = [PATH_CALLS.get(tuple(r["shape"]), 1) if name == "linear_attention_qkv" else 1 for r in path]
+        total = {k: sum(n * r[k] for n, r in zip(calls, path)) / 1e3 for k in ("dev_us", "queued_us", "bound_us")}
+        print(f"[time] {name} per main-path pass ({sum(calls)} calls, {str(pdt).removeprefix('torch.')}): dev "
+              f"{total['dev_us']:.4f} ms, queued {total['queued_us']:.4f} ms, bound {total['bound_us']:.5f} ms; "
+              f"the form before its redesign {OLD_DEV_MS[name]} ms (PERF.md kernel table)", flush=True)
+    sweep_raw_slabs(gen)
     print("all agree" if ok else "FAILED")
     return 0 if ok else 1
 

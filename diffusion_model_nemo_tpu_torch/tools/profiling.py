@@ -116,10 +116,10 @@ def work(name, args):
     if name == "attention":  # q, k, v in, out out; q·kᵀ and p·v
         Bn, Nn, h, d = x.shape
         return 4 * x.numel() * es, 4 * Bn * h * Nn * Nn * d, kind
-    if name == "linear_attention_qkv":  # qkv in, out out; kᵀv and q·gram per head
+    if name == "linear_attention_qkv":  # qkv in, out out; kᵀv and q·gram per head, in f32 in both dtypes
         Bn, Nn, C3 = x.shape
         hd, dh = C3 // 3, 32
-        return x.numel() * es + Bn * Nn * hd * es, Bn * Nn * 2 * 2 * hd * dh, kind
+        return x.numel() * es + Bn * Nn * hd * es, Bn * Nn * 2 * 2 * hd * dh, "f32"
     if name.startswith("group_norm_silu"):
         Bn, H, W, C = x.shape
         n = x.numel()

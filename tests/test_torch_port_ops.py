@@ -438,7 +438,7 @@ def test_chip_smoke_holds_kernels_3_and_12_against_the_seam_reference():
     table = smoke.kernel_table(port)
     assert table["linear_attention_tokens"][2] is TA.linear_attention_tokens_fused_reference
     assert table["linear_attention_v4"][2] is TA.linear_attention_v4_fused_reference
-    assert set(smoke.SEAM) == {"linear_attention_tokens", "linear_attention_v4"}
+    assert set(smoke.SEAM) == {"linear_attention_tokens", "linear_attention_v4", "linear_attention_qkv"}
     rng = np.random.default_rng(8)
     h = _t(rng.standard_normal((2, 64, 64)), torch.bfloat16)
     w = _t(rng.standard_normal((64, 3 * HD)) * 0.125, torch.float32)
@@ -689,6 +689,102 @@ def test_linear_attention_qkv_matches_jax_kernel(shape, dtype):
     assert ours.dtype == tdt and ours.shape == (shape[0], shape[1], HD)
     kernel = JA._pallas_linear_attention(_j(qkv, jdt), H, D, SCALE, interpret=True)
     _close(_np(ours), kernel, tol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(2, 64, 3 * HD), (2, 256, 3 * HD), (2, 1024, 3 * HD), (3, 128, 3 * HD)])
+def test_linear_attention_qkv_fused_reference_is_the_jax_kernels_function(shape, dtype):
+    """#8's seam-true plain version (what chip_smoke.py holds kernel #8
+    against) against the JAX ``_linattn_kernel`` in interpret mode, qkv ~
+    N(0, 1) from seed 8. In bf16: within one bf16 step at the output's scale
+    (outputs are under 0.1, where rtol = atol = 2e-2 would say nothing), at
+    most 0.1% of the elements differing, and a mean |diff| strictly below
+    the module composition's, which rounds q_sm, k_sm and the context to
+    bf16 (about a third of its elements one bf16 step away). In float32:
+    within 1e-5."""
+    t = _t(np.random.default_rng(8).standard_normal(shape), getattr(torch, dtype))
+    kernel = np.asarray(
+        JA._pallas_linear_attention(_j(_np(t), getattr(jnp, dtype)), H, D, SCALE, interpret=True), np.float32)
+    ours = TA.linear_attention_qkv_fused_reference(t, H, D, SCALE)
+    assert ours.dtype == t.dtype and ours.shape == (shape[0], shape[1], HD)
+    if dtype == "float32":
+        _close(_np(ours), kernel, CORE_F32_TOL)
+        return
+    diff = np.abs(_np(ours) - kernel)
+    composed = np.abs(_np(TA.linear_attention_qkv_reference(t, H, D, SCALE)) - kernel)
+    assert diff.max() <= 2.0**-7 * np.abs(kernel).max() and (diff > 0).mean() <= 1e-3, (diff.max(), (diff > 0).mean())
+    assert diff.mean() < composed.mean()
+
+
+def test_chip_smoke_holds_kernel_8_against_the_seam_reference():
+    """chip_smoke.py holds kernel #8 against the TPU kernel's seams in both
+    dtypes (with the seam check in bf16), as one kernel a call at the corners
+    of its gate, and no longer names the three-launch form's kernels; the
+    entry point keeps the module composition for the CPU and for the
+    backward's recompute, as the JAX package's custom_vjp does."""
+    import diffusion_model_nemo_tpu_torch as port
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_table", _REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.kernel_table(port)["linear_attention_qkv"][2] is TA.linear_attention_qkv_fused_reference
+    assert "linear_attention_qkv" in smoke.SEAM and smoke.ONE_LAUNCH["linear_attention_qkv"] == "linattn_block_kernel"
+    assert not {"qkv_kv_kernel", "merge_kernel", "qkv_apply_kernel"} & set(smoke.HAND_KERNELS)
+    assert set(smoke.QKV_EXTRA) == {(2, 4096, 384), (3, 104, 384), (2, 64, 384)}
+    assert all(TA._use_linattn_qkv_kernel(shape, H, D) for shape in smoke.QKV_EXTRA)
+    qkv = _t(np.random.default_rng(9).standard_normal((2, 64, 3 * HD)), torch.bfloat16)
+    torch.testing.assert_close(TA.fused_linear_attention_qkv(qkv, H, D, SCALE),
+                               TA.linear_attention_qkv_reference(qkv, H, D, SCALE), rtol=0, atol=0)
+    f = qkv.float()  # in float32 the seams are the composition's math
+    torch.testing.assert_close(TA.linear_attention_qkv_fused_reference(f, H, D, SCALE),
+                               TA.linear_attention_qkv_reference(f, H, D, SCALE), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_linattn_raw_plan_covers_every_admitted_shape(dtype):
+    """Every N that #8's gate admits (64 <= N <= 4096, N % 8 == 0) has a raw
+    plan in both dtypes: a non-empty contiguous slab a CTA, the slabs
+    covering N once, 128 tokens a CTA up to N = 256 and 64 beyond, up to the
+    H100's largest cluster (16 CTAs), one H100 CTA's shared memory; the slab
+    stays resident up to 128 tokens a CTA and reloads 64-token tiles beyond;
+    the float32 U-Net's three shapes are resident in both dtypes, N = 1024
+    with room for two CTAs an SM."""
+    Ns = [N for N in range(1, 4200) if TA._use_linattn_qkv_kernel((1, N, 3 * HD), H, D)]
+    assert (Ns[0], Ns[-1], len(Ns)) == (64, 4096, 505)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    for N in Ns:
+        plan = TA.linattn_block_plan(N, 3 * HD, dtype, raw=True)
+        assert 1 <= plan.cluster <= 16 and plan.cluster == min(16, -(-N // (128 if N <= 256 else 64))), (N, plan)
+        assert plan.cluster * plan.slab >= N > (plan.cluster - 1) * plan.slab, (N, plan)
+        assert plan.resident == (plan.slab <= 128), (N, plan)
+        assert plan.smem_bytes == TA._linattn_raw_smem(plan.slab, plan.resident, esize) <= 232448, (N, plan)
+    plans = [TA.linattn_block_plan(N, 3 * HD, dtype, raw=True) for N in (64, 256, 1024)]
+    assert [(p.cluster, p.slab, p.resident) for p in plans] == [(1, 64, True), (2, 128, True), (16, 64, True)]
+    assert plans[2].smem_bytes <= 232448 // 2 - 1024
+    with pytest.raises(ValueError, match="384"):
+        TA.linattn_block_plan(256, 256, dtype, raw=True)
+
+
+def test_linattn_raw_plan_mirrors_the_kernel_source():
+    """The raw plan's constants are the kernel's (csrc/linear_attention.cu):
+    the 64-token reload tile, 16 bytes of row padding, the f32 gram's padded
+    rows and heads, which the k and v regions must hold, and the f32 rows of
+    k_sm and of q_sm transposed, which take k's region in float32 and one of
+    their own in bf16."""
+    import re
+
+    src = (_REPO / "diffusion_model_nemo_tpu_torch" / "csrc" / "linear_attention.cu").read_text()
+    const = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const["RAW_TILE"] == TA._BLOCK_TILE == 64 and const["THREADS"] == 256
+    assert const["RAW_MAX_CLUSTER"] == TA._RAW_MAX_CLUSTER == 16
+    assert "constexpr int GRS = DH + 4;" in src and "constexpr int GHS = DH * GRS + 4;" in src
+    assert "L.rs = HD + 16 / esize;" in src and "constexpr int FRS = HD + 4;" in src
+    assert "size_t(HD) * (L.rows + 4) * 4" in src
+    assert TA._RAW_GRAM_BYTES == 4 * (32 * (32 + 4) + 4) * 4 == 18496
+    # a reloaded bf16 tile is smaller than the gram that takes its place; q_sm^T outgrows a reloaded f32 tile
+    assert TA._linattn_raw_smem(64, False, 2) == 2048 + 1024 + 2 * 18496 + 64 * 136 * 2 + 128 * 68 * 4
+    assert TA._linattn_raw_smem(64, False, 4) == 2048 + 1024 + 128 * 68 * 4 + 2 * 64 * 132 * 4
+    assert TA._linattn_raw_smem(128, True, 4) == 2048 + 1024 + 3 * 128 * 132 * 4
 
 
 # --------------------------------------------- kernel 7: softmax attention --
@@ -1261,6 +1357,52 @@ def test_transpose2d_matches_jax_kernel_exactly(rows, dtype):
     ours = TT.transpose2d(_t(x, tdt))
     assert ours.dtype == tdt and ours.is_contiguous()
     np.testing.assert_array_equal(_np(ours), np.asarray(kernel, np.float32))
+
+
+def _byte_perm(x: int, y: int, sel: int) -> int:
+    """CUDA's ``__byte_perm``: byte n of the result is byte (sel >> 4n) & 7
+    of the 8-byte value y:x."""
+    both = x | (y << 32)
+    return sum(((both >> (8 * ((sel >> (4 * n)) & 7))) & 0xFF) << (8 * n) for n in range(4))
+
+
+@pytest.mark.parametrize("rows,cols,esize", [(4096, 128, 2), (1000, 96, 2), (1001, 97, 2), (4096, 128, 4),
+                                             (100, 36, 4), (37, 5, 4)])
+def test_transpose_kernel_index_map_is_a_bijection(rows, cols, esize):
+    """An emulation of kernel #13's index map (csrc/transpose.cu, its
+    constants read from the source): each thread's V x V block (V = 16 bytes
+    of elements), whole or cut at a ragged edge, writes y[c, r] = x[r, c],
+    and the threads of the grid together write every element of y [cols,
+    rows] exactly once. For 2-byte elements its register transpose (one byte
+    permute per 32-bit word) turns the 8 rows of a block into its 8 columns."""
+    import re
+
+    src = (_REPO / "diffusion_model_nemo_tpu_torch" / "csrc" / "transpose.cu").read_text()
+    const = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    warps, pieces, row_blocks, V = const["THREADS"] // 32, const["PIECES"], const["ROW_BLOCKS"], 16 // esize
+    tr, tc = warps * row_blocks * V, pieces * V
+    x = np.arange(rows * cols).reshape(rows, cols)
+    y = np.full((cols, rows), -1)
+    hits = np.zeros((cols, rows), np.int64)
+    for bx in range(-(-rows // tr)):
+        for by in range(-(-cols // tc)):
+            for warp in range(warps):
+                for lane in range(32):
+                    c0 = (by * pieces + lane // 2) * V
+                    r0 = (bx * warps * row_blocks + row_blocks * warp + lane % 2) * V
+                    if r0 >= rows or c0 >= cols:
+                        continue
+                    block = x[r0 : r0 + V, c0 : c0 + V]
+                    y[c0 : c0 + V, r0 : r0 + V] = block.T
+                    hits[c0 : c0 + V, r0 : r0 + V] += 1
+    assert (hits == 1).all() and np.array_equal(y, x.T)
+    if esize == 2:  # the 16-byte path's transpose: word m of column j holds rows 2m (low half) and 2m + 1
+        e = np.random.default_rng(13).integers(0, 2**16, (8, 8))
+        a = [[int(e[i, 2 * k]) | int(e[i, 2 * k + 1]) << 16 for k in range(4)] for i in range(8)]
+        o = [[_byte_perm(a[2 * m][j >> 1], a[2 * m + 1][j >> 1], 0x7632 if j & 1 else 0x5410) for m in range(4)]
+             for j in range(8)]
+        got = np.array([[(o[j][i // 2] >> (16 * (i % 2))) & 0xFFFF for i in range(8)] for j in range(8)])
+        assert np.array_equal(got, e.T)
 
 
 # ------------------------------------------ the new wrappers and the registry --

@@ -8,6 +8,7 @@ they print are the host's and say nothing of the card. bf16 at rtol = atol =
 2e-2, the JAX package's kernel-test tolerance.
 """
 
+import json
 import math
 import os
 import subprocess
@@ -218,6 +219,25 @@ def test_ab_chip_needs_a_card_and_replaces_every_measurement(capsys):
     assert not any(f"def {name}(" in smoke for name in AB.MEASUREMENT)
 
 
+def test_ab_chip_compares_two_dumps_bit_for_bit(tmp_path, capsys):
+    """``--compare`` holds the output digests two trees saved with ``--dump``
+    equal, without a card: equal files pass, one changed digest fails and is
+    named; the modes it dumps are the card check's."""
+    from diffusion_model_nemo_tpu_torch.tools import ab_chip as AB
+    from diffusion_model_nemo_tpu_torch.tools import check_linattn as CL
+
+    key = "linear_attention_block [64, 1024, 32] bfloat16"
+    x = {key: "9f" * 32, "linear_attention_v4 [128, 256, 64] float32": "0a" * 32}
+    a, b = tmp_path / "a.json", tmp_path / "b.json"
+    a.write_text(json.dumps(x))
+    b.write_text(json.dumps(dict(x)))
+    assert AB.main(["--compare", str(a), str(b)]) == 0
+    b.write_text(json.dumps(dict(x, **{key: "9e" + "9f" * 31})))
+    assert AB.main(["--compare", str(a), str(b)]) == 1
+    assert f"DIFFERS: {key}" in capsys.readouterr().out
+    assert all(name in CL.KERNELS and name in CL.PATH_SHAPES for name in AB.BLOCK_MODES)
+
+
 def test_conv_bound_over_the_tool_shapes():
     """The shared bound (``profiling.bound_us``: bytes at 3.35 TB/s or bf16
     operations at 989 TFLOP/s, the larger) of the 3x3 conv over the
@@ -238,11 +258,12 @@ def test_conv_bound_over_the_tool_shapes():
 
 
 def test_check_linattn_needs_a_card_and_formats_its_rows(capsys):
-    """The card check of kernels #2, #9 and #10 refuses to run without a CUDA
-    device (it never falls back to the plain versions); a checked call is one
-    line with its hold, launches, repeat and, where timed, its device time
-    beside the bound; its path shapes are the plan's resident ones and its
-    seeded inputs have the block's shapes."""
+    """The card check of kernels #2, #9, #10, #3, #12 and #8 refuses to run
+    without a CUDA device (it never falls back to the plain versions); a
+    checked call is one line with its hold, launches, repeat and, where
+    timed, its device time beside the bound; its path shapes are the plan's
+    resident ones, #8's N = 4096 corner reloads its tiles, and its seeded
+    inputs have the block's shapes."""
     from diffusion_model_nemo_tpu_torch.ops import attention as TA
     from diffusion_model_nemo_tpu_torch.tools import check_linattn as CL
 
@@ -258,14 +279,21 @@ def test_check_linattn_needs_a_card_and_formats_its_rows(capsys):
     timed = CL.format_row(dict(row, dev_us=70.25, queued_us=71.5, bound_us=3.257))
     assert timed == line + " | dev 70.25 us, queued 71.50 us, bound 3.257 us"
     assert set(CL.KERNELS) == {"linear_attention_block", "linear_attention_block_v1", "linear_attention_block_v2",
-                               "linear_attention_tokens", "linear_attention_v4"}
+                               "linear_attention_tokens", "linear_attention_v4", "linear_attention_qkv"}
     assert all(callable(getattr(TA, attr)) for pair in CL.KERNELS.values() for attr in pair)
     for name, shapes in CL.PATH_SHAPES.items():
-        core = name in CL.CORE
-        assert all(TA.linattn_block_plan(N, C, torch.bfloat16, core=core).resident for _B, N, C in shapes)
+        assert all(CL.plan(name, shape, CL.PATH_DTYPE.get(name, torch.bfloat16)).resident for shape in shapes)
     assert not TA.linattn_block_plan(4096, 128, torch.bfloat16).resident  # a corner takes the other form
     assert not all(TA.linattn_block_plan(N, C, torch.bfloat16, core=True).resident
                    for _B, N, C in CL.CORE_CORNER_SHAPES)
+    for dt in (torch.bfloat16, torch.float32):  # #8's N = 4096 corner reloads its tiles, on 16 CTAs
+        plans = [CL.plan("linear_attention_qkv", shape, dt) for shape in CL.QKV_CORNER_SHAPES]
+        assert [(p.cluster, p.resident) for p in plans] == [(16, False), (1, True), (1, True)]
+    assert CL.plan("linear_attention_qkv", (64, 1024, 384), torch.float32) == \
+        TA.linattn_block_plan(1024, 384, torch.float32, raw=True)
+    qkv = CL.qkv_args((2, 104, 384), torch.float32, torch.Generator().manual_seed(0), "cpu")
+    assert qkv[0].shape == (2, 104, 384) and qkv[1:] == (4, 32, 32**-0.5)
+    assert sum(CL.PATH_CALLS.get(s, 1) for s in CL.PATH_SHAPES["linear_attention_qkv"]) == 5
     seam = CL.format_row(dict(row, seam_step=7.0e-4, differ=0.0025))
     assert seam == line + " | seam: max_abs_err <= 7.000e-04 (one bf16 step), differ 0.0025"
     h, w, N = CL.core_args("linear_attention_v4", (2, 64, 32), torch.bfloat16, torch.Generator().manual_seed(0),
