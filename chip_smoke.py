@@ -103,6 +103,21 @@ Phases:
      launches #11 once forward and nothing backward, its gradients against
      autograd through the plain conv.
 
+  8. The README's usage path through the port's CLIs, in a temporary
+     directory, at ``examples/configs/ddpm/unet_small.yaml``'s full width
+     (32 px, bf16, batch 128): ``train_ddpm`` for 20 steps (a sample grid
+     from the 1000-step ancestral chain and a checkpoint every 10, the
+     final ``.dmn``), a second ``train_ddpm`` resuming from step 20 to 30,
+     the archive's forward against the trained model's bit for bit,
+     ``eval_ddpm`` (DDIM-50, batch 64: its PNGs equal ``DDPM.sample`` on the
+     same seed), ``test_ddpm`` (bits/dim of a batch of 32 at T = 1000),
+     bits/dim at T = 50 with the same noise on the kernel path and the plain
+     path (bf16 2e-2, the float32 U-Net on #8 1e-3 relative), and ``serve``
+     from the archive path (one /sample of 4 PNGs). Each step's launches are
+     counted from 0 and each kernel of its path must have run; none of
+     PyYAML, msgpack, flax, orbax or Pillow may be imported. ``[cli]`` lines
+     give each step's seconds.
+
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
 prints no result. Without a CUDA device, or outside the repository, it fails.
@@ -114,12 +129,15 @@ import base64
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 from contextlib import ExitStack
+from pathlib import Path
 from unittest import mock
 
 # The measurement every card check of the port shares (CUDA events, profiler
@@ -146,6 +164,19 @@ TRAIN_STEPS = 20
 SWITCHED_STEPS = 5
 LOSS_REL_TOL = 1e-2  # training step, kernels vs plain path: loss
 GRAD_REL_TOL = 5e-2  # and the whole gradient, relative L2
+# Phase 8, the README's usage path (examples/configs/ddpm/unet_small.yaml at
+# 32 px, its own batch 128): train 20 steps (a sample dump and a checkpoint
+# every 10), resume to 30, DDIM-50 eval at batch 64, bits/dim at T = 1000 on
+# one batch of 32; bits/dim kernels vs plain at T = 50 (bf16 2e-2 and the
+# float32 U-Net 1e-3 relative, total_bpd); serving from the archive.
+CLI_CONFIG = ["--config-path=examples/configs/ddpm", "--config-name=unet_small.yaml"]
+CLI_IMG = 32
+CLI_MODEL = [f"model.image_size={CLI_IMG}"]
+CLI_STEPS, CLI_RESUME_STEPS, CLI_EVERY = 20, 30, 10
+CLI_EVAL_B, CLI_TEST_B, CLI_BPD_T, CLI_DDIM = 64, 32, 50, 50
+BPD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+# Packages the card's machine lacks: phase 8 must run without any of them.
+NOT_ON_THE_CARD = ("yaml", "msgpack", "flax", "orbax", "PIL", "jax", "diffusion_model_nemo_tpu")
 NORM_BM = {"DMN_TPU_PALLAS_NORM_BM": "1"}
 LINATTN_BLOCK = {"DMN_TPU_PALLAS_LINATTN_BLOCK": "1"}
 BOTH = {**NORM_BM, **LINATTN_BLOCK}
@@ -1200,6 +1231,209 @@ def check_tap_split_backward(port, device):
     assert all(r <= LOSS_REL_TOL for r in rel), rel
 
 
+# ------------------------------------------------- the README's usage path --
+class Stopwatch:
+    """Card-synchronised seconds spent in wrapped methods, by name."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, stack, owner, attr, name=None):
+        import torch
+
+        real = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds.setdefault(name or attr, []).append(time.perf_counter() - t0)
+
+        stack.enter_context(mock.patch.object(owner, attr, timed))
+
+
+def cli_counts(port, tag, must, exact=None):
+    """The launches since the last reset: each kernel of ``must`` ran, and
+    those of ``exact`` the given number of times."""
+    counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    log(f"[cli] {tag} launches {json.dumps(counts)}")
+    missing = [k for k in must if not counts.get(k)]
+    assert not missing, f"{tag}: {missing} never launched"
+    for k, n in (exact or {}).items():
+        assert counts.get(k) == n, (tag, k, counts.get(k), n)
+
+
+def check_cli_path(port, device, per_forward, tmp):
+    """8. The README's usage path through the port's CLIs, in ``tmp``."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.cli import eval_ddpm, serve as serve_cli, test_ddpm, train_ddpm
+    from diffusion_model_nemo_tpu_torch.config import load_config
+    from diffusion_model_nemo_tpu_torch.data import SyntheticVisionDataset, preprocess_batch
+    from diffusion_model_nemo_tpu_torch.training import CheckpointManager, ExpManagerHooks, Trainer
+    from diffusion_model_nemo_tpu_torch.utils.image import decode_png, to_uint8
+
+    unet = ("group_norm_silu", "linear_attention_block", "linear_attention_tokens", "attention_block_small")
+    base = [*CLI_CONFIG, *CLI_MODEL, "model.train_ds.name=synthetic", f"model.save_every={CLI_EVERY}",
+            "model.compute_bpd=false", f"exp_manager.checkpoint_every_n_steps={CLI_EVERY}",
+            f"exp_manager.exp_dir={tmp}/exp"]
+
+    # 8a. train_ddpm: 20 steps at B=128, a dump and a checkpoint every 10.
+    watch, saved = Stopwatch(), []
+    real_save = CheckpointManager.save
+
+    def record_save(mgr, step, *a, **k):
+        wrote = real_save(mgr, step, *a, **k)
+        if wrote:
+            saved.append(step)
+        return wrote
+
+    with ExitStack() as stack:
+        watch.wrap(stack, Trainer, "fit")
+        watch.wrap(stack, Trainer, "_sample_dump")
+        watch.wrap(stack, ExpManagerHooks, "maybe_checkpoint")
+        watch.wrap(stack, ExpManagerHooks, "finalize")
+        stack.enter_context(mock.patch.object(CheckpointManager, "save", record_save))
+        port.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, trainer = train_ddpm.main([*base, f"trainer.max_steps={CLI_STEPS}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cli_counts(port, "train", unet)
+    sec = {k: sum(v) for k, v in watch.seconds.items()}
+    steps_s = sec["fit"] - sec["_sample_dump"] - sec["maybe_checkpoint"] - sec["finalize"]
+    log(f"[cli] train {CLI_STEPS} steps B={TRAIN_B}: {wall:.2f} s in all; fit {sec['fit']:.2f} s = steps "
+        f"{steps_s:.2f} s ({steps_s / CLI_STEPS * 1e3:.1f} ms a step with set-up) + {len(watch.seconds['_sample_dump'])} "
+        f"sample dumps {sec['_sample_dump']:.2f} s (1000-step ancestral chain, batch 4) + checkpoints "
+        f"{sec['maybe_checkpoint']:.2f} s + final checkpoint and archive {sec['finalize']:.2f} s")
+    run = trainer.exp_manager_hooks.log_dir
+    dumps = sorted(Path(model._result_dir).glob("sample-*.png"))
+    assert [p.name for p in dumps] == ["sample-1-1.png", "sample-2-1.png"], dumps
+    grid = decode_png(dumps[0].read_bytes())
+    assert grid.shape == (CLI_IMG + 4, 4 * (CLI_IMG + 2) + 2, 3) and grid.std() > 0, grid.shape
+    assert saved == [CLI_EVERY, CLI_STEPS], saved
+    assert CheckpointManager(str(run / "checkpoints")).latest_step() == CLI_STEPS
+    dmn = run / "DDPM-UNet.dmn"
+    logged = [m["global_step"] for m in trainer.logged]  # the YAML logs every 10 steps, and the last
+    assert dmn.is_file() and logged == sorted({*range(10, CLI_STEPS + 1, 10), CLI_STEPS}), logged
+    assert all(np.isfinite(m["train_loss"]) for m in trainer.logged)
+
+    # 8b. resume to 30 from the checkpoint at 20.
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, trainer = train_ddpm.main([*base, f"trainer.max_steps={CLI_RESUME_STEPS}",
+                                      "exp_manager.resume_if_exists=true"])
+    torch.cuda.synchronize()
+    cli_counts(port, "resume", unet)
+    hooks = trainer.exp_manager_hooks
+    assert hooks.log_dir == run and hooks.resume_state["step"] == CLI_STEPS
+    assert [m["global_step"] for m in trainer.logged] == [CLI_RESUME_STEPS], trainer.logged
+    assert CheckpointManager(str(run / "checkpoints")).latest_step() == CLI_RESUME_STEPS
+    log(f"[cli] resume {CLI_STEPS} -> {CLI_RESUME_STEPS}: {time.perf_counter() - t0:.2f} s with a dump; "
+        f"loss {trainer.logged[-1]['train_loss']:.5f}")
+
+    # 8c. The archive round trip: the same forward, bit for bit.
+    x, t = model_inputs(device, CLI_IMG)
+    t0 = time.perf_counter()
+    model.save_to(str(Path(tmp) / "again.dmn"))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = port.DDPM.restore_from(str(dmn), device=device)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = torch.equal(restored.forward(x, t), model.forward(x, t))
+    log(f"[cli] archive {dmn.stat().st_size / 2**20:.2f} MiB: save {save_s:.3f} s, restore {restore_s:.3f} s "
+        f"(restore_from, cuda); restored forward == trained forward bit for bit: {same}")
+    assert same
+
+    # 8d. eval_ddpm: DDIM-50 at batch 64; the PNGs are DDPM.sample's images.
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eval_ddpm.main([f"model_path={dmn}", f"batch_size={CLI_EVAL_B}", f"ddim_timesteps={CLI_DDIM}", "seed=0",
+                          f"output_dir={tmp}/samples", "add_timestamp=false"])
+    eval_s = time.perf_counter() - t0
+    cli_counts(port, "eval", unet)
+    pngs = np.stack([decode_png((out / f"sample_{i}.png").read_bytes()) for i in range(CLI_EVAL_B)])
+    ref_model = port.DDPM.restore_from(str(dmn), use_ema=True, device=device)
+    eval_ddpm.maybe_use_ddim_sampler(ref_model, eval_ddpm.EvalConfig(ddim_timesteps=CLI_DDIM))
+    t0 = time.perf_counter()
+    ref = ref_model.sample(CLI_EVAL_B, CLI_IMG, generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    ref = to_uint8(ref.float().cpu().numpy())
+    log(f"[cli] eval DDIM-{CLI_DDIM} B={CLI_EVAL_B}: {eval_s:.2f} s with restore and PNGs ({CLI_EVAL_B / eval_s:.2f} "
+        f"images/s); DDPM.sample alone {sample_s:.2f} s ({CLI_EVAL_B / sample_s:.2f} images/s); PNGs == "
+        f"DDPM.sample: {np.array_equal(pngs, ref)}")
+    assert pngs.shape == (CLI_EVAL_B, CLI_IMG, CLI_IMG, 3) and np.array_equal(pngs, ref) and pngs.std() > 0
+
+    # 8e. test_ddpm: bits/dim of one batch of 32 at T = 1000.
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = test_ddpm.main([f"model_path={dmn}", "limit_test_batches=1", f"batch_size={CLI_TEST_B}"])
+    torch.cuda.synchronize()
+    bpd_s = time.perf_counter() - t0
+    T = int(ref_model.timesteps)
+    cli_counts(port, "bpd", unet, exact={"group_norm_silu": T * per_forward["group_norm_silu"]})
+    log(f"[cli] bpd test_total_bpd={result['test_total_bpd']:.5f} (terms {result['test_terms_bpd']:.5f}, prior "
+        f"{result['test_prior_bpd']:.3e}) B={CLI_TEST_B} T={T} in {bpd_s:.2f} s with the restore "
+        f"({bpd_s / T * 1e3:.2f} ms a step)")
+    assert np.isfinite(result["test_total_bpd"]) and result["test_total_bpd"] > 0
+
+    # 8f. Bits/dim at T = 50, kernels against the plain path, same noise.
+    ds = SyntheticVisionDataset(image_size=CLI_IMG, channels=3, length=CLI_TEST_B, seed=SEED)
+    batch = {"image": np.stack([ds[i]["image"] for i in range(CLI_TEST_B)])}
+    x0 = preprocess_batch(batch, device)["pixel_values"]
+    g = torch.Generator(device=device).manual_seed(SEED)
+    noise = torch.randn((CLI_BPD_T, *x0.shape), generator=g, device=device)
+    for dtype, must in (("bfloat16", unet), ("float32", ("group_norm_silu", "linear_attention_qkv"))):
+        cfg = load_config(Path(__file__).resolve().parent / "examples/configs/ddpm/unet_small.yaml", overrides=[
+            *CLI_MODEL, f"model.timesteps={CLI_BPD_T}", f"model.diffusion_model.dtype={dtype}"])
+        bpd_model = port.DDPM(cfg.model, device=device, seed=SEED)
+        run_bpd = lambda: bpd_model.calculate_bits_per_dimension(x0, noise=noise)  # noqa: E731
+        port.ops.reset_launch_counts()
+        kern = run_bpd()
+        torch.cuda.synchronize()
+        cli_counts(port, f"bpd {dtype} T={CLI_BPD_T}", must)
+        with plain_path(port):
+            plain = run_bpd()
+        rel = float(((kern["total_bpd"] - plain["total_bpd"]).abs() / plain["total_bpd"].abs()).max())
+        log(f"[cli] bpd {dtype} T={CLI_BPD_T} B={CLI_TEST_B}: total_bpd kernels {float(kern['total_bpd'].mean()):.5f} "
+            f"plain {float(plain['total_bpd'].mean()):.5f}, max relative difference {rel:.3e} "
+            f"(tol {BPD_REL_TOL[dtype]:.0e})")
+        assert torch.isfinite(kern["terms_bpd"]).all() and rel <= BPD_REL_TOL[dtype], rel
+        if dtype == "bfloat16":
+            wall_ms = time_ms(run_bpd, iters=2)
+            busy_ms = device_profile(run_bpd, iters=1)[0]
+            log(f"[cli] bpd loop bf16 B={CLI_TEST_B}: {wall_ms / CLI_BPD_T:.3f} ms a step wall (CUDA events), "
+                f"{busy_ms / CLI_BPD_T:.3f} ms device busy ({100 * busy_ms / wall_ms:.1f}%)")
+
+    # 8g. serve from the archive path: one /sample of 4 PNGs.
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve_cli.build_server([f"model_path={dmn}", "port=0", f"ddim_timesteps={CLI_DDIM}"])
+    build_s = time.perf_counter() - t0
+    server.start_background()
+    try:
+        t1 = time.perf_counter()
+        code, body = http("POST", f"http://{server.host}:{server.port}/sample", {"num_images": 4, "format": "png"})
+        first_s = time.perf_counter() - t1
+    finally:
+        server.shutdown()
+    cli_counts(port, "serve", unet)
+    imgs = np.stack([decode_png(base64.b64decode(p)) for p in json.loads(body)["images"]])
+    log(f"[cli] serve from {dmn.name}: restore + DDIM-{CLI_DDIM} warm-up batch (64) {build_s:.2f} s; first /sample (4 "
+        f"images, png) {first_s:.3f} s, status {code}, decoded {list(imgs.shape)}")
+    assert code == 200 and imgs.shape == (4, CLI_IMG, CLI_IMG, 3)
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
+    assert not loaded, f"the README's path loaded {loaded}"
+    log(f"[cli] none of {', '.join(NOT_ON_THE_CARD)} was imported")
+
+
 def main() -> int:
     import torch
 
@@ -1279,6 +1513,18 @@ def main() -> int:
     rows.update(tool_rows)
     rows["linear_attention_block_v1"]["max_abs_err"] = max(rows["linear_attention_block_v1"]["max_abs_err"], v1_err)
     check_tap_split_backward(port, device)
+
+    # 8. The README's usage path: the CLIs in a temporary directory.
+    t8 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dmn_cli_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        check_cli_path(port, device, per_forward["unet_small"], tmp)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[cli] phase 8 in {time.perf_counter() - t8:.1f} s")
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

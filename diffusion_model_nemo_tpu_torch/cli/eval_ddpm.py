@@ -1,0 +1,112 @@
+"""Sample from a DDPM archive with the port (counterpart of
+``examples/ddpm/eval_ddpm.py``): DDIM (default) or the model's own
+ancestral chain.
+
+    python -m diffusion_model_nemo_tpu_torch.cli.eval_ddpm model_path=DDPM.dmn \\
+        use_ddim_sampler=true ddim_timesteps=50 batch_size=64 seed=0
+
+Writes ``sample_<i>.png`` and ``samples_grid.png`` under ``output_dir``
+(plus a timestamp directory unless ``add_timestamp=false``).
+``device=cpu`` runs on the CPU. The DPM-Solver, Karras and UniPC samplers
+and ``show_diffusion`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from ..models import DDPM
+from ..modules.parts import not_ported
+from ..utils.image import encode_png, save_image_grid, to_uint8
+from .common import hydra_runner
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class EvalConfig:
+    model_path: str = "DDPM.dmn"
+    batch_size: int = 32
+    image_size: int = -1
+
+    # DDIM
+    use_ddim_sampler: bool = True
+    ddim_eta: float = 0.0  # 0 = DDIM mode, 1 = DDPM mode
+    ddim_timesteps: int = 10  # -1 uses original timesteps
+
+    # Not ported yet: each raises when set.
+    use_dpm_solver: bool = False
+    dpm_steps: int = 20
+    dpm_order: int = 2
+    dpm_time_spacing: str = "strided"
+    use_karras_sampler: bool = False
+    karras_steps: int = 18
+    karras_order: int = 2
+    karras_s_churn: float = 0.0
+    use_unipc: bool = False
+    unipc_steps: int = 20
+    unipc_order: int = 2
+    unipc_corrector: bool = True
+    unipc_variant: str = "bh2"
+
+    # Output
+    output_dir: str = "samples"
+    add_timestamp: bool = True
+    grid_plot: bool = True
+
+    # animation (not ported yet)
+    show_diffusion: bool = False
+    frame_step: int = 1
+    fps: int = 30
+
+    seed: Optional[int] = None
+    use_ema: bool = True
+    device: str = "cuda"
+
+
+def maybe_use_ddim_sampler(model: DDPM, cfg) -> None:
+    """The JAX script's sampler swap; the samplers that are not ported raise."""
+    for flag, name in (("use_unipc", "UniPC"), ("use_karras_sampler", "Karras"), ("use_dpm_solver", "DPM-Solver")):
+        if getattr(cfg, flag, False):
+            raise not_ported("eval_ddpm", f"{flag}=true ({name})", "samplers")
+    if cfg.use_ddim_sampler:
+        sampler_cfg = dict(model.cfg.sampler)
+        sampler_cfg["_target_"] = "diffusion_model_nemo.modules.GeneralizedGaussianDiffusion"
+        sampler_cfg["eta"] = cfg.ddim_eta
+        sampler_cfg["ddim_timesteps"] = cfg.ddim_timesteps
+        model.change_sampler(sampler_cfg)
+
+
+@hydra_runner(schema=EvalConfig)
+def main(cfg):
+    """Returns the output directory."""
+    cfg = EvalConfig(**cfg)
+    if cfg.show_diffusion:
+        raise not_ported("eval_ddpm", "show_diffusion=true", "samplers")
+    model = DDPM.restore_from(cfg.model_path, use_ema=cfg.use_ema, device=cfg.device)
+    maybe_use_ddim_sampler(model, cfg)
+    image_size = cfg.image_size if cfg.image_size > 0 else int(model.image_size)
+    generator = torch.Generator(device=model.device).manual_seed(cfg.seed if cfg.seed is not None else 0)
+    imgs = model.sample(batch_size=cfg.batch_size, image_size=image_size, generator=generator)
+    imgs = imgs.float().cpu().numpy()
+
+    out_dir = Path(cfg.output_dir)
+    if cfg.add_timestamp:
+        out_dir = out_dir / datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if cfg.grid_plot:
+        save_image_grid(imgs, str(out_dir / "samples_grid.png"), nrow=6)
+    for i, img in enumerate(to_uint8(imgs)):
+        (out_dir / f"sample_{i}.png").write_bytes(encode_png(img))
+    log.info(f"Saved {imgs.shape[0]} samples to {out_dir}")
+    return out_dir
+
+
+if __name__ == "__main__":
+    main()

@@ -39,9 +39,10 @@ def get_target(name: str) -> Callable:
     return TARGET_REGISTRY[name]
 
 
-def instantiate(cfg: Optional[Mapping], **kwargs: Any) -> Any:
-    """Build the object named by ``cfg['_target_']`` with the other fields as
-    keyword arguments; call-site ``kwargs`` override config fields."""
+def instantiate(cfg: Optional[Mapping], *args: Any, **kwargs: Any) -> Any:
+    """Build the object named by ``cfg['_target_']`` with ``args`` and the
+    other fields as keyword arguments; call-site ``kwargs`` override config
+    fields (``hydra.utils.instantiate``'s non-recursive subset)."""
     if cfg is None:
         return None
     if "_target_" not in cfg:
@@ -49,4 +50,4 @@ def instantiate(cfg: Optional[Mapping], **kwargs: Any) -> Any:
     target = get_target(str(cfg["_target_"]))
     cfg_kwargs = {k: v for k, v in cfg.items() if k != "_target_"}
     cfg_kwargs.update(kwargs)
-    return target(**cfg_kwargs)
+    return target(*args, **cfg_kwargs)

@@ -5,7 +5,10 @@ Counterpart of the parts of ``diffusion_model_nemo_tpu/data/hf_vision_data.py``
 the training slice needs, in numpy (the JAX package's module imports JAX):
 ``SyntheticVisionDataset`` draws the same ``RandomState`` images and labels,
 and ``DataLoader`` shuffles with the same epoch-seeded ``RandomState``, so
-both packages give bit-identical uint8 batches. Hugging Face, file and
+both packages give bit-identical uint8 batches; ``set_position`` replays the
+stream from (epoch, batch) for a deterministic resume. The synthetic set
+has no splits: its ``test`` loader (``mode="test"``, no shuffle) reads the
+same images in order, as in the JAX package. Hugging Face, file and
 audio datasets, captions and multi-process sharding are not ported yet.
 """
 
@@ -52,17 +55,26 @@ class DataLoader:
         self.batch_size = int(batch_size)
         self.shuffle, self.seed, self.drop_last = shuffle, seed, drop_last
         self._epoch = 0
+        self._skip = 0  # batches to skip at the start of the next epoch
 
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def set_position(self, epoch: int, batch_offset: int) -> None:
+        """Fast-forward for a deterministic resume: the order is a function
+        of (seed, epoch, batch index), so the next ``__iter__`` replays epoch
+        ``epoch`` from batch ``batch_offset`` (the skipped batches are never
+        fetched); later epochs start at 0."""
+        self._epoch, self._skip = int(epoch), int(batch_offset)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self._epoch).shuffle(order)
         self._epoch += 1
-        for b in range(len(self)):
+        skip, self._skip = self._skip, 0
+        for b in range(skip, len(self)):
             items = [self.dataset[i] for i in order[b * self.batch_size : (b + 1) * self.batch_size]]
             yield {key: np.stack([it[key] for it in items]) for key in items[0]}
 

@@ -1,3 +1,4 @@
 from .simple_loss import DiffusionLoss
+from .variational_bound_loss import VariationalBoundLoss, compute_variational_loss_terms
 
-__all__ = ["DiffusionLoss"]
+__all__ = ["DiffusionLoss", "VariationalBoundLoss", "compute_variational_loss_terms"]

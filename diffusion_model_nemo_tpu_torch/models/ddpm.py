@@ -5,13 +5,15 @@ Counterpart of ``diffusion_model_nemo_tpu/models/ddpm.py`` (``training_step``,
 ``sample``). The JAX step splits one key into the flip, t and noise draws;
 here ``draw_training_inputs`` draws them from a ``torch.Generator`` and
 ``training_step`` takes them as tensors, so a test can feed both packages
-the same draws (the two RNG streams differ). Min-SNR-γ weighting, offset
-noise, ``pred_v`` training, dropout, bits/dim, inpainting, editing and
+the same draws (the two RNG streams differ). ``test_step`` /
+``test_epoch_end`` aggregate dataset-level bits/dim. Min-SNR-γ weighting,
+offset noise, ``pred_v`` training, dropout, inpainting, editing and
 interpolation are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -22,6 +24,8 @@ from ..modules.parts import not_ported
 from .abstract_diffusion_model import AbstractDiffusionModel
 
 __all__ = ["DDPM"]
+
+log = logging.getLogger(__name__)
 
 
 @register_target("diffusion_model_nemo.models.DDPM")
@@ -69,6 +73,27 @@ class DDPM(AbstractDiffusionModel):
         x_t = self.sampler.q_sample(x_start=x0, t=t, noise=noise)
         loss = self.loss(input=self.train_model_fn(params, x_t, t), target=noise)
         return loss, {"train_loss": loss}
+
+    # ---- evaluation ----------------------------------------------------------
+    def test_step(self, batch, batch_nb: int, generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Bits/dim of a raw uint8 batch (no flip), summed over the batch."""
+        samples = preprocess_batch(batch, self.device)["pixel_values"]
+        log_dict = self.calculate_bits_per_dimension(
+            x_start=samples, generator=generator, max_batch_size=-1, noise=noise
+        )
+        out = {k: v.sum() for k, v in log_dict.items()}
+        out["num_samples"] = samples.shape[0]
+        return out
+
+    def test_epoch_end(self, outputs) -> Dict[str, float]:
+        total = float(sum(o["num_samples"] for o in outputs))
+        result = {
+            f"test_{k}": float(sum(float(o[k]) for o in outputs)) / total
+            for k in ("total_bpd", "terms_bpd", "prior_bpd")
+        }
+        log.info(f"Test bits/dim: {result}")
+        return result
 
     # ---- sampling ------------------------------------------------------------
     def sample(

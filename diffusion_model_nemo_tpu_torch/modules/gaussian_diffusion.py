@@ -65,6 +65,13 @@ class GaussianDiffusion(AbstractDiffusionProcess):
         self.compute_constants(timesteps)
 
     # ---- q space -------------------------------------------------------------
+    def q_mean_variance(self, x_start, t):
+        """Marginal q(x_t | x_0): (mean, variance, log variance)."""
+        c = self.constants
+        mean = x_start * extract(c.sqrt_alphas_cumprod, t, x_start.ndim)
+        variance = extract(1.0 - c.alphas_cumprod, t, x_start.ndim)
+        return mean, variance, extract(c.log_one_minus_alphas_cumprod, t, x_start.ndim)
+
     def q_posterior(self, x_start, x, t):
         c = self.constants
         mean = extract(c.posterior_mean_coef1, t, x.ndim) * x_start + extract(

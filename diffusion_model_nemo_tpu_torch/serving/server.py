@@ -20,8 +20,9 @@ Endpoints (standard library ``http.server``):
                    → {"images": [b64 PNG, ...]} or raw .npy bytes
 Client faults (bad payload, failed validation) answer 400, timeouts 504,
 faults in the worker or the response path 500. The super-resolution, edit,
-vocoder and text modes, class labels and ``.dmn`` archives are not ported
-yet: those routes answer 501.
+vocoder and text modes and class labels are not ported yet: those routes
+answer 501. ``serve`` takes a model object or a ``.dmn`` archive path (or a
+local-hub model name), as the JAX ``serve(model_path, ...)`` does.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import binascii
 import io
 import json
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -392,10 +394,17 @@ def serve(
     ddim_timesteps: int = 50,
     ddim_eta: float = 0.0,
     base_seed: int = 0,
+    image_size: Optional[int] = None,
+    device: str = "cuda",
 ) -> SamplingServer:
-    """Serve a model object: optionally swap in DDIM (the default, as in
-    ``examples/serve.py``), warm up with one batch, and return the server
+    """Serve a model object, or the archive at a path (or a local-hub model
+    name, restored on ``device``): optionally swap in DDIM (the default, as
+    in ``examples/serve.py``), warm up with one batch, and return the server
     (not yet listening: call ``serve_forever`` or ``start_background``)."""
+    if isinstance(model, (str, os.PathLike)):
+        from ..models import restore_model_from_archive
+
+        model = restore_model_from_archive(str(model), use_ema=False, device=device)
     if use_ddim_sampler:
         sampler_cfg = dict(model.cfg.sampler)
         sampler_cfg["_target_"] = "diffusion_model_nemo.modules.GeneralizedGaussianDiffusion"
@@ -404,7 +413,7 @@ def serve(
         model.change_sampler(sampler_cfg)
     batcher = BatchingSampler(
         model,
-        image_size=int(model.cfg.image_size),
+        image_size=int(image_size or model.cfg.image_size),
         max_batch=max_batch,
         linger_ms=linger_ms,
         use_ema=use_ema,

@@ -1,8 +1,12 @@
+from .checkpoints import CheckpointManager, load_archive, load_aux_weights, save_archive
 from .ema import ema_decay_at, ema_update, init_ema
+from .exp_manager import ExpManagerHooks, exp_manager
 from .optim import Optimizer, build_lr_schedule, build_optimizer, clip_by_global_norm, global_norm
 from .trainer import Trainer, TrainState
 
 __all__ = [
+    "CheckpointManager",
+    "ExpManagerHooks",
     "Optimizer",
     "Trainer",
     "TrainState",
@@ -11,6 +15,10 @@ __all__ = [
     "clip_by_global_norm",
     "ema_decay_at",
     "ema_update",
+    "exp_manager",
     "global_norm",
     "init_ema",
+    "load_archive",
+    "load_aux_weights",
+    "save_archive",
 ]

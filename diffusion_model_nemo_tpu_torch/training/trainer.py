@@ -1,22 +1,31 @@
-"""Training loop on one device.
+"""Training loop on one device, and the dataset test loop.
 
 Counterpart of ``diffusion_model_nemo_tpu/training/trainer.py`` (``fit``,
-``_build_update_fn``, ``_apply_precision``). Config fields mirror the
-reference YAML ``trainer`` block. One optimizer step: the model's
-``training_step`` (loss of the network on the step's batch and draws),
-autograd, the global norm of the raw gradients (the ``grad_norm`` metric),
-global-norm clip + AdamW with its schedule (``optim.py``), then the EMA with
-its warm-up at the count of steps done before the update. Parameters,
-optimizer state and EMA live on the model's device and are updated in
-place; the host syncs only at the logging cadence.
+``test``, ``_build_update_fn``, ``_apply_precision``,
+``_resolve_limit_batches``). Config fields mirror the reference YAML
+``trainer`` block. One optimizer step: the model's ``training_step`` (loss
+of the network on the step's batch and draws), autograd, the global norm of
+the raw gradients (the ``grad_norm`` metric), global-norm clip + AdamW with
+its schedule (``optim.py``), then the EMA with its warm-up at the count of
+steps done before the update. Parameters, optimizer state and EMA live on
+the model's device and are updated in place; the host syncs only at the
+logging and checkpoint cadences.
+
+Services, as in the JAX trainer: the ``save_every`` sample dump (and
+bits/dim of the step's batch under ``compute_bpd``), the ``exp_manager``
+hooks (metrics, image logging, checkpoints every
+``checkpoint_every_n_steps``, the final archive), and resume from a
+checkpoint's state: params, EMA, optimizer state, step, the draw
+generator's state and the data position, so that a resumed run is
+bit-identical to an uninterrupted one. The draws come from one
+``torch.Generator`` seeded with ``seed`` (the JAX package derives a key per
+step instead; the two streams differ, the resume contract is the same).
 
 Options of the JAX trainer that would change the run and are not ported
 raise at ``fit`` start: gradient accumulation, ``steps_per_execution``,
-post-hoc EMA, any strategy but one device, resume, the profiler,
-checkpoints / exp_manager, and a ``save_every`` (sample dump, bits/dim)
-cadence that ``max_steps`` would cross. The data stream has no
-deterministic resume; the draws come from one ``torch.Generator`` seeded
-with ``seed``.
+post-hoc EMA, any strategy but one device, the profiler, PTL's
+``resume_from_checkpoint`` and ``enable_checkpointing`` (exp_manager resumes
+and checkpoints).
 """
 
 from __future__ import annotations
@@ -27,8 +36,10 @@ import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
+from ..data.hf_vision_data import preprocess_batch
 from ..modules.parts import not_ported
 from .ema import ema_update, init_ema
 from .optim import Optimizer, build_optimizer, global_norm
@@ -66,6 +77,7 @@ class Trainer:
         profile_dir: Optional[str] = None,
         terminate_on_nan: bool = True,
         posthoc_ema_sigma_rels: Optional[Any] = None,
+        limit_test_batches: Optional[float] = None,
         resume_from_checkpoint: Optional[str] = None,
         enable_checkpointing: bool = False,
         **_unused,
@@ -83,15 +95,17 @@ class Trainer:
         self.profile_dir = profile_dir
         self.terminate_on_nan = bool(terminate_on_nan)
         self.posthoc_ema_sigma_rels = posthoc_ema_sigma_rels
+        self.limit_test_batches = limit_test_batches
         self.resume_from_checkpoint = resume_from_checkpoint
         self.enable_checkpointing = bool(enable_checkpointing)
         self.global_step = 0
+        self.exp_manager_hooks = None  # set by exp_manager()
         self.optimizer: Optional[Optimizer] = None
         self.lr_schedule = None
         self.logged: List[Dict[str, float]] = []  # the metrics of each logging step
 
     # ------------------------------------------------------------------ fit ----
-    def _check_ported(self, model, max_steps: int, resume_state) -> None:
+    def _check_ported(self, model) -> None:
         def refuse(option: str):
             raise not_ported("Trainer", option, "training services")
 
@@ -107,15 +121,12 @@ class Trainer:
             n = torch.cuda.device_count() if model.device.type == "cuda" else 1
         if strategy not in _ONE_DEVICE_STRATEGIES or n > 1 or int(self.num_nodes) > 1:
             refuse(f"strategy={self.strategy!r} on {n} device(s) x {self.num_nodes} node(s)")
-        if resume_state is not None or self.resume_from_checkpoint:
-            refuse("resume")
+        if self.resume_from_checkpoint:
+            refuse("resume_from_checkpoint (resume through exp_manager.resume_if_exists)")
         if self.profile_dir:
             refuse("profile_dir")
         if self.enable_checkpointing:
-            refuse("checkpoints / exp_manager")
-        save_every = int(model.cfg.get("save_every", 0) or 0)
-        if save_every and max_steps >= save_every:
-            refuse(f"save_every={save_every} within max_steps={max_steps} (sample dump, compute_bpd)")
+            refuse("enable_checkpointing=True (checkpoints come from exp_manager.checkpoint_every_n_steps)")
 
     def init_state(self, model, max_steps: int) -> TrainState:
         """Precision, the optimizer and its schedule, and fresh copies of the
@@ -140,6 +151,39 @@ class Trainer:
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()} | {"grad_norm": norm}
 
+    @staticmethod
+    def checkpoint_state(state: TrainState, generator: torch.Generator, steps_per_epoch: int) -> Dict[str, Any]:
+        """What a resume needs (tensors still on the device: the checkpoint
+        manager copies them to the CPU)."""
+        return {
+            "params": {k: v.detach() for k, v in state.params.items()},
+            "ema_params": state.ema_params,
+            "opt_state": state.opt_state,
+            "step": state.step,
+            "generator": generator.get_state(),
+            "data_position": list(divmod(state.step, steps_per_epoch)),
+        }
+
+    @staticmethod
+    def _load_resume_state(state: TrainState, generator: torch.Generator, saved: Dict[str, Any]) -> None:
+        def copy_into(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+            if set(dst) != set(src):
+                raise KeyError(f"checkpoint keys differ: {sorted(set(dst) ^ set(src))}")
+            for k, v in dst.items():
+                if isinstance(v, dict):
+                    copy_into(v, src[k])
+                elif torch.is_tensor(v):
+                    v.copy_(src[k])
+                else:
+                    dst[k] = src[k]
+
+        with torch.no_grad():
+            copy_into(state.params, saved["params"])
+            copy_into(state.ema_params, saved["ema_params"])
+            copy_into(state.opt_state, saved["opt_state"])
+        state.step = int(saved["step"])
+        generator.set_state(saved["generator"])
+
     def fit(self, model, resume_state: Optional[Dict[str, Any]] = None) -> None:
         if model._train_dl is None and model.cfg.get("train_ds"):
             model.setup_training_data(model.cfg.train_ds)
@@ -153,12 +197,23 @@ class Trainer:
             max_steps = steps_per_epoch * int(self.max_epochs)
         else:
             raise ValueError("Either max_steps or max_epochs must be set")
-        self._check_ported(model, max_steps, resume_state)
+        self._check_ported(model)
 
         state = self.init_state(model, max_steps)
         generator = torch.Generator(device=model.device).manual_seed(self.seed)
+        epoch = 0
+        if resume_state is not None:
+            # Deterministic resume: the draws continue from the saved
+            # generator state and the loader replays the stream from the
+            # saved (epoch, batch) position.
+            self._load_resume_state(state, generator, resume_state)
+            epoch, offset = (int(v) for v in resume_state["data_position"])
+            train_dl.set_position(epoch, offset)
+            log.info(f"Resumed training from step {state.step}")
+        hooks = self.exp_manager_hooks
+        save_every = int(model.save_and_sample_every or 0)
         log.info(f"Starting training: {max_steps} steps ({steps_per_epoch} steps/epoch)")
-        t_last, samples_since, epoch, done = time.perf_counter(), 0, 0, False
+        t_last, samples_since, done = time.perf_counter(), 0, state.step >= max_steps
         while not done:
             for batch in train_dl:
                 if state.step >= max_steps:
@@ -166,26 +221,89 @@ class Trainer:
                     break
                 draws = model.draw_training_inputs(batch["image"].shape, generator)
                 metrics = self.train_step(model, state, batch, draws)
-                self.global_step = state.step
+                step = self.global_step = state.step
                 samples_since += batch["image"].shape[0]
                 cadence = self.log_every_n_steps
-                if (cadence > 0 and state.step % cadence == 0) or state.step == max_steps:
+                if (cadence > 0 and step % cadence == 0) or step == max_steps:
                     host = {k: float(v) for k, v in metrics.items()}
                     if self.terminate_on_nan and not math.isfinite(host["train_loss"]):
-                        raise FloatingPointError(f"Non-finite train_loss at step {state.step}: {host}")
+                        raise FloatingPointError(f"Non-finite train_loss at step {step}: {host}")
                     now = time.perf_counter()
-                    host["learning_rate"] = float(self.lr_schedule(state.step))
-                    host["global_step"] = state.step
+                    host["learning_rate"] = float(self.lr_schedule(step))
+                    host["global_step"] = step
                     host["samples_per_sec"] = samples_since / max(now - t_last, 1e-9)
                     t_last, samples_since = now, 0
                     self.logged.append(host)
-                    log.info(f"step {state.step}: " + ", ".join(f"{k}={v:.5g}" for k, v in host.items()))
+                    self._log_metrics(host, step)
+                if save_every and step % save_every == 0:
+                    self._sample_dump(model, state, batch, step)
+                if hooks and hooks.should_checkpoint(step):
+                    hooks.maybe_checkpoint(
+                        step, self.checkpoint_state(state, generator, steps_per_epoch),
+                        metrics={"train_loss": float(metrics["train_loss"])},
+                    )
             epoch += 1
             if self.max_epochs and epoch >= int(self.max_epochs) and not self.max_steps:
                 done = True
         model.params = {k: v.detach() for k, v in state.params.items()}
         model.ema_params = state.ema_params
+        if hooks:
+            hooks.finalize(model, self.checkpoint_state(state, generator, steps_per_epoch))
         log.info(f"Training finished at step {state.step}")
+
+    def _sample_dump(self, model, state: TrainState, batch, step: int) -> None:
+        """The ``save_every`` services with the freshest weights (copies,
+        so the model stays usable if the run stops): a sample grid, and
+        bits/dim of the step's batch under ``compute_bpd``."""
+        model.params = {k: v.detach().clone() for k, v in state.params.items()}
+        model.ema_params = {k: v.clone() for k, v in state.ema_params.items()}
+        imgs = model._save_image_step(batch_size=64, step=step)
+        if imgs is not None and self.exp_manager_hooks:
+            self.exp_manager_hooks.log_images("samples", imgs, step)
+        if model.cfg.get("compute_bpd", False):
+            x = preprocess_batch(batch, model.device)["pixel_values"]
+            bpd = model.calculate_bits_per_dimension(x)
+            self._log_metrics({"total_bits_per_dimension": float(bpd["total_bpd"].mean())}, step)
+
+    # ------------------------------------------------------------------ test ----
+    def test(self, model) -> Dict[str, float]:
+        """Bits/dim over the test set (``limit_test_batches`` of it); batch
+        i draws from a generator seeded with (seed, i)."""
+        if model._test_dl is None and model.cfg.get("test_ds"):
+            model.setup_test_data(model.cfg.test_ds)
+        test_dl = model._test_dl
+        if test_dl is None:
+            raise ValueError("No test dataloader configured (model.cfg.test_ds)")
+        max_batches = self._resolve_limit_batches(self.limit_test_batches, len(test_dl))
+        outputs = []
+        for i, batch in enumerate(test_dl):
+            if i >= max_batches:
+                break
+            seed = int(np.random.SeedSequence([self.seed, i]).generate_state(1)[0])
+            generator = torch.Generator(device=model.device).manual_seed(seed)
+            outputs.append(model.test_step(batch, i, generator=generator))
+        result = model.test_epoch_end(outputs)
+        self._log_metrics(result, self.global_step)
+        return result
+
+    @staticmethod
+    def _resolve_limit_batches(limit, n_batches: int) -> int:
+        """PTL semantics: int = batch count, float in [0, 1] = fraction."""
+        if limit is None:
+            return n_batches
+        if isinstance(limit, int) and not isinstance(limit, bool):
+            return min(limit, n_batches)
+        f = float(limit)
+        if 0.0 <= f <= 1.0:
+            return max(int(n_batches * f), 1) if f > 0 else 0
+        return min(int(f), n_batches)
+
+    def _log_metrics(self, metrics: Dict[str, float], step: int) -> None:
+        if self.exp_manager_hooks:
+            self.exp_manager_hooks.log_metrics(metrics, step)
+        else:
+            log.info(f"step {step}: " + ", ".join(
+                f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}" for k, v in metrics.items()))
 
     def _apply_precision(self, model) -> None:
         """The reference YAML ``trainer.precision``: 32 keeps the configured

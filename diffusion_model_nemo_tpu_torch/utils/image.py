@@ -4,19 +4,21 @@
 (``serving/server.py``: clip to [0, 1], ×255, +0.5, truncate). The PNG
 encoder needs only ``zlib`` and ``struct`` (8-bit grey or RGB, filter 0), in
 place of the JAX package's Pillow dependency; ``decode_png`` reads back what
-it writes.
+it writes. ``make_grid`` and ``save_image_grid`` are the JAX package's
+``utils/image.py`` sample-grid helpers, written through this PNG codec.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from pathlib import Path
 from typing import Union
 
 import numpy as np
 import torch
 
-__all__ = ["to_uint8", "to_uint8_tensor", "encode_png", "decode_png"]
+__all__ = ["to_uint8", "to_uint8_tensor", "encode_png", "decode_png", "make_grid", "save_image_grid"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPES = {1: 0, 3: 2}  # channels -> PNG colour type (grey, RGB)
@@ -88,3 +90,27 @@ def decode_png(data: Union[bytes, bytearray]) -> np.ndarray:
     if rows[:, 0].any():
         raise ValueError("decode_png takes filter type 0 only")
     return rows[:, 1:].reshape(h, w, channels).copy()
+
+
+def make_grid(images, nrow: int = 6, padding: int = 2) -> np.ndarray:
+    """Tile [B, H, W, C] floats in [0, 1] (or a tensor) into one [H', W', C]
+    uint8 grid of ``min(nrow, B)`` columns, ``padding`` black pixels apart."""
+    if torch.is_tensor(images):
+        images = images.detach().float().cpu().numpy()
+    images = to_uint8(images)
+    b, h, w, c = images.shape
+    ncol = min(nrow, b)
+    nrows = (b + ncol - 1) // ncol
+    grid = np.zeros((nrows * (h + padding) + padding, ncol * (w + padding) + padding, c), np.uint8)
+    for idx in range(b):
+        r, col = divmod(idx, ncol)
+        y, x = r * (h + padding) + padding, col * (w + padding) + padding
+        grid[y : y + h, x : x + w] = images[idx]
+    return grid
+
+
+def save_image_grid(images, path: str, nrow: int = 6) -> str:
+    """``make_grid`` written as a PNG at ``path`` (parents created)."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_bytes(encode_png(make_grid(images, nrow=nrow)))
+    return path

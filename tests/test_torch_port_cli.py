@@ -1,0 +1,201 @@
+"""The README's usage path on the port, on the CPU: ``train_ddpm`` from
+``examples/configs/ddpm/unet_small.yaml`` (sample dump, checkpoints, final
+archive), ``eval_ddpm``, ``test_ddpm`` and ``serve`` from the archive, each
+CLI called in-process with a tiny U-Net; deterministic resume; and the
+options that stay refused.
+"""
+
+import json
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from diffusion_model_nemo_tpu_torch import DDPM, Trainer
+from diffusion_model_nemo_tpu_torch.cli import eval_ddpm, serve, test_ddpm, train_ddpm
+from diffusion_model_nemo_tpu_torch.config import load_config
+from diffusion_model_nemo_tpu_torch.training import CheckpointManager, exp_manager
+from diffusion_model_nemo_tpu_torch.utils.image import decode_png
+
+REPO = Path(__file__).resolve().parents[1]
+CONFIG = ["--config-path=examples/configs/ddpm", "--config-name=unet_small.yaml"]
+TINY = [
+    "model.image_size=8", "model.timesteps=10", "model.diffusion_model.dim=8",
+    "model.diffusion_model.dim_mults=[1,2]", "model.train_ds.name=synthetic",
+    "model.train_ds.batch_size=4", "+model.train_ds.length=16", "trainer.accelerator=cpu",
+    "exp_manager.create_tensorboard_logger=false",
+]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """train_ddpm for 6 steps (dumps at 3 and 6, checkpoints at 3 and 6),
+    then resumed to 9; returns the run directory, the model and the trainer."""
+    root = tmp_path_factory.mktemp("cli")
+    common = [*CONFIG, *TINY, "model.save_every=3", "model.compute_bpd=false",
+              "exp_manager.checkpoint_every_n_steps=3", f"exp_manager.exp_dir={root / 'exp'}",
+              f"+model.results_dir={root / 'results'}", "trainer.log_every_n_steps=3"]
+    first, _ = train_ddpm.main([*common, "trainer.max_steps=6"])
+    model, trainer = train_ddpm.main([*common, "trainer.max_steps=9", "exp_manager.resume_if_exists=true"])
+    (run,) = (root / "exp" / "DDPM-UNet").iterdir()
+    return root, run, first, model, trainer
+
+
+def test_train_writes_dumps_checkpoints_and_the_archive(trained):
+    root, run, _first, _model, trainer = trained
+    assert sorted(p.name for p in (root / "results").iterdir()) == [
+        "sample-1-1.png", "sample-2-1.png", "sample-3-1.png"]
+    grid = decode_png((root / "results" / "sample-1-1.png").read_bytes())
+    assert grid.shape == (12, 42, 3)  # 4 images of 8 px in a row, 2 px apart
+    assert (run / "hparams.yaml").is_file() and (run / "DDPM-UNet.dmn").is_file()
+    assert CheckpointManager(str(run / "checkpoints")).latest_step() == 9
+    assert [m["global_step"] for m in trainer.logged] == [9]  # the resumed run starts at 6
+
+
+def test_resumed_cli_run_starts_from_the_checkpoint(trained):
+    _root, run, first, model, _trainer = trained
+    state = CheckpointManager(str(run / "checkpoints")).restore(9)
+    assert state["step"] == 9 and state["data_position"] == [2, 1]
+    assert all(torch.equal(state["params"][k], model.params[k]) for k in model.params)
+    assert any(not torch.equal(first.params[k], model.params[k]) for k in model.params)
+
+
+def test_eval_writes_the_samples_of_ddpm_sample(trained, tmp_path):
+    _root, run, *_ = trained
+    dmn = str(run / "DDPM-UNet.dmn")
+    out = eval_ddpm.main([f"model_path={dmn}", "batch_size=3", "ddim_timesteps=5", "seed=1",
+                          "device=cpu", f"output_dir={tmp_path}", "add_timestamp=false"])
+    pngs = [decode_png((out / f"sample_{i}.png").read_bytes()) for i in range(3)]
+    assert (out / "samples_grid.png").is_file()
+    model = DDPM.restore_from(dmn, use_ema=True, device="cpu")
+    eval_ddpm.maybe_use_ddim_sampler(model, eval_ddpm.EvalConfig(ddim_timesteps=5))
+    ref = model.sample(3, 8, generator=torch.Generator().manual_seed(1))
+    ref = (ref.clamp(0, 1) * 255 + 0.5).to(torch.uint8).numpy()
+    assert np.array_equal(np.stack(pngs), ref)
+
+
+def test_test_ddpm_reports_finite_bits_per_dimension(trained):
+    _root, run, *_ = trained
+    result = test_ddpm.main([f"model_path={run / 'DDPM-UNet.dmn'}", "batch_size=4",
+                             "limit_test_batches=1", "device=cpu"])
+    assert set(result) == {"test_total_bpd", "test_terms_bpd", "test_prior_bpd"}
+    assert np.isfinite(result["test_total_bpd"]) and result["test_total_bpd"] > 0
+
+
+def test_serve_answers_from_the_archive_path(trained):
+    _root, run, *_ = trained
+    server = serve.build_server([f"model_path={run / 'DDPM-UNet.dmn'}", "port=0", "max_batch=2",
+                                 "ddim_timesteps=5", "device=cpu"])
+    server.start_background()
+    try:
+        req = urllib.request.Request(f"http://{server.host}:{server.port}/sample", method="POST",
+                                     data=json.dumps({"num_images": 2, "format": "png"}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200
+            images = json.loads(resp.read())["images"]
+    finally:
+        server.shutdown()
+    import base64
+
+    decoded = np.stack([decode_png(base64.b64decode(p)) for p in images])
+    assert decoded.shape == (2, 8, 8, 3)
+
+
+@pytest.mark.parametrize(
+    "cli,args,match",
+    [
+        ("train", ["trainer.accumulate_grad_batches=2"], "accumulate_grad_batches=2"),
+        ("train", ["+trainer.steps_per_execution=2"], "steps_per_execution=2"),
+        ("eval", ["use_dpm_solver=true"], "use_dpm_solver"),
+        ("eval", ["use_karras_sampler=true"], "use_karras_sampler"),
+        ("eval", ["show_diffusion=true"], "show_diffusion"),
+    ],
+)
+def test_refused_options_raise_naming_themselves(trained, tmp_path, cli, args, match):
+    _root, run, *_ = trained
+    with pytest.raises(NotImplementedError, match=match):
+        if cli == "train":
+            train_ddpm.main([*CONFIG, *TINY, "trainer.max_steps=1", f"exp_manager.exp_dir={tmp_path}", *args])
+        else:
+            eval_ddpm.main([f"model_path={run / 'DDPM-UNet.dmn'}", "device=cpu", *args])
+
+
+def test_cli_config_errors_name_the_key():
+    with pytest.raises(ValueError, match="model.image_size"):
+        train_ddpm.main([*CONFIG, "trainer.accelerator=cpu"])
+    with pytest.raises(KeyError, match="use_nothing"):
+        eval_ddpm.main(["use_nothing=true"])
+
+
+def _resume_cfg():
+    # A constant learning rate, as in the JAX package's resume test: the
+    # cosine schedule is a function of max_steps, which the interrupted run
+    # (3) and the continuous one (6) do not share.
+    overrides = [*TINY[:7], "model.optim.sched=null"]
+    return load_config(REPO / "examples/configs/ddpm/unet_small.yaml", overrides=overrides).model
+
+
+def _exp(root, resume):
+    return {"exp_dir": str(root), "name": "R", "version": "v0", "create_tensorboard_logger": False,
+            "checkpoint_every_n_steps": 3, "checkpoint_callback_params": {"save_top_k": 1},
+            "resume_if_exists": resume, "resume_ignore_no_checkpoint": True}
+
+
+def test_resumed_run_is_bitwise_identical_to_a_continuous_one(tmp_path):
+    """6 steps straight through against 3, a checkpoint, a new Trainer that
+    resumes and 3 more (4 batches an epoch: the run crosses an epoch):
+    params, EMA, optimizer state and the draw generator bit for bit."""
+    cont = DDPM(_resume_cfg(), device="cpu", seed=0)
+    t0 = Trainer(max_steps=6, devices=1)
+    exp_manager(t0, _exp(tmp_path / "a", False))
+    t0.fit(cont)
+
+    m1 = DDPM(_resume_cfg(), device="cpu", seed=0)
+    t1 = Trainer(max_steps=3, devices=1)
+    exp_manager(t1, _exp(tmp_path / "b", False))
+    t1.fit(m1)
+    m2 = DDPM(_resume_cfg(), device="cpu", seed=7)  # other weights: the resume overwrites them
+    t2 = Trainer(max_steps=6, devices=1)
+    hooks = exp_manager(t2, _exp(tmp_path / "b", True))
+    assert hooks.resume_state["step"] == 3
+    t2.fit(m2, resume_state=hooks.resume_state)
+
+    a = CheckpointManager(str(tmp_path / "a/R/v0/checkpoints")).restore(6)
+    b = CheckpointManager(str(tmp_path / "b/R/v0/checkpoints")).restore(6)
+    for key in ("params", "ema_params"):
+        assert all(torch.equal(a[key][k], b[key][k]) for k in a[key]), key
+    for key in ("mu", "nu"):
+        assert all(torch.equal(a["opt_state"][key][k], b["opt_state"][key][k]) for k in a["opt_state"][key])
+    assert a["opt_state"]["count"] == b["opt_state"]["count"] == 6
+    assert torch.equal(a["generator"], b["generator"]) and a["data_position"] == b["data_position"] == [1, 2]
+    assert all(torch.equal(cont.params[k], m2.params[k]) for k in cont.params)
+    assert all(torch.equal(cont.ema_params[k], m2.ema_params[k]) for k in cont.ema_params)
+    moved = DDPM(_resume_cfg(), device="cpu", seed=0)
+    assert any(not torch.equal(moved.params[k], cont.params[k]) for k in cont.params)
+
+
+def test_tensorboard_image_summary_needs_no_pillow(tmp_path, monkeypatch):
+    """exp_manager's sample grids reach TensorBoard through the port's PNG
+    codec: with Pillow unimportable the image summary is still written and
+    decodes to the grid (TensorFlow blocked too: TensorBoard's stub is
+    enough, and TensorFlow, where installed, takes seconds to import)."""
+    import sys
+
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    hooks = exp_manager(Trainer(), {"exp_dir": str(tmp_path), "name": "tb", "version": "v"})
+    images = np.random.default_rng(0).random((4, 8, 8, 3))
+    hooks.log_images("samples", images, 3)
+    hooks.log_metrics({"train_loss": 0.5}, 3)
+    hooks.tb_writer.flush()
+    events = EventAccumulator(str(tmp_path / "tb/v/tensorboard"))
+    events.Reload()
+    (image,) = events.Images("samples")
+    grid = decode_png(image.encoded_image_string)
+    assert image.step == 3 and grid.shape == (12, 42, 3)
+    assert np.array_equal(grid[2:10, 2:10], (images[0] * 255 + 0.5).astype(np.uint8))
+    assert [e.value for e in events.Scalars("train_loss")] == [0.5]

@@ -417,11 +417,24 @@ def test_fit_refuses_options_it_does_not_port(kwargs, match):
         Trainer(max_steps=2, **kwargs).fit(model)
 
 
-def test_fit_refuses_a_sample_dump_cadence_inside_max_steps():
-    model = _fit_model(save_every=4)
-    with pytest.raises(NotImplementedError, match="save_every"):
-        Trainer(max_steps=6).fit(model)
-    Trainer(max_steps=3, devices=1).fit(_fit_model(save_every=4))  # not crossed: runs
+def test_fit_refuses_a_sample_dump_cadence_inside_max_steps(tmp_path):
+    """The ``save_every`` cadence is ported: a cadence inside ``max_steps``
+    dumps a 4-image grid (and logs bits/dim of the step's batch under
+    ``compute_bpd``) once per crossing, instead of refusing the run."""
+    from diffusion_model_nemo_tpu_torch.utils.image import decode_png
+
+    model = _fit_model(save_every=4, compute_bpd=True, timesteps=5, results_dir=str(tmp_path))
+    model.change_sampler(dict(model.cfg.sampler, timesteps=5))
+    logged = []
+    trainer = Trainer(max_steps=6, devices=1)
+    trainer._log_metrics = lambda metrics, step: logged.append((step, dict(metrics)))
+    trainer.fit(model)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["sample-1-1.png"]
+    grid = decode_png((tmp_path / "sample-1-1.png").read_bytes())
+    assert grid.shape == (2 + IMG + 2, 4 * (IMG + 2) + 2, 3)
+    bpd = [m["total_bits_per_dimension"] for step, m in logged if "total_bits_per_dimension" in m]
+    assert [step for step, m in logged if "total_bits_per_dimension" in m] == [4]
+    assert len(bpd) == 1 and np.isfinite(bpd[0]) and bpd[0] > 0
 
 
 @pytest.mark.parametrize("option", ["snr_gamma", "offset_noise_strength", "pred_v", "dropout"])

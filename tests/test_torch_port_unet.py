@@ -310,8 +310,15 @@ def test_port_import_loads_neither_jax_nor_the_jax_package():
         "import diffusion_model_nemo_tpu_torch.modules.dit, diffusion_model_nemo_tpu_torch.config.dit_small\n"
         "import diffusion_model_nemo_tpu_torch.tools.microbench_attn, diffusion_model_nemo_tpu_torch.tools.microbench_conv\n"
         "import diffusion_model_nemo_tpu_torch.tools.microbench_attn_lanes\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "
-        "'diffusion_model_nemo_tpu'))\n"
+        "import diffusion_model_nemo_tpu_torch.config.yaml_config, diffusion_model_nemo_tpu_torch.utils.msgpack\n"
+        "import diffusion_model_nemo_tpu_torch.utils.hub, diffusion_model_nemo_tpu_torch.ops.math\n"
+        "import diffusion_model_nemo_tpu_torch.training.checkpoints, diffusion_model_nemo_tpu_torch.training.exp_manager\n"
+        "import diffusion_model_nemo_tpu_torch.loss.variational_bound_loss\n"
+        "import diffusion_model_nemo_tpu_torch.cli.common, diffusion_model_nemo_tpu_torch.cli.train_ddpm\n"
+        "import diffusion_model_nemo_tpu_torch.cli.eval_ddpm, diffusion_model_nemo_tpu_torch.cli.test_ddpm\n"
+        "import diffusion_model_nemo_tpu_torch.cli.serve\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'orbax', 'yaml', "
+        "'msgpack', 'PIL', 'tensorboardX', 'diffusion_model_nemo_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'diffusion_model_nemo_tpu_torch' in sys.modules\n"
     )
