@@ -59,11 +59,14 @@ Phases:
      breakdowns of the unet_small and DiT forwards; the float32 route: the
      GroupNorm kernel in float32, a float32 unet_small forward against its
      plain path, and a 10-step DDIM chain with #8's launches counted.
+  Every loop below runs as CUDA graph replays (``ops/graphs.py``; a
+  replay adds its capture's launch counts, so launches stay calls made).
   4. The main path: ``SamplingServer`` on unet_small (full width, random
      weights from a seed) with DDIM-50 and max_batch=64 answers /healthz,
      /stats and /sample requests (concurrent png + npy, one seed twice); the
-     images decode, the seeded one repeats bit for bit, and every kernel's
-     launch count equals its per-forward count x 50 steps x batches.
+     images decode, the seeded one repeats bit for bit and equals the eager
+     chain's, and every kernel's launch count equals its per-forward count
+     x 50 steps x batches.
      4b. The same on DiT-S/2 at 64 px (full width and depth, seeded random
      weights with the adaLN-Zero leaves redrawn) with max_batch=32.
   5. A short ancestral chain (p_sample_loop, 10 steps).
@@ -112,11 +115,28 @@ Phases:
      ``eval_ddpm`` (DDIM-50, batch 64: its PNGs equal ``DDPM.sample`` on the
      same seed), ``test_ddpm`` (bits/dim of a batch of 32 at T = 1000),
      bits/dim at T = 50 with the same noise on the kernel path and the plain
-     path (bf16 2e-2, the float32 U-Net on #8 1e-3 relative), and ``serve``
+     path (bf16 2e-2, the float32 U-Net on #8 1e-3 relative; the replayed
+     loop equals the eager one bit for bit, in float32 under
+     ``cudnn.deterministic``: its convolutions differ from run to run
+     otherwise), and ``serve``
      from the archive path (one /sample of 4 PNGs). Each step's launches are
      counted from 0 and each kernel of its path must have run; none of
      PyYAML, msgpack, flax, orbax or Pillow may be imported. ``[cli]`` lines
      give each step's seconds.
+  9. CUDA graphs against the eager loops, a ``[graph]`` line each (captured
+     wall, device busy, eager wall, capture seconds, nodes, pool MiB,
+     launches = captured counts x replays): the optimizer's and the EMA's
+     tabled scalars against Python floats (bit for bit); DDIM-50 on
+     unet_small (B=64) and DiT-S/2 (B=32), == eager bit for bit, and the
+     captured step's device split;
+     the 1000-step ancestral dump chain at batch 4 (== eager, generator
+     state equal); bits/dim at T = 1000, B = 32 (total_bpd == eager);
+     ``Trainer.fit`` at B=128, 20 steps, eager twice, captured at
+     ``steps_per_execution`` 1 and 4 (bit-equal to eager where eager
+     repeats itself, else within its difference; K = 4 == K = 1; logged
+     steps by the JAX trainer's rule); a replay after an in-place AdamW
+     step and after an EMA swap == eager, while the graph captured before
+     the step, replayed by hand, differs (stale derived weights).
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -805,6 +825,17 @@ def check_serving(port, tag, model, per_forward, max_batch, size):
     assert npy.std() > 0, "served images are constant"
 
     counts = port.ops.launch_counts()
+    # The served chain is a replay of the sampler's captured chain: the seeded
+    # request's images equal the eager Python loop's on the same seed.
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.utils.image import to_uint8_tensor
+
+    eager = model.sample(max_batch, size, generator=torch.Generator(device=model.device).manual_seed(1234),
+                         use_ema=True, graphs=False)
+    eager = to_uint8_tensor(eager)[:3].cpu().numpy()
+    assert np.array_equal(a, eager), f"{tag}: the served seeded request differs from the eager chain"
+    log(f"[serve] {tag} seeded request (graph replays) == the eager DDIM-{DDIM_STEPS} chain bit for bit")
     batches = stats["batches"] + 1  # + the warm-up batch
     images = stats["images"]
     log(f"[serve] {tag} stats={json.dumps(stats)}")
@@ -1126,19 +1157,27 @@ def check_derived_weights(port, model, params, tag):
 
 def step_profile(port, model):
     """Wall time per optimizer step (CUDA events over 20 steps), device busy
-    per step (torch.profiler) and its share."""
-    trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
-    state = trainer.init_state(model, TRAIN_STEPS)
+    per step (torch.profiler) and its share: the captured step (replays),
+    then the eager step on a state of its own."""
     batch, draws = training_batch(model, TRAIN_B)
-    run = lambda: trainer.train_step(model, state, batch, draws)  # noqa: E731
-    wall = time_ms(run, iters=20)
-    total, by_name = device_profile(run, iters=5)
-    hand = sum(v for n, v in by_name.items() if any(k in n for k in HAND_KERNELS))
-    log(f"[train] step B={TRAIN_B}: wall {wall:.3f} ms (CUDA events), {TRAIN_B / wall * 1e3:.1f} samples/s; "
-        f"device busy {total:.3f} ms ({100 * total / wall:.1f}%), hand kernels {hand:.3f} ms, "
-        f"other {total - hand:.3f} ms in {len(by_name)} kernel names")
-    for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[train]   {v:.4f} ms  {n[:110]}")
+    for graphs in (None, False):
+        trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+        state = trainer.init_state(model, TRAIN_STEPS)
+        run = lambda: trainer.train_step(model, state, batch, draws, graphs=graphs)  # noqa: E731
+        wall = time_ms(run, iters=20)
+        total, by_name = device_profile(run, iters=5)
+        hand = sum(v for n, v in by_name.items() if any(k in n for k in HAND_KERNELS))
+        tag = "captured (graph replays)" if graphs is None else "eager"
+        log(f"[train] step B={TRAIN_B} {tag}: wall {wall:.3f} ms (CUDA events), {TRAIN_B / wall * 1e3:.1f} "
+            f"samples/s; device busy {total:.3f} ms ({100 * total / wall:.1f}%; wall / busy "
+            f"{wall / total:.2f}), hand kernels {hand:.3f} ms, other {total - hand:.3f} ms in "
+            f"{len(by_name)} kernel names")
+        for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[train]   {v:.4f} ms  {n[:110]}")
+        if graphs is None:
+            info = graph_of(state.graphs, "train_step").info
+            log(f"[graph] train_step B={TRAIN_B}: capture {info['capture_s']:.3f} s, {info['nodes']} nodes, "
+                f"pool {info['pool_mib']:.1f} MiB, launches a replay {json.dumps(info['launches'])}")
 
 
 # ------------------------------------------------------------- the tools path --
@@ -1266,6 +1305,38 @@ def cli_counts(port, tag, must, exact=None):
         assert counts.get(k) == n, (tag, k, counts.get(k), n)
 
 
+def bpd_equal(a, b):
+    import torch
+
+    return torch.equal(a["total_bpd"], b["total_bpd"]) and torch.equal(a["terms_bpd"], b["terms_bpd"])
+
+
+def check_bpd_replays(dtype, run_bpd, replayed):
+    """Bits/dim's graph replays against the eager loop, bit for bit. In
+    float32 cuDNN's convolutions (TF32 off) are not reproducible from run to
+    run (eager against eager differs), so there both run with
+    ``cudnn.deterministic`` (a setting that keys the graph: it is captured
+    anew), and the eager runs' own difference is printed."""
+    import torch
+
+    if dtype == "bfloat16":
+        same, note = bpd_equal(replayed, run_bpd(False)), ""
+    else:
+        a, b = run_bpd(False), run_bpd(False)
+        ee = float((a["total_bpd"] - b["total_bpd"]).abs().max())
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            same = bpd_equal(run_bpd(), run_bpd(False))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        note = (f" under cudnn.deterministic (eager against eager without it: bit-equal {bpd_equal(a, b)}, "
+                f"total_bpd max |diff| {ee:.3e})")
+    log(f"[graph] bpd {dtype} T={CLI_BPD_T} B={CLI_TEST_B}: graph replays == the eager loop bit for bit "
+        f"(total_bpd, terms_bpd): {same}{note}")
+    assert same, f"bits/dim {dtype}: the replayed loop differs from the eager loop"
+
+
 def check_cli_path(port, device, per_forward, tmp):
     """8. The README's usage path through the port's CLIs, in ``tmp``."""
     import numpy as np
@@ -1280,7 +1351,7 @@ def check_cli_path(port, device, per_forward, tmp):
     unet = ("group_norm_silu", "linear_attention_block", "linear_attention_tokens", "attention_block_small")
     base = [*CLI_CONFIG, *CLI_MODEL, "model.train_ds.name=synthetic", f"model.save_every={CLI_EVERY}",
             "model.compute_bpd=false", f"exp_manager.checkpoint_every_n_steps={CLI_EVERY}",
-            f"exp_manager.exp_dir={tmp}/exp"]
+            f"exp_manager.exp_dir={tmp}/exp", "+exp_manager.version=run"]
 
     # 8a. train_ddpm: 20 steps at B=128, a dump and a checkpoint every 10.
     watch, saved = Stopwatch(), []
@@ -1393,13 +1464,15 @@ def check_cli_path(port, device, per_forward, tmp):
         cfg = load_config(Path(__file__).resolve().parent / "examples/configs/ddpm/unet_small.yaml", overrides=[
             *CLI_MODEL, f"model.timesteps={CLI_BPD_T}", f"model.diffusion_model.dtype={dtype}"])
         bpd_model = port.DDPM(cfg.model, device=device, seed=SEED)
-        run_bpd = lambda: bpd_model.calculate_bits_per_dimension(x0, noise=noise)  # noqa: E731
+        run_bpd = lambda graphs=None: bpd_model.calculate_bits_per_dimension(  # noqa: E731
+            x0, noise=noise, graphs=graphs)
         port.ops.reset_launch_counts()
         kern = run_bpd()
         torch.cuda.synchronize()
         cli_counts(port, f"bpd {dtype} T={CLI_BPD_T}", must)
-        with plain_path(port):
-            plain = run_bpd()
+        check_bpd_replays(dtype, run_bpd, kern)
+        with plain_path(port):  # the plain versions run eagerly: a graph would replay the kernels
+            plain = run_bpd(False)
         rel = float(((kern["total_bpd"] - plain["total_bpd"]).abs() / plain["total_bpd"].abs()).max())
         log(f"[cli] bpd {dtype} T={CLI_BPD_T} B={CLI_TEST_B}: total_bpd kernels {float(kern['total_bpd'].mean()):.5f} "
             f"plain {float(plain['total_bpd'].mean()):.5f}, max relative difference {rel:.3e} "
@@ -1432,6 +1505,371 @@ def check_cli_path(port, device, per_forward, tmp):
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
     assert not loaded, f"the README's path loaded {loaded}"
     log(f"[cli] none of {', '.join(NOT_ON_THE_CARD)} was imported")
+
+
+# --------------------------------------------------------------- CUDA graphs --
+GRAPH_DUMP_B = 4  # the save_every dump's batches (num_to_groups(4, 64) at 4 images)
+GRAPH_BPD_B, GRAPH_BPD_T = 32, 1000
+GRAPH_STALE_B, GRAPH_STALE_STEPS = 8, 10
+GRAPH_SPE = 4
+GRAPH_PROFILE_REPLAYS = 20
+
+
+def walled(fn, n=1):
+    """(seconds per call, the last result): the host clock around ``n``
+    calls that ends in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n, out
+
+
+def graph_of(store, name):
+    """The newest graph named ``name`` in an owner's ``graphs`` (a sampler's
+    or a train state's)."""
+    found = [g for g in store.values() if g.info["name"] == name]
+    assert found, f"no {name!r} graph was captured"
+    return found[-1]
+
+
+def replay_busy(graph, counter, start):
+    """Device busy per replay of a step graph (torch.profiler, over
+    ``GRAPH_PROFILE_REPLAYS``), its step counter set to ``start`` first so
+    that every replay reads a valid t; None when the traces hold none."""
+    import torch
+
+    with torch.inference_mode():
+        graph.static[counter].fill_(start)
+        busy, _ = device_profile(lambda: graph.replay(), iters=GRAPH_PROFILE_REPLAYS)
+    return busy / 1e3 if busy else None
+
+
+def graph_line(tag, captured_s, busy_s, eager_s, graph, counts, replays, extra=None):
+    """The [graph] line of one path; launches must equal the captured
+    counts x replays (plus ``extra``, launches of steps run eagerly)."""
+    expect = {k: v * replays + (extra or {}).get(k, 0) for k, v in graph.delta.items()}
+    for k, v in (extra or {}).items():
+        expect.setdefault(k, v)
+    got = {k: v for k, v in counts.items() if v}
+    info = graph.info
+    busy = "not measured" if busy_s is None else f"{busy_s * 1e3:.3f} ms ({100 * busy_s / captured_s:.1f}% busy, " \
+        f"captured / busy {captured_s / busy_s:.2f})"
+    log(f"[graph] {tag}: captured wall {captured_s * 1e3:.3f} ms, device busy {busy}, eager wall "
+        f"{eager_s * 1e3:.3f} ms ({eager_s / captured_s:.2f}x the captured); capture {info['capture_s']:.3f} s, "
+        f"{info['nodes']} nodes, pool {info['pool_mib']:.1f} MiB; launches "
+        f"{json.dumps(got)} = {json.dumps(graph.delta)} x {replays} replays"
+        + (f" + eager {json.dumps(extra)}" if extra else ""))
+    assert got == expect, (tag, got, expect)
+
+
+def use_sampler(model, target, **extra):
+    cfg = {k: v for k, v in model.cfg.sampler.items() if k not in ("eta", "ddim_timesteps")}
+    model.change_sampler(dict(cfg, _target_=target, **extra))
+
+
+DDIM = "diffusion_model_nemo.modules.GeneralizedGaussianDiffusion"
+ANCESTRAL = "diffusion_model_nemo.modules.GaussianDiffusion"
+
+
+def check_graph_ddim(port, tag, model, B, size):
+    """DDIM-50 (the served chain, EMA weights) as replays of one step graph
+    against the eager loop, bit for bit. Returns the captured chain's
+    device split."""
+    import torch
+
+    use_sampler(model, DDIM, eta=0.0, ddim_timesteps=DDIM_STEPS)
+    run = lambda graphs=None: model.sample(  # noqa: E731
+        B, size, generator=torch.Generator(device=model.device).manual_seed(SEED), use_ema=True, graphs=graphs)
+    eager_s, ref = walled(lambda: run(False), n=2)
+    first_s, first = walled(run)  # the eager warm-up step and the capture
+    port.ops.reset_launch_counts()
+    wall, out = walled(run, n=3)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "ddim")
+    busy, by_name = device_profile(run, iters=1)
+    assert torch.equal(out, ref) and torch.equal(first, ref), f"{tag}: DDIM graph differs from eager"
+    graph_line(f"{tag} DDIM-{DDIM_STEPS} B={B} (first call with capture {first_s:.3f} s; == eager bit for bit)",
+               wall, busy / 1e3 if busy else None, eager_s, graph, counts, 3 * DDIM_STEPS)
+    return by_name
+
+
+def check_graph_ancestral(port, model):
+    """The save_every dump's chain: 1000 ancestral steps at batch 4 (the
+    model's weights), replays of one step graph against the eager loop,
+    bit for bit, and the generator's state after the chain."""
+    import torch
+
+    use_sampler(model, ANCESTRAL)
+    T = model.sampler.timesteps
+
+    def run(graphs=None):
+        g = torch.Generator(device=model.device).manual_seed(TRAIN_STEPS)
+        return model.sample(GRAPH_DUMP_B, 32, generator=g, graphs=graphs), g.get_state()
+
+    eager_s, (ref, ref_state) = walled(lambda: run(False))
+    first_s, _ = walled(run)
+    port.ops.reset_launch_counts()
+    wall, (out, state) = walled(run)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "ancestral")
+    busy = replay_busy(graph, "t", T - 1)
+    same = torch.equal(out, ref) and torch.equal(state, ref_state)
+    log(f"[graph] ancestral T={T} B={GRAPH_DUMP_B}: == eager bit for bit, generator state equal after the "
+        f"chain: {same} (first call with capture {first_s:.3f} s)")
+    assert same
+    per_forward = {k: v for k, v in graph.delta.items()}
+    graph_line(f"ancestral dump chain T={T} B={GRAPH_DUMP_B} (per step)", wall / T, busy, eager_s / T, graph,
+               counts, T - 1, extra=per_forward)
+
+
+def check_graph_bpd(port, model):
+    """Bits/dim at T = 1000 on a batch of 32 (bf16): replays of one step
+    graph against the eager loop, total_bpd bit for bit."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.data import SyntheticVisionDataset, preprocess_batch
+
+    use_sampler(model, ANCESTRAL)
+    T = model.sampler.timesteps
+    assert T == GRAPH_BPD_T, T
+    ds = SyntheticVisionDataset(image_size=32, channels=3, length=GRAPH_BPD_B, seed=SEED)
+    x0 = preprocess_batch({"image": np.stack([ds[i]["image"] for i in range(GRAPH_BPD_B)])},
+                          model.device)["pixel_values"]
+    run = lambda graphs=None: model.calculate_bits_per_dimension(x0, graphs=graphs)  # noqa: E731
+    eager_s, ref = walled(lambda: run(False))
+    first_s, _ = walled(run)
+    port.ops.reset_launch_counts()
+    wall, out = walled(run)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "bpd")
+    busy = replay_busy(graph, "t", T - 1)
+    same = torch.equal(out["total_bpd"], ref["total_bpd"]) and torch.equal(out["terms_bpd"], ref["terms_bpd"])
+    log(f"[graph] bpd bf16 T={T} B={GRAPH_BPD_B}: total_bpd {float(out['total_bpd'].mean()):.5f}, == eager bit "
+        f"for bit: {same}; {wall:.3f} s a batch (eager {eager_s:.3f} s, first call with capture {first_s:.3f} s)")
+    assert same
+    graph_line(f"bpd bf16 T={T} B={GRAPH_BPD_B} (per step)", wall / T, busy, eager_s / T, graph, counts, T)
+
+
+def fit_run(port, device, spe, graphs):
+    """``Trainer.fit`` of unet_small at B=128, 20 steps, logging every 5:
+    (model, trainer, seconds, launches, the run's train state)."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+
+    cfg = unet_small_model_config()
+    cfg["train_ds"]["name"] = "synthetic"
+    model = port.DDPM(cfg, device=device, seed=SEED)
+    trainer = port.Trainer(max_steps=TRAIN_STEPS, log_every_n_steps=5, devices=1, seed=SEED,
+                           steps_per_execution=spe)
+    states, init = [], trainer.init_state
+    trainer.init_state = lambda m, n: states.append(init(m, n)) or states[-1]
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(model, graphs=graphs)
+    torch.cuda.synchronize()
+    return model, trainer, time.perf_counter() - t0, port.ops.launch_counts(), states[0]
+
+
+def crossed_steps(max_steps, k, cadence):
+    """The logged global_steps of the JAX trainer's rule: after each group
+    of k steps (a tail of single steps), when step // cadence moved or at
+    max_steps."""
+    out, step = [], 0
+    while step < max_steps:
+        prev = step
+        step = prev + k if prev + k <= max_steps else max_steps
+        if (cadence > 0 and step // cadence > prev // cadence) or step == max_steps:
+            out.append(step)
+    return out
+
+
+def tensors_of(model):
+    return [*model.params.values(), *model.ema_params.values()]
+
+
+def check_graph_training(port, device, per_step):
+    """``Trainer.fit`` at B=128 for 20 steps: eager twice (is the eager step
+    reproducible?), captured at steps_per_execution 1 and 4. The captured
+    run equals the eager one bit for bit where eager repeats itself, else
+    lies within the eager-to-eager difference; K = 4 equals K = 1 bit for
+    bit and logs at the K boundaries."""
+    import torch
+
+    def max_diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(tensors_of(a), tensors_of(b)))
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tensors_of(a), tensors_of(b)))
+
+    e1, _t, e1_s, _c, _st = fit_run(port, device, 1, False)
+    e2, _t, _s, _c, _st = fit_run(port, device, 1, False)
+    g1, t1, g1_s, c1, _st = fit_run(port, device, 1, None)
+    g4, t4, g4_s, c4, s4 = fit_run(port, device, GRAPH_SPE, None)
+    ee, ee_diff = equal(e1, e2), max_diff(e1, e2)
+    ge, ge_diff = equal(g1, e1), max_diff(g1, e1)
+    log(f"[graph] fit B={TRAIN_B} {TRAIN_STEPS} steps: eager twice bit-equal {ee} (max |diff| {ee_diff:.3e}); "
+        f"captured (K=1) vs eager: bit-equal {ge} (max |diff| {ge_diff:.3e}); K={GRAPH_SPE} vs K=1 bit-equal "
+        f"{equal(g4, g1)}; fit seconds with set-up: eager {e1_s:.2f}, captured K=1 {g1_s:.2f}, "
+        f"K={GRAPH_SPE} {g4_s:.2f}")
+    assert ge if ee else ge_diff <= ee_diff, "the captured training run left the eager one's bounds"
+    assert equal(g4, g1), f"steps_per_execution={GRAPH_SPE} differs from 1"
+    for trainer, k in ((t1, 1), (t4, GRAPH_SPE)):
+        logged = [m["global_step"] for m in trainer.logged]
+        expect = crossed_steps(TRAIN_STEPS, k, 5)
+        log(f"[graph] fit K={k}: logged global_steps {logged} (the JAX rule: {expect})")
+        assert logged == expect, (k, logged, expect)
+    graph = graph_of(s4.graphs, "train_step")
+    for tag, counts in (("K=1", c1), (f"K={GRAPH_SPE}", c4)):
+        assert_counts(f"fit {TRAIN_STEPS} steps captured {tag}", counts,
+                      {k: v * TRAIN_STEPS for k, v in per_step.items()})
+    log(f"[graph] train_step B={TRAIN_B}: pool {graph.info['pool_mib']:.1f} MiB, {graph.info['nodes']} nodes, "
+        f"capture {graph.info['capture_s']:.3f} s; launches = the first (eager) step + {graph.delta} x "
+        f"{TRAIN_STEPS - 1} replays")
+
+
+def check_graph_stale(port, device):
+    """A replay after an in-place parameter update (an AdamW step on the
+    model's weights) and after an EMA swap equals the eager path: the graph
+    is keyed on the parameters' versions and identity and captured anew.
+    The graph captured before the update, replayed by hand after it, reads
+    the old derived weights and differs: the gate would catch that."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+    from diffusion_model_nemo_tpu_torch.training import build_optimizer, ema_decay_table, ema_update
+
+    model = port.DDPM(unet_small_model_config(), device=device, seed=SEED)
+    use_sampler(model, DDIM, eta=0.0, ddim_timesteps=GRAPH_STALE_STEPS)
+    shape = (GRAPH_STALE_B, 32, 32, 3)
+    gen = lambda: torch.Generator(device=device).manual_seed(SEED)  # noqa: E731
+    run = lambda ema=False, graphs=None: model.sample(  # noqa: E731
+        GRAPH_STALE_B, 32, generator=gen(), use_ema=ema, graphs=graphs)
+    before = run()
+    old = graph_of(model.sampler.graphs, "ddim")
+    opt, _ = build_optimizer(model.cfg.optim, 10)
+    state = opt.init(model.params)
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    grads = {k: torch.randn(v.shape, generator=g, device=device) for k, v in model.params.items()}
+    with torch.no_grad():
+        opt.step(model.params, grads, state, scalars=opt.table(0, device)[0])
+    after, eager = run(), run(graphs=False)
+    new = graph_of(model.sampler.graphs, "ddim")
+    recaptured = int(new is not old and len(model.sampler.graphs) == 1)
+    static = old.static
+    with torch.inference_mode():
+        static["x"].copy_(torch.randn(shape, generator=gen(), device=device))
+        static["i"].zero_()
+        old.replay(GRAPH_STALE_STEPS)
+        stale = (static["x"] + 1.0) * 0.5
+    with torch.no_grad():
+        ema_update(model.ema_params, model.params, ema_decay_table(0.5, 0, device)[0])
+    ema_g, ema_e = run(ema=True), run(ema=True, graphs=False)
+    log(f"[graph] after an in-place AdamW step: replay == eager {torch.equal(after, eager)} ({recaptured} new "
+        f"capture), output moved {not torch.equal(after, before)}; the old graph replayed by hand == eager "
+        f"{torch.equal(stale, eager)} (max |diff| {float((stale - eager).abs().max()):.3e}: stale derived "
+        f"weights); after an EMA update and swap: replay == eager {torch.equal(ema_g, ema_e)}")
+    assert torch.equal(after, eager) and recaptured == 1 and not torch.equal(after, before)
+    assert not torch.equal(stale, eager), "a stale replay would pass this gate"
+    assert torch.equal(ema_g, ema_e)
+
+
+def python_float_update(opt, p, grads, mu, nu, count):
+    """One AdamW update with Python-float scalars at ``count`` (-lr and the
+    bias corrections as the port computed them before its tables), after
+    the port's clip: the reference of ``check_graph_scalars``."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.training import clip_by_global_norm
+
+    keys = list(p)
+    grads = clip_by_global_norm(grads, float(opt.grad_clip))
+    g, ps, ms, vs = ([d[k] for k in keys] for d in (grads, p, mu, nu))
+    torch._foreach_mul_(ms, opt.b1)
+    torch._foreach_add_(ms, torch._foreach_mul(g, 1.0 - opt.b1))
+    torch._foreach_mul_(vs, opt.b2)
+    torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - opt.b2))
+    m_hat = torch._foreach_div(ms, 1.0 - opt.b1 ** (count + 1))
+    v_hat = torch._foreach_div(vs, 1.0 - opt.b2 ** (count + 1))
+    upd = torch._foreach_div(m_hat, torch._foreach_add(torch._foreach_sqrt(v_hat), opt.eps))
+    if opt.weight_decay:
+        torch._foreach_add_(upd, torch._foreach_mul(ps, opt.weight_decay))
+    torch._foreach_add_(ps, torch._foreach_mul(upd, -opt.schedule(count)))
+
+
+def check_graph_scalars(port, device):
+    """The optimizer's and the EMA's per-step scalars read from rows of
+    device tables give the bits of Python-float scalars on CUDA (where
+    ATen divides by a Python float through its reciprocal), 6 steps, with
+    and without warm-up and cosine decay."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+    from diffusion_model_nemo_tpu_torch.training import build_optimizer, ema_decay_at, ema_decay_table, ema_update
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    shapes = {"a": (64, 32), "b": (32,), "c": (3, 3, 16, 16)}
+    start = {k: torch.randn(s, generator=g, device=device) for k, s in shapes.items()}
+    grads = [{k: torch.randn(s, generator=g, device=device) * (0.4 if i % 2 else 0.05) for k, s in shapes.items()}
+             for i in range(6)]
+    configs = {"unet_small": unet_small_model_config()["optim"],
+               "warmup_cosine": dict(name="adamw", lr=2e-3, weight_decay=0.01,
+                                     sched=dict(name="CosineAnnealing", warmup_steps=2, min_lr=1e-5)),
+               "constant": dict(name="adam", lr=3e-4, sched=None)}
+    results = {}
+    for name, cfg in configs.items():
+        opt, _ = build_optimizer(cfg, 6, grad_clip=1.0)
+        table, ema_table = opt.table(5, device), ema_decay_table(0.9999, 5, device)
+        out = []
+        for tabled in (False, True):
+            p = {k: v.clone() for k, v in start.items()}
+            st = opt.init(p)
+            ema = {k: v.clone() for k, v in start.items()}
+            for i in range(6):
+                if tabled:
+                    opt.step(p, grads[i], st, scalars=table[i])
+                    ema_update(ema, p, ema_table[i])
+                else:
+                    python_float_update(opt, p, grads[i], st["mu"], st["nu"], i)
+                    d = ema_decay_at(0.9999, i)
+                    torch._foreach_mul_(list(ema.values()), d)
+                    torch._foreach_add_(list(ema.values()), torch._foreach_mul(
+                        list(p.values()), float(np.float32(1.0) - np.float32(d))))
+            out.append([*p.values(), *st["mu"].values(), *st["nu"].values(), *ema.values()])
+        results[name] = all(torch.equal(a, b) for a, b in zip(*out))
+    log(f"[graph] optimizer and EMA scalars from device tables vs Python floats on CUDA, 6 steps "
+        f"(params, moments, EMA bit for bit): {json.dumps(results)}")
+    assert all(results.values()), results
+
+
+def log_device_split(by_name, steps):
+    """The captured chain's device time per forward, by kernel name."""
+    total = sum(by_name.values())
+    hand = sum(v for n, v in by_name.items() if any(k in n for k in HAND_KERNELS))
+    log(f"[graph] captured unet_small DDIM step B={B} device split: {total / steps:.3f} ms a step, hand kernels "
+        f"{hand / steps:.3f} ms, other {(total - hand) / steps:.3f} ms in {len(by_name)} kernel names")
+    for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[graph]   {v / steps:.4f} ms  {n[:110]}")
+
+
+def check_graphs(port, models, device, per_step):
+    """9. The loops as CUDA graph replays against their eager Python loops."""
+    t9 = time.perf_counter()
+    check_graph_scalars(port, device)
+    split = check_graph_ddim(port, "unet_small", models["unet_small"], B, 32)
+    log_device_split(split, DDIM_STEPS)
+    check_graph_ddim(port, "dit_s2", models["dit_s2"], DIT_MAX_BATCH, DIT_IMG)
+    check_graph_ancestral(port, models["unet_small"])
+    check_graph_bpd(port, models["unet_small"])
+    check_graph_training(port, device, per_step)
+    check_graph_stale(port, device)
+    log(f"[graph] phase 9 in {time.perf_counter() - t9:.1f} s")
 
 
 def main() -> int:
@@ -1525,6 +1963,9 @@ def main() -> int:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[cli] phase 8 in {time.perf_counter() - t8:.1f} s")
+
+    # 9. CUDA graphs: every loop's replays against its eager loop.
+    check_graphs(port, models, device, train_per)
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

@@ -8,7 +8,9 @@
 Runs on ``cuda``; ``trainer.accelerator=cpu`` runs it on the CPU (the
 kernels' plain versions). Writes ``exp_dir/<name>/<version>/`` with
 ``hparams.yaml``, the step checkpoints and the final ``<name>.dmn``;
-``exp_manager.resume_if_exists=true`` continues the newest run.
+``exp_manager.resume_if_exists=true`` with ``+exp_manager.version=<v>``
+continues the run of that version (without a version every run makes a new
+datetime directory, as in the JAX package).
 """
 
 from __future__ import annotations

@@ -107,10 +107,14 @@ def preprocess_batch(
     device: Union[str, torch.device],
     flip: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """uint8 NHWC → float32 in [-1, 1] on ``device``, then a horizontal flip
-    of the samples where ``flip`` (a [B] bool tensor, drawn by the caller)
-    is true — the JAX package draws it with ``bernoulli(key, 0.5)``."""
-    img = torch.as_tensor(np.ascontiguousarray(batch["image"])).to(device, non_blocking=True)
+    """uint8 NHWC (a numpy array, or a tensor already on ``device``) →
+    float32 in [-1, 1] on ``device``, then a horizontal flip of the samples
+    where ``flip`` (a [B] bool tensor, drawn by the caller) is true — the
+    JAX package draws it with ``bernoulli(key, 0.5)``."""
+    img = batch["image"]
+    if not torch.is_tensor(img):
+        img = torch.as_tensor(np.ascontiguousarray(img))
+    img = img.to(device, non_blocking=True)
     x = img.float() / 127.5 - 1.0
     if flip is not None:
         x = torch.where(flip[:, None, None, None], x.flip(2), x)

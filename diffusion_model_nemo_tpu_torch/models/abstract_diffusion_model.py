@@ -28,6 +28,8 @@ from ..config.registry import get_target, instantiate
 from ..config.yaml_config import Config, from_dict, to_yaml
 from ..data.hf_vision_data import build_dataloader
 from ..loss.variational_bound_loss import compute_variational_loss_terms
+from ..modules.gaussian_diffusion import graph_key
+from ..ops import graphs as graphs_lib
 from ..ops.math import LOG2, mean_flattened, normal_kl, num_to_groups
 from ..training import checkpoints as ckpt_lib
 from ..utils import hub as hub_lib
@@ -163,14 +165,17 @@ class AbstractDiffusionModel:
         generator: Optional[torch.Generator] = None,
         max_batch_size: int = 32,
         noise: Optional[torch.Tensor] = None,
+        graphs: Optional[bool] = None,
     ) -> Dict[str, torch.Tensor]:
         """Exact discrete VLB bits/dim: for t = T-1 … 0, q_sample → q_posterior
         → p_mean_variance → the VLB term; the prior KL at the end.
 
         Each t's noise is drawn from ``generator`` (default seeded 0), or
         taken from ``noise`` [T, B, H, W, C] in the order the loop uses it
-        (t descending), as the JAX scan draws it. Returns ``total_bpd`` [B],
-        ``terms_bpd`` [B, T] (t ascending) and ``prior_bpd`` [B]."""
+        (t descending), as the JAX scan draws it. ``graphs``: replay one
+        captured step (default: on CUDA) or run the Python loop; the draws
+        are the same. Returns ``total_bpd`` [B], ``terms_bpd`` [B, T] (t
+        ascending) and ``prior_bpd`` [B]."""
         if max_batch_size > 0:
             x_start = x_start[: min(max_batch_size, x_start.shape[0])]
         sampler = self.sampler
@@ -179,25 +184,21 @@ class AbstractDiffusionModel:
             raise ValueError(f"noise must be [T, *x_start.shape] = {[T, *x_start.shape]}, got {list(noise.shape)}")
         if noise is None and generator is None:
             generator = torch.Generator(device=x_start.device).manual_seed(0)
+
+        def fill(eps: torch.Tensor, i: int) -> torch.Tensor:
+            """Step i's noise (t = T-1-i) into ``eps``."""
+            if noise is not None:
+                return eps.copy_(noise[i])
+            return eps.normal_(generator=generator)
+
         with torch.inference_mode():
-            terms = torch.empty((T, B), dtype=torch.float32, device=x_start.device)
-            for i, t in enumerate(range(T - 1, -1, -1)):
-                if noise is not None:
-                    eps = noise[i].to(x_start.device)
-                else:
-                    eps = torch.randn(x_start.shape, generator=generator, device=x_start.device,
-                                      dtype=x_start.dtype)
-                x_t = sampler.q_sample(x_start, t, eps)
-                true_mean, true_log_var = sampler.q_posterior(x_start=x_start, x=x_t, t=t)
-                out = sampler.p_mean_variance(self.get_model_fn(), self.params, x=x_t, t=t)
-                terms[t], _ = compute_variational_loss_terms(
-                    samples=x_start,
-                    model_mean=out.mean,
-                    model_log_variance=torch.broadcast_to(out.log_variance, out.mean.shape),
-                    true_mean=true_mean,
-                    true_log_variance_clipped=true_log_var,
-                    t=t,
-                )
+            if graphs_lib.use_graphs(graphs, x_start.device):
+                terms = self._bpd_replays(x_start, T, fill)
+            else:
+                terms = torch.empty((T, B), dtype=torch.float32, device=x_start.device)
+                eps = torch.empty_like(x_start)
+                for i, t in enumerate(range(T - 1, -1, -1)):
+                    terms[t] = self._bpd_term(self.get_model_fn(), self.params, x_start, t, fill(eps, i))
             terms_bpd = terms.T
             qt_mean, _, qt_log_var = sampler.q_mean_variance(x_start, T - 1)
             prior_bpd = mean_flattened(normal_kl(qt_mean, qt_log_var, 0.0, 0.0)) / LOG2
@@ -206,6 +207,63 @@ class AbstractDiffusionModel:
                 "terms_bpd": terms_bpd,
                 "prior_bpd": prior_bpd,
             }
+
+    def _bpd_term(self, model_fn, params, x_start, t, eps) -> torch.Tensor:
+        """The VLB term [B] in bits at ``t`` (a Python int, or a 0-d device
+        tensor in the captured step) with the step's noise ``eps``."""
+        sampler = self.sampler
+        x_t = sampler.q_sample(x_start, t, eps)
+        true_mean, true_log_var = sampler.q_posterior(x_start=x_start, x=x_t, t=t)
+        out = sampler.p_mean_variance(model_fn, params, x=x_t, t=t)
+        term, _ = compute_variational_loss_terms(
+            samples=x_start,
+            model_mean=out.mean,
+            model_log_variance=torch.broadcast_to(out.log_variance, out.mean.shape),
+            true_mean=true_mean,
+            true_log_variance_clipped=true_log_var,
+            t=t,
+        )
+        return term
+
+    def _bpd_replays(self, x_start, T: int, fill) -> torch.Tensor:
+        """The T terms through one captured ``_bpd_term`` step (static x_start
+        and noise, a 0-d device t that the step decrements, the term written
+        into a static [T, B] at row t); step i's noise is filled in before
+        it. The first step (t = T-1) runs eagerly (the capture's warm-up).
+        Returns the terms [T, B] (a copy)."""
+        model_fn, params = self.get_model_fn(), self.params
+        static = None
+
+        def build():
+            nonlocal static
+            dev = x_start.device
+            static = {"x": x_start.clone(), "eps": torch.empty_like(x_start),
+                      "t": torch.full((), T - 1, dtype=torch.long, device=dev),
+                      "terms": torch.zeros((T, x_start.shape[0]), dtype=torch.float32, device=dev),
+                      "constants": self.sampler.constants}
+
+            def step():
+                t = static["t"]
+                term = self._bpd_term(model_fn, params, static["x"], t, static["eps"])
+                static["terms"].index_copy_(0, t.reshape(1), term.reshape(1, -1))
+                t.sub_(1)
+
+            def warmup():
+                fill(static["eps"], 0)
+                step()
+
+            return graphs_lib.Graph("bpd", step, static, device=dev, warmup=warmup)
+
+        key = ("bpd", T, tuple(x_start.shape), x_start.dtype, x_start.device, *graph_key(model_fn))
+        graph, built = graphs_lib.cached(self.sampler.graphs, key, (params or {}).values(), build)
+        static = graph.static
+        if not built:
+            static["x"].copy_(x_start)
+            static["t"].fill_(T - 1)
+        for i in range(1 if built else 0, T):
+            fill(static["eps"], i)
+            graph.replay()
+        return static["terms"].clone()
 
     # ---- persistence -------------------------------------------------------------
     def _load_flax(self, params, ema, use_ema: bool = False) -> None:

@@ -102,10 +102,12 @@ class DDPM(AbstractDiffusionModel):
         image_size: int,
         generator: Optional[torch.Generator] = None,
         use_ema: bool = False,
+        graphs: Optional[bool] = None,
     ) -> torch.Tensor:
         """Run the sampler's reverse chain; returns [B, H, W, C] in [0, 1]
-        (up to the sampler's final step) on the model's device."""
+        (up to the sampler's final step) on the model's device. ``graphs``:
+        replay captured steps (default: on CUDA) or run the Python loop."""
         shape = (batch_size, image_size, image_size, int(self.channels))
         params = self.ema_params if use_ema else self.params
         with torch.inference_mode():
-            return self.sampler.p_sample_loop(self.get_model_fn(), params, shape, generator)
+            return self.sampler.p_sample_loop(self.get_model_fn(), params, shape, generator, graphs=graphs)

@@ -3,9 +3,11 @@
 Counterpart of ``diffusion_model_nemo_tpu/modules/gaussian_diffusion.py``:
 the same constant table and formulas (``pred_noise`` / ``pred_x0`` /
 ``pred_v``, x̂₀ clamped to [-1, 1], zero noise at t = 0). The JAX package's
-reverse chain is one ``lax.scan`` over a flat [B, H·W·C] carry; here it is a
-Python loop over image-shaped tensors, each step enqueued on the device
-without a host sync.
+reverse chain is one ``lax.scan`` over a flat [B, H·W·C] carry; here, on
+CUDA, t = T−1 … 1 are replays of one captured ``ancestral_step``
+(``ops/graphs.py``) with the noise drawn before each replay in the eager
+loop's order, and t = 0 (no draw) runs eagerly; ``graphs=False`` (and the
+CPU) runs the Python loop over image-shaped tensors.
 """
 
 from __future__ import annotations
@@ -16,10 +18,11 @@ import numpy as np
 import torch
 
 from ..config.registry import register_target
+from ..ops import graphs as graphs_lib
 from ..ops.schedules import extract
 from .diffusion_process import AbstractDiffusionProcess, ModelFn
 
-__all__ = ["GaussianDiffusion", "PMeanVariance", "batched_t"]
+__all__ = ["GaussianDiffusion", "PMeanVariance", "batched_t", "graph_key"]
 
 
 class PMeanVariance(NamedTuple):
@@ -36,6 +39,13 @@ def batched_t(t, x: torch.Tensor) -> torch.Tensor:
     if torch.is_tensor(t):
         return t if t.ndim > 0 else t.to(device=x.device, dtype=torch.int32).expand(x.shape[0])
     return torch.full((x.shape[0],), int(t), dtype=torch.int32, device=x.device)
+
+
+def graph_key(model_fn) -> tuple:
+    """The network function in a sampling graph's key: a bound method as
+    its object's identity and its function (the sampler's ``graphs`` then
+    holds no reference to the model)."""
+    return id(getattr(model_fn, "__self__", model_fn)), getattr(model_fn, "__func__", None)
 
 
 def _randn(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -63,6 +73,7 @@ class GaussianDiffusion(AbstractDiffusionProcess):
             raise NotImplementedError("zero_terminal_snr is not ported yet (ROADMAP.md)")
         self.objective = objective
         self.compute_constants(timesteps)
+        self.graphs: dict = {}  # the captured sampling steps (ops/graphs.py), keyed like _jitted
 
     # ---- q space -------------------------------------------------------------
     def q_mean_variance(self, x_start, t):
@@ -123,16 +134,26 @@ class GaussianDiffusion(AbstractDiffusionProcess):
         (the sampling loops: no tensor, no host sync, no draw at t = 0) or a
         0-d or [B] tensor, masked per sample as the JAX package does.
         ``noise`` may be injected (tests feed both packages the same draws)."""
+        if not torch.is_tensor(t):
+            if int(t) == 0:
+                return self.p_mean_variance(model_fn, params, x, t).mean
+            if noise is None:
+                noise = _randn(x.shape, generator, x.device)
+            return self.ancestral_step(model_fn, params, x, t, noise)
         out = self.p_mean_variance(model_fn, params, x, t)
-        if not torch.is_tensor(t) and int(t) == 0:
-            return out.mean
         if noise is None:
             noise = _randn(x.shape, generator, x.device)
         step = torch.exp(0.5 * out.log_variance) * noise
-        if torch.is_tensor(t):
-            mask = (t.to(x.device) != 0).to(step.dtype)
-            step = step * (mask.reshape(-1, *((1,) * (x.ndim - 1))) if t.ndim else mask)
+        mask = (t.to(x.device) != 0).to(step.dtype)
+        step = step * (mask.reshape(-1, *((1,) * (x.ndim - 1))) if t.ndim else mask)
         return out.mean + step
+
+    def ancestral_step(self, model_fn, params, x, t, noise):
+        """One ancestral step at t > 0 with the caller's ``noise``: μ_θ(x, t)
+        + σ_t·noise. ``t`` is a Python int (``p_sample``) or a 0-d device
+        tensor (the captured step of ``p_sample_loop``): the same arithmetic."""
+        out = self.p_mean_variance(model_fn, params, x, t)
+        return out.mean + torch.exp(0.5 * out.log_variance) * noise
 
     def p_sample_loop(
         self,
@@ -143,14 +164,55 @@ class GaussianDiffusion(AbstractDiffusionProcess):
         img: Optional[torch.Tensor] = None,
         num_steps: Optional[int] = None,
         unnormalize: bool = True,
+        graphs: Optional[bool] = None,
     ) -> torch.Tensor:
         """Reverse chain over t = T−1 … 0 (or the last ``num_steps`` steps)
-        from ``img`` (default N(0, I) from ``generator``)."""
+        from ``img`` (default N(0, I) from ``generator``). ``graphs``: replay
+        a captured step (default: on CUDA) or run the Python loop; both draw
+        the same numbers from ``generator`` in the same order."""
         T = self.timesteps if num_steps is None else int(num_steps)
         x = img if img is not None else _randn(shape, generator, self.device)
-        for t in np.arange(T - 1, -1, -1):
-            x = self.p_sample(model_fn, params, x, int(t), generator)
+        if graphs_lib.use_graphs(graphs, x.device):
+            x = self._ancestral_replays(model_fn, params, x, T, generator)
+        else:
+            for t in np.arange(T - 1, -1, -1):
+                x = self.p_sample(model_fn, params, x, int(t), generator)
         return (x + 1.0) * 0.5 if unnormalize else x
+
+    def _ancestral_replays(self, model_fn, params, x, T: int, generator) -> torch.Tensor:
+        """t = T−1 … 1 through one captured ``ancestral_step`` (static x and
+        noise, a 0-d device t that the step decrements; the noise is drawn
+        into its buffer before each step, so the draws are the eager loop's),
+        then t = 0 eagerly (no draw)."""
+        if T > 1:
+            static = None
+
+            def build():
+                nonlocal static
+                static = {"x": x.clone(), "noise": torch.empty_like(x), "constants": self.constants,
+                          "t": torch.full((), T - 1, dtype=torch.long, device=x.device)}
+
+                def step():
+                    static["x"].copy_(self.ancestral_step(model_fn, params, static["x"], static["t"], static["noise"]))
+                    static["t"].sub_(1)
+
+                def warmup():  # the chain's first step
+                    static["noise"].normal_(generator=generator)
+                    step()
+
+                return graphs_lib.Graph("ancestral", step, static, device=x.device, warmup=warmup)
+
+            key = ("ancestral", tuple(x.shape), x.dtype, x.device, *graph_key(model_fn))
+            graph, built = graphs_lib.cached(self.graphs, key, (params or {}).values(), build)
+            static = graph.static
+            if not built:
+                static["x"].copy_(x)
+                static["t"].fill_(T - 1)
+            for _ in range(T - 1 - built):
+                static["noise"].normal_(generator=generator)
+                graph.replay()
+            x = static["x"]
+        return self.p_sample(model_fn, params, x, 0, generator)
 
     def sample(self, model_fn, params, shape, generator=None, **kwargs):
         return self.p_sample_loop(model_fn, params, shape, generator, **kwargs)

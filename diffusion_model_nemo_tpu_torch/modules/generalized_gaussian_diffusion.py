@@ -5,7 +5,10 @@ Counterpart of
 ``eta`` in [0, 1] (0 = DDIM), ``ddim_timesteps`` strided subsampling, and
 the ᾱ table extended with a leading 1.0 so that t = −1 maps to ᾱ = 1
 (indexed at t + 1). With ``eta = 0`` the noise term is exactly zero and no
-noise is drawn.
+noise is drawn. The JAX package's chain is one ``lax.scan``; here, on CUDA,
+it is replays of one captured ``ddim_step`` (``ops/graphs.py``) that reads
+(t, t_next) from device tables at a device step counter, with x_T and any
+noise drawn eagerly, in the eager loop's order, into static buffers.
 """
 
 from __future__ import annotations
@@ -16,9 +19,10 @@ import numpy as np
 import torch
 
 from ..config.registry import register_target
+from ..ops import graphs as graphs_lib
 from ..ops.schedules import extract
 from .diffusion_process import ModelFn
-from .gaussian_diffusion import GaussianDiffusion, PMeanVariance, _randn, batched_t
+from .gaussian_diffusion import GaussianDiffusion, PMeanVariance, _randn, batched_t, graph_key
 
 __all__ = ["GeneralizedGaussianDiffusion"]
 
@@ -72,8 +76,11 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
         mean, log_variance = self.q_posterior(x_recon, x, t)
         return PMeanVariance(mean, None, log_variance, x_recon)
 
-    def ddim_step(self, model_fn, params, x, t: int, t_next: int, generator=None):
-        """One generalized step x_t → x_{t_next}; returns (x_next, x̂₀)."""
+    def ddim_step(self, model_fn, params, x, t, t_next, generator=None, noise=None):
+        """One generalized step x_t → x_{t_next}; returns (x_next, x̂₀).
+        ``t``, ``t_next``: Python ints (the eager loop) or 0-d device tensors
+        (the captured step); at eta > 0 the noise is ``noise`` if given, else
+        drawn from ``generator``."""
         model_output = model_fn(params, x, batched_t(t, x))
         x0_t = self.p_mean_variance(model_fn, params, x, t, model_output=model_output).pred_x_start
         acp = extract(self.alphas_extended_cumprod, t + 1, x.ndim)
@@ -86,7 +93,7 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
             eps_hat = model_output
         x_next = torch.sqrt(acp_next) * x0_t + c2 * eps_hat
         if self.eta > 0.0:
-            x_next = x_next + c1 * _randn(x.shape, generator, x.device)
+            x_next = x_next + c1 * (noise if noise is not None else _randn(x.shape, generator, x.device))
         return x_next, x0_t
 
     def _strided_sequences(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -114,10 +121,66 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
         img: Optional[torch.Tensor] = None,
         num_steps: Optional[int] = None,
         unnormalize: bool = True,
+        graphs: Optional[bool] = None,
     ) -> torch.Tensor:
+        """The strided chain from ``img`` (default N(0, I) from
+        ``generator``). ``graphs``: replay a captured step (default: on
+        CUDA) or run the Python loop; both draw the same numbers from
+        ``generator`` in the same order."""
         del num_steps  # the DDIM stride is set by ddim_timesteps
         seq, seq_next = self._strided_sequences()
         x = img if img is not None else _randn(shape, generator, self.device)
-        for t, t_next in zip(seq, seq_next):
-            x, _ = self.ddim_step(model_fn, params, x, int(t), int(t_next), generator)
+        if graphs_lib.use_graphs(graphs, x.device):
+            x = self._ddim_replays(model_fn, params, x, seq, seq_next, generator)
+            x = x if unnormalize else x.clone()  # not the graph's own buffer
+        else:
+            for t, t_next in zip(seq, seq_next):
+                x, _ = self.ddim_step(model_fn, params, x, int(t), int(t_next), generator)
         return (x + 1.0) * 0.5 if unnormalize else x
+
+    def _ddim_replays(self, model_fn, params, x, seq, seq_next, generator) -> torch.Tensor:
+        """The chain as replays of one captured step that gathers (t,
+        t_next) from device tables at a 0-d step counter and advances it; at
+        eta > 0 the step's noise is drawn into a static buffer before each
+        replay. The first step runs eagerly (the capture's warm-up). Returns
+        the static x."""
+        noisy = self.eta > 0.0
+        static = None
+
+        def draw():
+            if noisy:
+                static["noise"].normal_(generator=generator)
+
+        def build():
+            nonlocal static
+            dev = x.device
+            static = {
+                "x": x.clone(), "i": torch.zeros((), dtype=torch.long, device=dev),
+                "seq": torch.as_tensor(seq, dtype=torch.long).to(dev),
+                "seq_next": torch.as_tensor(seq_next, dtype=torch.long).to(dev),
+                "noise": torch.empty_like(x) if noisy else None,
+                "alphas": self.alphas_extended_cumprod, "constants": self.constants,
+            }
+
+            def step():
+                i = static["i"].reshape(1)
+                t, t_next = static["seq"].gather(0, i)[0], static["seq_next"].gather(0, i)[0]
+                static["x"].copy_(self.ddim_step(model_fn, params, static["x"], t, t_next, noise=static["noise"])[0])
+                static["i"].add_(1)
+
+            def warmup():  # the chain's first step
+                draw()
+                step()
+
+            return graphs_lib.Graph("ddim", step, static, device=dev, warmup=warmup)
+
+        key = ("ddim", tuple(int(t) for t in seq), tuple(x.shape), x.dtype, x.device, *graph_key(model_fn))
+        graph, built = graphs_lib.cached(self.graphs, key, (params or {}).values(), build)
+        static = graph.static
+        if not built:
+            static["x"].copy_(x)
+            static["i"].zero_()
+        for _ in range(len(seq) - built):
+            draw()
+            graph.replay()
+        return static["x"]

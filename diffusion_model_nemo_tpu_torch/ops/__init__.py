@@ -4,7 +4,8 @@ the 3×3 convolution and the 2-D transpose of the kernel microbenchmarks.
 ``KERNELS`` maps each hand-written Hopper kernel to its wrapper. Each
 wrapper adds one to its integer counter in its module's ``LAUNCHES`` where
 it launches its kernel, so a run can show that its main path went through
-the kernels. A backward pass launches none (``recompute.py``).
+the kernels; a CUDA graph's replay adds what its capture counted
+(``graphs.py``). A backward pass launches none (``recompute.py``).
 """
 
 from . import attention, conv, norm, schedules, transpose
@@ -51,7 +52,22 @@ def reset_launch_counts() -> None:
         _COUNTERS[name][name] = 0
 
 
+def set_launch_counts(counts: dict) -> None:
+    """Set the counters to ``counts`` (what ``launch_counts`` returned)."""
+    for name, n in counts.items():
+        _COUNTERS[name][name] = n
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` {kernel: launches}: a CUDA graph's replay launches what
+    its capture recorded, with no wrapper call on the host (``graphs.py``)."""
+    for name, n in delta.items():
+        _COUNTERS[name][name] += n
+
+
+from . import graphs  # noqa: E402  (after the counters it keeps)
+
 __all__ = [
-    "attention", "conv", "norm", "schedules", "transpose",
-    "KERNELS", "launch_counts", "reset_launch_counts",
+    "attention", "conv", "graphs", "norm", "schedules", "transpose",
+    "KERNELS", "add_launch_counts", "launch_counts", "reset_launch_counts", "set_launch_counts",
 ]

@@ -7,7 +7,7 @@ them (``_derived``) and the ``mma.m16n8k16`` fragment order of a B operand
 from __future__ import annotations
 
 import weakref
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -28,16 +28,26 @@ class _DerivedWeights:
     at the same version: an optimizer's in-place step, ``load_state_dict``
     and the EMA's ``copy_`` all raise ``_version``. A source that tracks no
     version (an inference tensor) is never cached. An entry goes when one of
-    its sources is collected."""
+    its sources is collected.
+
+    While a CUDA graph captures (``graphs.py``), ``capturing`` is that
+    graph's list: every value handed out goes into it, so that the graph
+    keeps alive what it reads, and a value made during the capture is not
+    kept here (the capture recorded its computation but did not run it)."""
 
     def __init__(self) -> None:
         self._entries: Dict[tuple, tuple] = {}
         self.enabled = True
+        self.capturing: Optional[List[object]] = None
         self.hits = self.misses = 0
 
     def get(self, kind: str, sources: Sequence[torch.Tensor], make: Callable[[], object]):
-        if not self.enabled:
-            return make()
+        value = self._get(kind, sources, make) if self.enabled else make()
+        if self.capturing is not None:
+            self.capturing.append(value)
+        return value
+
+    def _get(self, kind: str, sources: Sequence[torch.Tensor], make: Callable[[], object]):
         roots = [t if t._base is None else t._base for t in sources]
         try:
             versions = [r._version for r in roots]
@@ -54,6 +64,8 @@ class _DerivedWeights:
                 return value
         self.misses += 1
         value = make()
+        if self.capturing is not None:
+            return value
         entries = self._entries
 
         def drop(_ref, key=key):

@@ -7,9 +7,11 @@ Counterpart of ``diffusion_model_nemo_tpu/serving/server.py``:
 - **Request coalescing.** Unseeded requests coalesce into one device batch (linger window + size cap); a seeded request runs in
   a batch of its own, so its images are a function of (weights, seed, n).
 - **One device owner; a batch is answered when its own chain ends.** One
-  worker thread runs a batch's sampling chain (here the host loop that
-  enqueues its steps, not one asynchronous call as in the JAX server), then
-  answers that batch's requests before it starts the next chain. On CUDA
+  worker thread runs a batch's sampling chain (on CUDA replays of the
+  sampler's captured chain, ``ops/graphs.py``, where the JAX server makes
+  one asynchronous call), then answers that batch's requests before it
+  starts the next chain. The warm-up batch of ``start`` captures the
+  graph (its steps run eagerly first), so requests only replay. On CUDA
   the device → host copy of a batch is enqueued, non-blocking into pinned
   memory, right behind its last step, with an event that marks its end.
 
@@ -101,8 +103,8 @@ class BatchingSampler:
 
     # ---- lifecycle -----------------------------------------------------------
     def start(self, warmup: bool = True) -> "BatchingSampler":
-        """Optionally run one full batch (builds the kernels, warms the
-        allocator), then start the worker."""
+        """Optionally run one full batch (builds the kernels, captures the
+        sampler's CUDA graph), then start the worker."""
         if warmup:
             self._to_host(self._dispatch_sample(self._next_generator()))
             self._warm = True

@@ -1,5 +1,5 @@
 from .checkpoints import CheckpointManager, load_archive, load_aux_weights, save_archive
-from .ema import ema_decay_at, ema_update, init_ema
+from .ema import ema_decay_at, ema_decay_table, ema_update, init_ema
 from .exp_manager import ExpManagerHooks, exp_manager
 from .optim import Optimizer, build_lr_schedule, build_optimizer, clip_by_global_norm, global_norm
 from .trainer import Trainer, TrainState
@@ -14,6 +14,7 @@ __all__ = [
     "build_optimizer",
     "clip_by_global_norm",
     "ema_decay_at",
+    "ema_decay_table",
     "ema_update",
     "exp_manager",
     "global_norm",

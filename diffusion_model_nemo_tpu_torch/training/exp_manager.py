@@ -10,10 +10,10 @@ import (else one warning each, and the run goes on), wires checkpoints every
 / ``resume_ignore_no_checkpoint``, and saves the final ``<name>.dmn``
 (``always_save_nemo``).
 
-One difference: with ``resume_if_exists`` and no ``version``, the run goes
-on in the newest version directory that holds checkpoints (NeMo creates no
-new version folder under ``resume_if_exists``); the JAX package makes a new
-datetime version there, so it resumes only with an explicit ``version``.
+Without a ``version`` every run makes a new datetime directory
+(``version_0`` under ``use_datetime_version: false``), as the JAX package
+does, so ``resume_if_exists`` resumes the run of the ``version`` it is
+given.
 """
 
 from __future__ import annotations
@@ -126,15 +126,6 @@ class ExpManagerHooks:
         return self.ckpt_mgr.restore(step)
 
 
-def _latest_version(run_dir: Path) -> Optional[str]:
-    """The newest version directory under ``exp_dir/name`` that holds
-    checkpoints (datetime versions sort in time order), or None."""
-    if not run_dir.is_dir():
-        return None
-    found = sorted(p.name for p in run_dir.iterdir() if (p / "checkpoints").is_dir())
-    return found[-1] if found else None
-
-
 def exp_manager(trainer, cfg) -> Optional[ExpManagerHooks]:
     """Attach experiment management to a Trainer; returns the hooks (or None)."""
     if cfg is None:
@@ -143,8 +134,6 @@ def exp_manager(trainer, cfg) -> Optional[ExpManagerHooks]:
     exp_dir = cfg.get("exp_dir") or "./nemo_experiments"
     name = cfg.get("name") or "default"
     version = cfg.get("version")
-    if version is None and cfg.get("resume_if_exists", False):
-        version = _latest_version(Path(exp_dir).absolute() / name)
     if version is None:
         use_dt = cfg.get("use_datetime_version", True)
         version = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S") if use_dt else "version_0"

@@ -9,8 +9,23 @@ optimizer and clip differ:
 - the schedule is read at the count of completed updates, so the first
   update uses lr(0);
 - AdamW decays every leaf (optax's ``adamw`` has no mask here), biases and
-  norm parameters included: u = -lr · (m̂ / (√v̂ + eps) + wd · p).
+  norm parameters included: u = -lr · (m̂ / (√v̂ + eps) + wd · p);
+- SGD's update is -lr · trace, added to the parameters (optax's
+  ``scale_by_learning_rate`` then ``apply_updates``: two roundings).
 Parameters and state are dicts of float32 tensors keyed like ``state_dict``.
+
+The scalars that change with the step (-lr and the two bias corrections;
+optax keeps its ``count`` on the device) come from a float32 table over
+counts 0 … n (``Optimizer.table``, built on the host with the Python
+arithmetic optax's schedule and corrections use): each update reads its
+row, a [3] tensor on the device, so that a captured training step
+(``ops/graphs.py``) reads each replay's own from a static buffer. On CUDA
+ATen divides by a Python float as a multiplication by its reciprocal, taken
+in double and rounded to float32 (measured on the H100 with torch 2.11), so
+a CUDA table holds that reciprocal and multiplies; the CPU divides. Either
+way the update has the bits of one computed with Python-float scalars
+(tests/test_torch_port_graphs_training.py on the CPU, chip_smoke phase 9 on
+the card).
 """
 
 from __future__ import annotations
@@ -18,6 +33,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["Optimizer", "build_lr_schedule", "build_optimizer", "clip_by_global_norm", "global_norm"]
@@ -80,7 +96,7 @@ def clip_by_global_norm(grads: Params, max_norm: float, norm: Optional[torch.Ten
 class Optimizer:
     """AdamW / Adam / SGD(momentum) over a dict of float32 tensors, updated
     in place with multi-tensor ops. ``state`` holds the moments and the
-    count of completed updates."""
+    count of completed updates (a host int: what checkpoints store)."""
 
     def __init__(self, name: str, schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0, momentum: float = 0.0,
@@ -98,22 +114,37 @@ class Optimizer:
             return {"count": 0, "trace": zeros}
         return {"count": 0, "mu": zeros, "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
 
+    def scalars(self, count: int) -> Tuple[float, float, float]:
+        """(-lr, 1 - b1^(count+1), 1 - b2^(count+1)) for the update after
+        ``count`` completed ones, as Python floats."""
+        return -self.schedule(count), 1.0 - self.b1 ** (count + 1), 1.0 - self.b2 ** (count + 1)
+
+    def table(self, n: int, device) -> torch.Tensor:
+        """[n + 1, 3] float32 on ``device``: ``scalars(count)`` for count =
+        0 … n, the bias corrections as their reciprocals on CUDA (see the
+        module note). Row ``count`` is the ``scalars`` of ``step``."""
+        rows = np.array([self.scalars(c) for c in range(n + 1)], dtype=np.float64)
+        if torch.device(device).type == "cuda":
+            rows[:, 1:] = 1.0 / rows[:, 1:]
+        return torch.from_numpy(rows.astype(np.float32)).to(device)
+
     def step(self, params: Params, grads: Params, state: Dict[str, Any],
-             grad_norm: Optional[torch.Tensor] = None) -> None:
+             grad_norm: Optional[torch.Tensor] = None, *, scalars: torch.Tensor) -> None:
         """Clip (if set; ``grad_norm`` is ‖grads‖ where the caller has it),
-        then one update of ``params`` in place."""
+        then one update of ``params`` in place with ``scalars``, the row of
+        ``table`` at ``state["count"]`` on the parameters' device. The caller
+        advances ``state["count"]`` (a captured step cannot)."""
         if self.grad_clip is not None and self.grad_clip > 0:
             grads = clip_by_global_norm(grads, float(self.grad_clip), grad_norm)
         keys = list(params)
         p = [params[k] for k in keys]
         g = [grads[k] for k in keys]
-        lr = self.schedule(state["count"])
+        neg_lr, bc1, bc2 = scalars.unbind()
         if self.name == "sgd":
             tr = [state["trace"][k] for k in keys]
             torch._foreach_mul_(tr, self.momentum)
             torch._foreach_add_(tr, g)
-            torch._foreach_add_(p, tr, alpha=-lr)
-            state["count"] += 1
+            torch._foreach_add_(p, torch._foreach_mul(tr, neg_lr))
             return
         mu = [state["mu"][k] for k in keys]
         nu = [state["nu"][k] for k in keys]
@@ -122,14 +153,20 @@ class Optimizer:
         torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - self.b1))
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - self.b2))
-        count = state["count"] + 1
-        mu_hat = torch._foreach_div(mu, 1.0 - self.b1**count)
-        nu_hat = torch._foreach_div(nu, 1.0 - self.b2**count)
+        mu_hat = _bias_correct(mu, bc1)
+        nu_hat = _bias_correct(nu, bc2)
         upd = torch._foreach_div(mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps))
         if self.weight_decay:
             torch._foreach_add_(upd, torch._foreach_mul(p, self.weight_decay))
-        torch._foreach_add_(p, torch._foreach_mul(upd, -lr))
-        state["count"] = count
+        torch._foreach_add_(p, torch._foreach_mul(upd, neg_lr))
+
+
+def _bias_correct(xs, bc):
+    """xs / bc: the division on the CPU, the product with the stored
+    reciprocal on CUDA (see the module note)."""
+    if bc.device.type == "cuda":
+        return torch._foreach_mul(xs, bc)
+    return torch._foreach_div(xs, bc)
 
 
 def build_optimizer(

@@ -9,7 +9,18 @@ the raw gradients (the ``grad_norm`` metric), global-norm clip + AdamW with
 its schedule (``optim.py``), then the EMA with its warm-up at the count of
 steps done before the update. Parameters, optimizer state and EMA live on
 the model's device and are updated in place; the host syncs only at the
-logging and checkpoint cadences.
+logging and checkpoint cadences. On CUDA the step is one CUDA graph
+(``ops/graphs.py``): the first step of a train state runs eagerly and is
+then captured whole (forward, backward through the plain recomputes,
+global norm, clip, AdamW, EMA), and every later step copies its batch, its
+draws and its rows of the optimizer's and the EMA's scalar tables
+(``optim.py``, ``ema.py``; grown on the host as the steps go on) into the
+graph's static buffers and replays it. ``steps_per_execution = K`` runs K steps
+between host syncs, as the JAX trainer's multi-step dispatch does: logging,
+the sample dump and the NaN check quantize to K-step boundaries (JAX's
+``_crossed`` rule), checkpoints keep ``step % checkpoint_every_n_steps``,
+an epoch's batches go in groups of K (a trailing incomplete group is
+dropped) and a tail shorter than K runs single steps.
 
 Services, as in the JAX trainer: the ``save_every`` sample dump (and
 bits/dim of the step's batch under ``compute_bpd``), the ``exp_manager``
@@ -22,8 +33,9 @@ bit-identical to an uninterrupted one. The draws come from one
 step instead; the two streams differ, the resume contract is the same).
 
 Options of the JAX trainer that would change the run and are not ported
-raise at ``fit`` start: gradient accumulation, ``steps_per_execution``,
-post-hoc EMA, any strategy but one device, the profiler, PTL's
+raise at ``fit`` start: gradient accumulation (``steps_per_execution`` > 1
+beside it falls back to single steps with a warning first, as in the JAX
+trainer), post-hoc EMA, any strategy but one device, the profiler, PTL's
 ``resume_from_checkpoint`` and ``enable_checkpointing`` (exp_manager resumes
 and checkpoints).
 """
@@ -33,15 +45,16 @@ from __future__ import annotations
 import logging
 import math
 import time
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data.hf_vision_data import preprocess_batch
 from ..modules.parts import not_ported
-from .ema import ema_update, init_ema
+from ..ops import graphs as graphs_lib
+from .ema import ema_decay_table, ema_update, init_ema
 from .optim import Optimizer, build_optimizer, global_norm
 
 __all__ = ["Trainer", "TrainState"]
@@ -53,10 +66,15 @@ _ONE_DEVICE_STRATEGIES = (None, "ddp", "none", "null", "auto", "dp", "single_dev
 
 @dataclass
 class TrainState:
+    """Parameters, EMA and optimizer state; ``step`` counts completed steps.
+    ``graphs`` holds the state's captured training step (``ops/graphs.py``):
+    it goes with the state."""
+
     params: Dict[str, torch.Tensor]
     ema_params: Dict[str, torch.Tensor]
     opt_state: Dict[str, Any]
     step: int = 0
+    graphs: Dict[tuple, Any] = field(default_factory=dict)
 
 
 class Trainer:
@@ -86,6 +104,10 @@ class Trainer:
         self.max_epochs, self.max_steps = max_epochs, max_steps
         self.accumulate_grad_batches = max(int(accumulate_grad_batches or 1), 1)
         self.steps_per_execution = max(int(steps_per_execution or 1), 1)
+        if self.steps_per_execution > 1 and self.accumulate_grad_batches > 1:
+            log.warning("steps_per_execution > 1 is unsupported with accumulate_grad_batches > 1; "
+                        "running single-step dispatch")
+            self.steps_per_execution = 1
         self.gradient_clip_val = gradient_clip_val
         self.precision = precision
         self.log_every_n_steps = int(log_every_n_steps)
@@ -102,6 +124,7 @@ class Trainer:
         self.exp_manager_hooks = None  # set by exp_manager()
         self.optimizer: Optional[Optimizer] = None
         self.lr_schedule = None
+        self._tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # the optimizer's, the EMA's
         self.logged: List[Dict[str, float]] = []  # the metrics of each logging step
 
     # ------------------------------------------------------------------ fit ----
@@ -111,8 +134,6 @@ class Trainer:
 
         if self.accumulate_grad_batches > 1:
             refuse(f"accumulate_grad_batches={self.accumulate_grad_batches}")
-        if self.steps_per_execution > 1:
-            refuse(f"steps_per_execution={self.steps_per_execution}")
         if self.posthoc_ema_sigma_rels:
             refuse("posthoc_ema_sigma_rels")
         strategy = None if self.strategy is None else str(self.strategy).lower()
@@ -129,39 +150,119 @@ class Trainer:
             refuse("enable_checkpointing=True (checkpoints come from exp_manager.checkpoint_every_n_steps)")
 
     def init_state(self, model, max_steps: int) -> TrainState:
-        """Precision, the optimizer and its schedule, and fresh copies of the
-        model's parameters (leaves that require grad) and EMA."""
+        """Precision, the optimizer and its schedule (the per-step scalars
+        of both and of the EMA tabled over steps 0 … ``max_steps``), and fresh
+        copies of the model's parameters (leaves that require grad) and EMA."""
         self._apply_precision(model)
         self.optimizer, self.lr_schedule = build_optimizer(
             model.cfg.get("optim"), max_steps, grad_clip=self.gradient_clip_val
         )
+        self._tables = self._build_tables(max_steps, model.device)
         params = {k: v.detach().clone().requires_grad_(True) for k, v in model.params.items()}
         return TrainState(params, init_ema(model.ema_params), self.optimizer.init(params))
 
-    def train_step(self, model, state: TrainState, batch, draws) -> Dict[str, torch.Tensor]:
+    def _build_tables(self, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.optimizer.table(n, device), ema_decay_table(self.ema_decay, n, device)
+
+    def _scalars(self, state: TrainState, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The rows of the optimizer's and the EMA's tables for the next
+        step. A table has no end: when a step passes its last row, both are
+        built anew over twice its count, on the host between steps (a graph
+        copies its rows into static buffers and never reads a table)."""
+        count, step = state.opt_state["count"], state.step
+        if max(count, step) >= self._tables[0].shape[0]:
+            self._tables = self._build_tables(2 * max(count, step), device)
+        return self._tables[0][count], self._tables[1][step]
+
+    def train_step(self, model, state: TrainState, batch, draws,
+                   graphs: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``state``, in place; returns the step's
-        metrics as device tensors (``train_loss``, ``grad_norm``)."""
+        metrics as device tensors (``train_loss``, ``grad_norm``).
+        ``graphs``: replay the state's captured step (default: on CUDA; the
+        first step of a state runs eagerly and is captured) or run it
+        eagerly. Either way the same ``_step``."""
+        scalars = self._scalars(state, model.device)
+        if graphs_lib.use_graphs(graphs, model.device):
+            metrics = self._replayed_step(model, state, batch, draws, scalars)
+        else:
+            metrics = self._step(model, state, batch, draws, scalars)
+        state.step += 1
+        state.opt_state["count"] += 1
+        return metrics
+
+    def _step(self, model, state: TrainState, batch, draws, scalars) -> Dict[str, torch.Tensor]:
+        """The step itself, device work only (the captured function):
+        loss, gradients, global norm, clip + update, EMA. ``scalars``: the
+        optimizer's and the EMA's rows (``_scalars``)."""
         loss, metrics = model.training_step(state.params, batch, draws)
         keys = list(state.params)
         grads = dict(zip(keys, torch.autograd.grad(loss, [state.params[k] for k in keys])))
         with torch.no_grad():
             norm = global_norm(grads)
-            self.optimizer.step(state.params, grads, state.opt_state, grad_norm=norm)
-            ema_update(state.ema_params, state.params, self.ema_decay, state.step)
-        state.step += 1
+            self.optimizer.step(state.params, grads, state.opt_state, grad_norm=norm, scalars=scalars[0])
+            ema_update(state.ema_params, state.params, scalars[1])
         return {k: v.detach() for k, v in metrics.items()} | {"grad_norm": norm}
 
+    def _replayed_step(self, model, state: TrainState, batch, draws, scalars) -> Dict[str, torch.Tensor]:
+        """``_step`` as a replay of the state's graph: the batch (through
+        pinned memory on CUDA: a pageable copy cannot overlap), the draws
+        and the step's scalars go into its static buffers first. Captured with the derived-weights
+        cache off: the prenorm folds, casts and re-layouts of the changing
+        weights are recomputed at every replay."""
+        image = batch["image"]
+        if not torch.is_tensor(image):
+            image = torch.as_tensor(np.ascontiguousarray(image))
+        if model.device.type == "cuda" and image.device.type == "cpu":
+            image = image.pin_memory()
+
+        inputs = {**draws, "opt": scalars[0], "ema": scalars[1]}
+
+        def stage(static):
+            static["image"].copy_(image, non_blocking=True)
+            for k in ("flip", "t", "noise", "opt", "ema"):
+                static[k].copy_(inputs[k])
+
+        def build():
+            dev = model.device
+            static = {"image": torch.empty(image.shape, dtype=image.dtype, device=dev),
+                      **{k: torch.empty_like(inputs[k], device=dev) for k in ("flip", "t", "noise", "opt", "ema")}}
+            stage(static)
+
+            def step():
+                return self._step(model, state, {"image": static["image"]},
+                                  {k: static[k] for k in ("flip", "t", "noise")}, (static["opt"], static["ema"]))
+
+            return graphs_lib.Graph("train_step", step, static, device=dev, warmup=step, mutates=writes,
+                                    derived=False)
+
+        writes = [*state.params.values(), *state.ema_params.values()]
+        moments = [v for d in state.opt_state.values() if isinstance(d, dict) for v in d.values()]
+        key = ("train_step", tuple(image.shape), image.dtype,
+               tuple((k, tuple(v.shape), v.dtype) for k, v in draws.items()))
+        graph, built = graphs_lib.cached(state.graphs, key, writes + moments, build)
+        if built:
+            out = graph.warmup_out
+        else:
+            stage(graph.static)
+            out = graph.replay()
+        return {k: v.clone() for k, v in out.items()}
+
     @staticmethod
-    def checkpoint_state(state: TrainState, generator: torch.Generator, steps_per_epoch: int) -> Dict[str, Any]:
+    def checkpoint_state(state: TrainState, generator: torch.Generator, steps_per_epoch: int,
+                         group: int = 1) -> Dict[str, Any]:
         """What a resume needs (tensors still on the device: the checkpoint
-        manager copies them to the CPU)."""
+        manager copies them to the CPU). The data position is where the
+        loader stands after ``state.step`` steps taken ``group`` batches at
+        a time (an epoch's trailing incomplete group dropped; the JAX
+        trainer's fast-forward rule)."""
+        groups, per_epoch = state.step // group, max(steps_per_epoch // group, 1)
         return {
             "params": {k: v.detach() for k, v in state.params.items()},
             "ema_params": state.ema_params,
             "opt_state": state.opt_state,
             "step": state.step,
             "generator": generator.get_state(),
-            "data_position": list(divmod(state.step, steps_per_epoch)),
+            "data_position": [groups // per_epoch, (groups % per_epoch) * group],
         }
 
     @staticmethod
@@ -184,7 +285,10 @@ class Trainer:
         state.step = int(saved["step"])
         generator.set_state(saved["generator"])
 
-    def fit(self, model, resume_state: Optional[Dict[str, Any]] = None) -> None:
+    def fit(self, model, resume_state: Optional[Dict[str, Any]] = None, graphs: Optional[bool] = None) -> None:
+        """Train ``model`` for ``max_steps`` (or ``max_epochs``), from
+        ``resume_state`` if given. ``graphs``: each step a replay of the
+        captured step (default: on CUDA) or eager."""
         if model._train_dl is None and model.cfg.get("train_ds"):
             model.setup_training_data(model.cfg.train_ds)
         train_dl = model._train_dl
@@ -212,19 +316,27 @@ class Trainer:
             log.info(f"Resumed training from step {state.step}")
         hooks = self.exp_manager_hooks
         save_every = int(model.save_and_sample_every or 0)
-        log.info(f"Starting training: {max_steps} steps ({steps_per_epoch} steps/epoch)")
+        spe = self.steps_per_execution
+        log.info(f"Starting training: {max_steps} steps ({steps_per_epoch} steps/epoch, "
+                 f"steps_per_execution={spe})")
         t_last, samples_since, done = time.perf_counter(), 0, state.step >= max_steps
         while not done:
-            for batch in train_dl:
+            for group in self._grouped(train_dl, spe):
                 if state.step >= max_steps:
                     done = True
                     break
-                draws = model.draw_training_inputs(batch["image"].shape, generator)
-                metrics = self.train_step(model, state, batch, draws)
+                # A tail shorter than K runs the group's first steps singly.
+                prev = state.step
+                for batch in group[: max_steps - prev]:
+                    draws = model.draw_training_inputs(batch["image"].shape, generator)
+                    metrics = self.train_step(model, state, batch, draws, graphs=graphs)
+                    samples_since += batch["image"].shape[0]
                 step = self.global_step = state.step
-                samples_since += batch["image"].shape[0]
-                cadence = self.log_every_n_steps
-                if (cadence > 0 and step % cadence == 0) or step == max_steps:
+
+                def crossed(cadence: int) -> bool:
+                    return cadence > 0 and step // cadence > prev // cadence
+
+                if crossed(self.log_every_n_steps) or step == max_steps:
                     host = {k: float(v) for k, v in metrics.items()}
                     if self.terminate_on_nan and not math.isfinite(host["train_loss"]):
                         raise FloatingPointError(f"Non-finite train_loss at step {step}: {host}")
@@ -235,11 +347,11 @@ class Trainer:
                     t_last, samples_since = now, 0
                     self.logged.append(host)
                     self._log_metrics(host, step)
-                if save_every and step % save_every == 0:
-                    self._sample_dump(model, state, batch, step)
+                if save_every and crossed(save_every):
+                    self._sample_dump(model, state, group[0], step)
                 if hooks and hooks.should_checkpoint(step):
                     hooks.maybe_checkpoint(
-                        step, self.checkpoint_state(state, generator, steps_per_epoch),
+                        step, self.checkpoint_state(state, generator, steps_per_epoch, spe),
                         metrics={"train_loss": float(metrics["train_loss"])},
                     )
             epoch += 1
@@ -248,8 +360,20 @@ class Trainer:
         model.params = {k: v.detach() for k, v in state.params.items()}
         model.ema_params = state.ema_params
         if hooks:
-            hooks.finalize(model, self.checkpoint_state(state, generator, steps_per_epoch))
+            hooks.finalize(model, self.checkpoint_state(state, generator, steps_per_epoch, spe))
         log.info(f"Training finished at step {state.step}")
+
+    @staticmethod
+    def _grouped(loader, k: int):
+        """The loader's batches k at a time (lists); with k > 1 an epoch's
+        trailing incomplete group is dropped (the JAX trainer's
+        ``_accumulated``)."""
+        group = []
+        for batch in loader:
+            group.append(batch)
+            if len(group) == k:
+                yield group
+                group = []
 
     def _sample_dump(self, model, state: TrainState, batch, step: int) -> None:
         """The ``save_every`` services with the freshest weights (copies,

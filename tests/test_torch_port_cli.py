@@ -32,10 +32,12 @@ TINY = [
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     """train_ddpm for 6 steps (dumps at 3 and 6, checkpoints at 3 and 6),
-    then resumed to 9; returns the run directory, the model and the trainer."""
+    then resumed to 9 in the same version; returns the run directory, the
+    model and the trainer."""
     root = tmp_path_factory.mktemp("cli")
     common = [*CONFIG, *TINY, "model.save_every=3", "model.compute_bpd=false",
               "exp_manager.checkpoint_every_n_steps=3", f"exp_manager.exp_dir={root / 'exp'}",
+              "+exp_manager.version=run",
               f"+model.results_dir={root / 'results'}", "trainer.log_every_n_steps=3"]
     first, _ = train_ddpm.main([*common, "trainer.max_steps=6"])
     model, trainer = train_ddpm.main([*common, "trainer.max_steps=9", "exp_manager.resume_if_exists=true"])
@@ -107,7 +109,10 @@ def test_serve_answers_from_the_archive_path(trained):
     "cli,args,match",
     [
         ("train", ["trainer.accumulate_grad_batches=2"], "accumulate_grad_batches=2"),
-        ("train", ["+trainer.steps_per_execution=2"], "steps_per_execution=2"),
+        ("train", ["+trainer.steps_per_execution=2", "trainer.accumulate_grad_batches=2"],
+         "accumulate_grad_batches=2"),
+        ("train", ["+trainer.steps_per_execution=2", "+trainer.posthoc_ema_sigma_rels=[0.05]"],
+         "posthoc_ema_sigma_rels"),
         ("eval", ["use_dpm_solver=true"], "use_dpm_solver"),
         ("eval", ["use_karras_sampler=true"], "use_karras_sampler"),
         ("eval", ["show_diffusion=true"], "show_diffusion"),
@@ -120,6 +125,70 @@ def test_refused_options_raise_naming_themselves(trained, tmp_path, cli, args, m
             train_ddpm.main([*CONFIG, *TINY, "trainer.max_steps=1", f"exp_manager.exp_dir={tmp_path}", *args])
         else:
             eval_ddpm.main([f"model_path={run / 'DDPM-UNet.dmn'}", "device=cpu", *args])
+
+
+class _Clock:
+    """Stands in for the ``datetime`` module of both exp_managers: each call
+    of ``datetime.now()`` is one second after the last."""
+
+    def __init__(self):
+        self.calls = 0
+        self.datetime = self
+
+    def now(self):
+        import datetime
+
+        self.calls += 1
+        return datetime.datetime(2026, 1, 1, 0, 0, self.calls)
+
+
+def _exp_layout(root):
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*"))
+
+
+def test_exp_manager_versions_follow_the_jax_package(tmp_path, monkeypatch):
+    """The exp_manager blocks of two train CLI calls, the second with
+    ``resume_if_exists=true`` and no ``version``, through both packages'
+    exp_manager: each call makes a new datetime version (the second resumes
+    nothing), and the two directory trees are the same."""
+    import importlib
+    from types import SimpleNamespace
+
+    j_exp = importlib.import_module("diffusion_model_nemo_tpu.training.exp_manager")
+    t_exp = importlib.import_module("diffusion_model_nemo_tpu_torch.training.exp_manager")
+
+    layouts, states = {}, {}
+    for name, module in (("jax", j_exp), ("port", t_exp)):
+        monkeypatch.setattr(module, "datetime", _Clock())
+        root = tmp_path / name
+        common = [f"exp_manager.exp_dir={root}", "exp_manager.create_tensorboard_logger=false",
+                  "exp_manager.checkpoint_every_n_steps=3"]
+        for extra in ([], ["exp_manager.resume_if_exists=true"]):
+            cfg = load_config(REPO / "examples/configs/ddpm/unet_small.yaml", overrides=[*common, *extra])
+            hooks = module.exp_manager(SimpleNamespace(), cfg.exp_manager)
+            states.setdefault(name, []).append(hooks.resume_state)
+        layouts[name] = _exp_layout(root)
+    assert layouts["port"] == layouts["jax"]
+    assert states["port"] == states["jax"] == [None, None]
+    runs = sorted(p.name for p in (tmp_path / "port" / "DDPM-UNet").iterdir())
+    assert runs == ["2026-01-01_00-00-01", "2026-01-01_00-00-02"]
+
+
+def test_train_cli_runs_steps_per_execution_at_k_boundaries(tmp_path):
+    """``+trainer.steps_per_execution=2``: five steps as two groups of two
+    and a single tail step; the log (every 3), the sample dump (every 4)
+    and the NaN check come at group boundaries by the JAX trainer's
+    ``_crossed`` rule; the last checkpoint is the final step's."""
+    model, trainer = train_ddpm.main([
+        *CONFIG, *TINY, "+trainer.steps_per_execution=2", "trainer.max_steps=5", "trainer.log_every_n_steps=3",
+        "model.save_every=4", "model.compute_bpd=false", f"+model.results_dir={tmp_path / 'results'}",
+        "exp_manager.checkpoint_every_n_steps=3", f"exp_manager.exp_dir={tmp_path / 'exp'}",
+        "+exp_manager.version=run"])
+    assert trainer.steps_per_execution == 2 and trainer.global_step == 5
+    assert [m["global_step"] for m in trainer.logged] == [4, 5]
+    assert sorted(p.name for p in (tmp_path / "results").iterdir()) == ["sample-1-1.png"]
+    assert CheckpointManager(str(tmp_path / "exp/DDPM-UNet/run/checkpoints")).latest_step() == 5
+    assert all(np.isfinite(m["train_loss"]) for m in trainer.logged)
 
 
 def test_cli_config_errors_name_the_key():

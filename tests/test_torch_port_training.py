@@ -42,7 +42,7 @@ from diffusion_model_nemo_tpu_torch.loss import DiffusionLoss
 from diffusion_model_nemo_tpu_torch.ops import attention as TA
 from diffusion_model_nemo_tpu_torch.ops import norm as TN
 from diffusion_model_nemo_tpu_torch.ops.recompute import kernel_call
-from diffusion_model_nemo_tpu_torch.training import build_lr_schedule, build_optimizer, ema_update
+from diffusion_model_nemo_tpu_torch.training import build_lr_schedule, build_optimizer, ema_decay_table, ema_update
 from diffusion_model_nemo_tpu_torch.training.optim import clip_by_global_norm, global_norm
 from diffusion_model_nemo_tpu_torch.utils.weights import from_flax_params, to_flax_params
 
@@ -163,12 +163,12 @@ def test_optimizer_steps_match_optax(optim):
     ours_p = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
     ref_p = {k: jnp.asarray(v) for k, v in p.items()}
     opt, _ = build_optimizer(optim, 10, grad_clip=1.0)
-    state = opt.init(ours_p)
+    state, table = opt.init(ours_p), opt.table(9, "cpu")
     tx, _ = j_build_optimizer(optim, 10, grad_clip=1.0)
     ref_state = tx.init(ref_p)
     for i in range(10):
         g = _leaves(100 + i, scale=0.4 if i % 2 else 0.05)
-        opt.step(ours_p, {k: torch.from_numpy(v) for k, v in g.items()}, state)
+        opt.step(ours_p, {k: torch.from_numpy(v) for k, v in g.items()}, state, scalars=table[i])
         upd, ref_state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, ref_state, ref_p)
         ref_p = optax.apply_updates(ref_p, upd)
         for k in p:
@@ -181,9 +181,10 @@ def test_ema_matches_jax_step_by_step():
     e, p = _leaves(4), _leaves(5)
     ours = {k: torch.from_numpy(v.copy()) for k, v in e.items()}
     ref = {k: jnp.asarray(v) for k, v in e.items()}
+    table = ema_decay_table(0.9999, 11, "cpu")
     for step in range(12):
         params = _leaves(50 + step)
-        ema_update(ours, {k: torch.from_numpy(v) for k, v in params.items()}, 0.9999, step)
+        ema_update(ours, {k: torch.from_numpy(v) for k, v in params.items()}, table[step])
         ref = j_ema_update(ref, {k: jnp.asarray(v) for k, v in params.items()}, 0.9999, jnp.int32(step))
         for k in p:
             np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=1e-6, atol=1e-7)
@@ -401,7 +402,8 @@ def test_fit_by_epochs_counts_the_loader():
     "kwargs,match",
     [
         (dict(accumulate_grad_batches=2), "accumulate"),
-        (dict(steps_per_execution=2), "steps_per_execution"),
+        (dict(steps_per_execution=2, accumulate_grad_batches=2), "accumulate"),
+        (dict(steps_per_execution=2, posthoc_ema_sigma_rels=[0.05]), "posthoc"),
         (dict(posthoc_ema_sigma_rels=[0.05]), "posthoc"),
         (dict(strategy="fsdp"), "strategy"),
         (dict(devices=2), "strategy"),
