@@ -5,7 +5,8 @@ check them.
     python3 chip_smoke.py            # all phases, one card
 
 Paths: unet_small (bf16, 32 px) trained at batch 128 and served, on kernels
-#1-#4, and under the JAX package's two opt-in switches on #6
+#1-#4 (also as ImprovedDDPM and as the class-conditional, guided
+ConditionalDDPM), and under the JAX package's two opt-in switches on #6
 (``DMN_TPU_PALLAS_NORM_BM=1``) and #9 (``DMN_TPU_PALLAS_LINATTN_BLOCK=1``);
 ``Block(x, scale_shift)`` at unet_small's GroupNorm sites on #5 (and #6
 under its switch); DiT-S/2 (bf16, 64 px) on kernel #7; the float32
@@ -137,6 +138,32 @@ Phases:
      steps by the JAX trainer's rule); a replay after an in-place AdamW
      step and after an EMA swap == eager, while the graph captured before
      the step, replayed by hand, differs (stale derived weights).
+  10. The two families at their shipped configs' full width (32 px, bf16,
+     T = 1000, cosine), a ``[family]`` line each check:
+     10a. ImprovedDDPM (``examples/configs/improved_ddpm/unet_small.yaml``,
+          learned variance): one B=128 training step with the kernels against
+          the plain path from the same weights and draws (the four metrics
+          2e-2 relative, the whole gradient 2e-2 relative L2, no launch in
+          the backward); the captured step's wall, busy and pool;
+          ``Trainer.fit`` for 20 captured steps (finite losses, launches = 20
+          x one forward's); the 1000-step ancestral chain at B=16 as graph
+          replays == eager bit for bit under ``cudnn.deterministic``;
+          bits/dim at T = 1000 (B=32, captured) and at T = 50 on the kernel
+          path against the plain path with the same noise (2e-2).
+     10b. ConditionalDDPM (K = 10): one training step against the plain
+          path with the label mask injected; ``SamplingServer`` DDIM-50,
+          max_batch 64: /sample with label 3, without a label, guided (label
+          3, w = 3.0, seeded: == the eager guided chain bit for bit) and with
+          a bad label (400); launches = one forward's x 50 x batches (a
+          guided step is one 2B forward); DDIM-50 images/s with and without
+          guidance.
+     10c. DiT-S/2 at 64 px with ``num_classes=10``: one forward with #7
+          against the plain path, labels and null rows mixed.
+     10d. The CLIs: ``train_improved_ddpm`` (10 steps, a .dmn) then
+          ``test_improved_ddpm`` (bits/dim of 32 images at T = 1000);
+          ``train_conditional_ddpm`` (10 steps), ``eval_conditional_ddpm``
+          (label 3, w = 3.0, DDIM-50) and ``serve`` from its archive; none of
+          PyYAML, msgpack, flax, orbax or Pillow imported.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -1008,43 +1035,46 @@ def check_film_path(port, path):
 
 
 def training_batch(model, B):
-    """A synthetic uint8 batch and seeded draws for one training step."""
+    """A synthetic uint8 batch (images and labels) and seeded draws for one
+    training step."""
     import numpy as np
     import torch
 
     from diffusion_model_nemo_tpu_torch.data import SyntheticVisionDataset
 
     ds = SyntheticVisionDataset(image_size=32, channels=3, length=B, seed=SEED)
-    batch = {"image": np.stack([ds[i]["image"] for i in range(B)])}
+    batch = {k: np.stack([ds[i][k] for i in range(B)]) for k in ("image", "label")}
     draws = model.draw_training_inputs(batch["image"].shape, torch.Generator(device=model.device).manual_seed(SEED))
     return batch, draws
 
 
 def step_loss_and_grads(port, model, batch, draws):
-    """(loss, flat gradient, launches in the forward, in the backward)."""
+    """(loss, flat gradient, launches in the forward, in the backward, the
+    step's metrics as floats)."""
     import torch
 
     params = {k: v.detach().clone().requires_grad_(True) for k, v in model.params.items()}
     port.ops.reset_launch_counts()
-    loss, _ = model.training_step(params, batch, draws)
+    loss, metrics = model.training_step(params, batch, draws)
     torch.cuda.synchronize()
     fwd = port.ops.launch_counts()
     port.ops.reset_launch_counts()
     grads = torch.autograd.grad(loss, list(params.values()))
     torch.cuda.synchronize()
     bwd = port.ops.launch_counts()
-    return float(loss), torch.cat([g.float().flatten() for g in grads]), fwd, bwd
+    metrics = {k: float(v) for k, v in metrics.items()}
+    return float(loss), torch.cat([g.float().flatten() for g in grads]), fwd, bwd, metrics
 
 
 def check_training_step(port, model, per_forward):
     """6c: one unet_small training step at B=128, kernels against the plain
     path from the same weights and draws."""
     batch, draws = training_batch(model, TRAIN_B)
-    loss_k, g_k, fwd, bwd = step_loss_and_grads(port, model, batch, draws)
+    loss_k, g_k, fwd, bwd, _m = step_loss_and_grads(port, model, batch, draws)
     assert_counts("training step forward", fwd, per_forward)
     assert_counts("training step backward", bwd, {})
     with plain_path(port):
-        loss_p, g_p, _, _ = step_loss_and_grads(port, model, batch, draws)
+        loss_p, g_p, _, _, _m = step_loss_and_grads(port, model, batch, draws)
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     rel_grad = float((g_k - g_p).norm() / g_p.norm())
     log(f"[train] unet_small step B={TRAIN_B}: loss kernels {loss_k:.6f} plain {loss_p:.6f} "
@@ -1088,15 +1118,17 @@ def training_kernel_costs(port, model, batch, draws):
     return fwd_total, bwd_total
 
 
-def check_fit(port, device, steps, env, expect_per_step):
-    """6d: ``Trainer.fit`` of unet_small at B=128 on the synthetic set."""
+def check_fit(port, device, steps, env, expect_per_step, model=None):
+    """6d: ``Trainer.fit`` of unet_small (or of ``model``) at B=128 on the
+    synthetic set."""
     import torch
 
     from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
 
-    cfg = unet_small_model_config()
-    cfg["train_ds"]["name"] = "synthetic"
-    model = port.DDPM(cfg, device=device, seed=SEED)
+    if model is None:
+        cfg = unet_small_model_config()
+        cfg["train_ds"]["name"] = "synthetic"
+        model = port.DDPM(cfg, device=device, seed=SEED)
     ema0 = {k: v.clone() for k, v in model.ema_params.items()}
     trainer = port.Trainer(max_steps=steps, log_every_n_steps=5, devices=1, seed=SEED)
     states, init_state = [], trainer.init_state
@@ -1558,8 +1590,9 @@ def graph_line(tag, captured_s, busy_s, eager_s, graph, counts, replays, extra=N
     info = graph.info
     busy = "not measured" if busy_s is None else f"{busy_s * 1e3:.3f} ms ({100 * busy_s / captured_s:.1f}% busy, " \
         f"captured / busy {captured_s / busy_s:.2f})"
+    eager = "not measured" if eager_s is None else f"{eager_s * 1e3:.3f} ms ({eager_s / captured_s:.2f}x the captured)"
     log(f"[graph] {tag}: captured wall {captured_s * 1e3:.3f} ms, device busy {busy}, eager wall "
-        f"{eager_s * 1e3:.3f} ms ({eager_s / captured_s:.2f}x the captured); capture {info['capture_s']:.3f} s, "
+        f"{eager}; capture {info['capture_s']:.3f} s, "
         f"{info['nodes']} nodes, pool {info['pool_mib']:.1f} MiB; launches "
         f"{json.dumps(got)} = {json.dumps(graph.delta)} x {replays} replays"
         + (f" + eager {json.dumps(extra)}" if extra else ""))
@@ -1597,18 +1630,18 @@ def check_graph_ddim(port, tag, model, B, size):
     return by_name
 
 
-def check_graph_ancestral(port, model):
-    """The save_every dump's chain: 1000 ancestral steps at batch 4 (the
-    model's weights), replays of one step graph against the eager loop,
-    bit for bit, and the generator's state after the chain."""
+def check_graph_ancestral(port, model, tag="ancestral dump chain", B=GRAPH_DUMP_B, seed=TRAIN_STEPS):
+    """The save_every dump's chain (or ``tag``'s): 1000 steps of the model's
+    ancestral sampler at batch 4 (the model's weights), replays of one step
+    graph against the eager loop, bit for bit, and the generator's state
+    after the chain."""
     import torch
 
-    use_sampler(model, ANCESTRAL)
     T = model.sampler.timesteps
 
     def run(graphs=None):
-        g = torch.Generator(device=model.device).manual_seed(TRAIN_STEPS)
-        return model.sample(GRAPH_DUMP_B, 32, generator=g, graphs=graphs), g.get_state()
+        g = torch.Generator(device=model.device).manual_seed(seed)
+        return model.sample(B, 32, generator=g, graphs=graphs), g.get_state()
 
     eager_s, (ref, ref_state) = walled(lambda: run(False))
     first_s, _ = walled(run)
@@ -1618,12 +1651,12 @@ def check_graph_ancestral(port, model):
     graph = graph_of(model.sampler.graphs, "ancestral")
     busy = replay_busy(graph, "t", T - 1)
     same = torch.equal(out, ref) and torch.equal(state, ref_state)
-    log(f"[graph] ancestral T={T} B={GRAPH_DUMP_B}: == eager bit for bit, generator state equal after the "
-        f"chain: {same} (first call with capture {first_s:.3f} s)")
-    assert same
-    per_forward = {k: v for k, v in graph.delta.items()}
-    graph_line(f"ancestral dump chain T={T} B={GRAPH_DUMP_B} (per step)", wall / T, busy, eager_s / T, graph,
-               counts, T - 1, extra=per_forward)
+    log(f"[graph] {tag} T={T} B={B}: == eager bit for bit, generator state equal after the chain: {same}; "
+        f"finite {bool(torch.isfinite(out).all())}, std {float(out.std()):.4f} (first call with capture "
+        f"{first_s:.3f} s)")
+    assert same and bool(torch.isfinite(out).all()) and float(out.std()) > 0
+    graph_line(f"{tag} T={T} B={B} (per step)", wall / T, busy, eager_s / T, graph, counts, T - 1,
+               extra=dict(graph.delta))
 
 
 def check_graph_bpd(port, model):
@@ -1865,11 +1898,358 @@ def check_graphs(port, models, device, per_step):
     split = check_graph_ddim(port, "unet_small", models["unet_small"], B, 32)
     log_device_split(split, DDIM_STEPS)
     check_graph_ddim(port, "dit_s2", models["dit_s2"], DIT_MAX_BATCH, DIT_IMG)
+    use_sampler(models["unet_small"], ANCESTRAL)
     check_graph_ancestral(port, models["unet_small"])
     check_graph_bpd(port, models["unet_small"])
     check_graph_training(port, device, per_step)
     check_graph_stale(port, device)
     log(f"[graph] phase 9 in {time.perf_counter() - t9:.1f} s")
+
+
+# ------------------------------------------------------------ the two families --
+FAMILY_CONFIGS = {"improved": "examples/configs/improved_ddpm/unet_small.yaml",
+                  "conditional": "examples/configs/conditional_ddpm/unet_small.yaml"}
+NUM_CLASSES = 10
+FAMILY_METRIC_TOL = 2e-2  # the four metrics, kernels vs plain path, relative, bf16
+FAMILY_GRAD_TOL = 2e-2  # the whole gradient, relative L2, bf16
+FAMILY_ANCESTRAL_B = 16
+FAMILY_BPD_B = 32
+COND_LABEL, COND_SCALE, COND_SEED = 3, 3.0, 77
+
+
+def family_model(port, device, family, overrides=()):
+    """ImprovedDDPM or ConditionalDDPM (K = 10) from its shipped YAML at 32
+    px, full width, random weights from ``SEED``."""
+    from diffusion_model_nemo_tpu_torch.config import load_config
+
+    extra = [f"model.num_classes={NUM_CLASSES}"] if family == "conditional" else []
+    cfg = load_config(Path(__file__).resolve().parent / FAMILY_CONFIGS[family], overrides=[
+        *CLI_MODEL, "model.train_ds.name=synthetic", *extra, *overrides]).model
+    cls = port.models.ImprovedDDPM if family == "improved" else port.models.ConditionalDDPM
+    return cls(cfg, device=device, seed=SEED)
+
+
+def check_family_step(port, tag, model, per_forward):
+    """One B=128 training step with the kernels against the plain path from
+    the same weights, batch and draws (a conditional model's label mask
+    among them): every metric and the whole gradient; the backward launches
+    nothing."""
+    batch, draws = training_batch(model, TRAIN_B)
+    loss_k, g_k, fwd, bwd, m_k = step_loss_and_grads(port, model, batch, draws)
+    assert_counts(f"{tag} step forward", fwd, per_forward)
+    assert_counts(f"{tag} step backward", bwd, {})
+    with plain_path(port):
+        _l, g_p, _f, _b, m_p = step_loss_and_grads(port, model, batch, draws)
+    rel = {k: abs(m_k[k] - m_p[k]) / abs(m_p[k]) for k in m_p}
+    rel_grad = float((g_k - g_p).norm() / g_p.norm())
+    log(f"[family] {tag} step B={TRAIN_B} kernels vs plain: "
+        + ", ".join(f"{k} {m_k[k]:.6f} / {m_p[k]:.6f} (rel {rel[k]:.3e})" for k in m_p)
+        + f"; whole gradient ({g_k.numel()} values) rel_l2 {rel_grad:.3e} (tol {FAMILY_METRIC_TOL}, "
+        f"{FAMILY_GRAD_TOL})")
+    assert set(m_k) == set(m_p) and all(v <= FAMILY_METRIC_TOL for v in rel.values()), rel
+    assert rel_grad <= FAMILY_GRAD_TOL and all(map(lambda v: abs(v) < 1e6, m_k.values()))
+    return m_k
+
+
+def family_step_timing(port, tag, model):
+    """The captured B=128 step: wall (CUDA events over 20 replays), device
+    busy (torch.profiler) and the graph's pool."""
+    batch, draws = training_batch(model, TRAIN_B)
+    trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+    state = trainer.init_state(model, TRAIN_STEPS)
+    run = lambda: trainer.train_step(model, state, batch, draws)  # noqa: E731
+    wall = time_ms(run, iters=20)
+    busy, _ = device_profile(run, iters=5)
+    info = graph_of(state.graphs, "train_step").info
+    log(f"[family] {tag} captured step B={TRAIN_B}: wall {wall:.3f} ms (CUDA events), {TRAIN_B / wall * 1e3:.1f} "
+        f"samples/s; device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); graph pool {info['pool_mib']:.1f} MiB, "
+        f"{info['nodes']} nodes, capture {info['capture_s']:.3f} s")
+
+
+def check_family_ancestral(port, model):
+    """The 1000-step ancestral chain with the learned variance at B=16:
+    graph replays against the eager loop, bit for bit, both under
+    ``cudnn.deterministic``."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        check_graph_ancestral(port, model, "improved ancestral chain (learned variance, cudnn.deterministic)",
+                              FAMILY_ANCESTRAL_B, SEED)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def family_bpd_batch(device, B):
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.data import SyntheticVisionDataset, preprocess_batch
+
+    ds = SyntheticVisionDataset(image_size=32, channels=3, length=B, seed=SEED)
+    return preprocess_batch({"image": np.stack([ds[i]["image"] for i in range(B)])}, device)["pixel_values"]
+
+
+def check_family_bpd(port, model, device, per_forward):
+    """ImprovedDDPM bits/dim (the learned variance through the sampler): at
+    T = 1000 on a batch of 32, captured (s a batch, device busy), then at T
+    = 50 with the same noise on the kernel path and the plain path."""
+    import torch
+
+    x0 = family_bpd_batch(device, FAMILY_BPD_B)
+    T = model.sampler.timesteps
+    run = lambda: model.calculate_bits_per_dimension(x0)  # noqa: E731
+    walled(run)  # the eager first step and the capture
+    port.ops.reset_launch_counts()
+    wall, out = walled(run)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "bpd")
+    busy = replay_busy(graph, "t", T - 1)
+    log(f"[family] improved bits/dim T={T} B={FAMILY_BPD_B}: total_bpd {float(out['total_bpd'].mean()):.5f}, "
+        f"{wall:.3f} s a batch")
+    graph_line(f"improved bpd T={T} B={FAMILY_BPD_B} (per step)", wall / T, busy, None, graph, counts, T)
+    assert torch.isfinite(out["terms_bpd"]).all()
+    short = family_model(port, device, "improved", [f"model.timesteps={CLI_BPD_T}"])
+    noise = torch.randn((CLI_BPD_T, *x0.shape), generator=torch.Generator(device=device).manual_seed(SEED),
+                        device=device)
+    port.ops.reset_launch_counts()
+    kern = short.calculate_bits_per_dimension(x0, noise=noise)
+    torch.cuda.synchronize()
+    assert_counts(f"improved bpd T={CLI_BPD_T}", port.ops.launch_counts(),
+                  {k: v * CLI_BPD_T for k, v in per_forward.items()})
+    with plain_path(port):
+        plain = short.calculate_bits_per_dimension(x0, noise=noise, graphs=False)
+    rel = float(((kern["total_bpd"] - plain["total_bpd"]).abs() / plain["total_bpd"].abs()).max())
+    log(f"[family] improved bits/dim T={CLI_BPD_T} B={FAMILY_BPD_B}: total_bpd kernels "
+        f"{float(kern['total_bpd'].mean()):.5f} plain {float(plain['total_bpd'].mean()):.5f}, max relative "
+        f"difference {rel:.3e} (tol {BPD_REL_TOL['bfloat16']:.0e})")
+    assert rel <= BPD_REL_TOL["bfloat16"], rel
+
+
+def check_improved(port, device):
+    """10a. ImprovedDDPM at examples/configs/improved_ddpm/unet_small.yaml's
+    full width."""
+    model = family_model(port, device, "improved")
+    per = derived_counts(port, model, TRAIN_B, 32)
+    log(f"[family] improved: {type(model.sampler).__name__}, output channels "
+        f"{model.diffusion_model.final_conv.weight.shape[0]}, launches a forward (gates) {json.dumps(per)}")
+    check_family_step(port, "improved", model, per)
+    family_step_timing(port, "improved", model)
+    fit_model = family_model(port, device, "improved")
+    _m, trainer, _c = check_fit(port, device, TRAIN_STEPS, {}, per, model=fit_model)
+    assert all(k in trainer.logged[-1] for k in ("simple_loss", "vb_losses", "decoder_nll")), trainer.logged[-1]
+    check_family_ancestral(port, model)
+    check_family_bpd(port, model, device, per)
+
+
+def check_conditional_serving(port, model, per_forward):
+    """10b. ``SamplingServer`` on the ConditionalDDPM, DDIM-50, max_batch 64:
+    /sample with a label, without one, guided (seeded, == the eager guided
+    chain bit for bit) and with a bad label (400); every kernel's launches
+    equal one forward's x 50 x batches (a guided batch is one 2B forward a
+    step)."""
+    import urllib.error
+
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+    from diffusion_model_nemo_tpu_torch.utils.image import to_uint8_tensor
+
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve(model, port=0, max_batch=B, ddim_timesteps=DDIM_STEPS, use_ema=True)
+    warm_s = time.perf_counter() - t0
+    server.start_background()
+    base = f"http://{server.host}:{server.port}"
+    try:
+        results, bad = {}, None
+
+        def request(key, payload):
+            results[key] = http("POST", base + "/sample", payload)
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=request, args=(key, dict(payload, format="npy"))) for key, payload in (
+            ("label", {"num_images": 5, "label": COND_LABEL}), ("null", {"num_images": 3}))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+            assert not th.is_alive(), "a concurrent request did not finish"
+        request("guided", {"num_images": 3, "label": COND_LABEL, "guidance_scale": COND_SCALE, "seed": COND_SEED,
+                           "format": "npy"})
+        wall = time.perf_counter() - t1
+        try:
+            http("POST", base + "/sample", {"num_images": 1, "label": NUM_CLASSES})
+        except urllib.error.HTTPError as e:
+            bad = e.code
+        stats = json.loads(http("GET", base + "/stats")[1])
+    finally:
+        server.shutdown()
+    assert all(r[0] == 200 for r in results.values()) and bad == 400, ({k: r[0] for k, r in results.items()}, bad)
+    arrays = {k: np.load(io.BytesIO(r[1])) for k, r in results.items()}
+    for k, n in (("label", 5), ("null", 3), ("guided", 3)):
+        assert arrays[k].shape == (n, 32, 32, 3) and arrays[k].dtype == np.uint8 and arrays[k].std() > 0, k
+    counts = port.ops.launch_counts()
+    g = torch.Generator(device=model.device).manual_seed(COND_SEED)
+    eager = model.sample(B, 32, generator=g, label=COND_LABEL, guidance_scale=COND_SCALE, use_ema=True, graphs=False)
+    eager = to_uint8_tensor(eager)[:3].cpu().numpy()
+    assert np.array_equal(arrays["guided"], eager), "the served guided request differs from the eager chain"
+    batches = stats["batches"] + 1  # + the warm-up batch
+    log(f"[family] conditional serve DDIM-{DDIM_STEPS} max_batch={B}: warm-up {warm_s:.2f} s; label {COND_LABEL}, "
+        f"null and guided (w={COND_SCALE}, seeded) requests in {wall:.3f} s, a bad label answered {bad}; the "
+        f"guided seeded request == the eager guided chain bit for bit; stats {json.dumps(stats)}")
+    assert stats["batches"] == 3, stats
+    for name, n in counts.items():
+        expect = per_forward.get(name, 0) * DDIM_STEPS * batches
+        log(f"[family] conditional serve launches {name}: {n} (expected {per_forward.get(name, 0)}/forward x "
+            f"{DDIM_STEPS} x {batches})")
+        assert n == expect, (name, n, expect)
+    assert all(counts[name] > 0 for name in per_forward), counts
+
+
+def conditional_ddim_timing(model):
+    """Conditional DDIM-50 at B=64 captured, with and without guidance:
+    images/s, device busy, the graphs' pools."""
+    import torch
+
+    for w in (None, COND_SCALE):
+        run = lambda: model.sample(  # noqa: E731
+            B, 32, generator=torch.Generator(device=model.device).manual_seed(SEED), label=COND_LABEL,
+            guidance_scale=w, use_ema=True)
+        walled(run)  # captured already by the server, unless the graph keys differ
+        wall, out = walled(run, n=2)
+        busy, _ = device_profile(run, iters=1)
+        graphs = [g for g in model.sampler.graphs.values() if g.info["name"] == "ddim"]
+        log(f"[family] conditional DDIM-{DDIM_STEPS} B={B} label {COND_LABEL} guidance {w}: {wall * 1e3:.3f} ms a "
+            f"chain, {B / wall:.2f} images/s, device busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%); ddim "
+            f"graphs' pools {[round(g.info['pool_mib'], 1) for g in graphs]} MiB")
+        assert bool(torch.isfinite(out).all())
+
+
+def check_conditional(port, device):
+    """10b. ConditionalDDPM (K = 10) at examples/configs/conditional_ddpm/
+    unet_small.yaml's full width."""
+    model = family_model(port, device, "conditional")
+    per = derived_counts(port, model, TRAIN_B, 32)
+    per_2b = derived_counts(port, model, 2 * B, 32)
+    per_b = derived_counts(port, model, B, 32)
+    log(f"[family] conditional: launches a forward (gates) at B={B} {json.dumps(per_b)}, at the guided 2B "
+        f"{json.dumps(per_2b)}")
+    assert per_b == per_2b == per, (per_b, per_2b, per)
+    check_family_step(port, "conditional", model, per)
+    check_conditional_serving(port, model, per_b)
+    conditional_ddim_timing(model)
+
+
+def check_dit_classes(port, device):
+    """10c. DiT-S/2 with ``num_classes=10`` (a learned null row added to c)
+    at 64 px: one forward with #7 against the plain path, labels and null
+    rows mixed."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.config import dit_small_model_config
+
+    cfg = dit_small_model_config()
+    cfg["diffusion_model"]["num_classes"] = NUM_CLASSES
+    model = port.DDPM(cfg, device=device, seed=SEED)
+    redraw_zero_leaves(model)
+    x, t = model_inputs(device, DIT_IMG, DIT_MAX_BATCH)
+    classes = torch.arange(DIT_MAX_BATCH, device=device, dtype=torch.int32) % (NUM_CLASSES + 1)
+    port.ops.reset_launch_counts()
+    out_k = model.forward(x, t, classes)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    with plain_path(port):
+        out_p = model.forward(x, t, classes)
+    null = model.forward(x, t)
+    rel = float((out_k - out_p).norm() / out_p.norm())
+    moved = float((out_k - null).abs().max())
+    log(f"[family] dit_s2 num_classes={NUM_CLASSES} B={DIT_MAX_BATCH}: kernels vs plain rel_l2 {rel:.3e} (tol "
+        f"{UNET_REL_TOL}); launches {json.dumps(counts)}; labels move the output by max |d| {moved:.3e}")
+    assert counts == {"attention": 12} and rel <= UNET_REL_TOL and moved > 0 and bool(torch.isfinite(out_k).all())
+
+
+def check_family_clis(port, device, tmp):
+    """10d. The six CLIs' path at full width: train_improved_ddpm (10 steps,
+    a .dmn) → test_improved_ddpm (bits/dim of 32 images at T = 1000);
+    train_conditional_ddpm (10 steps) → eval_conditional_ddpm (label, guided)
+    → serve from the archive."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.cli import (
+        eval_conditional_ddpm, serve as serve_cli, test_improved_ddpm, train_conditional_ddpm, train_improved_ddpm,
+    )
+    from diffusion_model_nemo_tpu_torch.utils.image import decode_png
+
+    unet = ("group_norm_silu", "linear_attention_block", "linear_attention_tokens", "attention_block_small")
+    base = [*CLI_MODEL, "model.train_ds.name=synthetic", "trainer.max_steps=10", f"exp_manager.exp_dir={tmp}/exp",
+            "exp_manager.create_tensorboard_logger=false", "+exp_manager.version=run"]
+    dmn = {}
+    for name, cli, extra in (("improved", train_improved_ddpm, []),
+                             ("conditional", train_conditional_ddpm, [f"model.num_classes={NUM_CLASSES}"])):
+        port.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, trainer = cli.main([*base, *extra])
+        cli_counts(port, f"train_{name}_ddpm", unet)
+        dmn[name] = next(trainer.exp_manager_hooks.log_dir.glob("*.dmn"))
+        log(f"[family] train_{name}_ddpm 10 steps B={TRAIN_B}: {time.perf_counter() - t0:.2f} s, logged "
+            f"{json.dumps(trainer.logged)}, archive {dmn[name].name}")
+        assert all(np.isfinite(m["train_loss"]) for m in trainer.logged)
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = test_improved_ddpm.main([f"model_path={dmn['improved']}", "limit_test_batches=1",
+                                      f"batch_size={CLI_TEST_B}"])
+    bpd_s = time.perf_counter() - t0
+    cli_counts(port, "test_improved_ddpm", unet)
+    log(f"[family] test_improved_ddpm: test_total_bpd {result['test_total_bpd']:.5f} B={CLI_TEST_B} T=1000 in "
+        f"{bpd_s:.2f} s with the restore")
+    assert np.isfinite(result["test_total_bpd"]) and result["test_total_bpd"] > 0
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eval_conditional_ddpm.main([f"model_path={dmn['conditional']}", f"batch_size={B}", f"label={COND_LABEL}",
+                                      f"guidance_scale={COND_SCALE}", f"ddim_timesteps={DDIM_STEPS}",
+                                      f"output_dir={tmp}/samples", "add_timestamp=false"])
+    eval_s = time.perf_counter() - t0
+    cli_counts(port, "eval_conditional_ddpm", unet)
+    grid = decode_png((out / f"samples_class{COND_LABEL}.png").read_bytes())
+    log(f"[family] eval_conditional_ddpm label {COND_LABEL} w={COND_SCALE} DDIM-{DDIM_STEPS} B={B}: {eval_s:.2f} s "
+        f"with the restore, grid {list(grid.shape)}")
+    assert grid.std() > 0
+    port.ops.reset_launch_counts()
+    server = serve_cli.build_server([f"model_path={dmn['conditional']}", "port=0", f"ddim_timesteps={DDIM_STEPS}"])
+    server.start_background()
+    try:
+        code, body = http("POST", f"http://{server.host}:{server.port}/sample",
+                          {"num_images": 4, "label": COND_LABEL, "format": "png"})
+    finally:
+        server.shutdown()
+    cli_counts(port, "serve (conditional archive)", unet)
+    imgs = np.stack([decode_png(base64.b64decode(p)) for p in json.loads(body)["images"]])
+    log(f"[family] serve from {dmn['conditional'].name}: /sample label {COND_LABEL} status {code}, "
+        f"{list(imgs.shape)}")
+    assert code == 200 and imgs.shape == (4, CLI_IMG, CLI_IMG, 3)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
+    assert not loaded, f"the families' CLIs loaded {loaded}"
+    log(f"[family] none of {', '.join(NOT_ON_THE_CARD)} was imported")
+
+
+def check_families(port, device):
+    """10. ImprovedDDPM and ConditionalDDPM end to end, the DiT with
+    classes, the six CLIs."""
+    t10 = time.perf_counter()
+    check_improved(port, device)
+    check_conditional(port, device)
+    check_dit_classes(port, device)
+    tmp = tempfile.mkdtemp(prefix="dmn_family_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        check_family_clis(port, device, tmp)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[family] phase 10 in {time.perf_counter() - t10:.1f} s")
 
 
 def main() -> int:
@@ -1966,6 +2346,9 @@ def main() -> int:
 
     # 9. CUDA graphs: every loop's replays against its eager loop.
     check_graphs(port, models, device, train_per)
+
+    # 10. The two families, the DiT with classes, their CLIs.
+    check_families(port, device)
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

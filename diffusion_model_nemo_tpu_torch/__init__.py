@@ -5,14 +5,15 @@ and never ``jax`` or the JAX package. Its entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on CUDA the U-Net runs through
 hand-written Hopper kernels (``csrc/``, built at first use by
 ``ops/_build.py``), on the CPU through their plain PyTorch versions.
-Training: ``Trainer(...).fit(DDPM(cfg))`` (``training/``).
+Training: ``Trainer(...).fit(DDPM(cfg))`` (``training/``); the model families
+are ``DDPM``, ``ImprovedDDPM`` and ``ConditionalDDPM``.
 """
 
 from . import config, data, loss, models, modules, ops, serving, training, utils
-from .models import DDPM
+from .models import DDPM, ConditionalDDPM, ImprovedDDPM
 from .training import Trainer
 
 __all__ = [
     "config", "data", "loss", "models", "modules", "ops", "serving", "training", "utils",
-    "DDPM", "Trainer",
+    "DDPM", "ImprovedDDPM", "ConditionalDDPM", "Trainer",
 ]

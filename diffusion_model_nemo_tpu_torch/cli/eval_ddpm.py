@@ -83,6 +83,20 @@ def maybe_use_ddim_sampler(model: DDPM, cfg) -> None:
         model.change_sampler(sampler_cfg)
 
 
+def output_dir(cfg) -> Path:
+    """``cfg.output_dir`` (plus a timestamp directory under
+    ``add_timestamp``), made."""
+    out_dir = Path(cfg.output_dir)
+    if cfg.add_timestamp:
+        out_dir = out_dir / datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return out_dir
+
+
+def generator_of(model, cfg) -> torch.Generator:
+    return torch.Generator(device=model.device).manual_seed(cfg.seed if cfg.seed is not None else 0)
+
+
 @hydra_runner(schema=EvalConfig)
 def main(cfg):
     """Returns the output directory."""
@@ -92,14 +106,10 @@ def main(cfg):
     model = DDPM.restore_from(cfg.model_path, use_ema=cfg.use_ema, device=cfg.device)
     maybe_use_ddim_sampler(model, cfg)
     image_size = cfg.image_size if cfg.image_size > 0 else int(model.image_size)
-    generator = torch.Generator(device=model.device).manual_seed(cfg.seed if cfg.seed is not None else 0)
-    imgs = model.sample(batch_size=cfg.batch_size, image_size=image_size, generator=generator)
+    imgs = model.sample(batch_size=cfg.batch_size, image_size=image_size, generator=generator_of(model, cfg))
     imgs = imgs.float().cpu().numpy()
 
-    out_dir = Path(cfg.output_dir)
-    if cfg.add_timestamp:
-        out_dir = out_dir / datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-    out_dir.mkdir(parents=True, exist_ok=True)
+    out_dir = output_dir(cfg)
     if cfg.grid_plot:
         save_image_grid(imgs, str(out_dir / "samples_grid.png"), nrow=6)
     for i, img in enumerate(to_uint8(imgs)):

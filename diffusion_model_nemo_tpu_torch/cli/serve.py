@@ -1,11 +1,14 @@
-"""Serve a DDPM archive as a batched sampling daemon with the port
-(counterpart of ``examples/serve.py``).
+"""Serve a DDPM, ImprovedDDPM or ConditionalDDPM archive as a batched
+sampling daemon with the port (counterpart of ``examples/serve.py``; the
+archive's recorded class is restored through
+``restore_model_from_archive``).
 
     python -m diffusion_model_nemo_tpu_torch.cli.serve model_path=DDPM.dmn \\
         port=8000 max_batch=64 use_ddim_sampler=true ddim_timesteps=50
 
     curl -s localhost:8000/healthz
     curl -s -X POST localhost:8000/sample -d '{"num_images": 4, "seed": 0, "format": "png"}'
+    curl -s -X POST localhost:8000/sample -d '{"num_images": 4, "label": 3, "guidance_scale": 3.0}'
 
 The fields are those of the JAX script's ``ServeConfig`` that the port's
 server has; ``device=cpu`` serves from the CPU.

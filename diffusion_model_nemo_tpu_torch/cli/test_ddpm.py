@@ -35,19 +35,23 @@ class TestConfig:
     device: str = "cuda"
 
 
-@hydra_runner(schema=TestConfig)
-def main(cfg):
-    """Returns ``trainer.test``'s result (``test_total_bpd``, ...)."""
-    cfg = TestConfig(**cfg)
+def run_test(model_class, cfg):
+    """The test scripts' body for ``model_class``: ``trainer.test``'s result."""
     if cfg.model_path:
-        model = DDPM.restore_from(cfg.model_path, use_ema=cfg.use_ema, device=cfg.device)
+        model = model_class.restore_from(cfg.model_path, use_ema=cfg.use_ema, device=cfg.device)
     else:
-        model = DDPM.from_pretrained(cfg.pretrained_model, use_ema=cfg.use_ema, device=cfg.device)
+        model = model_class.from_pretrained(cfg.pretrained_model, use_ema=cfg.use_ema, device=cfg.device)
     name = cfg.dataset_name or (model.cfg.get("train_ds") or {}).get("name")
     model.setup_test_data({"name": name, "split": cfg.dataset_split, "batch_size": cfg.batch_size})
     result = Trainer(devices=-1, limit_test_batches=cfg.limit_test_batches).test(model)
     log.info(f"Result: {result}")
     return result
+
+
+@hydra_runner(schema=TestConfig)
+def main(cfg):
+    """Returns ``trainer.test``'s result (``test_total_bpd``, ...)."""
+    return run_test(DDPM, TestConfig(**cfg))
 
 
 if __name__ == "__main__":

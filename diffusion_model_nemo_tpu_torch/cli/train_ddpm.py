@@ -36,16 +36,22 @@ def device_of(trainer_cfg) -> str:
     raise ValueError(f"trainer.accelerator={accelerator!r}: the port runs on cpu or cuda")
 
 
-@hydra_runner(config_path="examples/configs/ddpm", config_name="unet_small.yaml")
-def main(cfg):
-    """Returns (model, trainer) after ``fit``."""
+def train(model_class, cfg):
+    """The train scripts' body for ``model_class``: returns (model, trainer)
+    after ``fit``."""
     log.info(f"Config:\n{to_yaml(cfg)}")
     trainer = Trainer(**cfg.trainer)
     hooks = exp_manager(trainer, cfg.get("exp_manager"))
-    model = DDPM(cfg=cfg.model, device=device_of(cfg.trainer))
+    model = model_class(cfg=cfg.model, device=device_of(cfg.trainer))
     model.maybe_init_from_pretrained_checkpoint(cfg)
     trainer.fit(model, resume_state=hooks.resume_state if hooks else None)
     return model, trainer
+
+
+@hydra_runner(config_path="examples/configs/ddpm", config_name="unet_small.yaml")
+def main(cfg):
+    """Returns (model, trainer) after ``fit``."""
+    return train(DDPM, cfg)
 
 
 if __name__ == "__main__":

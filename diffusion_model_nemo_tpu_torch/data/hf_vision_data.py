@@ -120,5 +120,7 @@ def preprocess_batch(
         x = torch.where(flip[:, None, None, None], x.flip(2), x)
     out = {"pixel_values": x}
     if "label" in batch:
-        out["label"] = torch.as_tensor(np.asarray(batch["label"], np.int32)).to(device)
+        label = batch["label"]
+        label = label if torch.is_tensor(label) else torch.as_tensor(np.asarray(label, np.int32))
+        out["label"] = label.to(device=device, dtype=torch.int32)
     return out

@@ -2,11 +2,13 @@ import logging
 
 from ..modules.parts import not_ported
 from .abstract_diffusion_model import AbstractDiffusionModel, resolve_archive_path
+from .conditional_ddpm import ConditionalDDPM
 from .ddpm import DDPM
+from .improved_ddpm import ImprovedDDPM
 
-__all__ = ["AbstractDiffusionModel", "DDPM", "restore_model_from_archive"]
+__all__ = ["AbstractDiffusionModel", "ConditionalDDPM", "DDPM", "ImprovedDDPM", "restore_model_from_archive"]
 
-_MODEL_CLASSES = {"DDPM": DDPM}
+_MODEL_CLASSES = {"DDPM": DDPM, "ImprovedDDPM": ImprovedDDPM, "ConditionalDDPM": ConditionalDDPM}
 
 
 def restore_model_from_archive(path: str, use_ema: bool = False, device="cuda"):

@@ -4,9 +4,11 @@ sample grids, computes bits/dim, and saves and restores ``.dmn`` archives.
 
 Counterpart of ``diffusion_model_nemo_tpu/models/abstract_diffusion_model.py``.
 Parameters are ``state_dict``-style dicts of float32 tensors (``params``,
-``ema_params``) on the model's device; ``get_model_fn()`` returns
-``model_fn(params, x, t)`` that runs the network with the given parameters
-(inference), and ``train_model_fn`` the same with autograd. Archives hold
+``ema_params``) on the model's device; ``model_fn(params, x, t, classes=None)``
+runs the network with the given parameters (inference), ``train_model_fn``
+the same with autograd, and ``get_model_fn(batch, training)`` returns one of
+them as ``model_fn(params, x, t)`` (a conditional model binds the batch's
+labels there, as a ``Conditioned`` model function). Archives hold
 the weights as flax parameter trees (``utils/weights.py``), so an archive
 either package writes restores in the other.
 """
@@ -28,7 +30,7 @@ from ..config.registry import get_target, instantiate
 from ..config.yaml_config import Config, from_dict, to_yaml
 from ..data.hf_vision_data import build_dataloader
 from ..loss.variational_bound_loss import compute_variational_loss_terms
-from ..modules.gaussian_diffusion import graph_key
+from ..modules.gaussian_diffusion import fill_static, graph_key, static_model_fn
 from ..ops import graphs as graphs_lib
 from ..ops.math import LOG2, mean_flattened, normal_kl, num_to_groups
 from ..training import checkpoints as ckpt_lib
@@ -87,19 +89,27 @@ class AbstractDiffusionModel:
         self.ema_params = {k: v.clone() for k, v in self.params.items()}
         return self.params
 
-    def model_fn(self, params, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def model_fn(self, params, x: torch.Tensor, t: torch.Tensor,
+                 classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The network with ``params`` (inference); ``classes`` [B] int for
+        a network built with ``num_classes``."""
         with torch.inference_mode():
-            return functional_call(self.diffusion_model, params, (x, t))
+            return self.train_model_fn(params, x, t, classes)
 
-    def train_model_fn(self, params, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def train_model_fn(self, params, x: torch.Tensor, t: torch.Tensor,
+                       classes: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``model_fn`` with autograd on: gradients reach ``params``."""
-        return functional_call(self.diffusion_model, params, (x, t))
+        kwargs = {} if classes is None else {"classes": classes}
+        return functional_call(self.diffusion_model, params, (x, t), kwargs)
 
-    def get_model_fn(self):
-        return self.model_fn
+    def get_model_fn(self, batch: Optional[Dict] = None, training: bool = False, label_mask=None):
+        """``model_fn(params, x, t)``: ``train_model_fn`` when ``training``,
+        else ``model_fn``. A conditional model binds ``batch``'s labels
+        (``label_mask``: training's null-class mask)."""
+        return self.train_model_fn if training else self.model_fn
 
-    def forward(self, x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return self.model_fn(self.params, x_t, t)
+    def forward(self, x_t: torch.Tensor, t: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.model_fn(self.params, x_t, t, classes)
 
     # ---- data ------------------------------------------------------------------
     def _setup_dataloader(self, cfg, mode: str):
@@ -109,6 +119,8 @@ class AbstractDiffusionModel:
         if str(cfg.get("name", "")).startswith("synthetic"):
             cfg.setdefault("image_size", self.image_size)
             cfg.setdefault("channels", self.channels)
+            if self.cfg.get("num_classes") is not None:  # labels inside the class-embedding table
+                cfg.setdefault("num_classes", int(self.cfg["num_classes"]))
         return build_dataloader(cfg, mode=mode)
 
     def setup_training_data(self, train_data_config) -> None:
@@ -166,6 +178,7 @@ class AbstractDiffusionModel:
         max_batch_size: int = 32,
         noise: Optional[torch.Tensor] = None,
         graphs: Optional[bool] = None,
+        model_fn=None,
     ) -> Dict[str, torch.Tensor]:
         """Exact discrete VLB bits/dim: for t = T-1 … 0, q_sample → q_posterior
         → p_mean_variance → the VLB term; the prior KL at the end.
@@ -174,11 +187,14 @@ class AbstractDiffusionModel:
         taken from ``noise`` [T, B, H, W, C] in the order the loop uses it
         (t descending), as the JAX scan draws it. ``graphs``: replay one
         captured step (default: on CUDA) or run the Python loop; the draws
-        are the same. Returns ``total_bpd`` [B], ``terms_bpd`` [B, T] (t
-        ascending) and ``prior_bpd`` [B]."""
+        are the same. ``model_fn``: default ``get_model_fn()`` (a
+        conditional model's test step binds the batch's labels). Returns
+        ``total_bpd`` [B], ``terms_bpd`` [B, T] (t ascending) and
+        ``prior_bpd`` [B]."""
         if max_batch_size > 0:
             x_start = x_start[: min(max_batch_size, x_start.shape[0])]
         sampler = self.sampler
+        model_fn = model_fn or self.get_model_fn()
         T, B = int(sampler.timesteps), x_start.shape[0]
         if noise is not None and tuple(noise.shape) != (T,) + tuple(x_start.shape):
             raise ValueError(f"noise must be [T, *x_start.shape] = {[T, *x_start.shape]}, got {list(noise.shape)}")
@@ -193,12 +209,12 @@ class AbstractDiffusionModel:
 
         with torch.inference_mode():
             if graphs_lib.use_graphs(graphs, x_start.device):
-                terms = self._bpd_replays(x_start, T, fill)
+                terms = self._bpd_replays(model_fn, x_start, T, fill)
             else:
                 terms = torch.empty((T, B), dtype=torch.float32, device=x_start.device)
                 eps = torch.empty_like(x_start)
                 for i, t in enumerate(range(T - 1, -1, -1)):
-                    terms[t] = self._bpd_term(self.get_model_fn(), self.params, x_start, t, fill(eps, i))
+                    terms[t] = self._bpd_term(model_fn, self.params, x_start, t, fill(eps, i))
             terms_bpd = terms.T
             qt_mean, _, qt_log_var = sampler.q_mean_variance(x_start, T - 1)
             prior_bpd = mean_flattened(normal_kl(qt_mean, qt_log_var, 0.0, 0.0)) / LOG2
@@ -225,13 +241,13 @@ class AbstractDiffusionModel:
         )
         return term
 
-    def _bpd_replays(self, x_start, T: int, fill) -> torch.Tensor:
+    def _bpd_replays(self, model_fn, x_start, T: int, fill) -> torch.Tensor:
         """The T terms through one captured ``_bpd_term`` step (static x_start
         and noise, a 0-d device t that the step decrements, the term written
         into a static [T, B] at row t); step i's noise is filled in before
         it. The first step (t = T-1) runs eagerly (the capture's warm-up).
         Returns the terms [T, B] (a copy)."""
-        model_fn, params = self.get_model_fn(), self.params
+        params = self.params
         static = None
 
         def build():
@@ -241,10 +257,11 @@ class AbstractDiffusionModel:
                       "t": torch.full((), T - 1, dtype=torch.long, device=dev),
                       "terms": torch.zeros((T, x_start.shape[0]), dtype=torch.float32, device=dev),
                       "constants": self.sampler.constants}
+            fn = static_model_fn(model_fn, static)
 
             def step():
                 t = static["t"]
-                term = self._bpd_term(model_fn, params, static["x"], t, static["eps"])
+                term = self._bpd_term(fn, params, static["x"], t, static["eps"])
                 static["terms"].index_copy_(0, t.reshape(1), term.reshape(1, -1))
                 t.sub_(1)
 
@@ -260,6 +277,7 @@ class AbstractDiffusionModel:
         if not built:
             static["x"].copy_(x_start)
             static["t"].fill_(T - 1)
+            fill_static(model_fn, static)
         for i in range(1 if built else 0, T):
             fill(static["eps"], i)
             graph.replay()

@@ -62,25 +62,32 @@ class DDPM(AbstractDiffusionModel):
 
     def training_step(self, params, batch, draws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Algorithm 1 of DDPM on a raw uint8 batch with the step's draws:
-        preprocess (with the flip), then ``training_loss``."""
+        preprocess (with the flip), then ``training_loss`` with the training
+        network (``get_model_fn``: a conditional model binds the labels)."""
         self._check_training_options()
-        x0 = preprocess_batch(batch, self.device, flip=draws["flip"])["pixel_values"]
-        return self.training_loss(params, x0, draws["t"], draws["noise"])
+        proc = preprocess_batch(batch, self.device, flip=draws["flip"])
+        model_fn = self.get_model_fn(proc, training=True, label_mask=draws.get("label_mask"))
+        return self.training_loss(params, proc["pixel_values"], draws["t"], draws["noise"], model_fn)
 
-    def training_loss(self, params, x0, t, noise) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """q_sample → network → loss against the true noise (the reference's
-        target for pred_noise and pred_x0 alike)."""
+    def training_loss(self, params, x0, t, noise, model_fn=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """q_sample → network (``model_fn``, default ``train_model_fn``) →
+        loss against the true noise (the reference's target for pred_noise
+        and pred_x0 alike)."""
+        model_fn = model_fn or self.train_model_fn
         x_t = self.sampler.q_sample(x_start=x0, t=t, noise=noise)
-        loss = self.loss(input=self.train_model_fn(params, x_t, t), target=noise)
+        loss = self.loss(input=model_fn(params, x_t, t), target=noise)
         return loss, {"train_loss": loss}
 
     # ---- evaluation ----------------------------------------------------------
     def test_step(self, batch, batch_nb: int, generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """Bits/dim of a raw uint8 batch (no flip), summed over the batch."""
-        samples = preprocess_batch(batch, self.device)["pixel_values"]
+        """Bits/dim of a raw uint8 batch (no flip), summed over the batch
+        (a conditional model's network sees the batch's labels)."""
+        proc = preprocess_batch(batch, self.device)
+        samples = proc["pixel_values"]
         log_dict = self.calculate_bits_per_dimension(
-            x_start=samples, generator=generator, max_batch_size=-1, noise=noise
+            x_start=samples, generator=generator, max_batch_size=-1, noise=noise,
+            model_fn=self.get_model_fn(proc),
         )
         out = {k: v.sum() for k, v in log_dict.items()}
         out["num_samples"] = samples.shape[0]

@@ -12,10 +12,14 @@ Submodules carry the flax names (``patch_embed``, ``time_dense0``,
 flax tree over one to one. The attention core is ``ops/attention.py:
 fused_attention`` (the Hopper kernel at 1024 ≤ N ≤ 4096 on CUDA).
 
+``num_classes = K`` adds ``class_embed`` [K + 1, dim], added to the
+conditioning vector c after ``time_dense1``; ``classes=None`` is the null
+class K, whose row here is learned (the DiT paper's convention), unlike the
+U-Net's zero row.
+
 Options of the JAX DiT that later slices bring raise
-``NotImplementedError``: class conditioning, mixture-of-experts MLPs,
-cross-attention context, augmentation conditioning and sequence
-parallelism.
+``NotImplementedError``: mixture-of-experts MLPs, cross-attention context,
+augmentation conditioning and sequence parallelism.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from torch import nn
 
 from ..config.registry import register_target
 from ..ops import attention as A
-from .parts import Conv2d, Dense, SinusoidalPositionEmbeddings, not_ported, remat_call, resolve_dtype
+from .parts import Conv2d, Dense, Embed, SinusoidalPositionEmbeddings, not_ported, remat_call, resolve_dtype
 
 __all__ = ["DiT", "DiTBlock", "sincos_position_embedding_2d", "depth_to_space"]
 
@@ -136,8 +140,6 @@ class DiT(nn.Module):
         seq_axis_name: Optional[str] = None,
     ):
         super().__init__()
-        if num_classes is not None:
-            raise not_ported("DiT", f"num_classes={num_classes}", "class-conditional DDPM")
         if moe_experts:
             raise not_ported("DiT", f"moe_experts={moe_experts}", "DiT mixture-of-experts")
         if context_dim:
@@ -155,6 +157,9 @@ class DiT(nn.Module):
         self.time_sinusoid = SinusoidalPositionEmbeddings(time_freq_dim)
         self.time_dense0 = Dense(time_freq_dim, dim, dtype=dt)
         self.time_dense1 = Dense(dim, dim, dtype=dt)
+        self.num_classes = None if num_classes is None else int(num_classes)
+        if self.num_classes is not None:
+            self.class_embed = Embed(self.num_classes + 1, dim)
         for i in range(depth):
             self.add_module(f"block_{i}", DiTBlock(dim, heads, mlp_ratio, dt))
         self.depth = depth
@@ -183,8 +188,10 @@ class DiT(nn.Module):
             self._pos[key] = torch.from_numpy(table).to(device=device, dtype=self.dtype)
         return self._pos[key]
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
-        """x: [B, H, W, C] float; time: [B] (int or float) → [B, H, W, out] float32."""
+    def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [B, H, W, C] float; time: [B] (int or float); classes: [B] int
+        (a network with ``num_classes``; None = the null class) → [B, H, W,
+        out] float32."""
         B, H, W, _ = x.shape
         p = self.patch_size
         if H % p or W % p:
@@ -194,6 +201,10 @@ class DiT(nn.Module):
         tok = tok + self._position_embedding(h, w, x.device)[None]
         t = self.time_sinusoid(time.reshape(-1))
         c = self.time_dense1(F.silu(self.time_dense0(t.to(self.dtype))))
+        if self.num_classes is not None:
+            if classes is None:
+                classes = torch.full((B,), self.num_classes, dtype=torch.int32, device=x.device)
+            c = c + self.class_embed(classes).to(self.dtype)
         for i in range(self.depth):
             blk = getattr(self, f"block_{i}")
             tok = remat_call(blk, tok, c) if self.remat else blk(tok, c)

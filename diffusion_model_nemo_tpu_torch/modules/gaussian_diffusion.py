@@ -7,7 +7,9 @@ reverse chain is one ``lax.scan`` over a flat [B, H·W·C] carry; here, on
 CUDA, t = T−1 … 1 are replays of one captured ``ancestral_step``
 (``ops/graphs.py``) with the noise drawn before each replay in the eager
 loop's order, and t = 0 (no draw) runs eagerly; ``graphs=False`` (and the
-CPU) runs the Python loop over image-shaped tensors.
+CPU) runs the Python loop over image-shaped tensors. A conditional model's
+network comes in as a :class:`Conditioned` model function: a captured chain
+holds its class labels as static buffers, filled before every chain.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from ..ops import graphs as graphs_lib
 from ..ops.schedules import extract
 from .diffusion_process import AbstractDiffusionProcess, ModelFn
 
-__all__ = ["GaussianDiffusion", "PMeanVariance", "batched_t", "graph_key"]
+__all__ = ["Conditioned", "GaussianDiffusion", "PMeanVariance", "batched_t", "graph_key", "static_model_fn",
+           "fill_static"]
 
 
 class PMeanVariance(NamedTuple):
@@ -41,11 +44,52 @@ def batched_t(t, x: torch.Tensor) -> torch.Tensor:
     return torch.full((x.shape[0],), int(t), dtype=torch.int32, device=x.device)
 
 
+class Conditioned:
+    """``fn(params, x, t, **tensors, **options)`` as a ``model_fn(params, x,
+    t)``: a conditional network with its class labels (``tensors``) and
+    Python options (the guidance scale) bound. A captured chain keys on
+    ``fn``, the options and the tensors' shapes, and holds the tensors as
+    static buffers that every chain refills (``static_model_fn``,
+    ``fill_static``): a closure over the labels would key it on an id that
+    Python reuses once the closure is freed, and replay another request's
+    labels."""
+
+    def __init__(self, fn, tensors: Dict[str, torch.Tensor], **options):
+        self.fn, self.tensors, self.options = fn, dict(tensors), options
+
+    def __call__(self, params, x, t):
+        return self.fn(params, x, t, **self.tensors, **self.options)
+
+    def key(self) -> tuple:
+        return (*graph_key(self.fn), tuple(sorted(self.options.items())),
+                tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(self.tensors.items())))
+
+
 def graph_key(model_fn) -> tuple:
     """The network function in a sampling graph's key: a bound method as
     its object's identity and its function (the sampler's ``graphs`` then
-    holds no reference to the model)."""
+    holds no reference to the model); a :class:`Conditioned` one adds its
+    options and its tensors' shapes, never their values."""
+    if isinstance(model_fn, Conditioned):
+        return model_fn.key()
     return id(getattr(model_fn, "__self__", model_fn)), getattr(model_fn, "__func__", None)
+
+
+def static_model_fn(model_fn, static: Dict[str, Any]):
+    """The model function a captured step calls: a :class:`Conditioned` one
+    reads its tensors from buffers it makes in ``static["cond"]``."""
+    if not isinstance(model_fn, Conditioned):
+        return model_fn
+    static["cond"] = {k: v.clone() for k, v in model_fn.tensors.items()}
+    return Conditioned(model_fn.fn, static["cond"], **model_fn.options)
+
+
+def fill_static(model_fn, static: Dict[str, Any]) -> None:
+    """Copy a :class:`Conditioned` model function's tensors into the static
+    buffers of a graph built by ``static_model_fn`` (before a chain)."""
+    if isinstance(model_fn, Conditioned):
+        for k, v in model_fn.tensors.items():
+            static["cond"][k].copy_(v)
 
 
 def _randn(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -67,11 +111,10 @@ class GaussianDiffusion(AbstractDiffusionProcess):
         super().__init__(timesteps, schedule_name, schedule_cfg, device)
         if objective not in ("pred_noise", "pred_x0", "pred_v"):
             raise ValueError(f"objective must be pred_noise|pred_x0|pred_v, got {objective}")
-        if class_conditional:
-            raise NotImplementedError("class-conditional sampling is not ported yet (ROADMAP.md)")
         if zero_terminal_snr:
             raise NotImplementedError("zero_terminal_snr is not ported yet (ROADMAP.md)")
         self.objective = objective
+        self.use_class_conditioning = bool(class_conditional)
         self.compute_constants(timesteps)
         self.graphs: dict = {}  # the captured sampling steps (ops/graphs.py), keyed like _jitted
 
@@ -191,9 +234,10 @@ class GaussianDiffusion(AbstractDiffusionProcess):
                 nonlocal static
                 static = {"x": x.clone(), "noise": torch.empty_like(x), "constants": self.constants,
                           "t": torch.full((), T - 1, dtype=torch.long, device=x.device)}
+                fn = static_model_fn(model_fn, static)
 
                 def step():
-                    static["x"].copy_(self.ancestral_step(model_fn, params, static["x"], static["t"], static["noise"]))
+                    static["x"].copy_(self.ancestral_step(fn, params, static["x"], static["t"], static["noise"]))
                     static["t"].sub_(1)
 
                 def warmup():  # the chain's first step
@@ -208,6 +252,7 @@ class GaussianDiffusion(AbstractDiffusionProcess):
             if not built:
                 static["x"].copy_(x)
                 static["t"].fill_(T - 1)
+                fill_static(model_fn, static)
             for _ in range(T - 1 - built):
                 static["noise"].normal_(generator=generator)
                 graph.replay()

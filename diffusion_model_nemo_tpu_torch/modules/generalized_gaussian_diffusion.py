@@ -9,6 +9,10 @@ noise is drawn. The JAX package's chain is one ``lax.scan``; here, on CUDA,
 it is replays of one captured ``ddim_step`` (``ops/graphs.py``) that reads
 (t, t_next) from device tables at a device step counter, with x_T and any
 noise drawn eagerly, in the eager loop's order, into static buffers.
+
+A learned-variance network's output ([B, H, W, 2C]) raises ``ValueError``:
+the JAX package's DDIM step reshapes the output to x's shape and fails
+there too (a ``TypeError`` from the reshape); the port names the cause.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from ..config.registry import register_target
 from ..ops import graphs as graphs_lib
 from ..ops.schedules import extract
 from .diffusion_process import ModelFn
-from .gaussian_diffusion import GaussianDiffusion, PMeanVariance, _randn, batched_t, graph_key
+from .gaussian_diffusion import (
+    GaussianDiffusion, PMeanVariance, _randn, batched_t, fill_static, graph_key, static_model_fn,
+)
 
 __all__ = ["GeneralizedGaussianDiffusion"]
 
@@ -82,6 +88,11 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
         (the captured step); at eta > 0 the noise is ``noise`` if given, else
         drawn from ``generator``."""
         model_output = model_fn(params, x, batched_t(t, x))
+        if model_output.shape != x.shape:
+            raise ValueError(
+                f"DDIM needs a network output of x's shape {list(x.shape)}, got {list(model_output.shape)}: "
+                "a learned-variance network (2C output channels) samples with its own ancestral sampler"
+            )
         x0_t = self.p_mean_variance(model_fn, params, x, t, model_output=model_output).pred_x_start
         acp = extract(self.alphas_extended_cumprod, t + 1, x.ndim)
         acp_next = extract(self.alphas_extended_cumprod, t_next + 1, x.ndim)
@@ -161,11 +172,12 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
                 "noise": torch.empty_like(x) if noisy else None,
                 "alphas": self.alphas_extended_cumprod, "constants": self.constants,
             }
+            fn = static_model_fn(model_fn, static)
 
             def step():
                 i = static["i"].reshape(1)
                 t, t_next = static["seq"].gather(0, i)[0], static["seq_next"].gather(0, i)[0]
-                static["x"].copy_(self.ddim_step(model_fn, params, static["x"], t, t_next, noise=static["noise"])[0])
+                static["x"].copy_(self.ddim_step(fn, params, static["x"], t, t_next, noise=static["noise"])[0])
                 static["i"].add_(1)
 
             def warmup():  # the chain's first step
@@ -180,6 +192,7 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
         if not built:
             static["x"].copy_(x)
             static["i"].zero_()
+            fill_static(model_fn, static)
         for _ in range(len(seq) - built):
             draw()
             graph.replay()

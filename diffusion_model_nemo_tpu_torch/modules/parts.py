@@ -41,6 +41,7 @@ __all__ = [
     "ConvTranspose2d",
     "Dense",
     "Conv1x1",
+    "Embed",
     "GNParams",
     "FusedGroupNormSiLU",
     "Block",
@@ -158,6 +159,21 @@ class Dense(nn.Module):
 class Conv1x1(Dense):
     """The JAX package's ``Conv1x1``: a 1×1 convolution computed as a matmul
     over [B, N, C] tokens. Its flax kernel [1, 1, C, F] is stored as [F, C]."""
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: a float32 table ``weight`` [num, features] (flax's
+    ``embedding``), looked up by index."""
+
+    def __init__(self, num: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, features))
+
+    def reset_parameters(self, generator=None) -> None:
+        _lecun_normal_(self.weight, self.weight.shape[1], generator)  # flax's variance_scaling(1, fan_in)
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.weight[idx.long()]
 
 
 class GNParams(nn.Module):

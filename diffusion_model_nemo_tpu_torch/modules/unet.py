@@ -7,9 +7,14 @@ with skip-concat and transposed-conv upsample; final block + GroupNorm/SiLU
 and a 1×1 conv; output float32. Submodules carry the flax names
 (``down_0_block1``, ``mid_attn``, ``up_1_upsample``, ...).
 
+``num_classes = K`` adds ``class_embed`` [K + 1, dim]; ``classes=None`` is
+the null class K, whose row is forced to zero (torch's ``padding_idx``
+behaviour, whatever the table holds), and the embedding, cast to the compute
+dtype after that, is added to the stem's output before the time MLP.
+
 Options of the JAX U-Net that later slices bring raise
-``NotImplementedError`` naming the slice: ConvNeXt blocks, class
-conditioning, augmentation conditioning and the TPU-geometry variants.
+``NotImplementedError`` naming the slice: ConvNeXt blocks, augmentation
+conditioning and the TPU-geometry variants.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from .parts import (
     Conv2d,
     Dense,
     Downsample,
+    Embed,
     FusedGroupNormSiLU,
     ResnetBlock,
     SelfAttentionBlock,
@@ -69,8 +75,6 @@ class Unet(nn.Module):
         super().__init__()
         if use_convnext:
             raise not_ported("Unet", "use_convnext=True", "ConvNeXt U-Net")
-        if num_classes is not None:
-            raise not_ported("Unet", f"num_classes={num_classes}", "class-conditional DDPM")
         if aug_dim:
             raise not_ported("Unet", f"aug_dim={aug_dim}", "EDM augmentation")
         if (tpu_geometry or "off").lower() not in ("off", "none", ""):
@@ -91,6 +95,9 @@ class Unet(nn.Module):
             return ResnetBlock(c_in, c_out, time_dim, groups, resnet_block_order, dt)
 
         self.init_conv = Conv2d(channels, dim, 7, padding=3, dtype=dt)
+        self.num_classes = None if num_classes is None else int(num_classes)
+        if self.num_classes is not None:
+            self.class_embed = Embed(self.num_classes + 1, dim)
         time_dim = dim * 4 if with_time_emb else None
         if with_time_emb:
             self.time_sinusoid = SinusoidalPositionEmbeddings(dim)
@@ -132,9 +139,17 @@ class Unet(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
-        """x: [B, H, W, C] float; time: [B] (int or float) → [B, H, W, out] float32."""
+    def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [B, H, W, C] float; time: [B] (int or float); classes: [B] int
+        (a network with ``num_classes``; None = the null class) → [B, H, W,
+        out] float32."""
         x = self.init_conv(x.to(self.dtype))
+        if self.num_classes is not None:
+            if classes is None:
+                classes = torch.full((x.shape[0],), self.num_classes, dtype=torch.int32, device=x.device)
+            null = (classes == self.num_classes)[:, None]
+            emb = torch.where(null, 0.0, self.class_embed(classes)).to(self.dtype)
+            x = x + emb[:, None, None, :]
         t = None
         if self.with_time_emb:
             t = self.time_sinusoid(time)

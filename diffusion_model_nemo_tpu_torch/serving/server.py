@@ -4,8 +4,10 @@ Counterpart of ``diffusion_model_nemo_tpu/serving/server.py``:
 
 - **Fixed shapes.** Every device call samples exactly ``max_batch`` images;
   a partial batch is padded and the surplus discarded.
-- **Request coalescing.** Unseeded requests coalesce into one device batch (linger window + size cap); a seeded request runs in
-  a batch of its own, so its images are a function of (weights, seed, n).
+- **Request coalescing.** Unseeded requests with the same class label
+  and guidance scale coalesce into one device batch (linger window + size
+  cap); a seeded request runs in a batch of its own, so its images are a
+  function of (weights, seed, label, guidance scale, n).
 - **One device owner; a batch is answered when its own chain ends.** One
   worker thread runs a batch's sampling chain (on CUDA replays of the
   sampler's captured chain, ``ops/graphs.py``, where the JAX server makes
@@ -18,12 +20,17 @@ Counterpart of ``diffusion_model_nemo_tpu/serving/server.py``:
 Endpoints (standard library ``http.server``):
   GET  /healthz  → {"status": "ok", "warm": ..., "mode": "sample"}
   GET  /stats    → request / batch / latency counters
-  POST /sample   → JSON {"num_images": N, "seed": S?, "format": "png"|"npy"}
+  POST /sample   → JSON {"num_images": N, "seed": S?, "label": L?,
+                   "guidance_scale": W?, "format": "png"|"npy"}
                    → {"images": [b64 PNG, ...]} or raw .npy bytes
-Client faults (bad payload, failed validation) answer 400, timeouts 504,
-faults in the worker or the response path 500. The super-resolution, edit,
-vocoder and text modes and class labels are not ported yet: those routes
-answer 501. ``serve`` takes a model object or a ``.dmn`` archive path (or a
+``label`` and ``guidance_scale`` need a class-conditional archive
+(``ConditionalDDPM``): a label in [0, K), no label = the null class, and
+a guidance scale only with a label (one network call on the 2B batch a
+step). Client faults (bad payload, failed validation: a label outside [0,
+K) or sent to an unconditional archive, a guidance scale without a label)
+answer 400, timeouts 504, faults in the worker or the response path 500.
+The super-resolution, edit, vocoder and text modes are not ported yet:
+those routes answer 501. ``serve`` takes a model object or a ``.dmn`` archive path (or a
 local-hub model name), as the JAX ``serve(model_path, ...)`` does.
 """
 
@@ -56,6 +63,8 @@ _NOT_PORTED_ROUTES = ("/super_resolve", "/vocode", "/edit")
 class _Request:
     num_images: int
     seed: Optional[int]
+    label: Optional[int] = None
+    guidance_scale: Optional[float] = None
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[str] = None
@@ -106,7 +115,7 @@ class BatchingSampler:
         """Optionally run one full batch (builds the kernels, captures the
         sampler's CUDA graph), then start the worker."""
         if warmup:
-            self._to_host(self._dispatch_sample(self._next_generator()))
+            self._to_host(self._dispatch_sample(self._next_generator(), None, None))
             self._warm = True
         self._worker.start()
         return self
@@ -129,9 +138,19 @@ class BatchingSampler:
         seed: Optional[int] = None,
         label: Optional[int] = None,
         timeout: Optional[float] = None,
+        guidance_scale: Optional[float] = None,
     ) -> np.ndarray:
+        num_classes = getattr(self.model, "num_classes", None)
         if label is not None:
-            raise ValueError("labels need a class-conditional model, which is not ported yet")
+            if num_classes is None:
+                raise ValueError(f"{type(self.model).__name__} is not class-conditional: it takes no label")
+            label = int(label)
+            if not 0 <= label < num_classes:
+                raise ValueError(f"label must be in [0, {num_classes}), got {label}")
+        if guidance_scale is not None:
+            if label is None:
+                raise ValueError("guidance_scale requires a class label")
+            guidance_scale = float(guidance_scale)
         if num_images < 1:
             raise ValueError("num_images must be >= 1")
         if seed is not None:
@@ -141,11 +160,11 @@ class BatchingSampler:
             parts, remaining, chunk = [], num_images, 0
             while remaining > 0:
                 n = min(remaining, self.max_batch)
-                parts.append(self.submit(n, None if seed is None else seed + chunk, None, timeout))
+                parts.append(self.submit(n, None if seed is None else seed + chunk, label, timeout, guidance_scale))
                 remaining -= n
                 chunk += 1
             return np.concatenate(parts, axis=0)
-        req = _Request(num_images=num_images, seed=seed)
+        req = _Request(num_images=num_images, seed=seed, label=label, guidance_scale=guidance_scale)
         with self._cv:
             self._queue.append(req)
             self._cv.notify_all()
@@ -164,17 +183,23 @@ class BatchingSampler:
         seed = np.random.SeedSequence([self.base_seed, self._batch_counter]).generate_state(1)[0]
         return self._generator(int(seed))
 
-    def _dispatch_sample(self, generator: torch.Generator):
-        """Enqueue one fixed-shape batch, quantized to uint8 on the device (4x
+    def _dispatch_sample(self, generator: torch.Generator, label: Optional[int],
+                         guidance_scale: Optional[float]):
+        """Enqueue one fixed-shape batch (of ``label`` at ``guidance_scale``
+        on a conditional model), quantized to uint8 on the device (4x
         fewer bytes to copy than float32), and its copy to the host; returns
         (host tensor, event) without waiting: on CUDA the copy goes into
         pinned memory, non-blocking, and the event marks its end; elsewhere
         the tensor is already on the host and the event is None."""
+        kwargs = {}
+        if getattr(self.model, "num_classes", None) is not None:
+            kwargs = {"label": label, "guidance_scale": guidance_scale}
         out = self.model.sample(
             batch_size=self.max_batch,
             image_size=self.image_size,
             generator=generator,
             use_ema=self.use_ema,
+            **kwargs,
         )
         images = to_uint8_tensor(out)
         if images.device.type != "cuda":
@@ -193,7 +218,8 @@ class BatchingSampler:
         return host.numpy()
 
     def _take_group(self) -> List[_Request]:
-        """Pop a coalescable group; seeded requests go alone."""
+        """Pop a coalescable group: one label and guidance scale; seeded
+        requests go alone."""
         head = self._queue[0]
         if head.seed is not None:
             return [self._queue.pop(0)]
@@ -201,7 +227,8 @@ class BatchingSampler:
         total, i = 0, 0
         while i < len(self._queue):
             r = self._queue[i]
-            if r.seed is None and total + r.num_images <= self.max_batch:
+            if (r.seed is None and r.label == head.label and r.guidance_scale == head.guidance_scale
+                    and total + r.num_images <= self.max_batch):
                 group.append(self._queue.pop(i))
                 total += r.num_images
             else:
@@ -254,7 +281,7 @@ class BatchingSampler:
                     else self._next_generator()
                 )
                 t0 = time.perf_counter()
-                dispatched = self._dispatch_sample(gen)
+                dispatched = self._dispatch_sample(gen, group[0].label, group[0].guidance_scale)
             except Exception as e:  # worker boundary: report to every waiter
                 log.exception("sample dispatch failed")
                 for r in group:
@@ -327,6 +354,7 @@ class SamplingServer:
                     seed=payload.get("seed"),
                     label=payload.get("label"),
                     timeout=float(payload.get("timeout", 600.0)),
+                    guidance_scale=payload.get("guidance_scale"),
                 )
                 return images, payload.get("format", "png")
 

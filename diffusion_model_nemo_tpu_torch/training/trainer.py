@@ -204,41 +204,45 @@ class Trainer:
         return {k: v.detach() for k, v in metrics.items()} | {"grad_norm": norm}
 
     def _replayed_step(self, model, state: TrainState, batch, draws, scalars) -> Dict[str, torch.Tensor]:
-        """``_step`` as a replay of the state's graph: the batch (through
-        pinned memory on CUDA: a pageable copy cannot overlap), the draws
-        and the step's scalars go into its static buffers first. Captured with the derived-weights
+        """``_step`` as a replay of the state's graph: the batch's image and
+        labels (through pinned memory on CUDA: a pageable copy cannot
+        overlap), the draws and the step's scalars go into its static
+        buffers first. Captured with the derived-weights
         cache off: the prenorm folds, casts and re-layouts of the changing
         weights are recomputed at every replay."""
-        image = batch["image"]
-        if not torch.is_tensor(image):
-            image = torch.as_tensor(np.ascontiguousarray(image))
-        if model.device.type == "cuda" and image.device.type == "cpu":
-            image = image.pin_memory()
+        host = {}  # the batch's arrays: the image, and the labels where the batch has them
+        for k in ("image", "label"):
+            if k in batch:
+                v = batch[k]
+                v = v if torch.is_tensor(v) else torch.as_tensor(np.ascontiguousarray(v))
+                if model.device.type == "cuda" and v.device.type == "cpu":
+                    v = v.pin_memory()
+                host[k] = v
 
         inputs = {**draws, "opt": scalars[0], "ema": scalars[1]}
 
         def stage(static):
-            static["image"].copy_(image, non_blocking=True)
-            for k in ("flip", "t", "noise", "opt", "ema"):
-                static[k].copy_(inputs[k])
+            for k, v in host.items():
+                static[k].copy_(v, non_blocking=True)
+            for k, v in inputs.items():
+                static[k].copy_(v)
 
         def build():
             dev = model.device
-            static = {"image": torch.empty(image.shape, dtype=image.dtype, device=dev),
-                      **{k: torch.empty_like(inputs[k], device=dev) for k in ("flip", "t", "noise", "opt", "ema")}}
+            static = {**{k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in host.items()},
+                      **{k: torch.empty_like(v, device=dev) for k, v in inputs.items()}}
             stage(static)
 
             def step():
-                return self._step(model, state, {"image": static["image"]},
-                                  {k: static[k] for k in ("flip", "t", "noise")}, (static["opt"], static["ema"]))
+                return self._step(model, state, {k: static[k] for k in host},
+                                  {k: static[k] for k in draws}, (static["opt"], static["ema"]))
 
             return graphs_lib.Graph("train_step", step, static, device=dev, warmup=step, mutates=writes,
                                     derived=False)
 
         writes = [*state.params.values(), *state.ema_params.values()]
         moments = [v for d in state.opt_state.values() if isinstance(d, dict) for v in d.values()]
-        key = ("train_step", tuple(image.shape), image.dtype,
-               tuple((k, tuple(v.shape), v.dtype) for k, v in draws.items()))
+        key = ("train_step", *((k, tuple(v.shape), v.dtype) for k, v in {**host, **draws}.items()))
         graph, built = graphs_lib.cached(state.graphs, key, writes + moments, build)
         if built:
             out = graph.warmup_out

@@ -12,7 +12,9 @@ the owning port module:
   flipped kernel);
 - ``Dense``: [in, out] → [out, in];
 - ``Conv1x1``: [1, 1, C, F] → [F, C];
-- GroupNorm parameters: ``scale``/``bias`` → ``weight``/``bias``.
+- GroupNorm parameters: ``scale``/``bias`` → ``weight``/``bias``;
+- ``Embed`` (the class embedding): ``embedding`` [K + 1, dim] → ``weight``
+  as it is.
 """
 
 from __future__ import annotations
@@ -23,11 +25,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..modules.parts import Conv1x1, Conv2d, ConvTranspose2d, Dense, GNParams
+from ..modules.parts import Conv1x1, Conv2d, ConvTranspose2d, Dense, Embed, GNParams
 
 __all__ = ["from_flax_params", "to_flax_params"]
 
-_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -47,7 +49,7 @@ def _to_torch(owner: nn.Module, w: np.ndarray) -> np.ndarray:
         return w[0, 0].T
     if isinstance(owner, Dense):
         return w.T
-    if isinstance(owner, GNParams):
+    if isinstance(owner, (GNParams, Embed)):
         return w
     raise TypeError(f"no weight transform for {type(owner).__name__}")
 
@@ -61,7 +63,7 @@ def _to_flax(owner: nn.Module, w: np.ndarray) -> np.ndarray:
         return w.T[None, None]
     if isinstance(owner, Dense):
         return w.T
-    if isinstance(owner, GNParams):
+    if isinstance(owner, (GNParams, Embed)):
         return w
     raise TypeError(f"no weight transform for {type(owner).__name__}")
 
@@ -97,7 +99,7 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor], module: nn.Module) ->
         if leaf == "bias":
             flax_leaf = "bias"
         else:
-            flax_leaf = "scale" if isinstance(owner, GNParams) else "kernel"
+            flax_leaf = "scale" if isinstance(owner, GNParams) else "embedding" if isinstance(owner, Embed) else "kernel"
             w = _to_flax(owner, w)
         node = tree
         for p in mod_path:

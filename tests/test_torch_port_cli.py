@@ -1,8 +1,10 @@
 """The README's usage path on the port, on the CPU: ``train_ddpm`` from
 ``examples/configs/ddpm/unet_small.yaml`` (sample dump, checkpoints, final
 archive), ``eval_ddpm``, ``test_ddpm`` and ``serve`` from the archive, each
-CLI called in-process with a tiny U-Net; deterministic resume; and the
-options that stay refused.
+CLI called in-process with a tiny U-Net; deterministic resume; the options
+that stay refused; and the ImprovedDDPM and ConditionalDDPM CLIs
+(train → eval / test → serve) with ``restore_model_from_archive`` of each
+family.
 """
 
 import json
@@ -14,7 +16,11 @@ import pytest
 import torch
 
 from diffusion_model_nemo_tpu_torch import DDPM, Trainer
-from diffusion_model_nemo_tpu_torch.cli import eval_ddpm, serve, test_ddpm, train_ddpm
+from diffusion_model_nemo_tpu_torch.cli import (
+    eval_conditional_ddpm, eval_ddpm, eval_improved_ddpm, serve, test_conditional_ddpm, test_ddpm,
+    test_improved_ddpm, train_conditional_ddpm, train_ddpm, train_improved_ddpm,
+)
+from diffusion_model_nemo_tpu_torch.models import ConditionalDDPM, ImprovedDDPM, restore_model_from_archive
 from diffusion_model_nemo_tpu_torch.config import load_config
 from diffusion_model_nemo_tpu_torch.training import CheckpointManager, exp_manager
 from diffusion_model_nemo_tpu_torch.utils.image import decode_png
@@ -268,3 +274,68 @@ def test_tensorboard_image_summary_needs_no_pillow(tmp_path, monkeypatch):
     assert image.step == 3 and grid.shape == (12, 42, 3)
     assert np.array_equal(grid[2:10, 2:10], (images[0] * 255 + 0.5).astype(np.uint8))
     assert [e.value for e in events.Scalars("train_loss")] == [0.5]
+
+
+# ----------------------------------------------------- the two new families --
+FAMILY_TINY = [t for t in TINY if not t.startswith("+model.train_ds.length")] + [
+    "+model.train_ds.length=8", "trainer.max_steps=2", "model.timesteps=5"]
+
+
+@pytest.fixture(scope="module")
+def family_archives(tmp_path_factory):
+    """train_improved_ddpm and train_conditional_ddpm (K = 10) for 2 steps
+    each at a tiny width: their archives."""
+    root = tmp_path_factory.mktemp("families")
+    out = {}
+    for name, cli, extra in (("improved", train_improved_ddpm, []),
+                             ("conditional", train_conditional_ddpm, ["model.num_classes=10"])):
+        model, trainer = cli.main([*FAMILY_TINY, *extra, f"exp_manager.exp_dir={root / name}",
+                                   "+exp_manager.version=run"])
+        assert all(np.isfinite(m["train_loss"]) for m in trainer.logged)
+        out[name] = (next((root / name).glob("*/run/*.dmn")), trainer.logged[-1])
+    return out
+
+
+def test_family_train_clis_log_their_metrics(family_archives):
+    assert {"simple_loss", "vb_losses", "decoder_nll"} <= set(family_archives["improved"][1])
+    assert "simple_loss" not in family_archives["conditional"][1]
+
+
+@pytest.mark.parametrize("name,cls", [("improved", ImprovedDDPM), ("conditional", ConditionalDDPM)])
+def test_restore_model_from_archive_picks_each_family(family_archives, name, cls):
+    model = restore_model_from_archive(str(family_archives[name][0]), device="cpu")
+    assert type(model) is cls
+
+
+def test_improved_eval_and_test_clis(family_archives, tmp_path):
+    dmn = family_archives["improved"][0]
+    out = eval_improved_ddpm.main([f"model_path={dmn}", "batch_size=2", "device=cpu", f"output_dir={tmp_path}",
+                                   "add_timestamp=false"])
+    assert decode_png((out / "samples_grid.png").read_bytes()).shape[-1] == 3
+    result = test_improved_ddpm.main([f"model_path={dmn}", "batch_size=4", "limit_test_batches=1", "device=cpu"])
+    assert np.isfinite(result["test_total_bpd"]) and result["test_total_bpd"] > 0
+    with pytest.raises(ValueError, match="learned-variance"):  # as the JAX package's DDIM step fails
+        eval_improved_ddpm.main([f"model_path={dmn}", "batch_size=2", "device=cpu", "use_ddim_sampler=true",
+                                 "ddim_timesteps=5", f"output_dir={tmp_path}"])
+
+
+def test_conditional_eval_test_and_serve_clis(family_archives, tmp_path):
+    dmn = family_archives["conditional"][0]
+    out = eval_conditional_ddpm.main([f"model_path={dmn}", "batch_size=2", "device=cpu", "label=3",
+                                      "guidance_scale=3.0", "ddim_timesteps=5", f"output_dir={tmp_path}",
+                                      "add_timestamp=false"])
+    assert (out / "samples_class3.png").is_file()
+    result = test_conditional_ddpm.main([f"model_path={dmn}", "batch_size=4", "limit_test_batches=1",
+                                         "device=cpu"])
+    assert np.isfinite(result["test_total_bpd"])
+    server = serve.build_server([f"model_path={dmn}", "port=0", "max_batch=2", "ddim_timesteps=5", "device=cpu"])
+    server.start_background()
+    try:
+        req = urllib.request.Request(f"http://{server.host}:{server.port}/sample", method="POST",
+                                     data=json.dumps({"num_images": 2, "label": 3, "format": "npy"}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200
+            images = np.load(__import__("io").BytesIO(resp.read()))
+    finally:
+        server.shutdown()
+    assert images.shape == (2, 8, 8, 3) and images.dtype == np.uint8

@@ -168,13 +168,12 @@ def test_depth_to_space_matches_jax():
 @pytest.mark.parametrize(
     "kw,slice_",
     [
-        (dict(num_classes=10), "class-conditional"),
         (dict(moe_experts=4), "mixture-of-experts"),
         (dict(context_dim=32), "text-conditional"),
         (dict(aug_dim=9), "augmentation"),
         (dict(seq_axis_name="seq"), "ring attention"),
     ],
-    ids=["num_classes", "moe_experts", "context_dim", "aug_dim", "seq_axis_name"],
+    ids=["moe_experts", "context_dim", "aug_dim", "seq_axis_name"],
 )
 def test_unported_dit_options_raise(kw, slice_):
     with pytest.raises(NotImplementedError, match=slice_):

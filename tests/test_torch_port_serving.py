@@ -1,6 +1,7 @@
 """The PyTorch port's sampling server on the CPU: HTTP routes, seeded
-determinism, request coalescing, the 400/501 answers, and the standard-library
-PNG codec that replaces the JAX package's Pillow dependency."""
+determinism, request coalescing (by label and guidance scale on a
+ConditionalDDPM), the 400/501 answers, and the standard-library PNG codec
+that replaces the JAX package's Pillow dependency."""
 
 import base64
 import io
@@ -17,7 +18,7 @@ import torch
 
 from diffusion_model_nemo_tpu.utils.image import to_uint8 as jax_pkg_to_uint8
 from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
-from diffusion_model_nemo_tpu_torch.models import DDPM
+from diffusion_model_nemo_tpu_torch.models import DDPM, ConditionalDDPM
 from diffusion_model_nemo_tpu_torch.serving import BatchingSampler, serve
 from diffusion_model_nemo_tpu_torch.utils.image import (
     decode_png,
@@ -96,7 +97,7 @@ def test_large_request_is_chunked(server):
         ({"num_images": 0}, None),
         ({"num_images": "many"}, None),
         ({"num_images": 1, "format": "gif"}, None),
-        ({"num_images": 1, "label": 3}, None),  # class labels are not ported
+        ({"num_images": 1, "label": 3}, None),  # a label to an unconditional archive
         ({"num_images": 1, "seed": "abc"}, None),
         (None, b"{not json"),
         (None, b"[1, 2]"),
@@ -106,6 +107,65 @@ def test_bad_payload_is_a_400(server, payload, raw):
     code, body = _call(server, "POST", "/sample", payload, raw=raw)
     assert code == 400, body
     assert "error" in json.loads(body)
+
+
+def _tiny_conditional_model():
+    cfg = unet_small_model_config(image_size=IMG, timesteps=10)
+    cfg["diffusion_model"].update(dim=16, dim_mults=[1, 2], num_classes=10)
+    cfg["sampler"].update(timesteps=10, class_conditional=True)
+    cfg["num_classes"] = 10
+    return ConditionalDDPM(cfg, device="cpu", seed=0)
+
+
+@pytest.fixture(scope="module")
+def conditional_server():
+    srv = serve(_tiny_conditional_model(), port=0, max_batch=MAX_BATCH, ddim_timesteps=2)
+    srv.start_background()
+    yield srv
+    srv.shutdown()
+
+
+@pytest.mark.parametrize("payload", [{"label": 10}, {"label": -1}, {"guidance_scale": 2.0},
+                                     {"label": 2, "guidance_scale": "strong"}],
+                         ids=["label-past-K", "negative-label", "guidance-without-label", "bad-guidance"])
+def test_conditional_bad_labels_are_a_400(conditional_server, payload):
+    code, body = _call(conditional_server, "POST", "/sample", dict(payload, num_images=1))
+    assert code == 400 and "error" in json.loads(body), body
+
+
+def test_conditional_seeded_guided_request_is_the_models_chain(conditional_server):
+    """A seeded guided request repeats bit for bit and equals
+    ``ConditionalDDPM.sample`` with the same label, scale and seed."""
+    payload = {"num_images": 2, "label": 3, "guidance_scale": 3.0, "seed": 9, "format": "npy"}
+    first, again = (np.load(io.BytesIO(_call(conditional_server, "POST", "/sample", payload)[1])) for _ in range(2))
+    model = conditional_server.batcher.model
+    ref = model.sample(MAX_BATCH, IMG, generator=torch.Generator().manual_seed(9), label=3, guidance_scale=3.0,
+                       use_ema=True)
+    assert np.array_equal(first, again) and np.array_equal(first, to_uint8_tensor(ref)[:2].numpy())
+    plain = np.load(io.BytesIO(_call(conditional_server, "POST", "/sample", dict(payload, guidance_scale=None))[1]))
+    assert not np.array_equal(plain, first)
+
+
+def test_requests_coalesce_by_label_and_guidance_scale():
+    """Unseeded requests share a batch only with the same label and scale:
+    two label-1 requests go together; label 2, the null class and label 1
+    guided each go alone."""
+    batcher = BatchingSampler(_tiny_conditional_model(), IMG, max_batch=MAX_BATCH, linger_ms=300.0)
+    batcher.start(warmup=False)
+    try:
+        kinds = [(1, None), (1, None), (2, None), (None, None), (1, 2.0)]
+        results = {}
+        threads = [threading.Thread(target=lambda i=i, k=k: results.__setitem__(
+            i, batcher.submit(1, label=k[0], guidance_scale=k[1], timeout=120))) for i, k in enumerate(kinds)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert sorted(results) == list(range(5)) and all(r.shape == (1, IMG, IMG, 3) for r in results.values())
+        stats = batcher.snapshot_stats()
+        assert stats["requests"] == 5 and stats["batches"] == 4, stats
+    finally:
+        batcher.stop()
 
 
 def test_unported_routes_and_unknown_paths(server):

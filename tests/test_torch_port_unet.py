@@ -263,7 +263,6 @@ def test_unet_remat_gives_bit_equal_outputs_and_gradients(dtype):
 def test_unported_unet_options_raise():
     for kw, slice_ in [
         (dict(use_convnext=True), "ConvNeXt"),
-        (dict(use_convnext=False, num_classes=10), "class-conditional"),
         (dict(use_convnext=False, tpu_geometry="s2d"), "geometry"),
         (dict(use_convnext=False, aug_dim=9), "augmentation"),
     ]:
