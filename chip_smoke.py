@@ -18,9 +18,10 @@ Phases:
      hand-written Hopper kernels from ``diffusion_model_nemo_tpu_torch/csrc``
      (one nvcc per source, all in parallel).
   2. Hold every kernel against its plain PyTorch version on the card, at
-     every shape the unet_small, flagship, float32 unet_small and DiT-S/2
-     forwards send it at B=64 (inputs recorded from a real forward; #7 also
-     in float32 and #8 also in bf16 at one shape), at rtol = atol = 2e-2 in
+     every shape the unet_small, flagship, float32 unet_small, DiT-S/2 and
+     ScoreSDE (4 GroupNorm groups, float time labels) forwards send it at
+     B=64 (inputs recorded from a real forward; #7 also in float32 and #8
+     also in bf16 at one shape), at rtol = atol = 2e-2 in
      bf16 (the JAX package's kernel-test tolerance) and 1e-4 in float32
      (the same math with f32 sums in another order); time kernel, plain
      version, a one-call PyTorch yardstick where one exists (CUDA events
@@ -164,6 +165,41 @@ Phases:
           ``train_conditional_ddpm`` (10 steps), ``eval_conditional_ddpm``
           (label 3, w = 3.0, DDIM-50) and ``serve`` from its archive; none of
           PyYAML, msgpack, flax, orbax or Pillow imported.
+
+  11. ScoreSDE at ``examples/configs/score_sde/vp/unet_small.yaml``'s full
+     width (32 px, dim 32, dim_mults [1,2,4,8], 4 GroupNorm groups, bf16,
+     N = 1000; random weights from seed 0), ``[sde]`` lines:
+     11.1 its U-Net's launches per forward and GroupNorm groups (4 at every
+          site; #1-#4 held at each of its sites in phase 2, bf16 2e-2);
+     11.2 one bf16 forward at float labels t*999 against the plain path
+          (relative L2 3e-2);
+     11.3 the config's PC sampler (Euler-Maruyama, no corrector), B=64: a
+          20-step captured prefix == eager bit for bit (cudnn.deterministic),
+          then the 1000-step chain captured: wall, device busy per step,
+          images/s, pool, launches = per forward x 1000;
+     11.4 reverse_diffusion and ancestral_sampling x langevin and ald
+          (n_steps 1): each a 20-step captured prefix == eager;
+     11.5 a .dmn archive restored by ``restore_model_from_archive`` and
+          served with its own PC sampler (max_batch 64): /sample png and a
+          seeded npy, latency, images/s, launches = per forward x 1000 x
+          batches; ``use_ddim_sampler=True`` refused;
+     11.6 one B=128 training step with the kernels against the plain path
+          (loss 1e-2, whole gradient 2e-2 relative L2, nothing launched in
+          the backward) and the captured step's ms, samples/s, busy, pool;
+     11.7 ODE bits/dim at B=32 (rtol = atol = 1e-5), captured: success and
+          finite bpd, NFE, s a batch (one solve on the host clock), the
+          replays after ``done``, busy share, pool; one evaluation's vjp
+          launches nothing; the plain path's solve (captured, the same
+          tolerances, batch and probe) against the kernel path's within
+          2e-2 relative, both NFEs printed;
+     11.8 probability-flow sampling at B=64 with the denoising step: NFE,
+          s, the replays after ``done``;
+     11.9 sub-VP and VE: one forward against the plain path and a 50-step
+          captured PC prefix == eager;
+     11.10 the CLIs: ``train_score_sde`` (3 steps at B=128,
+          ``compute_bpd=false``), ``eval_score_sde`` on its archive (B=64:
+          PC, then probability flow), ``test_score_sde`` (one batch of 8);
+          none of PyYAML, msgpack, flax, orbax or Pillow imported.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -1568,15 +1604,15 @@ def graph_of(store, name):
     return found[-1]
 
 
-def replay_busy(graph, counter, start):
+def replay_busy(graph, counter, start, iters=GRAPH_PROFILE_REPLAYS):
     """Device busy per replay of a step graph (torch.profiler, over
-    ``GRAPH_PROFILE_REPLAYS``), its step counter set to ``start`` first so
-    that every replay reads a valid t; None when the traces hold none."""
+    ``iters`` replays), its step counter set to ``start`` first so that
+    every replay reads a valid t; None when the traces hold none."""
     import torch
 
     with torch.inference_mode():
         graph.static[counter].fill_(start)
-        busy, _ = device_profile(lambda: graph.replay(), iters=GRAPH_PROFILE_REPLAYS)
+        busy, _ = device_profile(lambda: graph.replay(), iters=iters)
     return busy / 1e3 if busy else None
 
 
@@ -2252,6 +2288,374 @@ def check_families(port, device):
     log(f"[family] phase 10 in {time.perf_counter() - t10:.1f} s")
 
 
+# ------------------------------------------------------------- the score SDE --
+SDE_CONFIG = "examples/configs/score_sde/vp/unet_small.yaml"
+SDE_B, SDE_LIK_B = 64, 32
+SDE_PREFIX = 20  # steps of each other predictor x corrector's captured chain held to eager
+SDE_OTHER_PREFIX = 50  # sub-VP and VE: the captured PC prefix held to eager
+SDE_FWD_TOL = 3e-2  # bf16 forward at float labels, relative L2 against the plain path
+SDE_BPD_TOL = 2e-2  # likelihood bits/dim, kernels vs plain path, relative
+SDE_LIK_PROFILE_REPLAYS = 3  # the likelihood's RK step replays traced for its busy share
+SDE_CLI_STEPS = 3
+SDE_CLI_TEST_B = 8  # test_score_sde's batch: its solve at rtol 1e-5 takes ~1600 evaluations
+SDE_SERVE_SEED = 4321
+PF = "diffusion_model_nemo.modules.ProbabilityFlowSampler"
+UNET_KERNELS = ("group_norm_silu", "linear_attention_block", "linear_attention_tokens", "attention_block_small")
+
+
+def sde_model(port, device, overrides=()):
+    """ScoreSDE at examples/configs/score_sde/vp/unet_small.yaml's full width
+    (32 px, dim 32, dim_mults [1,2,4,8], 4 GroupNorm groups, bf16, N =
+    1000), random weights from ``SEED`` with the all-zero leaves redrawn."""
+    from diffusion_model_nemo_tpu_torch.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent / SDE_CONFIG, overrides=[
+        *CLI_MODEL, "model.train_ds.name=synthetic", *overrides]).model
+    model = port.models.ScoreSDE(cfg, device=device, seed=SEED)
+    redraw_zero_leaves(model)
+    return model
+
+
+def sde_labels(model, t):
+    """The network's time labels of the model's SDE at t: t·(N−1), or σ(t) (VE)."""
+    import torch
+
+    if type(model.sde).__name__ == "VESDE":
+        return model.sde.marginal_prob(torch.zeros(()), t)[1]
+    return t * (model.sde.N - 1)
+
+
+def pc_chain(model, B, steps, graphs, seed=SEED):
+    """The model's PC chain for its first ``steps`` steps (EMA weights) on a
+    fresh generator: (images, generator state)."""
+    import torch
+
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.inference_mode():
+        out = model.sampler.sample(model.get_model_fn(), model.ema_params, (B, 32, 32, 3), g, graphs=graphs,
+                                   num_steps=steps)
+    return out, g.get_state()
+
+
+def check_pc_prefix(port, tag, model, steps, B=SDE_B):
+    """The captured chain's first ``steps`` steps against the eager loop,
+    bit for bit (generator state too), under ``cudnn.deterministic``."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager_s, (ref, ref_state) = walled(lambda: pc_chain(model, B, steps, False))
+        first_s, (first, _) = walled(lambda: pc_chain(model, B, steps, None))
+        wall, (out, state) = walled(lambda: pc_chain(model, B, steps, None))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = torch.equal(out, ref) and torch.equal(first, ref) and torch.equal(state, ref_state)
+    log(f"[sde] {tag} PC prefix {steps} steps B={B} ({model.sampler.predictor} x {model.sampler.corrector}, "
+        f"n_steps {model.sampler.n_steps}): captured == eager bit for bit: {same}; captured {wall:.3f} s, "
+        f"eager {eager_s:.3f} s, first call with capture {first_s:.3f} s; finite "
+        f"{bool(torch.isfinite(out).all())}")
+    assert same and bool(torch.isfinite(out).all())
+
+
+def sde_inputs(model, device):
+    """x [64, 32, 32, 3] and the SDE's float time labels at seeded t in [0, 1)."""
+    import torch
+
+    x, _ = model_inputs(device, 32)
+    t = torch.rand(SDE_B, generator=torch.Generator(device=device).manual_seed(SEED), device=device)
+    return x, sde_labels(model, t)
+
+
+def check_sde_forward(port, model, device, calls):
+    """11.1-11.2: the ScoreSDE U-Net's launches a forward and its GroupNorm
+    groups (4 at every site; #1-#4 were held against their plain versions
+    at each of its sites in phase 2, from ``calls``); one bf16 forward at
+    float labels t·999 against the plain path. Returns the launches per
+    forward."""
+    per = per_forward_counts(calls)
+    groups = sorted({args[3] for _c, args in calls["group_norm_silu"].values()})
+    log(f"[sde] ScoreSDE U-Net B={SDE_B}: launches a forward {json.dumps(per)}; GroupNorm groups at every "
+        f"site {groups}; {sum(len(v) for v in calls.values())} kernel shapes (held in phase 2)")
+    assert set(per) == set(UNET_KERNELS) and groups == [4], (per, groups)
+    check_forward(port, "score_sde (float labels t*999)", model, *sde_inputs(model, device), SDE_FWD_TOL)
+    return per
+
+
+def check_sde_em_chain(port, model, per):
+    """11.3: the config's PC sampler (Euler-Maruyama, no corrector), N =
+    1000, B = 64: a captured prefix == eager; the whole chain captured:
+    wall, device busy, images/s, pool, launches = per forward x steps."""
+    import torch
+
+    check_pc_prefix(port, "euler_maruyama", model, SDE_PREFIX)
+    N = model.sde.N
+    run = lambda: pc_chain(model, SDE_B, None, None)  # noqa: E731
+    first_s, _ = walled(run)
+    port.ops.reset_launch_counts()
+    wall, (out, _) = walled(run)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "pc")
+    busy = replay_busy(graph, "i", 0)
+    log(f"[sde] PC euler_maruyama N={N} B={SDE_B}: {wall:.3f} s a chain, {SDE_B / wall:.2f} images/s (first call "
+        f"with capture {first_s:.3f} s); finite {bool(torch.isfinite(out).all())}, std {float(out.std()):.4f}")
+    graph_line(f"score_sde PC euler_maruyama N={N} B={SDE_B} (per step)", wall / N, busy, None, graph, counts, N)
+    assert counts == {k: per.get(k, 0) * N for k in counts}, (counts, per)
+
+
+def check_sde_combinations(port, model):
+    """11.4: reverse_diffusion and ancestral_sampling x langevin and ald at
+    n_steps 1, each a captured prefix == eager."""
+    base = dict(model.cfg.sampler)
+    try:
+        for predictor in ("reverse_diffusion", "ancestral_sampling"):
+            for corrector in ("langevin", "ald"):
+                model.change_sampler(dict(base, predictor=predictor, corrector=corrector, n_steps=1))
+                check_pc_prefix(port, f"{predictor} x {corrector}", model, SDE_PREFIX)
+    finally:
+        model.change_sampler(base)
+
+
+def check_sde_serving(port, model, per, tmp):
+    """11.5: the model saved to a .dmn, restored through
+    ``restore_model_from_archive`` and served with its own PC sampler
+    (max_batch 64): /sample requests answered, launches = per forward x N x
+    batches; ``use_ddim_sampler=True`` refused."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+    from diffusion_model_nemo_tpu_torch.utils.image import decode_png
+
+    path = model.save_to(str(Path(tmp) / "ScoreSDE.dmn"))
+    restored = port.models.restore_model_from_archive(path, device=model.device)
+    assert type(restored).__name__ == "ScoreSDE"
+    try:
+        serve(restored, port=0, max_batch=SDE_B)
+        raise AssertionError("serving a ScoreSDE with use_ddim_sampler=True was not refused")
+    except ValueError as e:
+        refusal = str(e)
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve(restored, port=0, max_batch=SDE_B, use_ddim_sampler=False, use_ema=True)
+    warm_s = time.perf_counter() - t0
+    server.start_background()
+    base = f"http://{server.host}:{server.port}"
+    try:
+        t1 = time.perf_counter()
+        code_png, body_png = http("POST", base + "/sample", {"num_images": 4, "format": "png"})
+        code_npy, body_npy = http("POST", base + "/sample", {"num_images": 8, "seed": SDE_SERVE_SEED,
+                                                            "format": "npy"})
+        wall = time.perf_counter() - t1
+        stats = json.loads(http("GET", base + "/stats")[1])
+    finally:
+        server.shutdown()
+    imgs = [decode_png(base64.b64decode(p)) for p in json.loads(body_png)["images"]]
+    npy = np.load(io.BytesIO(body_npy))
+    assert code_png == code_npy == 200 and len(imgs) == 4 and imgs[0].shape == (32, 32, 3)
+    assert npy.shape == (8, 32, 32, 3) and npy.dtype == np.uint8 and npy.std() > 0
+    counts = port.ops.launch_counts()
+    batches, N = stats["batches"] + 1, restored.sde.N  # + the warm-up batch
+    log(f"[sde] serve ScoreSDE archive PC N={N} max_batch={SDE_B}: warm-up {warm_s:.2f} s; 2 requests in "
+        f"{wall:.3f} s, mean latency {stats['avg_request_latency_ms']:.1f} ms, "
+        f"{SDE_B * stats['batches'] / wall:.2f} images/s computed; stats {json.dumps(stats)}; "
+        f"use_ddim_sampler=True refused: {refusal!r}")
+    assert counts == {k: per.get(k, 0) * N * batches for k in counts}, (counts, per, batches)
+
+
+def check_sde_training(port, model):
+    """11.6: one B=128 training step with the kernels against the plain
+    path (loss 1e-2 relative, whole gradient 2e-2 relative L2, nothing
+    launched in the backward); the captured step's time."""
+    per = derived_counts(port, model, TRAIN_B, 32)
+    batch, draws = training_batch(model, TRAIN_B)
+    assert draws["t"].dtype.is_floating_point
+    loss_k, g_k, fwd, bwd, _m = step_loss_and_grads(port, model, batch, draws)
+    assert_counts("score_sde step forward", fwd, per)
+    assert_counts("score_sde step backward", bwd, {})
+    with plain_path(port):
+        loss_p, g_p, _f, _b, _m = step_loss_and_grads(port, model, batch, draws)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    rel_grad = float((g_k - g_p).norm() / g_p.norm())
+    log(f"[sde] score_sde step B={TRAIN_B} kernels vs plain: loss {loss_k:.6f} / {loss_p:.6f} (rel "
+        f"{rel_loss:.3e}, tol {LOSS_REL_TOL}); whole gradient rel_l2 {rel_grad:.3e} (tol {FAMILY_GRAD_TOL})")
+    assert rel_loss <= LOSS_REL_TOL and rel_grad <= FAMILY_GRAD_TOL
+    family_step_timing(port, "score_sde", model)
+
+
+def solve_replays(graph, run):
+    """(wall s, result, replays) of one more captured solve, ``run``,
+    timed end to end on the host clock: ``replays`` counts the RK step's
+    replays in it, the active steps and those after ``done``."""
+    before = graph.info["replays"]
+    wall, out = walled(run)
+    return wall, out, graph.info["replays"] - before
+
+
+def after_done_line(port, replays, nfe, wall):
+    """How many of a solve's replays came after ``done`` and their share of
+    its wall (each replay costs the same, active or not)."""
+    steps = nfe // 7
+    assert steps <= replays < steps + port.ops.ode.CHECK_EVERY, (steps, replays)
+    return (f"{replays} replays: {steps} RK steps and {replays - steps} after done, "
+            f"~{(replays - steps) * wall / replays:.3f} s, {100 * (replays - steps) / replays:.1f}% of the replays")
+
+
+def check_sde_likelihood(port, model, device):
+    """11.7: ODE bits/dim at B=32, rtol = atol = 1e-5 (the config's), the
+    RK step captured: one evaluation's vjp launches nothing; the first solve
+    (with the capture), then one more timed end to end (success, finite
+    bpd, NFE, s a batch, the replays after ``done``, busy share and pool of
+    the RK step); then the plain path's solve, captured, at the same
+    tolerances on the same batch and probe: bpd within 2e-2 relative, both
+    NFEs printed."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.modules.sde_lib.score_fn import probability_flow_drift
+
+    x0 = family_bpd_batch(device, SDE_LIK_B)
+    lk = model.likelihood_estimator
+    assert (lk.rtol, lk.atol) == (1e-5, 1e-5), (lk.rtol, lk.atol)
+    eps = lk.draw_epsilon(x0.shape, torch.Generator(device=device).manual_seed(SEED), device)
+    fn = model.get_model_fn(training=True)
+    xg = x0.clone().requires_grad_(True)
+    t = torch.tensor(0.5, device=device)
+    port.ops.reset_launch_counts()
+    drift = probability_flow_drift(fn, lk.sde, model.params, xg, t)
+    torch.cuda.synchronize()
+    fwd = {k: v for k, v in port.ops.launch_counts().items() if v}
+    port.ops.reset_launch_counts()
+    torch.autograd.grad(drift, xg, grad_outputs=eps)
+    torch.cuda.synchronize()
+    bwd = {k: v for k, v in port.ops.launch_counts().items() if v}
+    log(f"[sde] likelihood evaluation B={SDE_LIK_B}: forward launches {json.dumps(fwd)}, vjp launches "
+        f"{json.dumps(bwd)}")
+    assert bwd == {} and set(fwd) == set(UNET_KERNELS)
+    solve = lambda: lk.likelihood(fn, model.params, x0, epsilon=eps)  # noqa: E731
+    first_s, _ = walled(solve)
+    graph = graph_of(lk.graphs, "rk45")
+    port.ops.reset_launch_counts()
+    wall, (bpd, z, nfe), replays = solve_replays(graph, solve)
+    counts = port.ops.launch_counts()
+    nfe = int(nfe)
+    # A replay costs the same before and after ``done``; few are traced,
+    # since each adds its ~23k nodes' events to the profiler's processing.
+    busy = replay_busy(graph, "step", 0, iters=SDE_LIK_PROFILE_REPLAYS)
+    log(f"[sde] likelihood B={SDE_LIK_B} rtol=atol=1e-5: bpd mean {float(bpd.mean()):.5f} (finite "
+        f"{bool(torch.isfinite(bpd).all())}), NFE {nfe}; {wall:.3f} s a batch captured (host clock, one solve: "
+        f"{after_done_line(port, replays, nfe, wall)}); the first call with the capture {first_s:.3f} s")
+    graph_line(f"score_sde likelihood RK step B={SDE_LIK_B} (per replay: 7 evaluations, each with its vjp)",
+               wall / replays, busy, None, graph, counts, replays)
+    assert bool(torch.isfinite(bpd).all()) and nfe > 0 and nfe % 7 == 0
+    lk.graphs.clear()  # the kernel path's pool goes
+    plain = type(lk)(hutchinson_type=lk.hutchinson_type, rtol=lk.rtol, atol=lk.atol, eps=lk.eps)
+    plain.update_sde(model.sde)
+    with plain_path(port):
+        p_s, (bpd_p, _zp, nfe_p) = walled(lambda: plain.likelihood(fn, model.params, x0, epsilon=eps))
+    plain.graphs.clear()
+    rel = float(((bpd - bpd_p).abs() / bpd_p.abs()).max())
+    log(f"[sde] likelihood rtol=atol=1e-5 kernels vs plain (both captured, the same batch and probe): bpd "
+        f"{float(bpd.mean()):.5f} / {float(bpd_p.mean()):.5f}, max relative difference {rel:.3e} (tol "
+        f"{SDE_BPD_TOL}); NFE kernels {nfe}, plain {int(nfe_p)}; plain {p_s:.3f} s with its capture")
+    assert rel <= SDE_BPD_TOL and bool(torch.isfinite(bpd_p).all()) and int(nfe_p) > 0
+
+
+def check_sde_probability_flow(port, model):
+    """11.8: probability-flow sampling at B=64 with the denoising step,
+    captured: NFE, seconds and the replays after ``done``."""
+    import torch
+
+    base = dict(model.cfg.sampler)
+    model.change_sampler({"_target_": PF, "denoise": True})
+    try:
+        run = lambda: model.sample(SDE_B, 32, generator=torch.Generator(device=model.device).manual_seed(SEED),  # noqa: E731
+                                   use_ema=True, return_nfe=True)
+        first_s, _ = walled(run)
+        graph = graph_of(model.sampler.graphs, "rk45")
+        wall, (out, nfe), replays = solve_replays(graph, run)
+    finally:
+        model.change_sampler(base)
+    log(f"[sde] probability flow B={SDE_B} (denoise): NFE {int(nfe)}, {wall:.3f} s a batch, "
+        f"{SDE_B / wall:.2f} images/s ({after_done_line(port, replays, int(nfe), wall)}; first call with capture "
+        f"{first_s:.3f} s); graph pool {graph.info['pool_mib']:.1f} MiB, {graph.info['nodes']} nodes; finite "
+        f"{bool(torch.isfinite(out).all())}")
+    assert bool(torch.isfinite(out).all()) and int(nfe) > 0
+
+
+def check_sde_other_sdes(port, device):
+    """11.9: sub-VP and VE: one forward against the plain path and a 50-step
+    captured PC prefix == eager."""
+    import torch
+
+    for sde_type in ("subvpsde", "vesde"):
+        model = sde_model(port, device, [f"model.sde.sde_type={sde_type}"])
+        check_forward(port, f"score_sde {sde_type}", model, *sde_inputs(model, device), SDE_FWD_TOL)
+        check_pc_prefix(port, sde_type, model, SDE_OTHER_PREFIX)
+
+
+def check_sde_clis(port, tmp):
+    """11.10: train_score_sde (a few steps at B=128, compute_bpd off) →
+    eval_score_sde (B=64: PC, then probability flow) → test_score_sde (one
+    batch of 8); none of NOT_ON_THE_CARD imported."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.cli import eval_score_sde, test_score_sde, train_score_sde
+
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, trainer = train_score_sde.main([
+        *CLI_MODEL, "model.train_ds.name=synthetic", "model.compute_bpd=false",
+        f"trainer.max_steps={SDE_CLI_STEPS}", "trainer.log_every_n_steps=1", f"exp_manager.exp_dir={tmp}/exp",
+        "exp_manager.create_tensorboard_logger=false", "+exp_manager.version=run"])
+    cli_counts(port, "train_score_sde", UNET_KERNELS)
+    dmn = next(trainer.exp_manager_hooks.log_dir.glob("*.dmn"))
+    log(f"[sde] train_score_sde {SDE_CLI_STEPS} steps B={TRAIN_B}: {time.perf_counter() - t0:.2f} s, logged "
+        f"{json.dumps(trainer.logged)}, archive {dmn.name}")
+    assert len(trainer.logged) == SDE_CLI_STEPS and all(np.isfinite(m["train_loss"]) for m in trainer.logged)
+    for tag, extra in (("PC", []), ("probability flow", ["use_probability_flow_sampler=true"])):
+        port.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out_dir, nfe = eval_score_sde.main([f"model_path={dmn}", f"batch_size={B}", f"output_dir={tmp}/samples",
+                                            "add_timestamp=false", *extra])
+        cli_counts(port, f"eval_score_sde {tag}", UNET_KERNELS)
+        log(f"[sde] eval_score_sde {tag} B={B}: NFE {nfe}, {time.perf_counter() - t0:.2f} s with the restore")
+        assert (out_dir / "samples_grid.png").exists() and nfe > 0
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = test_score_sde.main([f"model_path={dmn}", "limit_test_batches=1", f"batch_size={SDE_CLI_TEST_B}"])
+    cli_counts(port, "test_score_sde", UNET_KERNELS)
+    log(f"[sde] test_score_sde B={SDE_CLI_TEST_B}: {json.dumps(result)} in {time.perf_counter() - t0:.2f} s with "
+        f"the restore")
+    assert np.isfinite(result["test_total_bpd"]) and result["avg_num_forward_evaluations"] > 0
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
+    assert not loaded, f"the ScoreSDE CLIs loaded {loaded}"
+
+
+def check_score_sde(port, device, model, calls):
+    """11. ScoreSDE at its shipped config's full width (``model``, its
+    kernels' ``calls`` recorded and held in phase 2): forward, samplers,
+    serving, training, likelihood, the other SDEs, the CLIs."""
+    t11 = time.perf_counter()
+    log(f"[sde] ScoreSDE {type(model.sde).__name__} N={model.sde.N}, sampler {type(model.sampler).__name__} "
+        f"({model.sampler.predictor} x {model.sampler.corrector})")
+    per = check_sde_forward(port, model, device, calls)
+    check_sde_em_chain(port, model, per)
+    check_sde_combinations(port, model)
+    tmp = tempfile.mkdtemp(prefix="dmn_sde_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        check_sde_serving(port, model, per, tmp)
+        check_sde_training(port, model)
+        check_sde_likelihood(port, model, device)
+        check_sde_probability_flow(port, model)
+        check_sde_other_sdes(port, device)
+        check_sde_clis(port, tmp)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[sde] phase 11 in {time.perf_counter() - t11:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2279,6 +2683,10 @@ def main() -> int:
     models = build_models(port, device)
     inputs = {name: model_inputs(device, DIT_IMG if name == "dit_s2" else 32) for name in models}
     calls = {name: record_calls(port, m, *inputs[name]) for name, m in models.items()}
+    # ScoreSDE's U-Net (4 GroupNorm groups) at float time labels: its sites
+    # are held here, before phase 7, after which one-call traces come back empty.
+    score_sde = sde_model(port, device)
+    calls["score_sde"] = record_calls(port, score_sde, *sde_inputs(score_sde, device))
     # The training slice's shapes at B=128: the default routes (#1-#4), both
     # switches (#6, #9), and the FiLM Block pass at unet_small's GroupNorm
     # sites (#5, and #6 FiLM under NORM_BM).
@@ -2349,6 +2757,10 @@ def main() -> int:
 
     # 10. The two families, the DiT with classes, their CLIs.
     check_families(port, device)
+
+    # 11. ScoreSDE: kernels at 4 GroupNorm groups, the PC and probability-flow
+    # samplers, serving, training, the likelihood, the other SDEs, the CLIs.
+    check_score_sde(port, device, score_sde, calls["score_sde"])
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

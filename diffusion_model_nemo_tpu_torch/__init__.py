@@ -6,14 +6,14 @@ unless the caller passes ``device="cpu"``; on CUDA the U-Net runs through
 hand-written Hopper kernels (``csrc/``, built at first use by
 ``ops/_build.py``), on the CPU through their plain PyTorch versions.
 Training: ``Trainer(...).fit(DDPM(cfg))`` (``training/``); the model families
-are ``DDPM``, ``ImprovedDDPM`` and ``ConditionalDDPM``.
+are ``DDPM``, ``ImprovedDDPM``, ``ConditionalDDPM`` and ``ScoreSDE``.
 """
 
 from . import config, data, loss, models, modules, ops, serving, training, utils
-from .models import DDPM, ConditionalDDPM, ImprovedDDPM
+from .models import DDPM, ConditionalDDPM, ImprovedDDPM, ScoreSDE
 from .training import Trainer
 
 __all__ = [
     "config", "data", "loss", "models", "modules", "ops", "serving", "training", "utils",
-    "DDPM", "ImprovedDDPM", "ConditionalDDPM", "Trainer",
+    "DDPM", "ImprovedDDPM", "ConditionalDDPM", "ScoreSDE", "Trainer",
 ]

@@ -2,7 +2,8 @@
 ``python -m diffusion_model_nemo_tpu_torch.cli.<name>`` from the repo root:
 ``train_ddpm``, ``eval_ddpm``, ``test_ddpm``, ``train_improved_ddpm``,
 ``eval_improved_ddpm``, ``test_improved_ddpm``, ``train_conditional_ddpm``,
-``eval_conditional_ddpm``, ``test_conditional_ddpm`` and ``serve`` (the JAX
-package's ``examples/{ddpm,improved_ddpm,conditional_ddpm}/*.py`` and
-``examples/serve.py``; ``serve`` restores any of the three families). Each
+``eval_conditional_ddpm``, ``test_conditional_ddpm``, ``train_score_sde``,
+``eval_score_sde``, ``test_score_sde`` and ``serve`` (the JAX package's
+``examples/{ddpm,improved_ddpm,conditional_ddpm,score_sde}/*.py`` and
+``examples/serve.py``; ``serve`` restores any of the four families). Each
 ``main`` takes an explicit ``argv`` list too."""

@@ -1,4 +1,4 @@
-"""Serve a DDPM, ImprovedDDPM or ConditionalDDPM archive as a batched
+"""Serve a DDPM, ImprovedDDPM, ConditionalDDPM or ScoreSDE archive as a batched
 sampling daemon with the port (counterpart of ``examples/serve.py``; the
 archive's recorded class is restored through
 ``restore_model_from_archive``).
@@ -11,7 +11,9 @@ archive's recorded class is restored through
     curl -s -X POST localhost:8000/sample -d '{"num_images": 4, "label": 3, "guidance_scale": 3.0}'
 
 The fields are those of the JAX script's ``ServeConfig`` that the port's
-server has; ``device=cpu`` serves from the CPU.
+server has; ``device=cpu`` serves from the CPU. A ScoreSDE archive needs
+``use_ddim_sampler=false`` (it serves with its own predictor–corrector
+sampler; the DDIM swap raises, as in the JAX script).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
+from .sde_loss import SDEScoreFunctionLoss
 from .simple_loss import DiffusionLoss
 from .variational_bound_loss import VariationalBoundLoss, compute_variational_loss_terms
 
-__all__ = ["DiffusionLoss", "VariationalBoundLoss", "compute_variational_loss_terms"]
+__all__ = ["DiffusionLoss", "SDEScoreFunctionLoss", "VariationalBoundLoss", "compute_variational_loss_terms"]

@@ -5,10 +5,12 @@ from .abstract_diffusion_model import AbstractDiffusionModel, resolve_archive_pa
 from .conditional_ddpm import ConditionalDDPM
 from .ddpm import DDPM
 from .improved_ddpm import ImprovedDDPM
+from .score_sde import ScoreSDE
 
-__all__ = ["AbstractDiffusionModel", "ConditionalDDPM", "DDPM", "ImprovedDDPM", "restore_model_from_archive"]
+__all__ = ["AbstractDiffusionModel", "ConditionalDDPM", "DDPM", "ImprovedDDPM", "ScoreSDE", "restore_model_from_archive"]
 
-_MODEL_CLASSES = {"DDPM": DDPM, "ImprovedDDPM": ImprovedDDPM, "ConditionalDDPM": ConditionalDDPM}
+_MODEL_CLASSES = {"DDPM": DDPM, "ImprovedDDPM": ImprovedDDPM, "ConditionalDDPM": ConditionalDDPM,
+                 "ScoreSDE": ScoreSDE}
 
 
 def restore_model_from_archive(path: str, use_ema: bool = False, device="cuda"):

@@ -66,8 +66,9 @@ def add_launch_counts(delta: dict) -> None:
 
 
 from . import graphs  # noqa: E402  (after the counters it keeps)
+from . import ode  # noqa: E402  (captures through graphs)
 
 __all__ = [
-    "attention", "conv", "graphs", "norm", "schedules", "transpose",
+    "attention", "conv", "graphs", "norm", "ode", "schedules", "transpose",
     "KERNELS", "add_launch_counts", "launch_counts", "reset_launch_counts", "set_launch_counts",
 ]

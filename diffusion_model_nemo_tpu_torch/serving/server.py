@@ -29,7 +29,10 @@ a guidance scale only with a label (one network call on the 2B batch a
 step). Client faults (bad payload, failed validation: a label outside [0,
 K) or sent to an unconditional archive, a guidance scale without a label)
 answer 400, timeouts 504, faults in the worker or the response path 500.
-The super-resolution, edit, vocoder and text modes are not ported yet:
+A ScoreSDE archive is served with its own sampler (the predictor–corrector
+chain of its config, captured as in ``modules/sde_samplers.py``); DDIM
+cannot re-grid it and ``serve(use_ddim_sampler=True)`` raises, as the JAX
+server does. The super-resolution, edit, vocoder and text modes are not ported yet:
 those routes answer 501. ``serve`` takes a model object or a ``.dmn`` archive path (or a
 local-hub model name), as the JAX ``serve(model_path, ...)`` does.
 """
@@ -429,12 +432,21 @@ def serve(
 ) -> SamplingServer:
     """Serve a model object, or the archive at a path (or a local-hub model
     name, restored on ``device``): optionally swap in DDIM (the default, as
-    in ``examples/serve.py``), warm up with one batch, and return the server
-    (not yet listening: call ``serve_forever`` or ``start_background``)."""
+    in ``examples/serve.py``; a ScoreSDE archive refuses it and serves with
+    its own sampler under ``use_ddim_sampler=False``), warm up with one
+    batch, and return the server (not yet listening: call ``serve_forever``
+    or ``start_background``)."""
     if isinstance(model, (str, os.PathLike)):
         from ..models import restore_model_from_archive
 
         model = restore_model_from_archive(str(model), use_ema=False, device=device)
+    if use_ddim_sampler and not hasattr(model.sampler, "constants"):
+        # A score SDE has no discrete noise schedule to re-grid: it serves
+        # with its own sampler (the JAX server's refusal).
+        raise ValueError(
+            f"{type(model).__name__} archives use their own ODE sampler; "
+            "DDIM/DPM/Karras swaps only apply to DDPM-family archives"
+        )
     if use_ddim_sampler:
         sampler_cfg = dict(model.cfg.sampler)
         sampler_cfg["_target_"] = "diffusion_model_nemo.modules.GeneralizedGaussianDiffusion"
