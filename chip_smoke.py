@@ -5,22 +5,23 @@ check them.
     python3 chip_smoke.py            # all phases, one card
 
 Paths: unet_small (bf16, 32 px) trained at batch 128 and served, on kernels
-#1-#4 (also as ImprovedDDPM and as the class-conditional, guided
-ConditionalDDPM), and under the JAX package's two opt-in switches on #6
+#1-#4 (also as ImprovedDDPM, as the class-conditional, guided
+ConditionalDDPM, as ScoreSDE and as WaveGrad's FiLM U-Net), and under the JAX package's two opt-in switches on #6
 (``DMN_TPU_PALLAS_NORM_BM=1``) and #9 (``DMN_TPU_PALLAS_LINATTN_BLOCK=1``);
 ``Block(x, scale_shift)`` at unet_small's GroupNorm sites on #5 (and #6
 under its switch); DiT-S/2 (bf16, 64 px) on kernel #7; the float32
 unet_small on kernels #1 and #8; the kernel microbenchmarks
-(``diffusion_model_nemo_tpu_torch/tools/``) on #10-#13.
+(``diffusion_model_nemo_tpu_torch/tools/``) on #10-#13; the WaveGrad
+vocoder, whose 1-D convolutions are cuDNN's (no TPU kernel stands behind
+them in the JAX package either).
 
 Phases:
   1. Print the card (``nvidia-smi`` name and power limit) and build the
      hand-written Hopper kernels from ``diffusion_model_nemo_tpu_torch/csrc``
      (one nvcc per source, all in parallel).
   2. Hold every kernel against its plain PyTorch version on the card, at
-     every shape the unet_small, flagship, float32 unet_small, DiT-S/2 and
-     ScoreSDE (4 GroupNorm groups, float time labels) forwards send it at
-     B=64 (inputs recorded from a real forward; #7 also in float32 and #8
+     every shape the unet_small, flagship, float32 unet_small and DiT-S/2
+     forwards send it at B=64 (inputs recorded from a real forward; #7 also in float32 and #8
      also in bf16 at one shape), at rtol = atol = 2e-2 in
      bf16 (the JAX package's kernel-test tolerance) and 1e-4 in float32
      (the same math with f32 sums in another order); time kernel, plain
@@ -40,16 +41,16 @@ Phases:
      (``linear_attention_tokens_fused_reference``, through the packed view
      for #12), and #8 (the whole-block kernel's raw mode) against its
      own (``linear_attention_qkv_fused_reference``: f32 throughout, one
-     cast), with a seam check in bf16 besides the tolerance: max |diff|
-     at most one bf16 step at the output's scale (2^-7 max |ref|) and at
-     most 2% of the elements differing. #2, #9 and #10 are also held at the
+     cast), with a seam check in bf16 besides the tolerance: against the
+     same plain version with its sums in float64 (the same bf16 roundings),
+     max |diff| at most one bf16 step at the output's scale (2^-7 max |ref|)
+     and at most 2% of the elements differing. #2, #9 and #10 are also held at the
      corners of their gates ([2,4096,32], [2,4096,128] in the recompute
      form, [3,100,128] ragged, [2,64,128]; #10 also in float32 at
      [2,4096,32]), #3 at [2,4096,32], [2,4096,128], [2,4096,256] (the
      core's recompute form), [3,104,128] ragged and [2,64,128], #8 in both
      dtypes at [2,4096,384] (a cluster of 16, reloading its tiles),
-     [3,104,384] ragged and [2,64,384], #12 at the
-     microbenchmark's shapes, #1 and #5 in float32 at [64,32,32,32], at
+     [3,104,384] ragged and [2,64,384], #1 and #5 in float32 at [64,32,32,32], at
      B = 1, at bf16 [1,64,64,128] (a cluster's shares in shared memory), at
      bf16 [1,128,128,128] (a slab beyond a cluster's shared memory: read
      twice) and at C = 48. These log their device time by
@@ -170,7 +171,8 @@ Phases:
      width (32 px, dim 32, dim_mults [1,2,4,8], 4 GroupNorm groups, bf16,
      N = 1000; random weights from seed 0), ``[sde]`` lines:
      11.1 its U-Net's launches per forward and GroupNorm groups (4 at every
-          site; #1-#4 held at each of its sites in phase 2, bf16 2e-2);
+          site), #1-#4 held against their plain versions at each of its
+          sites (bf16 2e-2, one launch a call, timed as in phase 2);
      11.2 one bf16 forward at float labels t*999 against the plain path
           (relative L2 3e-2);
      11.3 the config's PC sampler (Euler-Maruyama, no corrector), B=64: a
@@ -200,6 +202,42 @@ Phases:
           ``compute_bpd=false``), ``eval_score_sde`` on its archive (B=64:
           PC, then probability flow), ``test_score_sde`` (one batch of 8);
           none of PyYAML, msgpack, flax, orbax or Pillow imported.
+
+  12. The WaveGrad family, ``[wavegrad]`` and ``[vocoder]`` lines:
+     12.1 WavegradDDPM at ``examples/configs/wavegrad_ddpm/unet_small.yaml``
+          (32 px, dim 32, [1,2,4,8], 8 groups, bf16, linear beta 1e-6 ->
+          0.01, T = 1000; random weights from seed 0): #1-#4 at its sites
+          (continuous levels, B=64) against their plain versions; the
+          forward against the plain path (3e-2);
+     12.2 the B=128 step, kernels against plain (loss 1e-2, gradient 2e-2,
+          no backward launch), the captured step's ms, busy and pool;
+     12.3 the ancestral chain at B=64: a 100-step captured prefix == eager
+          bit for bit (cudnn.deterministic) in bf16, the config's dtype,
+          which routes #2-#4 (float32 would route #8 instead, as in 10a),
+          the 1000-step chain captured (s, busy and device split a step,
+          launches = per forward x 1000);
+     12.4 the searched 50-step schedule (100 candidates, seed 0): beta_end
+          == the numpy search's; its chain on the same sampler, captured
+          == eager bit for bit, on a graph that holds the new table; the
+          restore (the original table tensors, the 1000-step graph kept);
+     12.5 bits/dim at T = 1000, B = 32, captured, against the plain path
+          (captured, the same noise) within 2e-2;
+     12.6 the archive restored by ``restore_model_from_archive`` and served
+          on its own ancestral chain: one /sample, launches = per forward x
+          1000 x batches;
+     12.7 ``train_wavegrad_ddpm`` (B=128, a dump: search, 50-step chains,
+          restore, bits/dim), ``eval_wavegrad_ddpm``, ``test_wavegrad_ddpm``;
+     12.8 the vocoder at ``vocoder.yaml`` (24 kHz, hop 300, 80 mels,
+          7200-sample segments, B=32, bf16): the step's loss against the
+          float32 run of the same weights and draws (2e-2), 3 captured
+          steps == eager (cudnn.deterministic), the captured step's ms,
+          busy, split and pool;
+     12.9 ``vocode`` at the searched 50-step schedule (500 candidates):
+          captured == eager, s a batch, busy and split a step;
+     12.10-12.12 the archive round trip bit for bit; /vocode served (a
+          seeded request repeats, /sample answers 400); ``train_vocoder``
+          and the ``vocode`` CLI; none of PyYAML, msgpack, flax, orbax or
+          Pillow imported.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -326,18 +364,16 @@ BY_NAME = ("conv3x3",) + tuple(ONE_LAUNCH)
 # Kernels held to the TPU kernel's seams in bf16 besides the tolerance: max
 # |diff| within one bf16 step at the output's scale (2^-7 max |ref|), at most
 # SEAM_DIFFER of the elements differing (rtol = atol = 2e-2 says nothing at
-# outputs under 0.1).
+# outputs under 0.1), against the plain version with its sums in float64
+# between the same bf16 roundings: the float32 plain version's own summation
+# order moves up to 1.9% of #3's elements at [2,4096,256]
+# (``tools/check_linattn.py``'s [seeds] lines).
 SEAM = ("linear_attention_tokens", "linear_attention_v4", "linear_attention_qkv")
 SEAM_DIFFER = 0.02
 
 
 def fmt(v, digits=4) -> str:
     return "not measured" if v is None else f"{v:.{digits}f}"
-
-
-def add(acc, v):
-    """Sum that stays None once a term was not measured."""
-    return None if acc is None or v is None else acc + v
 
 
 # --------------------------------------------------------------- kernel table --
@@ -537,9 +573,12 @@ def check_kernels(port, calls_by_cfg):
                 ok = bool((err <= tol + tol * out_p.abs()).all()) and bool(torch.isfinite(out_k).all())
                 seam = ""
                 if name in SEAM and args[0].dtype == torch.bfloat16:
-                    step, differ = 2.0**-7 * float(out_p.abs().max()), float((err > 0).float().mean())
-                    ok &= max_err <= step and differ <= SEAM_DIFFER
-                    seam = f" seam: max_abs_err <= {step:.3e} (one bf16 step), differ {differ:.4f} <= {SEAM_DIFFER}"
+                    exact = plain(*args, acc=torch.float64).float()
+                    step = 2.0**-7 * float(exact.abs().max())
+                    seam_err, differ = float((out_k - exact).abs().max()), float((out_k != exact).float().mean())
+                    ok &= seam_err <= step and differ <= SEAM_DIFFER
+                    seam = (f" seam (float64 sums): max_abs_err {seam_err:.3e} <= {step:.3e} (one bf16 step), differ "
+                            f"{differ:.4f} <= {SEAM_DIFFER} (against the float32 plain version {float((err > 0).float().mean()):.4f})")
                 k_ms = time_ms(lambda: wrapper(*args))
                 p_ms = time_ms(lambda: plain(*args))
                 lib = library_fn(name, args)
@@ -575,10 +614,8 @@ def check_kernels(port, calls_by_cfg):
                     log(f"[kernel]   {name} {list(key)} device ms by kernel name: "
                         f"{json.dumps({n[:60]: round(v, 5) for n, v in by_name.items()})}; one call runs {launched}; "
                         f"queued events kernel {q_k:.5f} library {'null' if q_l is None else f'{q_l:.5f}'} ms")
-                    # One launch, no transpose, copy or memset; not asserted after the
-                    # tools' run (phase 7), where one-call profiler traces come back
-                    # empty: the tools' shapes are also held in phase 2 (LINATTN_EXTRA).
-                    if name in ONE_LAUNCH and not cfg_name.startswith("tools"):
+                    # One launch, no transpose, copy or memset.
+                    if name in ONE_LAUNCH:
                         assert len(launched) == 1 and ONE_LAUNCH[name] in launched[0], (key, launched)
                     if name in ONE_LAUNCH:
                         assert torch.equal(wrapper(*args), out_k.to(args[0].dtype)), f"{name} {key} does not repeat"
@@ -591,13 +628,13 @@ def check_kernels(port, calls_by_cfg):
                     r["bound_ms"] += count * bound
                     r["bytes_s"] += count * t_bytes
                     r["ops_s"] += count * t_ops
-                    r["dev"] = add(r["dev"], None if d_k is None else count * d_k)
-                    r["plain_dev"] = add(r["plain_dev"], None if d_p is None else count * d_p)
+                    r["dev"] += count * d_k
+                    r["plain_dev"] += count * d_p
                     if l_ms is None:
                         r["library_ms"] = r["library_dev"] = None
                     elif r["library_ms"] is not None:
                         r["library_ms"] += count * l_ms
-                        r["library_dev"] = add(r["library_dev"], None if d_l is None else count * d_l)
+                        r["library_dev"] += count * d_l
     return rows
 
 
@@ -666,24 +703,18 @@ ATTN_EXTRA_SHAPES = ((2, 1100, 3, 32), (2, 1100, 2, 64), (2, 1024, 2, 128), (1, 
 SMALL_BLOCK_EXTRA_SHAPES = ((4, 8, 64), (4, 64, 128), (3, 32, 256), (3, 16, 48))
 # The whole-block kernels #2, #9, #10 at the corners of their gates: N = 4096
 # resident (C = 32) and in the recompute form (C = 128), a ragged N, one CTA;
-# #10 also in float32 in the recompute form.
-# #9 and #10 also at the microbenchmark's shapes, for the one-launch check
-# (phase 7's one-call profiler traces come back empty).
+# #10 also in float32 in the recompute form. (Phase 7 holds #9, #10 and #12 at
+# the microbenchmark's shapes.)
 _LINATTN_CORNERS = ((2, 4096, 32), (2, 4096, 128), (3, 100, 128), (2, 64, 128))
-_TOOL_SHAPES = ((128, 1024, 32), (128, 256, 64))
 LINATTN_EXTRA = {
     "linear_attention_block": [(s, "bf16") for s in _LINATTN_CORNERS],
-    "linear_attention_block_v1": [(s, "bf16") for s in _LINATTN_CORNERS + _TOOL_SHAPES],
-    "linear_attention_block_v2": [(s, "bf16") for s in _LINATTN_CORNERS + _TOOL_SHAPES] + [((2, 4096, 32), "f32")],
+    "linear_attention_block_v1": [(s, "bf16") for s in _LINATTN_CORNERS],
+    "linear_attention_block_v2": [(s, "bf16") for s in _LINATTN_CORNERS] + [((2, 4096, 32), "f32")],
 }
 # The core mode (#3) at the corners of its gate (64 <= N <= 4096, N % 8 == 0;
 # C up to the plan's 1280): resident at N = 4096, its recompute form at C =
-# 256, a ragged m16 tile, one CTA; #12 at the microbenchmark's shapes (the
-# one-launch check).
-CORE_EXTRA = {
-    "linear_attention_tokens": ((2, 4096, 32), (2, 4096, 128), (2, 4096, 256), (3, 104, 128), (2, 64, 128)),
-    "linear_attention_v4": _TOOL_SHAPES,
-}
+# 256, a ragged m16 tile, one CTA.
+CORE_EXTRA = ((2, 4096, 32), (2, 4096, 128), (2, 4096, 256), (3, 104, 128), (2, 64, 128))
 # #8 (the raw mode) at the corners of its gate (64 <= N <= 4096, N % 8 ==
 # 0), in both dtypes: N = 4096 on a cluster of 16 in the reload form, a
 # ragged N (N % 16 != 0), one CTA a sample.
@@ -723,14 +754,9 @@ def extra_calls(device):
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     block = {name: {(*shape, dt): [1, block_args(shape, dtypes[dt], g, device)] for shape, dt in shapes}
              for name, shapes in LINATTN_EXTRA.items()}
-    for name, shapes in CORE_EXTRA.items():
-        block[name] = {}
-        for Bn, Nn, C in shapes:
-            h, w = randn(Bn, Nn, C).to(torch.bfloat16), randn(C, 384, std=C**-0.5)
-            if name == "linear_attention_v4":
-                h = h.reshape(Bn, Nn * C // 128, 128)
-            block[name][(Bn, Nn, C)] = [1, (h, w) + ((Nn,) if name == "linear_attention_v4" else ())
-                                        + (4, 32, 32**-0.5)]
+    block["linear_attention_tokens"] = {
+        (Bn, Nn, C): [1, (randn(Bn, Nn, C).to(torch.bfloat16), randn(C, 384, std=C**-0.5), 4, 32, 32**-0.5)]
+        for Bn, Nn, C in CORE_EXTRA}
     block["linear_attention_qkv"] = {(*shape, dt): [1, (randn(*shape).to(dtypes[dt]), 4, 32, 32**-0.5)]
                                      for shape in QKV_EXTRA for dt in dtypes}
     norm = {"group_norm_silu": {}, "group_norm_silu_film": {}}
@@ -1089,17 +1115,19 @@ def step_loss_and_grads(port, model, batch, draws):
     step's metrics as floats)."""
     import torch
 
+    from diffusion_model_nemo_tpu_torch.training.trainer import param_grads
+
     params = {k: v.detach().clone().requires_grad_(True) for k, v in model.params.items()}
     port.ops.reset_launch_counts()
     loss, metrics = model.training_step(params, batch, draws)
     torch.cuda.synchronize()
     fwd = port.ops.launch_counts()
     port.ops.reset_launch_counts()
-    grads = torch.autograd.grad(loss, list(params.values()))
+    grads = param_grads(loss, params, getattr(model.diffusion_model, "unused_params", frozenset()))
     torch.cuda.synchronize()
     bwd = port.ops.launch_counts()
     metrics = {k: float(v) for k, v in metrics.items()}
-    return float(loss), torch.cat([g.float().flatten() for g in grads]), fwd, bwd, metrics
+    return float(loss), torch.cat([g.float().flatten() for g in grads.values()]), fwd, bwd, metrics
 
 
 def check_training_step(port, model, per_forward):
@@ -1604,16 +1632,22 @@ def graph_of(store, name):
     return found[-1]
 
 
-def replay_busy(graph, counter, start, iters=GRAPH_PROFILE_REPLAYS):
-    """Device busy per replay of a step graph (torch.profiler, over
-    ``iters`` replays), its step counter set to ``start`` first so that
-    every replay reads a valid t; None when the traces hold none."""
+def replay_profile(graph, counter, start, iters=GRAPH_PROFILE_REPLAYS):
+    """Device busy per replay of a step graph in seconds, and ms per replay
+    by kernel name (torch.profiler, over ``iters`` replays), its step
+    counter set to ``start`` first so that every replay reads a valid t (an
+    empty trace raises)."""
     import torch
 
     with torch.inference_mode():
         graph.static[counter].fill_(start)
-        busy, _ = device_profile(lambda: graph.replay(), iters=iters)
-    return busy / 1e3 if busy else None
+        busy, by_name = device_profile(lambda: graph.replay(), iters=iters)
+    return busy / 1e3, by_name
+
+
+def replay_busy(graph, counter, start, iters=GRAPH_PROFILE_REPLAYS):
+    """Device busy per replay of a step graph, in seconds."""
+    return replay_profile(graph, counter, start, iters)[0]
 
 
 def graph_line(tag, captured_s, busy_s, eager_s, graph, counts, replays, extra=None):
@@ -1917,14 +1951,14 @@ def check_graph_scalars(port, device):
     assert all(results.values()), results
 
 
-def log_device_split(by_name, steps):
-    """The captured chain's device time per forward, by kernel name."""
+def log_device_split(by_name, steps, tag=f"unet_small DDIM step B={B}", prefix="[graph]"):
+    """A captured step's device time per step, by kernel name."""
     total = sum(by_name.values())
     hand = sum(v for n, v in by_name.items() if any(k in n for k in HAND_KERNELS))
-    log(f"[graph] captured unet_small DDIM step B={B} device split: {total / steps:.3f} ms a step, hand kernels "
+    log(f"{prefix} captured {tag} device split: {total / steps:.3f} ms a step, hand kernels "
         f"{hand / steps:.3f} ms, other {(total - hand) / steps:.3f} ms in {len(by_name)} kernel names")
     for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"[graph]   {v / steps:.4f} ms  {n[:110]}")
+        log(f"{prefix}   {v / steps:.4f} ms  {n[:110]}")
 
 
 def check_graphs(port, models, device, per_step):
@@ -2367,17 +2401,19 @@ def sde_inputs(model, device):
     return x, sde_labels(model, t)
 
 
-def check_sde_forward(port, model, device, calls):
-    """11.1-11.2: the ScoreSDE U-Net's launches a forward and its GroupNorm
-    groups (4 at every site; #1-#4 were held against their plain versions
-    at each of its sites in phase 2, from ``calls``); one bf16 forward at
-    float labels t·999 against the plain path. Returns the launches per
-    forward."""
+def check_sde_forward(port, model, device, rows):
+    """11.1-11.2: the ScoreSDE U-Net's kernel calls at B=64 and float time
+    labels, each held against its plain version (#1-#4; 4 GroupNorm groups
+    at every site); one bf16 forward at float labels t·999 against the
+    plain path. Returns the launches per forward."""
+    calls = record_calls(port, model, *sde_inputs(model, device))
     per = per_forward_counts(calls)
     groups = sorted({args[3] for _c, args in calls["group_norm_silu"].values()})
     log(f"[sde] ScoreSDE U-Net B={SDE_B}: launches a forward {json.dumps(per)}; GroupNorm groups at every "
-        f"site {groups}; {sum(len(v) for v in calls.values())} kernel shapes (held in phase 2)")
+        f"site {groups}; {sum(len(v) for v in calls.values())} kernel shapes")
     assert set(per) == set(UNET_KERNELS) and groups == [4], (per, groups)
+    for name, r in check_kernels(port, {"score_sde": calls}).items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], r["max_abs_err"])
     check_forward(port, "score_sde (float labels t*999)", model, *sde_inputs(model, device), SDE_FWD_TOL)
     return per
 
@@ -2630,14 +2666,15 @@ def check_sde_clis(port, tmp):
     assert not loaded, f"the ScoreSDE CLIs loaded {loaded}"
 
 
-def check_score_sde(port, device, model, calls):
-    """11. ScoreSDE at its shipped config's full width (``model``, its
-    kernels' ``calls`` recorded and held in phase 2): forward, samplers,
-    serving, training, likelihood, the other SDEs, the CLIs."""
+def check_score_sde(port, device, rows):
+    """11. ScoreSDE at its shipped config's full width: its kernel sites
+    (their max |diff| into ``rows``), forward, samplers, serving, training,
+    likelihood, the other SDEs, the CLIs."""
     t11 = time.perf_counter()
+    model = sde_model(port, device)
     log(f"[sde] ScoreSDE {type(model.sde).__name__} N={model.sde.N}, sampler {type(model.sampler).__name__} "
         f"({model.sampler.predictor} x {model.sampler.corrector})")
-    per = check_sde_forward(port, model, device, calls)
+    per = check_sde_forward(port, model, device, rows)
     check_sde_em_chain(port, model, per)
     check_sde_combinations(port, model)
     tmp = tempfile.mkdtemp(prefix="dmn_sde_")
@@ -2654,6 +2691,483 @@ def check_score_sde(port, device, model, calls):
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[sde] phase 11 in {time.perf_counter() - t11:.1f} s")
+
+
+# ------------------------------------------------------------ the WaveGrad family --
+WG_CONFIG = "examples/configs/wavegrad_ddpm/unet_small.yaml"
+VOC_CONFIG = "examples/configs/wavegrad_ddpm/vocoder.yaml"
+WG_PREFIX = 100  # steps of the ancestral chain's captured prefix held to eager
+WG_SHORT, WG_SEARCH_ITERS = 50, 100  # the sample dump's searched schedule
+WG_BPD_B = 32
+WG_SERVE_B = 16
+WG_CLI_STEPS = 4  # train_wavegrad_ddpm: a dump (search, sample, restore, bits/dim) at the last step
+VOC_B, VOC_VOCODE_ITERS = 32, 500  # vocoder.yaml's batch; the vocode CLI's search
+VOC_STEPS = 3
+VOC_F32_TOL = 2e-2  # the bf16 vocoder step's loss against the float32 run of the same weights and draws
+VOC_SERVE_B = 8
+VOC_CLI_STEPS = 3
+
+
+def wg_model(port, device, config=WG_CONFIG, cls="WavegradDDPM", overrides=()):
+    """A WaveGrad model from its shipped YAML at full width, random weights
+    from ``SEED`` (the U-Net model at 32 px on the synthetic set)."""
+    from diffusion_model_nemo_tpu_torch.config import load_config
+
+    extra = [*CLI_MODEL, "model.train_ds.name=synthetic"] if cls == "WavegradDDPM" else []
+    cfg = load_config(Path(__file__).resolve().parent / config, overrides=[*extra, *overrides]).model
+    return getattr(port.models, cls)(cfg, device=device, seed=SEED)
+
+
+def wg_inputs(device, B=B):
+    """x [B, 32, 32, 3] and continuous levels [B, 1, 1, 1] in (0, 1)."""
+    import torch
+
+    x, _ = model_inputs(device, 32, B)
+    return x, torch.rand(B, 1, 1, 1, generator=torch.Generator(device=device).manual_seed(SEED), device=device)
+
+
+def numpy_search(timesteps, short, cfg, iters, seed):
+    """The JAX package's schedule search written out in numpy (linear
+    schedule): the beta_end whose ``short``-step table ends nearest the
+    original's last √ᾱ (float32), from ``RandomState(seed)`` candidates."""
+    import numpy as np
+
+    def last(T, end):
+        betas = np.linspace(cfg["beta_start"], end, T, dtype=np.float64).astype(np.float32).astype(np.float64)
+        return float(np.float32(np.sqrt(np.cumprod(1.0 - betas)[-1])))
+
+    target, best, best_mae = last(timesteps, cfg["beta_end"]), cfg["beta_end"], 1e10
+    rng = np.random.RandomState(seed)
+    for _ in range(iters):
+        cand = float(rng.uniform(0.0, 1.0))
+        mae = abs(target - last(short, cand))
+        if mae < best_mae:
+            best, best_mae = cand, mae
+    return best
+
+
+def wg_chain(model, B, steps, graphs, seed=SEED):
+    """The model's ancestral chain (the last ``steps`` steps, or all) on the
+    EMA weights from a fresh generator: (images, generator state)."""
+    import torch
+
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.inference_mode():
+        out = model.sampler.p_sample_loop(model.get_model_fn(), model.ema_params, (B, 32, 32, 3), g,
+                                          num_steps=steps, graphs=graphs)
+    return out, g.get_state()
+
+
+def deterministic_equal(tag, run):
+    """``run(graphs)`` eagerly, then captured twice (the first call
+    captures), bit for bit under ``cudnn.deterministic``: (equal, eager s,
+    first s, replayed s, the replayed result)."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager_s, ref = walled(lambda: run(False))
+        first_s, first = walled(lambda: run(None))
+        wall, out = walled(lambda: run(None))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = all(torch.equal(a, b) for a, b in zip(ref, out)) and all(torch.equal(a, b) for a, b in zip(ref, first))
+    log(f"[wavegrad] {tag}: captured == eager bit for bit (cudnn.deterministic): {same}; captured {wall:.3f} s, "
+        f"eager {eager_s:.3f} s, first call with capture {first_s:.3f} s")
+    assert same, f"{tag}: the captured loop differs from the eager loop"
+    return out
+
+
+def check_wg_forward(port, model, device, rows):
+    """12.1: the WaveGrad U-Net's kernel calls at B=64 (#1-#4), each held
+    against its plain version; one forward against the plain path.
+    Returns the launches per forward."""
+    x, level = wg_inputs(device)
+    calls = record_calls(port, model, x, level)
+    per = per_forward_counts(calls)
+    log(f"[wavegrad] WaveGradUNet B={B}: launches a forward {json.dumps(per)} (FiLM convs: cuDNN, as XLA's in the "
+        f"JAX package); {sum(len(v) for v in calls.values())} kernel shapes")
+    assert set(per) == set(UNET_KERNELS), per
+    for name, r in check_kernels(port, {"wavegrad": calls}).items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], r["max_abs_err"])
+    check_forward(port, "wavegrad (continuous levels)", model, x, level, UNET_REL_TOL)
+    return per
+
+
+def check_wg_training(port, model):
+    """12.2: one B=128 step with the kernels against the plain path (loss
+    1e-2, whole gradient 2e-2, no launch in the backward), then the
+    captured step's ms, busy and pool."""
+    per = derived_counts(port, model, TRAIN_B, 32)
+    batch, draws = training_batch(model, TRAIN_B)
+    assert set(draws) == {"flip", "s", "u", "noise"}, set(draws)
+    loss_k, g_k, fwd, bwd, _m = step_loss_and_grads(port, model, batch, draws)
+    assert_counts("wavegrad step forward", fwd, per)
+    assert_counts("wavegrad step backward", bwd, {})
+    with plain_path(port):
+        loss_p, g_p, _f, _b, _m = step_loss_and_grads(port, model, batch, draws)
+    rel_loss, rel_grad = abs(loss_k - loss_p) / abs(loss_p), float((g_k - g_p).norm() / g_p.norm())
+    log(f"[wavegrad] step B={TRAIN_B} kernels vs plain: loss {loss_k:.6f} / {loss_p:.6f} (rel {rel_loss:.3e}, tol "
+        f"{LOSS_REL_TOL}); whole gradient rel_l2 {rel_grad:.3e} (tol {FAMILY_GRAD_TOL})")
+    assert rel_loss <= LOSS_REL_TOL and rel_grad <= FAMILY_GRAD_TOL
+    family_step_timing(port, "wavegrad", model)
+
+
+def check_wg_chains(port, model, per):
+    """12.3-12.4: the ancestral chain at B=64: a captured prefix == eager,
+    the 1000-step chain captured (wall, busy a step, launches); the
+    searched 50-step schedule (beta_end == the numpy search) and its chain
+    on the same sampler, captured == eager; the restore."""
+    import torch
+
+    sampler = model.sampler
+    T = sampler.timesteps
+    deterministic_equal(f"ancestral prefix {WG_PREFIX} steps B={B}", lambda g: wg_chain(model, B, WG_PREFIX, g))
+    run = lambda: wg_chain(model, B, None, None)  # noqa: E731
+    first_s, _ = walled(run)
+    port.ops.reset_launch_counts()
+    wall, (out, _) = walled(run)
+    counts = port.ops.launch_counts()
+    graph = graph_of(sampler.graphs, "ancestral")
+    busy, by_name = replay_profile(graph, "t", T - 1)
+    log_device_split(by_name, 1, f"WaveGrad ancestral step B={B}", "[wavegrad]")
+    log(f"[wavegrad] ancestral T={T} B={B}: {wall:.3f} s a chain, {B / wall:.2f} images/s (first call with capture "
+        f"{first_s:.3f} s); finite {bool(torch.isfinite(out).all())}, std {float(out.std()):.4f}")
+    graph_line(f"wavegrad ancestral T={T} B={B} (per step)", wall / T, busy, None, graph, counts, T - 1,
+               extra=dict(graph.delta))
+    assert counts == {k: per.get(k, 0) * T for k in counts}, (counts, per)
+    original, held, old_table = sampler.constants, dict(sampler.graphs), {id(t) for t in sampler.table_tensors()}
+    linear = dict(sampler.original_schedule_cfg["linear"])
+    expect = numpy_search(T, WG_SHORT, linear, WG_SEARCH_ITERS, 0)
+    t0 = time.perf_counter()
+    sampler.use_searched_schedule(WG_SHORT, WG_SEARCH_ITERS, seed=0)
+    search_s = time.perf_counter() - t0
+    got = sampler.schedule_cfg["linear"]["beta_end"]
+    log(f"[wavegrad] searched {WG_SHORT}-step schedule ({WG_SEARCH_ITERS} candidates, seed 0, {search_s:.3f} s on "
+        f"the host): beta_end {got!r}, the numpy search's {expect!r}; last sqrt(alpha_bar) "
+        f"{float(sampler.constants.sqrt_alphas_cumprod_prev[-1]):.6f} against the {T}-step "
+        f"{float(original.sqrt_alphas_cumprod_prev[-1]):.6f}")
+    assert got == expect and sampler.timesteps == WG_SHORT
+    try:
+        port.ops.reset_launch_counts()
+        short_out = deterministic_equal(f"searched {WG_SHORT}-step chain B={B} on the sampler that holds the "
+                                        f"{T}-step graph", lambda g: wg_chain(model, B, None, g))
+        new = [g for k, g in sampler.graphs.items() if k not in held]
+        assert new and not old_table & {id(t) for t in new[-1].sources}, "the 50-step graph reads the old table"
+        assert bool(torch.isfinite(short_out[0]).all())
+    finally:
+        sampler.restore_schedule()
+    assert sampler.constants is original and sampler.timesteps == T
+    assert all(sampler.graphs.get(k) is g for k, g in held.items()), "the restore recaptured the 1000-step graph"
+    log(f"[wavegrad] restored: T={sampler.timesteps}, the original table tensors, the {T}-step graph kept")
+
+
+def check_wg_bpd(port, model, device):
+    """12.5: bits/dim at T = 1000, B = 32 through WaveGrad's p_mean_variance,
+    captured (s a batch, busy), against the plain path (captured too, the
+    same noise) within 2e-2."""
+    import torch
+
+    x0 = family_bpd_batch(device, WG_BPD_B)
+    T = model.sampler.timesteps
+    run = lambda: model.calculate_bits_per_dimension(x0)  # noqa: E731
+    first_s, _ = walled(run)
+    port.ops.reset_launch_counts()
+    wall, kern = walled(run)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "bpd")
+    busy = replay_busy(graph, "t", T - 1)
+    graph_line(f"wavegrad bpd T={T} B={WG_BPD_B} (per step)", wall / T, busy, None, graph, counts, T)
+    model.sampler.graphs.clear()  # the plain path captures its own graph
+    with plain_path(port):
+        plain_s, plain = walled(run)
+    model.sampler.graphs.clear()
+    rel = float(((kern["total_bpd"] - plain["total_bpd"]).abs() / plain["total_bpd"].abs()).max())
+    log(f"[wavegrad] bits/dim T={T} B={WG_BPD_B}: total_bpd kernels {float(kern['total_bpd'].mean()):.5f} plain "
+        f"{float(plain['total_bpd'].mean()):.5f}, max relative difference {rel:.3e} (tol "
+        f"{BPD_REL_TOL['bfloat16']:.0e}); {wall:.3f} s a batch captured (first call with capture {first_s:.3f} s), "
+        f"plain path {plain_s:.3f} s with its capture")
+    assert rel <= BPD_REL_TOL["bfloat16"] and bool(torch.isfinite(kern["terms_bpd"]).all())
+
+
+def check_wg_serving(port, model, tmp):
+    """12.6: the model saved, restored by ``restore_model_from_archive`` and
+    served on its own ancestral chain: one /sample; launches = per forward
+    x 1000 x batches."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    path = model.save_to(str(Path(tmp) / "WavegradDDPM.dmn"))
+    restored = port.models.restore_model_from_archive(path, device=model.device)
+    assert type(restored).__name__ == "WavegradDDPM"
+    assert all(restored.params[k].equal(v) for k, v in model.params.items())
+    per = derived_counts(port, restored, WG_SERVE_B, 32)
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve(restored, port=0, max_batch=WG_SERVE_B, use_ddim_sampler=False, use_ema=True)
+    warm_s = time.perf_counter() - t0
+    server.start_background()
+    try:
+        t1 = time.perf_counter()
+        code, body = http("POST", f"http://{server.host}:{server.port}/sample", {"num_images": 4, "seed": 9,
+                                                                                 "format": "npy"})
+        wall = time.perf_counter() - t1
+        stats = json.loads(http("GET", f"http://{server.host}:{server.port}/stats")[1])
+    finally:
+        server.shutdown()
+    npy = np.load(io.BytesIO(body))
+    counts = port.ops.launch_counts()
+    batches, T = stats["batches"] + 1, restored.sampler.timesteps
+    log(f"[wavegrad] serve WavegradDDPM archive (ancestral T={T}, max_batch={WG_SERVE_B}): warm-up {warm_s:.2f} s, "
+        f"/sample {code} in {wall:.3f} s, {list(npy.shape)}")
+    assert code == 200 and npy.shape == (4, 32, 32, 3) and npy.std() > 0
+    assert counts == {k: per.get(k, 0) * T * batches for k in counts}, (counts, per, batches)
+
+
+def check_wg_clis(port, tmp):
+    """12.7: train_wavegrad_ddpm (B=128, a dump at the last step: the 50-step
+    search and chain, the restore, bits/dim at T = 1000), eval_wavegrad_ddpm
+    (a searched 50-step schedule, B=64), test_wavegrad_ddpm (bits/dim on a
+    searched 50-step schedule, B=32)."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.cli import eval_wavegrad_ddpm, test_wavegrad_ddpm, train_wavegrad_ddpm
+
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, trainer = train_wavegrad_ddpm.main([
+        *CLI_MODEL, "model.train_ds.name=synthetic", f"model.save_every={WG_CLI_STEPS}",
+        f"trainer.max_steps={WG_CLI_STEPS}", "trainer.log_every_n_steps=1", f"exp_manager.exp_dir={tmp}/exp",
+        "exp_manager.create_tensorboard_logger=false", "+exp_manager.version=run"])
+    train_s = time.perf_counter() - t0
+    cli_counts(port, "train_wavegrad_ddpm", UNET_KERNELS)
+    dmn = next(trainer.exp_manager_hooks.log_dir.glob("*.dmn"))
+    dumps = sorted(p.name for p in Path(tmp).glob("results/*/sample-*.png"))
+    log(f"[wavegrad] train_wavegrad_ddpm {WG_CLI_STEPS} steps B={TRAIN_B}: {train_s:.2f} s with the dump "
+        f"(search, 16 x 50 steps at B=4, restore, bits/dim at T=1000); logged {json.dumps(trainer.logged)}; dump "
+        f"{dumps}; sampler back at T={model.sampler.timesteps}; the config's searched beta_end "
+        f"{model.cfg.sampler.schedule_cfg.linear.beta_end} (the JAX package's property, kept)")
+    assert dumps and model.sampler.timesteps == 1000 and all(np.isfinite(m["train_loss"]) for m in trainer.logged)
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eval_wavegrad_ddpm.main([f"model_path={dmn}", f"batch_size={B}", f"output_dir={tmp}/samples",
+                                   "add_timestamp=false"])
+    cli_counts(port, "eval_wavegrad_ddpm", UNET_KERNELS)
+    log(f"[wavegrad] eval_wavegrad_ddpm (search 1000 candidates, 50 steps, B={B}): {time.perf_counter() - t0:.2f} s "
+        f"with the restore")
+    assert (out / "samples_grid.png").exists()
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = test_wavegrad_ddpm.main([f"model_path={dmn}", "limit_test_batches=1", f"batch_size={WG_BPD_B}"])
+    cli_counts(port, "test_wavegrad_ddpm", UNET_KERNELS)
+    log(f"[wavegrad] test_wavegrad_ddpm (search 50 steps): {json.dumps(result)} in {time.perf_counter() - t0:.2f} s")
+    assert np.isfinite(result["test_total_bpd"])
+
+
+def voc_batch(model, B=VOC_B):
+    """A batch of the synthetic audio set ({"audio": [B, 7200]}) and the
+    step's draws."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.data import SyntheticAudioDataset
+
+    ds = SyntheticAudioDataset(model.segment_length, length=B)
+    batch = {"audio": np.stack([ds[i]["audio"] for i in range(B)])}
+    draws = model.draw_training_inputs(batch["audio"].shape, torch.Generator(device=model.device).manual_seed(SEED))
+    return batch, draws
+
+
+def check_voc_training(port, model, device):
+    """12.8: the vocoder's B=32 step: the bf16 loss against the float32 run
+    of the same weights and draws; ``VOC_STEPS`` captured steps == eager
+    steps bit for bit (cudnn.deterministic); the captured step's ms, busy,
+    pool. No hand kernel runs (its convolutions are cuDNN's, as XLA's in
+    the JAX package)."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.modules.parts import Conv1d
+
+    flops = []
+    hooks = [m.register_forward_hook(lambda m, _i, y: flops.append(2 * y.numel() * m.weight[0].numel()))
+             for m in model.diffusion_model.modules() if isinstance(m, Conv1d)]
+    with torch.inference_mode():
+        model.vocoder_fn(model.params, torch.zeros(1, model.segment_length, 1, device=device),
+                         torch.full((1, 1, 1), 0.5, device=device), torch.zeros(1, model.segment_frames, model.n_mels,
+                                                                                 device=device))
+    for h in hooks:
+        h.remove()
+    log(f"[vocoder] {sum(p.numel() for p in model.params.values()) / 1e6:.2f} M parameters; the convolutions of a "
+        f"forward: {sum(flops) / 1e9:.2f} GFLOP a sample (counted from shapes)")
+    batch, draws = voc_batch(model)
+    f32 = wg_model(port, device, VOC_CONFIG, "WavegradVocoderModel", ["model.diffusion_model.dtype=float32"])
+    f32.params = {k: v.clone() for k, v in model.params.items()}
+    with torch.no_grad():
+        port.ops.reset_launch_counts()
+        loss_b = float(model.training_step(model.params, batch, draws)[0])
+        launched = {k: v for k, v in port.ops.launch_counts().items() if v}
+        loss_f = float(f32.training_step(f32.params, batch, draws)[0])
+    rel = abs(loss_b - loss_f) / abs(loss_f)
+    log(f"[vocoder] step B={VOC_B} T={model.segment_length}: loss bf16 {loss_b:.6f}, float32 {loss_f:.6f} (rel "
+        f"{rel:.3e}, tol {VOC_F32_TOL}); hand kernels launched {launched}")
+    assert rel <= VOC_F32_TOL and launched == {}
+
+    def steps(graphs):
+        trainer = port.Trainer(max_steps=VOC_STEPS, devices=1)
+        state = trainer.init_state(model, VOC_STEPS)
+        losses = [trainer.train_step(model, state, batch, draws, graphs=graphs)["train_loss"]
+                  for _ in range(VOC_STEPS)]
+        return (*state.params.values(), torch.stack(losses))
+
+    deterministic_equal(f"vocoder {VOC_STEPS} training steps B={VOC_B}", steps)
+    trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+    state = trainer.init_state(model, TRAIN_STEPS)
+    run = lambda: trainer.train_step(model, state, batch, draws)  # noqa: E731
+    wall = time_ms(run, iters=20)
+    busy, by_name = device_profile(run, iters=5)
+    log_device_split(by_name, 1, f"vocoder training step B={VOC_B}", "[vocoder]")
+    info = graph_of(state.graphs, "train_step").info
+    log(f"[vocoder] captured step B={VOC_B}: wall {wall:.3f} ms (CUDA events), {VOC_B / wall * 1e3:.1f} samples/s; "
+        f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); graph pool {info['pool_mib']:.1f} MiB, "
+        f"{info['nodes']} nodes, capture {info['capture_s']:.3f} s")
+
+
+def check_voc_vocode(port, model, device):
+    """12.9: ``vocode`` of a B=32 batch's mel at the searched 50-step
+    schedule (500 candidates, the vocode CLI's): captured == eager bit for
+    bit (cudnn.deterministic), s a batch, busy a step, pool."""
+    import torch
+
+    batch, _ = voc_batch(model)
+    mel = model.compute_mel(torch.from_numpy(batch["audio"]).to(device))
+    sampler = model.sampler
+    t0 = time.perf_counter()
+    sampler.use_searched_schedule(WG_SHORT, VOC_VOCODE_ITERS, seed=0)
+    search_s = time.perf_counter() - t0
+    try:
+        run = lambda g: (model.vocode(mel, generator=torch.Generator(device=device).manual_seed(SEED),  # noqa: E731
+                                      graphs=g),)
+        out = deterministic_equal(f"vocode searched {WG_SHORT} steps B={VOC_B}", run)[0]
+        first_s, _ = walled(lambda: run(None))  # captures (cudnn's settings key the graph)
+        port.ops.reset_launch_counts()
+        wall, _ = walled(lambda: run(None))
+        counts = port.ops.launch_counts()
+        graph = graph_of(sampler.graphs, "ancestral")
+        busy, by_name = replay_profile(graph, "t", WG_SHORT - 1)
+        log_device_split(by_name, 1, f"vocoder ancestral step B={VOC_B}", "[vocoder]")
+        log(f"[vocoder] vocode B={VOC_B} mel {list(mel.shape)} -> {list(out.shape)}: searched beta_end "
+            f"{sampler.schedule_cfg['linear']['beta_end']!r} ({search_s:.3f} s), {wall:.3f} s a batch, "
+            f"{VOC_B * model.segment_length / wall / model.sample_rate:.1f} s of audio a second (first call with "
+            f"capture {first_s:.3f} s); finite "
+            f"{bool(torch.isfinite(out).all())}, std {float(out.std()):.4f}")
+        graph_line(f"vocoder vocode {WG_SHORT} steps B={VOC_B} (per step)", wall / WG_SHORT, busy, None, graph, counts,
+                   WG_SHORT - 1, extra=dict(graph.delta))
+        assert out.shape == (VOC_B, model.segment_length) and bool(torch.isfinite(out).all())
+    finally:
+        sampler.restore_schedule()
+
+
+def check_voc_serving_and_archive(port, model, tmp):
+    """12.10-12.11: the archive round-trips bit for bit; served (its own
+    1000-step chain, max_batch 8): a seeded /vocode answers float32
+    waveforms, repeats, and /sample answers 400."""
+    import urllib.error
+
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    path = model.save_to(str(Path(tmp) / "Vocoder.dmn"))
+    restored = port.models.restore_model_from_archive(path, device=model.device)
+    same = type(restored).__name__ == "WavegradVocoderModel" and all(
+        restored.params[k].equal(v) and restored.ema_params[k].equal(model.ema_params[k])
+        for k, v in model.params.items())
+    log(f"[vocoder] archive {Path(path).name} restored by restore_model_from_archive: params and EMA bit for bit "
+        f"{same}")
+    assert same
+    t0 = time.perf_counter()
+    server = serve(restored, port=0, max_batch=VOC_SERVE_B, use_ddim_sampler=False, use_ema=True)
+    warm_s = time.perf_counter() - t0
+    server.start_background()
+    base = f"http://{server.host}:{server.port}"
+    mel = np.asarray(restored.compute_mel(restored.mel_fb.new_tensor(voc_batch(restored, 4)[0]["audio"])).cpu())
+    buf = io.BytesIO()
+    np.save(buf, mel)
+    payload = {"mel_npy": base64.b64encode(buf.getvalue()).decode(), "seed": 11}
+    try:
+        t1 = time.perf_counter()
+        code, body = http("POST", base + "/vocode", payload)
+        wall = time.perf_counter() - t1
+        again = http("POST", base + "/vocode", payload)[1]
+        try:
+            http("POST", base + "/sample", {"num_images": 1})
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+    finally:
+        server.shutdown()
+    waves = np.load(io.BytesIO(body))
+    log(f"[vocoder] serve vocoder archive (T={restored.sampler.timesteps}, max_batch={VOC_SERVE_B}): warm-up "
+        f"{warm_s:.2f} s, /vocode {code} in {wall:.3f} s -> {list(waves.shape)} {waves.dtype}, seeded repeat equal "
+        f"{np.array_equal(waves, np.load(io.BytesIO(again)))}, /sample answered {refused}")
+    assert code == 200 and waves.shape == (4, restored.segment_length) and waves.dtype == np.float32
+    assert np.array_equal(waves, np.load(io.BytesIO(again))) and refused == 400
+
+
+def check_voc_clis(port, tmp):
+    """12.12: train_vocoder (a few steps at B=32), then vocode (the searched
+    50-step schedule, 500 candidates, a batch of 4)."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.cli import train_vocoder, vocode
+
+    t0 = time.perf_counter()
+    _model, trainer = train_vocoder.main([
+        f"trainer.max_steps={VOC_CLI_STEPS}", "trainer.log_every_n_steps=1", f"exp_manager.exp_dir={tmp}/exp",
+        "exp_manager.create_tensorboard_logger=false", "+exp_manager.version=run"])
+    dmn = next(trainer.exp_manager_hooks.log_dir.glob("*.dmn"))
+    log(f"[vocoder] train_vocoder {VOC_CLI_STEPS} steps B={VOC_B}: {time.perf_counter() - t0:.2f} s, logged "
+        f"{json.dumps(trainer.logged)}, archive {dmn.name}")
+    assert all(np.isfinite(m["train_loss"]) for m in trainer.logged)
+    t0 = time.perf_counter()
+    out_dir, out = vocode.main([f"model_path={dmn}", f"output_dir={tmp}/vocoded"])
+    log(f"[vocoder] vocode CLI: {list(out.shape)} in {time.perf_counter() - t0:.2f} s with the restore and search")
+    assert np.isfinite(out).all() and (out_dir / "vocoded.npy").exists()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
+    assert not loaded, f"the WaveGrad CLIs loaded {loaded}"
+
+
+def check_wavegrad(port, device, rows):
+    """12. WavegradDDPM at examples/configs/wavegrad_ddpm/unet_small.yaml
+    (32 px) and the vocoder at vocoder.yaml, full width, random weights
+    from ``SEED``: kernels, training, chains on the full and the searched
+    schedule, bits/dim, archives, serving, the five CLIs."""
+    t12 = time.perf_counter()
+    model = wg_model(port, device)
+    log(f"[wavegrad] WavegradDDPM: {type(model.diffusion_model).__name__}, {type(model.sampler).__name__} "
+        f"{model.sampler.schedule_name} T={model.sampler.timesteps}")
+    per = check_wg_forward(port, model, device, rows)
+    check_wg_training(port, model)
+    check_wg_chains(port, model, per)
+    check_wg_bpd(port, model, device)
+    tmp = tempfile.mkdtemp(prefix="dmn_wavegrad_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        check_wg_serving(port, model, tmp)
+        check_wg_clis(port, tmp)
+        log(f"[wavegrad] WavegradDDPM in {time.perf_counter() - t12:.1f} s")
+        vocoder = wg_model(port, device, VOC_CONFIG, "WavegradVocoderModel")
+        check_voc_training(port, vocoder, device)
+        check_voc_vocode(port, vocoder, device)
+        check_voc_serving_and_archive(port, vocoder, tmp)
+        check_voc_clis(port, tmp)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[wavegrad] phase 12 in {time.perf_counter() - t12:.1f} s")
 
 
 def main() -> int:
@@ -2680,13 +3194,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[setup] TF32 off for convolutions and matmuls (cudnn.allow_tf32 = matmul.allow_tf32 = False)")
 
+    from diffusion_model_nemo_tpu_torch.tools.profiling import tracing
+
+    mark = {"t": time.perf_counter(), "traces": 0, "seconds": 0.0}
+
+    def phase_done(tag):
+        """The wall since the last phase, and the torch.profiler traces in it."""
+        now = time.perf_counter()
+        log(f"[time] {tag} in {now - mark['t']:.1f} s: {tracing['traces'] - mark['traces']} profiler traces, "
+            f"{tracing['seconds'] - mark['seconds']:.1f} s in them (the next opens with {tracing['markers']} markers)")
+        mark.update(t=now, traces=tracing["traces"], seconds=tracing["seconds"])
+
     models = build_models(port, device)
     inputs = {name: model_inputs(device, DIT_IMG if name == "dit_s2" else 32) for name in models}
     calls = {name: record_calls(port, m, *inputs[name]) for name, m in models.items()}
-    # ScoreSDE's U-Net (4 GroupNorm groups) at float time labels: its sites
-    # are held here, before phase 7, after which one-call traces come back empty.
-    score_sde = sde_model(port, device)
-    calls["score_sde"] = record_calls(port, score_sde, *sde_inputs(score_sde, device))
     # The training slice's shapes at B=128: the default routes (#1-#4), both
     # switches (#6, #9), and the FiLM Block pass at unet_small's GroupNorm
     # sites (#5, and #6 FiLM under NORM_BM).
@@ -2717,6 +3238,7 @@ def main() -> int:
         port, "dit_s2", models["dit_s2"], per_forward["dit_s2"], DIT_MAX_BATCH, DIT_IMG
     )
     check_ancestral(port, models["unet_small"], per_forward["unet_small"])
+    phase_done("phases 2-5")
 
     # 6. The training slice.
     derived = check_switched_forwards(port, models, inputs128)
@@ -2733,12 +3255,14 @@ def main() -> int:
     assert switched_per.get("group_norm_silu_bm") == 27 and switched_per.get("linear_attention_block_v1") == 1
     assert "linear_attention_tokens" not in switched_per, switched_per
     _m, _t, sw_counts = check_fit(port, device, SWITCHED_STEPS, BOTH, switched_per)
+    phase_done("phase 6")
 
     # 7. The tools path (#10-#13).
     tool_rows, tool_counts, per_forward["tools"], v1_err = check_tools(port)
     rows.update(tool_rows)
     rows["linear_attention_block_v1"]["max_abs_err"] = max(rows["linear_attention_block_v1"]["max_abs_err"], v1_err)
     check_tap_split_backward(port, device)
+    phase_done("phase 7")
 
     # 8. The README's usage path: the CLIs in a temporary directory.
     t8 = time.perf_counter()
@@ -2751,16 +3275,24 @@ def main() -> int:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[cli] phase 8 in {time.perf_counter() - t8:.1f} s")
+    phase_done("phase 8")
 
     # 9. CUDA graphs: every loop's replays against its eager loop.
     check_graphs(port, models, device, train_per)
+    phase_done("phase 9")
 
     # 10. The two families, the DiT with classes, their CLIs.
     check_families(port, device)
+    phase_done("phase 10")
 
     # 11. ScoreSDE: kernels at 4 GroupNorm groups, the PC and probability-flow
     # samplers, serving, training, the likelihood, the other SDEs, the CLIs.
-    check_score_sde(port, device, score_sde, calls["score_sde"])
+    check_score_sde(port, device, rows)
+    phase_done("phase 11")
+
+    # 12. The WaveGrad family: WavegradDDPM and the vocoder.
+    check_wavegrad(port, device, rows)
+    phase_done("phase 12")
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM
@@ -2798,6 +3330,10 @@ def main() -> int:
             "bound_by": "bytes" if r["bytes_s"] >= r["ops_s"] else "operations",
             "library_ms": r["library_ms"],
         })
+    log(f"[profile] {tracing['traces']} torch.profiler traces ({tracing['retakes']} taken again) in "
+        f"{tracing['seconds']:.1f} s, {tracing['seconds'] / max(tracing['traces'], 1) * 1e3:.2f} ms a trace; the most "
+        f"markers a trace dropped "
+        f"{tracing['dropped_max']} (each trace opens with twice what the last one dropped, at least 8)")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())  # as nvidia-smi gives it, on its own line
     print(json.dumps({"kernels": kernels}))

@@ -6,14 +6,15 @@ unless the caller passes ``device="cpu"``; on CUDA the U-Net runs through
 hand-written Hopper kernels (``csrc/``, built at first use by
 ``ops/_build.py``), on the CPU through their plain PyTorch versions.
 Training: ``Trainer(...).fit(DDPM(cfg))`` (``training/``); the model families
-are ``DDPM``, ``ImprovedDDPM``, ``ConditionalDDPM`` and ``ScoreSDE``.
+are ``DDPM``, ``ImprovedDDPM``, ``ConditionalDDPM``, ``ScoreSDE``,
+``WavegradDDPM`` and the mel → waveform ``WavegradVocoderModel``.
 """
 
 from . import config, data, loss, models, modules, ops, serving, training, utils
-from .models import DDPM, ConditionalDDPM, ImprovedDDPM, ScoreSDE
+from .models import DDPM, ConditionalDDPM, ImprovedDDPM, ScoreSDE, WavegradDDPM, WavegradVocoderModel
 from .training import Trainer
 
 __all__ = [
     "config", "data", "loss", "models", "modules", "ops", "serving", "training", "utils",
-    "DDPM", "ImprovedDDPM", "ConditionalDDPM", "ScoreSDE", "Trainer",
+    "DDPM", "ImprovedDDPM", "ConditionalDDPM", "ScoreSDE", "WavegradDDPM", "WavegradVocoderModel", "Trainer",
 ]

@@ -1,7 +1,7 @@
-"""Serve a DDPM, ImprovedDDPM, ConditionalDDPM or ScoreSDE archive as a batched
-sampling daemon with the port (counterpart of ``examples/serve.py``; the
-archive's recorded class is restored through
-``restore_model_from_archive``).
+"""Serve a DDPM, ImprovedDDPM, ConditionalDDPM, ScoreSDE, WavegradDDPM or
+WaveGrad vocoder archive as a batched sampling daemon with the port
+(counterpart of ``examples/serve.py``; the archive's recorded class is
+restored through ``restore_model_from_archive``).
 
     python -m diffusion_model_nemo_tpu_torch.cli.serve model_path=DDPM.dmn \\
         port=8000 max_batch=64 use_ddim_sampler=true ddim_timesteps=50
@@ -13,7 +13,12 @@ archive's recorded class is restored through
 The fields are those of the JAX script's ``ServeConfig`` that the port's
 server has; ``device=cpu`` serves from the CPU. A ScoreSDE archive needs
 ``use_ddim_sampler=false`` (it serves with its own predictor–corrector
-sampler; the DDIM swap raises, as in the JAX script).
+sampler; the DDIM swap raises, as in the JAX script), and so does a vocoder
+archive, which serves ``POST /vocode`` only:
+
+    python -m diffusion_model_nemo_tpu_torch.cli.serve model_path=Wavegrad-Vocoder.dmn \
+        use_ddim_sampler=false max_batch=8 [mel_frames=24]
+    # POST /vocode {"mel_npy": <base64 of np.save'd [N, mel_frames, n_mels] float32>, "seed": 0}
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ class ServeConfig:
     ddim_timesteps: int = 50
     ddim_eta: float = 0.0
     image_size: Optional[int] = None
+    mel_frames: Optional[int] = None
     device: str = "cuda"
 
 
@@ -51,7 +57,7 @@ def build_server(cfg):
         cfg.model_path, host=cfg.host, port=cfg.port, max_batch=cfg.max_batch,
         linger_ms=cfg.linger_ms, use_ema=cfg.use_ema, use_ddim_sampler=cfg.use_ddim_sampler,
         ddim_timesteps=cfg.ddim_timesteps, ddim_eta=cfg.ddim_eta, base_seed=cfg.base_seed,
-        image_size=cfg.image_size, device=cfg.device,
+        image_size=cfg.image_size, device=cfg.device, mel_frames=cfg.mel_frames,
     )
 
 

@@ -35,12 +35,15 @@ class TestConfig:
     device: str = "cuda"
 
 
-def run_test(model_class, cfg):
-    """The test scripts' body for ``model_class``: ``trainer.test``'s result."""
+def run_test(model_class, cfg, prepare=None):
+    """The test scripts' body for ``model_class``: ``trainer.test``'s result
+    (``prepare(model)`` runs after the restore)."""
     if cfg.model_path:
         model = model_class.restore_from(cfg.model_path, use_ema=cfg.use_ema, device=cfg.device)
     else:
         model = model_class.from_pretrained(cfg.pretrained_model, use_ema=cfg.use_ema, device=cfg.device)
+    if prepare is not None:
+        prepare(model)
     name = cfg.dataset_name or (model.cfg.get("train_ds") or {}).get("name")
     model.setup_test_data({"name": name, "split": cfg.dataset_split, "batch_size": cfg.batch_size})
     result = Trainer(devices=-1, limit_test_batches=cfg.limit_test_batches).test(model)

@@ -1,3 +1,5 @@
-from .hf_vision_data import DataLoader, SyntheticVisionDataset, build_dataloader, preprocess_batch
+from .hf_vision_data import (
+    DataLoader, SyntheticAudioDataset, SyntheticVisionDataset, build_dataloader, preprocess_batch,
+)
 
-__all__ = ["DataLoader", "SyntheticVisionDataset", "build_dataloader", "preprocess_batch"]
+__all__ = ["DataLoader", "SyntheticAudioDataset", "SyntheticVisionDataset", "build_dataloader", "preprocess_batch"]

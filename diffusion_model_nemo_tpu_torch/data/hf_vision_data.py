@@ -1,15 +1,17 @@
-"""Training data: the synthetic image set, the host batcher and the
-on-device preprocessing.
+"""Training data: the synthetic image and audio sets, the host batcher and
+the on-device preprocessing.
 
 Counterpart of the parts of ``diffusion_model_nemo_tpu/data/hf_vision_data.py``
-the training slice needs, in numpy (the JAX package's module imports JAX):
+the training slices need, in numpy (the JAX package's module imports JAX):
 ``SyntheticVisionDataset`` draws the same ``RandomState`` images and labels,
-and ``DataLoader`` shuffles with the same epoch-seeded ``RandomState``, so
-both packages give bit-identical uint8 batches; ``set_position`` replays the
-stream from (epoch, batch) for a deterministic resume. The synthetic set
-has no splits: its ``test`` loader (``mode="test"``, no shuffle) reads the
-same images in order, as in the JAX package. Hugging Face, file and
-audio datasets, captions and multi-process sharding are not ported yet.
+``SyntheticAudioDataset`` the same waveforms (``{"audio": [T]}``, for the
+vocoder), and ``DataLoader`` shuffles with the same epoch-seeded
+``RandomState``, so both packages give bit-identical batches;
+``set_position`` replays the stream from (epoch, batch) for a deterministic
+resume. The synthetic sets have no splits: a ``test`` loader
+(``mode="test"``, no shuffle) reads the same items in order, as in the JAX
+package. Hugging Face and file datasets, captions and multi-process
+sharding are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 from ..modules.parts import not_ported
 
-__all__ = ["SyntheticVisionDataset", "DataLoader", "build_dataloader", "preprocess_batch"]
+__all__ = ["SyntheticVisionDataset", "SyntheticAudioDataset", "DataLoader", "build_dataloader",
+           "preprocess_batch"]
 
 
 class SyntheticVisionDataset:
@@ -42,6 +45,32 @@ class SyntheticVisionDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         i = int(idx) % self._images.shape[0]
         return {"image": self._images[i], "label": self._labels[i]}
+
+
+class SyntheticAudioDataset:
+    """Deterministic waveforms (sums of four harmonics and a little noise,
+    at most 64 distinct) in [-1, 1]; yields ``{"audio": float32 [T]}``."""
+
+    def __init__(self, segment_length: int = 7200, length: int = 256, seed: int = 0, mode: str = "train"):
+        self.segment_length, self.length = segment_length, length
+        rng = np.random.RandomState(seed)
+        t = np.arange(segment_length) / 24000.0
+        waves = []
+        for _ in range(min(length, 64)):
+            f0 = rng.uniform(80, 400)
+            w = sum(
+                rng.uniform(0.1, 0.5) * np.sin(2 * np.pi * f0 * (k + 1) * t + rng.uniform(0, 6.28))
+                for k in range(4)
+            )
+            w = w + rng.randn(segment_length) * 0.01
+            waves.append((w / (np.abs(w).max() + 1e-6) * 0.95).astype(np.float32))
+        self._waves = np.stack(waves)
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        return {"audio": self._waves[int(idx) % self._waves.shape[0]]}
 
 
 class DataLoader:
@@ -80,18 +109,23 @@ class DataLoader:
 
 
 def build_dataloader(cfg: Mapping, mode: str) -> DataLoader:
-    """From a reference-style ``train_ds`` block; only ``name: synthetic``."""
+    """From a reference-style ``train_ds`` block: ``name: synthetic`` or
+    ``synthetic_audio``."""
     name = str(cfg.get("name"))
-    if name != "synthetic":
+    if name not in ("synthetic", "synthetic_audio"):
         raise not_ported("build_dataloader", f"name={name!r}", "datasets")
     if cfg.get("caption_len") or cfg.get("resize_to"):
         raise not_ported("build_dataloader", "caption_len / resize_to", "datasets")
-    dataset = SyntheticVisionDataset(
-        image_size=int(cfg.get("image_size", 32)),
-        channels=int(cfg.get("channels", 3)),
-        num_classes=int(cfg.get("num_classes", 10) or 10),
-        length=int(cfg.get("length", 512)),
-    )
+    if name == "synthetic_audio":
+        dataset = SyntheticAudioDataset(segment_length=int(cfg.get("segment_length", 7200)),
+                                        length=int(cfg.get("length", 256)), mode=mode)
+    else:
+        dataset = SyntheticVisionDataset(
+            image_size=int(cfg.get("image_size", 32)),
+            channels=int(cfg.get("channels", 3)),
+            num_classes=int(cfg.get("num_classes", 10) or 10),
+            length=int(cfg.get("length", 512)),
+        )
     return DataLoader(
         dataset,
         batch_size=int(cfg.get("batch_size", 32)),

@@ -6,11 +6,14 @@ from .conditional_ddpm import ConditionalDDPM
 from .ddpm import DDPM
 from .improved_ddpm import ImprovedDDPM
 from .score_sde import ScoreSDE
+from .wavegrad_ddpm import WavegradDDPM
+from .wavegrad_vocoder import WavegradVocoderModel
 
-__all__ = ["AbstractDiffusionModel", "ConditionalDDPM", "DDPM", "ImprovedDDPM", "ScoreSDE", "restore_model_from_archive"]
+__all__ = ["AbstractDiffusionModel", "ConditionalDDPM", "DDPM", "ImprovedDDPM", "ScoreSDE", "WavegradDDPM",
+           "WavegradVocoderModel", "restore_model_from_archive"]
 
 _MODEL_CLASSES = {"DDPM": DDPM, "ImprovedDDPM": ImprovedDDPM, "ConditionalDDPM": ConditionalDDPM,
-                 "ScoreSDE": ScoreSDE}
+                  "ScoreSDE": ScoreSDE, "WavegradDDPM": WavegradDDPM, "WavegradVocoderModel": WavegradVocoderModel}
 
 
 def restore_model_from_archive(path: str, use_ema: bool = False, device="cuda"):

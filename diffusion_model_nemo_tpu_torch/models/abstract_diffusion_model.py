@@ -255,8 +255,7 @@ class AbstractDiffusionModel:
             dev = x_start.device
             static = {"x": x_start.clone(), "eps": torch.empty_like(x_start),
                       "t": torch.full((), T - 1, dtype=torch.long, device=dev),
-                      "terms": torch.zeros((T, x_start.shape[0]), dtype=torch.float32, device=dev),
-                      "constants": self.sampler.constants}
+                      "terms": torch.zeros((T, x_start.shape[0]), dtype=torch.float32, device=dev)}
             fn = static_model_fn(model_fn, static)
 
             def step():
@@ -272,7 +271,8 @@ class AbstractDiffusionModel:
             return graphs_lib.Graph("bpd", step, static, device=dev, warmup=warmup)
 
         key = ("bpd", T, tuple(x_start.shape), x_start.dtype, x_start.device, *graph_key(model_fn))
-        graph, built = graphs_lib.cached(self.sampler.graphs, key, (params or {}).values(), build)
+        graph, built = graphs_lib.cached(self.sampler.graphs, key,
+                                         (*(params or {}).values(), *self.sampler.table_tensors()), build)
         static = graph.static
         if not built:
             static["x"].copy_(x_start)

@@ -5,7 +5,9 @@ from .generalized_gaussian_diffusion import GeneralizedGaussianDiffusion
 from .learned_gaussian_diffusion import LearnedGaussianDiffusion
 from .sde_lib import VESDE, VPSDE, LikelihoodEstimate, subVPSDE
 from .sde_samplers import PredictorCorrectorSampler, ProbabilityFlowSampler
-from .unet import Unet
+from .unet import Unet, WaveGradUNet
+from .wavegrad_audio import WaveGradVocoder
+from .wavegrad_diffusion import WaveGradDiffusion
 
 __all__ = [
     "AbstractDiffusionProcess",
@@ -19,5 +21,8 @@ __all__ = [
     "Unet",
     "VESDE",
     "VPSDE",
+    "WaveGradDiffusion",
+    "WaveGradUNet",
+    "WaveGradVocoder",
     "subVPSDE",
 ]

@@ -9,7 +9,8 @@ parameters explicit, as in the JAX package; randomness comes from explicit
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Union
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -46,6 +47,14 @@ class AbstractDiffusionProcess:
         self.constants = compute_schedule_constants(
             self.timesteps, self.schedule_name, self.schedule_cfg, device=self.device
         )
+
+    def table_tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The tensors of the constant table: a captured step that reads
+        the table is held to them (``ops/graphs.py:cached``), so that a
+        ``compute_constants`` (a new T or schedule) captures anew instead of
+        replaying the old table."""
+        c = self.constants
+        return tuple(getattr(c, f.name) for f in dataclasses.fields(c))
 
     @staticmethod
     def extract(table: torch.Tensor, t, x_shape) -> torch.Tensor:

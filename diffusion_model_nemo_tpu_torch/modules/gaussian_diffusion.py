@@ -232,7 +232,7 @@ class GaussianDiffusion(AbstractDiffusionProcess):
 
             def build():
                 nonlocal static
-                static = {"x": x.clone(), "noise": torch.empty_like(x), "constants": self.constants,
+                static = {"x": x.clone(), "noise": torch.empty_like(x),
                           "t": torch.full((), T - 1, dtype=torch.long, device=x.device)}
                 fn = static_model_fn(model_fn, static)
 
@@ -246,8 +246,9 @@ class GaussianDiffusion(AbstractDiffusionProcess):
 
                 return graphs_lib.Graph("ancestral", step, static, device=x.device, warmup=warmup)
 
-            key = ("ancestral", tuple(x.shape), x.dtype, x.device, *graph_key(model_fn))
-            graph, built = graphs_lib.cached(self.graphs, key, (params or {}).values(), build)
+            key = ("ancestral", T, tuple(x.shape), x.dtype, x.device, *graph_key(model_fn))
+            graph, built = graphs_lib.cached(self.graphs, key, (*(params or {}).values(), *self.table_tensors()),
+                                             build)
             static = graph.static
             if not built:
                 static["x"].copy_(x)

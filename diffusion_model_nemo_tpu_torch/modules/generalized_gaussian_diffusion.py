@@ -61,6 +61,9 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
         one = torch.ones(1, dtype=torch.float32, device=self.device)
         self.alphas_extended_cumprod = torch.cat([one, self.constants.alphas_cumprod])
 
+    def table_tensors(self):
+        return (*super().table_tensors(), self.alphas_extended_cumprod)
+
     def generalized_predict_start_from_noise(self, x_t, t, noise):
         acp = extract(self.alphas_extended_cumprod, t + 1, x_t.ndim)
         return (x_t - noise * torch.sqrt(1.0 - acp)) / torch.sqrt(acp)
@@ -170,7 +173,6 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
                 "seq": torch.as_tensor(seq, dtype=torch.long).to(dev),
                 "seq_next": torch.as_tensor(seq_next, dtype=torch.long).to(dev),
                 "noise": torch.empty_like(x) if noisy else None,
-                "alphas": self.alphas_extended_cumprod, "constants": self.constants,
             }
             fn = static_model_fn(model_fn, static)
 
@@ -187,7 +189,7 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
             return graphs_lib.Graph("ddim", step, static, device=dev, warmup=warmup)
 
         key = ("ddim", tuple(int(t) for t in seq), tuple(x.shape), x.dtype, x.device, *graph_key(model_fn))
-        graph, built = graphs_lib.cached(self.graphs, key, (params or {}).values(), build)
+        graph, built = graphs_lib.cached(self.graphs, key, (*(params or {}).values(), *self.table_tensors()), build)
         static = graph.static
         if not built:
             static["x"].copy_(x)

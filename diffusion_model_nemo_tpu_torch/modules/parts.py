@@ -14,8 +14,10 @@ Kept reference bug: ``Block`` runs conv→norm→act for both 'conv_bn_act' and
 'bn_act_conv'; 'true_bn_act_conv' is the corrected pre-activation order.
 ``Block``/``FusedGroupNormSiLU`` take the JAX package's optional FiLM
 ``scale_shift`` (kernel #5, or #6 under its switch); no module of the U-Net
-passes one. ConvNeXt blocks and the FiLM modules (``PositionalEncoding``,
-``FeatureWiseLinearModulation``) are not ported yet.
+passes one. WaveGrad's FiLM modules (``PositionalEncoding``,
+``FeatureWiseLinearModulation``) compute a (scale, shift) pair that the
+WaveGrad U-Net applies as ``x·scale + shift`` itself, as the JAX package
+does. ConvNeXt blocks are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ __all__ = [
     "resolve_dtype",
     "not_ported",
     "remat_call",
+    "Conv1d",
     "Conv2d",
     "ConvTranspose2d",
     "Dense",
@@ -52,6 +55,9 @@ __all__ = [
     "SelfAttentionBlock",
     "Downsample",
     "Upsample",
+    "noise_level_sinusoid",
+    "PositionalEncoding",
+    "FeatureWiseLinearModulation",
 ]
 
 VALID_BLOCK_ORDERS = ("conv_bn_act", "bn_act_conv", "true_bn_act_conv")
@@ -113,6 +119,43 @@ class Conv2d(nn.Module):
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b, self.stride, self.padding)
         return y.permute(0, 2, 3, 1).contiguous()
+
+
+def same_padding(length: int, k: int, stride: int = 1, dilation: int = 1) -> Tuple[int, int]:
+    """XLA's ``padding="SAME"`` for one spatial dim: ceil(length / stride)
+    outputs, the total padding split with the smaller half on the left."""
+    out = -(-length // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - length, 0)
+    return total // 2, total - total // 2
+
+
+class Conv1d(nn.Module):
+    """flax ``nn.Conv`` with one spatial dim on [B, T, C]: weight [O, I, K],
+    zero-initialised bias. ``padding``: an int (both sides) or ``"SAME"``
+    (XLA's rule, asymmetric where the total is odd: at k = 3, stride 2 on an
+    even T it pads (0, 1), which a symmetric torch padding cannot say)."""
+
+    def __init__(self, c_in, c_out, k, stride=1, dilation=1, padding: Union[int, str] = "SAME",
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c_out, c_in, k))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+        self.stride, self.dilation, self.padding, self.dtype = stride, dilation, padding, resolve_dtype(dtype)
+
+    def reset_parameters(self, generator=None) -> None:
+        o, i, k = self.weight.shape
+        _lecun_normal_(self.weight, i * k, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        h = x.to(dt).transpose(1, 2)
+        k = self.weight.shape[-1]
+        pads = same_padding(h.shape[-1], k, self.stride, self.dilation) if self.padding == "SAME" \
+            else (self.padding, self.padding)
+        if any(pads):
+            h = F.pad(h, pads)
+        y = F.conv1d(h, self.weight.to(dt), self.bias.to(dt), self.stride, 0, self.dilation)
+        return y.transpose(1, 2).contiguous()
 
 
 class ConvTranspose2d(nn.Module):
@@ -376,3 +419,48 @@ class Upsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
+
+
+def noise_level_sinusoid(level: torch.Tensor, channels: int, scale: float = 5000.0) -> torch.Tensor:
+    """WaveGrad's encoding of a continuous noise level: [B] (any shape with
+    B leading) → [B, channels], sin‖cos of ``scale·level·1e-4^(i/half)``.
+    The frequencies are float32(1e-4) to the float32 exponents in float64,
+    rounded once: XLA's float32 pow gives exactly these, torch's float32
+    pow sits an ulp away in a few, and at angles up to 5000 rad an ulp of a
+    frequency moves the sine by ~3e-4."""
+    level = level.reshape(level.shape[0]).float()
+    half = channels // 2
+    exponents = torch.arange(half, dtype=torch.float32, device=level.device) / float(half)
+    base = torch.tensor(1e-4, dtype=torch.float32).item()  # float32(1e-4), exactly, as a Python float
+    freqs = torch.pow(base, exponents.double()).float()
+    angles = scale * level[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+class PositionalEncoding(nn.Module):
+    """WaveGrad noise-level encoding as a [B, 1, 1, C] map (no parameters)."""
+
+    def __init__(self, n_channels: int):
+        super().__init__()
+        self.n_channels = n_channels
+
+    def forward(self, noise_level: torch.Tensor) -> torch.Tensor:
+        return noise_level_sinusoid(noise_level, self.n_channels)[:, None, None, :]
+
+
+class FeatureWiseLinearModulation(nn.Module):
+    """FiLM statistics: 3×3 conv + LeakyReLU(0.2), plus the noise level's
+    encoding (float32: the sum is promoted, as in flax), then the 3×3 scale
+    and shift convs; returns (scale, shift) in the compute dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype=torch.float32):
+        super().__init__()
+        self.signal_conv = Conv2d(in_channels, in_channels, 3, padding=1, dtype=dtype)
+        self.positional_encoding = PositionalEncoding(in_channels)
+        self.scale_conv = Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.shift_conv = Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, noise_level: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = F.leaky_relu(self.signal_conv(x), 0.2)
+        h = h + self.positional_encoding(noise_level)
+        return self.scale_conv(h), self.shift_conv(h)

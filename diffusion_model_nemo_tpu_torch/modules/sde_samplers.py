@@ -171,7 +171,8 @@ class PredictorCorrectorSampler:
             return graphs_lib.Graph("pc", step, static, device=x.device, warmup=warmup)
 
         key = ("pc", tuple(x.shape), x.dtype, x.device, self.version, tuple(grid.shape), *graph_key(model_fn))
-        graph, built = graphs_lib.cached(self.graphs, key, (params or {}).values(), build)
+        sde_tables = tuple(v for v in vars(self.sde).values() if torch.is_tensor(v))
+        graph, built = graphs_lib.cached(self.graphs, key, (*(params or {}).values(), *sde_tables), build)
         static = graph.static
         if not built:
             static["x"].copy_(x)

@@ -15,6 +15,11 @@ dtype after that, is added to the stem's output before the time MLP.
 Options of the JAX U-Net that later slices bring raise
 ``NotImplementedError`` naming the slice: ConvNeXt blocks, augmentation
 conditioning and the TPU-geometry variants.
+
+``WaveGradUNet`` is the JAX package's FiLM U-Net: its ``time`` input is the
+continuous noise level √ᾱ, which conditions the network through one
+``FeatureWiseLinearModulation`` per level (``film_0`` on the stem, then
+``film_{i+1}`` on level i's pre-downsample map) instead of a time MLP.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from .parts import (
     Dense,
     Downsample,
     Embed,
+    FeatureWiseLinearModulation,
     FusedGroupNormSiLU,
     ResnetBlock,
     SelfAttentionBlock,
@@ -41,7 +47,7 @@ from .parts import (
     resolve_dtype,
 )
 
-__all__ = ["Unet"]
+__all__ = ["Unet", "WaveGradUNet"]
 
 
 @register_target("diffusion_model_nemo.modules.Unet")
@@ -131,6 +137,7 @@ class Unet(nn.Module):
             self.final_norm = FusedGroupNormSiLU(dim, groups, 1e-5, dt)
         self.final_conv = Conv2d(dim, out_dim, 1, dtype=dt)
         self.n_up = len(in_out) - 1
+        self.in_out = in_out
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """lecun-normal kernels, zero biases, unit norm scales (flax's
@@ -139,17 +146,22 @@ class Unet(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
+    def _add_class(self, x: torch.Tensor, classes: Optional[torch.Tensor]) -> torch.Tensor:
+        """The stem's output plus the class embedding (a network with
+        ``num_classes``; None = the null class, whose row is zero)."""
+        if self.num_classes is None:
+            return x
+        if classes is None:
+            classes = torch.full((x.shape[0],), self.num_classes, dtype=torch.int32, device=x.device)
+        null = (classes == self.num_classes)[:, None]
+        emb = torch.where(null, 0.0, self.class_embed(classes)).to(self.dtype)
+        return x + emb[:, None, None, :]
+
     def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, H, W, C] float; time: [B] (int or float); classes: [B] int
         (a network with ``num_classes``; None = the null class) → [B, H, W,
         out] float32."""
-        x = self.init_conv(x.to(self.dtype))
-        if self.num_classes is not None:
-            if classes is None:
-                classes = torch.full((x.shape[0],), self.num_classes, dtype=torch.int32, device=x.device)
-            null = (classes == self.num_classes)[:, None]
-            emb = torch.where(null, 0.0, self.class_embed(classes)).to(self.dtype)
-            x = x + emb[:, None, None, :]
+        x = self._add_class(self.init_conv(x.to(self.dtype)), classes)
         t = None
         if self.with_time_emb:
             t = self.time_sinusoid(time)
@@ -179,6 +191,72 @@ class Unet(nn.Module):
             if ind < self.num_resolutions - 1:
                 x = getattr(self, f"up_{ind}_upsample")(x)
 
+        x = block(self.final_block, x, None)
+        if self.resnet_block_order == "bn_act_conv":
+            x = self.final_norm(x)
+        return self.final_conv(x).float()
+
+
+@register_target("diffusion_model_nemo.modules.WaveGradUNet")
+class WaveGradUNet(Unet):
+    """FiLM-conditioned U-Net (JAX ``modules/unet.py:WaveGradUNet``): the
+    ``time`` input is the continuous noise level ([B, 1, 1, 1] or [B]). The
+    ResNet blocks take no time embedding and no time MLP is built, whatever
+    ``with_time_emb`` says (the JAX module passes ``None`` to every block);
+    the blocks' GroupNorm+SiLU kernels run at every site all the same.
+    Statistics are collected on the way down and applied ``x·scale +
+    shift`` after each up level, the stem's ``scale·x + shift`` before the
+    final block. The deepest level's FiLM is computed and discarded in the
+    JAX package (XLA drops it); here it is not called, but its parameters
+    exist, so archives carry over. Like the JAX module, no FiLM is built
+    for the up path."""
+
+    def __init__(self, dim: int, *args, with_time_emb: bool = False, **kwargs):
+        super().__init__(dim, *args, with_time_emb=False, **kwargs)
+        dt = self.dtype
+        self.film_0 = FeatureWiseLinearModulation(dim, dim, dt)
+        for ind, (_dim_in, dim_out) in enumerate(self.in_out):
+            self.add_module(f"film_{ind + 1}", FeatureWiseLinearModulation(dim_out, dim_out, dt))
+        deepest = f"film_{len(self.in_out)}"
+        # The parameters no output reads: a training step gives them a zero gradient.
+        self.unused_params = frozenset(f"{deepest}.{n}" for n, _p in getattr(self, deepest).named_parameters())
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [B, H, W, C]; time: the noise level √ᾱ, [B, 1, 1, 1] or [B]
+        (an integer t is taken as a level, as the JAX network takes it) →
+        [B, H, W, out] float32."""
+        level = time
+        x = self.init_conv(x.to(self.dtype))
+        statistics = [self.film_0(x, level)]
+        x = self._add_class(x, classes)
+
+        block = remat_call if self.remat else (lambda m, *a: m(*a))
+        skips = []
+        for ind in range(self.num_resolutions):
+            x = block(getattr(self, f"down_{ind}_block1"), x, None)
+            x = block(getattr(self, f"down_{ind}_block2"), x, None)
+            x = getattr(self, f"down_{ind}_attn")(x)
+            skips.append(x)
+            if ind < self.num_resolutions - 1:  # the deepest level's statistics are never read
+                statistics.append(getattr(self, f"film_{ind + 1}")(x, level))
+                x = getattr(self, f"down_{ind}_downsample")(x)
+
+        x = block(self.mid_block1, x, None)
+        x = self.mid_attn(x)
+        x = block(self.mid_block2, x, None)
+
+        for ind in range(self.n_up):
+            scale, shift = statistics.pop()
+            x = torch.cat([x, skips.pop()], dim=-1)
+            x = block(getattr(self, f"up_{ind}_block1"), x, None)
+            x = block(getattr(self, f"up_{ind}_block2"), x, None)
+            x = getattr(self, f"up_{ind}_attn")(x)
+            if ind < self.num_resolutions - 1:
+                x = getattr(self, f"up_{ind}_upsample")(x)
+            x = x * scale + shift
+
+        scale, shift = statistics.pop()  # the stem's
+        x = scale * x + shift
         x = block(self.final_block, x, None)
         if self.resnet_block_order == "bn_act_conv":
             x = self.final_norm(x)

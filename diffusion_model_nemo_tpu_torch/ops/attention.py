@@ -133,7 +133,7 @@ def linear_attention_qkv_reference(
 
 
 def linear_attention_qkv_fused_reference(
-    qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+    qkv: torch.Tensor, heads: int, dim_head: int, scale: float, acc=torch.float32
 ) -> torch.Tensor:
     """The raw-qkv core with TPU kernel #8's seams (``_linattn_kernel``): q, k
     and v taken in f32; q softmax over each head with one max over the
@@ -142,8 +142,11 @@ def linear_attention_qkv_fused_reference(
     against on the card. The module composition
     (``linear_attention_qkv_reference``) rounds q_sm, k_sm and the context to
     bf16: at outputs under 0.1 about a third of its elements sit one bf16
-    step from the kernel's function. In float32 the two are the same math."""
-    return _attend(qkv.float(), torch.float32, heads, dim_head, scale).to(qkv.dtype)
+    step from the kernel's function. In float32 the two are the same math.
+    ``acc=torch.float64`` keeps every sum in float64 between the same
+    roundings (the seam check's yardstick, free of float32 summation
+    order)."""
+    return _attend(qkv.to(acc), torch.float32, heads, dim_head, scale).to(qkv.dtype)
 
 
 def linear_attention_tokens_reference(
@@ -156,7 +159,7 @@ def linear_attention_tokens_reference(
 
 
 def linear_attention_tokens_fused_reference(
-    h: torch.Tensor, w_qkv: torch.Tensor, heads: int, dim_head: int, scale: float
+    h: torch.Tensor, w_qkv: torch.Tensor, heads: int, dim_head: int, scale: float, acc=torch.float32
 ) -> torch.Tensor:
     """The qkv-fused core with TPU kernel #3's seams (``_linattn_qkv_fused_kernel``):
     qkv = h·W_qkv in f32 from operands in h's dtype, then ``_attend`` (q_sm,
@@ -164,9 +167,12 @@ def linear_attention_tokens_fused_reference(
     h's dtype), q_sm·gram in f32 cast once. What kernel #3 is held against
     on the card. The module composition (``linear_attention_tokens_reference``)
     rounds qkv to bf16 before both softmaxes instead: at outputs under 0.1
-    about half its elements sit one bf16 step from the kernel's function."""
+    about half its elements sit one bf16 step from the kernel's function.
+    ``acc=torch.float64`` keeps every sum in float64 between the same
+    roundings (the seam check's yardstick, free of float32 summation
+    order)."""
     dt = h.dtype
-    qkv = h.float() @ w_qkv.to(dt).float()
+    qkv = h.to(acc) @ w_qkv.to(dt).to(acc)
     return _attend(qkv, dt, heads, dim_head, scale).to(dt)
 
 
@@ -182,13 +188,13 @@ def linear_attention_v4_reference(
 
 def linear_attention_v4_fused_reference(
     x_packed: torch.Tensor, w_qkv: torch.Tensor, n_tokens: int, heads: int, dim_head: int,
-    scale: float,
+    scale: float, acc=torch.float32,
 ) -> torch.Tensor:
     """#12 with the TPU kernel's seams (``_v4_kernel``: #3's math on the
     packed view): the view back to token rows, then
     ``linear_attention_tokens_fused_reference``."""
     h = x_packed.reshape(x_packed.shape[0], n_tokens, -1)
-    return linear_attention_tokens_fused_reference(h, w_qkv, heads, dim_head, scale)
+    return linear_attention_tokens_fused_reference(h, w_qkv, heads, dim_head, scale, acc)
 
 
 def linear_attention_block_reference(
@@ -262,15 +268,17 @@ def _attend(qkv: torch.Tensor, dt, heads: int, dim_head: int, scale: float) -> t
     """f32 qkv [B, N, 3·h·d] → f32 q_sm·gram [B, N, h·d], with the TPU
     kernels' seams: q softmax with one max over the token's h·d columns and
     per-head sums, ×scale; k softmax over N; q_sm, k_sm, v and the per-head
-    gram rounded to ``dt``; the product in f32, not rounded."""
+    gram rounded to ``dt``; the product in f32, not rounded. A float64 qkv
+    keeps every sum in float64 between the same roundings."""
     B, N, _ = qkv.shape
     hd = heads * dim_head
+    acc = qkv.dtype
     q, k, v = qkv.split(hd, dim=-1)
     qe = torch.exp(q - q.amax(dim=-1, keepdim=True)).reshape(B, N, heads, dim_head)
-    q_sm = (qe / qe.sum(dim=-1, keepdim=True) * scale).to(dt).float()
-    k_sm = torch.softmax(k, dim=1).to(dt).float().reshape(B, N, heads, dim_head)
-    v = v.to(dt).float().reshape(B, N, heads, dim_head)
-    gram = torch.einsum("bnhd,bnhe->bhde", k_sm, v).to(dt).float()
+    q_sm = (qe / qe.sum(dim=-1, keepdim=True) * scale).to(dt).to(acc)
+    k_sm = torch.softmax(k, dim=1).to(dt).to(acc).reshape(B, N, heads, dim_head)
+    v = v.to(dt).to(acc).reshape(B, N, heads, dim_head)
+    gram = torch.einsum("bnhd,bnhe->bhde", k_sm, v).to(dt).to(acc)
     return torch.einsum("bnhd,bhde->bnhe", q_sm, gram).reshape(B, N, hd)
 
 

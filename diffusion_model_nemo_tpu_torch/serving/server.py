@@ -18,11 +18,18 @@ Counterpart of ``diffusion_model_nemo_tpu/serving/server.py``:
   memory, right behind its last step, with an event that marks its end.
 
 Endpoints (standard library ``http.server``):
-  GET  /healthz  → {"status": "ok", "warm": ..., "mode": "sample"}
+  GET  /healthz  → {"status": "ok", "warm": ..., "mode": "sample"|"vocode"}
   GET  /stats    → request / batch / latency counters
   POST /sample   → JSON {"num_images": N, "seed": S?, "label": L?,
                    "guidance_scale": W?, "format": "png"|"npy"}
                    → {"images": [b64 PNG, ...]} or raw .npy bytes
+  POST /vocode   → (WaveGrad vocoder archives) JSON {"mel_npy": b64 of an
+                   np.save'd [N, F, n_mels] float log-mel array, "seed": S?}
+                   → raw .npy [N, F·hop] float32 waveforms (always npy).
+                   F must equal the server's ``mel_frames`` (default the
+                   archive's ``segment_frames``: fixed shapes). A vocoder
+                   archive serves only this route; /sample answers it 400,
+                   and /vocode answers any other archive 400.
 ``label`` and ``guidance_scale`` need a class-conditional archive
 (``ConditionalDDPM``): a label in [0, K), no label = the null class, and
 a guidance scale only with a label (one network call on the 2B batch a
@@ -32,8 +39,15 @@ answer 400, timeouts 504, faults in the worker or the response path 500.
 A ScoreSDE archive is served with its own sampler (the predictor–corrector
 chain of its config, captured as in ``modules/sde_samplers.py``); DDIM
 cannot re-grid it and ``serve(use_ddim_sampler=True)`` raises, as the JAX
-server does. The super-resolution, edit, vocoder and text modes are not ported yet:
-those routes answer 501. ``serve`` takes a model object or a ``.dmn`` archive path (or a
+server does. A WaveGrad vocoder archive keeps its own (searchable)
+schedule: ``serve(use_ddim_sampler=True)`` raises for it too, as in the
+JAX server; its batches are vocoded on the ancestral chain (captured, the
+mel inputs a static buffer), and the waveforms stay float32. A
+``WavegradDDPM`` archive serves /sample on its own ancestral chain under
+``use_ddim_sampler=False``; with the DDIM swap its network reads DDIM's
+integer t as its noise level, as the JAX server's does. The
+super-resolution, edit and text modes are not ported yet: those routes
+answer 501. ``serve`` takes a model object or a ``.dmn`` archive path (or a
 local-hub model name), as the JAX ``serve(model_path, ...)`` does.
 """
 
@@ -59,7 +73,7 @@ __all__ = ["BatchingSampler", "SamplingServer", "serve"]
 
 log = logging.getLogger(__name__)
 
-_NOT_PORTED_ROUTES = ("/super_resolve", "/vocode", "/edit")
+_NOT_PORTED_ROUTES = ("/super_resolve", "/edit")
 
 
 @dataclass
@@ -68,6 +82,7 @@ class _Request:
     seed: Optional[int]
     label: Optional[int] = None
     guidance_scale: Optional[float] = None
+    mel: Optional[np.ndarray] = None  # vocoder mode: log-mel [n, F, n_mels]
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[str] = None
@@ -77,9 +92,10 @@ class _Request:
 class BatchingSampler:
     """Coalesces sample requests into fixed-shape device batches.
 
-    ``submit(n)`` blocks until the worker thread has produced ``n`` images.
-    Unseeded batches draw from a generator seeded by (``base_seed``, batch
-    counter); a seeded request's batch from ``seed`` alone.
+    ``submit(n)`` blocks until the worker thread has produced ``n`` images
+    (``submit_vocode(mel)`` the waveforms of a vocoder archive). Unseeded
+    batches draw from a generator seeded by (``base_seed``, batch counter);
+    a seeded request's batch from ``seed`` alone.
     """
 
     def __init__(
@@ -90,8 +106,11 @@ class BatchingSampler:
         linger_ms: float = 5.0,
         use_ema: bool = True,
         base_seed: int = 0,
+        mel_frames: Optional[int] = None,
     ):
         self.model = model
+        self.vocode_mode = hasattr(model, "vocode")
+        self.mel_frames = int(mel_frames or model.segment_frames) if self.vocode_mode else None
         self.device = torch.device(model.device)
         self.image_size = int(image_size)
         self.max_batch = int(max_batch)
@@ -118,7 +137,11 @@ class BatchingSampler:
         """Optionally run one full batch (builds the kernels, captures the
         sampler's CUDA graph), then start the worker."""
         if warmup:
-            self._to_host(self._dispatch_sample(self._next_generator(), None, None))
+            if self.vocode_mode:
+                zeros = np.zeros((self.max_batch, self.mel_frames, int(self.model.n_mels)), np.float32)
+                self._to_host(self._dispatch_vocode(zeros, self._next_generator()))
+            else:
+                self._to_host(self._dispatch_sample(self._next_generator(), None, None))
             self._warm = True
         self._worker.start()
         return self
@@ -143,6 +166,9 @@ class BatchingSampler:
         timeout: Optional[float] = None,
         guidance_scale: Optional[float] = None,
     ) -> np.ndarray:
+        if self.vocode_mode:
+            raise ValueError("this archive is a WaveGrad vocoder: POST /vocode with log-mel inputs "
+                             "(submit_vocode), not /sample")
         num_classes = getattr(self.model, "num_classes", None)
         if label is not None:
             if num_classes is None:
@@ -168,11 +194,40 @@ class BatchingSampler:
                 chunk += 1
             return np.concatenate(parts, axis=0)
         req = _Request(num_images=num_images, seed=seed, label=label, guidance_scale=guidance_scale)
+        return self._wait(req, timeout, "sample")
+
+    def submit_vocode(self, mel: np.ndarray, seed: Optional[int] = None,
+                      timeout: Optional[float] = None) -> np.ndarray:
+        """Vocode log-mel inputs [n, F, n_mels] → waveforms [n, F·hop]: the
+        contract of ``submit`` (oversized requests in ``max_batch`` chunks,
+        a seeded request alone, unseeded ones coalesced)."""
+        if not self.vocode_mode:
+            raise ValueError("submit_vocode requires a WaveGrad vocoder archive")
+        mel = np.asarray(mel, dtype=np.float32)
+        if mel.ndim != 3:
+            raise ValueError(f"mel must be [n, F, n_mels], got {mel.shape}")
+        expect = (self.mel_frames, int(self.model.n_mels))
+        if tuple(mel.shape[1:]) != expect:
+            raise ValueError(f"mel inputs must be [n, {expect[0]}, {expect[1]}] for this server "
+                             f"(mel_frames={self.mel_frames}); got {mel.shape}")
+        n = mel.shape[0]
+        if n < 1:
+            raise ValueError("need at least one mel input")
+        if seed is not None:
+            seed = int(seed)
+        if n > self.max_batch:
+            parts = [self.submit_vocode(mel[off: off + self.max_batch], None if seed is None else seed + i, timeout)
+                     for i, off in enumerate(range(0, n, self.max_batch))]
+            return np.concatenate(parts, axis=0)
+        return self._wait(_Request(num_images=n, seed=seed, mel=mel), timeout, "vocode")
+
+    def _wait(self, req: _Request, timeout: Optional[float], what: str) -> np.ndarray:
+        """Queue ``req`` and wait for the worker to answer it."""
         with self._cv:
             self._queue.append(req)
             self._cv.notify_all()
         if not req.done.wait(timeout=timeout):
-            raise TimeoutError(f"sample request not served within {timeout}s")
+            raise TimeoutError(f"{what} request not served within {timeout}s")
         if req.error is not None:
             raise RuntimeError(req.error)
         return req.result
@@ -204,11 +259,28 @@ class BatchingSampler:
             use_ema=self.use_ema,
             **kwargs,
         )
-        images = to_uint8_tensor(out)
-        if images.device.type != "cuda":
-            return images.cpu(), None
-        host = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
-        host.copy_(images, non_blocking=True)
+        return self._copy_out(to_uint8_tensor(out))
+
+    def _dispatch_vocode(self, mels: np.ndarray, generator: torch.Generator):
+        """Enqueue one fixed-shape vocode batch: the stacked mel inputs
+        padded to ``max_batch`` rows (the padding rows are computed and
+        discarded); the waveforms stay float32. Returns (host tensor, event)
+        as ``_dispatch_sample`` does."""
+        n = mels.shape[0]
+        if n < self.max_batch:
+            mels = np.concatenate([mels, np.zeros((self.max_batch - n,) + mels.shape[1:], mels.dtype)], axis=0)
+        out = self.model.vocode(torch.from_numpy(mels), generator=generator, use_ema=self.use_ema)
+        return self._copy_out(out)
+
+    @staticmethod
+    def _copy_out(out: torch.Tensor):
+        """(host tensor, event): on CUDA a non-blocking copy into pinned
+        memory and an event marking its end; elsewhere the tensor on the
+        host and no event."""
+        if out.device.type != "cuda":
+            return out.cpu(), None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return host, done
@@ -284,7 +356,10 @@ class BatchingSampler:
                     else self._next_generator()
                 )
                 t0 = time.perf_counter()
-                dispatched = self._dispatch_sample(gen, group[0].label, group[0].guidance_scale)
+                if self.vocode_mode:
+                    dispatched = self._dispatch_vocode(np.concatenate([r.mel for r in group], axis=0), gen)
+                else:
+                    dispatched = self._dispatch_sample(gen, group[0].label, group[0].guidance_scale)
             except Exception as e:  # worker boundary: report to every waiter
                 log.exception("sample dispatch failed")
                 for r in group:
@@ -337,7 +412,8 @@ class SamplingServer:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    self._json(200, {"status": "ok", "warm": server.batcher.warm, "mode": "sample"})
+                    mode = "vocode" if server.batcher.vocode_mode else "sample"
+                    self._json(200, {"status": "ok", "warm": server.batcher.warm, "mode": mode})
                 elif self.path == "/stats":
                     self._json(200, server.batcher.snapshot_stats())
                 else:
@@ -352,6 +428,14 @@ class SamplingServer:
                 payload = json.loads(self.rfile.read(length) or b"{}")
                 if not isinstance(payload, dict):
                     raise ValueError("the request body must be a JSON object")
+                if self.path == "/vocode":
+                    blob = payload.get("mel_npy")
+                    if not blob:
+                        raise ValueError("mel_npy (base64 of an np.save'd [N,F,n_mels] array) is required")
+                    mel = np.load(io.BytesIO(base64.b64decode(blob)), allow_pickle=False)
+                    waves = server.batcher.submit_vocode(mel, seed=payload.get("seed"),
+                                                         timeout=float(payload.get("timeout", 600.0)))
+                    return waves, "npy"  # waveforms have no PNG form
                 images = server.batcher.submit(
                     int(payload.get("num_images", 1)),
                     seed=payload.get("seed"),
@@ -365,7 +449,7 @@ class SamplingServer:
                 if self.path in _NOT_PORTED_ROUTES:
                     self._json(501, {"error": f"{self.path} is not ported yet"})
                     return
-                if self.path != "/sample":
+                if self.path not in ("/sample", "/vocode"):
                     self._json(404, {"error": f"no route {self.path}"})
                     return
                 try:
@@ -429,17 +513,26 @@ def serve(
     base_seed: int = 0,
     image_size: Optional[int] = None,
     device: str = "cuda",
+    mel_frames: Optional[int] = None,
 ) -> SamplingServer:
     """Serve a model object, or the archive at a path (or a local-hub model
     name, restored on ``device``): optionally swap in DDIM (the default, as
     in ``examples/serve.py``; a ScoreSDE archive refuses it and serves with
-    its own sampler under ``use_ddim_sampler=False``), warm up with one
-    batch, and return the server (not yet listening: call ``serve_forever``
-    or ``start_background``)."""
+    its own sampler under ``use_ddim_sampler=False``, and so does a WaveGrad
+    vocoder archive, whose ``mel_frames`` default to its segment's), warm
+    up with one batch, and return the server (not yet listening: call
+    ``serve_forever`` or ``start_background``)."""
     if isinstance(model, (str, os.PathLike)):
         from ..models import restore_model_from_archive
 
         model = restore_model_from_archive(str(model), use_ema=False, device=device)
+    if use_ddim_sampler and hasattr(model, "vocode"):
+        # The vocoder's schedule is its sampler (searchable, level-conditioned):
+        # DDIM would condition its network on a discrete t.
+        raise ValueError(
+            "vocoder archives keep their own (searchable) WaveGrad schedule: pass use_ddim_sampler=false; "
+            "use the schedule search of the vocode CLI for fast sampling"
+        )
     if use_ddim_sampler and not hasattr(model.sampler, "constants"):
         # A score SDE has no discrete noise schedule to re-grid: it serves
         # with its own sampler (the JAX server's refusal).
@@ -460,5 +553,6 @@ def serve(
         linger_ms=linger_ms,
         use_ema=use_ema,
         base_seed=base_seed,
+        mel_frames=mel_frames,
     ).start()
     return SamplingServer(batcher, host=host, port=port)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "PEAK_BYTES_PER_S", "PEAK_OPS", "time_ms", "queued_us", "traced", "device_profile",
+    "PEAK_BYTES_PER_S", "PEAK_OPS", "EmptyTraceError", "tracing", "time_ms", "queued_us", "traced", "device_profile",
     "device_ms", "kernel_launches", "work", "bound_us",
 ]
 
@@ -53,57 +53,107 @@ def queued_us(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) * 1e3 / iters
 
 
+class EmptyTraceError(RuntimeError):
+    """A trace that a measurement needs held none of its calls' device
+    events."""
+
+
+# torch.cuda._sleep's kernel: each trace opens with one spin of LEAD_US and a
+# run of short spins (the markers), all left out of the events (no measured
+# function launches it).
+MARKER_KERNEL = "spin_kernel"
+LEAD_US = 1024
+SPIN_CYCLES_PER_US = 1980  # the H100 SXM's top SM clock, MHz
+MIN_MARKERS, MAX_MARKERS = 8, 1 << 14
+ATTEMPTS = 6  # traces taken at most for one measurement
+COUNT_CALLS = 10  # calls a trace holds where launches per call are counted
+# The markers the next trace opens with (twice what the last trace dropped,
+# at least MIN_MARKERS), and what tracing has cost so far: traces taken,
+# those taken again, host seconds, the most markers a trace dropped.
+tracing = {"markers": MIN_MARKERS, "traces": 0, "retakes": 0, "seconds": 0.0, "dropped_max": 0}
+
+
 def traced(fn, calls: int = 1):
     """(name, us) of every device event of ``calls`` calls of ``fn`` in one
-    torch.profiler trace. A trace now and then comes back without device
-    events: it is taken again, four times at most."""
+    torch.profiler trace.
+
+    torch.profiler drops device events on the H100 machine
+    (``tools/check_profiler.py``): the first events of a trace, more of
+    them as the process lives on, and now and then every event of a
+    trace; a run of short kernels launched first is dropped more than one
+    queued behind a long one, and waiting on the host first changes
+    nothing. So each trace opens with a spin of ``LEAD_US`` and then
+    ``tracing["markers"]`` short spins, all left out of the result: a trace
+    that kept one of the short spins lost none of the calls' events, which
+    come after them on the stream. The next trace opens with twice the
+    markers this one dropped (at least ``MIN_MARKERS``), so the run shrinks
+    again when drops do. A trace that kept the calls' events but no marker
+    is taken again with four times the markers (up to ``MAX_MARKERS``), one that
+    kept nothing is taken again as it was, ``ATTEMPTS`` traces in all; then
+    ``EmptyTraceError`` is raised: a measurement never reads a trace that
+    dropped its events. On the H100 a marker costs 73-104 us of host time
+    in a trace (event processing), the lead 1 ms on the card."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
-    events = []
-    for _ in range(4):
+    for attempt in range(ATTEMPTS):
+        t0 = time.perf_counter()
+        n = tracing["markers"]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(LEAD_US * SPIN_CYCLES_PER_US)
+            for _ in range(n):
+                torch.cuda._sleep(1)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+        device = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            break
-    return events
+        tracing["traces"] += 1
+        tracing["retakes"] += attempt > 0
+        tracing["seconds"] += time.perf_counter() - t0
+        kept = sum(MARKER_KERNEL in name and us < LEAD_US / 2 for name, us in device)
+        events = [(name, us) for name, us in device if MARKER_KERNEL not in name]
+        if kept and events:
+            tracing["dropped_max"] = max(tracing["dropped_max"], n - kept)
+            tracing["markers"] = min(max(2 * (n - kept), MIN_MARKERS), MAX_MARKERS)
+            return events
+        if events:  # the drop reached past the markers
+            tracing["markers"] = min(4 * n, MAX_MARKERS)
+    raise EmptyTraceError(f"{ATTEMPTS} torch.profiler traces of {calls} call(s) kept none of the calls' device "
+                          f"events after {tracing['markers']} markers")
 
 
 def device_profile(fn, iters: int = 10):
-    """Device time per call of everything ``fn`` runs on the card, from
-    torch.profiler traces: (total ms per call, {kernel name: ms per call}).
-    A trace also drops some of its events now and then (a kernel's time was
-    seen to halve), so a kernel's time per call is the mean of its events
-    that were kept times its launches per call (the most that a one-call
-    trace or the ``iters``-call trace shows)."""
+    """Device time per call of everything ``fn`` runs on the card, from one
+    torch.profiler trace of ``iters`` calls: (total ms per call, {kernel
+    name: ms per call}). A kernel's time per call is the mean of its events
+    that were kept times its launches per call (its events over ``iters``,
+    rounded), so a dropped event changes neither."""
     fn()
     torch.cuda.synchronize()
-    per_call = {}
-    for name, _us in traced(fn):
-        per_call[name] = per_call.get(name, 0) + 1
     times = {}
     for name, us in traced(fn, iters):
         times.setdefault(name, []).append(us)
-    by_name = {name: sum(t) / len(t) / 1e3 * max(per_call.get(name, 0), round(len(t) / iters), 1)
-               for name, t in times.items()}
+    by_name = {name: sum(t) / len(t) / 1e3 * max(round(len(t) / iters), 1) for name, t in times.items()}
     return sum(by_name.values()), by_name
 
 
 def device_ms(fn):
-    """Device time per call from the profiler; None ("not measured") when
-    the traces hold no device time."""
-    total = device_profile(fn)[0]
-    return total if total > 0 else None
+    """Device time per call from the profiler (``EmptyTraceError`` when no
+    trace holds the call's device events)."""
+    return device_profile(fn)[0]
 
 
 def kernel_launches(fn):
-    """Names of the device kernels one call of ``fn`` runs, in order."""
+    """Names of the device kernels one call of ``fn`` runs, in the order of
+    their first launch, each as many times as it runs a call (counted over
+    ``COUNT_CALLS`` calls)."""
     fn()
     torch.cuda.synchronize()
-    return [name for name, _us in traced(fn)]
+    names = [name for name, _us in traced(fn, COUNT_CALLS)]
+    per_call = {name: max(round(names.count(name) / COUNT_CALLS), 1) for name in dict.fromkeys(names)}
+    return [name for name, n in per_call.items() for _ in range(n)]
 
 
 def work(name, args):

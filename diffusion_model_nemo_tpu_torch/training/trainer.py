@@ -57,11 +57,24 @@ from ..ops import graphs as graphs_lib
 from .ema import ema_decay_table, ema_update, init_ema
 from .optim import Optimizer, build_optimizer, global_norm
 
-__all__ = ["Trainer", "TrainState"]
+__all__ = ["Trainer", "TrainState", "param_grads"]
 
 log = logging.getLogger(__name__)
 
 _ONE_DEVICE_STRATEGIES = (None, "ddp", "none", "null", "auto", "dp", "single_device")
+
+
+def param_grads(loss: torch.Tensor, params: Dict[str, torch.Tensor], unused=frozenset()) -> Dict[str, torch.Tensor]:
+    """d loss / d params by name. A parameter named in ``unused`` (one its
+    network declares the loss never reads, as the WaveGrad U-Net's deepest
+    FiLM, whose statistics the JAX network discards) gets a zero gradient;
+    any other parameter the loss does not read is an error, as autograd's."""
+    keys = list(params)
+    grads = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=bool(unused))
+    missing = [k for k, g in zip(keys, grads) if g is None and k not in unused]
+    if missing:
+        raise RuntimeError(f"the loss does not read {missing}, which the network does not declare unused")
+    return {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(keys, grads)}
 
 
 @dataclass
@@ -195,8 +208,7 @@ class Trainer:
         loss, gradients, global norm, clip + update, EMA. ``scalars``: the
         optimizer's and the EMA's rows (``_scalars``)."""
         loss, metrics = model.training_step(state.params, batch, draws)
-        keys = list(state.params)
-        grads = dict(zip(keys, torch.autograd.grad(loss, [state.params[k] for k in keys])))
+        grads = param_grads(loss, state.params, getattr(model.diffusion_model, "unused_params", frozenset()))
         with torch.no_grad():
             norm = global_norm(grads)
             self.optimizer.step(state.params, grads, state.opt_state, grad_norm=norm, scalars=scalars[0])
@@ -210,8 +222,8 @@ class Trainer:
         buffers first. Captured with the derived-weights
         cache off: the prenorm folds, casts and re-layouts of the changing
         weights are recomputed at every replay."""
-        host = {}  # the batch's arrays: the image, and the labels where the batch has them
-        for k in ("image", "label"):
+        host = {}  # the batch's arrays: the image or the waveform, and the labels where the batch has them
+        for k in ("image", "audio", "label"):
             if k in batch:
                 v = batch[k]
                 v = v if torch.is_tensor(v) else torch.as_tensor(np.ascontiguousarray(v))
@@ -243,7 +255,8 @@ class Trainer:
         writes = [*state.params.values(), *state.ema_params.values()]
         moments = [v for d in state.opt_state.values() if isinstance(d, dict) for v in d.values()]
         key = ("train_step", *((k, tuple(v.shape), v.dtype) for k, v in {**host, **draws}.items()))
-        graph, built = graphs_lib.cached(state.graphs, key, writes + moments, build)
+        tables = getattr(model.sampler, "table_tensors", tuple)()  # q_sample's, the noise level's
+        graph, built = graphs_lib.cached(state.graphs, key, [*writes, *moments, *tables], build)
         if built:
             out = graph.warmup_out
         else:
@@ -332,9 +345,10 @@ class Trainer:
                 # A tail shorter than K runs the group's first steps singly.
                 prev = state.step
                 for batch in group[: max_steps - prev]:
-                    draws = model.draw_training_inputs(batch["image"].shape, generator)
+                    data = batch["audio"] if "audio" in batch else batch["image"]  # a vocoder trains on waveforms
+                    draws = model.draw_training_inputs(data.shape, generator)
                     metrics = self.train_step(model, state, batch, draws, graphs=graphs)
-                    samples_since += batch["image"].shape[0]
+                    samples_since += data.shape[0]
                 step = self.global_step = state.step
 
                 def crossed(cadence: int) -> bool:

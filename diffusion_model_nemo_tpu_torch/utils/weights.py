@@ -7,6 +7,7 @@ one ``state_dict`` entry (``down_0_block1/block1/proj/kernel`` →
 the owning port module:
 
 - ``Conv2d``: HWIO → OIHW;
+- ``Conv1d`` (the vocoder's): [K, I, O] → [O, I, K];
 - ``ConvTranspose2d``: HWIO with a spatial flip → IOHW (flax's 'SAME'
   k4 s2 transposed conv is torch's ConvTranspose2d(k=4, s=2, p=1) on the
   flipped kernel);
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..modules.parts import Conv1x1, Conv2d, ConvTranspose2d, Dense, Embed, GNParams
+from ..modules.parts import Conv1d, Conv1x1, Conv2d, ConvTranspose2d, Dense, Embed, GNParams
 
 __all__ = ["from_flax_params", "to_flax_params"]
 
@@ -43,6 +44,8 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
 def _to_torch(owner: nn.Module, w: np.ndarray) -> np.ndarray:
     if isinstance(owner, Conv2d):
         return w.transpose(3, 2, 0, 1)
+    if isinstance(owner, Conv1d):
+        return w.transpose(2, 1, 0)
     if isinstance(owner, ConvTranspose2d):
         return w[::-1, ::-1].transpose(2, 3, 0, 1)
     if isinstance(owner, Conv1x1):  # before Dense: Conv1x1 is a Dense
@@ -57,6 +60,8 @@ def _to_torch(owner: nn.Module, w: np.ndarray) -> np.ndarray:
 def _to_flax(owner: nn.Module, w: np.ndarray) -> np.ndarray:
     if isinstance(owner, Conv2d):
         return w.transpose(2, 3, 1, 0)
+    if isinstance(owner, Conv1d):
+        return w.transpose(2, 1, 0)
     if isinstance(owner, ConvTranspose2d):
         return w.transpose(2, 3, 0, 1)[::-1, ::-1]
     if isinstance(owner, Conv1x1):

@@ -449,6 +449,33 @@ def test_chip_smoke_holds_kernels_3_and_12_against_the_seam_reference():
                                TA.linear_attention_tokens_reference(h, w, H, D, SCALE), rtol=0, atol=0)
 
 
+def test_seam_references_keep_their_roundings_with_float64_sums():
+    """The seam check's yardstick: #3's, #12's and #8's plain versions with
+    ``acc=torch.float64`` keep the same bf16 roundings and move only the
+    float32 summation order: a few elements one bf16 step from the float32
+    versions, #12 still equal to #3 on its packed view, and #8 in float32
+    within float32 rounding."""
+    rng = np.random.default_rng(9)
+    h = _t(rng.standard_normal((2, 256, 64)), torch.bfloat16)
+    w = _t(rng.standard_normal((64, 3 * HD)) * 0.125, torch.float32)
+    qkv = _t(rng.standard_normal((2, 256, 3 * HD)), torch.bfloat16)
+    for f32, f64 in (
+        (TA.linear_attention_tokens_fused_reference(h, w, H, D, SCALE),
+         TA.linear_attention_tokens_fused_reference(h, w, H, D, SCALE, torch.float64)),
+        (TA.linear_attention_qkv_fused_reference(qkv, H, D, SCALE),
+         TA.linear_attention_qkv_fused_reference(qkv, H, D, SCALE, torch.float64)),
+    ):
+        assert f64.dtype == f32.dtype == torch.bfloat16
+        step = 2.0**-7 * float(f64.float().abs().max())
+        assert float((f64.float() - f32.float()).abs().max()) <= step
+        assert 0 < float((f64 != f32).float().mean()) < 0.02
+    packed = TA.linear_attention_v4_fused_reference(h.reshape(2, 128, 128), w, 256, H, D, SCALE, torch.float64)
+    assert torch.equal(packed, TA.linear_attention_tokens_fused_reference(h, w, H, D, SCALE, torch.float64))
+    q32 = qkv.float()
+    torch.testing.assert_close(TA.linear_attention_qkv_fused_reference(q32, H, D, SCALE, torch.float64),
+                               TA.linear_attention_qkv_fused_reference(q32, H, D, SCALE), rtol=1e-5, atol=1e-6)
+
+
 # ---------------------------------------- kernel 4: small attention block --
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 16, 64), (2, 16, 32)])

@@ -169,8 +169,9 @@ def test_requests_coalesce_by_label_and_guidance_scale():
 
 
 def test_unported_routes_and_unknown_paths(server):
-    for path in ("/edit", "/super_resolve", "/vocode"):
+    for path in ("/edit", "/super_resolve"):
         assert _call(server, "POST", path, {})[0] == 501
+    assert _call(server, "POST", "/vocode", {})[0] == 400  # ported: a DDPM archive is not a vocoder
     assert _call(server, "POST", "/nope", {})[0] == 404
     assert _call(server, "GET", "/nope")[0] == 404
 

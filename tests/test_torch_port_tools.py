@@ -302,3 +302,71 @@ def test_check_linattn_needs_a_card_and_formats_its_rows(capsys):
     args = CL.block_args((2, 100, 40), torch.bfloat16, torch.Generator().manual_seed(0), "cpu")
     assert args[0].shape == (2, 100, 40) and args[0].dtype == torch.bfloat16
     assert args[3].shape == (40, 384) and args[4].shape == (128, 40) and args[8:] == (4, 32, 32**-0.5, 1e-5)
+
+
+class _StubTrace:
+    """A torch.profiler stand-in whose traces hold the given device events
+    (name, us): the card's profiler cannot run here."""
+
+    def __init__(self, names):
+        self.names, self.opened = names, 0
+
+    def __call__(self, activities=None):
+        stub = self
+
+        class Prof:
+            def __enter__(self):
+                stub.opened += 1
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def events(self):
+                return [type("E", (), {"name": n, "device_type": torch.autograd.DeviceType.CUDA,
+                                       "time_range": type("R", (), {"elapsed_us": lambda self, us=us: us})()})()
+                        for n, us in stub.names]
+
+        return Prof()
+
+
+@pytest.mark.parametrize("names, expect, markers_after", [
+    ([], None, 8),  # every attempt empty: the measurement fails, the markers stay
+    ([("at::cuda::spin_kernel(long)", 5.0)], None, 8),  # only the markers kept: no event of the call
+    ([("gn_silu_kernel", 2.0)], None, 1 << 14),  # the call's events, no marker: 4x a retake, to their cap
+    ([("spin_kernel", 1100.0), ("gn_silu_kernel", 2.0)], None, 1 << 14),  # the lead spin is not a marker
+    # One marker kept a trace: the next opens with twice the dropped ones (7, 13, 25).
+    ([("spin_kernel", 5.0), ("gn_silu_kernel", 2.0)], [("gn_silu_kernel", 2.0)], 50),
+], ids=["empty", "markers-only", "no-marker", "lead-only", "markers-and-kernel"])
+def test_traced_raises_on_a_trace_that_may_have_dropped_events(monkeypatch, names, expect, markers_after):
+    """``traced``, ``device_ms`` and ``kernel_launches`` never read an empty
+    trace, nor one that kept none of the markers after its lead spin (the
+    profiler drops a trace's first device events): after ``ATTEMPTS``
+    traces, each that kept the call's events but no marker taken again with
+    four times the markers, they raise ``EmptyTraceError``. A trace that kept
+    markers sets the next one's to twice those it dropped."""
+    import torch.profiler
+
+    from diffusion_model_nemo_tpu_torch.tools import profiling as P
+
+    stub = _StubTrace(names)
+    spins = []
+    monkeypatch.setattr(torch.profiler, "profile", stub)
+    monkeypatch.setattr(torch.cuda, "_sleep", spins.append)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(P, "tracing", {"markers": 8, "traces": 0, "retakes": 0, "seconds": 0.0, "dropped_max": 0})
+    if expect is None:
+        for measure in (lambda: P.traced(lambda: None), lambda: P.device_ms(lambda: None),
+                        lambda: P.kernel_launches(lambda: None)):
+            with pytest.raises(P.EmptyTraceError):
+                measure()
+        assert stub.opened == 3 * P.ATTEMPTS  # each: every attempt taken
+        assert P.tracing["retakes"] == 3 * (P.ATTEMPTS - 1)
+    else:
+        assert P.traced(lambda: None) == expect
+        assert P.kernel_launches(lambda: None) == [n for n, _ in expect]
+        assert P.device_ms(lambda: None) == pytest.approx(2.0e-3)
+        assert P.tracing["retakes"] == 0 and P.tracing["dropped_max"] == 25
+    assert P.tracing["markers"] == markers_after and P.tracing["traces"] == stub.opened
+    # Each trace opens with the lead (its cycles at the spin's clock) and the markers.
+    assert spins[0] == P.LEAD_US * P.SPIN_CYCLES_PER_US and spins[1:9] == [1] * 8
