@@ -239,6 +239,37 @@ Phases:
           and the ``vocode`` CLI; none of PyYAML, msgpack, flax, orbax or
           Pillow imported.
 
+  13. The DDPM family's sampling services on unet_small (bf16, full width,
+      random weights from seed 0), ``[svc]`` and ``[graph] svc`` lines:
+     13a DDIM-50, DPM-Solver++(2M)-20, UniPC-20 (order 2, corrector) and
+          Karras-18 (Heun, NFE 35) at B=64: captured == eager bit for bit
+          twice (cudnn.deterministic), captured and eager wall, device busy,
+          NFE, launches = one forward's (two for Heun) x replays;
+     13b ``serve`` with each flag: images/s over a 3 s window of four
+          concurrent clients (requests of 16, 48, 32 and 32 images,
+          coalesced into batches of 64), launches = one forward's x NFE x
+          batches;
+     13c the guided ConditionalDDPM under DPM (one 2B forward a step),
+          captured == eager; 13d ImprovedDDPM refused by the three;
+     13e ``return_frames``: the ancestral chain's last 50 steps and DPM's
+          chain captured == eager, frames included; the T = 1000 chain's
+          frames (MiB, peak memory);
+     13f interpolation: ancestral (t = 50 captured == eager, t = 999
+          timed) and DDIM-50 from 8 slerped latents;
+     13g SDEdit: strength 0.05 captured == eager; POST /edit at 0.25 and
+          0.75 on a DDIM-configured server (a seeded request twice, two
+          unseeded ones coalesced; launches = one forward's x t0 x
+          batches; both strengths replay one ancestral graph), the
+          400s, /super_resolve 501;
+     13h RePaint at B=8, jumps 10 x 10 (9910 reverse entries): the first
+          200 entries captured == eager, the whole schedule captured, the
+          known region exact, launches = one forward's x 9910;
+     13i ``eval_ddpm`` with each sampler flag and ``show_diffusion``,
+          ``interpolate_ddpm``, ``interpolate_improved_ddpm``,
+          ``interpolate_ddim``, ``edit_ddpm``, ``inpaint_ddpm`` from
+          archives of these models, each writing its files; none of
+          PyYAML, msgpack, flax, orbax or Pillow imported.
+
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
 prints no result. Without a CUDA device, or outside the repository, it fails.
@@ -3170,6 +3201,493 @@ def check_wavegrad(port, device, rows):
     log(f"[wavegrad] phase 12 in {time.perf_counter() - t12:.1f} s")
 
 
+# ----------------------------------------------------- the sampling services --
+SVC = {  # sampler: (_target_ suffix, fields), the served defaults of each flag
+    "ddim": ("GeneralizedGaussianDiffusion", {"eta": 0.0, "ddim_timesteps": DDIM_STEPS}),
+    "dpm": ("DPMSolverDiffusion", {"solver_steps": 20, "solver_order": 2}),
+    "unipc": ("UniPCDiffusion", {"solver_steps": 20, "solver_order": 2, "use_corrector": True}),
+    "karras": ("KarrasDiffusion", {"solver_steps": 18, "solver_order": 2}),
+}
+SVC_FLAGS = {"ddim": {}, "dpm": {"use_dpm_solver": True}, "unipc": {"use_unipc": True},
+             "karras": {"use_karras_sampler": True}}
+SVC_GRAPH = {"ddim": "ddim", "dpm": "dpm_solver", "unipc": "unipc", "karras": "karras_heun"}
+SVC_WINDOW_S = 3.0  # each served sampler's window: concurrent clients send /sample requests until it closes
+SVC_CLIENT_SIZES = (16, 48, 32, 32)  # one client a size: its requests' num_images, coalesced into batches of B
+FRAMES_PREFIX = 50  # the ancestral chain's last steps held eager against captured, with frames
+EDIT_STRENGTHS = (0.25, 0.75)
+EDIT_EAGER_STRENGTH = 0.05  # t0 = 50: the partial chain held eager against captured
+REPAINT_B, REPAINT_PREFIX = 8, 200  # RePaint's batch; its schedule's first entries held eager against captured
+SVC_CLI_B = 8
+UNET_KERNELS = ("group_norm_silu", "linear_attention_block", "linear_attention_tokens", "attention_block_small")
+
+
+def svc_sampler(model, base, name, **extra):
+    target, fields = SVC[name]
+    model.change_sampler(dict(base, _target_=f"diffusion_model_nemo.modules.{target}", **fields, **extra))
+
+
+def svc_nfe(model, name):
+    """Network calls a chain: DDIM's and the multistep solvers' M, Karras
+    Heun's 2M − 1."""
+    if name == "ddim":
+        return len(model.sampler._strided_sequences()[0])
+    coefs = model.sampler._unipc_coefficients() if name == "unipc" else model.sampler._solver_coefficients()
+    M = len(next(iter(coefs.values())))
+    return 2 * M - 1 if name == "karras" else M
+
+
+class deterministic:
+    """``cudnn.deterministic`` on inside the block (a graph captured there
+    is keyed on it: a capture of its own)."""
+
+    def __enter__(self):
+        import torch
+
+        self.was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.deterministic = self.was
+
+
+def svc_generator(model, seed=SEED):
+    import torch
+
+    return torch.Generator(device=model.device).manual_seed(seed)
+
+
+def check_fast_sampler(port, model, base, name, per):
+    """13a. One sampler at B=64 (EMA weights): captured == eager bit for bit
+    twice (cudnn.deterministic); then captured and eager wall, device busy,
+    NFE, launches = the graph's per-step counts x replays (the graph's
+    counts = one forward's x forwards a step), images/s. Returns the line's
+    numbers."""
+    import torch
+
+    svc_sampler(model, base, name)
+    nfe = svc_nfe(model, name)
+    run = lambda graphs=None: model.sample(B, 32, generator=svc_generator(model), use_ema=True,  # noqa: E731
+                                           graphs=graphs)
+    with deterministic():
+        ref, first, again = run(False), run(), run()
+    same = torch.equal(ref, first) and torch.equal(ref, again)
+    assert same and bool(torch.isfinite(ref).all()) and float(ref.std()) > 0, name
+    eager_s, _ = walled(lambda: run(False))
+    first_s, _ = walled(run)  # the capture
+    port.ops.reset_launch_counts()
+    wall, out = walled(run, n=3)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, SVC_GRAPH[name])
+    busy, _ = device_profile(run, iters=1)
+    per_step = 2 if name == "karras" else 1
+    assert graph.delta == {k: v * per_step for k, v in per.items()}, (name, graph.delta, per)
+    replays = nfe if name != "karras" else (nfe - 1) // 2
+    extra = {k: 3 * v for k, v in per.items()} if name == "karras" else None  # the last Euler step's graph
+    graph_line(f"svc {name} B={B} NFE {nfe} (first call with capture {first_s:.3f} s; == eager bit for bit under "
+               f"cudnn.deterministic)", wall, busy / 1e3, eager_s, graph, counts, 3 * replays, extra)
+    log(f"[svc] {name} B={B}: NFE {nfe}, captured {wall * 1e3:.3f} ms a chain ({B / wall:.2f} images/s), device busy "
+        f"{busy:.3f} ms ({busy / nfe:.3f} ms a network call), eager {eager_s * 1e3:.3f} ms; launches a step "
+        f"{json.dumps(graph.delta)} = {per_step} x one forward's {json.dumps(per)}")
+    return {"nfe": nfe, "wall_ms": wall * 1e3, "busy_ms": busy, "eager_ms": eager_s * 1e3}
+
+
+def check_fast_serving(port, model, base, name, per, nfe):
+    """13b. ``serve`` with the sampler's flag (its defaults), max_batch 64,
+    over a window of SVC_WINDOW_S: one client a size of SVC_CLIENT_SIZES,
+    each sending unseeded /sample requests back to back until the window
+    closes, so that the server coalesces them into batches. images/s = every
+    image answered / the window's wall (to the last answer); launches = one
+    forward's x NFE x batches (the warm-up's included)."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    model.change_sampler(base)
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve(model, port=0, max_batch=B, ddim_timesteps=DDIM_STEPS, use_ema=True, **SVC_FLAGS[name])
+    warm_s = time.perf_counter() - t0
+    assert type(model.sampler).__name__ == SVC[name][0], (name, type(model.sampler).__name__)
+    server.start_background()
+    url = f"http://{server.host}:{server.port}"
+    answers, errors = [], []
+
+    def client(n, deadline):
+        try:
+            while time.perf_counter() < deadline:
+                code, body = http("POST", url + "/sample", {"num_images": n, "format": "npy"})
+                a = np.load(io.BytesIO(body))
+                answers.append((code, n, a.shape == (n, 32, 32, 3) and a.dtype == np.uint8 and a.std() > 0))
+        except Exception as e:  # reported below, after the other clients
+            errors.append(repr(e))
+
+    try:
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(n, t1 + SVC_WINDOW_S)) for n in SVC_CLIENT_SIZES]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+            assert not th.is_alive(), f"{name}: a /sample client did not finish"
+        wall = time.perf_counter() - t1
+        images = sum(n for _, n, _ in answers)
+        for _ in range(100):  # a batch's count lands just after its requests are answered
+            stats = json.loads(http("GET", url + "/stats")[1])
+            if stats["images"] == images:
+                break
+            time.sleep(0.05)
+    finally:
+        server.shutdown()
+    assert not errors, (name, errors)
+    assert answers and all(code == 200 and good for code, _, good in answers), name
+    assert stats["images"] == images and stats["requests"] == len(answers), (name, stats, images, len(answers))
+    counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    batches = stats["batches"] + 1
+    expect = {k: v * nfe * batches for k, v in per.items()}
+    served = {"images_s": images / wall, "requests": len(answers), "images": images, "batches": stats["batches"],
+              "fill": stats["avg_batch_fill"], "batch_ms": wall * 1e3 / stats["batches"],
+              "latency_ms": stats["avg_request_latency_ms"], "device_ms": stats["avg_device_ms_per_batch"]}
+    log(f"[svc] serve {name} max_batch={B}: warm-up {warm_s:.2f} s; {len(SVC_CLIENT_SIZES)} concurrent clients "
+        f"(num_images {list(SVC_CLIENT_SIZES)}) over {wall:.3f} s: {len(answers)} requests, {images} images in "
+        f"{stats['batches']} batches (fill {stats['avg_batch_fill']}), {served['images_s']:.2f} images/s served, "
+        f"{served['batch_ms']:.3f} ms a batch; avg device ms a batch {stats['avg_device_ms_per_batch']}, latency "
+        f"{stats['avg_request_latency_ms']} ms; launches {json.dumps(counts)} = one forward's x {nfe} x {batches} "
+        f"batches")
+    assert counts == expect, (name, counts, expect)
+    return served
+
+
+def check_guided_dpm(port, device):
+    """13c. The guided ConditionalDDPM (label 3, w = 3) under DPM-Solver++ at
+    B=64: one 2B forward a step (the labels a static buffer of the graph),
+    captured == eager bit for bit (cudnn.deterministic), wall and busy."""
+    import torch
+
+    model = family_model(port, device, "conditional")
+    base = dict(model.cfg.sampler)
+    svc_sampler(model, base, "dpm")
+    per = derived_counts(port, model, 2 * B, 32)
+    run = lambda graphs=None: model.sample(B, 32, generator=svc_generator(model), label=COND_LABEL,  # noqa: E731
+                                           guidance_scale=COND_SCALE, use_ema=True, graphs=graphs)
+    with deterministic():
+        ref, first = run(False), run()
+    assert torch.equal(ref, first) and float(ref.std()) > 0, "guided DPM: captured differs from eager"
+    walled(run)
+    port.ops.reset_launch_counts()
+    wall, _ = walled(run, n=2)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "dpm_solver")
+    busy, _ = device_profile(run, iters=1)
+    M = svc_nfe(model, "dpm")
+    graph_line(f"svc guided conditional DPM-{M} B={B} label {COND_LABEL} w={COND_SCALE} (== eager bit for bit)",
+               wall, busy / 1e3, None, graph, counts, 2 * M)
+    assert graph.delta == per, (graph.delta, per)
+    log(f"[svc] guided DPM-{M} B={B}: {wall * 1e3:.3f} ms a chain, {B / wall:.2f} images/s, busy {busy:.3f} ms")
+
+
+def check_improved_refusal(port, device):
+    """13d. ImprovedDDPM's [B, H, W, 2C] output: DPM, UniPC and Karras each
+    refuse it with a ValueError that names the cause (the JAX loops fail in
+    a reshape)."""
+    model = family_model(port, device, "improved")
+    base = dict(model.cfg.sampler)
+    for name in ("dpm", "unipc", "karras"):
+        svc_sampler(model, base, name)
+        try:
+            model.sample(2, 32, generator=svc_generator(model))
+        except ValueError as e:
+            assert "learned-variance" in str(e), str(e)
+            log(f"[svc] improved under {name}: ValueError: {str(e)[:100]}...")
+        else:
+            raise AssertionError(f"{name} sampled a learned-variance network")
+
+
+def check_frames(port, model, base):
+    """13e. ``return_frames``: the ancestral chain's last FRAMES_PREFIX steps
+    at B=64, captured == eager bit for bit, frames included
+    (cudnn.deterministic); the whole T = 1000 chain captured with its
+    frames (wall, the frames' bytes, peak memory), the last frame the
+    output; DPM-20's frames captured == eager."""
+    import torch
+
+    model.change_sampler(dict(base, _target_=ANCESTRAL))
+    sampler, T = model.sampler, model.sampler.timesteps
+
+    def chain(graphs, n):
+        return sampler.p_sample_loop(model.get_model_fn(), model.ema_params, (B, 32, 32, 3), svc_generator(model),
+                                     num_steps=n, graphs=graphs, return_frames=True)
+
+    with torch.inference_mode(), deterministic():
+        (o1, f1), (o2, f2) = chain(False, FRAMES_PREFIX), chain(True, FRAMES_PREFIX)
+    assert torch.equal(o1, o2) and torch.equal(f1, f2) and torch.equal(f2[-1], o2), "ancestral frames differ"
+    with torch.inference_mode():
+        first_s, _ = walled(lambda: chain(True, None))
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        wall, (out, frames) = walled(lambda: chain(True, None))
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**20
+    assert frames.shape == (T, B, 32, 32, 3) and torch.equal(frames[-1], out) and bool(torch.isfinite(frames).all())
+    log(f"[svc] ancestral T={T} B={B} return_frames: last {FRAMES_PREFIX} steps captured == eager bit for bit "
+        f"(frames too); the whole chain captured {wall:.3f} s (first call with capture {first_s:.3f} s), frames "
+        f"{frames.numel() * 4 / 2**20:.1f} MiB, peak {peak:.1f} MiB over the call")
+    del frames
+    svc_sampler(model, base, "dpm")
+    with deterministic():
+        (a, fa), (b, fb) = (model.sample(B, 32, generator=svc_generator(model), use_ema=True, graphs=g,
+                                         return_frames=True) for g in (False, True))
+    assert torch.equal(a, b) and torch.equal(fa, fb) and fb.shape[0] == svc_nfe(model, "dpm")
+    log(f"[svc] DPM B={B} return_frames: {list(fb.shape)}, captured == eager bit for bit")
+
+
+def check_interpolation(port, model, base, device):
+    """13f. Interpolation: ancestral (q-space lerp at t, the chain's last t
+    steps) at t = FRAMES_PREFIX captured == eager (cudnn.deterministic) and
+    at the default t = T − 1 captured (wall); DDIM-50 from 8 slerped
+    latents captured == eager."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.cli.interpolate_ddim import slerp
+
+    model.change_sampler(dict(base, _target_=ANCESTRAL))
+    x = family_bpd_batch(device, 2 * B)
+    x1, x2 = x[:B], x[B:]
+    run = lambda graphs=None, t=None: model.interpolate(x1, x2, t=t, generator=svc_generator(model),  # noqa: E731
+                                                        graphs=graphs)
+    with deterministic():
+        assert torch.equal(run(False, FRAMES_PREFIX), run(True, FRAMES_PREFIX)), "interpolation differs"
+    first_s, _ = walled(run)
+    wall, out = walled(run)
+    assert bool(torch.isfinite(out).all())
+    svc_sampler(model, base, "ddim")
+    g = svc_generator(model)
+    z1, z2 = (torch.randn(32, 32, 3, generator=g, device=device) for _ in range(2))
+    latents = torch.stack([slerp(z1, z2, a) for a in torch.linspace(0.0, 1.0, 8).tolist()])
+    with deterministic():
+        a, b = (model.interpolate(latents, latents, graphs=gr) for gr in (False, True))
+    assert torch.equal(a, b), "DDIM interpolation differs"
+    log(f"[svc] interpolate ancestral B={B}: t={FRAMES_PREFIX} captured == eager bit for bit; t=T-1 "
+        f"{wall:.3f} s captured (first call with capture {first_s:.3f} s); DDIM-{DDIM_STEPS} slerp of 8 latents "
+        f"captured == eager bit for bit")
+
+
+def check_edit_serving(port, model, base, per):
+    """13g. SDEdit: at strength EDIT_EAGER_STRENGTH captured == eager
+    (cudnn.deterministic); then POST /edit on a DDIM-configured server (the
+    partial chain is the ancestral one) at each of EDIT_STRENGTHS: a seeded
+    request twice (the same bytes), two unseeded ones coalesced into one
+    batch; launches = one forward's x t0 x batches; every strength replays
+    the one ancestral graph (its capture s, pool); the 400s and
+    /super_resolve's 501."""
+    import urllib.error
+
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    model.change_sampler(base)
+    imgs = np.random.default_rng(SEED).integers(0, 256, (B, 32, 32, 3)).astype(np.uint8)
+    src = torch.from_numpy(imgs).to(model.device).float() / 255.0
+    with deterministic():
+        a, b = (model.edit(src, EDIT_EAGER_STRENGTH, generator=svc_generator(model), use_ema=True, graphs=g)
+                for g in (False, True))
+    assert torch.equal(a, b), "edit: captured differs from eager"
+    server = serve(model, port=0, max_batch=B, ddim_timesteps=DDIM_STEPS, use_ema=True)
+    server.start_background()
+    url = f"http://{server.host}:{server.port}"
+
+    def b64(arr):
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        return base64.b64encode(buf.getvalue()).decode()
+
+    def status(path, payload):
+        try:
+            return http("POST", url + path, payload)[0]
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    def ancestral():
+        return {id(g): g for k, g in model.sampler.graphs.items() if k[0] == "ancestral" and k[2] == imgs.shape}
+
+    try:
+        seen = None
+        for s in EDIT_STRENGTHS:
+            t0 = int(round(s * (model.timesteps - 1)))
+            replays = {i: g.info["replays"] for i, g in ancestral().items()}
+            before = json.loads(http("GET", url + "/stats")[1])["batches"]
+            port.ops.reset_launch_counts()
+            seeded = {"images_npy": b64(imgs), "strength": s, "seed": 7, "format": "npy"}
+            t1 = time.perf_counter()
+            first = http("POST", url + "/edit", seeded)[1]
+            first_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            second = http("POST", url + "/edit", seeded)[1]
+            wall = time.perf_counter() - t1
+            results = {}
+
+            def request(k, n):
+                results[k] = http("POST", url + "/edit", {"images_npy": b64(imgs[:n]), "strength": s,
+                                                          "format": "npy"})
+
+            threads = [threading.Thread(target=request, args=(k, n)) for k, n in (("a", 20), ("b", 30))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+                assert not th.is_alive(), "an unseeded /edit request did not finish"
+            batches = json.loads(http("GET", url + "/stats")[1])["batches"] - before
+            counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+            out = np.load(io.BytesIO(first))
+            assert first == second and out.shape == imgs.shape and out.dtype == np.uint8, s
+            assert sorted(np.load(io.BytesIO(r[1])).shape[0] for r in results.values()) == [20, 30]
+            assert batches == 3, (s, batches)
+            expect = {k: v * t0 * batches for k, v in per.items()}
+            assert counts == expect, (s, counts, expect)
+            used = [g for i, g in ancestral().items() if g.info["replays"] > replays.get(i, 0)]
+            assert len(used) == 1, (s, len(used))
+            info, captured = used[0].info, id(used[0]) not in replays
+            assert seen is None or not captured and id(used[0]) == seen, f"strength {s} captured a graph of its own"
+            seen = id(used[0])
+            log(f"[svc] /edit strength {s} (t0 = {t0}) B={B}: first {first_s:.3f} s (the ancestral graph, "
+                f"{'captured here' if captured else 'replayed, captured before'}: capture {info['capture_s']:.3f} "
+                f"s, {info['nodes']} nodes, pool {info['pool_mib']:.1f} MiB), seeded again {wall:.3f} s, the same "
+                f"bytes; two unseeded requests coalesced into one batch; launches {json.dumps(counts)} = one "
+                f"forward's x {t0} x {batches}; |edit - input| mean {np.abs(out / 255.0 - imgs / 255.0).mean():.4f}")
+        codes = {
+            "strength 1.5": status("/edit", {"images_npy": b64(imgs[:2]), "strength": 1.5}),
+            "shape [2,16,16,3]": status("/edit", {"images_npy": b64(imgs[:2, :16, :16]), "strength": 0.5}),
+            "float 0-255": status("/edit", {"images_npy": b64(imgs[:2].astype(np.float32)), "strength": 0.5}),
+            "no images_npy": status("/edit", {"strength": 0.5}),
+            "/super_resolve": status("/super_resolve", {}),
+        }
+    finally:
+        server.shutdown()
+    log(f"[svc] /edit refusals: {json.dumps(codes)}")
+    assert codes == {"strength 1.5": 400, "shape [2,16,16,3]": 400, "float 0-255": 400, "no images_npy": 400,
+                     "/super_resolve": 501}, codes
+
+
+def check_repaint(port, model, base, per8):
+    """13h. RePaint at B=8 with the default jumps (10 x 10, T = 1000): the
+    schedule's first REPAINT_PREFIX entries captured == eager bit for bit
+    (cudnn.deterministic); the whole schedule captured (wall, reverse
+    entries = network calls, launches = one forward's x reverse entries,
+    the reverse step's device busy); the known region equal to the input
+    exactly."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.cli.inpaint_ddpm import build_mask
+    from diffusion_model_nemo_tpu_torch.modules.repaint import repaint_schedule, run_schedule
+
+    model.change_sampler(dict(base, _target_=ANCESTRAL))
+    sampler = model.sampler
+    t_op, is_rev = repaint_schedule(sampler.timesteps, 10, 10)
+    n_rev = int(is_rev.sum())
+    imgs = np.random.default_rng(SEED + 1).integers(0, 256, (REPAINT_B, 32, 32, 3)).astype(np.uint8)
+    known = torch.from_numpy(imgs).to(model.device).float() / 255.0
+    mask = torch.from_numpy(build_mask("center", known.shape, 0.5, svc_generator(model))).to(model.device)
+    with torch.inference_mode(), deterministic():
+        a, b = (run_schedule(sampler, model.get_model_fn(), model.ema_params, known * 2 - 1, mask,
+                             t_op[:REPAINT_PREFIX], is_rev[:REPAINT_PREFIX], svc_generator(model),
+                             graphs=g).clone() for g in (False, True))
+    assert torch.equal(a, b), "RePaint: captured prefix differs from eager"
+    port.ops.reset_launch_counts()
+    wall, out = walled(lambda: model.inpaint(known, mask, generator=svc_generator(model), use_ema=True))
+    counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    keep = mask.expand_as(known) > 0
+    ref = ((known * 2.0 - 1.0) + 1.0) * 0.5
+    exact = torch.equal(out[keep], ref[keep])
+    reverse = graph_of(sampler.graphs, "repaint_reverse")
+    busy = replay_busy(reverse, "i", 0)
+    log(f"[svc] RePaint B={REPAINT_B} jumps 10 x 10: {len(t_op)} entries, {n_rev} reverse (network calls); first "
+        f"{REPAINT_PREFIX} entries captured == eager bit for bit; the whole schedule captured {wall:.3f} s (with "
+        f"both captures: {reverse.info['capture_s']:.3f} s, pool {reverse.info['pool_mib']:.1f} MiB), "
+        f"{wall / n_rev * 1e3:.3f} ms a reverse entry, its replay {busy * 1e3:.3f} ms busy; known region == input "
+        f"exactly: {exact}; launches {json.dumps(counts)}")
+    assert n_rev == 9910 and exact and bool(torch.isfinite(out).all())
+    assert counts == {k: v * n_rev for k, v in per8.items()}, (counts, per8)
+
+
+def check_service_clis(port, device, model, base, tmp):
+    """13i. The five new CLIs and eval_ddpm with each sampler flag and
+    show_diffusion, from archives of this unet_small and an ImprovedDDPM
+    at full width, each writing its files; none of PyYAML, msgpack, flax,
+    orbax or Pillow imported."""
+    from diffusion_model_nemo_tpu_torch.cli import (
+        edit_ddpm, eval_ddpm, inpaint_ddpm, interpolate_ddim, interpolate_ddpm, interpolate_improved_ddpm,
+    )
+
+    model.change_sampler(dict(base, _target_=ANCESTRAL))
+    dmn = model.save_to(f"{tmp}/DDPM.dmn")
+    idmn = family_model(port, device, "improved").save_to(f"{tmp}/ImprovedDDPM.dmn")
+    b = f"batch_size={SVC_CLI_B}"
+    runs = [
+        ("eval_ddpm use_dpm_solver", eval_ddpm, [f"model_path={dmn}", b, "use_dpm_solver=true"], "samples_grid.png"),
+        ("eval_ddpm use_karras_sampler", eval_ddpm, [f"model_path={dmn}", b, "use_karras_sampler=true"],
+         "samples_grid.png"),
+        ("eval_ddpm use_unipc", eval_ddpm, [f"model_path={dmn}", b, "use_unipc=true"], "samples_grid.png"),
+        ("eval_ddpm show_diffusion", eval_ddpm, [f"model_path={dmn}", b, "show_diffusion=true"], "diffusion.gif"),
+        ("interpolate_ddpm", interpolate_ddpm, [f"model_path={dmn}", b, "dataset_name=synthetic"],
+         "interpolation.png"),
+        ("interpolate_improved_ddpm", interpolate_improved_ddpm, [f"model_path={idmn}", b, "dataset_name=synthetic"],
+         "interpolation.png"),
+        ("interpolate_ddim", interpolate_ddim, [f"model_path={dmn}", "num_interpolations=8"], "slerp.png"),
+        ("edit_ddpm", edit_ddpm, [f"model_path={dmn}", b, "strength=0.5"], "edited.png"),
+        ("inpaint_ddpm", inpaint_ddpm, [f"model_path={dmn}", b, "jump_n_sample=2"], "inpainted.png"),
+    ]
+    for i, (tag, cli, argv, expect) in enumerate(runs):
+        port.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        stamp = [] if cli.__name__.split(".")[-1].startswith("interpolate") else ["add_timestamp=false"]
+        out = cli.main([*argv, f"output_dir={tmp}/out{i}", *stamp])
+        secs = time.perf_counter() - t0
+        cli_counts(port, tag, UNET_KERNELS)
+        data = (Path(out) / expect).read_bytes()
+        assert data[:4] in (b"\x89PNG", b"GIF8"), (tag, data[:8])
+        log(f"[svc] {tag}: {secs:.2f} s with the restore, {expect} {len(data)} bytes")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
+    assert not loaded, f"the sampling services' CLIs loaded {loaded}"
+    log(f"[svc] none of {', '.join(NOT_ON_THE_CARD)} was imported")
+
+
+def check_sampling_services(port, models, device):
+    """13. The DDPM family's sampling services on unet_small at full width
+    (bf16, random weights from seed 0)."""
+    t13 = time.perf_counter()
+    model = models["unet_small"]
+    model.change_sampler(dict(model.cfg.sampler, _target_=ANCESTRAL))
+    base = {k: v for k, v in model.cfg.sampler.items() if k not in ("eta", "ddim_timesteps")}
+    per = derived_counts(port, model, B, 32)
+    rows = {name: check_fast_sampler(port, model, base, name, per) for name in SVC}
+    served = {name: check_fast_serving(port, model, base, name, per, rows[name]["nfe"]) for name in SVC}
+    log("[svc] | sampler | NFE | captured ms a batch | device busy ms | eager ms | images/s served | requests | "
+        "batches (fill) | served ms a batch | of which beyond the captured chain |")
+    for name, r in rows.items():
+        v = served[name]
+        log(f"[svc] | {name} | {r['nfe']} | {r['wall_ms']:.3f} | {r['busy_ms']:.3f} | {r['eager_ms']:.3f} | "
+            f"{v['images_s']:.2f} | {v['requests']} | {v['batches']} ({v['fill']}) | {v['batch_ms']:.3f} | "
+            f"{v['batch_ms'] - r['wall_ms']:.3f} |")
+    check_guided_dpm(port, device)
+    check_improved_refusal(port, device)
+    check_frames(port, model, base)
+    check_interpolation(port, model, base, device)
+    check_edit_serving(port, model, base, per)
+    check_repaint(port, model, base, derived_counts(port, model, REPAINT_B, 32))
+    tmp = tempfile.mkdtemp(prefix="dmn_svc_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        check_service_clis(port, device, model, base, tmp)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[svc] phase 13 in {time.perf_counter() - t13:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3293,6 +3811,11 @@ def main() -> int:
     # 12. The WaveGrad family: WavegradDDPM and the vocoder.
     check_wavegrad(port, device, rows)
     phase_done("phase 12")
+
+    # 13. The sampling services: DPM-Solver++, UniPC, Karras, frames,
+    # interpolation, SDEdit (/edit), RePaint, their CLIs.
+    check_sampling_services(port, models, device)
+    phase_done("phase 13")
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

@@ -5,7 +5,9 @@
 ``eval_conditional_ddpm``, ``test_conditional_ddpm``, ``train_score_sde``,
 ``eval_score_sde``, ``test_score_sde``, ``train_wavegrad_ddpm``,
 ``eval_wavegrad_ddpm``, ``test_wavegrad_ddpm``, ``train_vocoder``,
-``vocode`` and ``serve`` (the JAX package's
+``vocode``, ``interpolate_ddpm``, ``interpolate_ddim``,
+``interpolate_improved_ddpm``, ``edit_ddpm``, ``inpaint_ddpm`` and ``serve``
+(the JAX package's
 ``examples/{ddpm,improved_ddpm,conditional_ddpm,score_sde,wavegrad_ddpm}/*.py``
 and ``examples/serve.py``; ``serve`` restores any of the six families).
 Each ``main`` takes an explicit ``argv`` list too."""

@@ -1,14 +1,18 @@
 """Sample from a DDPM archive with the port (counterpart of
-``examples/ddpm/eval_ddpm.py``): DDIM (default) or the model's own
-ancestral chain.
+``examples/ddpm/eval_ddpm.py``): DDIM (default), DPM-Solver++, Karras,
+UniPC or the model's own ancestral chain.
 
     python -m diffusion_model_nemo_tpu_torch.cli.eval_ddpm model_path=DDPM.dmn \\
         use_ddim_sampler=true ddim_timesteps=50 batch_size=64 seed=0
+    ... use_dpm_solver=true dpm_steps=20          # overrides DDIM
+    ... use_karras_sampler=true karras_steps=18   # overrides both
+    ... use_unipc=true unipc_steps=20             # overrides all three
+    ... show_diffusion=true frame_step=1 fps=30   # + diffusion.gif
 
 Writes ``sample_<i>.png`` and ``samples_grid.png`` under ``output_dir``
-(plus a timestamp directory unless ``add_timestamp=false``).
-``device=cpu`` runs on the CPU. The DPM-Solver, Karras and UniPC samplers
-and ``show_diffusion`` are not ported yet and raise.
+(plus a timestamp directory unless ``add_timestamp=false``), and with
+``show_diffusion`` the first sample's trajectory as ``diffusion.gif``.
+``device=cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -22,8 +26,7 @@ from typing import Optional
 import torch
 
 from ..models import DDPM
-from ..modules.parts import not_ported
-from ..utils.image import encode_png, save_image_grid, to_uint8
+from ..utils.image import encode_png, save_animation, save_image_grid, to_uint8
 from .common import hydra_runner
 
 log = logging.getLogger(__name__)
@@ -40,17 +43,17 @@ class EvalConfig:
     ddim_eta: float = 0.0  # 0 = DDIM mode, 1 = DDPM mode
     ddim_timesteps: int = 10  # -1 uses original timesteps
 
-    # Not ported yet: each raises when set.
+    # DPM-Solver++ (overrides DDIM when set)
     use_dpm_solver: bool = False
     dpm_steps: int = 20
     dpm_order: int = 2
     dpm_time_spacing: str = "strided"
     use_karras_sampler: bool = False
-    karras_steps: int = 18
+    karras_steps: int = 18  # EDM / Karras (overrides both)
     karras_order: int = 2
     karras_s_churn: float = 0.0
     use_unipc: bool = False
-    unipc_steps: int = 20
+    unipc_steps: int = 20  # UniPC (overrides all)
     unipc_order: int = 2
     unipc_corrector: bool = True
     unipc_variant: str = "bh2"
@@ -60,7 +63,7 @@ class EvalConfig:
     add_timestamp: bool = True
     grid_plot: bool = True
 
-    # animation (not ported yet)
+    # animation
     show_diffusion: bool = False
     frame_step: int = 1
     fps: int = 30
@@ -71,11 +74,21 @@ class EvalConfig:
 
 
 def maybe_use_ddim_sampler(model: DDPM, cfg) -> None:
-    """The JAX script's sampler swap; the samplers that are not ported raise."""
-    for flag, name in (("use_unipc", "UniPC"), ("use_karras_sampler", "Karras"), ("use_dpm_solver", "DPM-Solver")):
-        if getattr(cfg, flag, False):
-            raise not_ported("eval_ddpm", f"{flag}=true ({name})", "samplers")
-    if cfg.use_ddim_sampler:
+    """The JAX script's sampler swap, with its precedence UniPC > Karras >
+    DPM-Solver++ > DDIM (a config without a sampler's fields skips it)."""
+    def swap(target: str, **fields) -> None:
+        model.change_sampler(dict(model.cfg.sampler, _target_=f"diffusion_model_nemo.modules.{target}", **fields))
+
+    if getattr(cfg, "use_unipc", False):
+        swap("UniPCDiffusion", solver_steps=cfg.unipc_steps, solver_order=cfg.unipc_order,
+             use_corrector=cfg.unipc_corrector, variant=cfg.unipc_variant)
+    elif getattr(cfg, "use_karras_sampler", False):
+        swap("KarrasDiffusion", solver_steps=cfg.karras_steps, solver_order=cfg.karras_order,
+             s_churn=cfg.karras_s_churn)
+    elif getattr(cfg, "use_dpm_solver", False):
+        swap("DPMSolverDiffusion", solver_steps=cfg.dpm_steps, solver_order=cfg.dpm_order,
+             time_spacing=cfg.dpm_time_spacing)
+    elif cfg.use_ddim_sampler:
         sampler_cfg = dict(model.cfg.sampler)
         sampler_cfg["_target_"] = "diffusion_model_nemo.modules.GeneralizedGaussianDiffusion"
         sampler_cfg["eta"] = cfg.ddim_eta
@@ -101,12 +114,12 @@ def generator_of(model, cfg) -> torch.Generator:
 def main(cfg):
     """Returns the output directory."""
     cfg = EvalConfig(**cfg)
-    if cfg.show_diffusion:
-        raise not_ported("eval_ddpm", "show_diffusion=true", "samplers")
     model = DDPM.restore_from(cfg.model_path, use_ema=cfg.use_ema, device=cfg.device)
     maybe_use_ddim_sampler(model, cfg)
     image_size = cfg.image_size if cfg.image_size > 0 else int(model.image_size)
-    imgs = model.sample(batch_size=cfg.batch_size, image_size=image_size, generator=generator_of(model, cfg))
+    out = model.sample(batch_size=cfg.batch_size, image_size=image_size, generator=generator_of(model, cfg),
+                       return_frames=cfg.show_diffusion)
+    imgs, frames = out if cfg.show_diffusion else (out, None)
     imgs = imgs.float().cpu().numpy()
 
     out_dir = output_dir(cfg)
@@ -114,6 +127,8 @@ def main(cfg):
         save_image_grid(imgs, str(out_dir / "samples_grid.png"), nrow=6)
     for i, img in enumerate(to_uint8(imgs)):
         (out_dir / f"sample_{i}.png").write_bytes(encode_png(img))
+    if frames is not None:
+        save_animation(frames, str(out_dir / "diffusion"), fps=cfg.fps, frame_step=cfg.frame_step)
     log.info(f"Saved {imgs.shape[0]} samples to {out_dir}")
     return out_dir
 

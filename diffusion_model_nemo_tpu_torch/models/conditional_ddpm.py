@@ -13,7 +13,8 @@ can feed the JAX step's mask), so one network models both. ``sample(label=
 variance taken from the conditional half). The labels reach the network as
 a ``Conditioned`` model function, so a captured chain holds them as static
 buffers and keys on the guidance scale (``modules/gaussian_diffusion.py``).
-``interpolate`` waits with DDPM's.
+``interpolate(label=...)`` runs DDPM's with the label bound (the null class
+without one).
 """
 
 from __future__ import annotations
@@ -98,10 +99,12 @@ class ConditionalDDPM(DDPM):
         guidance_scale: Optional[float] = None,
         use_ema: bool = False,
         graphs: Optional[bool] = None,
-    ) -> torch.Tensor:
+        return_frames: bool = False,
+    ):
         """Class-conditional sampling (the null class without a ``label``);
         ``guidance_scale`` guides (w = 1 is the conditional chain up to
-        rounding). Returns [B, H, W, C] in [0, 1]."""
+        rounding). Returns [B, H, W, C] in [0, 1] (and the trajectory under
+        ``return_frames``, as ``DDPM.sample``)."""
         if guidance_scale is not None and label is None:
             raise ValueError("guidance_scale requires a class label")
         labels = {"classes": self._label_array(batch_size, label)}
@@ -112,4 +115,13 @@ class ConditionalDDPM(DDPM):
         shape = (batch_size, image_size, image_size, int(self.channels))
         params = self.ema_params if use_ema else self.params
         with torch.inference_mode():
-            return self.sampler.p_sample_loop(model_fn, params, shape, generator, graphs=graphs)
+            return self.sampler.p_sample_loop(model_fn, params, shape, generator, graphs=graphs,
+                                              return_frames=return_frames)
+
+    def interpolate(self, x1, x2, t=None, lambd: float = 0.5, generator=None, graphs=None,
+                    return_frames: bool = False, label: Optional[int] = None, model_fn=None):
+        """``DDPM.interpolate`` with ``label`` bound (the null class
+        without one)."""
+        labels = {"classes": self._label_array(x1.shape[0], label)}
+        return super().interpolate(x1, x2, t=t, lambd=lambd, generator=generator, graphs=graphs,
+                                   return_frames=return_frames, model_fn=Conditioned(self.model_fn, labels))

@@ -6,9 +6,13 @@ Counterpart of ``diffusion_model_nemo_tpu/models/ddpm.py`` (``training_step``,
 here ``draw_training_inputs`` draws them from a ``torch.Generator`` and
 ``training_step`` takes them as tensors, so a test can feed both packages
 the same draws (the two RNG streams differ). ``test_step`` /
-``test_epoch_end`` aggregate dataset-level bits/dim. Min-SNR-γ weighting,
-offset noise, ``pred_v`` training, dropout, inpainting, editing and
-interpolation are not ported yet.
+``test_epoch_end`` aggregate dataset-level bits/dim. The sampling
+services: ``sample`` (``return_frames``: the trajectory), ``interpolate``
+(the sampler's: a q-space lerp and the ancestral chain's last t steps, or
+the DDIM chain from a given latent), ``edit`` (SDEdit: the ancestral
+partial chain, whatever sampler is configured) and ``inpaint`` (RePaint),
+each a captured loop on CUDA. Min-SNR-γ weighting, offset noise,
+``pred_v`` training and dropout are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ import torch
 
 from ..config.registry import instantiate, register_target
 from ..data.hf_vision_data import preprocess_batch
+from ..modules.gaussian_diffusion import GaussianDiffusion, _randn
 from ..modules.parts import not_ported
+from ..modules.repaint import repaint_loop
 from .abstract_diffusion_model import AbstractDiffusionModel
 
 __all__ = ["DDPM"]
@@ -110,11 +116,77 @@ class DDPM(AbstractDiffusionModel):
         generator: Optional[torch.Generator] = None,
         use_ema: bool = False,
         graphs: Optional[bool] = None,
-    ) -> torch.Tensor:
+        return_frames: bool = False,
+    ):
         """Run the sampler's reverse chain; returns [B, H, W, C] in [0, 1]
-        (up to the sampler's final step) on the model's device. ``graphs``:
-        replay captured steps (default: on CUDA) or run the Python loop."""
+        (up to the sampler's final step) on the model's device, and with
+        ``return_frames`` the trajectory [M, B, H, W, C] too, as ``(out,
+        frames)``. ``graphs``: replay captured steps (default: on CUDA) or
+        run the Python loop."""
         shape = (batch_size, image_size, image_size, int(self.channels))
         params = self.ema_params if use_ema else self.params
         with torch.inference_mode():
-            return self.sampler.p_sample_loop(self.get_model_fn(), params, shape, generator, graphs=graphs)
+            return self.sampler.p_sample_loop(self.get_model_fn(), params, shape, generator, graphs=graphs,
+                                              return_frames=return_frames)
+
+    def _ancestral_sampler(self, what: str) -> GaussianDiffusion:
+        if not isinstance(self.sampler, GaussianDiffusion):
+            raise ValueError(f"{what} requires a GaussianDiffusion-family sampler (got "
+                             f"{type(self.sampler).__name__})")
+        return self.sampler
+
+    def interpolate(self, x1: torch.Tensor, x2: torch.Tensor, t: Optional[int] = None, lambd: float = 0.5,
+                    generator: Optional[torch.Generator] = None, graphs: Optional[bool] = None,
+                    return_frames: bool = False, model_fn=None):
+        """The sampler's ``interpolate`` of two batches in [-1, 1] with the
+        model's weights (not the EMA's, as in the JAX package): the
+        ancestral one lerps the endpoints noised to ``t`` and re-denoises,
+        DDIM's runs its chain from the latent ``x1``. Returns [B, H, W, C]
+        in [0, 1]."""
+        if x1.ndim != 4 or x2.ndim != 4:
+            raise ValueError(f"x1 and x2 must be batches of images, got {list(x1.shape)} and {list(x2.shape)}")
+        with torch.inference_mode():
+            return self.sampler.interpolate(model_fn or self.get_model_fn(), self.params, x1.to(self.device),
+                                            x2.to(self.device), generator, t=t, lambd=lambd,
+                                            return_frames=return_frames, graphs=graphs)
+
+    def edit(self, images: torch.Tensor, strength: float = 0.5, generator: Optional[torch.Generator] = None,
+             use_ema: bool = False, graphs: Optional[bool] = None) -> torch.Tensor:
+        """SDEdit (Meng et al. 2022): noise ``images`` ([B, H, W, C] in [0,
+        1]) to t0 = round(strength·(T − 1)) with one draw from
+        ``generator``, then run the last t0 steps of the ancestral chain
+        (the base class's, even on a DDIM-configured sampler, as in the
+        JAX package). Returns [B, H, W, C] in [0, 1]; each strength is a
+        captured chain of its own on CUDA."""
+        sampler = self._ancestral_sampler("edit")
+        if not 0.0 <= float(strength) <= 1.0:
+            raise ValueError(f"strength must be in [0, 1], got {strength}")
+        if images.ndim != 4:
+            raise ValueError(f"images must be a batch [B, H, W, C], got {list(images.shape)}")
+        shape = tuple(images.shape)
+        t0 = int(round(float(strength) * (self.timesteps - 1)))
+        params = self.ema_params if use_ema else self.params
+        with torch.inference_mode():
+            x0 = images.to(device=self.device, dtype=torch.float32) * 2.0 - 1.0
+            t_b = torch.full((shape[0],), t0, dtype=torch.int32, device=self.device)
+            x_t0 = sampler.q_sample(x0, t_b, _randn(shape, generator, self.device))
+            return GaussianDiffusion.p_sample_loop(sampler, self.get_model_fn(), params, shape, generator,
+                                                   img=x_t0, num_steps=t0, graphs=graphs)
+
+    def inpaint(self, known: torch.Tensor, mask: torch.Tensor, generator: Optional[torch.Generator] = None,
+                use_ema: bool = False, jump_length: int = 10, jump_n_sample: int = 10,
+                graphs: Optional[bool] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """RePaint (Lugmayr et al. 2022): fill the ``mask == 0`` region of
+        ``known`` ([B, H, W, C] in [0, 1]; ``mask`` broadcast to it, 1 =
+        keep) with the model's process (``modules/repaint.py``); NFE ≈ T ·
+        jump_n_sample. Returns [B, H, W, C] in [0, 1]; the known region is
+        the input's."""
+        sampler = self._ancestral_sampler("inpaint")
+        if known.ndim != 4:
+            raise ValueError(f"known must be a batch [B, H, W, C], got {list(known.shape)}")
+        params = self.ema_params if use_ema else self.params
+        with torch.inference_mode():
+            known = known.to(device=self.device, dtype=torch.float32)
+            return repaint_loop(sampler, self.get_model_fn(), params, known * 2.0 - 1.0, mask.to(self.device),
+                                generator, jump_length=jump_length, jump_n_sample=jump_n_sample, graphs=graphs,
+                                noise=noise)

@@ -7,7 +7,10 @@ reverse chain is one ``lax.scan`` over a flat [B, H·W·C] carry; here, on
 CUDA, t = T−1 … 1 are replays of one captured ``ancestral_step``
 (``ops/graphs.py``) with the noise drawn before each replay in the eager
 loop's order, and t = 0 (no draw) runs eagerly; ``graphs=False`` (and the
-CPU) runs the Python loop over image-shaped tensors. A conditional model's
+CPU) runs the Python loop over image-shaped tensors. ``return_frames``
+writes each step's frame into one device buffer behind the step;
+``interpolate`` lerps two noised endpoints and runs the chain's last t
+steps. A conditional model's
 network comes in as a :class:`Conditioned` model function: a captured chain
 holds its class labels as static buffers, filled before every chain.
 """
@@ -16,7 +19,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from ..config.registry import register_target
@@ -25,7 +27,7 @@ from ..ops.schedules import extract
 from .diffusion_process import AbstractDiffusionProcess, ModelFn
 
 __all__ = ["Conditioned", "GaussianDiffusion", "PMeanVariance", "batched_t", "graph_key", "static_model_fn",
-           "fill_static"]
+           "fill_static", "new_frames", "put_frame"]
 
 
 class PMeanVariance(NamedTuple):
@@ -36,11 +38,16 @@ class PMeanVariance(NamedTuple):
 
 
 def batched_t(t, x: torch.Tensor) -> torch.Tensor:
-    """The network's time input is an int32 [B]; the process math takes a
-    Python int (the sampling loops), a 0-d tensor (broadcast on its device,
-    no host sync) or a [B] tensor."""
+    """The network's time input [B]; the process math takes a Python int
+    (the sampling loops), a 0-d tensor (broadcast on its device, no host
+    sync: int32, or float32 for a floating one, as JAX's ``batched_t`` keeps
+    the solvers' float times, the Karras grid's off the integers) or a [B]
+    tensor."""
     if torch.is_tensor(t):
-        return t if t.ndim > 0 else t.to(device=x.device, dtype=torch.int32).expand(x.shape[0])
+        if t.ndim > 0:
+            return t
+        dtype = torch.float32 if t.is_floating_point() else torch.int32
+        return t.to(device=x.device, dtype=dtype).expand(x.shape[0])
     return torch.full((x.shape[0],), int(t), dtype=torch.int32, device=x.device)
 
 
@@ -94,6 +101,19 @@ def fill_static(model_fn, static: Dict[str, Any]) -> None:
 
 def _randn(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+def new_frames(n: int, x: torch.Tensor) -> torch.Tensor:
+    """The trajectory buffer [n, *x.shape] on x's device (a T = 1000 chain
+    at B = 64, 32 px is 786 MB)."""
+    return torch.empty((n, *x.shape), dtype=torch.float32, device=x.device)
+
+
+def put_frame(frames: Optional[torch.Tensor], i: int, x: torch.Tensor) -> None:
+    """Step i's frame (x + 1) / 2 into ``frames`` (if any), as the JAX scan
+    emits it: enqueued behind the step, no host sync."""
+    if frames is not None:
+        torch.mul(x + 1.0, 0.5, out=frames[i])
 
 
 @register_target("diffusion_model_nemo.modules.GaussianDiffusion")
@@ -208,25 +228,33 @@ class GaussianDiffusion(AbstractDiffusionProcess):
         num_steps: Optional[int] = None,
         unnormalize: bool = True,
         graphs: Optional[bool] = None,
-    ) -> torch.Tensor:
-        """Reverse chain over t = T−1 … 0 (or the last ``num_steps`` steps)
-        from ``img`` (default N(0, I) from ``generator``). ``graphs``: replay
-        a captured step (default: on CUDA) or run the Python loop; both draw
-        the same numbers from ``generator`` in the same order."""
+        return_frames: bool = False,
+    ):
+        """Reverse chain over t = T−1 … 0 (or the last ``num_steps`` steps;
+        0 returns ``img``) from ``img`` (default N(0, I) from ``generator``).
+        ``graphs``: replay a captured step (default: on CUDA) or run the
+        Python loop; both draw the same numbers from ``generator`` in the
+        same order. ``return_frames``: also return the trajectory [T, B, H,
+        W, C] in [0, 1] (one device buffer, each step's frame written after
+        it, no host sync), as ``(out, frames)``."""
         T = self.timesteps if num_steps is None else int(num_steps)
         x = img if img is not None else _randn(shape, generator, self.device)
-        if graphs_lib.use_graphs(graphs, x.device):
-            x = self._ancestral_replays(model_fn, params, x, T, generator)
+        frames = new_frames(T, x) if return_frames else None
+        if T > 0 and graphs_lib.use_graphs(graphs, x.device):
+            x = self._ancestral_replays(model_fn, params, x, T, generator, frames)
         else:
-            for t in np.arange(T - 1, -1, -1):
-                x = self.p_sample(model_fn, params, x, int(t), generator)
-        return (x + 1.0) * 0.5 if unnormalize else x
+            for i, t in enumerate(range(T - 1, -1, -1)):
+                x = self.p_sample(model_fn, params, x, t, generator)
+                put_frame(frames, i, x)
+        out = (x + 1.0) * 0.5 if unnormalize else x
+        return (out, frames) if return_frames else out
 
-    def _ancestral_replays(self, model_fn, params, x, T: int, generator) -> torch.Tensor:
+    def _ancestral_replays(self, model_fn, params, x, T: int, generator, frames=None) -> torch.Tensor:
         """t = T−1 … 1 through one captured ``ancestral_step`` (static x and
         noise, a 0-d device t that the step decrements; the noise is drawn
         into its buffer before each step, so the draws are the eager loop's),
-        then t = 0 eagerly (no draw)."""
+        then t = 0 eagerly (no draw). ``frames``: each step's frame is
+        written after it, outside the graph."""
         if T > 1:
             static = None
 
@@ -246,19 +274,48 @@ class GaussianDiffusion(AbstractDiffusionProcess):
 
                 return graphs_lib.Graph("ancestral", step, static, device=x.device, warmup=warmup)
 
-            key = ("ancestral", T, tuple(x.shape), x.dtype, x.device, *graph_key(model_fn))
+            # Keyed on the schedule's length, not the chain's: the step is the
+            # same for any chain length (a partial chain sets the device t), so
+            # every SDEdit strength and interpolation t replays one graph,
+            # while a schedule of another length (WaveGrad's searched one)
+            # keeps a graph of its own beside it.
+            key = ("ancestral", self.timesteps, tuple(x.shape), x.dtype, x.device, *graph_key(model_fn))
             graph, built = graphs_lib.cached(self.graphs, key, (*(params or {}).values(), *self.table_tensors()),
                                              build)
             static = graph.static
-            if not built:
+            if built:
+                put_frame(frames, 0, static["x"])
+            else:
                 static["x"].copy_(x)
                 static["t"].fill_(T - 1)
                 fill_static(model_fn, static)
-            for _ in range(T - 1 - built):
+            for i in range(int(built), T - 1):
                 static["noise"].normal_(generator=generator)
                 graph.replay()
+                put_frame(frames, i, static["x"])
             x = static["x"]
-        return self.p_sample(model_fn, params, x, 0, generator)
+        x = self.p_sample(model_fn, params, x, 0, generator)
+        put_frame(frames, T - 1, x)
+        return x
+
+    def interpolate(self, model_fn, params, x1: torch.Tensor, x2: torch.Tensor,
+                    generator: Optional[torch.Generator] = None, t: Optional[int] = None, lambd: float = 0.5,
+                    return_frames: bool = False, graphs: Optional[bool] = None):
+        """Noise both endpoints to step ``t`` (default T−1) with two draws
+        from ``generator`` (x1's, then x2's), lerp in q space, then run the
+        last ``t`` steps of the ancestral chain (JAX
+        ``gaussian_diffusion.py:interpolate``, which denoises from t − 1)."""
+        t = self.timesteps - 1 if t is None else int(t)
+        if t >= self.timesteps:
+            raise ValueError(f"`t` must be < {self.timesteps} during interpolation")
+        if x1.shape != x2.shape:
+            raise ValueError(f"x1 and x2 differ in shape: {list(x1.shape)} and {list(x2.shape)}")
+        t_b = torch.full((x1.shape[0],), t, dtype=torch.int32, device=x1.device)
+        xt1 = self.q_sample(x1, t_b, _randn(x1.shape, generator, x1.device))
+        xt2 = self.q_sample(x2, t_b, _randn(x2.shape, generator, x2.device))
+        img = (1.0 - lambd) * xt1 + lambd * xt2
+        return self.p_sample_loop(model_fn, params, tuple(x1.shape), generator, img=img, num_steps=t,
+                                  graphs=graphs, return_frames=return_frames)
 
     def sample(self, model_fn, params, shape, generator=None, **kwargs):
         return self.p_sample_loop(model_fn, params, shape, generator, **kwargs)

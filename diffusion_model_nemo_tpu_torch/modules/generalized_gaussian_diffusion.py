@@ -7,8 +7,9 @@ the ᾱ table extended with a leading 1.0 so that t = −1 maps to ᾱ = 1
 (indexed at t + 1). With ``eta = 0`` the noise term is exactly zero and no
 noise is drawn. The JAX package's chain is one ``lax.scan``; here, on CUDA,
 it is replays of one captured ``ddim_step`` (``ops/graphs.py``) that reads
-(t, t_next) from device tables at a device step counter, with x_T and any
-noise drawn eagerly, in the eager loop's order, into static buffers.
+(t, t_next) from its device table at a device step counter, with x_T and
+any noise drawn eagerly, in the eager loop's order, into static buffers
+(``table_loop``, the chain of the solvers that subclass it).
 
 A learned-variance network's output ([B, H, W, 2C]) raises ``ValueError``:
 the JAX package's DDIM step reshapes the output to x's shape and fails
@@ -26,9 +27,8 @@ from ..config.registry import register_target
 from ..ops import graphs as graphs_lib
 from ..ops.schedules import extract
 from .diffusion_process import ModelFn
-from .gaussian_diffusion import (
-    GaussianDiffusion, PMeanVariance, _randn, batched_t, fill_static, graph_key, static_model_fn,
-)
+from .gaussian_diffusion import GaussianDiffusion, PMeanVariance, _randn, batched_t, new_frames
+from .table_loop import device_table, table_loop
 
 __all__ = ["GeneralizedGaussianDiffusion"]
 
@@ -60,6 +60,7 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
         super().compute_constants(timesteps)
         one = torch.ones(1, dtype=torch.float32, device=self.device)
         self.alphas_extended_cumprod = torch.cat([one, self.constants.alphas_cumprod])
+        self._device_tables: Dict[str, torch.Tensor] = {}  # table_loop's tables, held by their graphs
 
     def table_tensors(self):
         return (*super().table_tensors(), self.alphas_extended_cumprod)
@@ -87,8 +88,8 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
 
     def ddim_step(self, model_fn, params, x, t, t_next, generator=None, noise=None):
         """One generalized step x_t → x_{t_next}; returns (x_next, x̂₀).
-        ``t``, ``t_next``: Python ints (the eager loop) or 0-d device tensors
-        (the captured step); at eta > 0 the noise is ``noise`` if given, else
+        ``t``, ``t_next``: Python ints or 0-d tensors (a row of the chain's
+        device table, eager or captured); at eta > 0 the noise is ``noise`` if given, else
         drawn from ``generator``."""
         model_output = model_fn(params, x, batched_t(t, x))
         if model_output.shape != x.shape:
@@ -126,6 +127,11 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
             np.asarray(sequence_next[::-1], dtype=np.int32),
         )
 
+    def _ddim_table(self) -> Dict[str, np.ndarray]:
+        """The chain's (t, t_next) pairs as the columns of its device table."""
+        seq, seq_next = self._strided_sequences()
+        return {"t": seq, "t_next": seq_next}
+
     def p_sample_loop(
         self,
         model_fn: ModelFn,
@@ -136,66 +142,40 @@ class GeneralizedGaussianDiffusion(GaussianDiffusion):
         num_steps: Optional[int] = None,
         unnormalize: bool = True,
         graphs: Optional[bool] = None,
-    ) -> torch.Tensor:
+        return_frames: bool = False,
+    ):
         """The strided chain from ``img`` (default N(0, I) from
         ``generator``). ``graphs``: replay a captured step (default: on
         CUDA) or run the Python loop; both draw the same numbers from
-        ``generator`` in the same order."""
+        ``generator`` in the same order. ``return_frames``: also the
+        trajectory [M, B, H, W, C] in [0, 1], as ``(out, frames)``."""
         del num_steps  # the DDIM stride is set by ddim_timesteps
-        seq, seq_next = self._strided_sequences()
+        table = device_table(self, "ddim", self._ddim_table, ("t", "t_next"), dtype=np.int64)
+        M = int(table.shape[0])
         x = img if img is not None else _randn(shape, generator, self.device)
-        if graphs_lib.use_graphs(graphs, x.device):
-            x = self._ddim_replays(model_fn, params, x, seq, seq_next, generator)
-            x = x if unnormalize else x.clone()  # not the graph's own buffer
-        else:
-            for t, t_next in zip(seq, seq_next):
-                x, _ = self.ddim_step(model_fn, params, x, int(t), int(t_next), generator)
-        return (x + 1.0) * 0.5 if unnormalize else x
-
-    def _ddim_replays(self, model_fn, params, x, seq, seq_next, generator) -> torch.Tensor:
-        """The chain as replays of one captured step that gathers (t,
-        t_next) from device tables at a 0-d step counter and advances it; at
-        eta > 0 the step's noise is drawn into a static buffer before each
-        replay. The first step runs eagerly (the capture's warm-up). Returns
-        the static x."""
+        frames = new_frames(M, x) if return_frames else None
         noisy = self.eta > 0.0
-        static = None
 
-        def draw():
-            if noisy:
-                static["noise"].normal_(generator=generator)
+        def step(fn, s, row):
+            t, t_next = row.unbind(0)
+            s["x"].copy_(self.ddim_step(fn, params, s["x"], t, t_next, noise=s.get("noise"))[0])
 
-        def build():
-            nonlocal static
-            dev = x.device
-            static = {
-                "x": x.clone(), "i": torch.zeros((), dtype=torch.long, device=dev),
-                "seq": torch.as_tensor(seq, dtype=torch.long).to(dev),
-                "seq_next": torch.as_tensor(seq_next, dtype=torch.long).to(dev),
-                "noise": torch.empty_like(x) if noisy else None,
-            }
-            fn = static_model_fn(model_fn, static)
+        def draw(s, i):
+            s["noise"].normal_(generator=generator)
 
-            def step():
-                i = static["i"].reshape(1)
-                t, t_next = static["seq"].gather(0, i)[0], static["seq_next"].gather(0, i)[0]
-                static["x"].copy_(self.ddim_step(fn, params, static["x"], t, t_next, noise=static["noise"])[0])
-                static["i"].add_(1)
+        state = {"x": x.clone(), **({"noise": torch.empty_like(x)} if noisy else {})}
+        state = table_loop(self, "ddim", model_fn, params, state, table, step, M,
+                           graphs_lib.use_graphs(graphs, x.device), draw=draw if noisy else None,
+                           frame=lambda s, row: s["x"], frames=frames)
+        x = state["x"]
+        out = (x + 1.0) * 0.5 if unnormalize else x.clone()  # not the graph's own buffer
+        return (out, frames) if return_frames else out
 
-            def warmup():  # the chain's first step
-                draw()
-                step()
-
-            return graphs_lib.Graph("ddim", step, static, device=dev, warmup=warmup)
-
-        key = ("ddim", tuple(int(t) for t in seq), tuple(x.shape), x.dtype, x.device, *graph_key(model_fn))
-        graph, built = graphs_lib.cached(self.graphs, key, (*(params or {}).values(), *self.table_tensors()), build)
-        static = graph.static
-        if not built:
-            static["x"].copy_(x)
-            static["i"].zero_()
-            fill_static(model_fn, static)
-        for _ in range(len(seq) - built):
-            draw()
-            graph.replay()
-        return static["x"]
+    def interpolate(self, model_fn, params, x1: torch.Tensor, x2: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None, t: Optional[int] = None, lambd: float = 0.5,
+                    return_frames: bool = False, graphs: Optional[bool] = None):
+        """DDIM interpolation: the strided chain from the given latent
+        ``x1`` (the caller slerps the latents; ``x2``, ``t`` and ``lambd``
+        are unused, as in the JAX package)."""
+        return self.p_sample_loop(model_fn, params, tuple(x1.shape), generator, img=x1, graphs=graphs,
+                                  return_frames=return_frames)

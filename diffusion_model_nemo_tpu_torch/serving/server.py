@@ -30,6 +30,13 @@ Endpoints (standard library ``http.server``):
                    archive's ``segment_frames``: fixed shapes). A vocoder
                    archive serves only this route; /sample answers it 400,
                    and /vocode answers any other archive 400.
+  POST /edit     → (DDPM-family archives) JSON {"images_npy": b64 of an
+                   np.save'd [N, H, W, C] array (uint8, or floats in [0, 1])
+                   at the model's image size, "strength": s in [0, 1],
+                   "seed": S?, "format": "png"|"npy"} → SDEdit outputs
+                   (``DDPM.edit``: the input noised to t0 = round(s·(T − 1)),
+                   then the ancestral partial chain, captured once for each
+                   strength). Unseeded requests coalesce per strength.
 ``label`` and ``guidance_scale`` need a class-conditional archive
 (``ConditionalDDPM``): a label in [0, K), no label = the null class, and
 a guidance scale only with a label (one network call on the 2B batch a
@@ -45,10 +52,12 @@ JAX server; its batches are vocoded on the ancestral chain (captured, the
 mel inputs a static buffer), and the waveforms stay float32. A
 ``WavegradDDPM`` archive serves /sample on its own ancestral chain under
 ``use_ddim_sampler=False``; with the DDIM swap its network reads DDIM's
-integer t as its noise level, as the JAX server's does. The
-super-resolution, edit and text modes are not ported yet: those routes
-answer 501. ``serve`` takes a model object or a ``.dmn`` archive path (or a
-local-hub model name), as the JAX ``serve(model_path, ...)`` does.
+integer t as its noise level, as the JAX server's does. ``serve`` swaps in
+the JAX server's fast samplers with its precedence: UniPC, then Karras,
+then DPM-Solver++, then DDIM. The super-resolution and text modes are not
+ported yet: /super_resolve answers 501. ``serve`` takes a model object or
+a ``.dmn`` archive path (or a local-hub model name), as the JAX
+``serve(model_path, ...)`` does.
 """
 
 from __future__ import annotations
@@ -73,7 +82,19 @@ __all__ = ["BatchingSampler", "SamplingServer", "serve"]
 
 log = logging.getLogger(__name__)
 
-_NOT_PORTED_ROUTES = ("/super_resolve", "/edit")
+_NOT_PORTED_ROUTES = ("/super_resolve",)
+
+
+def _to_unit_float_images(images: np.ndarray, what: str) -> np.ndarray:
+    """uint8 → [0, 1] floats; float inputs must already be in [0, 1] (a
+    float array in [0, 255] is refused, naming the fix)."""
+    if images.dtype == np.uint8:
+        return images.astype(np.float32) / 255.0
+    images = images.astype(np.float32)
+    if images.size and float(images.max()) > 1.5:
+        raise ValueError(f"float {what} must be in [0, 1] (got max {float(images.max()):.3g}); "
+                         "divide by 255 or send uint8")
+    return images
 
 
 @dataclass
@@ -83,6 +104,8 @@ class _Request:
     label: Optional[int] = None
     guidance_scale: Optional[float] = None
     mel: Optional[np.ndarray] = None  # vocoder mode: log-mel [n, F, n_mels]
+    images: Optional[np.ndarray] = None  # edit sources [n, H, W, C] in [0, 1]
+    strength: Optional[float] = None  # edit requests: SDEdit strength in [0, 1]
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[str] = None
@@ -93,7 +116,8 @@ class BatchingSampler:
     """Coalesces sample requests into fixed-shape device batches.
 
     ``submit(n)`` blocks until the worker thread has produced ``n`` images
-    (``submit_vocode(mel)`` the waveforms of a vocoder archive). Unseeded
+    (``submit_vocode(mel)`` the waveforms of a vocoder archive,
+    ``submit_edit(images, strength)`` SDEdit outputs). Unseeded
     batches draw from a generator seeded by (``base_seed``, batch counter);
     a seeded request's batch from ``seed`` alone.
     """
@@ -221,6 +245,39 @@ class BatchingSampler:
             return np.concatenate(parts, axis=0)
         return self._wait(_Request(num_images=n, seed=seed, mel=mel), timeout, "vocode")
 
+    def submit_edit(self, images: np.ndarray, strength: float = 0.5, seed: Optional[int] = None,
+                    timeout: Optional[float] = None) -> np.ndarray:
+        """SDEdit the inputs [n, H, W, C] (uint8, or floats in [0, 1]) at the
+        model's image size: the contract of ``submit`` (oversized requests
+        in ``max_batch`` chunks, a seeded request alone, unseeded ones
+        coalesced, here per strength)."""
+        if self.vocode_mode:
+            raise ValueError("/edit requires a generation archive (DDPM family)")
+        if not hasattr(self.model, "edit"):
+            raise ValueError(f"{type(self.model).__name__} has no edit surface (SDEdit needs a DDPM-family "
+                             "ancestral sampler)")
+        if not 0.0 <= float(strength) <= 1.0:
+            raise ValueError(f"strength must be in [0, 1], got {strength}")
+        images = np.asarray(images)
+        if images.ndim != 4:
+            raise ValueError(f"images must be [n, H, W, C], got {images.shape}")
+        images = _to_unit_float_images(images, "edit inputs")
+        expect = (self.image_size, self.image_size, int(self.model.channels))
+        if tuple(images.shape[1:]) != expect:
+            raise ValueError(f"edit inputs must be [n, {expect[0]}, {expect[1]}, {expect[2]}] for this archive; "
+                             f"got {images.shape}")
+        n = images.shape[0]
+        if n < 1:
+            raise ValueError("need at least one input image")
+        if seed is not None:
+            seed = int(seed)
+        if n > self.max_batch:
+            parts = [self.submit_edit(images[off: off + self.max_batch], strength, None if seed is None else seed + i,
+                                      timeout) for i, off in enumerate(range(0, n, self.max_batch))]
+            return np.concatenate(parts, axis=0)
+        req = _Request(num_images=n, seed=seed, images=images, strength=float(strength))
+        return self._wait(req, timeout, "edit")
+
     def _wait(self, req: _Request, timeout: Optional[float], what: str) -> np.ndarray:
         """Queue ``req`` and wait for the worker to answer it."""
         with self._cv:
@@ -272,6 +329,17 @@ class BatchingSampler:
         out = self.model.vocode(torch.from_numpy(mels), generator=generator, use_ema=self.use_ema)
         return self._copy_out(out)
 
+    def _dispatch_edit(self, images: np.ndarray, strength: float, generator: torch.Generator):
+        """Enqueue one fixed-shape SDEdit batch: the stacked inputs padded
+        to ``max_batch`` rows (computed and discarded), quantized to uint8
+        on the device. Returns (host tensor, event) as ``_dispatch_sample``
+        does."""
+        n = images.shape[0]
+        if n < self.max_batch:
+            images = np.concatenate([images, np.zeros((self.max_batch - n,) + images.shape[1:], images.dtype)])
+        out = self.model.edit(torch.from_numpy(images), strength=strength, generator=generator, use_ema=self.use_ema)
+        return self._copy_out(to_uint8_tensor(out))
+
     @staticmethod
     def _copy_out(out: torch.Tensor):
         """(host tensor, event): on CUDA a non-blocking copy into pinned
@@ -293,8 +361,9 @@ class BatchingSampler:
         return host.numpy()
 
     def _take_group(self) -> List[_Request]:
-        """Pop a coalescable group: one label and guidance scale; seeded
-        requests go alone."""
+        """Pop a coalescable group: one label, guidance scale and edit
+        strength (sample and edit requests apart); seeded requests go
+        alone."""
         head = self._queue[0]
         if head.seed is not None:
             return [self._queue.pop(0)]
@@ -303,6 +372,7 @@ class BatchingSampler:
         while i < len(self._queue):
             r = self._queue[i]
             if (r.seed is None and r.label == head.label and r.guidance_scale == head.guidance_scale
+                    and r.strength == head.strength and (r.images is None) == (head.images is None)
                     and total + r.num_images <= self.max_batch):
                 group.append(self._queue.pop(i))
                 total += r.num_images
@@ -358,6 +428,9 @@ class BatchingSampler:
                 t0 = time.perf_counter()
                 if self.vocode_mode:
                     dispatched = self._dispatch_vocode(np.concatenate([r.mel for r in group], axis=0), gen)
+                elif group[0].images is not None:  # SDEdit requests
+                    dispatched = self._dispatch_edit(np.concatenate([r.images for r in group], axis=0),
+                                                     group[0].strength, gen)
                 else:
                     dispatched = self._dispatch_sample(gen, group[0].label, group[0].guidance_scale)
             except Exception as e:  # worker boundary: report to every waiter
@@ -436,6 +509,15 @@ class SamplingServer:
                     waves = server.batcher.submit_vocode(mel, seed=payload.get("seed"),
                                                          timeout=float(payload.get("timeout", 600.0)))
                     return waves, "npy"  # waveforms have no PNG form
+                if self.path == "/edit":
+                    blob = payload.get("images_npy")
+                    if not blob:
+                        raise ValueError("images_npy (base64 of an np.save'd [N,H,W,C] array) is required")
+                    arr = np.load(io.BytesIO(base64.b64decode(blob)), allow_pickle=False)
+                    images = server.batcher.submit_edit(arr, strength=float(payload.get("strength", 0.5)),
+                                                        seed=payload.get("seed"),
+                                                        timeout=float(payload.get("timeout", 600.0)))
+                    return images, payload.get("format", "png")
                 images = server.batcher.submit(
                     int(payload.get("num_images", 1)),
                     seed=payload.get("seed"),
@@ -449,7 +531,7 @@ class SamplingServer:
                 if self.path in _NOT_PORTED_ROUTES:
                     self._json(501, {"error": f"{self.path} is not ported yet"})
                     return
-                if self.path not in ("/sample", "/vocode"):
+                if self.path not in ("/sample", "/vocode", "/edit"):
                     self._json(404, {"error": f"no route {self.path}"})
                     return
                 try:
@@ -510,42 +592,65 @@ def serve(
     use_ddim_sampler: bool = True,
     ddim_timesteps: int = 50,
     ddim_eta: float = 0.0,
+    use_dpm_solver: bool = False,
+    dpm_steps: int = 20,
+    dpm_order: int = 2,
+    dpm_time_spacing: str = "strided",
+    use_karras_sampler: bool = False,
+    karras_steps: int = 18,
+    karras_order: int = 2,
+    karras_s_churn: float = 0.0,
+    use_unipc: bool = False,
+    unipc_steps: int = 20,
+    unipc_order: int = 2,
+    unipc_corrector: bool = True,
     base_seed: int = 0,
     image_size: Optional[int] = None,
     device: str = "cuda",
     mel_frames: Optional[int] = None,
 ) -> SamplingServer:
     """Serve a model object, or the archive at a path (or a local-hub model
-    name, restored on ``device``): optionally swap in DDIM (the default, as
-    in ``examples/serve.py``; a ScoreSDE archive refuses it and serves with
-    its own sampler under ``use_ddim_sampler=False``, and so does a WaveGrad
-    vocoder archive, whose ``mel_frames`` default to its segment's), warm
-    up with one batch, and return the server (not yet listening: call
-    ``serve_forever`` or ``start_background``)."""
+    name, restored on ``device``): optionally swap in a sampler, with the
+    JAX server's precedence UniPC > Karras > DPM-Solver++ > DDIM (DDIM is
+    the default, as in ``examples/serve.py``; a ScoreSDE archive refuses
+    every swap and serves with its own sampler under
+    ``use_ddim_sampler=False``, and so does a WaveGrad vocoder archive,
+    whose ``mel_frames`` default to its segment's), warm up with one batch,
+    and return the server (not yet listening: call ``serve_forever`` or
+    ``start_background``)."""
     if isinstance(model, (str, os.PathLike)):
         from ..models import restore_model_from_archive
 
         model = restore_model_from_archive(str(model), use_ema=False, device=device)
-    if use_ddim_sampler and hasattr(model, "vocode"):
+    swap = use_unipc or use_karras_sampler or use_dpm_solver or use_ddim_sampler
+    if swap and hasattr(model, "vocode"):
         # The vocoder's schedule is its sampler (searchable, level-conditioned):
         # DDIM would condition its network on a discrete t.
         raise ValueError(
-            "vocoder archives keep their own (searchable) WaveGrad schedule: pass use_ddim_sampler=false; "
-            "use the schedule search of the vocode CLI for fast sampling"
+            "vocoder archives keep their own (searchable) WaveGrad schedule: pass use_ddim_sampler=false "
+            "(and no dpm/karras/unipc flags); use the schedule search of the vocode CLI for fast sampling"
         )
-    if use_ddim_sampler and not hasattr(model.sampler, "constants"):
+    if swap and not hasattr(model.sampler, "constants"):
         # A score SDE has no discrete noise schedule to re-grid: it serves
         # with its own sampler (the JAX server's refusal).
         raise ValueError(
             f"{type(model).__name__} archives use their own ODE sampler; "
             "DDIM/DPM/Karras swaps only apply to DDPM-family archives"
         )
-    if use_ddim_sampler:
-        sampler_cfg = dict(model.cfg.sampler)
-        sampler_cfg["_target_"] = "diffusion_model_nemo.modules.GeneralizedGaussianDiffusion"
-        sampler_cfg["eta"] = ddim_eta
-        sampler_cfg["ddim_timesteps"] = ddim_timesteps
-        model.change_sampler(sampler_cfg)
+    swaps = (
+        (use_unipc, "UniPCDiffusion", {"solver_steps": unipc_steps, "solver_order": unipc_order,
+                                       "use_corrector": unipc_corrector}),
+        (use_karras_sampler, "KarrasDiffusion", {"solver_steps": karras_steps, "solver_order": karras_order,
+                                                 "s_churn": karras_s_churn}),
+        (use_dpm_solver, "DPMSolverDiffusion", {"solver_steps": dpm_steps, "solver_order": dpm_order,
+                                                "time_spacing": dpm_time_spacing}),
+        (use_ddim_sampler, "GeneralizedGaussianDiffusion", {"eta": ddim_eta, "ddim_timesteps": ddim_timesteps}),
+    )
+    for on, target, fields in swaps:
+        if on:
+            model.change_sampler(dict(model.cfg.sampler, _target_=f"diffusion_model_nemo.modules.{target}",
+                                      **fields))
+            break
     batcher = BatchingSampler(
         model,
         image_size=int(image_size or model.cfg.image_size),

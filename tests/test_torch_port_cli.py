@@ -2,9 +2,11 @@
 ``examples/configs/ddpm/unet_small.yaml`` (sample dump, checkpoints, final
 archive), ``eval_ddpm``, ``test_ddpm`` and ``serve`` from the archive, each
 CLI called in-process with a tiny U-Net; deterministic resume; the options
-that stay refused; and the ImprovedDDPM and ConditionalDDPM CLIs
-(train → eval / test → serve) with ``restore_model_from_archive`` of each
-family.
+that stay refused; the ImprovedDDPM and ConditionalDDPM CLIs (train → eval /
+test → serve) with ``restore_model_from_archive`` of each family; and the
+sampling services: ``eval_ddpm``'s sampler flags and ``show_diffusion`` (its
+GIF decoded), the three interpolation CLIs, ``edit_ddpm`` and
+``inpaint_ddpm``.
 """
 
 import json
@@ -17,10 +19,12 @@ import torch
 
 from diffusion_model_nemo_tpu_torch import DDPM, Trainer
 from diffusion_model_nemo_tpu_torch.cli import (
-    eval_conditional_ddpm, eval_ddpm, eval_improved_ddpm, serve, test_conditional_ddpm, test_ddpm,
-    test_improved_ddpm, train_conditional_ddpm, train_ddpm, train_improved_ddpm,
+    edit_ddpm, eval_conditional_ddpm, eval_ddpm, eval_improved_ddpm, inpaint_ddpm, interpolate_ddim,
+    interpolate_ddpm, interpolate_improved_ddpm, serve, test_conditional_ddpm, test_ddpm, test_improved_ddpm,
+    train_conditional_ddpm, train_ddpm, train_improved_ddpm,
 )
 from diffusion_model_nemo_tpu_torch.models import ConditionalDDPM, ImprovedDDPM, restore_model_from_archive
+from diffusion_model_nemo_tpu_torch.cli.common import parse_args
 from diffusion_model_nemo_tpu_torch.config import load_config
 from diffusion_model_nemo_tpu_torch.training import CheckpointManager, exp_manager
 from diffusion_model_nemo_tpu_torch.utils.image import decode_png
@@ -119,18 +123,20 @@ def test_serve_answers_from_the_archive_path(trained):
          "accumulate_grad_batches=2"),
         ("train", ["+trainer.steps_per_execution=2", "+trainer.posthoc_ema_sigma_rels=[0.05]"],
          "posthoc_ema_sigma_rels"),
-        ("eval", ["use_dpm_solver=true"], "use_dpm_solver"),
-        ("eval", ["use_karras_sampler=true"], "use_karras_sampler"),
-        ("eval", ["show_diffusion=true"], "show_diffusion"),
+        ("edit", ["input_path={tmp}"], "an image directory"),
+        ("inpaint", ["input_path={tmp}"], "an image directory"),
+        ("interpolate", ["dataset_name=cifar10"], "name='cifar10'"),
     ],
 )
 def test_refused_options_raise_naming_themselves(trained, tmp_path, cli, args, match):
     _root, run, *_ = trained
+    args = [a.format(tmp=tmp_path) for a in args]
+    clis = {"edit": edit_ddpm, "inpaint": inpaint_ddpm, "interpolate": interpolate_ddpm}
     with pytest.raises(NotImplementedError, match=match):
         if cli == "train":
             train_ddpm.main([*CONFIG, *TINY, "trainer.max_steps=1", f"exp_manager.exp_dir={tmp_path}", *args])
         else:
-            eval_ddpm.main([f"model_path={run / 'DDPM-UNet.dmn'}", "device=cpu", *args])
+            clis[cli].main([f"model_path={run / 'DDPM-UNet.dmn'}", "device=cpu", "batch_size=2", *args])
 
 
 class _Clock:
@@ -339,3 +345,113 @@ def test_conditional_eval_test_and_serve_clis(family_archives, tmp_path):
     finally:
         server.shutdown()
     assert images.shape == (2, 8, 8, 3) and images.dtype == np.uint8
+
+
+# ------------------------------------------------------ the sampling services --
+@pytest.mark.parametrize("flags,target", [
+    (["use_dpm_solver=true", "dpm_steps=4"], "DPMSolverDiffusion"),
+    (["use_karras_sampler=true", "karras_steps=3"], "KarrasDiffusion"),
+    (["use_unipc=true", "unipc_steps=4", "unipc_order=3", "unipc_variant=bh1"], "UniPCDiffusion"),
+    (["use_unipc=true", "unipc_steps=4", "use_dpm_solver=true"], "UniPCDiffusion"),
+], ids=["dpm", "karras", "unipc", "unipc-over-dpm"])
+def test_eval_sampler_flags_write_the_samples_of_that_sampler(trained, tmp_path, flags, target):
+    """``eval_ddpm``'s sampler flags (UniPC > Karras > DPM-Solver++ > DDIM):
+    the PNGs are the swapped sampler's ``DDPM.sample`` on the seed."""
+    _root, run, *_ = trained
+    dmn = str(run / "DDPM-UNet.dmn")
+    argv = [f"model_path={dmn}", "batch_size=2", "seed=1", "device=cpu", f"output_dir={tmp_path}",
+            "add_timestamp=false", *flags]
+    out = eval_ddpm.main(argv)
+    pngs = np.stack([decode_png((out / f"sample_{i}.png").read_bytes()) for i in range(2)])
+    model = DDPM.restore_from(dmn, use_ema=True, device="cpu")
+    eval_ddpm.maybe_use_ddim_sampler(model, eval_ddpm.EvalConfig(**parse_args(argv, schema=eval_ddpm.EvalConfig)))
+    assert type(model.sampler).__name__ == target
+    ref = model.sample(2, 8, generator=torch.Generator().manual_seed(1))
+    assert np.array_equal(pngs, (ref.clamp(0, 1) * 255 + 0.5).to(torch.uint8).numpy())
+
+
+@pytest.mark.parametrize("flags,frames", [(["use_ddim_sampler=false"], 10), (["ddim_timesteps=5", "frame_step=2"], 3)],
+                         ids=["ancestral", "ddim-every-2nd"])
+def test_eval_show_diffusion_writes_the_first_samples_trajectory(trained, tmp_path, flags, frames):
+    """``show_diffusion``: ``diffusion.gif`` (the port's own encoder, decoded
+    here with Pillow), every ``frame_step``-th frame of the first sample,
+    the last frame the first PNG up to the GIF palette."""
+    from PIL import Image
+
+    _root, run, *_ = trained
+    out = eval_ddpm.main([f"model_path={run / 'DDPM-UNet.dmn'}", "batch_size=2", "seed=1", "device=cpu",
+                          f"output_dir={tmp_path}", "add_timestamp=false", "show_diffusion=true", *flags])
+    gif = Image.open(out / "diffusion.gif")
+    assert gif.format == "GIF" and gif.size == (8, 8) and gif.n_frames == frames
+    gif.seek(gif.n_frames - 1)
+    last = np.asarray(gif.convert("RGB")).astype(np.int32)
+    first = decode_png((out / "sample_0.png").read_bytes()).astype(np.int32)
+    if frames == 10:  # the ancestral chain's 10 frames: the last is the output
+        assert np.abs(last - first).max() <= 26  # the 6 x 7 x 6 colour cube's half step
+
+
+def test_interpolation_clis(trained, family_archives, tmp_path):
+    """``interpolate_ddpm`` (and ImprovedDDPM's) on the synthetic set and
+    ``interpolate_ddim`` (slerp): their grids."""
+    _root, run, *_ = trained
+    dmn = str(run / "DDPM-UNet.dmn")
+    out = interpolate_ddpm.main([f"model_path={dmn}", "batch_size=2", "t=5", "lambd=0.25", "device=cpu",
+                                 "dataset_name=synthetic", f"output_dir={tmp_path / 'a'}"])
+    grids = [decode_png((out / f).read_bytes()) for f in ("interpolation.png", "endpoint_a.png", "endpoint_b.png")]
+    assert all(g.shape == (12, 22, 3) for g in grids)
+    out = interpolate_improved_ddpm.main([f"model_path={family_archives['improved'][0]}", "batch_size=2",
+                                          "device=cpu", "dataset_name=synthetic", f"output_dir={tmp_path / 'b'}"])
+    assert decode_png((out / "interpolation.png").read_bytes()).shape == (12, 22, 3)
+    out = interpolate_ddim.main([f"model_path={dmn}", "num_interpolations=3", "ddim_timesteps=5", "device=cpu",
+                                 f"output_dir={tmp_path / 'c'}"])
+    assert decode_png((out / "slerp.png").read_bytes()).shape == (12, 32, 3)
+
+
+def test_slerp_follows_the_great_circle():
+    z1, z2 = torch.randn(4, 4, 3, generator=torch.Generator().manual_seed(0)), torch.randn(
+        4, 4, 3, generator=torch.Generator().manual_seed(1))
+    assert torch.allclose(interpolate_ddim.slerp(z1, z2, 0.0), z1, atol=1e-5)
+    assert torch.allclose(interpolate_ddim.slerp(z1, z2, 1.0), z2, atol=1e-5)
+    mid = interpolate_ddim.slerp(z1 / z1.norm(), z2 / z2.norm(), 0.5)
+    assert abs(float(mid.norm()) - 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("source", ["self", "npy", "npz"])
+def test_edit_and_inpaint_clis(trained, tmp_path, source):
+    """``edit_ddpm`` and ``inpaint_ddpm`` on images sampled from the model
+    or read from a .npy / .npz file (uint8 NCHW / [0, 1] floats NHWC): their
+    grids and PNGs; the inpainted images keep the known pixels."""
+    _root, run, *_ = trained
+    dmn = str(run / "DDPM-UNet.dmn")
+    imgs = np.random.default_rng(0).uniform(0, 1, (3, 8, 8, 3)).astype(np.float32)
+    extra = []
+    if source == "npy":
+        np.save(tmp_path / "in.npy", imgs)
+        extra = [f"input_path={tmp_path / 'in.npy'}"]
+    elif source == "npz":
+        np.savez(tmp_path / "in.npz", images=(imgs * 255 + 0.5).astype(np.uint8).transpose(0, 3, 1, 2))
+        extra = [f"input_path={tmp_path / 'in.npz'}"]
+    common = [f"model_path={dmn}", "batch_size=2", "device=cpu", "add_timestamp=false", "seed=2", *extra]
+    out = edit_ddpm.main([*common, "strength=0.5", f"output_dir={tmp_path / 'edit'}"])
+    assert {p.name for p in out.iterdir()} == {"input.png", "edited.png", "edited_0.png", "edited_1.png"}
+    out = inpaint_ddpm.main([*common, "mask=left", "jump_length=2", "jump_n_sample=2",
+                             f"output_dir={tmp_path / 'inpaint'}"])
+    names = {p.name for p in out.iterdir()}
+    assert names == {"input.png", "masked.png", "inpainted.png", "inpainted_0.png", "inpainted_1.png"}
+    if source != "self":
+        painted = decode_png((out / "inpainted_0.png").read_bytes()).astype(np.int32)
+        src = (np.clip(imgs[0], 0, 1) * 255 + 0.5).astype(np.int32)
+        assert np.abs(painted[:, 4:] - src[:, 4:]).max() <= 1  # the right half is kept
+
+
+@pytest.mark.parametrize("name", ["left", "right", "top", "bottom", "center", "random"])
+def test_inpaint_named_masks(name):
+    """The JAX script's named masks: 1 = keep, the named fraction cut."""
+    m = inpaint_ddpm.build_mask(name, (1, 8, 8, 3), 0.5, torch.Generator().manual_seed(0))
+    assert m.shape == (1, 8, 8, 1) and set(np.unique(m)) <= {0.0, 1.0}
+    holes = {"left": m[0, :, :4], "right": m[0, :, 4:], "top": m[0, :4], "bottom": m[0, 4:],
+             "center": m[0, 2:6, 2:6]}
+    if name == "random":
+        assert 0 < m.sum() < 64
+    else:
+        assert holes[name].sum() == 0 and m.sum() == 64 - holes[name].size

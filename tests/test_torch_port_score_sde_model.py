@@ -358,6 +358,8 @@ def test_serving_refuses_ddim_and_answers_with_its_own_sampler(trained):
     server = serve(str(dmn), port=0, max_batch=2, use_ddim_sampler=False, device="cpu")
     try:
         images = server.batcher.submit(3, seed=4, timeout=120)
+        with pytest.raises(ValueError, match="no edit surface"):  # /edit answers 400, as the JAX server does
+            server.batcher.submit_edit(np.zeros((1, IMG, IMG, 3), np.uint8), strength=0.5)
     finally:
         server.shutdown()
     assert images.shape == (3, IMG, IMG, 3) and images.dtype == np.uint8

@@ -19,7 +19,7 @@ import torch
 from diffusion_model_nemo_tpu.utils.image import to_uint8 as jax_pkg_to_uint8
 from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
 from diffusion_model_nemo_tpu_torch.models import DDPM, ConditionalDDPM
-from diffusion_model_nemo_tpu_torch.serving import BatchingSampler, serve
+from diffusion_model_nemo_tpu_torch.serving import BatchingSampler, SamplingServer, serve
 from diffusion_model_nemo_tpu_torch.utils.image import (
     decode_png,
     encode_png,
@@ -169,8 +169,8 @@ def test_requests_coalesce_by_label_and_guidance_scale():
 
 
 def test_unported_routes_and_unknown_paths(server):
-    for path in ("/edit", "/super_resolve"):
-        assert _call(server, "POST", path, {})[0] == 501
+    assert _call(server, "POST", "/super_resolve", {})[0] == 501
+    assert _call(server, "POST", "/edit", {})[0] == 400  # ported: an edit needs images_npy
     assert _call(server, "POST", "/vocode", {})[0] == 400  # ported: a DDPM archive is not a vocoder
     assert _call(server, "POST", "/nope", {})[0] == 404
     assert _call(server, "GET", "/nope")[0] == 404
@@ -293,3 +293,124 @@ def test_png_decoder_rejects_corruption():
         decode_png(bytes(data))
     with pytest.raises(TypeError):
         encode_png(np.zeros((2, 2, 3), np.float32))
+
+
+# ------------------------------------------------ fast samplers and /edit --
+@pytest.mark.parametrize("flags,expect", [
+    ({"use_dpm_solver": True, "dpm_steps": 3}, "DPMSolverDiffusion"),
+    ({"use_karras_sampler": True, "karras_steps": 3}, "KarrasDiffusion"),
+    ({"use_unipc": True, "unipc_steps": 3}, "UniPCDiffusion"),
+    ({"use_unipc": True, "use_karras_sampler": True, "use_dpm_solver": True, "unipc_steps": 3}, "UniPCDiffusion"),
+    ({"use_karras_sampler": True, "use_dpm_solver": True, "karras_steps": 3}, "KarrasDiffusion"),
+    ({"use_dpm_solver": True, "dpm_steps": 3, "ddim_timesteps": 2}, "DPMSolverDiffusion"),
+    ({"ddim_timesteps": 2}, "GeneralizedGaussianDiffusion"),
+    ({"use_ddim_sampler": False}, "GaussianDiffusion"),
+], ids=["dpm", "karras", "unipc", "unipc>karras>dpm", "karras>dpm", "dpm>ddim", "ddim", "none"])
+def test_serve_swaps_samplers_with_the_jax_precedence(flags, expect):
+    """``serve``'s sampler flags and their precedence UniPC > Karras >
+    DPM-Solver++ > DDIM (the JAX server's); the warm-up batch and a seeded
+    request run on the swapped sampler."""
+    srv = serve(_tiny_model(), port=0, max_batch=MAX_BATCH, **flags)
+    try:
+        assert type(srv.batcher.model.sampler).__name__ == expect
+        out = srv.batcher.submit(2, seed=1, timeout=120)
+        assert out.shape == (2, IMG, IMG, 3) and out.dtype == np.uint8
+    finally:
+        srv.shutdown()
+
+
+def test_serve_refuses_the_swaps_for_an_archive_without_a_schedule():
+    class NoSchedule:  # a ScoreSDE's sampler has no discrete table
+        pass
+
+    model = _tiny_model()
+    model.sampler = NoSchedule()
+    with pytest.raises(ValueError, match="use their own ODE sampler"):
+        serve(model, port=0, use_ddim_sampler=False, use_dpm_solver=True)
+
+
+@pytest.fixture(scope="module")
+def edit_batcher():
+    batcher = BatchingSampler(_tiny_model(), IMG, max_batch=MAX_BATCH).start(warmup=False)
+    yield batcher
+    batcher.stop()
+
+
+def test_edit_roundtrip(edit_batcher):
+    """The JAX package's ``test_edit_serving_roundtrip`` cases: seeded
+    determinism (and the model's ``edit`` on the seed), uint8 inputs (read
+    as u8 / 255), strength 0 the input noised to t = 0 (one uint8 level), an
+    oversized request chunked, and the refusals."""
+    rng = np.random.default_rng(0)
+    src = rng.uniform(0.1, 0.9, (3, IMG, IMG, 3)).astype(np.float32)
+    out = edit_batcher.submit_edit(src, strength=0.6, seed=4, timeout=120)
+    assert out.shape == (3, IMG, IMG, 3) and out.dtype == np.uint8
+    assert np.array_equal(out, edit_batcher.submit_edit(src, strength=0.6, seed=4, timeout=120))
+    padded = np.concatenate([src, np.zeros((MAX_BATCH - 3, IMG, IMG, 3), np.float32)])
+    direct = edit_batcher.model.edit(torch.from_numpy(padded), 0.6, generator=torch.Generator().manual_seed(4),
+                                     use_ema=True)
+    assert np.array_equal(out, to_uint8_tensor(direct)[:3].numpy())
+    u8 = (src * 255.0 + 0.5).astype(np.uint8)
+    out_u8 = edit_batcher.submit_edit(u8, strength=0.6, seed=4, timeout=120)  # read as u8 / 255
+    assert np.array_equal(out_u8, edit_batcher.submit_edit(u8.astype(np.float32) / 255.0, strength=0.6, seed=4,
+                                                           timeout=120))
+    # strength 0: only the forward noise to t = 0 separates the output from the input
+    ident = edit_batcher.submit_edit(src, strength=0.0, seed=4, timeout=120)
+    eps = torch.randn((MAX_BATCH, IMG, IMG, 3), generator=torch.Generator().manual_seed(4))[:3]
+    c = edit_batcher.model.sampler.constants
+    x = c.sqrt_alphas_cumprod[0] * (torch.from_numpy(src) * 2.0 - 1.0) + c.sqrt_one_minus_alphas_cumprod[0] * eps
+    np.testing.assert_allclose(ident.astype(np.float32), to_uint8(((x + 1.0) * 0.5).numpy()).astype(np.float32),
+                               atol=1.0)
+    big = rng.uniform(0.1, 0.9, (MAX_BATCH + 2, IMG, IMG, 3)).astype(np.float32)
+    assert edit_batcher.submit_edit(big, strength=0.6, seed=7, timeout=240).shape == (MAX_BATCH + 2, IMG, IMG, 3)
+    with pytest.raises(ValueError, match="strength"):
+        edit_batcher.submit_edit(src, strength=1.5, timeout=30)
+    with pytest.raises(ValueError, match=r"\[n, H, W, C\]"):
+        edit_batcher.submit_edit(src[0], timeout=30)
+    with pytest.raises(ValueError, match="edit inputs"):
+        edit_batcher.submit_edit(np.zeros((1, IMG * 2, IMG * 2, 3), np.float32), timeout=30)
+    with pytest.raises(ValueError, match=r"\[0, 1\]"):
+        edit_batcher.submit_edit(src * 255.0, strength=0.5, timeout=30)
+
+
+def test_edit_requests_coalesce_per_strength():
+    """Unseeded edits coalesce per strength, never with another strength or
+    with /sample traffic."""
+    batcher = BatchingSampler(_tiny_model(), IMG, max_batch=MAX_BATCH, linger_ms=300.0).start(warmup=False)
+    src = np.random.default_rng(2).uniform(0, 1, (1, IMG, IMG, 3)).astype(np.float32)
+    try:
+        jobs = [lambda: batcher.submit_edit(src, 0.5, timeout=120), lambda: batcher.submit_edit(src, 0.5, timeout=120),
+                lambda: batcher.submit_edit(src, 0.2, timeout=120), lambda: batcher.submit(1, timeout=120)]
+        threads = [threading.Thread(target=job) for job in jobs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            assert not th.is_alive()
+        stats = batcher.snapshot_stats()
+        assert stats["requests"] == 4 and stats["batches"] == 3, stats
+    finally:
+        batcher.stop()
+
+
+def test_edit_http_surface(edit_batcher):
+    """POST /edit: a seeded npy round trip; the JAX package's client faults
+    (no images_npy, strength 7, bad base64, a non-numeric strength) answer
+    400, not 500."""
+    srv = SamplingServer(edit_batcher, port=0)
+    srv.start_background()
+    try:
+        buf = io.BytesIO()
+        np.save(buf, np.random.default_rng(1).uniform(0, 1, (2, IMG, IMG, 3)).astype(np.float32))
+        blob = base64.b64encode(buf.getvalue()).decode("ascii")
+        code, body = _call(srv, "POST", "/edit", {"images_npy": blob, "strength": 0.5, "seed": 2, "format": "npy"})
+        assert code == 200 and np.load(io.BytesIO(body)).shape == (2, IMG, IMG, 3)
+        code, body = _call(srv, "POST", "/edit", {"images_npy": blob, "strength": 0.5, "seed": 2})
+        assert code == 200 and len(json.loads(body)["images"]) == 2
+        for payload in ({"strength": 0.5}, {"images_npy": blob, "strength": 7.0},
+                        {"images_npy": "!!!not-base64!!!", "strength": 0.5},
+                        {"images_npy": blob, "strength": "a lot"}):
+            assert _call(srv, "POST", "/edit", payload)[0] == 400, payload
+    finally:
+        srv._httpd.shutdown()
+        srv._httpd.server_close()

@@ -359,7 +359,8 @@ def test_serving_vocodes_and_refuses_the_rest(trained):
         assert _post(srv, "/sample", {"num_images": 1})[0] == 400
         assert _post(srv, "/vocode", {"mel_npy": _mel_b64(mel[:, :2])})[0] == 400
         assert _post(srv, "/vocode", {})[0] == 400
-        code, body = _post(srv, "/edit", {})
-        assert code == 501
+        images = np.zeros((1, 8, 8, 1), np.uint8)
+        code, body = _post(srv, "/edit", {"images_npy": _mel_b64(images), "strength": 0.5})
+        assert code == 400 and b"generation archive" in body  # the JAX server's answer
     finally:
         srv.shutdown()
