@@ -270,6 +270,28 @@ Phases:
           archives of these models, each writing its files; none of
           PyYAML, msgpack, flax, orbax or Pillow imported.
 
+  14. The training options and the Trainer's services on unet_small at
+      B=128 (bf16, full width, random weights from seed 0), ``[opts]``
+      lines:
+     14a Min-SNR-γ 5 + offset noise 0.1 + dropout 0.1 (17 keep masks among
+          the draws), and pred_v + zero terminal SNR: each step against the
+          plain path (loss 1e-2, gradient 5e-2, no launch in the
+          backward), 3 captured steps within eager's spread, the captured
+          step's wall and busy;
+     14b the pred_v + zero-terminal-SNR DDIM-50 chain at B=64 captured ==
+          eager bit for bit (cudnn.deterministic), finite;
+     14c accumulation, 2 micro-batches of 64 as one captured step: loss and
+          gradient against one step of 128 on the same samples and draws,
+          3 captured steps within eager's spread, ms and samples/s;
+     14d post-hoc EMA at two σ_rel over a 6-step fit: snapshots,
+          ``reconstruct_ema`` to an archive that serves a DDIM-50 batch, the
+          update's cost in the captured step;
+     14e/f a 16-step fit through the prefetcher with ``profile_dir`` over
+          steps 4-8: the trace written with its device events, samples/s,
+          the window's idle share;
+     14g a conditional server at two guidance scales: the second replays
+          the guided graph the first captured.
+
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
 prints no result. Without a CUDA device, or outside the repository, it fails.
@@ -3688,6 +3710,314 @@ def check_sampling_services(port, models, device):
     log(f"[svc] phase 13 in {time.perf_counter() - t13:.1f} s")
 
 
+# ------------------------------------------- the training options and services --
+OPT_YAML = "examples/configs/ddpm/unet_small.yaml"
+OPTIONS = ["+model.snr_gamma=5.0", "+model.offset_noise_strength=0.1", "model.diffusion_model.dropout=0.1"]
+PRED_V = ["+model.sampler.objective=pred_v", "+model.sampler.zero_terminal_snr=true"]
+OPT_STEPS = 3  # steps held captured against eager (eager twice: its spread)
+ACCUM_K, ACCUM_B = 2, 64  # K micro-batches of 64: unet_small's batch of 128
+ZTSNR_B = 64
+PHEMA_SIGMAS, PHEMA_STEPS, PHEMA_EVERY = (0.05, 0.10), 6, 3
+PREFETCH_STEPS, PREFETCH_LOG = 16, 4  # a fit logging every 4 steps; steps 4 ... 8 traced
+PROFILE_START, PROFILE_NUM = 4, 4
+GUIDANCE_SCALES = (1.5, 4.0)
+DEFAULT_STEP_MS = (27.601, 24.937)  # the default B=128 step's wall and busy ms before the options (H100, PERF.md)
+
+
+def options_model(port, device, overrides=()):
+    """DDPM from examples/configs/ddpm/unet_small.yaml at 32 px, full width,
+    random weights from ``SEED``, with ``overrides``."""
+    from diffusion_model_nemo_tpu_torch.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent / OPT_YAML,
+                      overrides=[*CLI_MODEL, "model.train_ds.name=synthetic", *overrides]).model
+    return port.DDPM(cfg, device=device, seed=SEED)
+
+
+def state_spread(run):
+    """``run(graphs)`` → a train state, eager twice and captured once:
+    (eager repeats itself, max |eager − eager|, captured == eager, max
+    |captured − eager|) over the parameters and the EMA."""
+    import torch
+
+    e1, e2, g = run(False), run(False), run(None)
+
+    def tensors(st):
+        return [*st.params.values(), *st.ema_params.values()]
+
+    def diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(tensors(a), tensors(b)))
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(b)))
+
+    return equal(e1, e2), diff(e1, e2), equal(g, e1), diff(g, e1)
+
+
+def steps_run(port, model, batches, accum=1):
+    """``run(graphs)``: OPT_STEPS optimizer steps of a fresh train state on
+    ``batches`` (one a step, stacked [K, ...] under accumulation), the draws
+    from a generator seeded with ``SEED``; returns the state."""
+    import torch
+
+    def run(graphs):
+        trainer = port.Trainer(max_steps=OPT_STEPS, devices=1, seed=SEED, accumulate_grad_batches=accum)
+        state = trainer.init_state(model, OPT_STEPS)
+        gen = torch.Generator(device=model.device).manual_seed(SEED)
+        for batch in batches:
+            shape = batch["image"].shape[1:] if accum > 1 else batch["image"].shape
+            draws = [model.draw_training_inputs(shape, gen) for _ in range(accum)]
+            trainer.train_step(model, state, batch, trainer.stack_draws(draws) if accum > 1 else draws[0],
+                               graphs=graphs)
+        torch.cuda.synchronize()
+        return state
+
+    return run
+
+
+def check_option_step(port, tag, model, expect_draws):
+    """14a. One B=128 step with the options, kernels against the plain path
+    (loss, whole gradient; the backward launches nothing); OPT_STEPS
+    captured steps within eager's spread; the captured step's wall and
+    busy."""
+    batch, draws = training_batch(model, TRAIN_B)
+    assert expect_draws <= set(draws), (tag, sorted(draws))
+    per = derived_counts(port, model, TRAIN_B, 32)
+    loss_k, g_k, fwd, bwd, _m = step_loss_and_grads(port, model, batch, draws)
+    assert_counts(f"{tag} step forward", fwd, per)
+    assert_counts(f"{tag} step backward", bwd, {})
+    with plain_path(port):
+        loss_p, g_p, _f, _b, _m = step_loss_and_grads(port, model, batch, draws)
+    rel_loss, rel_grad = abs(loss_k - loss_p) / abs(loss_p), float((g_k - g_p).norm() / g_p.norm())
+    ee, ee_diff, ge, ge_diff = state_spread(steps_run(port, model, [batch] * OPT_STEPS))
+    trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+    state = trainer.init_state(model, TRAIN_STEPS)
+    run = lambda: trainer.train_step(model, state, batch, draws)  # noqa: E731
+    wall = time_ms(run, iters=20)
+    busy, _by_name = device_profile(run, iters=5)
+    graph = graph_of(state.graphs, "train_step")
+    log(f"[opts] {tag} step B={TRAIN_B}: loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel {rel_loss:.3e}, tol "
+        f"{LOSS_REL_TOL}); gradient rel_l2 {rel_grad:.3e} (tol {GRAD_REL_TOL}); {OPT_STEPS} steps eager twice "
+        f"bit-equal {ee} (max |diff| {ee_diff:.3e}), captured vs eager bit-equal {ge} (max |diff| {ge_diff:.3e}); "
+        f"captured step {wall:.3f} ms wall, {busy:.3f} ms busy ({TRAIN_B / wall * 1e3:.1f} samples/s; the default "
+        f"step before the options: {DEFAULT_STEP_MS[0]} / {DEFAULT_STEP_MS[1]} ms); graph {graph.info['nodes']} nodes, "
+        f"pool {graph.info['pool_mib']:.1f} MiB, {len(state.graphs)} graph(s)")
+    assert rel_loss <= LOSS_REL_TOL and rel_grad <= GRAD_REL_TOL
+    assert ge if ee else ge_diff <= ee_diff, f"{tag}: the captured steps left the eager ones' bounds"
+    return wall, busy
+
+
+def check_ztsnr_chain(port, model):
+    """14b. pred_v + zero terminal SNR: ᾱ_T = 0 in the table; DDIM-50 at
+    B=64 captured == eager bit for bit (cudnn.deterministic), finite."""
+    import torch
+
+    use_sampler(model, DDIM, eta=0.0, ddim_timesteps=DDIM_STEPS)
+    assert model.sampler.objective == "pred_v" and model.sampler.zero_terminal_snr
+    acp = model.sampler.constants.alphas_cumprod
+    run = lambda graphs=None: model.sample(  # noqa: E731
+        ZTSNR_B, 32, generator=torch.Generator(device=model.device).manual_seed(SEED), graphs=graphs)
+    with deterministic():
+        eager_s, ref = walled(lambda: run(False))
+        first_s, first = walled(run)
+        wall, out = walled(run)
+    assert torch.equal(first, ref) and torch.equal(out, ref), "zero-terminal-SNR DDIM: captured differs from eager"
+    assert bool(torch.isfinite(out).all()) and float(out.std()) > 0
+    log(f"[opts] pred_v + zero_terminal_snr DDIM-{DDIM_STEPS} B={ZTSNR_B}: alphas_cumprod[T-1] = "
+        f"{float(acp[-1])} (1/alphas_cumprod there: {float(model.sampler.constants.sqrt_recip_alphas_cumprod[-1])}); "
+        f"captured == eager bit for bit, finite; eager {eager_s:.3f} s, first (capture) {first_s:.3f} s, "
+        f"replayed {wall * 1e3:.3f} ms")
+
+
+def check_accumulation(port, model):
+    """14c. K = 2 micro-batches of 64 as one step: the accumulated gradient
+    and loss against one B=128 step on the same samples and draws; the
+    captured K = 2 step within eager's spread; its wall and samples/s."""
+    import torch
+
+    batch, draws = training_batch(model, TRAIN_B)
+    stack = lambda v: v.reshape(ACCUM_K, ACCUM_B, *v.shape[1:])  # noqa: E731
+    batch_k, draws_k = {k: stack(v) for k, v in batch.items()}, {k: stack(v) for k, v in draws.items()}
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in model.params.items()}
+    one, acc = port.Trainer(devices=1), port.Trainer(devices=1, accumulate_grad_batches=ACCUM_K)
+    g1, m1 = one.grads(model, params, batch, draws)
+    gk, mk = acc.grads(model, params, batch_k, draws_k)
+    flat = lambda g: torch.cat([v.float().flatten() for v in g.values()])  # noqa: E731
+    rel_loss = abs(float(mk["train_loss"]) - float(m1["train_loss"])) / abs(float(m1["train_loss"]))
+    rel_grad = float((flat(gk) - flat(g1)).norm() / flat(g1).norm())
+    ee, ee_diff, ge, ge_diff = state_spread(steps_run(port, model, [batch_k] * OPT_STEPS, accum=ACCUM_K))
+    trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1, accumulate_grad_batches=ACCUM_K)
+    state = trainer.init_state(model, TRAIN_STEPS)
+    run = lambda: trainer.train_step(model, state, batch_k, draws_k)  # noqa: E731
+    wall = time_ms(run, iters=10)
+    busy, _ = device_profile(run, iters=3)
+    graph = graph_of(state.graphs, "train_step")
+    log(f"[opts] accumulation K={ACCUM_K} x {ACCUM_B}: loss {float(mk['train_loss']):.6f} against one B={TRAIN_B} "
+        f"step's {float(m1['train_loss']):.6f} (rel {rel_loss:.3e}, tol {LOSS_REL_TOL}); gradient rel_l2 "
+        f"{rel_grad:.3e} (tol {GRAD_REL_TOL}); {OPT_STEPS} steps eager twice bit-equal {ee} (max |diff| "
+        f"{ee_diff:.3e}), captured vs eager bit-equal {ge} (max |diff| {ge_diff:.3e}); the captured step (one graph, "
+        f"{graph.info['nodes']} nodes, pool {graph.info['pool_mib']:.1f} MiB) {wall:.3f} ms wall, {busy:.3f} ms "
+        f"busy, {ACCUM_K * ACCUM_B / wall * 1e3:.1f} samples/s")
+    assert len(state.graphs) == 1 and rel_loss <= LOSS_REL_TOL and rel_grad <= GRAD_REL_TOL
+    assert ge if ee else ge_diff <= ee_diff, "accumulation: the captured steps left the eager ones' bounds"
+
+
+def check_posthoc_ema(port, device, tmp):
+    """14d. Post-hoc EMA at two σ_rel over a PHEMA_STEPS-step fit (snapshots
+    every PHEMA_EVERY and at the end); ``reconstruct_ema`` writes a .dmn,
+    whose restored model serves a DDIM-50 batch; the update's cost in the
+    captured step (with and without it, one call)."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+    from diffusion_model_nemo_tpu_torch.tools import reconstruct_ema
+    from diffusion_model_nemo_tpu_torch.training.posthoc_ema import PostHocEMA
+
+    model = options_model(port, device)
+    phema_dir = os.path.join(tmp, "phema")
+    trainer = port.Trainer(max_steps=PHEMA_STEPS, log_every_n_steps=0, devices=1, seed=SEED,
+                           posthoc_ema_sigma_rels=list(PHEMA_SIGMAS), posthoc_ema_every_n_steps=PHEMA_EVERY,
+                           posthoc_ema_dir=phema_dir)
+    trainer.fit(model)
+    snaps = sorted(os.listdir(phema_dir))
+    assert len(snaps) == len(PHEMA_SIGMAS) * (PHEMA_STEPS // PHEMA_EVERY), snaps
+    out = reconstruct_ema.main(["--archive", model.save_to(os.path.join(tmp, "base.dmn")), "--snapshots", phema_dir,
+                                "--sigma_rel", "0.08", "--output", os.path.join(tmp, "sr008.dmn")])
+    restored = port.DDPM.restore_from(out, use_ema=True, device=device)
+    server = serve(restored, port=0, max_batch=B, ddim_timesteps=DDIM_STEPS)
+    server.start_background()
+    try:
+        served = np.load(io.BytesIO(http("POST", f"http://{server.host}:{server.port}/sample",
+                                         {"num_images": 4, "seed": 3, "format": "npy"})[1]))
+    finally:
+        server.shutdown()
+    assert served.shape == (4, 32, 32, 3) and served.dtype == np.uint8 and served.std() > 0
+    batch, draws = training_batch(model, TRAIN_B)
+    ms = {}
+    for tracked in (False, True):
+        tr = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+        state = tr.init_state(model, TRAIN_STEPS)
+        if tracked:
+            tr.phema = PostHocEMA(os.path.join(tmp, "timing"), PHEMA_SIGMAS, 0, network=model.diffusion_model)
+            state.phema = tr.phema.init_state(state.params)
+        ms[tracked] = time_ms(lambda: tr.train_step(model, state, batch, draws), iters=20)
+    log(f"[opts] post-hoc EMA sigma_rels {PHEMA_SIGMAS} over {PHEMA_STEPS} steps: snapshots {snaps}; "
+        f"reconstruct_ema sigma_rel 0.08 -> {os.path.basename(out)}, served DDIM-{DDIM_STEPS} (4 images, std "
+        f"{served.std():.2f}); captured step {ms[False]:.3f} ms without, {ms[True]:.3f} ms with the update "
+        f"({ms[True] - ms[False]:.3f} ms a step for {len(PHEMA_SIGMAS)} averages, one call)")
+
+
+def check_profile_and_prefetch(port, device, tmp):
+    """14e/14f. A PREFETCH_STEPS-step fit at B=128 through the prefetcher
+    (batches pinned in its thread) with ``profile_dir`` tracing steps
+    PROFILE_START ... +PROFILE_NUM: the trace is written and holds device
+    kernels; samples/s of the untraced logs; the window's device idle share
+    (1 − kernel time / the window's wall, the trace's own overhead
+    included)."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.tools.profiling import WindowTrace
+
+    window = {}
+
+    class Timed(WindowTrace):
+        def start(self):
+            torch.cuda.synchronize()
+            window["start"] = time.perf_counter()
+            super().start()
+
+        def stop(self, path):
+            torch.cuda.synchronize()
+            window["stop"] = time.perf_counter()
+            window["events"] = super().stop(path)
+            return window["events"]
+
+    model = options_model(port, device)
+    trace_dir = os.path.join(tmp, "trace")
+    trainer = port.Trainer(max_steps=PREFETCH_STEPS, log_every_n_steps=PREFETCH_LOG, devices=1, seed=SEED,
+                           profile_dir=trace_dir, profile_start_step=PROFILE_START, profile_num_steps=PROFILE_NUM)
+    with mock.patch.object(port.training.trainer, "WindowTrace", Timed):
+        trainer.fit(model)
+    torch.cuda.synchronize()
+    files = os.listdir(trace_dir)
+    assert files == [f"trace-steps-{PROFILE_START}-{PROFILE_START + PROFILE_NUM}.json"], files
+    assert json.loads(Path(trace_dir, files[0]).read_text())["traceEvents"]
+    kernels = window["events"]  # the window's device events, the markers left out (WindowTrace.stop)
+    busy_ms = sum(us for _name, us in kernels) / 1e3
+    wall_ms = (window["stop"] - window["start"]) * 1e3
+    logged = {m["global_step"]: m["samples_per_sec"] for m in trainer.logged}
+    # the log after the window also holds the trace's export on the host
+    untraced = [v for step, v in logged.items() if step > PROFILE_START + PROFILE_NUM + PREFETCH_LOG]
+    log(f"[opts] fit {PREFETCH_STEPS} steps B={TRAIN_B} through the prefetcher: samples/s by log "
+        f"{json.dumps({k: round(v, 1) for k, v in logged.items()})} (untraced: {[round(v, 1) for v in untraced]}); "
+        f"profile_dir trace {files[0]} ({os.path.getsize(os.path.join(trace_dir, files[0])) / 2**20:.1f} MiB): "
+        f"{len(kernels)} device events, {busy_ms:.3f} ms busy over the window's {wall_ms:.3f} ms wall, device "
+        f"idle share {100 * (1 - busy_ms / wall_ms):.1f}% (profiler overhead included)")
+    assert kernels and busy_ms > 0 and untraced and all(v > 0 for v in untraced)
+
+
+def check_guidance_repair(port, device):
+    """14g. One guided graph for every scale: a conditional server answers
+    /sample at two guidance scales (seeded); the second scale replays the
+    graph the first captured and captures nothing."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    model = family_model(port, device, "conditional")
+    server = serve(model, port=0, max_batch=B, ddim_timesteps=DDIM_STEPS, use_ema=True)
+    server.start_background()
+
+    def guided():
+        return {id(g): g for k, g in model.sampler.graphs.items()
+                if any(getattr(part, "__name__", "") == "_cfg_forward" for part in k)}
+
+    outs, seen = {}, None
+    try:
+        for w in GUIDANCE_SCALES:
+            replays = {i: g.info["replays"] for i, g in guided().items()}
+            n_graphs = len(model.sampler.graphs)
+            t0 = time.perf_counter()
+            outs[w] = np.load(io.BytesIO(http("POST", f"http://{server.host}:{server.port}/sample", {
+                "num_images": 4, "label": COND_LABEL, "guidance_scale": w, "seed": COND_SEED, "format": "npy"})[1]))
+            wall = time.perf_counter() - t0
+            used = [g for i, g in guided().items() if g.info["replays"] > replays.get(i, 0)]
+            assert len(used) == 1, (w, len(used))
+            captured = id(used[0]) not in replays
+            assert seen is None or (not captured and id(used[0]) == seen and len(model.sampler.graphs) == n_graphs), \
+                f"guidance scale {w} captured a graph of its own"
+            seen = id(used[0])
+            log(f"[opts] conditional /sample label {COND_LABEL} w={w} B={B}: {wall:.3f} s, the guided DDIM graph "
+                f"{'captured here' if captured else 'replayed (captured at the first scale)'} (capture "
+                f"{used[0].info['capture_s']:.3f} s, pool {used[0].info['pool_mib']:.1f} MiB); graphs held "
+                f"{len(model.sampler.graphs)}")
+    finally:
+        server.shutdown()
+    assert len(guided()) == 1 and not np.array_equal(*outs.values())
+
+
+def check_training_options(port, device):
+    """14. The DDPM family's training options and the Trainer's services on
+    unet_small at B=128 (bf16, full width, random weights from seed 0)."""
+    t14 = time.perf_counter()
+    opts = options_model(port, device, OPTIONS)
+    sites = {f"dropout/{k}" for k in opts.diffusion_model.dropout_shapes((TRAIN_B, 32, 32, 3))}
+    assert len(sites) == 17, sorted(sites)  # 8 down, 2 mid, 6 up, final_block
+    check_option_step(port, "snr_gamma 5 + offset 0.1 + dropout 0.1", opts, {"offset", *sites})
+    pred_v = options_model(port, device, PRED_V)
+    check_option_step(port, "pred_v + zero_terminal_snr", pred_v, {"noise"})
+    check_ztsnr_chain(port, pred_v)
+    check_accumulation(port, opts)
+    tmp = tempfile.mkdtemp(prefix="dmn_opts_")
+    try:
+        check_posthoc_ema(port, device, tmp)
+        check_profile_and_prefetch(port, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_guidance_repair(port, device)
+    log(f"[opts] phase 14 in {time.perf_counter() - t14:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3816,6 +4146,12 @@ def main() -> int:
     # interpolation, SDEdit (/edit), RePaint, their CLIs.
     check_sampling_services(port, models, device)
     phase_done("phase 13")
+
+    # 14. The training options and the Trainer's services: Min-SNR-γ,
+    # offset noise, dropout, pred_v, zero terminal SNR, accumulation,
+    # post-hoc EMA, profile_dir, the prefetcher, one guided graph.
+    check_training_options(port, device)
+    phase_done("phase 14")
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

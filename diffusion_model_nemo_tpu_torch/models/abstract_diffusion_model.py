@@ -10,12 +10,14 @@ the same with autograd, and ``get_model_fn(batch, training)`` returns one of
 them as ``model_fn(params, x, t)`` (a conditional model binds the batch's
 labels there, as a ``Conditioned`` model function). Archives hold
 the weights as flax parameter trees (``utils/weights.py``), so an archive
-either package writes restores in the other.
+either package writes restores in the other. A training step's dropout
+masks are injected draws (``draw_dropout_masks``), keyed by site.
 """
 
 from __future__ import annotations
 
 import datetime
+import functools
 import logging
 import os
 import tempfile
@@ -97,16 +99,43 @@ class AbstractDiffusionModel:
             return self.train_model_fn(params, x, t, classes)
 
     def train_model_fn(self, params, x: torch.Tensor, t: torch.Tensor,
-                       classes: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``model_fn`` with autograd on: gradients reach ``params``."""
+                       classes: Optional[torch.Tensor] = None,
+                       dropout_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """``model_fn`` with autograd on: gradients reach ``params``;
+        ``dropout_masks`` ({site: keep mask}) turn the network's dropout on."""
         kwargs = {} if classes is None else {"classes": classes}
+        if dropout_masks:
+            kwargs["dropout_masks"] = dropout_masks
         return functional_call(self.diffusion_model, params, (x, t), kwargs)
 
-    def get_model_fn(self, batch: Optional[Dict] = None, training: bool = False, label_mask=None):
-        """``model_fn(params, x, t)``: ``train_model_fn`` when ``training``,
-        else ``model_fn``. A conditional model binds ``batch``'s labels
-        (``label_mask``: training's null-class mask)."""
-        return self.train_model_fn if training else self.model_fn
+    def get_model_fn(self, batch: Optional[Dict] = None, training: bool = False, label_mask=None,
+                     dropout_masks: Optional[Dict[str, torch.Tensor]] = None):
+        """``model_fn(params, x, t)``: ``train_model_fn`` when ``training``
+        (with training's ``dropout_masks`` bound), else ``model_fn``. A
+        conditional model binds ``batch``'s labels (``label_mask``:
+        training's null-class mask)."""
+        if not training:
+            return self.model_fn
+        if dropout_masks:
+            return functools.partial(self.train_model_fn, dropout_masks=dropout_masks)
+        return self.train_model_fn
+
+    # ---- dropout's injected masks ---------------------------------------------
+    def draw_dropout_masks(self, shape, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        """The keep mask of each dropout site of the network for inputs of
+        ``shape`` (``rand < 1 − rate``, bool), keyed ``dropout/<site>`` for
+        a step's flat draws; none when the network has no dropout."""
+        sites = getattr(self.diffusion_model, "dropout_shapes", lambda _s: {})(tuple(shape))
+        if not sites:
+            return {}
+        keep = 1.0 - float(self.diffusion_model.dropout)
+        return {f"dropout/{site}": torch.rand(s, generator=generator, device=self.device) < keep
+                for site, s in sites.items()}
+
+    @staticmethod
+    def dropout_masks(draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """{site: keep mask} from a step's draws (their ``dropout/`` keys)."""
+        return {k[len("dropout/"):]: v for k, v in draws.items() if k.startswith("dropout/")}
 
     def forward(self, x_t: torch.Tensor, t: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.model_fn(self.params, x_t, t, classes)

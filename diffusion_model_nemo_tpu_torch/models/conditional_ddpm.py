@@ -10,9 +10,10 @@ can feed the JAX step's mask), so one network models both. ``sample(label=
 ``guidance_scale = w`` guides: one network call on the 2B batch
 ``[x, x]`` with labels ``[label, null]`` a step, ε = ε_u + w·(ε_c − ε_u)
 (with a learned variance, 2C channels, the ε half is guided and the
-variance taken from the conditional half). The labels reach the network as
-a ``Conditioned`` model function, so a captured chain holds them as static
-buffers and keys on the guidance scale (``modules/gaussian_diffusion.py``).
+variance taken from the conditional half). The labels, and the guidance
+scale as a float32 0-d tensor, reach the network as a ``Conditioned`` model
+function, so a captured chain holds them as static buffers: one guided graph
+serves every scale (``modules/gaussian_diffusion.py``).
 ``interpolate(label=...)`` runs DDPM's with the label bound (the null class
 without one).
 """
@@ -40,17 +41,19 @@ class ConditionalDDPM(DDPM):
         self.random_class_index = self.num_classes
         self.sampler.use_class_conditioning = True
 
-    def train_model_fn(self, params, x, t, classes=None):
+    def train_model_fn(self, params, x, t, classes=None, dropout_masks=None):
         """The network; no ``classes`` is the null class (``model_fn`` runs
         this under inference mode)."""
         if classes is None and self.sampler.use_class_conditioning:
             classes = torch.full((x.shape[0],), self.random_class_index, dtype=torch.int32, device=x.device)
-        return super().train_model_fn(params, x, t, classes)
+        return super().train_model_fn(params, x, t, classes, dropout_masks)
 
-    def get_model_fn(self, batch: Optional[Dict] = None, training: bool = False, label_mask=None):
+    def get_model_fn(self, batch: Optional[Dict] = None, training: bool = False, label_mask=None,
+                     dropout_masks=None):
         """The network with ``batch``'s labels bound; in training the labels
-        where ``label_mask`` is true become the null class."""
-        fn = super().get_model_fn(training=training)
+        where ``label_mask`` is true become the null class, and the dropout
+        masks are bound."""
+        fn = super().get_model_fn(training=training, dropout_masks=dropout_masks)
         if not self.sampler.use_class_conditioning or batch is None or "label" not in batch:
             return fn
         label = torch.as_tensor(batch["label"]).to(device=self.device, dtype=torch.int32)
@@ -59,7 +62,8 @@ class ConditionalDDPM(DDPM):
         return Conditioned(fn, {"classes": label})
 
     def draw_training_inputs(self, shape, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        """DDPM's draws and the label mask ~ Bernoulli(0.5) [B] (bool)."""
+        """DDPM's draws (the offset and the dropout masks among them) and
+        the label mask ~ Bernoulli(0.5) [B] (bool)."""
         draws = super().draw_training_inputs(shape, generator)
         draws["label_mask"] = torch.rand((shape[0],), generator=generator, device=self.device) < 0.5
         return draws
@@ -76,11 +80,13 @@ class ConditionalDDPM(DDPM):
         value = self.random_class_index if label is None else int(label)
         return torch.full((batch_size,), value, dtype=torch.int32, device=self.device)
 
-    def _cfg_forward(self, params, x, t, classes, guidance_scale: float):
+    def _cfg_forward(self, params, x, t, classes, guidance_scale: torch.Tensor):
         """The guided network: one call on ``[x, x]`` with ``[classes,
         null]``; ε_u + w·(ε_c − ε_u) (the ε half only, with the
-        conditional variance, for a learned-variance output)."""
-        w = float(guidance_scale)
+        conditional variance, for a learned-variance output). ``w`` is a
+        float32 0-d tensor on the device, read where a captured chain keeps
+        it."""
+        w = guidance_scale
         null = torch.full_like(classes, self.random_class_index)
         out = self.model_fn(params, torch.cat([x, x]), torch.cat([t, t]), torch.cat([classes, null]))
         out_c, out_u = out.chunk(2, dim=0)
@@ -111,7 +117,8 @@ class ConditionalDDPM(DDPM):
         if guidance_scale is None:
             model_fn = Conditioned(self.model_fn, labels)
         else:
-            model_fn = Conditioned(self._cfg_forward, labels, guidance_scale=float(guidance_scale))
+            scale = torch.tensor(float(guidance_scale), dtype=torch.float32, device=self.device)
+            model_fn = Conditioned(self._cfg_forward, {**labels, "guidance_scale": scale})
         shape = (batch_size, image_size, image_size, int(self.channels))
         params = self.ema_params if use_ema else self.params
         with torch.inference_mode():

@@ -2,17 +2,22 @@
 and sampling.
 
 Counterpart of ``diffusion_model_nemo_tpu/models/ddpm.py`` (``training_step``,
-``sample``). The JAX step splits one key into the flip, t and noise draws;
-here ``draw_training_inputs`` draws them from a ``torch.Generator`` and
-``training_step`` takes them as tensors, so a test can feed both packages
-the same draws (the two RNG streams differ). ``test_step`` /
+``sample``). The JAX step splits one key into the flip, t, noise and dropout
+draws; here ``draw_training_inputs`` draws them from a ``torch.Generator``
+and ``training_step`` takes them as tensors, so a test can feed both
+packages the same draws (the two RNG streams differ). The training options
+are the JAX package's: ``offset_noise_strength: s`` adds s times an injected
+per-(example, channel) draw ``offset`` [B, 1, 1, C] to the noise (s = 0: the
+base draw, bit for bit); ``snr_gamma: γ`` weights each example's mean loss
+by the sampler's Min-SNR-γ weight before the batch mean; a ``pred_v``
+sampler regresses v; the network's dropout takes each site's injected keep
+mask (``dropout/<site>`` draws). ``test_step`` /
 ``test_epoch_end`` aggregate dataset-level bits/dim. The sampling
 services: ``sample`` (``return_frames``: the trajectory), ``interpolate``
 (the sampler's: a q-space lerp and the ancestral chain's last t steps, or
 the DDIM chain from a given latent), ``edit`` (SDEdit: the ancestral
 partial chain, whatever sampler is configured) and ``inpaint`` (RePaint),
-each a captured loop on CUDA. Min-SNR-γ weighting, offset noise,
-``pred_v`` training and dropout are not ported yet.
+each a captured loop on CUDA.
 """
 
 from __future__ import annotations
@@ -25,7 +30,6 @@ import torch
 from ..config.registry import instantiate, register_target
 from ..data.hf_vision_data import preprocess_batch
 from ..modules.gaussian_diffusion import GaussianDiffusion, _randn
-from ..modules.parts import not_ported
 from ..modules.repaint import repaint_loop
 from .abstract_diffusion_model import AbstractDiffusionModel
 
@@ -45,43 +49,71 @@ class DDPM(AbstractDiffusionModel):
 
     # ---- training ------------------------------------------------------------
     def _check_training_options(self) -> None:
-        for key in ("snr_gamma", "offset_noise_strength"):
-            if self.cfg.get(key):
-                raise not_ported("DDPM", f"{key}={self.cfg.get(key)}", "training extras")
-        if getattr(self.sampler, "objective", "pred_noise") == "pred_v":
-            raise not_ported("DDPM", "objective='pred_v' training", "training extras")
-        if float(self.cfg.diffusion_model.get("dropout") or 0.0) > 0:
-            raise not_ported("DDPM", "dropout > 0 in training", "training extras")
         if self.loss is None:
             raise ValueError("DDPM training needs a `loss` config")
 
+    def _offset_noise_strength(self) -> float:
+        return float(self.cfg.get("offset_noise_strength", 0.0) or 0.0)
+
     def draw_training_inputs(self, shape, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         """One step's draws for a batch of images of ``shape`` [B, H, W, C]:
-        the horizontal-flip mask (p = 0.5), t ~ U[0, T) (int32) and the noise."""
+        the horizontal-flip mask (p = 0.5), t ~ U[0, T) (int32), the noise,
+        the offset [B, 1, 1, C] under ``offset_noise_strength``, and the
+        keep mask of each dropout site (``dropout/<site>``)."""
         B = shape[0]
         dev = self.device
-        return {
+        draws = {
             "flip": torch.rand((B,), generator=generator, device=dev) < 0.5,
             "t": torch.randint(0, self.timesteps, (B,), generator=generator, device=dev, dtype=torch.int32),
             "noise": torch.randn(tuple(shape), generator=generator, device=dev, dtype=torch.float32),
         }
+        if self._offset_noise_strength():
+            offset = (B,) + (1,) * (len(shape) - 2) + (shape[-1],)
+            draws["offset"] = torch.randn(offset, generator=generator, device=dev, dtype=torch.float32)
+        draws.update(self.draw_dropout_masks(shape, generator))
+        return draws
+
+    def training_noise(self, draws: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The step's noise: the base draw, plus s·offset under
+        ``offset_noise_strength: s`` (JAX ``_draw_noise``)."""
+        strength = self._offset_noise_strength()
+        return draws["noise"] + strength * draws["offset"] if strength else draws["noise"]
+
+    def training_target(self, x0, t, noise) -> torch.Tensor:
+        """What the network regresses: the true noise (the reference's
+        target for pred_noise and pred_x0 alike), or v under ``pred_v``."""
+        if getattr(self.sampler, "objective", "pred_noise") == "pred_v":
+            return self.sampler.v_target(x0, t, noise)
+        return noise
+
+    def _simple_loss(self, model_output, target, t) -> torch.Tensor:
+        """L_simple; under ``snr_gamma: γ`` each example's mean loss times
+        its Min-SNR-γ weight, then the batch mean, whatever the loss's
+        reduction (JAX ``_simple_loss``)."""
+        gamma = self.cfg.get("snr_gamma")
+        if not gamma:
+            return self.loss(input=model_output, target=target)
+        per = self.loss.elementwise(model_output, target)
+        per = per.reshape(per.shape[0], -1).mean(-1)
+        return (self.sampler.min_snr_weight(t, float(gamma)) * per).mean()
 
     def training_step(self, params, batch, draws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Algorithm 1 of DDPM on a raw uint8 batch with the step's draws:
         preprocess (with the flip), then ``training_loss`` with the training
-        network (``get_model_fn``: a conditional model binds the labels)."""
+        network (``get_model_fn``: the dropout masks bound, and a conditional
+        model's labels)."""
         self._check_training_options()
         proc = preprocess_batch(batch, self.device, flip=draws["flip"])
-        model_fn = self.get_model_fn(proc, training=True, label_mask=draws.get("label_mask"))
-        return self.training_loss(params, proc["pixel_values"], draws["t"], draws["noise"], model_fn)
+        model_fn = self.get_model_fn(proc, training=True, label_mask=draws.get("label_mask"),
+                                     dropout_masks=self.dropout_masks(draws))
+        return self.training_loss(params, proc["pixel_values"], draws["t"], self.training_noise(draws), model_fn)
 
     def training_loss(self, params, x0, t, noise, model_fn=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """q_sample → network (``model_fn``, default ``train_model_fn``) →
-        loss against the true noise (the reference's target for pred_noise
-        and pred_x0 alike)."""
+        the simple loss against ``training_target``."""
         model_fn = model_fn or self.train_model_fn
         x_t = self.sampler.q_sample(x_start=x0, t=t, noise=noise)
-        loss = self.loss(input=model_fn(params, x_t, t), target=noise)
+        loss = self._simple_loss(model_fn(params, x_t, t), self.training_target(x0, t, noise), t)
         return loss, {"train_loss": loss}
 
     # ---- evaluation ----------------------------------------------------------

@@ -7,8 +7,10 @@ takes the ε̂ half against the noise; the VLB term takes ``q_posterior`` and
 the sampler's ``p_mean_variance(model_output=...)`` (a
 ``LearnedGaussianDiffusion``) through ``vb_loss``, whose
 ``detach_model_mean`` stops the mean's gradient, so that only the variance
-half learns from it. The total is simple + vb. The draws (flip, t, noise)
-are DDPM's injected tensors. Bits/dim reads the learned variance through
+half learns from it. The total is simple + vb. The draws (flip, t, noise,
+offset, dropout masks) and the training options are DDPM's: under
+``pred_v`` the first half is a v-prediction regressed on v, and Min-SNR-γ
+weights the simple term only. Bits/dim reads the learned variance through
 the sampler.
 """
 
@@ -39,8 +41,8 @@ class ImprovedDDPM(DDPM):
         model_fn = model_fn or self.train_model_fn
         x_t = self.sampler.q_sample(x_start=x0, t=t, noise=noise)
         model_output = model_fn(params, x_t, t)
-        pred_noise, _ = model_output.chunk(2, dim=-1)
-        simple = self.loss(input=pred_noise, target=noise)
+        pred, _ = model_output.chunk(2, dim=-1)
+        simple = self._simple_loss(pred, self.training_target(x0, t, noise), t)
         true_mean, true_log_variance_clipped = self.sampler.q_posterior(x_start=x0, x=x_t, t=t)
         out = self.sampler.p_mean_variance(None, params, x=x_t, t=t, model_output=model_output)
         vb, decoder_nll = self.vb_loss(

@@ -24,7 +24,6 @@ import torch
 from ..config.registry import instantiate, register_target
 from ..config.yaml_config import from_dict, to_yaml
 from ..data.hf_vision_data import preprocess_batch
-from ..modules.parts import not_ported
 from ..modules.sde_lib.likelihood import LikelihoodEstimate
 from .abstract_diffusion_model import AbstractDiffusionModel
 
@@ -68,26 +67,25 @@ class ScoreSDE(AbstractDiffusionModel):
         self.init_params()
 
     # ---- training ------------------------------------------------------------
-    def _check_training_options(self) -> None:
-        if float(self.cfg.diffusion_model.get("dropout") or 0.0) > 0:
-            raise not_ported("ScoreSDE", "dropout > 0 in training", "training extras")
-
     def draw_training_inputs(self, shape, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         """One step's draws for images of ``shape`` [B, H, W, C]: the
-        horizontal-flip mask (p = 0.5), t ~ U[0, 1) (float32) and the noise."""
+        horizontal-flip mask (p = 0.5), t ~ U[0, 1) (float32), the noise and
+        each dropout site's keep mask. The JAX step reads no other training
+        option (no offset noise, no Min-SNR-γ)."""
         B = shape[0]
         dev = self.device
-        return {
+        draws = {
             "flip": torch.rand((B,), generator=generator, device=dev) < 0.5,
             "t": torch.rand((B,), generator=generator, device=dev, dtype=torch.float32),
             "noise": torch.randn(tuple(shape), generator=generator, device=dev, dtype=torch.float32),
         }
+        draws.update(self.draw_dropout_masks(shape, generator))
+        return draws
 
     def training_step(self, params, batch, draws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The score-matching loss of a raw uint8 batch with the step's draws."""
-        self._check_training_options()
         proc = preprocess_batch(batch, self.device, flip=draws["flip"])
-        model_fn = self.get_model_fn(proc, training=True)
+        model_fn = self.get_model_fn(proc, training=True, dropout_masks=self.dropout_masks(draws))
         loss = self.loss(model_fn, params, x_start=proc["pixel_values"], t=draws["t"], noise=draws["noise"])
         return loss, {"train_loss": loss}
 

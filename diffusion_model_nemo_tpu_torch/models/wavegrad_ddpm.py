@@ -36,15 +36,19 @@ class WavegradDDPM(DDPM):
     def draw_training_inputs(self, shape, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         """One step's draws for images of ``shape`` [B, H, W, C]: the flip
         mask (p = 0.5), the level's schedule index s ~ U{1 … T} (int32) and
-        fraction u ~ U[0, 1), and the noise."""
+        fraction u ~ U[0, 1), the noise, and each dropout site's keep mask.
+        The JAX step reads no other training option (no offset noise, no
+        Min-SNR-γ, no v target)."""
         B, dev = shape[0], self.device
-        return {
+        draws = {
             "flip": torch.rand((B,), generator=generator, device=dev) < 0.5,
             "s": torch.randint(1, self.sampler.timesteps + 1, (B,), generator=generator, device=dev,
                                dtype=torch.int32),
             "u": torch.rand((B,), generator=generator, device=dev),
             "noise": torch.randn(tuple(shape), generator=generator, device=dev, dtype=torch.float32),
         }
+        draws.update(self.draw_dropout_masks(shape, generator))
+        return draws
 
     def training_step(self, params, batch, draws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss at a continuous level: x_t = level·x₀ + √(1 − level²)·ε,
@@ -54,7 +58,8 @@ class WavegradDDPM(DDPM):
         x0 = preprocess_batch(batch, self.device, flip=draws["flip"])["pixel_values"]
         level = self.sampler.sample_continuous_noise_level(draws["s"], draws["u"])
         x_t = self.sampler.q_sample_continuous(x0, level, draws["noise"])
-        loss = self.loss(input=self.train_model_fn(params, x_t, level), target=draws["noise"])
+        out = self.train_model_fn(params, x_t, level, dropout_masks=self.dropout_masks(draws))
+        loss = self.loss(input=out, target=draws["noise"])
         return loss, {"train_loss": loss}
 
     def _save_image_step(self, batch_size: int, step: int):

@@ -14,7 +14,14 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from ..ops.schedules import SCHEDULE_NAMES, ScheduleConstants, compute_schedule_constants, extract
+from ..ops.schedules import (
+    SCHEDULE_NAMES,
+    ScheduleConstants,
+    compute_schedule_constants,
+    extract,
+    get_named_beta_schedule,
+    rescale_zero_terminal_snr,
+)
 
 __all__ = ["AbstractDiffusionProcess", "ModelFn"]
 
@@ -42,10 +49,17 @@ class AbstractDiffusionProcess:
         self.constants: Optional[ScheduleConstants] = None
 
     def compute_constants(self, timesteps: int) -> None:
-        """(Re)build the constant table on the process's device."""
+        """(Re)build the constant table on the process's device; with the
+        process's ``zero_terminal_snr`` set, from the named schedule's betas
+        rescaled so that ᾱ_T = 0 (``ops/schedules.py``)."""
         self.timesteps = int(timesteps)
+        betas = None
+        if getattr(self, "zero_terminal_snr", False):
+            betas = rescale_zero_terminal_snr(
+                get_named_beta_schedule(self.schedule_name, self.timesteps, self.schedule_cfg)
+            )
         self.constants = compute_schedule_constants(
-            self.timesteps, self.schedule_name, self.schedule_cfg, device=self.device
+            self.timesteps, self.schedule_name, self.schedule_cfg, device=self.device, betas=betas
         )
 
     def table_tensors(self) -> Tuple[torch.Tensor, ...]:

@@ -17,6 +17,11 @@ conditioning vector c after ``time_dense1``; ``classes=None`` is the null
 class K, whose row here is learned (the DiT paper's convention), unlike the
 U-Net's zero row.
 
+``dropout`` acts in training only, on the self-attention output and the MLP
+output of each block (flax sites ``block_<i>/Dropout_0`` and
+``block_<i>/Dropout_1``), through injected keep masks (``dropout_shapes``);
+with no masks the forward is the deterministic one.
+
 Options of the JAX DiT that later slices bring raise
 ``NotImplementedError``: mixture-of-experts MLPs, cross-attention context,
 augmentation conditioning and sequence parallelism.
@@ -34,7 +39,9 @@ from torch import nn
 
 from ..config.registry import register_target
 from ..ops import attention as A
-from .parts import Conv2d, Dense, Embed, SinusoidalPositionEmbeddings, not_ported, remat_call, resolve_dtype
+from .parts import (
+    Conv2d, Dense, Embed, SinusoidalPositionEmbeddings, dropout, not_ported, remat_call, resolve_dtype,
+)
 
 __all__ = ["DiT", "DiTBlock", "sincos_position_embedding_2d", "depth_to_space"]
 
@@ -81,11 +88,13 @@ def _modulate(h: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torc
 class DiTBlock(nn.Module):
     """Pre-LN transformer block with adaLN-Zero conditioning."""
 
-    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0, dtype=torch.float32):
+    def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0, dtype=torch.float32,
+                 dropout: Optional[float] = None):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} not divisible by heads {heads}")
         self.dim, self.heads, self.head_dim = dim, heads, dim // heads
+        self.dropout = float(dropout or 0.0)
         dt = resolve_dtype(dtype)
         hidden = int(dim * mlp_ratio)
         self.adaln_mod = Dense(dim, 6 * dim, dtype=dt)
@@ -94,26 +103,31 @@ class DiTBlock(nn.Module):
         self.mlp_in = Dense(dim, hidden, dtype=dt)
         self.mlp_out = Dense(hidden, dim, dtype=dt)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
+                mlp_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``attn_mask`` / ``mlp_mask``: training's keep masks of the two
+        dropout sites (the attention and MLP outputs, before their gates)."""
         sh1, sc1, g1, sh2, sc2, g2 = self.adaln_mod(F.silu(c)).chunk(6, dim=-1)
         h = _modulate(_layer_norm(x), sh1, sc1)
         B, N, D = h.shape
         qkv = self.qkv(h).reshape(B, N, 3, self.heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         attn = A.fused_attention(q * self.head_dim**-0.5, k, v)
-        x = x + g1[:, None, :] * self.attn_out(attn.to(h.dtype).reshape(B, N, D))
+        attn = dropout(self.attn_out(attn.to(h.dtype).reshape(B, N, D)), attn_mask, self.dropout)
+        x = x + g1[:, None, :] * attn
         h = _modulate(_layer_norm(x), sh2, sc2)
         h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))  # flax nn.gelu: tanh form
-        return x + g2[:, None, :] * h
+        return x + g2[:, None, :] * dropout(h, mlp_mask, self.dropout)
 
 
 @register_target("diffusion_model_nemo.modules.DiT", "diffusion_model_nemo_tpu.modules.DiT")
 class DiT(nn.Module):
     """Diffusion Transformer; drop-in for ``Unet`` in the DDPM family.
-    ``input_dim``, ``dropout``, ``moe_every``, ``moe_capacity_factor`` and
-    ``context_vocab`` are accepted for config compatibility (dropout is an
-    inference no-op). ``remat`` recomputes each block's activations in the
-    backward (``parts.remat_call``), as the JAX package's ``nn.remat`` does."""
+    ``input_dim``, ``moe_every``, ``moe_capacity_factor`` and
+    ``context_vocab`` are accepted for config compatibility; ``dropout``
+    acts in training through injected masks (the module docstring).
+    ``remat`` recomputes each block's activations in the backward
+    (``parts.remat_call``), as the JAX package's ``nn.remat`` does."""
 
     def __init__(
         self,
@@ -160,8 +174,9 @@ class DiT(nn.Module):
         self.num_classes = None if num_classes is None else int(num_classes)
         if self.num_classes is not None:
             self.class_embed = Embed(self.num_classes + 1, dim)
+        self.dropout = float(dropout or 0.0)
         for i in range(depth):
-            self.add_module(f"block_{i}", DiTBlock(dim, heads, mlp_ratio, dt))
+            self.add_module(f"block_{i}", DiTBlock(dim, heads, mlp_ratio, dt, dropout=self.dropout))
         self.depth = depth
         self.final_mod = Dense(dim, 2 * dim, dtype=dt)
         self.final_linear = Dense(dim, p * p * self.out_dim, dtype=dt)
@@ -181,6 +196,14 @@ class DiT(nn.Module):
             for m in zero:
                 m.weight.zero_()
 
+    def dropout_shapes(self, shape) -> Dict[str, Tuple[int, ...]]:
+        """{site: the keep mask's shape} for an input of ``shape`` [B, H, W,
+        C]: two sites a block, [B, N, dim] each (none without dropout)."""
+        if not self.dropout:
+            return {}
+        n = (shape[1] // self.patch_size) * (shape[2] // self.patch_size)
+        return {f"block_{i}/Dropout_{j}": (shape[0], n, self.dim) for i in range(self.depth) for j in (0, 1)}
+
     def _position_embedding(self, h: int, w: int, device) -> torch.Tensor:
         key = (h, w, str(device))
         if key not in self._pos:
@@ -188,10 +211,13 @@ class DiT(nn.Module):
             self._pos[key] = torch.from_numpy(table).to(device=device, dtype=self.dtype)
         return self._pos[key]
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None,
+                dropout_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """x: [B, H, W, C] float; time: [B] (int or float); classes: [B] int
-        (a network with ``num_classes``; None = the null class) → [B, H, W,
+        (a network with ``num_classes``; None = the null class);
+        ``dropout_masks``: training's keep mask of each site → [B, H, W,
         out] float32."""
+        masks = dropout_masks or {}
         B, H, W, _ = x.shape
         p = self.patch_size
         if H % p or W % p:
@@ -207,7 +233,8 @@ class DiT(nn.Module):
             c = c + self.class_embed(classes).to(self.dtype)
         for i in range(self.depth):
             blk = getattr(self, f"block_{i}")
-            tok = remat_call(blk, tok, c) if self.remat else blk(tok, c)
+            m = (masks.get(f"block_{i}/Dropout_0"), masks.get(f"block_{i}/Dropout_1"))
+            tok = remat_call(blk, tok, c, *m) if self.remat else blk(tok, c, *m)
         sh, sc = self.final_mod(F.silu(c)).chunk(2, dim=-1)
         out = self.final_linear(_modulate(_layer_norm(tok), sh, sc))
         return depth_to_space(out.reshape(B, h, w, p * p * self.out_dim), p).float()

@@ -12,7 +12,13 @@ writes each step's frame into one device buffer behind the step;
 ``interpolate`` lerps two noised endpoints and runs the chain's last t
 steps. A conditional model's
 network comes in as a :class:`Conditioned` model function: a captured chain
-holds its class labels as static buffers, filled before every chain.
+holds its class labels (and the guidance scale, a 0-d tensor) as static
+buffers, filled before every chain.
+
+``zero_terminal_snr`` rescales the schedule so that ᾱ_T = 0 and needs a
+``pred_v`` or ``pred_x0`` objective, as in the JAX package; ``v_target``,
+``predict_noise_from_v`` and the objective-aware ``min_snr_weight`` (Min-SNR-γ)
+serve the training step.
 """
 
 from __future__ import annotations
@@ -52,31 +58,30 @@ def batched_t(t, x: torch.Tensor) -> torch.Tensor:
 
 
 class Conditioned:
-    """``fn(params, x, t, **tensors, **options)`` as a ``model_fn(params, x,
-    t)``: a conditional network with its class labels (``tensors``) and
-    Python options (the guidance scale) bound. A captured chain keys on
-    ``fn``, the options and the tensors' shapes, and holds the tensors as
-    static buffers that every chain refills (``static_model_fn``,
-    ``fill_static``): a closure over the labels would key it on an id that
-    Python reuses once the closure is freed, and replay another request's
-    labels."""
+    """``fn(params, x, t, **tensors)`` as a ``model_fn(params, x, t)``: a
+    conditional network with its tensors bound (the class labels, and a
+    guided one's scale as a float32 0-d tensor). A captured chain keys on
+    ``fn`` and the tensors' shapes, and holds the tensors as static buffers
+    that every chain refills (``static_model_fn``, ``fill_static``), so one
+    guided graph serves every scale: a closure over the labels would key it
+    on an id that Python reuses once the closure is freed, and replay
+    another request's labels."""
 
-    def __init__(self, fn, tensors: Dict[str, torch.Tensor], **options):
-        self.fn, self.tensors, self.options = fn, dict(tensors), options
+    def __init__(self, fn, tensors: Dict[str, torch.Tensor]):
+        self.fn, self.tensors = fn, dict(tensors)
 
     def __call__(self, params, x, t):
-        return self.fn(params, x, t, **self.tensors, **self.options)
+        return self.fn(params, x, t, **self.tensors)
 
     def key(self) -> tuple:
-        return (*graph_key(self.fn), tuple(sorted(self.options.items())),
-                tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(self.tensors.items())))
+        return (*graph_key(self.fn), tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(self.tensors.items())))
 
 
 def graph_key(model_fn) -> tuple:
     """The network function in a sampling graph's key: a bound method as
     its object's identity and its function (the sampler's ``graphs`` then
     holds no reference to the model); a :class:`Conditioned` one adds its
-    options and its tensors' shapes, never their values."""
+    tensors' shapes, never their values."""
     if isinstance(model_fn, Conditioned):
         return model_fn.key()
     return id(getattr(model_fn, "__self__", model_fn)), getattr(model_fn, "__func__", None)
@@ -88,7 +93,7 @@ def static_model_fn(model_fn, static: Dict[str, Any]):
     if not isinstance(model_fn, Conditioned):
         return model_fn
     static["cond"] = {k: v.clone() for k, v in model_fn.tensors.items()}
-    return Conditioned(model_fn.fn, static["cond"], **model_fn.options)
+    return Conditioned(model_fn.fn, static["cond"])
 
 
 def fill_static(model_fn, static: Dict[str, Any]) -> None:
@@ -131,10 +136,15 @@ class GaussianDiffusion(AbstractDiffusionProcess):
         super().__init__(timesteps, schedule_name, schedule_cfg, device)
         if objective not in ("pred_noise", "pred_x0", "pred_v"):
             raise ValueError(f"objective must be pred_noise|pred_x0|pred_v, got {objective}")
-        if zero_terminal_snr:
-            raise NotImplementedError("zero_terminal_snr is not ported yet (ROADMAP.md)")
+        if zero_terminal_snr and objective == "pred_noise":
+            # At SNR 0 the input is pure noise and ε is unidentifiable.
+            raise ValueError(
+                "zero_terminal_snr requires objective pred_v or pred_x0 "
+                "(epsilon is unidentifiable at the terminal SNR-0 step)"
+            )
         self.objective = objective
         self.use_class_conditioning = bool(class_conditional)
+        self.zero_terminal_snr = bool(zero_terminal_snr)
         self.compute_constants(timesteps)
         self.graphs: dict = {}  # the captured sampling steps (ops/graphs.py), keyed like _jitted
 
@@ -168,12 +178,42 @@ class GaussianDiffusion(AbstractDiffusionProcess):
             - extract(c.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * noise
         )
 
+    # ---- v-parameterization: v = √ᾱ_t·ε − √(1−ᾱ_t)·x₀ -------------------------
+    def v_target(self, x_start, t, noise):
+        """The training target v of an (x₀, t, ε) triple."""
+        c = self.constants
+        return (
+            extract(c.sqrt_alphas_cumprod, t, x_start.ndim) * noise
+            - extract(c.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * x_start
+        )
+
     def predict_start_from_v(self, x_t, t, v):
         c = self.constants
         return (
             extract(c.sqrt_alphas_cumprod, t, x_t.ndim) * x_t
             - extract(c.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * v
         )
+
+    def predict_noise_from_v(self, x_t, t, v):
+        """ε̂ = √(1−ᾱ_t)·x_t + √ᾱ_t·v̂."""
+        c = self.constants
+        return (
+            extract(c.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * x_t
+            + extract(c.sqrt_alphas_cumprod, t, x_t.ndim) * v
+        )
+
+    def min_snr_weight(self, t, gamma: float) -> torch.Tensor:
+        """The per-example Min-SNR-γ weight [B] (Hang et al. 2023) of the
+        loss as regressed: min(SNR, γ)/SNR for ε, min(SNR, γ) for x₀,
+        min(SNR, γ)/(SNR + 1) for v; float32 on the table, as in JAX."""
+        acp = self.constants.alphas_cumprod
+        snr = acp / torch.clamp(1.0 - acp, min=1e-20)
+        w = torch.clamp(snr, max=float(gamma))
+        if self.objective == "pred_noise":
+            w = w / snr
+        elif self.objective == "pred_v":
+            w = w / (snr + 1.0)
+        return extract(w, t, 1)
 
     # ---- p space -------------------------------------------------------------
     def p_mean_variance(

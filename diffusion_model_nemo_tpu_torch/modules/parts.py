@@ -39,6 +39,7 @@ __all__ = [
     "resolve_dtype",
     "not_ported",
     "remat_call",
+    "dropout",
     "Conv1d",
     "Conv2d",
     "ConvTranspose2d",
@@ -246,41 +247,59 @@ class FusedGroupNormSiLU(GNParams):
         ).to(self.dtype)
 
 
-class Block(nn.Module):
-    """conv3×3 → GroupNorm → (optional FiLM scale/shift) → SiLU (dropout is
-    not ported: the U-Net raises for dropout > 0 in training)."""
+def dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: Optional[float]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` with an injected keep ``mask`` (a bool
+    tensor of x's shape, true = kept): ``where(mask, x / keep, 0)`` in x's
+    dtype, ``keep = 1 − rate`` rounded to that dtype first, as JAX rounds a
+    Python scalar to a bf16 array's dtype. No mask or no rate: x itself."""
+    if mask is None or not rate:
+        return x
+    keep = float(torch.tensor(1.0 - float(rate), dtype=x.dtype))
+    return torch.where(mask, x / keep, 0.0)
 
-    def __init__(self, c_in, c_out, groups=8, order="bn_act_conv", dtype=torch.float32):
+
+class Block(nn.Module):
+    """conv3×3 → GroupNorm → (optional FiLM scale/shift) → SiLU → dropout
+    (training only: ``mask`` is the site's injected keep mask, applied to
+    the kernel's GroupNorm+SiLU output, which the kernel does not fuse)."""
+
+    def __init__(self, c_in, c_out, groups=8, order="bn_act_conv", dtype=torch.float32,
+                 dropout: Optional[float] = None):
         super().__init__()
         if order not in VALID_BLOCK_ORDERS:
             raise ValueError(f"Valid ordering for block are : {VALID_BLOCK_ORDERS}")
         self.order = order
+        self.dropout = float(dropout or 0.0)
         self.proj = Conv2d(c_in, c_out, 3, padding=1, dtype=dtype)
         norm_c = c_in if order == "true_bn_act_conv" else c_out
         self.norm = FusedGroupNormSiLU(norm_c, groups, 1e-5, dtype)
 
-    def forward(self, x: torch.Tensor, scale_shift: ScaleShift = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale_shift: ScaleShift = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.order == "true_bn_act_conv":
-            return self.proj(self.norm(x, scale_shift))
-        return self.norm(self.proj(x), scale_shift)
+            return self.proj(dropout(self.norm(x, scale_shift), mask, self.dropout))
+        return dropout(self.norm(self.proj(x), scale_shift), mask, self.dropout)
 
 
 class ResnetBlock(nn.Module):
-    """Two Blocks with a time-embedding bias between them, + residual 1×1."""
+    """Two Blocks with a time-embedding bias between them, + residual 1×1;
+    ``dropout`` on ``block2`` only (its site ``<name>/block2``), as in the
+    JAX package."""
 
     def __init__(self, c_in, c_out, time_dim=None, groups=8, order="bn_act_conv",
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: Optional[float] = None):
         super().__init__()
         self.block1 = Block(c_in, c_out, groups, order, dtype)
         self.mlp = Dense(time_dim, c_out, dtype=dtype) if time_dim else None
-        self.block2 = Block(c_out, c_out, groups, order, dtype)
+        self.block2 = Block(c_out, c_out, groups, order, dtype, dropout=dropout)
         self.res_conv = Conv2d(c_in, c_out, 1, dtype=dtype) if c_in != c_out else None
 
-    def forward(self, x: torch.Tensor, time_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_emb: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.block1(x)
         if self.mlp is not None and time_emb is not None:
             h = h + self.mlp(F.silu(time_emb))[:, None, None, :]
-        h = self.block2(h)
+        h = self.block2(h, mask=mask)
         if self.res_conv is not None:
             x = self.res_conv(x)
         return h + x

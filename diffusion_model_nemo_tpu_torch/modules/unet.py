@@ -12,6 +12,12 @@ the null class K, whose row is forced to zero (torch's ``padding_idx``
 behaviour, whatever the table holds), and the embedding, cast to the compute
 dtype after that, is added to the stem's output before the time MLP.
 
+``dropout`` acts in training only, on ``block2`` of each of the ResNet
+blocks, through injected keep masks keyed by the flax path of each site
+(``down_0_block2/block2``, ``mid_block1/block2``, ``final_block/block2``;
+``dropout_shapes`` gives their shapes for an input shape); with no masks, as
+at inference, the forward is the deterministic one.
+
 Options of the JAX U-Net that later slices bring raise
 ``NotImplementedError`` naming the slice: ConvNeXt blocks, augmentation
 conditioning and the TPU-geometry variants.
@@ -24,7 +30,7 @@ continuous noise level √ᾱ, which conditions the network through one
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,10 +59,10 @@ __all__ = ["Unet", "WaveGradUNet"]
 @register_target("diffusion_model_nemo.modules.Unet")
 class Unet(nn.Module):
     """Reference-parity U-Net. Arguments mirror the JAX package's
-    (``input_dim``, ``convnext_mult`` and ``dropout`` are accepted for
-    config compatibility; dropout is inactive at inference). ``remat``
-    recomputes each ResNet block's activations in the backward
-    (``parts.remat_call``), as the JAX package's ``nn.remat`` does."""
+    (``input_dim`` and ``convnext_mult`` are accepted for config
+    compatibility). ``remat`` recomputes each ResNet block's activations in
+    the backward (``parts.remat_call``), as the JAX package's ``nn.remat``
+    does."""
 
     def __init__(
         self,
@@ -96,9 +102,10 @@ class Unet(nn.Module):
         in_out = list(zip(dims[:-1], dims[1:]))
         self.num_resolutions = len(in_out)
         groups = resnet_block_groups
+        self.dropout = float(dropout or 0.0)
 
         def block(c_in, c_out, time_dim):
-            return ResnetBlock(c_in, c_out, time_dim, groups, resnet_block_order, dt)
+            return ResnetBlock(c_in, c_out, time_dim, groups, resnet_block_order, dt, dropout=self.dropout)
 
         self.init_conv = Conv2d(channels, dim, 7, padding=3, dtype=dt)
         self.num_classes = None if num_classes is None else int(num_classes)
@@ -146,6 +153,27 @@ class Unet(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
+    def dropout_shapes(self, shape: Sequence[int]) -> Dict[str, Tuple[int, ...]]:
+        """{site: the keep mask's shape} for an input of ``shape`` [B, H, W,
+        C] (no site without dropout): each ResNet block's ``block2`` output,
+        at its level's resolution."""
+        if not self.dropout:
+            return {}
+        B, H, W = shape[0], shape[1], shape[2]
+        last = self.num_resolutions - 1
+        out = {}
+        for ind, (_dim_in, dim_out) in enumerate(self.in_out):
+            for b in (1, 2):
+                out[f"down_{ind}_block{b}/block2"] = (B, H >> ind, W >> ind, dim_out)
+        mid = self.in_out[-1][1]
+        for b in (1, 2):
+            out[f"mid_block{b}/block2"] = (B, H >> last, W >> last, mid)
+        for ind, (dim_in, _dim_out) in enumerate(reversed(self.in_out[1:])):
+            for b in (1, 2):
+                out[f"up_{ind}_block{b}/block2"] = (B, H >> (last - ind), W >> (last - ind), dim_in)
+        out["final_block/block2"] = (B, H, W, self.in_out[0][0])
+        return out
+
     def _add_class(self, x: torch.Tensor, classes: Optional[torch.Tensor]) -> torch.Tensor:
         """The stem's output plus the class embedding (a network with
         ``num_classes``; None = the null class, whose row is zero)."""
@@ -157,10 +185,23 @@ class Unet(nn.Module):
         emb = torch.where(null, 0.0, self.class_embed(classes)).to(self.dtype)
         return x + emb[:, None, None, :]
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _blocks(self, dropout_masks: Optional[Dict[str, torch.Tensor]]):
+        """``block(name, x, t)``: the named ResNet block (remat'd under
+        ``remat``) with its site's keep mask, if any."""
+        masks = dropout_masks or {}
+        call = remat_call if self.remat else (lambda m, *a: m(*a))
+
+        def block(name: str, x, t):
+            return call(getattr(self, name), x, t, masks.get(f"{name}/block2"))
+
+        return block
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None,
+                dropout_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """x: [B, H, W, C] float; time: [B] (int or float); classes: [B] int
-        (a network with ``num_classes``; None = the null class) → [B, H, W,
-        out] float32."""
+        (a network with ``num_classes``; None = the null class);
+        ``dropout_masks``: training's keep mask of each site → [B, H, W, out]
+        float32."""
         x = self._add_class(self.init_conv(x.to(self.dtype)), classes)
         t = None
         if self.with_time_emb:
@@ -169,29 +210,29 @@ class Unet(nn.Module):
             t = F.gelu(t, approximate="tanh")  # flax nn.gelu is the tanh form
             t = self.time_dense1(t)
 
-        block = remat_call if self.remat else (lambda m, *a: m(*a))
+        block = self._blocks(dropout_masks)
         skips = []
         for ind in range(self.num_resolutions):
-            x = block(getattr(self, f"down_{ind}_block1"), x, t)
-            x = block(getattr(self, f"down_{ind}_block2"), x, t)
+            x = block(f"down_{ind}_block1", x, t)
+            x = block(f"down_{ind}_block2", x, t)
             x = getattr(self, f"down_{ind}_attn")(x)
             skips.append(x)
             if ind < self.num_resolutions - 1:
                 x = getattr(self, f"down_{ind}_downsample")(x)
 
-        x = block(self.mid_block1, x, t)
+        x = block("mid_block1", x, t)
         x = self.mid_attn(x)
-        x = block(self.mid_block2, x, t)
+        x = block("mid_block2", x, t)
 
         for ind in range(self.n_up):
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = block(getattr(self, f"up_{ind}_block1"), x, t)
-            x = block(getattr(self, f"up_{ind}_block2"), x, t)
+            x = block(f"up_{ind}_block1", x, t)
+            x = block(f"up_{ind}_block2", x, t)
             x = getattr(self, f"up_{ind}_attn")(x)
             if ind < self.num_resolutions - 1:
                 x = getattr(self, f"up_{ind}_upsample")(x)
 
-        x = block(self.final_block, x, None)
+        x = block("final_block", x, None)
         if self.resnet_block_order == "bn_act_conv":
             x = self.final_norm(x)
         return self.final_conv(x).float()
@@ -221,35 +262,36 @@ class WaveGradUNet(Unet):
         # The parameters no output reads: a training step gives them a zero gradient.
         self.unused_params = frozenset(f"{deepest}.{n}" for n, _p in getattr(self, deepest).named_parameters())
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None,
+                dropout_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """x: [B, H, W, C]; time: the noise level √ᾱ, [B, 1, 1, 1] or [B]
-        (an integer t is taken as a level, as the JAX network takes it) →
-        [B, H, W, out] float32."""
+        (an integer t is taken as a level, as the JAX network takes it);
+        ``dropout_masks`` as ``Unet``'s → [B, H, W, out] float32."""
         level = time
         x = self.init_conv(x.to(self.dtype))
         statistics = [self.film_0(x, level)]
         x = self._add_class(x, classes)
 
-        block = remat_call if self.remat else (lambda m, *a: m(*a))
+        block = self._blocks(dropout_masks)
         skips = []
         for ind in range(self.num_resolutions):
-            x = block(getattr(self, f"down_{ind}_block1"), x, None)
-            x = block(getattr(self, f"down_{ind}_block2"), x, None)
+            x = block(f"down_{ind}_block1", x, None)
+            x = block(f"down_{ind}_block2", x, None)
             x = getattr(self, f"down_{ind}_attn")(x)
             skips.append(x)
             if ind < self.num_resolutions - 1:  # the deepest level's statistics are never read
                 statistics.append(getattr(self, f"film_{ind + 1}")(x, level))
                 x = getattr(self, f"down_{ind}_downsample")(x)
 
-        x = block(self.mid_block1, x, None)
+        x = block("mid_block1", x, None)
         x = self.mid_attn(x)
-        x = block(self.mid_block2, x, None)
+        x = block("mid_block2", x, None)
 
         for ind in range(self.n_up):
             scale, shift = statistics.pop()
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = block(getattr(self, f"up_{ind}_block1"), x, None)
-            x = block(getattr(self, f"up_{ind}_block2"), x, None)
+            x = block(f"up_{ind}_block1", x, None)
+            x = block(f"up_{ind}_block2", x, None)
             x = getattr(self, f"up_{ind}_attn")(x)
             if ind < self.num_resolutions - 1:
                 x = getattr(self, f"up_{ind}_upsample")(x)
@@ -257,7 +299,7 @@ class WaveGradUNet(Unet):
 
         scale, shift = statistics.pop()  # the stem's
         x = scale * x + shift
-        x = block(self.final_block, x, None)
+        x = block("final_block", x, None)
         if self.resnet_block_order == "bn_act_conv":
             x = self.final_norm(x)
         return self.final_conv(x).float()

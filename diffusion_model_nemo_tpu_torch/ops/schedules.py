@@ -22,6 +22,7 @@ __all__ = [
     "quadratic_beta_schedule",
     "sigmoid_beta_schedule",
     "get_named_beta_schedule",
+    "rescale_zero_terminal_snr",
     "ScheduleConstants",
     "compute_schedule_constants",
     "extract",
@@ -115,15 +116,37 @@ class ScheduleConstants:
     sqrt_alphas_cumprod_m1: torch.Tensor
 
 
+def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
+    """Rescale a beta schedule so that ᾱ_T is exactly 0 (Lin et al. 2024,
+    Algorithm 1), in float64: shift √ᾱ so that its last value is 0, scale it
+    so that its first keeps its value, and convert back to betas (the last
+    beta is 1). Only a non-ε objective can train on it
+    (``modules/gaussian_diffusion.py`` refuses ``pred_noise``)."""
+    betas = np.asarray(betas, dtype=np.float64)
+    sqrt_ab = np.sqrt(np.cumprod(1.0 - betas))
+    first, last = sqrt_ab[0], sqrt_ab[-1]
+    sqrt_ab = (sqrt_ab - last) * first / (first - last)
+    ab = sqrt_ab**2
+    alphas = np.concatenate([ab[:1], ab[1:] / ab[:-1]])
+    return 1.0 - alphas
+
+
 def compute_schedule_constants(
     timesteps: int,
     schedule_name: str,
     schedule_cfg: Optional[Dict[str, Any]] = None,
     device: Union[str, torch.device] = "cuda",
+    betas: Optional[np.ndarray] = None,
 ) -> ScheduleConstants:
     """Build the full constant table in float64 on the host and store it as
-    float32 tensors on ``device``."""
-    betas = get_named_beta_schedule(schedule_name, timesteps, schedule_cfg).astype(np.float64)
+    float32 tensors on ``device``, from the named schedule or from ``betas``
+    ([T]). A zero-terminal-SNR schedule has ᾱ_T = 0: the 1/ᾱ tables hold
+    +inf at T, as the JAX package's do (only the ε formulas read them)."""
+    if betas is None:
+        betas = get_named_beta_schedule(schedule_name, timesteps, schedule_cfg)
+    betas = np.asarray(betas, dtype=np.float64)
+    if betas.shape != (timesteps,):
+        raise ValueError(f"betas must have shape ({timesteps},), got {betas.shape}")
 
     alphas = 1.0 - betas
     alphas_cumprod = np.cumprod(alphas)

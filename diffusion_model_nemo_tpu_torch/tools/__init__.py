@@ -16,7 +16,9 @@ to run first after an edit of their sources (``python -m
 diffusion_model_nemo_tpu_torch.tools.check_attention``). They and
 ``chip_smoke.py`` measure through ``profiling``; ``ab_chip.py`` runs another
 checkout's serving load and ``chip_smoke.py`` with that measurement, for A/B
-runs on one card.
+runs on one card. ``reconstruct_ema`` is the JAX tool's counterpart: a
+post-hoc EMA snapshot directory and a base archive become an archive whose
+EMA is the reconstruction (host numpy only).
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "PEAK_BYTES_PER_S", "PEAK_OPS", "EmptyTraceError", "tracing", "time_ms", "queued_us", "traced", "device_profile",
+    "PEAK_BYTES_PER_S", "PEAK_OPS", "EmptyTraceError", "tracing", "time_ms", "queued_us", "traced", "WindowTrace",
+    "device_profile",
     "device_ms", "kernel_launches", "work", "bound_us",
 ]
 
@@ -99,29 +100,96 @@ def traced(fn, calls: int = 1):
 
     for attempt in range(ATTEMPTS):
         t0 = time.perf_counter()
-        n = tracing["markers"]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(LEAD_US * SPIN_CYCLES_PER_US)
-            for _ in range(n):
-                torch.cuda._sleep(1)
+            n = _open_markers()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        device = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        tracing["traces"] += 1
         tracing["retakes"] += attempt > 0
-        tracing["seconds"] += time.perf_counter() - t0
-        kept = sum(MARKER_KERNEL in name and us < LEAD_US / 2 for name, us in device)
-        events = [(name, us) for name, us in device if MARKER_KERNEL not in name]
+        kept, events = _device_events(prof, t0)
         if kept and events:
-            tracing["dropped_max"] = max(tracing["dropped_max"], n - kept)
-            tracing["markers"] = min(max(2 * (n - kept), MIN_MARKERS), MAX_MARKERS)
+            _kept_markers(n, kept)
             return events
         if events:  # the drop reached past the markers
             tracing["markers"] = min(4 * n, MAX_MARKERS)
     raise EmptyTraceError(f"{ATTEMPTS} torch.profiler traces of {calls} call(s) kept none of the calls' device "
                           f"events after {tracing['markers']} markers")
+
+
+def _open_markers() -> int:
+    """A trace's opening on the card: the lead spin, then
+    ``tracing["markers"]`` short spins; returns their number."""
+    n = tracing["markers"]
+    torch.cuda._sleep(LEAD_US * SPIN_CYCLES_PER_US)
+    for _ in range(n):
+        torch.cuda._sleep(1)
+    return n
+
+
+def _device_events(prof, t0: float):
+    """(markers kept, the other device events as (name, us)) of a finished
+    trace, counted in ``tracing`` with the host seconds since ``t0``."""
+    import time
+
+    device = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    tracing["traces"] += 1
+    tracing["seconds"] += time.perf_counter() - t0
+    kept = sum(MARKER_KERNEL in name and us < LEAD_US / 2 for name, us in device)
+    return kept, [(name, us) for name, us in device if MARKER_KERNEL not in name]
+
+
+def _kept_markers(n: int, kept: int) -> None:
+    """The next trace opens with twice the markers this one dropped."""
+    tracing["dropped_max"] = max(tracing["dropped_max"], n - kept)
+    tracing["markers"] = min(max(2 * (n - kept), MIN_MARKERS), MAX_MARKERS)
+
+
+class WindowTrace:
+    """A torch.profiler trace of a window of a loop's iterations (the
+    Trainer's ``profile_dir`` steps), opened and checked by ``traced``'s
+    rules: on CUDA it opens with the lead spin and ``tracing["markers"]``
+    short spins, and ``stop`` raises ``EmptyTraceError`` unless a marker and
+    some of the window's device events were kept (a window cannot be taken
+    again); on the CPU it holds the host events, and ``stop`` raises when
+    there are none. ``stop(path)`` writes the trace (Chrome trace JSON)
+    only after that check and returns the window's events as (name, us)."""
+
+    def __init__(self, device: torch.device, first_step: int = 0):
+        self.cuda = torch.device(device).type == "cuda"
+        self.first_step = int(first_step)
+        self.prof = None
+        self.markers = 0
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.cuda else [])
+        self.prof = profile(activities=acts)
+        self.prof.__enter__()
+        if self.cuda:
+            self.markers = _open_markers()
+
+    def stop(self, path: str):
+        import time
+
+        t0 = time.perf_counter()
+        if self.cuda:
+            torch.cuda.synchronize()
+        prof, self.prof = self.prof, None
+        prof.__exit__(None, None, None)
+        if self.cuda:
+            kept, events = _device_events(prof, t0)
+            if not (kept and events):
+                raise EmptyTraceError(f"the trace of the window kept {kept} of {self.markers} markers and "
+                                      f"{len(events)} device events; nothing was written to {path}")
+            _kept_markers(self.markers, kept)
+        else:
+            events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()]
+            if not events:
+                raise EmptyTraceError(f"the trace of the window holds no events; nothing was written to {path}")
+        prof.export_chrome_trace(str(path))
+        return events
 
 
 def device_profile(fn, iters: int = 10):

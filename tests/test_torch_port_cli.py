@@ -117,15 +117,11 @@ def test_serve_answers_from_the_archive_path(trained):
 
 @pytest.mark.parametrize(
     "cli,args,match",
-    [
-        ("train", ["trainer.accumulate_grad_batches=2"], "accumulate_grad_batches=2"),
-        ("train", ["+trainer.steps_per_execution=2", "trainer.accumulate_grad_batches=2"],
-         "accumulate_grad_batches=2"),
-        ("train", ["+trainer.steps_per_execution=2", "+trainer.posthoc_ema_sigma_rels=[0.05]"],
-         "posthoc_ema_sigma_rels"),
-        ("edit", ["input_path={tmp}"], "an image directory"),
-        ("inpaint", ["input_path={tmp}"], "an image directory"),
-        ("interpolate", ["dataset_name=cifar10"], "name='cifar10'"),
+    [  # the ids of the cases before the trainer's services were ported
+        pytest.param("edit", ["input_path={tmp}"], "an image directory", id="edit-args3-an image directory"),
+        pytest.param("inpaint", ["input_path={tmp}"], "an image directory", id="inpaint-args4-an image directory"),
+        pytest.param("interpolate", ["dataset_name=cifar10"], "name='cifar10'",
+                     id="interpolate-args5-name='cifar10'"),
     ],
 )
 def test_refused_options_raise_naming_themselves(trained, tmp_path, cli, args, match):
@@ -133,10 +129,39 @@ def test_refused_options_raise_naming_themselves(trained, tmp_path, cli, args, m
     args = [a.format(tmp=tmp_path) for a in args]
     clis = {"edit": edit_ddpm, "inpaint": inpaint_ddpm, "interpolate": interpolate_ddpm}
     with pytest.raises(NotImplementedError, match=match):
-        if cli == "train":
-            train_ddpm.main([*CONFIG, *TINY, "trainer.max_steps=1", f"exp_manager.exp_dir={tmp_path}", *args])
-        else:
-            clis[cli].main([f"model_path={run / 'DDPM-UNet.dmn'}", "device=cpu", "batch_size=2", *args])
+        clis[cli].main([f"model_path={run / 'DDPM-UNet.dmn'}", "device=cpu", "batch_size=2", *args])
+
+
+@pytest.mark.parametrize(
+    "args,warning",
+    [
+        (["trainer.accumulate_grad_batches=2"], None),
+        (["+trainer.steps_per_execution=2", "trainer.accumulate_grad_batches=2"], "accumulate_grad_batches > 1"),
+        (["+trainer.posthoc_ema_sigma_rels=[0.05]"], None),
+        (["+trainer.steps_per_execution=2", "+trainer.posthoc_ema_sigma_rels=[0.05]"], "posthoc_ema is unsupported"),
+    ],
+    ids=["accumulate", "steps_per_execution-accumulate", "posthoc", "steps_per_execution-posthoc"],
+)
+def test_train_passes_the_trainer_services_through(tmp_path, caplog, args, warning):
+    """A 1-step ``train_ddpm`` with each trainer key of the services (no new
+    flag: the ``trainer`` block goes to ``Trainer`` as it is): accumulation
+    stacks two micro-batches into the step and wins over
+    ``steps_per_execution`` with the JAX trainer's warning; post-hoc EMA
+    writes its final snapshot under the run directory, and is disabled with
+    its warning beside ``steps_per_execution``."""
+    with caplog.at_level("WARNING"):
+        _model, trainer = train_ddpm.main([*CONFIG, *TINY, "trainer.max_steps=1",
+                                           f"exp_manager.exp_dir={tmp_path}", *args])
+    assert [m["global_step"] for m in trainer.logged] == [1]
+    warned = [r.getMessage() for r in caplog.records if r.levelname == "WARNING"]
+    assert any(warning in w for w in warned) if warning else not warned, warned
+    if "accumulate" in " ".join(args):
+        assert trainer.accumulate_grad_batches == 2 and trainer.steps_per_execution == 1
+    snaps = sorted(tmp_path.rglob("phema-*.msgpack"))
+    posthoc = "posthoc" in " ".join(args) and warning is None
+    assert len(snaps) == (1 if posthoc else 0), snaps
+    if posthoc:  # the run's final snapshot, in <run dir>/phema
+        assert snaps[0].name.endswith("-0000000001.msgpack") and snaps[0].parent.name == "phema"
 
 
 class _Clock:

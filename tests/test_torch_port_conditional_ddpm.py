@@ -288,10 +288,11 @@ def test_guidance_without_a_label_raises(pair):
 
 
 def test_two_labels_back_to_back_through_one_graph_equal_their_eager_chains(pair):
-    """The labels are static buffers of the captured chain, refilled before
-    each chain: two labels (and the guided chain at two scales) back to back
-    through one sampler each equal their own eager chain bit for bit, and
-    the unguided labels share one graph, each scale a graph of its own."""
+    """The labels and the guidance scale are static buffers of the captured
+    chain, refilled before each chain: two labels (and the guided chain at
+    two scales) back to back through one sampler each equal their own eager
+    chain bit for bit; the unguided labels share one graph, and every scale
+    replays one guided graph."""
     jmodel, model = pair
     for target, extra, runs in ((DDIM, dict(eta=0.0, ddim_timesteps=5), [(1, None), (8, None), (8, 2.0), (1, 4.0)]),
                                 (ANCESTRAL, {}, [(1, None), (8, None), (8, 2.0)])):
@@ -302,17 +303,64 @@ def test_two_labels_back_to_back_through_one_graph_equal_their_eager_chains(pair
                 gen = torch.Generator().manual_seed(6)
                 out.append(model.sample(B, IMG, generator=gen, label=label, guidance_scale=w, graphs=graphs))
             assert torch.equal(out[0], out[1]), (target, label, w)
-        assert len(model.sampler.graphs) == len({w for _, w in runs})  # unguided, one a scale
+        assert len(model.sampler.graphs) == 2  # the unguided graph and one guided graph for every scale
 
 
 def test_conditioned_graph_key_holds_no_label_values():
-    """Two label tensors of one shape key one graph; the scale and the
-    function key it."""
+    """Two label tensors of one shape key one graph, and so do two guidance
+    scales (0-d tensors); the function keys it."""
     model = _port()
     a = Conditioned(model.model_fn, {"classes": torch.full((B,), 1, dtype=torch.int32)})
     b = Conditioned(model.model_fn, {"classes": torch.full((B,), 7, dtype=torch.int32)})
-    g = Conditioned(model._cfg_forward, {"classes": torch.full((B,), 7, dtype=torch.int32)}, guidance_scale=2.0)
-    assert a.key() == b.key() != g.key()
+    g2, g5 = (Conditioned(model._cfg_forward, {"classes": torch.full((B,), 7, dtype=torch.int32),
+                                               "guidance_scale": torch.tensor(w)}) for w in (2.0, 5.0))
+    assert a.key() == b.key() != g2.key() == g5.key()
+
+
+def test_served_guidance_scales_replay_one_guided_graph_and_match_jax(pair):
+    """/sample at three guidance scales (and a label without one) on a
+    DDIM-5 server: one guided graph serves every scale (the scale is a
+    static buffer of the chain), and the seeded guided batch is the JAX
+    guided chain from the same x_T (within one uint8 step: the chain's
+    1e-3 can move a rounding). The server's model samples with
+    ``graphs=True`` (on the CPU the captured step functions run eagerly on
+    the static buffers, the default on the card)."""
+    import functools
+    import io
+    import json
+    import urllib.request
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    jmodel, carried = pair
+    model = _port()
+    model._load_flax(jax.tree.map(np.asarray, jmodel.params), None)
+    assert all(torch.equal(model.params[k], carried.params[k]) for k in model.params)
+    model.sample = functools.partial(model.sample, graphs=True)
+    server = serve(model, port=0, max_batch=B, ddim_timesteps=5)
+    server.start_background()
+
+    def post(payload):
+        req = urllib.request.Request(f"http://{server.host}:{server.port}/sample", method="POST",
+                                     data=json.dumps(dict(payload, format="npy")).encode())
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return np.load(io.BytesIO(resp.read()))
+
+    try:
+        served = {w: post({"num_images": B, "label": 3, "guidance_scale": w, "seed": 4}) for w in (1.5, 3.0, 4.5)}
+        post({"num_images": B, "label": 3, "seed": 4})
+    finally:
+        server.shutdown()
+    funcs = [k for key in model.sampler.graphs for k in key if callable(k)]
+    assert len(model.sampler.graphs) == 2 and sorted(f.__name__ for f in funcs) == ["_cfg_forward", "model_fn"]
+    assert not np.array_equal(served[1.5], served[4.5])
+    _use(model, jmodel, DDIM, eta=0.0, ddim_timesteps=5)
+    x_T = torch.randn((B, IMG, IMG, 3), generator=torch.Generator().manual_seed(4))
+    fn = _jax_model_fn(jmodel, 3, 4.5)
+    ref = jax.jit(lambda p, img: jmodel.sampler.p_sample_loop(fn, p, x_T.shape, jax.random.PRNGKey(0), img=img))(
+        jmodel.params, jnp.asarray(x_T.numpy()))
+    ref_u8 = np.clip(np.asarray(ref) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    assert np.abs(served[4.5].astype(int) - ref_u8.astype(int)).max() <= 1
 
 
 def test_change_sampler_keeps_conditioning_and_archives_restore(pair, tmp_path):

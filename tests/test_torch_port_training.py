@@ -400,17 +400,12 @@ def test_fit_by_epochs_counts_the_loader():
 
 @pytest.mark.parametrize(
     "kwargs,match",
-    [
-        (dict(accumulate_grad_batches=2), "accumulate"),
-        (dict(steps_per_execution=2, accumulate_grad_batches=2), "accumulate"),
-        (dict(steps_per_execution=2, posthoc_ema_sigma_rels=[0.05]), "posthoc"),
-        (dict(posthoc_ema_sigma_rels=[0.05]), "posthoc"),
-        (dict(strategy="fsdp"), "strategy"),
-        (dict(devices=2), "strategy"),
-        (dict(num_nodes=2), "strategy"),
-        (dict(resume_from_checkpoint="last.ckpt"), "resume"),
-        (dict(profile_dir="trace"), "profile_dir"),
-        (dict(enable_checkpointing=True), "checkpoints"),
+    [  # the ids of the cases before accumulation, post-hoc EMA and profile_dir were ported
+        pytest.param(dict(strategy="fsdp"), "strategy", id="kwargs4-strategy"),
+        pytest.param(dict(devices=2), "strategy", id="kwargs5-strategy"),
+        pytest.param(dict(num_nodes=2), "strategy", id="kwargs6-strategy"),
+        pytest.param(dict(resume_from_checkpoint="last.ckpt"), "resume", id="kwargs7-resume"),
+        pytest.param(dict(enable_checkpointing=True), "checkpoints", id="kwargs9-checkpoints"),
     ],
 )
 def test_fit_refuses_options_it_does_not_port(kwargs, match):
@@ -440,18 +435,43 @@ def test_fit_refuses_a_sample_dump_cadence_inside_max_steps(tmp_path):
 
 
 @pytest.mark.parametrize("option", ["snr_gamma", "offset_noise_strength", "pred_v", "dropout"])
-def test_training_step_refuses_unported_objectives(option):
+def test_training_step_takes_each_option(option):
+    """Each training option of the JAX package runs (its parity with JAX:
+    tests/test_torch_port_training_options.py): it changes the loss of the
+    same batch and draws, and switched off (γ unset, s = 0, pred_noise, p =
+    0) the step is the base step bit for bit, the extra draws ignored."""
     model = _fit_model()
+    batch = {"image": np.random.default_rng(0).integers(0, 256, (2, IMG, IMG, 3), dtype=np.uint8)}
+    shape = (2, IMG, IMG, 3)
+    t = torch.tensor([10, 700], dtype=torch.int32)  # one SNR above γ = 5, one below
+    base_draws = dict(model.draw_training_inputs(shape, torch.Generator().manual_seed(0)), t=t)
+    base, _ = model.training_step(model.params, batch, base_draws)
     if option == "pred_v":
         model.sampler.objective = "pred_v"
     elif option == "dropout":
         model.cfg.diffusion_model["dropout"] = 0.1
+        model.diffusion_model = model.build_network()
     else:
-        model.cfg[option] = 0.1
-    batch = {"image": np.zeros((2, IMG, IMG, 3), np.uint8)}
-    draws = model.draw_training_inputs((2, IMG, IMG, 3), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        model.training_step(model.params, batch, draws)
+        model.cfg[option] = 0.1 if option == "offset_noise_strength" else 5.0
+    draws = dict(model.draw_training_inputs(shape, torch.Generator().manual_seed(0)), t=t)
+    extra = set(draws) - set(base_draws)
+    if option == "offset_noise_strength":
+        assert extra == {"offset"}
+    elif option == "dropout":
+        assert len(extra) == 9 and all(k.startswith("dropout/") for k in extra)  # 9 ResNet blocks' block2
+    else:
+        assert not extra
+    on, _ = model.training_step(model.params, batch, draws)
+    assert torch.isfinite(on) and abs(float(on) - float(base)) > 1e-6
+    if option == "pred_v":
+        model.sampler.objective = "pred_noise"
+    elif option == "dropout":
+        model.cfg.diffusion_model["dropout"] = 0.0
+        model.diffusion_model = model.build_network()
+    else:
+        model.cfg[option] = 0.0
+    off, _ = model.training_step(model.params, batch, draws)
+    assert torch.equal(off, base)
 
 
 def test_draws_have_the_step_shapes():
