@@ -6,7 +6,9 @@ check them.
 
 Paths: unet_small (bf16, 32 px) trained at batch 128 and served, on kernels
 #1-#4 (also as ImprovedDDPM, as the class-conditional, guided
-ConditionalDDPM, as ScoreSDE and as WaveGrad's FiLM U-Net), and under the JAX package's two opt-in switches on #6
+ConditionalDDPM, as ScoreSDE, as WaveGrad's FiLM U-Net, as EDM and
+ConditionalEDM, and with ConvNeXt blocks), and under the JAX package's two
+opt-in switches on #6
 (``DMN_TPU_PALLAS_NORM_BM=1``) and #9 (``DMN_TPU_PALLAS_LINATTN_BLOCK=1``);
 ``Block(x, scale_shift)`` at unet_small's GroupNorm sites on #5 (and #6
 under its switch); DiT-S/2 (bf16, 64 px) on kernel #7; the float32
@@ -291,6 +293,36 @@ Phases:
           the window's idle share;
      14g a conditional server at two guidance scales: the second replays
           the guided graph the first captured.
+
+  15. The ConvNeXt U-Net and the EDM family (bf16, full width, random
+      weights from seed 0, 32 px), ``[edm]`` lines, each time beside the
+      card's name and power limit:
+     15a unet_small with ConvNeXt blocks (use_convnext, convnext_mult 2):
+          launches a forward at B=64 and 128 (#1 once, at final_norm; #2
+          four times; #3, #4 once) equal to the gates', #1-#4 held at every
+          shape, the B=64 forward against the plain path, the captured
+          DDIM-50 chain == eager, the B=128 step against the plain path
+          (nothing launched in the backward) and captured;
+     15b EDM at examples/configs/edm/unet_small.yaml: #1-#4 held at its
+          forward's shapes (float times); the Heun-18 chain at B=64 (NFE
+          35), with churn 40 (injected noise) and as Euler-18, captured ==
+          eager bit for bit (cudnn.deterministic), launches = the graphs'
+          counts x replays, wall, busy; the augmented B=128 step
+          (augment_prob 0.12, aug_dim 9) against the plain path, captured;
+     15c the likelihood at B=32 (NFE 34, the vjp's backward in the
+          captured step, launching nothing): bits/dim against the plain
+          path (2e-2), captured == eager;
+     15d encode at B=64 and the chain back, interpolate 16 pairs,
+          captured == eager;
+     15e the .dmn round trip (the same chain), the sampler swaps refused,
+          /sample served with the archive's Heun-18 (seeded: EDM.sample's
+          images), launches = one forward's x 35 x batches;
+     15f train_edm (augmented, 3 steps at batch 8, a dump and bits/dim),
+          eval_edm (churn, the GIF), test_edm (loss, ODE bits/dim, NFE 34);
+     15g ConditionalEDM (K = 10): #1-#4 held at the guided 2B forward's
+          shapes, /sample guided at two scales: the second replays the two
+          guided graphs (the Heun steps', the last Euler step's) the first
+          captured, and captures nothing.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -604,6 +636,30 @@ def library_fn(name, args):
     return None
 
 
+def agreement(name, wrapper, plain, args):
+    """The kernel against its plain version on ``args``: (kernel output as
+    float32, max |diff|, tolerance, ok, seam text). rtol = atol = the
+    dtype's tolerance (#13 exact); for a SEAM kernel in bf16 also the seam
+    check against the plain version with float64 sums."""
+    import torch
+
+    tol = 0.0 if name in EXACT else TOL if args[0].dtype == torch.bfloat16 else F32_TOL
+    out_k = wrapper(*args).float()
+    out_p = plain(*args).float()
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs()
+    ok = bool((err <= tol + tol * out_p.abs()).all()) and bool(torch.isfinite(out_k).all())
+    seam = ""
+    if name in SEAM and args[0].dtype == torch.bfloat16:
+        exact = plain(*args, acc=torch.float64).float()
+        step = 2.0**-7 * float(exact.abs().max())
+        seam_err, differ = float((out_k - exact).abs().max()), float((out_k != exact).float().mean())
+        ok &= seam_err <= step and differ <= SEAM_DIFFER
+        seam = (f" seam (float64 sums): max_abs_err {seam_err:.3e} <= {step:.3e} (one bf16 step), differ "
+                f"{differ:.4f} <= {SEAM_DIFFER} (against the float32 plain version {float((err > 0).float().mean()):.4f})")
+    return out_k, float(err.max()), tol, ok, seam
+
+
 def check_kernels(port, calls_by_cfg):
     import torch
 
@@ -617,21 +673,7 @@ def check_kernels(port, calls_by_cfg):
             mod, attr, plain, _src, _rep = table[name]
             wrapper = getattr(mod, attr)
             for key, (count, args) in sorted(shapes.items()):
-                tol = 0.0 if name in EXACT else TOL if args[0].dtype == torch.bfloat16 else F32_TOL
-                out_k = wrapper(*args).float()
-                out_p = plain(*args).float()
-                torch.cuda.synchronize()
-                err = (out_k - out_p).abs()
-                max_err = float(err.max())
-                ok = bool((err <= tol + tol * out_p.abs()).all()) and bool(torch.isfinite(out_k).all())
-                seam = ""
-                if name in SEAM and args[0].dtype == torch.bfloat16:
-                    exact = plain(*args, acc=torch.float64).float()
-                    step = 2.0**-7 * float(exact.abs().max())
-                    seam_err, differ = float((out_k - exact).abs().max()), float((out_k != exact).float().mean())
-                    ok &= seam_err <= step and differ <= SEAM_DIFFER
-                    seam = (f" seam (float64 sums): max_abs_err {seam_err:.3e} <= {step:.3e} (one bf16 step), differ "
-                            f"{differ:.4f} <= {SEAM_DIFFER} (against the float32 plain version {float((err > 0).float().mean()):.4f})")
+                out_k, max_err, tol, ok, seam = agreement(name, wrapper, plain, args)
                 k_ms = time_ms(lambda: wrapper(*args))
                 p_ms = time_ms(lambda: plain(*args))
                 lib = library_fn(name, args)
@@ -1731,16 +1773,16 @@ DDIM = "diffusion_model_nemo.modules.GeneralizedGaussianDiffusion"
 ANCESTRAL = "diffusion_model_nemo.modules.GaussianDiffusion"
 
 
-def check_graph_ddim(port, tag, model, B, size):
+def check_graph_ddim(port, tag, model, B, size, eager_runs=2):
     """DDIM-50 (the served chain, EMA weights) as replays of one step graph
-    against the eager loop, bit for bit. Returns the captured chain's
-    device split."""
+    against the eager loop (timed over ``eager_runs``), bit for bit.
+    Returns the captured chain's device split."""
     import torch
 
     use_sampler(model, DDIM, eta=0.0, ddim_timesteps=DDIM_STEPS)
     run = lambda graphs=None: model.sample(  # noqa: E731
         B, size, generator=torch.Generator(device=model.device).manual_seed(SEED), use_ema=True, graphs=graphs)
-    eager_s, ref = walled(lambda: run(False), n=2)
+    eager_s, ref = walled(lambda: run(False), n=eager_runs)
     first_s, first = walled(run)  # the eager warm-up step and the capture
     port.ops.reset_launch_counts()
     wall, out = walled(run, n=3)
@@ -4018,6 +4060,388 @@ def check_training_options(port, device):
     log(f"[opts] phase 14 in {time.perf_counter() - t14:.1f} s")
 
 
+# ------------------------------------------------- the ConvNeXt U-Net and EDM --
+EDM_YAML = "examples/configs/edm/unet_small.yaml"
+CONVNEXT = ["model.diffusion_model.use_convnext=true", "model.diffusion_model.convnext_mult=2"]
+# A ConvNeXt U-Net forward: #1 only at final_norm (its blocks' GroupNorm(1)s
+# are plain ops), the attention blocks as in unet_small.
+CONVNEXT_PER = {"group_norm_silu": 1, "linear_attention_block": 4, "linear_attention_tokens": 1,
+                "attention_block_small": 1}
+EDM_CHURN = {"s_churn": 40.0, "s_tmin": 0.05, "s_tmax": 50.0, "s_noise": 1.003}  # the paper's ImageNet-64 churn
+EDM_AUG = ["+model.augment_prob=0.12", "+model.diffusion_model.aug_dim=9"]
+EDM_LIK_B = 32
+EDM_BPD_TOL = 2e-2  # bits/dim, kernels vs plain path, relative, bf16
+EDM_INTERP_B = 16
+EDM_CLI_B, EDM_CLI_STEPS = 8, 3
+EDM_SCALES = (1.5, 4.0)
+EDM_SERVE_SEED = 5
+
+
+def edm_model(port, device, overrides=()):
+    """EDM (ConditionalEDM with ``num_classes``) from
+    examples/configs/edm/unet_small.yaml at 32 px, full width (dim 32,
+    [1, 2, 4, 8], bf16, the ResNet U-Net), random weights from ``SEED``."""
+    from diffusion_model_nemo_tpu_torch.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent / EDM_YAML,
+                      overrides=[*CLI_MODEL, "model.train_ds.name=synthetic", *overrides]).model
+    cls = port.models.ConditionalEDM if cfg.get("num_classes") else port.models.EDM
+    return cls(cfg, device=device, seed=SEED)
+
+
+def hold_kernels(port, calls_by_cfg, rows):
+    """Each recorded call's kernel against its plain version on the same
+    inputs (``agreement``, untimed); the largest error goes into the
+    kernel's row."""
+    table = kernel_table(port)
+    for cfg_name, calls in calls_by_cfg.items():
+        for name, shapes in calls.items():
+            mod, attr, plain, _src, _rep = table[name]
+            for key, (count, args) in sorted(shapes.items()):
+                _out, max_err, tol, ok, seam = agreement(name, getattr(mod, attr), plain, args)
+                log(f"[edm] kernel {cfg_name} {name} {list(key)} x{count}/forward max_abs_err={max_err:.3e} "
+                    f"ok={ok} (tol {tol}){seam}")
+                assert ok, (cfg_name, name, key)
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_err)
+
+
+def step_against_plain(port, tag, model, per, card):
+    """One B=128 training step with the kernels against the plain path
+    (loss 1e-2, whole gradient 5e-2), nothing launched in the backward;
+    then the captured step (``Trainer.train_step``): its graph launches one
+    forward's kernels (none in its backward), its wall and device busy."""
+    batch, draws = training_batch(model, TRAIN_B)
+    loss_k, g_k, fwd, bwd, _m = step_loss_and_grads(port, model, batch, draws)
+    assert_counts(f"{tag} step forward", fwd, per)
+    assert_counts(f"{tag} step backward", bwd, {})
+    with plain_path(port):
+        loss_p, g_p, _f, _b, _m = step_loss_and_grads(port, model, batch, draws)
+    rel_loss, rel_grad = abs(loss_k - loss_p) / abs(loss_p), float((g_k - g_p).norm() / g_p.norm())
+    trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+    state = trainer.init_state(model, TRAIN_STEPS)
+    run = lambda: trainer.train_step(model, state, batch, draws)  # noqa: E731
+    wall = time_ms(run, iters=20)
+    busy, _ = device_profile(run, iters=2)
+    graph = graph_of(state.graphs, "train_step")
+    log(f"[edm] {tag} step B={TRAIN_B} draws {sorted(k for k in draws if not k.startswith('dropout/'))}: loss "
+        f"kernels {loss_k:.6f} plain {loss_p:.6f} (rel {rel_loss:.3e}, tol {LOSS_REL_TOL}); gradient "
+        f"({g_k.numel()} values) rel_l2 {rel_grad:.3e} (tol {GRAD_REL_TOL}); captured step {wall:.3f} ms wall, "
+        f"{busy:.3f} ms busy ({100 * busy / wall:.1f}%), {TRAIN_B / wall * 1e3:.1f} samples/s, graph launches "
+        f"{json.dumps(graph.delta)}, {graph.info['nodes']} nodes, pool {graph.info['pool_mib']:.1f} MiB "
+        f"[{card}]")
+    assert rel_loss <= LOSS_REL_TOL and rel_grad <= GRAD_REL_TOL
+    assert graph.delta == per, (tag, graph.delta, per)
+
+
+def check_convnext(port, device, rows, card):
+    """15a. unet_small with ConvNeXt blocks (examples/configs/ddpm/
+    unet_small.yaml, use_convnext, convnext_mult 2): launches a forward at
+    B=64 and 128, kernels held at both, the B=64 forward against the plain
+    path, the captured DDIM-50 chain against eager, the B=128 step."""
+    model = options_model(port, device, CONVNEXT)
+    assert type(model.diffusion_model.down_0_block1).__name__ == "ConvNextBlock"
+    x, t = model_inputs(device, 32)
+    calls = {"convnext": record_calls(port, model, x, t),
+             "convnext_128": record_calls(port, model, *model_inputs(device, 32, TRAIN_B))}
+    per = {k: per_forward_counts(c) for k, c in calls.items()}
+    log(f"[edm] convnext unet_small launches a forward (B={B}, B={TRAIN_B}): {json.dumps(per)}; the gates "
+        f"(meta forward): {json.dumps(derived_counts(port, model, B, 32))}")
+    assert per["convnext"] == per["convnext_128"] == CONVNEXT_PER == derived_counts(port, model, B, 32)
+    lapped("15a kernels held", hold_kernels, port, calls, rows)
+    check_forward(port, "convnext unet_small", model, x, t, UNET_REL_TOL)
+    lapped("15a DDIM-50", check_graph_ddim, port, "convnext unet_small", model, B, 32, 1)
+    lapped("15a step", step_against_plain, port, "convnext unet_small", model, CONVNEXT_PER, card)
+
+
+def edm_chain(model, graphs=None, noise=None, seed=SEED):
+    return model.sample(B, 32, generator=svc_generator(model, seed), use_ema=True, graphs=graphs, noise=noise)
+
+
+def check_edm_chain(port, tag, model, per, card, noise=None):
+    """15b. Algorithm 2 at B=64 (EMA weights): captured == eager bit for bit
+    twice (cudnn.deterministic); the captured and eager walls, device busy,
+    NFE; launches = the graphs' counts x replays (Heun: two forwards a
+    step, the last Euler step a graph of its own)."""
+    import torch
+
+    s = model.sampler
+    M, heun = s.sample_steps, s.solver == "heun"
+    nfe = 2 * M - 1 if heun else M
+    run = lambda graphs=None: edm_chain(model, graphs, noise)  # noqa: E731
+    with deterministic():
+        eager_s, ref = walled(lambda: run(False))
+        first, again = run(), run()
+    assert torch.equal(ref, first) and torch.equal(ref, again), f"{tag}: captured differs from eager"
+    assert bool(torch.isfinite(ref).all()) and float(ref.std()) > 0, tag
+    first_s, _ = walled(run)  # the capture
+    port.ops.reset_launch_counts()
+    wall, _ = walled(run, n=3)
+    counts = port.ops.launch_counts()
+    graph = graph_of(s.graphs, "edm_heun" if heun else "edm_euler")
+    busy, _ = device_profile(run, iters=1)
+    steps = M - 1 if heun else M
+    assert graph.delta == {k: v * (2 if heun else 1) for k, v in per.items()}, (tag, graph.delta, per)
+    graph_line(f"edm {tag} B={B} NFE {nfe} (first call with capture {first_s:.3f} s; == eager bit for bit under "
+               f"cudnn.deterministic; the eager wall under it)", wall, busy / 1e3, eager_s, graph, counts, 3 * steps,
+               {k: 3 * v for k, v in per.items()} if heun else None)
+    log(f"[edm] {tag} B={B}: NFE {nfe}, captured {wall * 1e3:.3f} ms a chain ({B / wall:.1f} images/s), device busy "
+        f"{busy:.3f} ms ({busy / nfe:.3f} ms a network call, {100 * busy / (wall * 1e3):.1f}% of the wall), eager "
+        f"{eager_s * 1e3:.3f} ms [{card}]")
+    return ref
+
+
+def check_edm_likelihood(port, model, device, per, card):
+    """15c. Bits/dim at B=32 through the probability-flow ODE (Heun on the
+    17 transitions of the ascending grid, NFE 34): the captured step
+    (forward and εᵀJε backward) replayed, launches = two forwards a step
+    and nothing in the backward, equal to the eager loop bit for bit, and
+    against the plain path (captured on a sampler of its own, so that no
+    graph of one path replays for the other)."""
+    import torch
+
+    x0 = family_bpd_batch(device, EDM_LIK_B)
+    eps = model.sampler.draw_epsilon(x0.shape, torch.Generator(device=device).manual_seed(SEED))
+    run = lambda graphs=None: model.likelihood(x0, epsilon=eps, graphs=graphs)  # noqa: E731
+    first_s, _ = walled(run)
+    port.ops.reset_launch_counts()
+    wall, (bpd, z, nfe) = walled(run)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "edm_nll")
+    steps = model.sampler.sample_steps - 1
+    busy = replay_busy(graph, "i", 0, iters=3) * 1e3 * steps  # a step's replays traced, not the whole call's
+    assert graph.delta == {k: 2 * v for k, v in per.items()}, (graph.delta, per)
+    graph_line(f"edm likelihood B={EDM_LIK_B} NFE {int(nfe)} (first call with capture {first_s:.3f} s)", wall,
+               busy / 1e3, None, graph, counts, steps)
+    eager_s, eager = walled(lambda: run(False))
+    kernels = model.sampler
+    model.sampler = port.config.instantiate(model.cfg.sampler, device=device)  # its own graphs: the plain path's
+    try:
+        with plain_path(port):
+            plain, _z, _n = model.likelihood(x0, epsilon=eps)
+    finally:
+        model.sampler = kernels
+    rel = float(((bpd - plain).abs() / plain.abs()).max())
+    log(f"[edm] likelihood B={EDM_LIK_B}: bits/dim kernels {float(bpd.mean()):.5f} plain {float(plain.mean()):.5f} "
+        f"(max relative difference {rel:.3e}, tol {EDM_BPD_TOL}); captured eager max |diff| "
+        f"{float((bpd - eager[0]).abs().max()):.3e}; NFE {int(nfe)}; captured {wall * 1e3:.3f} ms, busy {busy:.3f} ms, "
+        f"eager {eager_s * 1e3:.3f} ms [{card}]")
+    assert int(nfe) == 2 * steps and rel <= EDM_BPD_TOL and bool(torch.isfinite(z).all())
+
+
+def check_edm_encode(port, model, device, card):
+    """15d. ``encode`` of 64 images (Heun up the grid, NFE 34) and the chain
+    back from the latents; ``interpolate`` of 16 pairs: captured == eager
+    bit for bit (cudnn.deterministic), walls."""
+    import torch
+
+    x0 = family_bpd_batch(device, B)
+    with deterministic():
+        z, z_eager = model.encode(x0), model.encode(x0, graphs=False)
+        x1, x2 = (x0[:EDM_INTERP_B] + 1) / 2, (x0[EDM_INTERP_B:2 * EDM_INTERP_B] + 1) / 2
+        mid, mid_eager = model.interpolate(x1, x2), model.interpolate(x1, x2, graphs=False)
+    assert torch.equal(z, z_eager) and torch.equal(mid, mid_eager), "encode / interpolate: captured differs"
+    walled(lambda: model.encode(x0))  # the capture
+    enc_s, z = walled(lambda: model.encode(x0), n=2)
+    with torch.inference_mode():
+        back = model.sampler.p_sample_loop(model.get_model_fn(), model.params, tuple(x0.shape), img=z)
+    rel = float(((back * 2 - 1) - x0).norm() / x0.norm())
+    walled(lambda: model.interpolate(x1, x2))  # the captures
+    interp_s, mid = walled(lambda: model.interpolate(x1, x2), n=2)
+    log(f"[edm] encode B={B} NFE {2 * (model.sampler.sample_steps - 1)}: {enc_s * 1e3:.3f} ms captured, latent std "
+        f"{float(z.std()):.3f} (σ_max {model.sampler.sigma_max}); decoded back: relative L2 to the data {rel:.3e} "
+        f"(random weights); interpolate {EDM_INTERP_B} pairs: {interp_s * 1e3:.3f} ms captured [{card}]")
+    assert bool(torch.isfinite(back).all()) and bool(torch.isfinite(mid).all()) and mid.shape == x1.shape
+
+
+def check_edm_archive_and_serving(port, model, per, tmp):
+    """15e. ``.dmn`` save and restore (the same weights, the same chain bit
+    for bit), the swaps refused, and /sample served with the archive's own
+    Heun-18 (seeded: equal to ``EDM.sample``), launches = one forward's x
+    35 x batches."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+    from diffusion_model_nemo_tpu_torch.utils.image import to_uint8_tensor
+
+    path = model.save_to(os.path.join(tmp, "EDM.dmn"))
+    back = port.models.restore_model_from_archive(path, device=model.device)
+    assert type(back) is type(model) and all(torch.equal(back.params[k], model.params[k]) for k in model.params)
+    with deterministic():
+        same = torch.equal(back.sample(8, 32, generator=svc_generator(back)),
+                           model.sample(8, 32, generator=svc_generator(model)))
+    assert same, "the restored EDM samples differently"
+    try:
+        serve(back, port=0)
+        raise AssertionError("serve() swapped DDIM into an EDM archive")
+    except ValueError as e:
+        refusal = str(e)
+    nfe = 2 * model.sampler.sample_steps - 1
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve(back, port=0, max_batch=B, use_ddim_sampler=False, use_ema=True)
+    warm_s = time.perf_counter() - t0
+    server.start_background()
+    try:
+        t1 = time.perf_counter()
+        code, body = http("POST", f"http://{server.host}:{server.port}/sample",
+                          {"num_images": 8, "seed": EDM_SERVE_SEED, "format": "npy"})
+        req_s = time.perf_counter() - t1
+        stats = json.loads(http("GET", f"http://{server.host}:{server.port}/stats")[1])
+    finally:
+        server.shutdown()
+    counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    imgs = np.load(io.BytesIO(body))
+    ref = to_uint8_tensor(back.sample(B, 32, generator=svc_generator(back, EDM_SERVE_SEED), use_ema=True))[:8]
+    expect = {k: v * nfe * (stats["batches"] + 1) for k, v in per.items()}
+    log(f"[edm] .dmn restored as {type(back).__name__} (same weights, same chain); serve() swaps refused "
+        f"({refusal[:60]}...); /sample status {code} {list(imgs.shape)} in {req_s:.3f} s (warm-up {warm_s:.2f} s), "
+        f"== EDM.sample {np.array_equal(imgs, ref.cpu().numpy())}; launches {json.dumps(counts)} = one forward's x "
+        f"{nfe} x {stats['batches'] + 1} batches")
+    assert code == 200 and imgs.shape == (8, 32, 32, 3) and np.array_equal(imgs, ref.cpu().numpy())
+    assert counts == expect, (counts, expect)
+
+
+def check_edm_clis(port, device, tmp):
+    """15f. ``train_edm`` (3 steps at batch 8, a sample dump and bits/dim at
+    step 3, the archive), ``eval_edm`` (batch 8, churn, the trajectory's
+    GIF), ``test_edm`` (batch 8: the loss and the ODE bits/dim)."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.cli import eval_edm, test_edm, train_edm
+
+    t0 = time.perf_counter()
+    port.ops.reset_launch_counts()
+    model, trainer = train_edm.main([
+        *CLI_MODEL, "model.train_ds.name=synthetic", f"model.train_ds.batch_size={EDM_CLI_B}",
+        f"trainer.max_steps={EDM_CLI_STEPS}", f"model.save_every={EDM_CLI_STEPS}", "model.compute_bpd=true",
+        f"exp_manager.exp_dir={tmp}/exp", "exp_manager.create_tensorboard_logger=false", "+exp_manager.version=run",
+        f"+model.results_dir={tmp}/results", *EDM_AUG])
+    cli_counts(port, "train_edm", UNET_KERNELS)
+    dmn = next(trainer.exp_manager_hooks.log_dir.glob("*.dmn"))
+    train_s = time.perf_counter() - t0
+    assert all(np.isfinite(m["train_loss"]) for m in trainer.logged)
+    t0 = time.perf_counter()
+    out = eval_edm.main([f"model_path={dmn}", f"batch_size={EDM_CLI_B}", "s_churn=1.0", "show_diffusion=true",
+                         f"output_dir={tmp}/samples", "add_timestamp=false"])
+    eval_s = time.perf_counter() - t0
+    assert (out / "diffusion.gif").is_file() and len(list(out.glob("sample_*.png"))) == EDM_CLI_B
+    t0 = time.perf_counter()
+    result = test_edm.main([f"model_path={dmn}", f"batch_size={EDM_CLI_B}", "limit_test_batches=1",
+                            "dataset_name=synthetic"])
+    test_s = time.perf_counter() - t0
+    log(f"[edm] train_edm {EDM_CLI_STEPS} steps B={EDM_CLI_B} (augment_prob 0.12, aug_dim 9): {train_s:.2f} s, "
+        f"logged {json.dumps(trainer.logged)}; eval_edm B={EDM_CLI_B} (churn, GIF): {eval_s:.2f} s; test_edm "
+        f"B={EDM_CLI_B}: {json.dumps(result)} in {test_s:.2f} s")
+    assert result["avg_num_forward_evaluations"] == 2 * (model.sampler.sample_steps - 1)
+    assert np.isfinite(result["test_total_bpd"]) and np.isfinite(result["test_edm_loss"])
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
+    assert not loaded, f"the EDM CLIs loaded {loaded}"
+
+
+def check_conditional_edm(port, device, rows, card):
+    """15g. ConditionalEDM (K = 10) served guided at two scales: the kernels
+    at the guided 2B forward's shapes, seeded /sample per scale; the second
+    scale replays the guided graphs (Heun steps and the last Euler step)
+    that the first captured, and captures nothing."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    model = edm_model(port, device, [f"model.num_classes={NUM_CLASSES}"])
+    x, _t = model_inputs(device, 32)
+    t = model.sampler.model_time(torch.full((B,), 2.0, device=device))
+    labels = model._label_array(B, COND_LABEL)
+    scale = torch.tensor(COND_SCALE, device=device)
+    calls = {"conditional_edm_guided_2B": record_calls(
+        port, None, None, None, run=lambda: model._cfg_forward(model.params, x, t, labels, scale))}
+    assert per_forward_counts(calls["conditional_edm_guided_2B"]) == derived_counts(port, model, 2 * B, 32)
+    hold_kernels(port, calls, rows)
+    server = serve(model, port=0, max_batch=B, use_ddim_sampler=False, use_ema=True)
+    server.start_background()
+
+    def guided():
+        return {id(g): g for k, g in model.sampler.graphs.items()
+                if any(getattr(part, "__name__", "") == "_cfg_forward" for part in k)}
+
+    outs, seen = {}, None
+    try:
+        for w in EDM_SCALES:
+            replays = {i: g.info["replays"] for i, g in guided().items()}
+            n_graphs = len(model.sampler.graphs)
+            t0 = time.perf_counter()
+            outs[w] = np.load(io.BytesIO(http("POST", f"http://{server.host}:{server.port}/sample", {
+                "num_images": 4, "label": COND_LABEL, "guidance_scale": w, "seed": COND_SEED, "format": "npy"})[1]))
+            wall = time.perf_counter() - t0
+            used = {i: g for i, g in guided().items() if g.info["replays"] > replays.get(i, 0) or i not in replays}
+            captured = [i for i in used if i not in replays]
+            assert len(used) == 2, (w, len(used))  # the Heun steps' graph and the last Euler step's
+            assert seen is None or (not captured and set(used) == seen and len(model.sampler.graphs) == n_graphs), \
+                f"guidance scale {w} captured a graph of its own"
+            seen = set(used)
+            pool = sum(g.info["pool_mib"] for g in used.values())
+            log(f"[edm] conditional /sample label {COND_LABEL} w={w} B={B} (2B = {2 * B} a network call, NFE "
+                f"{2 * model.sampler.sample_steps - 1}): {wall:.3f} s, the guided graphs "
+                f"{'captured here' if captured else 'replayed (captured at the first scale)'} (pool {pool:.1f} MiB); "
+                f"graphs held {len(model.sampler.graphs)} [{card}]")
+    finally:
+        server.shutdown()
+    assert len(guided()) == 2 and not np.array_equal(*outs.values())
+
+
+def lapped(tag, fn, *args):
+    """``fn(*args)``, its wall logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[edm] {tag} in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def check_edm(port, device, rows):
+    """15. The ConvNeXt U-Net and the EDM family on the card."""
+    import torch
+
+    t15 = time.perf_counter()
+    card = card_line()  # written beside every [edm] time
+    lapped("15a convnext", check_convnext, port, device, rows, card)
+    model = edm_model(port, device)
+    x, _t = model_inputs(device, 32)
+    t = model.sampler.model_time(torch.full((B,), 2.0, device=device))  # σ = 2's float time
+    calls = {"edm": record_calls(port, model, x, t)}
+    per = per_forward_counts(calls["edm"])
+    log(f"[edm] EDM (the ResNet unet_small, float times c_noise·250) launches a forward: {json.dumps(per)}")
+    assert per == derived_counts(port, model, B, 32)
+    hold_kernels(port, calls, rows)
+    lapped("15b Heun-18", check_edm_chain, port, "Heun-18", model, per, card)
+    base = dict(model.cfg.sampler)
+    model.change_sampler(dict(base, **EDM_CHURN))
+    noise = torch.randn((model.sampler.sample_steps, B, 32, 32, 3), device=device,
+                        generator=torch.Generator(device=device).manual_seed(SEED))
+    lapped("15b Heun-18 churn", check_edm_chain, port, "Heun-18 churn 40 (injected noise)", model, per, card,
+           noise)
+    model.change_sampler(dict(base, solver="euler"))
+    lapped("15b Euler-18", check_edm_chain, port, "Euler-18", model, per, card)
+    model.change_sampler(base)
+    aug = edm_model(port, device, EDM_AUG)
+    lapped("15b augmented step", step_against_plain, port, "edm augment_prob 0.12 aug_dim 9", aug,
+           derived_counts(port, aug, TRAIN_B, 32), card)
+    lapped("15c likelihood", check_edm_likelihood, port, model, device, derived_counts(port, model, EDM_LIK_B, 32),
+           card)
+    lapped("15d encode, interpolate", check_edm_encode, port, model, device, card)
+    tmp = tempfile.mkdtemp(prefix="dmn_edm_")
+    cwd = os.getcwd()
+    try:
+        lapped("15e archive, /sample", check_edm_archive_and_serving, port, model, per, tmp)
+        os.chdir(tmp)
+        lapped("15f CLIs", check_edm_clis, port, device, tmp)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    lapped("15g guided ConditionalEDM", check_conditional_edm, port, device, rows, card)
+    log(f"[edm] phase 15 in {time.perf_counter() - t15:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4152,6 +4576,12 @@ def main() -> int:
     # post-hoc EMA, profile_dir, the prefetcher, one guided graph.
     check_training_options(port, device)
     phase_done("phase 14")
+
+    # 15. The ConvNeXt U-Net and the EDM family: chains, training, the
+    # likelihood, encode / interpolate, the archive, /sample, the CLIs, the
+    # guided ConditionalEDM.
+    check_edm(port, device, rows)
+    phase_done("phase 15")
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

@@ -7,14 +7,18 @@ hand-written Hopper kernels (``csrc/``, built at first use by
 ``ops/_build.py``), on the CPU through their plain PyTorch versions.
 Training: ``Trainer(...).fit(DDPM(cfg))`` (``training/``); the model families
 are ``DDPM``, ``ImprovedDDPM``, ``ConditionalDDPM``, ``ScoreSDE``,
-``WavegradDDPM`` and the mel → waveform ``WavegradVocoderModel``.
+``WavegradDDPM``, the mel → waveform ``WavegradVocoderModel``, ``EDM`` and
+``ConditionalEDM``.
 """
 
 from . import config, data, loss, models, modules, ops, serving, training, utils
-from .models import DDPM, ConditionalDDPM, ImprovedDDPM, ScoreSDE, WavegradDDPM, WavegradVocoderModel
+from .models import (
+    DDPM, EDM, ConditionalDDPM, ConditionalEDM, ImprovedDDPM, ScoreSDE, WavegradDDPM, WavegradVocoderModel,
+)
 from .training import Trainer
 
 __all__ = [
     "config", "data", "loss", "models", "modules", "ops", "serving", "training", "utils",
-    "DDPM", "ImprovedDDPM", "ConditionalDDPM", "ScoreSDE", "WavegradDDPM", "WavegradVocoderModel", "Trainer",
+    "DDPM", "ImprovedDDPM", "ConditionalDDPM", "ScoreSDE", "WavegradDDPM", "WavegradVocoderModel", "EDM",
+    "ConditionalEDM", "Trainer",
 ]

@@ -6,8 +6,8 @@
 ``eval_score_sde``, ``test_score_sde``, ``train_wavegrad_ddpm``,
 ``eval_wavegrad_ddpm``, ``test_wavegrad_ddpm``, ``train_vocoder``,
 ``vocode``, ``interpolate_ddpm``, ``interpolate_ddim``,
-``interpolate_improved_ddpm``, ``edit_ddpm``, ``inpaint_ddpm`` and ``serve``
-(the JAX package's
-``examples/{ddpm,improved_ddpm,conditional_ddpm,score_sde,wavegrad_ddpm}/*.py``
-and ``examples/serve.py``; ``serve`` restores any of the six families).
+``interpolate_improved_ddpm``, ``edit_ddpm``, ``inpaint_ddpm``,
+``train_edm``, ``eval_edm``, ``test_edm`` and ``serve`` (the JAX package's
+``examples/{ddpm,improved_ddpm,conditional_ddpm,score_sde,wavegrad_ddpm,edm}/*.py``
+and ``examples/serve.py``; ``serve`` restores any of the eight families).
 Each ``main`` takes an explicit ``argv`` list too."""

@@ -3,17 +3,20 @@ import logging
 from ..modules.parts import not_ported
 from .abstract_diffusion_model import AbstractDiffusionModel, resolve_archive_path
 from .conditional_ddpm import ConditionalDDPM
+from .conditional_edm import ConditionalEDM
 from .ddpm import DDPM
+from .edm import EDM
 from .improved_ddpm import ImprovedDDPM
 from .score_sde import ScoreSDE
 from .wavegrad_ddpm import WavegradDDPM
 from .wavegrad_vocoder import WavegradVocoderModel
 
-__all__ = ["AbstractDiffusionModel", "ConditionalDDPM", "DDPM", "ImprovedDDPM", "ScoreSDE", "WavegradDDPM",
-           "WavegradVocoderModel", "restore_model_from_archive"]
+__all__ = ["AbstractDiffusionModel", "ConditionalDDPM", "ConditionalEDM", "DDPM", "EDM", "ImprovedDDPM", "ScoreSDE",
+           "WavegradDDPM", "WavegradVocoderModel", "restore_model_from_archive"]
 
 _MODEL_CLASSES = {"DDPM": DDPM, "ImprovedDDPM": ImprovedDDPM, "ConditionalDDPM": ConditionalDDPM,
-                  "ScoreSDE": ScoreSDE, "WavegradDDPM": WavegradDDPM, "WavegradVocoderModel": WavegradVocoderModel}
+                  "ScoreSDE": ScoreSDE, "WavegradDDPM": WavegradDDPM, "WavegradVocoderModel": WavegradVocoderModel,
+                  "EDM": EDM, "ConditionalEDM": ConditionalEDM}
 
 
 def restore_model_from_archive(path: str, use_ema: bool = False, device="cuda"):

@@ -100,25 +100,34 @@ class AbstractDiffusionModel:
 
     def train_model_fn(self, params, x: torch.Tensor, t: torch.Tensor,
                        classes: Optional[torch.Tensor] = None,
-                       dropout_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                       dropout_masks: Optional[Dict[str, torch.Tensor]] = None,
+                       aug_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``model_fn`` with autograd on: gradients reach ``params``;
-        ``dropout_masks`` ({site: keep mask}) turn the network's dropout on."""
+        ``dropout_masks`` ({site: keep mask}) turn the network's dropout on;
+        ``aug_cond`` is an augmentation descriptor (a network with
+        ``aug_dim``)."""
         kwargs = {} if classes is None else {"classes": classes}
         if dropout_masks:
             kwargs["dropout_masks"] = dropout_masks
+        if aug_cond is not None:
+            kwargs["aug_cond"] = aug_cond
         return functional_call(self.diffusion_model, params, (x, t), kwargs)
 
     def get_model_fn(self, batch: Optional[Dict] = None, training: bool = False, label_mask=None,
-                     dropout_masks: Optional[Dict[str, torch.Tensor]] = None):
+                     dropout_masks: Optional[Dict[str, torch.Tensor]] = None,
+                     aug_cond: Optional[torch.Tensor] = None):
         """``model_fn(params, x, t)``: ``train_model_fn`` when ``training``
-        (with training's ``dropout_masks`` bound), else ``model_fn``. A
-        conditional model binds ``batch``'s labels (``label_mask``:
-        training's null-class mask)."""
+        (with training's ``dropout_masks`` and augmentation descriptor
+        ``aug_cond`` bound), else ``model_fn``. A conditional model binds
+        ``batch``'s labels (``label_mask``: training's null-class mask)."""
         if not training:
             return self.model_fn
+        bound = {}
         if dropout_masks:
-            return functools.partial(self.train_model_fn, dropout_masks=dropout_masks)
-        return self.train_model_fn
+            bound["dropout_masks"] = dropout_masks
+        if aug_cond is not None:
+            bound["aug_cond"] = aug_cond
+        return functools.partial(self.train_model_fn, **bound) if bound else self.train_model_fn
 
     # ---- dropout's injected masks ---------------------------------------------
     def draw_dropout_masks(self, shape, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:

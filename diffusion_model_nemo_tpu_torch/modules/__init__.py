@@ -1,6 +1,7 @@
 from .diffusion_process import AbstractDiffusionProcess
 from .dit import DiT
 from .dpm_solver import DPMSolverDiffusion
+from .edm_diffusion import EDMProcess
 from .gaussian_diffusion import GaussianDiffusion
 from .generalized_gaussian_diffusion import GeneralizedGaussianDiffusion
 from .karras_diffusion import KarrasDiffusion
@@ -17,6 +18,7 @@ __all__ = [
     "AbstractDiffusionProcess",
     "DiT",
     "DPMSolverDiffusion",
+    "EDMProcess",
     "GaussianDiffusion",
     "GeneralizedGaussianDiffusion",
     "KarrasDiffusion",

@@ -22,9 +22,13 @@ output of each block (flax sites ``block_<i>/Dropout_0`` and
 ``block_<i>/Dropout_1``), through injected keep masks (``dropout_shapes``);
 with no masks the forward is the deterministic one.
 
+``aug_dim = D`` adds ``aug_embed``, a zero-initialised no-bias Dense [D →
+dim] on the augmentation descriptor ``aug_cond`` [B, D] (None = zeros),
+added to c after the class embedding, as in the JAX DiT.
+
 Options of the JAX DiT that later slices bring raise
-``NotImplementedError``: mixture-of-experts MLPs, cross-attention context,
-augmentation conditioning and sequence parallelism.
+``NotImplementedError``: mixture-of-experts MLPs, cross-attention context
+and sequence parallelism.
 """
 
 from __future__ import annotations
@@ -158,8 +162,6 @@ class DiT(nn.Module):
             raise not_ported("DiT", f"moe_experts={moe_experts}", "DiT mixture-of-experts")
         if context_dim:
             raise not_ported("DiT", f"context_dim={context_dim}", "text-conditional DiT")
-        if aug_dim:
-            raise not_ported("DiT", f"aug_dim={aug_dim}", "EDM augmentation")
         if seq_axis_name is not None:
             raise not_ported("DiT", f"seq_axis_name={seq_axis_name!r}", "sequence-parallel ring attention")
         dt = resolve_dtype(dtype)
@@ -174,6 +176,9 @@ class DiT(nn.Module):
         self.num_classes = None if num_classes is None else int(num_classes)
         if self.num_classes is not None:
             self.class_embed = Embed(self.num_classes + 1, dim)
+        self.aug_dim = int(aug_dim or 0)
+        if self.aug_dim:
+            self.aug_embed = Dense(self.aug_dim, dim, bias=False, dtype=dt)
         self.dropout = float(dropout or 0.0)
         for i in range(depth):
             self.add_module(f"block_{i}", DiTBlock(dim, heads, mlp_ratio, dt, dropout=self.dropout))
@@ -190,7 +195,7 @@ class DiT(nn.Module):
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
-        zero = [self.final_mod, self.final_linear]
+        zero = [self.final_mod, self.final_linear] + ([self.aug_embed] if self.aug_dim else [])
         zero += [getattr(self, f"block_{i}").adaln_mod for i in range(self.depth)]
         with torch.no_grad():
             for m in zero:
@@ -212,10 +217,12 @@ class DiT(nn.Module):
         return self._pos[key]
 
     def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None,
-                dropout_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                dropout_masks: Optional[Dict[str, torch.Tensor]] = None,
+                aug_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, H, W, C] float; time: [B] (int or float); classes: [B] int
         (a network with ``num_classes``; None = the null class);
-        ``dropout_masks``: training's keep mask of each site → [B, H, W,
+        ``dropout_masks``: training's keep mask of each site; ``aug_cond``:
+        the augmentation descriptor [B, aug_dim] (None = zeros) → [B, H, W,
         out] float32."""
         masks = dropout_masks or {}
         B, H, W, _ = x.shape
@@ -231,6 +238,9 @@ class DiT(nn.Module):
             if classes is None:
                 classes = torch.full((B,), self.num_classes, dtype=torch.int32, device=x.device)
             c = c + self.class_embed(classes).to(self.dtype)
+        if self.aug_dim:
+            a = aug_cond if aug_cond is not None else torch.zeros((B, self.aug_dim), device=x.device)
+            c = c + self.aug_embed(a.to(self.dtype))
         for i in range(self.depth):
             blk = getattr(self, f"block_{i}")
             m = (masks.get(f"block_{i}/Dropout_0"), masks.get(f"block_{i}/Dropout_1"))

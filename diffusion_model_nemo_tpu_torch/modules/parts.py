@@ -17,7 +17,10 @@ Kept reference bug: ``Block`` runs conv→norm→act for both 'conv_bn_act' and
 passes one. WaveGrad's FiLM modules (``PositionalEncoding``,
 ``FeatureWiseLinearModulation``) compute a (scale, shift) pair that the
 WaveGrad U-Net applies as ``x·scale + shift`` itself, as the JAX package
-does. ConvNeXt blocks are not ported yet.
+does. ``ConvNextBlock`` is the JAX package's: a 7×7 depthwise conv, the
+time bias, flax's ``GroupNorm(1)`` (``GroupNorm``: plain torch ops, no TPU
+kernel stands behind it), two 3×3 convs around a tanh GELU, and a 1×1
+residual conv where the width changes.
 """
 
 from __future__ import annotations
@@ -48,8 +51,10 @@ __all__ = [
     "Embed",
     "GNParams",
     "FusedGroupNormSiLU",
+    "GroupNorm",
     "Block",
     "ResnetBlock",
+    "ConvNextBlock",
     "Attention",
     "LinearAttention",
     "SinusoidalPositionEmbeddings",
@@ -103,13 +108,15 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Gener
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv`` on NHWC: weight OIHW, zero-initialised bias."""
+    """flax ``nn.Conv`` on NHWC: weight OIHW, zero-initialised bias;
+    ``groups`` is flax's ``feature_group_count`` (a depthwise conv at
+    ``groups = c_in``: flax's [k, k, 1, C] kernel is [C, 1, k, k] here)."""
 
-    def __init__(self, c_in, c_out, k, stride=1, padding=0, bias=True, dtype=torch.float32):
+    def __init__(self, c_in, c_out, k, stride=1, padding=0, bias=True, dtype=torch.float32, groups=1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(c_out, c_in, k, k))
+        self.weight = nn.Parameter(torch.empty(c_out, c_in // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
-        self.stride, self.padding, self.dtype = stride, padding, resolve_dtype(dtype)
+        self.stride, self.padding, self.dtype, self.groups = stride, padding, resolve_dtype(dtype), groups
 
     def reset_parameters(self, generator=None) -> None:
         o, i, kh, kw = self.weight.shape
@@ -118,7 +125,7 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b, self.stride, self.padding)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b, self.stride, self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -230,6 +237,26 @@ class GNParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
 
 
+class GroupNorm(GNParams):
+    """flax ``nn.GroupNorm(num_groups=1, epsilon, dtype)`` on [B, ..., C]:
+    float32 one-pass statistics over every axis but B, clipped at zero,
+    then ``(x − μ)·(rsqrt(σ² + ε)·scale) + bias`` in float32, cast to
+    ``dtype`` (flax's ``_normalize`` order)."""
+
+    def __init__(self, c, eps=1e-5, dtype=torch.float32):
+        super().__init__(c)
+        self.eps, self.dtype = eps, resolve_dtype(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        dims = tuple(range(1, x.ndim))
+        mean = xf.mean(dim=dims, keepdim=True)
+        mean2 = (xf * xf).mean(dim=dims, keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
+        return y.to(self.dtype)
+
+
 ScaleShift = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -300,6 +327,37 @@ class ResnetBlock(nn.Module):
         if self.mlp is not None and time_emb is not None:
             h = h + self.mlp(F.silu(time_emb))[:, None, None, :]
         h = self.block2(h, mask=mask)
+        if self.res_conv is not None:
+            x = self.res_conv(x)
+        return h + x
+
+
+class ConvNextBlock(nn.Module):
+    """7×7 depthwise conv ``ds_conv`` → + ``mlp(gelu(time_emb))`` (width
+    c_in) → GroupNorm(1) ``net_norm0`` → 3×3 conv to ``mult·c_out`` → GELU →
+    GroupNorm(1) ``net_norm1`` → 3×3 conv to c_out → dropout (training only:
+    ``mask``, the site ``<name>/Dropout_0``) → + x (through a 1×1
+    ``res_conv`` where c_in ≠ c_out). GELU is flax's tanh form."""
+
+    def __init__(self, c_in, c_out, time_dim=None, mult=2, dtype=torch.float32, dropout: Optional[float] = None):
+        super().__init__()
+        self.dropout = float(dropout or 0.0)
+        self.ds_conv = Conv2d(c_in, c_in, 7, padding=3, dtype=dtype, groups=c_in)
+        self.mlp = Dense(time_dim, c_in, dtype=dtype) if time_dim else None
+        self.net_norm0 = GroupNorm(c_in, 1e-5, dtype)
+        self.net_conv0 = Conv2d(c_in, c_out * mult, 3, padding=1, dtype=dtype)
+        self.net_norm1 = GroupNorm(c_out * mult, 1e-5, dtype)
+        self.net_conv1 = Conv2d(c_out * mult, c_out, 3, padding=1, dtype=dtype)
+        self.res_conv = Conv2d(c_in, c_out, 1, dtype=dtype) if c_in != c_out else None
+
+    def forward(self, x: torch.Tensor, time_emb: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.ds_conv(x)
+        if self.mlp is not None and time_emb is not None:
+            h = h + self.mlp(F.gelu(time_emb, approximate="tanh"))[:, None, None, :]
+        h = self.net_conv0(self.net_norm0(h))
+        h = self.net_conv1(self.net_norm1(F.gelu(h, approximate="tanh")))
+        h = dropout(h, mask, self.dropout)
         if self.res_conv is not None:
             x = self.res_conv(x)
         return h + x

@@ -18,9 +18,15 @@ blocks, through injected keep masks keyed by the flax path of each site
 ``dropout_shapes`` gives their shapes for an input shape); with no masks, as
 at inference, the forward is the deterministic one.
 
-Options of the JAX U-Net that later slices bring raise
-``NotImplementedError`` naming the slice: ConvNeXt blocks, augmentation
-conditioning and the TPU-geometry variants.
+``use_convnext`` (the JAX default) builds every block as a
+``ConvNextBlock`` (``convnext_mult``), whose GroupNorm(1)s are plain torch
+ops: the U-Net then launches kernel #1 once a forward (``final_norm``) and
+the attention kernels as before; its dropout sites are
+``<block>/Dropout_0``. ``aug_dim = D`` adds ``aug_embed``, a no-bias Dense
+[D → 4·dim] initialised to zero, whose output on the augmentation
+descriptor ``aug_cond`` [B, D] is added to the time embedding (a missing
+descriptor is zeros: exactly the network without it). The TPU-geometry
+variants raise ``NotImplementedError`` naming their slice.
 
 ``WaveGradUNet`` is the JAX package's FiLM U-Net: its ``time`` input is the
 continuous noise level √ᾱ, which conditions the network through one
@@ -39,6 +45,7 @@ from torch import nn
 from ..config.registry import register_target
 from .parts import (
     Conv2d,
+    ConvNextBlock,
     Dense,
     Downsample,
     Embed,
@@ -59,8 +66,7 @@ __all__ = ["Unet", "WaveGradUNet"]
 @register_target("diffusion_model_nemo.modules.Unet")
 class Unet(nn.Module):
     """Reference-parity U-Net. Arguments mirror the JAX package's
-    (``input_dim`` and ``convnext_mult`` are accepted for config
-    compatibility). ``remat`` recomputes each ResNet block's activations in
+    (``input_dim`` is accepted for config compatibility). ``remat`` recomputes each ResNet block's activations in
     the backward (``parts.remat_call``), as the JAX package's ``nn.remat``
     does."""
 
@@ -85,10 +91,6 @@ class Unet(nn.Module):
         tpu_geometry: str = "off",
     ):
         super().__init__()
-        if use_convnext:
-            raise not_ported("Unet", "use_convnext=True", "ConvNeXt U-Net")
-        if aug_dim:
-            raise not_ported("Unet", f"aug_dim={aug_dim}", "EDM augmentation")
         if (tpu_geometry or "off").lower() not in ("off", "none", ""):
             raise not_ported("Unet", f"tpu_geometry={tpu_geometry!r}", "U-Net geometry options")
         dt = resolve_dtype(dtype)
@@ -103,8 +105,12 @@ class Unet(nn.Module):
         self.num_resolutions = len(in_out)
         groups = resnet_block_groups
         self.dropout = float(dropout or 0.0)
+        self.use_convnext = bool(use_convnext)
+        self._dropout_site = "Dropout_0" if self.use_convnext else "block2"  # the flax path below the block
 
         def block(c_in, c_out, time_dim):
+            if self.use_convnext:
+                return ConvNextBlock(c_in, c_out, time_dim, int(convnext_mult), dt, dropout=self.dropout)
             return ResnetBlock(c_in, c_out, time_dim, groups, resnet_block_order, dt, dropout=self.dropout)
 
         self.init_conv = Conv2d(channels, dim, 7, padding=3, dtype=dt)
@@ -116,6 +122,9 @@ class Unet(nn.Module):
             self.time_sinusoid = SinusoidalPositionEmbeddings(dim)
             self.time_dense0 = Dense(dim, time_dim, dtype=dt)
             self.time_dense1 = Dense(time_dim, time_dim, dtype=dt)
+        self.aug_dim = int(aug_dim or 0)
+        if self.aug_dim and with_time_emb:  # the JAX U-Net reads it in its time MLP only
+            self.aug_embed = Dense(self.aug_dim, time_dim, bias=False, dtype=dt)
 
         for ind, (dim_in, dim_out) in enumerate(in_out):
             self.add_module(f"down_{ind}_block1", block(dim_in, dim_out, time_dim))
@@ -148,30 +157,36 @@ class Unet(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """lecun-normal kernels, zero biases, unit norm scales (flax's
-        initialisers), drawn from ``generator`` in module order."""
+        initialisers), drawn from ``generator`` in module order; then
+        ``aug_embed`` zero (its flax initialiser)."""
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
+        if hasattr(self, "aug_embed"):
+            with torch.no_grad():
+                self.aug_embed.weight.zero_()
 
     def dropout_shapes(self, shape: Sequence[int]) -> Dict[str, Tuple[int, ...]]:
         """{site: the keep mask's shape} for an input of ``shape`` [B, H, W,
-        C] (no site without dropout): each ResNet block's ``block2`` output,
-        at its level's resolution."""
+        C] (no site without dropout): each block's output (a ResNet block's
+        ``block2``, a ConvNeXt block's ``Dropout_0``), at its level's
+        resolution."""
         if not self.dropout:
             return {}
         B, H, W = shape[0], shape[1], shape[2]
         last = self.num_resolutions - 1
+        site = self._dropout_site
         out = {}
         for ind, (_dim_in, dim_out) in enumerate(self.in_out):
             for b in (1, 2):
-                out[f"down_{ind}_block{b}/block2"] = (B, H >> ind, W >> ind, dim_out)
+                out[f"down_{ind}_block{b}/{site}"] = (B, H >> ind, W >> ind, dim_out)
         mid = self.in_out[-1][1]
         for b in (1, 2):
-            out[f"mid_block{b}/block2"] = (B, H >> last, W >> last, mid)
+            out[f"mid_block{b}/{site}"] = (B, H >> last, W >> last, mid)
         for ind, (dim_in, _dim_out) in enumerate(reversed(self.in_out[1:])):
             for b in (1, 2):
-                out[f"up_{ind}_block{b}/block2"] = (B, H >> (last - ind), W >> (last - ind), dim_in)
-        out["final_block/block2"] = (B, H, W, self.in_out[0][0])
+                out[f"up_{ind}_block{b}/{site}"] = (B, H >> (last - ind), W >> (last - ind), dim_in)
+        out[f"final_block/{site}"] = (B, H, W, self.in_out[0][0])
         return out
 
     def _add_class(self, x: torch.Tensor, classes: Optional[torch.Tensor]) -> torch.Tensor:
@@ -186,22 +201,24 @@ class Unet(nn.Module):
         return x + emb[:, None, None, :]
 
     def _blocks(self, dropout_masks: Optional[Dict[str, torch.Tensor]]):
-        """``block(name, x, t)``: the named ResNet block (remat'd under
+        """``block(name, x, t)``: the named block (remat'd under
         ``remat``) with its site's keep mask, if any."""
         masks = dropout_masks or {}
         call = remat_call if self.remat else (lambda m, *a: m(*a))
 
         def block(name: str, x, t):
-            return call(getattr(self, name), x, t, masks.get(f"{name}/block2"))
+            return call(getattr(self, name), x, t, masks.get(f"{name}/{self._dropout_site}"))
 
         return block
 
     def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None,
-                dropout_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                dropout_masks: Optional[Dict[str, torch.Tensor]] = None,
+                aug_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, H, W, C] float; time: [B] (int or float); classes: [B] int
         (a network with ``num_classes``; None = the null class);
-        ``dropout_masks``: training's keep mask of each site → [B, H, W, out]
-        float32."""
+        ``dropout_masks``: training's keep mask of each site; ``aug_cond``:
+        the augmentation descriptor [B, aug_dim] (None = zeros) → [B, H, W,
+        out] float32."""
         x = self._add_class(self.init_conv(x.to(self.dtype)), classes)
         t = None
         if self.with_time_emb:
@@ -209,6 +226,9 @@ class Unet(nn.Module):
             t = self.time_dense0(t.to(self.dtype))
             t = F.gelu(t, approximate="tanh")  # flax nn.gelu is the tanh form
             t = self.time_dense1(t)
+            if hasattr(self, "aug_embed"):
+                a = aug_cond if aug_cond is not None else torch.zeros((t.shape[0], self.aug_dim), device=t.device)
+                t = t + self.aug_embed(a.to(self.dtype))
 
         block = self._blocks(dropout_masks)
         skips = []
