@@ -3596,9 +3596,16 @@ def check_edit_serving(port, model, base, per):
                 results[k] = http("POST", url + "/edit", {"images_npy": b64(imgs[:n]), "strength": s,
                                                           "format": "npy"})
 
+            # Held until both are queued: the linger window (5 ms) is no
+            # promise that two HTTP clients arrive within it.
             threads = [threading.Thread(target=request, args=(k, n)) for k, n in (("a", 20), ("b", 30))]
-            for th in threads:
-                th.start()
+            with server.batcher.hold():
+                for th in threads:
+                    th.start()
+                deadline = time.perf_counter() + 60
+                while server.batcher.queued() < 2:
+                    assert time.perf_counter() < deadline, "the unseeded /edit requests were not queued"
+                    time.sleep(0.001)
             for th in threads:
                 th.join(timeout=600)
                 assert not th.is_alive(), "an unseeded /edit request did not finish"

@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import base64
 import binascii
+import contextlib
 import io
 import json
 import logging
@@ -145,6 +146,7 @@ class BatchingSampler:
         self._queue: List[_Request] = []
         self._cv = threading.Condition()
         self._stop = False
+        self._held = 0
         self._warm = False
         self.stats: Dict[str, Any] = {
             "requests": 0,
@@ -180,6 +182,25 @@ class BatchingSampler:
     @property
     def warm(self) -> bool:
         return self._warm
+
+    @contextlib.contextmanager
+    def hold(self):
+        """While held the worker starts no batch: requests queue up, and on
+        release they are grouped as coalescing allows (a batch already
+        running finishes)."""
+        with self._cv:
+            self._held += 1
+        try:
+            yield self
+        finally:
+            with self._cv:
+                self._held -= 1
+                self._cv.notify_all()
+
+    def queued(self) -> int:
+        """Requests waiting for a batch."""
+        with self._cv:
+            return len(self._queue)
 
     # ---- client surface ------------------------------------------------------
     def submit(
@@ -392,12 +413,13 @@ class BatchingSampler:
                 r.result = images[off : off + r.num_images]
                 off += r.num_images
                 self.stats["latency_ms_sum"] += (now - r.enqueued_at) * 1e3
-                r.done.set()
             self.stats["requests"] += len(group)
             self.stats["images"] += total
             self.stats["batches"] += 1
             self.stats["batch_fill_sum"] += total / self.max_batch
             self.stats["device_ms_sum"] += device_ms
+            for r in group:  # after the counts: /stats read by an answered client includes its batch
+                r.done.set()
         except Exception as e:  # worker boundary: report to every waiter
             log.exception("sample batch failed")
             for r in group:
@@ -407,7 +429,7 @@ class BatchingSampler:
     def _run(self) -> None:
         while True:
             with self._cv:
-                while not self._queue and not self._stop:
+                while (not self._queue or self._held) and not self._stop:
                     self._cv.wait()
                 if self._stop:
                     queued, self._queue = self._queue, []

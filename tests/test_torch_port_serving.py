@@ -393,6 +393,37 @@ def test_edit_requests_coalesce_per_strength():
         batcher.stop()
 
 
+def test_held_worker_coalesces_requests_queued_past_the_linger_window():
+    """Under ``hold`` the worker starts no batch: requests queued one after
+    another, far apart against a 1 ms linger window, run as one batch on
+    release, and a client's /stats read after its answer counts its batch."""
+    batcher = BatchingSampler(_tiny_model(), IMG, max_batch=MAX_BATCH, linger_ms=1.0).start(warmup=False)
+    src = np.random.default_rng(3).uniform(0, 1, (2, IMG, IMG, 3)).astype(np.float32)
+    seen = []
+
+    def job(n):
+        batcher.submit_edit(src[:n], 0.5, timeout=120)
+        seen.append(batcher.snapshot_stats()["batches"])
+
+    try:
+        threads = [threading.Thread(target=job, args=(n,)) for n in (1, 2)]
+        with batcher.hold():
+            for i, th in enumerate(threads):
+                th.start()
+                while batcher.queued() < i + 1:
+                    time.sleep(0.001)
+                time.sleep(0.05)  # 50 linger windows between the two arrivals
+            assert batcher.queued() == 2 and batcher.snapshot_stats()["batches"] == 0
+        for th in threads:
+            th.join(timeout=120)
+            assert not th.is_alive()
+        stats = batcher.snapshot_stats()
+        assert stats["batches"] == 1 and stats["requests"] == 2 and stats["images"] == 3, stats
+        assert seen == [1, 1] and batcher.queued() == 0
+    finally:
+        batcher.stop()
+
+
 def test_edit_http_surface(edit_batcher):
     """POST /edit: a seeded npy round trip; the JAX package's client faults
     (no images_npy, strength 7, bad base64, a non-numeric strength) answer
