@@ -7,7 +7,8 @@ check them.
 Paths: unet_small (bf16, 32 px) trained at batch 128 and served, on kernels
 #1-#4 (also as ImprovedDDPM, as the class-conditional, guided
 ConditionalDDPM, as ScoreSDE, as WaveGrad's FiLM U-Net, as EDM and
-ConditionalEDM, and with ConvNeXt blocks), and under the JAX package's two
+ConditionalEDM, with ConvNeXt blocks, and as SR3 with a 6-channel stem at
+32 and 64 px, served on /super_resolve and cascaded), and under the JAX package's two
 opt-in switches on #6
 (``DMN_TPU_PALLAS_NORM_BM=1``) and #9 (``DMN_TPU_PALLAS_LINATTN_BLOCK=1``);
 ``Block(x, scale_shift)`` at unet_small's GroupNorm sites on #5 (and #6
@@ -262,7 +263,7 @@ Phases:
           0.75 on a DDIM-configured server (a seeded request twice, two
           unseeded ones coalesced; launches = one forward's x t0 x
           batches; both strengths replay one ancestral graph), the
-          400s, /super_resolve 501;
+          400s (/super_resolve on this DDPM archive among them);
      13h RePaint at B=8, jumps 10 x 10 (9910 reverse entries): the first
           200 entries captured == eager, the whole schedule captured, the
           known region exact, launches = one forward's x 9910;
@@ -323,6 +324,37 @@ Phases:
           shapes, /sample guided at two scales: the second replays the two
           guided graphs (the Heun steps', the last Euler step's) the first
           captured, and captures nothing.
+
+  16. SR3 super-resolution, the cascade and the file datasets (bf16, full
+      width, random weights from seed 0), ``[sr3]`` lines, each time beside
+      the card's name and power limit:
+     16a SR3 at examples/configs/sr3/unet_small.yaml, 32 px x4 and 64 px x2:
+          launches a forward equal to the gates' (#1-#4 35/4/1/1 at 32 px,
+          as unet_small's), every #1-#4 call of the 32-px forward at B=64
+          and 128 and of the 64-px forward at B=16 held against its plain
+          version with its device ms (CUDA events behind a spin) and bound,
+          both forwards against the plain path, busy ms beside unet_small's;
+     16b the B=128 step, plain and with cond_aug_std 0.1 (its draw
+          injected): loss and gradient against the plain path, no launch in
+          the backward, the captured step == eager (cudnn.deterministic),
+          wall and busy;
+     16c super_resolve at B=64: the ancestral chain's last 50 steps, then
+          DDIM-50 and DPM-20 after swaps, each for two LR batches back to
+          back through one graph, each == its eager chain bit for bit
+          (cudnn.deterministic); the ancestral T = 1000, DDIM and DPM chains
+          timed, launches = the graphs' counts x replays;
+     16d conditional bits/dim at T = 1000, B = 32 against the plain path
+          (2e-2), at T = 50 captured == eager;
+     16e a SamplingServer on a restored SR3 archive (DDIM-50): uint8 and
+          float /super_resolve inputs, seeded requests repeat, two unseeded
+          ones under hold() run as one batch, /sample 400, a DDPM archive's
+          /super_resolve 400, images/s over a window of four clients;
+     16f the cascade unet_small@32 (DDIM-50) -> SR3@64 at B=16 == its stages
+          by hand and == ``from_archives``, each stage's ms;
+     16g train_sr3 (3 steps at batch 8 on an npz written here, a dump and
+          bits/dim), eval_sr3 and cascade_sr3 at batch 8, a PNG folder with
+          labels.npy through build_dataloader with resize_to; no Pillow,
+          PyYAML, msgpack, flax or orbax imported.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -1075,7 +1107,8 @@ def derived_counts(port, model, B, size):
     every differentiable kernel call recorded by its wrapper's name."""
     import torch
 
-    cfg = dict(model.cfg.diffusion_model)
+    cfg = model.network_config()
+    channels = cfg.get("in_channels", 3)  # SR3's takes [x_t, up(LR)]
     net = port.config.get_target(cfg.pop("_target_"))(**cfg).to("meta")
     counts = {}
 
@@ -1085,7 +1118,7 @@ def derived_counts(port, model, B, size):
 
     with mock.patch.object(port.ops.norm, "kernel_call", record), \
             mock.patch.object(port.ops.attention, "kernel_call", record):
-        net(torch.empty(B, size, size, 3, device="meta"), torch.empty(B, dtype=torch.int32, device="meta"))
+        net(torch.empty(B, size, size, channels, device="meta"), torch.empty(B, dtype=torch.int32, device="meta"))
     return counts
 
 
@@ -3542,8 +3575,8 @@ def check_edit_serving(port, model, base, per):
     partial chain is the ancestral one) at each of EDIT_STRENGTHS: a seeded
     request twice (the same bytes), two unseeded ones coalesced into one
     batch; launches = one forward's x t0 x batches; every strength replays
-    the one ancestral graph (its capture s, pool); the 400s and
-    /super_resolve's 501."""
+    the one ancestral graph (its capture s, pool); the 400s (a DDPM
+    archive's /super_resolve among them)."""
     import urllib.error
 
     import numpy as np
@@ -3638,7 +3671,7 @@ def check_edit_serving(port, model, base, per):
         server.shutdown()
     log(f"[svc] /edit refusals: {json.dumps(codes)}")
     assert codes == {"strength 1.5": 400, "shape [2,16,16,3]": 400, "float 0-255": 400, "no images_npy": 400,
-                     "/super_resolve": 501}, codes
+                     "/super_resolve": 400}, codes
 
 
 def check_repaint(port, model, base, per8):
@@ -4096,18 +4129,26 @@ def edm_model(port, device, overrides=()):
     return cls(cfg, device=device, seed=SEED)
 
 
-def hold_kernels(port, calls_by_cfg, rows):
+def hold_kernels(port, calls_by_cfg, rows, tag="edm", timed=False):
     """Each recorded call's kernel against its plain version on the same
-    inputs (``agreement``, untimed); the largest error goes into the
-    kernel's row."""
+    inputs (``agreement``); the largest error goes into the kernel's row.
+    ``timed``: also the call's device ms (CUDA events around 20 calls queued
+    behind a spin, so the host's launch time is hidden) and its bound."""
     table = kernel_table(port)
     for cfg_name, calls in calls_by_cfg.items():
         for name, shapes in calls.items():
             mod, attr, plain, _src, _rep = table[name]
             for key, (count, args) in sorted(shapes.items()):
-                _out, max_err, tol, ok, seam = agreement(name, getattr(mod, attr), plain, args)
-                log(f"[edm] kernel {cfg_name} {name} {list(key)} x{count}/forward max_abs_err={max_err:.3e} "
-                    f"ok={ok} (tol {tol}){seam}")
+                wrapper = getattr(mod, attr)
+                _out, max_err, tol, ok, seam = agreement(name, wrapper, plain, args)
+                timing = ""
+                if timed:
+                    nbytes, ops, kind = work(name, args)
+                    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
+                    timing = (f" device_ms={queued_us(lambda: wrapper(*args)) / 1e3:.5f} (queued events) bound_ms="
+                              f"{max(t_bytes, t_ops):.5f} ({'bytes' if t_bytes >= t_ops else 'operations'})")
+                log(f"[{tag}] kernel {cfg_name} {name} {list(key)} x{count}/forward max_abs_err={max_err:.3e} "
+                    f"ok={ok} (tol {tol}){seam}{timing}")
                 assert ok, (cfg_name, name, key)
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_err)
 
@@ -4397,11 +4438,11 @@ def check_conditional_edm(port, device, rows, card):
     assert len(guided()) == 2 and not np.array_equal(*outs.values())
 
 
-def lapped(tag, fn, *args):
+def lapped(tag, fn, *args, prefix="edm"):
     """``fn(*args)``, its wall logged."""
     t0 = time.perf_counter()
     out = fn(*args)
-    log(f"[edm] {tag} in {time.perf_counter() - t0:.1f} s")
+    log(f"[{prefix}] {tag} in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4447,6 +4488,442 @@ def check_edm(port, device, rows):
         shutil.rmtree(tmp, ignore_errors=True)
     lapped("15g guided ConditionalEDM", check_conditional_edm, port, device, rows, card)
     log(f"[edm] phase 15 in {time.perf_counter() - t15:.1f} s")
+
+
+SR3_YAML = "examples/configs/sr3/unet_small.yaml"
+SR3_64_B = 16  # the 64-px forward and the cascade's batch
+SR3_PREFIX = 50  # the ancestral chain's last steps held captured against eager
+SR3_BPD_B, SR3_BPD_SHORT_T = 32, 50
+SR3_CLI_B, SR3_CLI_STEPS = 8, 3
+SR3_SEED = 11
+SR3_COND_AUG = ["+model.cond_aug_std=0.1"]
+
+
+def sr3_model(port, device, size=32, scale=4, overrides=()):
+    """SR3 from examples/configs/sr3/unet_small.yaml (unet_small's network,
+    bf16, dim 32, [1, 2, 4, 8], a 6-channel stem) at ``size`` px and
+    ``scale``, random weights from ``SEED``."""
+    from diffusion_model_nemo_tpu_torch.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent / SR3_YAML, overrides=[
+        f"model.image_size={size}", f"model.scale_factor={scale}", "model.train_ds.name=synthetic", *overrides]).model
+    return port.models.SR3(cfg, device=device, seed=SEED)
+
+
+def sr3_lr(model, B, seed=SEED):
+    """An LR batch in [0, 1] at the model's LR size: seeded HR images,
+    degraded as in training."""
+    import torch
+
+    size = int(model.image_size)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    hr = torch.rand((B, size, size, 3), generator=g, device=model.device) * 2.0 - 1.0
+    with torch.inference_mode():
+        return (model.degrade(hr) + 1.0) * 0.5
+
+
+def sr3_forward_inputs(model, B):
+    """(x_t, t, the condition) for one conditioned forward at batch ``B``."""
+    import torch
+
+    x, t = model_inputs(model.device, int(model.image_size), B)
+    with torch.inference_mode():
+        cond = model.upsample(sr3_lr(model, B) * 2.0 - 1.0)
+    return x, t, cond
+
+
+def sr3_forward(model, x, t, cond):
+    return lambda: model.conditioned_forward(model.params, x, t, cond)
+
+
+def check_sr3_kernels(port, device, rows, card, m32, m64, unet):
+    """16a. #1-#4 at SR3's shapes: every call of the 32-px forward at B=64 and
+    128 and of the 64-px forward at B=16 held against its plain version
+    (device ms and bound logged); launches a forward equal the gates'; the
+    forwards against the plain path; busy ms beside unet_small's."""
+    import torch
+
+    inputs = {"sr3_32": (m32, sr3_forward_inputs(m32, B)), "sr3_32_128": (m32, sr3_forward_inputs(m32, TRAIN_B)),
+              "sr3_64": (m64, sr3_forward_inputs(m64, SR3_64_B))}
+    calls = {name: record_calls(port, None, None, None, run=sr3_forward(m, *args)) for name, (m, args) in inputs.items()}
+    per = {name: per_forward_counts(c) for name, c in calls.items()}
+    gates = {name: derived_counts(port, m, args[0].shape[0], int(m.image_size)) for name, (m, args) in inputs.items()}
+    log(f"[sr3] launches a forward: {json.dumps(per)}; the gates (meta forward): {json.dumps(gates)}")
+    assert per == gates and per["sr3_32"] == per["sr3_32_128"] == per_forward_counts(
+        record_calls(port, unet, *model_inputs(device, 32))), per
+    hold_kernels(port, calls, rows, tag="sr3", timed=True)
+    for name, (m, (x, t, cond)) in inputs.items():
+        if name == "sr3_32_128":
+            continue
+        out_k = sr3_forward(m, x, t, cond)()
+        with plain_path(port):
+            out_p = sr3_forward(m, x, t, cond)()
+        rel = float((out_k - out_p).norm() / out_p.norm())
+        log(f"[sr3] {name} forward B={x.shape[0]} kernels vs plain: rel_l2 {rel:.3e} (tol {UNET_REL_TOL}), "
+            f"shape {list(out_k.shape)}")
+        assert rel <= UNET_REL_TOL and tuple(out_k.shape) == tuple(x.shape) and bool(torch.isfinite(out_k).all())
+    x, t = model_inputs(device, 32)
+    busy = {"unet_small B=64": device_profile(lambda: unet.forward(x, t), iters=5)[0],
+            "sr3_32 B=64": device_profile(sr3_forward(m32, *inputs["sr3_32"][1]), iters=5)[0],
+            "sr3_64 B=16": device_profile(sr3_forward(m64, *inputs["sr3_64"][1]), iters=5)[0]}
+    walls = {"sr3_32 B=64": time_ms(sr3_forward(m32, *inputs["sr3_32"][1]), iters=10),
+             "sr3_64 B=16": time_ms(sr3_forward(m64, *inputs["sr3_64"][1]), iters=10)}
+    log(f"[sr3] forward device busy ms {json.dumps({k: round(v, 4) for k, v in busy.items()})} (the SR3 32-px "
+        f"forward's extra: {busy['sr3_32 B=64'] - busy['unet_small B=64']:.4f} ms); wall ms "
+        f"{json.dumps({k: round(v, 4) for k, v in walls.items()})} [{card}]")
+    return per
+
+
+def check_sr3_step(port, tag, model, per, card, timed=True):
+    """16b. One B=128 step against the plain path (loss 1e-2, gradient
+    5e-2, no launch in the backward); one captured step against the eager
+    step (cudnn.deterministic; bit for bit where eager repeats itself); the
+    captured step's wall and busy."""
+    batch, draws = training_batch(model, TRAIN_B)
+    assert ("cond_aug" in draws) == (model.cond_aug_std > 0), sorted(draws)
+    loss_k, g_k, fwd, bwd, _m = step_loss_and_grads(port, model, batch, draws)
+    assert_counts(f"sr3 {tag} step forward", fwd, per)
+    assert_counts(f"sr3 {tag} step backward", bwd, {})
+    with plain_path(port):
+        loss_p, g_p, _f, _b, _m = step_loss_and_grads(port, model, batch, draws)
+    rel_loss, rel_grad = abs(loss_k - loss_p) / abs(loss_p), float((g_k - g_p).norm() / g_p.norm())
+    with deterministic():
+        ee, ee_diff, ge, ge_diff = state_spread(steps_run(port, model, [batch]))
+    line = (f"[sr3] {tag} step B={TRAIN_B} draws {sorted(k for k in draws if not k.startswith('dropout/'))}: loss "
+            f"kernels {loss_k:.6f} plain {loss_p:.6f} (rel {rel_loss:.3e}, tol {LOSS_REL_TOL}); gradient rel_l2 "
+            f"{rel_grad:.3e} (tol {GRAD_REL_TOL}); eager twice bit-equal {ee} (max |diff| {ee_diff:.3e}), captured "
+            f"vs eager bit-equal {ge} (max |diff| {ge_diff:.3e}) under cudnn.deterministic")
+    if timed:
+        trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+        state = trainer.init_state(model, TRAIN_STEPS)
+        run = lambda: trainer.train_step(model, state, batch, draws)  # noqa: E731
+        wall = time_ms(run, iters=20)
+        busy, _ = device_profile(run, iters=2)
+        graph = graph_of(state.graphs, "train_step")
+        line += (f"; captured step {wall:.3f} ms wall, {busy:.3f} ms busy, {TRAIN_B / wall * 1e3:.1f} samples/s, "
+                 f"graph launches {json.dumps(graph.delta)} [{card}]")
+        assert graph.delta == per, (graph.delta, per)
+    log(line)
+    assert rel_loss <= LOSS_REL_TOL and rel_grad <= GRAD_REL_TOL
+    assert ge if ee else ge_diff <= ee_diff, f"sr3 {tag}: the captured step left the eager steps' bounds"
+
+
+def sr3_prefix(model, lr, graphs, steps=SR3_PREFIX, seed=SEED):
+    """The ancestral chain's last ``steps`` steps on ``lr``'s condition from
+    a seeded x_T, through the sampler's graph owner (``graphs``)."""
+    import torch
+
+    s = model.scale_factor
+    shape = (lr.shape[0], lr.shape[1] * s, lr.shape[2] * s, 3)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.inference_mode():
+        fn = model.get_model_fn(cond=model.upsample(lr * 2.0 - 1.0))
+        x_T = torch.randn(shape, generator=g, device=model.device)
+        return model.sampler.p_sample_loop(fn, model.params, shape, g, img=x_T, num_steps=steps, graphs=graphs)
+
+
+def two_batches_one_graph(tag, model, run):
+    """``run(lr, graphs)`` for two LR batches, captured then eager (cudnn.
+    deterministic): the second replays the graph the first captured, and
+    each equals its own eager chain bit for bit."""
+    import torch
+
+    lrs = [sr3_lr(model, B, SEED + i) for i in (1, 2)]
+    with deterministic():
+        first = run(lrs[0], None)
+        held = dict(model.sampler.graphs)
+        second = run(lrs[1], None)
+        same_graphs = held.keys() == model.sampler.graphs.keys() and all(
+            model.sampler.graphs[k] is held[k] for k in held)
+        eager = [run(lr, False) for lr in lrs]
+    equal = torch.equal(first, eager[0]) and torch.equal(second, eager[1])
+    log(f"[sr3] {tag} B={B}: two LR batches back to back replay one graph {same_graphs}; each == its eager chain "
+        f"bit for bit {equal}; the two differ {not torch.equal(first, second)}")
+    assert same_graphs and equal and not torch.equal(first, second), tag
+
+
+def check_sr3_chains(port, model, per, card):
+    """16c. The ancestral 1000-step super_resolve chain at B=64 (its last 50
+    steps captured == eager for two LR batches through one graph; the whole
+    chain timed), then DDIM-50 and DPM-20 after swaps (captured == eager
+    for two LR batches through one graph, timed): wall, busy, launches."""
+    import torch
+
+    base = dict(model.cfg.sampler)
+    T = model.sampler.timesteps
+    two_batches_one_graph(f"ancestral last {SR3_PREFIX} steps", model, lambda lr, g: sr3_prefix(model, lr, g))
+    lr = sr3_lr(model, B)
+    run = lambda graphs=None: model.super_resolve(lr, generator=svc_generator(model), graphs=graphs)  # noqa: E731
+    first_s, _ = walled(run)  # the capture
+    port.ops.reset_launch_counts()
+    wall, out = walled(run)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "ancestral")
+    busy = replay_busy(graph, "t", T - 1) * T
+    assert bool(torch.isfinite(out).all()) and tuple(out.shape) == (B, 32, 32, 3)
+    graph_line(f"sr3 ancestral super_resolve T={T} B={B} (first call with capture {first_s:.3f} s)", wall, busy,
+               None, graph, counts, T - 1, extra=dict(graph.delta))
+    log(f"[sr3] ancestral T={T} B={B}: {wall * 1e3:.3f} ms a chain ({B / wall:.2f} images/s), busy {busy * 1e3:.3f} "
+        f"ms [{card}]")
+    for name in ("ddim", "dpm"):
+        svc_sampler(model, base, name)
+        nfe = svc_nfe(model, name)
+        two_batches_one_graph(f"{name} NFE {nfe}", model,
+                              lambda lr, g: model.super_resolve(lr, generator=svc_generator(model), graphs=g))
+        first_s, _ = walled(run)
+        port.ops.reset_launch_counts()
+        wall, _out = walled(run, n=3)
+        counts = port.ops.launch_counts()
+        graph = graph_of(model.sampler.graphs, SVC_GRAPH[name])
+        busy, _ = device_profile(run, iters=1)
+        assert graph.delta == per, (name, graph.delta, per)
+        graph_line(f"sr3 {name} super_resolve B={B} NFE {nfe} (first call with capture {first_s:.3f} s)", wall,
+                   busy / 1e3, None, graph, counts, 3 * nfe)
+        log(f"[sr3] {name} B={B} NFE {nfe}: {wall * 1e3:.3f} ms a chain ({B / wall:.2f} images/s), busy "
+            f"{busy:.3f} ms [{card}]")
+    model.change_sampler(base)
+
+
+def check_sr3_bpd(port, device, model, card):
+    """16d. Conditional bits/dim at T = 1000 on a batch of 32 (the LR derived
+    from the batch), captured, against the plain path captured on a sampler
+    of its own (2e-2); at T = 50 the captured loop == eager bit for bit
+    (cudnn.deterministic)."""
+    import torch
+
+    x0 = family_bpd_batch(device, SR3_BPD_B)
+    T = model.sampler.timesteps
+    run = lambda: model.calculate_bits_per_dimension(x0, generator=svc_generator(model))  # noqa: E731
+    walled(run)  # the eager first step and the capture
+    port.ops.reset_launch_counts()
+    wall, kern = walled(run)
+    counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "bpd")
+    busy = replay_busy(graph, "t", T - 1, iters=10)
+    graph_line(f"sr3 bpd T={T} B={SR3_BPD_B} (per step)", wall / T, busy, None, graph, counts, T)
+    kernels = model.sampler
+    model.sampler = port.config.instantiate(model.cfg.sampler, device=device)  # its own graphs: the plain path's
+    try:
+        with plain_path(port):
+            plain_s, plain = walled(run)
+    finally:
+        model.sampler = kernels
+    rel = float(((kern["total_bpd"] - plain["total_bpd"]).abs() / plain["total_bpd"].abs()).max())
+    short = sr3_model(port, device, overrides=[f"model.timesteps={SR3_BPD_SHORT_T}"])
+    with deterministic():
+        a, b = (short.calculate_bits_per_dimension(x0, generator=svc_generator(short), graphs=g) for g in (None, False))
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    log(f"[sr3] bits/dim T={T} B={SR3_BPD_B}: total_bpd kernels {float(kern['total_bpd'].mean()):.5f} plain "
+        f"{float(plain['total_bpd'].mean()):.5f} (max relative difference {rel:.3e}, tol {BPD_REL_TOL['bfloat16']}); "
+        f"captured {wall:.3f} s a batch, busy {busy * T:.3f} s, plain path {plain_s:.3f} s; T={SR3_BPD_SHORT_T} "
+        f"captured == eager bit for bit {same} [{card}]")
+    assert rel <= BPD_REL_TOL["bfloat16"] and same and bool(torch.isfinite(kern["terms_bpd"]).all())
+
+
+def check_sr3_serving(port, model, unet, tmp, card):
+    """16e. A SamplingServer on a restored SR3 archive (DDIM-50, max_batch
+    64): /super_resolve with uint8 and float inputs (seeded: the same
+    bytes twice and from either), two unseeded requests queued under
+    ``hold()`` run as one batch, /sample answers 400, a generation archive
+    answers /super_resolve 400; images/s over a window of phase 13's four
+    concurrent clients (their requests coalesce into full batches)."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.serving import BatchingSampler, SamplingServer, serve
+
+    back = port.models.restore_model_from_archive(model.save_to(os.path.join(tmp, "SR3.dmn")), device=model.device)
+    assert type(back).__name__ == "SR3"
+    t0 = time.perf_counter()
+    server = serve(back, port=0, max_batch=B, use_ema=True)
+    warm_s = time.perf_counter() - t0
+    server.start_background()
+    url = f"http://{server.host}:{server.port}"
+    lr = np.random.default_rng(SR3_SEED).integers(0, 256, (8, 8, 8, 3)).astype(np.uint8)
+
+    def b64(arr):
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        return base64.b64encode(buf.getvalue()).decode("ascii")
+
+    def post(path, payload, base=None):
+        try:
+            code, body = http("POST", (base or url) + path, payload)
+        except urllib.request.HTTPError as e:
+            code, body = e.code, e.read()
+        return code, body
+
+    try:
+        seeded = [post("/super_resolve", {"images_npy": b64(a), "seed": SR3_SEED, "format": "npy"})
+                  for a in (lr, lr, lr.astype(np.float32) / 255.0)]
+        outs = [np.load(io.BytesIO(body)) for _code, body in seeded]
+        assert all(code == 200 for code, _ in seeded) and outs[0].shape == (8, 32, 32, 3)
+        assert np.array_equal(outs[0], outs[1]) and np.array_equal(outs[0], outs[2]), "seeded /super_resolve moved"
+        before = json.loads(http("GET", url + "/stats")[1])["batches"]
+        got = []
+        with server.batcher.hold():
+            threads = [threading.Thread(target=lambda i=i: got.append(post(
+                "/super_resolve", {"images_npy": b64(lr[i * 4: i * 4 + 4]), "format": "npy"}))) for i in (0, 1)]
+            for th in threads:
+                th.start()
+            while server.batcher.queued() < 2:
+                time.sleep(0.001)
+        for th in threads:
+            th.join(timeout=300)
+        coalesced = json.loads(http("GET", url + "/stats")[1])["batches"] - before
+        sample_code, sample_body = post("/sample", {"num_images": 1})
+        answers, errors = [], []
+
+        def client(n, deadline):
+            try:
+                while time.perf_counter() < deadline:
+                    code, body = post("/super_resolve", {"images_npy": b64(np.resize(lr, (n, 8, 8, 3))),
+                                                         "format": "npy"})
+                    answers.append((code, n, np.load(io.BytesIO(body)).shape == (n, 32, 32, 3)))
+            except Exception as e:  # reported below
+                errors.append(repr(e))
+
+        t1 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(n, t1 + SVC_WINDOW_S)) for n in SVC_CLIENT_SIZES]
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(timeout=300)
+        window = time.perf_counter() - t1
+        stats = json.loads(http("GET", url + "/stats")[1])
+    finally:
+        server.shutdown()
+    generation = SamplingServer(BatchingSampler(unet, 32, max_batch=B).start(warmup=False), port=0)
+    generation.start_background()
+    try:
+        refused = post("/super_resolve", {"images_npy": b64(lr)}, f"http://{generation.host}:{generation.port}")[0]
+    finally:
+        generation.shutdown()
+    images = sum(n for _, n, _ in answers)
+    log(f"[sr3] /super_resolve from the restored archive (DDIM-50, max_batch {B}, warm-up {warm_s:.2f} s): uint8 "
+        f"and float inputs 200, seeded the same bytes 3 times; two unseeded requests under hold() ran as "
+        f"{coalesced} batch(es) ({[c for c, _ in got]}); /sample {sample_code} ({sample_body[:60]!r}); a DDPM "
+        f"archive's /super_resolve {refused}; {len(SVC_CLIENT_SIZES)} clients {list(SVC_CLIENT_SIZES)} over "
+        f"{window:.3f} s: {len(answers)} requests, {images} images, {images / window:.2f} images/s served, "
+        f"{stats['batches']} batches (fill {stats['avg_batch_fill']}), latency {stats['avg_request_latency_ms']} ms "
+        f"[{card}]")
+    assert coalesced == 1 and all(c == 200 for c, _ in got) and sample_code == 400 and refused == 400
+    assert not errors and answers and all(code == 200 and ok for code, _, ok in answers), errors
+
+
+def check_sr3_cascade(port, device, up, tmp, card):
+    """16f. The unet_small DDPM at 32 px (DDIM-50) into SR3 x2 at 64 px
+    (ancestral, T = 1000) at B=16: the cascade == its stages run by hand
+    with the stage generators, and ``from_archives`` == the objects, bit
+    for bit (cudnn.deterministic); each stage's ms. Returns the archives."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.pipelines import CascadePipeline, stage_generator
+
+    base = port.DDPM(port.config.unet_small_model_config(), device=device, seed=SEED)
+    use_sampler(base, DDIM, eta=0.0, ddim_timesteps=DDIM_STEPS)
+    pipe = CascadePipeline(base, [up])
+    with deterministic():
+        t0 = time.perf_counter()
+        stages = pipe.sample(SR3_64_B, seed=SEED, return_stages=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        base_s, x0 = walled(lambda: base.sample(SR3_64_B, 32, generator=stage_generator(SEED, 0, device)))
+        up_s, x1 = walled(lambda: up.super_resolve(x0, generator=stage_generator(SEED, 1, device)))
+        paths = [base.save_to(os.path.join(tmp, "base.dmn")), up.save_to(os.path.join(tmp, "sr3_64.dmn"))]
+        restored = CascadePipeline.from_archives(paths[0], paths[1:], device=device)
+        use_sampler(restored.base, DDIM, eta=0.0, ddim_timesteps=DDIM_STEPS)
+        again = restored.sample(SR3_64_B, seed=SEED, return_stages=True)
+    by_hand = torch.equal(stages[0], x0) and torch.equal(stages[1], x1)
+    archived = all(torch.equal(a, b) for a, b in zip(stages, again))
+    log(f"[sr3] cascade unet_small@32 (DDIM-{DDIM_STEPS}) -> SR3@64 (x2, ancestral T={up.sampler.timesteps}) "
+        f"B={SR3_64_B}: == stages by hand {by_hand}, from_archives == objects {archived}; first call with captures "
+        f"{first_s:.3f} s; base {base_s * 1e3:.3f} ms, upscaler {up_s * 1e3:.3f} ms (replays) [{card}]")
+    assert by_hand and archived and tuple(stages[1].shape) == (SR3_64_B, 64, 64, 3)
+    assert bool(torch.isfinite(stages[1]).all())
+    return paths
+
+
+def check_sr3_clis(port, device, tmp, archives):
+    """16g. ``train_sr3`` (3 steps at batch 8 on a name: file npz written
+    here, 32 px x4, a dump and bits/dim), ``eval_sr3`` from its archive and
+    ``cascade_sr3`` from the cascade's archives at batch 8; a PNG folder
+    with labels.npy through ``build_dataloader`` with ``resize_to``; none
+    of PyYAML, msgpack, flax, orbax or Pillow imported."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.cli import cascade_sr3, eval_sr3, train_sr3
+    from diffusion_model_nemo_tpu_torch.data import build_dataloader
+    from diffusion_model_nemo_tpu_torch.utils.image import encode_png
+
+    rng = np.random.default_rng(SEED)
+    np.savez(os.path.join(tmp, "hr.npz"), images=rng.integers(0, 256, (16, 32, 32, 3)).astype(np.uint8))
+    t0 = time.perf_counter()
+    port.ops.reset_launch_counts()
+    model, trainer = train_sr3.main([
+        "model.image_size=32", "model.scale_factor=4", "model.train_ds.name=file",
+        f"+model.train_ds.path={tmp}/hr.npz", f"model.train_ds.batch_size={SR3_CLI_B}", "model.train_ds.num_workers=2",
+        f"trainer.max_steps={SR3_CLI_STEPS}", f"model.save_every={SR3_CLI_STEPS}", f"exp_manager.exp_dir={tmp}/exp",
+        "exp_manager.create_tensorboard_logger=false", "+exp_manager.version=run", f"+model.results_dir={tmp}/results",
+        *SR3_COND_AUG])
+    cli_counts(port, "train_sr3", UNET_KERNELS)
+    dmn = next(trainer.exp_manager_hooks.log_dir.glob("*.dmn"))
+    train_s = time.perf_counter() - t0
+    assert all(np.isfinite(m["train_loss"]) for m in trainer.logged) and os.listdir(f"{tmp}/results")
+    t0 = time.perf_counter()
+    out, psnr = eval_sr3.main([f"model_path={dmn}", f"input_path={tmp}/hr.npz", f"batch_size={SR3_CLI_B}",
+                               f"output_dir={tmp}/sr", "add_timestamp=false"])
+    eval_s = time.perf_counter() - t0
+    assert len(list(out.glob("sr_*.png"))) == SR3_CLI_B and np.isfinite(psnr).all()
+    t0 = time.perf_counter()
+    out, stages = cascade_sr3.main([f"base_path={archives[0]}", f"upscaler_paths={archives[1]}",
+                                    f"batch_size={SR3_CLI_B}", "use_ddim_sampler=true",
+                                    f"output_dir={tmp}/cascade", "add_timestamp=false"])
+    cascade_s = time.perf_counter() - t0
+    assert len(list(out.glob("sample_*.png"))) == SR3_CLI_B and tuple(stages[-1].shape) == (SR3_CLI_B, 64, 64, 3)
+    folder = os.path.join(tmp, "pngs")
+    os.makedirs(folder)
+    for i in range(12):
+        with open(os.path.join(folder, f"{i:02d}.png"), "wb") as f:
+            f.write(encode_png(rng.integers(0, 256, (40, 40, 3)).astype(np.uint8)))
+    np.save(os.path.join(folder, "labels.npy"), np.arange(12) % 10)
+    batch = next(iter(build_dataloader({"name": "file", "path": folder, "batch_size": SR3_CLI_B, "resize_to": 32,
+                                        "num_workers": 2}, mode="train")))
+    assert batch["image"].shape == (SR3_CLI_B, 32, 32, 3) and batch["label"].shape == (SR3_CLI_B,)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
+    log(f"[sr3] train_sr3 {SR3_CLI_STEPS} steps B={SR3_CLI_B} (npz file dataset, cond_aug_std 0.1, a dump and "
+        f"bits/dim): {train_s:.2f} s, logged {json.dumps(trainer.logged)}; eval_sr3 B={SR3_CLI_B}: PSNR "
+        f"{float(psnr.mean()):.3f} dB (random weights) in {eval_s:.2f} s; cascade_sr3 B={SR3_CLI_B} (32 -> 64 px): "
+        f"{cascade_s:.2f} s; a PNG folder with labels.npy resized 40 -> 32 through build_dataloader: "
+        f"{list(batch['image'].shape)}; modules not on the card loaded: {loaded}")
+    assert not loaded, f"the SR3 path loaded {loaded}"
+
+
+def check_sr3(port, device, rows, models):
+    """16. SR3 super-resolution, the cascade, /super_resolve and the file
+    datasets on the card."""
+    t16 = time.perf_counter()
+    card = card_line()  # written beside every [sr3] time
+    m32 = sr3_model(port, device)
+    m64 = sr3_model(port, device, size=64, scale=2)
+    per = lapped("16a kernels", check_sr3_kernels, port, device, rows, card, m32, m64, models["unet_small"],
+                 prefix="sr3")
+    lapped("16b step", check_sr3_step, port, "default", m32, per["sr3_32_128"], card, prefix="sr3")
+    aug = sr3_model(port, device, overrides=SR3_COND_AUG)
+    lapped("16b step with cond_aug_std", check_sr3_step, port, "cond_aug_std 0.1", aug, per["sr3_32_128"], card,
+           False, prefix="sr3")
+    lapped("16c chains", check_sr3_chains, port, m32, per["sr3_32"], card, prefix="sr3")
+    lapped("16d bits/dim", check_sr3_bpd, port, device, m32, card, prefix="sr3")
+    tmp = tempfile.mkdtemp(prefix="dmn_sr3_")
+    cwd = os.getcwd()
+    try:
+        lapped("16e /super_resolve", check_sr3_serving, port, m32, models["unet_small"], tmp, card, prefix="sr3")
+        archives = lapped("16f cascade", check_sr3_cascade, port, device, m64, tmp, card, prefix="sr3")
+        os.chdir(tmp)
+        lapped("16g CLIs", check_sr3_clis, port, device, tmp, archives, prefix="sr3")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[sr3] phase 16 in {time.perf_counter() - t16:.1f} s")
 
 
 def main() -> int:
@@ -4589,6 +5066,12 @@ def main() -> int:
     # guided ConditionalEDM.
     check_edm(port, device, rows)
     phase_done("phase 15")
+
+    # 16. SR3: the kernels at its shapes (64 px among them), the step, the
+    # chains, bits/dim, /super_resolve, the cascade, the CLIs and the file
+    # datasets.
+    check_sr3(port, device, rows, models)
+    phase_done("phase 16")
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

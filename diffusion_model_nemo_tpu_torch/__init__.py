@@ -7,18 +7,19 @@ hand-written Hopper kernels (``csrc/``, built at first use by
 ``ops/_build.py``), on the CPU through their plain PyTorch versions.
 Training: ``Trainer(...).fit(DDPM(cfg))`` (``training/``); the model families
 are ``DDPM``, ``ImprovedDDPM``, ``ConditionalDDPM``, ``ScoreSDE``,
-``WavegradDDPM``, the mel → waveform ``WavegradVocoderModel``, ``EDM`` and
-``ConditionalEDM``.
+``WavegradDDPM``, the mel → waveform ``WavegradVocoderModel``, ``EDM``,
+``ConditionalEDM`` and the super-resolution ``SR3``, which
+``pipelines.CascadePipeline`` chains behind a base generator.
 """
 
-from . import config, data, loss, models, modules, ops, serving, training, utils
+from . import config, data, loss, models, modules, ops, pipelines, serving, training, utils
 from .models import (
-    DDPM, EDM, ConditionalDDPM, ConditionalEDM, ImprovedDDPM, ScoreSDE, WavegradDDPM, WavegradVocoderModel,
+    DDPM, EDM, SR3, ConditionalDDPM, ConditionalEDM, ImprovedDDPM, ScoreSDE, WavegradDDPM, WavegradVocoderModel,
 )
 from .training import Trainer
 
 __all__ = [
-    "config", "data", "loss", "models", "modules", "ops", "serving", "training", "utils",
+    "config", "data", "loss", "models", "modules", "ops", "pipelines", "serving", "training", "utils",
     "DDPM", "ImprovedDDPM", "ConditionalDDPM", "ScoreSDE", "WavegradDDPM", "WavegradVocoderModel", "EDM",
-    "ConditionalEDM", "Trainer",
+    "ConditionalEDM", "SR3", "Trainer",
 ]

@@ -7,7 +7,8 @@
 ``eval_wavegrad_ddpm``, ``test_wavegrad_ddpm``, ``train_vocoder``,
 ``vocode``, ``interpolate_ddpm``, ``interpolate_ddim``,
 ``interpolate_improved_ddpm``, ``edit_ddpm``, ``inpaint_ddpm``,
-``train_edm``, ``eval_edm``, ``test_edm`` and ``serve`` (the JAX package's
-``examples/{ddpm,improved_ddpm,conditional_ddpm,score_sde,wavegrad_ddpm,edm}/*.py``
-and ``examples/serve.py``; ``serve`` restores any of the eight families).
+``train_edm``, ``eval_edm``, ``test_edm``, ``train_sr3``, ``eval_sr3``,
+``cascade_sr3`` and ``serve`` (the JAX package's
+``examples/{ddpm,improved_ddpm,conditional_ddpm,score_sde,wavegrad_ddpm,edm,sr3}/*.py``
+and ``examples/serve.py``; ``serve`` restores any of the nine families).
 Each ``main`` takes an explicit ``argv`` list too."""

@@ -4,8 +4,8 @@
     python -m diffusion_model_nemo_tpu_torch.cli.edit_ddpm model_path=DDPM.dmn \\
         input_path=images.npy strength=0.5 output_dir=edited
 
-Inputs as in ``inpaint_ddpm`` (a ``.npy`` / ``.npz`` file, or nothing: the
-sources are sampled from the model). ``strength`` in [0, 1] is the share
+Inputs as in ``inpaint_ddpm`` (a ``.npy`` / ``.npz`` file or an image
+directory, or nothing: the sources are sampled from the model). ``strength`` in [0, 1] is the share
 of the reverse chain run again: low keeps the structure, high re-imagines.
 The ancestral partial chain runs whatever sampler the archive names.
 Writes ``input.png``, ``edited.png`` and ``edited_<i>.png`` under
@@ -32,7 +32,7 @@ log = logging.getLogger(__name__)
 @dataclass
 class EditConfig:
     model_path: str = "DDPM.dmn"
-    input_path: str = ""  # .npy / .npz; "" = sample from the model
+    input_path: str = ""  # .npy / .npz / image directory; "" = sample from the model
     batch_size: int = 8
     strength: float = 0.5  # share of the reverse chain run again
 

@@ -6,10 +6,9 @@
 
 Inputs: ``input_path`` a ``.npy`` array or a ``.npz`` archive (its
 ``images``), [N, H, W, C] or [N, C, H, W] or [N, H, W], uint8 or floats
-in [0, 1] / [-1, 1], at the model's image size; or nothing, and the
-ground truth is sampled from the model itself (the self-inpainting demo).
-An image directory needs the datasets slice of the port (ROADMAP.md) and
-raises. The mask is a named pattern (left|right|top|bottom half, center
+in [0, 1] / [-1, 1], or an image directory (PNG without Pillow), read as a
+``name: file`` dataset, at the model's image size; or nothing, and the
+ground truth is sampled from the model itself (the self-inpainting demo). The mask is a named pattern (left|right|top|bottom half, center
 box, random pixels, ``mask_fraction`` of the image) or a ``.npy`` file (1 =
 keep). Writes ``input.png``, ``masked.png``, ``inpainted.png`` and
 ``inpainted_<i>.png`` under ``output_dir``. ``device=cpu`` runs on the CPU.
@@ -19,14 +18,13 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..data.hf_vision_data import build_dataloader
 from ..models import restore_model_from_archive
-from ..modules.parts import not_ported
 from ..utils.image import encode_png, save_image_grid, to_uint8
 from .common import hydra_runner
 from .eval_ddpm import output_dir
@@ -37,7 +35,7 @@ log = logging.getLogger(__name__)
 @dataclass
 class InpaintConfig:
     model_path: str = "DDPM.dmn"
-    input_path: str = ""  # .npy / .npz; "" = sample from the model
+    input_path: str = ""  # .npy / .npz / image directory; "" = sample from the model
     batch_size: int = 8
 
     mask: str = "center"  # left|right|top|bottom|center|random | path to .npy
@@ -80,41 +78,15 @@ def build_mask(name: str, shape, fraction: float, generator: torch.Generator) ->
     return m
 
 
-def _to_uint8_nhwc(arr: np.ndarray) -> np.ndarray:
-    """[N, ...] images in any common layout and dtype → uint8 NHWC (the JAX
-    package's file dataset rule)."""
-    if arr.ndim == 3:  # [N, H, W] grey
-        arr = arr[..., None]
-    if arr.ndim != 4:
-        raise ValueError(f"Expected [N,H,W,C] / [N,C,H,W] / [N,H,W] images, got {arr.shape}")
-    if arr.shape[1] in (1, 3, 4) and arr.shape[-1] not in (1, 3, 4):
-        arr = np.transpose(arr, (0, 2, 3, 1))
-    if arr.dtype != np.uint8:
-        a = arr.astype(np.float32)
-        if a.min() < -0.001:  # [-1, 1]
-            a = (a + 1.0) * 127.5
-        elif a.max() <= 1.001:  # [0, 1]
-            a = a * 255.0
-        arr = np.clip(np.round(a), 0, 255).astype(np.uint8)
-    return np.ascontiguousarray(arr)
-
-
 def load_images(path: str, batch_size: int, image_size: int, channels: int) -> np.ndarray:
-    """The first ``batch_size`` images of a ``.npy`` / ``.npz`` file as
-    [B, H, W, C] floats in [0, 1]."""
-    p = Path(path)
-    if p.is_dir():
-        raise not_ported("load_images", f"input_path={path!r} (an image directory)", "datasets")
-    if p.suffix == ".npz":
-        data = np.load(p)
-        if "images" not in data:
-            raise KeyError(f"`images` not in {path} (has {list(data.keys())})")
-        arr = data["images"]
-    elif p.suffix == ".npy":
-        arr = np.load(p)
-    else:
-        raise ValueError(f"input_path must be a .npy or .npz file, got {path}")
-    imgs = _to_uint8_nhwc(arr)[:batch_size]
+    """The first ``batch_size`` images (all, if fewer) of an ``.npy`` /
+    ``.npz`` file or an image directory, read as a ``name: file`` dataset
+    (JAX ``examples/ddpm/inpaint_ddpm.py:load_images``), as [B, H, W, C]
+    floats in [0, 1] at the model's size."""
+    dl = build_dataloader({"name": "file", "path": path, "batch_size": batch_size, "shuffle": False,
+                           "num_workers": 0}, mode="test")
+    dl.drop_last = False  # a file with fewer images than batch_size gives them all
+    imgs = next(iter(dl))["image"]
     if imgs.shape[1:] != (image_size, image_size, channels):
         raise ValueError(f"images must be [N, {image_size}, {image_size}, {channels}] for this model, "
                          f"got {imgs.shape}")

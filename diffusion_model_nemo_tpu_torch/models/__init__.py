@@ -8,15 +8,16 @@ from .ddpm import DDPM
 from .edm import EDM
 from .improved_ddpm import ImprovedDDPM
 from .score_sde import ScoreSDE
+from .sr3 import SR3
 from .wavegrad_ddpm import WavegradDDPM
 from .wavegrad_vocoder import WavegradVocoderModel
 
 __all__ = ["AbstractDiffusionModel", "ConditionalDDPM", "ConditionalEDM", "DDPM", "EDM", "ImprovedDDPM", "ScoreSDE",
-           "WavegradDDPM", "WavegradVocoderModel", "restore_model_from_archive"]
+           "SR3", "WavegradDDPM", "WavegradVocoderModel", "restore_model_from_archive"]
 
 _MODEL_CLASSES = {"DDPM": DDPM, "ImprovedDDPM": ImprovedDDPM, "ConditionalDDPM": ConditionalDDPM,
                   "ScoreSDE": ScoreSDE, "WavegradDDPM": WavegradDDPM, "WavegradVocoderModel": WavegradVocoderModel,
-                  "EDM": EDM, "ConditionalEDM": ConditionalEDM}
+                  "EDM": EDM, "ConditionalEDM": ConditionalEDM, "SR3": SR3}
 
 
 def restore_model_from_archive(path: str, use_ema: bool = False, device="cuda"):

@@ -22,7 +22,7 @@ import logging
 import os
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -73,10 +73,19 @@ class AbstractDiffusionModel:
         self._test_dl = None
 
     # ---- network plumbing -----------------------------------------------------
-    def build_network(self) -> torch.nn.Module:
-        """Instantiate ``cfg.diffusion_model`` on the model's device with
-        weights drawn from ``seed`` (lecun-normal, like flax's init)."""
+    def network_config(self) -> Dict[str, Any]:
+        """``cfg.diffusion_model`` as the network is built from it: a wider
+        input (``_example_input_channels``) goes in as ``in_channels`` (the
+        config keeps the JAX package's keys)."""
         net_cfg = dict(self.cfg.diffusion_model)
+        if self._example_input_channels() is not None:
+            net_cfg["in_channels"] = self._example_input_channels()
+        return net_cfg
+
+    def build_network(self) -> torch.nn.Module:
+        """Instantiate ``network_config()`` on the model's device with
+        weights drawn from ``seed`` (lecun-normal, like flax's init)."""
+        net_cfg = self.network_config()
         target = get_target(str(net_cfg.pop("_target_")))
         net = target(**net_cfg)
         net.reset_parameters(torch.Generator().manual_seed(self.seed))
@@ -84,6 +93,12 @@ class AbstractDiffusionModel:
         net.eval()
         net.requires_grad_(False)
         return net
+
+    def _example_input_channels(self) -> Optional[int]:
+        """Channels of the network's image input where they are not the
+        image's (JAX's name): a model that concatenates a condition (SR3's
+        2C) says so; None = the network's own ``channels``."""
+        return None
 
     def init_params(self) -> Dict[str, torch.Tensor]:
         """Take the network's weights as ``params`` and copy them to ``ema_params``."""

@@ -131,7 +131,9 @@ class DiT(nn.Module):
     ``context_vocab`` are accepted for config compatibility; ``dropout``
     acts in training through injected masks (the module docstring).
     ``remat`` recomputes each block's activations in the backward
-    (``parts.remat_call``), as the JAX package's ``nn.remat`` does."""
+    (``parts.remat_call``), as the JAX package's ``nn.remat`` does.
+    ``in_channels`` (default ``channels``) is the patch embedding's input
+    width, which flax infers from the input (SR3's 2C)."""
 
     def __init__(
         self,
@@ -156,6 +158,7 @@ class DiT(nn.Module):
         dtype: str = "float32",
         remat: bool = False,
         seq_axis_name: Optional[str] = None,
+        in_channels: Optional[int] = None,
     ):
         super().__init__()
         if moe_experts:
@@ -169,7 +172,7 @@ class DiT(nn.Module):
         self.remat = bool(remat)
         p = self.patch_size
         self.out_dim = out_dim if out_dim is not None else channels * (2 if learned_variance else 1)
-        self.patch_embed = Conv2d(channels, dim, p, stride=p, dtype=dt)
+        self.patch_embed = Conv2d(in_channels or channels, dim, p, stride=p, dtype=dt)
         self.time_sinusoid = SinusoidalPositionEmbeddings(time_freq_dim)
         self.time_dense0 = Dense(time_freq_dim, dim, dtype=dt)
         self.time_dense1 = Dense(dim, dim, dtype=dt)

@@ -66,7 +66,9 @@ __all__ = ["Unet", "WaveGradUNet"]
 @register_target("diffusion_model_nemo.modules.Unet")
 class Unet(nn.Module):
     """Reference-parity U-Net. Arguments mirror the JAX package's
-    (``input_dim`` is accepted for config compatibility). ``remat`` recomputes each ResNet block's activations in
+    (``input_dim`` is accepted for config compatibility). ``in_channels``
+    (default ``channels``) is the stem's input width, which flax infers
+    from the input: SR3's [x_t, up(LR)] is 2C. ``remat`` recomputes each ResNet block's activations in
     the backward (``parts.remat_call``), as the JAX package's ``nn.remat``
     does."""
 
@@ -89,6 +91,7 @@ class Unet(nn.Module):
         dtype: str = "float32",
         remat: bool = False,
         tpu_geometry: str = "off",
+        in_channels: Optional[int] = None,
     ):
         super().__init__()
         if (tpu_geometry or "off").lower() not in ("off", "none", ""):
@@ -113,7 +116,7 @@ class Unet(nn.Module):
                 return ConvNextBlock(c_in, c_out, time_dim, int(convnext_mult), dt, dropout=self.dropout)
             return ResnetBlock(c_in, c_out, time_dim, groups, resnet_block_order, dt, dropout=self.dropout)
 
-        self.init_conv = Conv2d(channels, dim, 7, padding=3, dtype=dt)
+        self.init_conv = Conv2d(in_channels or channels, dim, 7, padding=3, dtype=dt)
         self.num_classes = None if num_classes is None else int(num_classes)
         if self.num_classes is not None:
             self.class_embed = Embed(self.num_classes + 1, dim)

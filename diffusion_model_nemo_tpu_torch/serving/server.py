@@ -18,11 +18,21 @@ Counterpart of ``diffusion_model_nemo_tpu/serving/server.py``:
   memory, right behind its last step, with an event that marks its end.
 
 Endpoints (standard library ``http.server``):
-  GET  /healthz  → {"status": "ok", "warm": ..., "mode": "sample"|"vocode"}
+  GET  /healthz  → {"status": "ok", "warm": ...,
+                   "mode": "sample"|"super_resolve"|"vocode"}
   GET  /stats    → request / batch / latency counters
   POST /sample   → JSON {"num_images": N, "seed": S?, "label": L?,
                    "guidance_scale": W?, "format": "png"|"npy"}
                    → {"images": [b64 PNG, ...]} or raw .npy bytes
+  POST /super_resolve → (SR3 archives) JSON {"images_npy": b64 of an
+                   np.save'd [N, h, w, C] array (uint8, or floats in [0, 1])
+                   at the archive's LR size (image_size / scale_factor),
+                   "seed": S?, "format": "png"|"npy"} → [N, h·s, w·s, C]
+                   outputs (``SR3.super_resolve``: the LR batch padded to
+                   ``max_batch`` rows, its upsampled condition a static
+                   buffer of the captured chain). An SR3 archive serves
+                   only this route (/sample answers it 400, naming the
+                   route), and a generation archive answers it 400.
   POST /vocode   → (WaveGrad vocoder archives) JSON {"mel_npy": b64 of an
                    np.save'd [N, F, n_mels] float log-mel array, "seed": S?}
                    → raw .npy [N, F·hop] float32 waveforms (always npy).
@@ -54,8 +64,9 @@ mel inputs a static buffer), and the waveforms stay float32. A
 ``use_ddim_sampler=False``; with the DDIM swap its network reads DDIM's
 integer t as its noise level, as the JAX server's does. ``serve`` swaps in
 the JAX server's fast samplers with its precedence: UniPC, then Karras,
-then DPM-Solver++, then DDIM. The super-resolution and text modes are not
-ported yet: /super_resolve answers 501. ``serve`` takes a model object or
+then DPM-Solver++, then DDIM (an SR3 archive takes them too: its condition
+is bound into the model function every sampler calls). ``serve`` takes a
+model object or
 a ``.dmn`` archive path (or a local-hub model name), as the JAX
 ``serve(model_path, ...)`` does.
 """
@@ -83,9 +94,6 @@ __all__ = ["BatchingSampler", "SamplingServer", "serve"]
 
 log = logging.getLogger(__name__)
 
-_NOT_PORTED_ROUTES = ("/super_resolve",)
-
-
 def _to_unit_float_images(images: np.ndarray, what: str) -> np.ndarray:
     """uint8 → [0, 1] floats; float inputs must already be in [0, 1] (a
     float array in [0, 255] is refused, naming the fix)."""
@@ -105,7 +113,7 @@ class _Request:
     label: Optional[int] = None
     guidance_scale: Optional[float] = None
     mel: Optional[np.ndarray] = None  # vocoder mode: log-mel [n, F, n_mels]
-    images: Optional[np.ndarray] = None  # edit sources [n, H, W, C] in [0, 1]
+    images: Optional[np.ndarray] = None  # edit sources [n, H, W, C] or SR3 LR inputs, in [0, 1]
     strength: Optional[float] = None  # edit requests: SDEdit strength in [0, 1]
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
@@ -118,6 +126,7 @@ class BatchingSampler:
 
     ``submit(n)`` blocks until the worker thread has produced ``n`` images
     (``submit_vocode(mel)`` the waveforms of a vocoder archive,
+    ``submit_sr(images)`` an SR3 archive's super-resolved inputs,
     ``submit_edit(images, strength)`` SDEdit outputs). Unseeded
     batches draw from a generator seeded by (``base_seed``, batch counter);
     a seeded request's batch from ``seed`` alone.
@@ -138,6 +147,9 @@ class BatchingSampler:
         self.mel_frames = int(mel_frames or model.segment_frames) if self.vocode_mode else None
         self.device = torch.device(model.device)
         self.image_size = int(image_size)
+        # SR3 archives serve super-resolution: requests carry the LR inputs.
+        self.sr_mode = hasattr(model, "super_resolve")
+        self.lr_size = self.image_size // int(model.scale_factor) if self.sr_mode else None
         self.max_batch = int(max_batch)
         self.linger_s = float(linger_ms) / 1e3
         self.use_ema = bool(use_ema)
@@ -163,7 +175,10 @@ class BatchingSampler:
         """Optionally run one full batch (builds the kernels, captures the
         sampler's CUDA graph), then start the worker."""
         if warmup:
-            if self.vocode_mode:
+            if self.sr_mode:
+                zeros = np.zeros((self.max_batch, self.lr_size, self.lr_size, int(self.model.channels)), np.float32)
+                self._to_host(self._dispatch_sr(zeros, self._next_generator()))
+            elif self.vocode_mode:
                 zeros = np.zeros((self.max_batch, self.mel_frames, int(self.model.n_mels)), np.float32)
                 self._to_host(self._dispatch_vocode(zeros, self._next_generator()))
             else:
@@ -211,6 +226,9 @@ class BatchingSampler:
         timeout: Optional[float] = None,
         guidance_scale: Optional[float] = None,
     ) -> np.ndarray:
+        if self.sr_mode:
+            raise ValueError("this archive is an SR3 super-resolution model: POST /super_resolve with input "
+                             "images (submit_sr), not /sample")
         if self.vocode_mode:
             raise ValueError("this archive is a WaveGrad vocoder: POST /vocode with log-mel inputs "
                              "(submit_vocode), not /sample")
@@ -266,13 +284,42 @@ class BatchingSampler:
             return np.concatenate(parts, axis=0)
         return self._wait(_Request(num_images=n, seed=seed, mel=mel), timeout, "vocode")
 
+    def submit_sr(self, images: np.ndarray, seed: Optional[int] = None,
+                  timeout: Optional[float] = None) -> np.ndarray:
+        """Super-resolve LR inputs [n, h, w, C] (uint8, or floats in [0, 1])
+        at the archive's LR size → [n, h·s, w·s, C]: the contract of
+        ``submit`` (oversized requests in ``max_batch`` chunks, chunk i with
+        seed + i; a seeded request alone in a zero-padded batch, so its
+        output is a function of (archive, seed, images); unseeded ones
+        coalesced)."""
+        if not self.sr_mode:
+            raise ValueError("/super_resolve requires an SR3 archive (this one generates: POST /sample)")
+        images = np.asarray(images)
+        if images.ndim != 4:
+            raise ValueError(f"images must be [n, h, w, C], got {images.shape}")
+        images = _to_unit_float_images(images, "LR inputs")
+        expect = (self.lr_size, self.lr_size, int(self.model.channels))
+        if tuple(images.shape[1:]) != expect:
+            raise ValueError(f"LR inputs must be [n, {expect[0]}, {expect[1]}, {expect[2]}] for this archive "
+                             f"(scale {self.model.scale_factor}); got {images.shape}")
+        n = images.shape[0]
+        if n < 1:
+            raise ValueError("need at least one input image")
+        if seed is not None:
+            seed = int(seed)
+        if n > self.max_batch:
+            parts = [self.submit_sr(images[off: off + self.max_batch], None if seed is None else seed + i, timeout)
+                     for i, off in enumerate(range(0, n, self.max_batch))]
+            return np.concatenate(parts, axis=0)
+        return self._wait(_Request(num_images=n, seed=seed, images=images), timeout, "super_resolve")
+
     def submit_edit(self, images: np.ndarray, strength: float = 0.5, seed: Optional[int] = None,
                     timeout: Optional[float] = None) -> np.ndarray:
         """SDEdit the inputs [n, H, W, C] (uint8, or floats in [0, 1]) at the
         model's image size: the contract of ``submit`` (oversized requests
         in ``max_batch`` chunks, a seeded request alone, unseeded ones
         coalesced, here per strength)."""
-        if self.vocode_mode:
+        if self.vocode_mode or self.sr_mode:
             raise ValueError("/edit requires a generation archive (DDPM family)")
         if not hasattr(self.model, "edit"):
             raise ValueError(f"{type(self.model).__name__} has no edit surface (SDEdit needs a DDPM-family "
@@ -344,21 +391,32 @@ class BatchingSampler:
         padded to ``max_batch`` rows (the padding rows are computed and
         discarded); the waveforms stay float32. Returns (host tensor, event)
         as ``_dispatch_sample`` does."""
-        n = mels.shape[0]
-        if n < self.max_batch:
-            mels = np.concatenate([mels, np.zeros((self.max_batch - n,) + mels.shape[1:], mels.dtype)], axis=0)
-        out = self.model.vocode(torch.from_numpy(mels), generator=generator, use_ema=self.use_ema)
+        out = self.model.vocode(torch.from_numpy(self._pad(mels)), generator=generator, use_ema=self.use_ema)
         return self._copy_out(out)
+
+    def _pad(self, rows: np.ndarray) -> np.ndarray:
+        """``rows`` padded with zeros to ``max_batch`` (fixed shapes: the
+        padding rows are computed and discarded)."""
+        n = rows.shape[0]
+        if n < self.max_batch:
+            rows = np.concatenate([rows, np.zeros((self.max_batch - n,) + rows.shape[1:], rows.dtype)], axis=0)
+        return rows
+
+    def _dispatch_sr(self, images: np.ndarray, generator: torch.Generator):
+        """Enqueue one fixed-shape super-resolve batch: the stacked LR
+        inputs padded to ``max_batch`` rows, quantized to uint8 on the
+        device. Returns (host tensor, event) as ``_dispatch_sample`` does."""
+        out = self.model.super_resolve(torch.from_numpy(self._pad(images)), generator=generator,
+                                       use_ema=self.use_ema)
+        return self._copy_out(to_uint8_tensor(out))
 
     def _dispatch_edit(self, images: np.ndarray, strength: float, generator: torch.Generator):
         """Enqueue one fixed-shape SDEdit batch: the stacked inputs padded
         to ``max_batch`` rows (computed and discarded), quantized to uint8
         on the device. Returns (host tensor, event) as ``_dispatch_sample``
         does."""
-        n = images.shape[0]
-        if n < self.max_batch:
-            images = np.concatenate([images, np.zeros((self.max_batch - n,) + images.shape[1:], images.dtype)])
-        out = self.model.edit(torch.from_numpy(images), strength=strength, generator=generator, use_ema=self.use_ema)
+        out = self.model.edit(torch.from_numpy(self._pad(images)), strength=strength, generator=generator,
+                              use_ema=self.use_ema)
         return self._copy_out(to_uint8_tensor(out))
 
     @staticmethod
@@ -448,7 +506,9 @@ class BatchingSampler:
                     else self._next_generator()
                 )
                 t0 = time.perf_counter()
-                if self.vocode_mode:
+                if self.sr_mode:
+                    dispatched = self._dispatch_sr(np.concatenate([r.images for r in group], axis=0), gen)
+                elif self.vocode_mode:
                     dispatched = self._dispatch_vocode(np.concatenate([r.mel for r in group], axis=0), gen)
                 elif group[0].images is not None:  # SDEdit requests
                     dispatched = self._dispatch_edit(np.concatenate([r.images for r in group], axis=0),
@@ -507,7 +567,8 @@ class SamplingServer:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    mode = "vocode" if server.batcher.vocode_mode else "sample"
+                    b = server.batcher
+                    mode = "super_resolve" if b.sr_mode else "vocode" if b.vocode_mode else "sample"
                     self._json(200, {"status": "ok", "warm": server.batcher.warm, "mode": mode})
                 elif self.path == "/stats":
                     self._json(200, server.batcher.snapshot_stats())
@@ -523,22 +584,25 @@ class SamplingServer:
                 payload = json.loads(self.rfile.read(length) or b"{}")
                 if not isinstance(payload, dict):
                     raise ValueError("the request body must be a JSON object")
-                if self.path == "/vocode":
-                    blob = payload.get("mel_npy")
+                def array(key: str, layout: str) -> np.ndarray:
+                    blob = payload.get(key)
                     if not blob:
-                        raise ValueError("mel_npy (base64 of an np.save'd [N,F,n_mels] array) is required")
-                    mel = np.load(io.BytesIO(base64.b64decode(blob)), allow_pickle=False)
-                    waves = server.batcher.submit_vocode(mel, seed=payload.get("seed"),
+                        raise ValueError(f"{key} (base64 of an np.save'd {layout} array) is required")
+                    return np.load(io.BytesIO(base64.b64decode(blob)), allow_pickle=False)
+
+                if self.path == "/vocode":
+                    waves = server.batcher.submit_vocode(array("mel_npy", "[N,F,n_mels]"), seed=payload.get("seed"),
                                                          timeout=float(payload.get("timeout", 600.0)))
                     return waves, "npy"  # waveforms have no PNG form
                 if self.path == "/edit":
-                    blob = payload.get("images_npy")
-                    if not blob:
-                        raise ValueError("images_npy (base64 of an np.save'd [N,H,W,C] array) is required")
-                    arr = np.load(io.BytesIO(base64.b64decode(blob)), allow_pickle=False)
-                    images = server.batcher.submit_edit(arr, strength=float(payload.get("strength", 0.5)),
+                    images = server.batcher.submit_edit(array("images_npy", "[N,H,W,C]"),
+                                                        strength=float(payload.get("strength", 0.5)),
                                                         seed=payload.get("seed"),
                                                         timeout=float(payload.get("timeout", 600.0)))
+                    return images, payload.get("format", "png")
+                if self.path == "/super_resolve":
+                    images = server.batcher.submit_sr(array("images_npy", "[N,h,w,C]"), seed=payload.get("seed"),
+                                                      timeout=float(payload.get("timeout", 600.0)))
                     return images, payload.get("format", "png")
                 images = server.batcher.submit(
                     int(payload.get("num_images", 1)),
@@ -550,10 +614,7 @@ class SamplingServer:
                 return images, payload.get("format", "png")
 
             def do_POST(self):
-                if self.path in _NOT_PORTED_ROUTES:
-                    self._json(501, {"error": f"{self.path} is not ported yet"})
-                    return
-                if self.path not in ("/sample", "/vocode", "/edit"):
+                if self.path not in ("/sample", "/super_resolve", "/vocode", "/edit"):
                     self._json(404, {"error": f"no route {self.path}"})
                     return
                 try:

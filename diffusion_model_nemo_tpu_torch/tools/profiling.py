@@ -10,6 +10,8 @@ importing the package it sits in.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 __all__ = [
@@ -116,10 +118,10 @@ def traced(fn, calls: int = 1):
                           f"events after {tracing['markers']} markers")
 
 
-def _open_markers() -> int:
-    """A trace's opening on the card: the lead spin, then
-    ``tracing["markers"]`` short spins; returns their number."""
-    n = tracing["markers"]
+def _open_markers(n: Optional[int] = None) -> int:
+    """A trace's opening on the card: the lead spin, then ``n`` (default
+    ``tracing["markers"]``) short spins; returns their number."""
+    n = tracing["markers"] if n is None else n
     torch.cuda._sleep(LEAD_US * SPIN_CYCLES_PER_US)
     for _ in range(n):
         torch.cuda._sleep(1)
@@ -148,11 +150,13 @@ def _kept_markers(n: int, kept: int) -> None:
 class WindowTrace:
     """A torch.profiler trace of a window of a loop's iterations (the
     Trainer's ``profile_dir`` steps), opened and checked by ``traced``'s
-    rules: on CUDA it opens with the lead spin and ``tracing["markers"]``
-    short spins, and ``stop`` raises ``EmptyTraceError`` unless a marker and
-    some of the window's device events were kept (a window cannot be taken
-    again); on the CPU it holds the host events, and ``stop`` raises when
-    there are none. ``stop(path)`` writes the trace (Chrome trace JSON)
+    rules: on CUDA it opens with the lead spin and short spins, and ``stop``
+    raises ``EmptyTraceError`` unless a marker and some of the window's
+    device events were kept. A window cannot be taken again, so it opens
+    with four times the markers the next trace would, or that any trace of
+    the process dropped (late in a long process a trace drops 40 or more,
+    where the next trace may open with 8); on the CPU it holds the host
+    events, and ``stop`` raises when there are none. ``stop(path)`` writes the trace (Chrome trace JSON)
     only after that check and returns the window's events as (name, us)."""
 
     def __init__(self, device: torch.device, first_step: int = 0):
@@ -168,7 +172,7 @@ class WindowTrace:
         self.prof = profile(activities=acts)
         self.prof.__enter__()
         if self.cuda:
-            self.markers = _open_markers()
+            self.markers = _open_markers(min(4 * max(tracing["markers"], tracing["dropped_max"]), MAX_MARKERS))
 
     def stop(self, path: str):
         import time

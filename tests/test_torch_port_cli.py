@@ -116,19 +116,22 @@ def test_serve_answers_from_the_archive_path(trained):
 
 
 @pytest.mark.parametrize(
-    "cli,args,match",
-    [  # the ids of the cases before the trainer's services were ported
-        pytest.param("edit", ["input_path={tmp}"], "an image directory", id="edit-args3-an image directory"),
-        pytest.param("inpaint", ["input_path={tmp}"], "an image directory", id="inpaint-args4-an image directory"),
-        pytest.param("interpolate", ["dataset_name=cifar10"], "name='cifar10'",
+    "cli,args,exc,match",
+    [  # the ids of the cases before the trainer's services were ported; an
+        # image directory is read since the datasets were ported: an empty one
+        # is refused, naming what it lacks
+        pytest.param("edit", ["input_path={tmp}"], ValueError, "No image files", id="edit-args3-an image directory"),
+        pytest.param("inpaint", ["input_path={tmp}"], ValueError, "No image files",
+                     id="inpaint-args4-an image directory"),
+        pytest.param("interpolate", ["dataset_name=cifar10"], NotImplementedError, "name='cifar10'",
                      id="interpolate-args5-name='cifar10'"),
     ],
 )
-def test_refused_options_raise_naming_themselves(trained, tmp_path, cli, args, match):
+def test_refused_options_raise_naming_themselves(trained, tmp_path, cli, args, exc, match):
     _root, run, *_ = trained
     args = [a.format(tmp=tmp_path) for a in args]
     clis = {"edit": edit_ddpm, "inpaint": inpaint_ddpm, "interpolate": interpolate_ddpm}
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         clis[cli].main([f"model_path={run / 'DDPM-UNet.dmn'}", "device=cpu", "batch_size=2", *args])
 
 

@@ -1,6 +1,6 @@
 """The PyTorch port's sampling server on the CPU: HTTP routes, seeded
 determinism, request coalescing (by label and guidance scale on a
-ConditionalDDPM), the 400/501 answers, and the standard-library PNG codec
+ConditionalDDPM), the 400 answers, and the standard-library PNG codec
 that replaces the JAX package's Pillow dependency."""
 
 import base64
@@ -169,7 +169,7 @@ def test_requests_coalesce_by_label_and_guidance_scale():
 
 
 def test_unported_routes_and_unknown_paths(server):
-    assert _call(server, "POST", "/super_resolve", {})[0] == 501
+    assert _call(server, "POST", "/super_resolve", {})[0] == 400  # ported: a DDPM archive is not an SR3
     assert _call(server, "POST", "/edit", {})[0] == 400  # ported: an edit needs images_npy
     assert _call(server, "POST", "/vocode", {})[0] == 400  # ported: a DDPM archive is not a vocoder
     assert _call(server, "POST", "/nope", {})[0] == 404
