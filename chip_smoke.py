@@ -356,6 +356,39 @@ Phases:
           labels.npy through build_dataloader with resize_to; no Pillow,
           PyYAML, msgpack, flax or orbax imported.
 
+  17. Rectified flow and reflow (bf16, full width, random weights from
+      seed 0), ``[rf]`` lines, each time beside the card's name and power
+      limit:
+     17a RectifiedFlow at examples/configs/rectified_flow/unet_small.yaml,
+          32 px: launches a forward (float times t·1000) equal to the gates'
+          and to 35/4/1/1, #1-#4 held at its shapes;
+     17b the B=128 step: loss and gradient against the plain path, no
+          launch in the backward, the captured step == eager
+          (cudnn.deterministic), wall and busy;
+     17c Euler-50 and Heun-50 (NFE 99: 49 corrected steps, then one Euler
+          step, a graph of its own) at B=64, captured == eager bit for bit,
+          launches = the graphs' counts x replays, wall, busy (cudnn.
+          deterministic);
+     17d encode at B=64 and interpolate 16 pairs (grid 10), captured ==
+          eager;
+     17e the exact likelihood at B=32 (Euler, M = 50, one vjp a step in
+          the captured step, launching nothing): captured == eager, wall
+          and busy (cudnn.deterministic), bits/dim against the plain path
+          (2e-2);
+     17f the fused reflow step at B=64, pair_steps 50 (the teacher's chain,
+          the student's forward and backward, clip and AdamW in one graph):
+          captured == eager over two steps, launches = one forward's x 51,
+          wall, busy (cudnn.deterministic), the graph's pool in MiB;
+     17g two reflow rounds of two steps, pair steps 10 (round 2 captures
+          anew on round 1's student as its teacher), student_model(sample_steps=1), its
+          .dmn restored, the sampler swaps refused, /edit 400, /sample
+          served over a window of four clients (images/s, fill), launches =
+          one forward's x batches;
+     17h train_rectified_flow (2 steps at batch 8, a dump), eval_
+          rectified_flow (Heun-10, the GIF), test_rectified_flow (loss,
+          exact bits/dim, NFE 50), reflow_rectified_flow (2 steps, pair
+          steps 10, a one-step archive; devices=2 refused).
+
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
 prints no result. Without a CUDA device, or outside the repository, it fails.
@@ -3390,24 +3423,14 @@ def check_fast_sampler(port, model, base, name, per):
     return {"nfe": nfe, "wall_ms": wall * 1e3, "busy_ms": busy, "eager_ms": eager_s * 1e3}
 
 
-def check_fast_serving(port, model, base, name, per, nfe):
-    """13b. ``serve`` with the sampler's flag (its defaults), max_batch 64,
-    over a window of SVC_WINDOW_S: one client a size of SVC_CLIENT_SIZES,
-    each sending unseeded /sample requests back to back until the window
-    closes, so that the server coalesces them into batches. images/s = every
-    image answered / the window's wall (to the last answer); launches = one
-    forward's x NFE x batches (the warm-up's included)."""
+def client_window(server, tag):
+    """One client a size of SVC_CLIENT_SIZES, each sending unseeded /sample
+    requests back to back until SVC_WINDOW_S closes, so that the server
+    coalesces them into batches: (answers [(code, n, good)], the window's
+    wall to the last answer, /stats once its count has caught up, images
+    answered). Every answer must be a 200 of n uint8 32-px images."""
     import numpy as np
 
-    from diffusion_model_nemo_tpu_torch.serving import serve
-
-    model.change_sampler(base)
-    port.ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    server = serve(model, port=0, max_batch=B, ddim_timesteps=DDIM_STEPS, use_ema=True, **SVC_FLAGS[name])
-    warm_s = time.perf_counter() - t0
-    assert type(model.sampler).__name__ == SVC[name][0], (name, type(model.sampler).__name__)
-    server.start_background()
     url = f"http://{server.host}:{server.port}"
     answers, errors = [], []
 
@@ -3420,26 +3443,46 @@ def check_fast_serving(port, model, base, name, per, nfe):
         except Exception as e:  # reported below, after the other clients
             errors.append(repr(e))
 
+    t1 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(n, t1 + SVC_WINDOW_S)) for n in SVC_CLIENT_SIZES]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+        assert not th.is_alive(), f"{tag}: a /sample client did not finish"
+    wall = time.perf_counter() - t1
+    images = sum(n for _, n, _ in answers)
+    for _ in range(100):  # a batch's count lands just after its requests are answered
+        stats = json.loads(http("GET", url + "/stats")[1])
+        if stats["images"] == images:
+            break
+        time.sleep(0.05)
+    assert not errors, (tag, errors)
+    assert answers and all(code == 200 and good for code, _, good in answers), tag
+    assert stats["images"] == images and stats["requests"] == len(answers), (tag, stats, images, len(answers))
+    return answers, wall, stats, images
+
+
+def check_fast_serving(port, model, base, name, per, nfe):
+    """13b. ``serve`` with the sampler's flag (its defaults), max_batch 64,
+    over a window of SVC_WINDOW_S: one client a size of SVC_CLIENT_SIZES,
+    each sending unseeded /sample requests back to back until the window
+    closes, so that the server coalesces them into batches. images/s = every
+    image answered / the window's wall (to the last answer); launches = one
+    forward's x NFE x batches (the warm-up's included)."""
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    model.change_sampler(base)
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve(model, port=0, max_batch=B, ddim_timesteps=DDIM_STEPS, use_ema=True, **SVC_FLAGS[name])
+    warm_s = time.perf_counter() - t0
+    assert type(model.sampler).__name__ == SVC[name][0], (name, type(model.sampler).__name__)
+    server.start_background()
     try:
-        t1 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(n, t1 + SVC_WINDOW_S)) for n in SVC_CLIENT_SIZES]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
-            assert not th.is_alive(), f"{name}: a /sample client did not finish"
-        wall = time.perf_counter() - t1
-        images = sum(n for _, n, _ in answers)
-        for _ in range(100):  # a batch's count lands just after its requests are answered
-            stats = json.loads(http("GET", url + "/stats")[1])
-            if stats["images"] == images:
-                break
-            time.sleep(0.05)
+        answers, wall, stats, images = client_window(server, name)
     finally:
         server.shutdown()
-    assert not errors, (name, errors)
-    assert answers and all(code == 200 and good for code, _, good in answers), name
-    assert stats["images"] == images and stats["requests"] == len(answers), (name, stats, images, len(answers))
     counts = {k: v for k, v in port.ops.launch_counts().items() if v}
     batches = stats["batches"] + 1
     expect = {k: v * nfe * batches for k, v in per.items()}
@@ -4276,28 +4319,31 @@ def check_edm_likelihood(port, model, device, per, card):
     assert int(nfe) == 2 * steps and rel <= EDM_BPD_TOL and bool(torch.isfinite(z).all())
 
 
-def check_edm_encode(port, model, device, card):
-    """15d. ``encode`` of 64 images (Heun up the grid, NFE 34) and the chain
-    back from the latents; ``interpolate`` of 16 pairs: captured == eager
-    bit for bit (cudnn.deterministic), walls."""
+def check_encode(model, device, card, tag, nfe, pairs, grid=None, latent=""):
+    """15d and 17d. ``encode`` of 64 images up the sampler's grid (NFE
+    ``nfe``) and the chain back from the latents; ``interpolate`` of
+    ``pairs`` pairs, on the sampler's grid or one of ``grid`` steps:
+    captured == eager bit for bit (cudnn.deterministic), walls. ``tag``
+    and ``latent`` (a note after the latent's std) go into the line."""
     import torch
 
+    on = {} if grid is None else {"t": grid}
     x0 = family_bpd_batch(device, B)
     with deterministic():
         z, z_eager = model.encode(x0), model.encode(x0, graphs=False)
-        x1, x2 = (x0[:EDM_INTERP_B] + 1) / 2, (x0[EDM_INTERP_B:2 * EDM_INTERP_B] + 1) / 2
-        mid, mid_eager = model.interpolate(x1, x2), model.interpolate(x1, x2, graphs=False)
+        x1, x2 = (x0[:pairs] + 1) / 2, (x0[pairs:2 * pairs] + 1) / 2
+        mid, mid_eager = model.interpolate(x1, x2, **on), model.interpolate(x1, x2, graphs=False, **on)
     assert torch.equal(z, z_eager) and torch.equal(mid, mid_eager), "encode / interpolate: captured differs"
     walled(lambda: model.encode(x0))  # the capture
     enc_s, z = walled(lambda: model.encode(x0), n=2)
     with torch.inference_mode():
         back = model.sampler.p_sample_loop(model.get_model_fn(), model.params, tuple(x0.shape), img=z)
     rel = float(((back * 2 - 1) - x0).norm() / x0.norm())
-    walled(lambda: model.interpolate(x1, x2))  # the captures
-    interp_s, mid = walled(lambda: model.interpolate(x1, x2), n=2)
-    log(f"[edm] encode B={B} NFE {2 * (model.sampler.sample_steps - 1)}: {enc_s * 1e3:.3f} ms captured, latent std "
-        f"{float(z.std()):.3f} (σ_max {model.sampler.sigma_max}); decoded back: relative L2 to the data {rel:.3e} "
-        f"(random weights); interpolate {EDM_INTERP_B} pairs: {interp_s * 1e3:.3f} ms captured [{card}]")
+    walled(lambda: model.interpolate(x1, x2, **on))  # the captures
+    interp_s, mid = walled(lambda: model.interpolate(x1, x2, **on), n=2)
+    log(f"[{tag}] encode B={B} NFE {nfe}: {enc_s * 1e3:.3f} ms captured, latent std {float(z.std()):.3f}{latent}; "
+        f"decoded back: relative L2 to the data {rel:.3e} (random weights); interpolate {pairs} pairs on a grid of "
+        f"{grid or model.sampler.sample_steps}: {interp_s * 1e3:.3f} ms captured [{card}]")
     assert bool(torch.isfinite(back).all()) and bool(torch.isfinite(mid).all()) and mid.shape == x1.shape
 
 
@@ -4476,7 +4522,8 @@ def check_edm(port, device, rows):
            derived_counts(port, aug, TRAIN_B, 32), card)
     lapped("15c likelihood", check_edm_likelihood, port, model, device, derived_counts(port, model, EDM_LIK_B, 32),
            card)
-    lapped("15d encode, interpolate", check_edm_encode, port, model, device, card)
+    lapped("15d encode, interpolate", check_encode, model, device, card, "edm", 2 * (model.sampler.sample_steps - 1),
+           EDM_INTERP_B, None, f" (σ_max {model.sampler.sigma_max})")
     tmp = tempfile.mkdtemp(prefix="dmn_edm_")
     cwd = os.getcwd()
     try:
@@ -4574,22 +4621,23 @@ def check_sr3_kernels(port, device, rows, card, m32, m64, unet):
     return per
 
 
-def check_sr3_step(port, tag, model, per, card, timed=True):
-    """16b. One B=128 step against the plain path (loss 1e-2, gradient
-    5e-2, no launch in the backward); one captured step against the eager
-    step (cudnn.deterministic; bit for bit where eager repeats itself); the
-    captured step's wall and busy."""
+def check_step_vs_plain(port, prefix, tag, model, per, card, cond_aug, timed=True):
+    """16b and 17b. One B=128 step against the plain path (loss 1e-2,
+    gradient 5e-2, no launch in the backward); one captured step against
+    the eager step (cudnn.deterministic; bit for bit where eager repeats
+    itself); the captured step's wall and busy. ``cond_aug``: whether the
+    step draws SR3's condition augmentation; ``prefix`` tags the lines."""
     batch, draws = training_batch(model, TRAIN_B)
-    assert ("cond_aug" in draws) == (model.cond_aug_std > 0), sorted(draws)
+    assert ("cond_aug" in draws) == cond_aug, sorted(draws)
     loss_k, g_k, fwd, bwd, _m = step_loss_and_grads(port, model, batch, draws)
-    assert_counts(f"sr3 {tag} step forward", fwd, per)
-    assert_counts(f"sr3 {tag} step backward", bwd, {})
+    assert_counts(f"{prefix} {tag} step forward", fwd, per)
+    assert_counts(f"{prefix} {tag} step backward", bwd, {})
     with plain_path(port):
         loss_p, g_p, _f, _b, _m = step_loss_and_grads(port, model, batch, draws)
     rel_loss, rel_grad = abs(loss_k - loss_p) / abs(loss_p), float((g_k - g_p).norm() / g_p.norm())
     with deterministic():
         ee, ee_diff, ge, ge_diff = state_spread(steps_run(port, model, [batch]))
-    line = (f"[sr3] {tag} step B={TRAIN_B} draws {sorted(k for k in draws if not k.startswith('dropout/'))}: loss "
+    line = (f"[{prefix}] {tag} step B={TRAIN_B} draws {sorted(k for k in draws if not k.startswith('dropout/'))}: loss "
             f"kernels {loss_k:.6f} plain {loss_p:.6f} (rel {rel_loss:.3e}, tol {LOSS_REL_TOL}); gradient rel_l2 "
             f"{rel_grad:.3e} (tol {GRAD_REL_TOL}); eager twice bit-equal {ee} (max |diff| {ee_diff:.3e}), captured "
             f"vs eager bit-equal {ge} (max |diff| {ge_diff:.3e}) under cudnn.deterministic")
@@ -4605,7 +4653,7 @@ def check_sr3_step(port, tag, model, per, card, timed=True):
         assert graph.delta == per, (graph.delta, per)
     log(line)
     assert rel_loss <= LOSS_REL_TOL and rel_grad <= GRAD_REL_TOL
-    assert ge if ee else ge_diff <= ee_diff, f"sr3 {tag}: the captured step left the eager steps' bounds"
+    assert ge if ee else ge_diff <= ee_diff, f"{prefix} {tag}: the captured step left the eager steps' bounds"
 
 
 def sr3_prefix(model, lr, graphs, steps=SR3_PREFIX, seed=SEED):
@@ -4907,10 +4955,11 @@ def check_sr3(port, device, rows, models):
     m64 = sr3_model(port, device, size=64, scale=2)
     per = lapped("16a kernels", check_sr3_kernels, port, device, rows, card, m32, m64, models["unet_small"],
                  prefix="sr3")
-    lapped("16b step", check_sr3_step, port, "default", m32, per["sr3_32_128"], card, prefix="sr3")
+    lapped("16b step", check_step_vs_plain, port, "sr3", "default", m32, per["sr3_32_128"], card,
+           m32.cond_aug_std > 0, prefix="sr3")
     aug = sr3_model(port, device, overrides=SR3_COND_AUG)
-    lapped("16b step with cond_aug_std", check_sr3_step, port, "cond_aug_std 0.1", aug, per["sr3_32_128"], card,
-           False, prefix="sr3")
+    lapped("16b step with cond_aug_std", check_step_vs_plain, port, "sr3", "cond_aug_std 0.1", aug, per["sr3_32_128"],
+           card, aug.cond_aug_std > 0, False, prefix="sr3")
     lapped("16c chains", check_sr3_chains, port, m32, per["sr3_32"], card, prefix="sr3")
     lapped("16d bits/dim", check_sr3_bpd, port, device, m32, card, prefix="sr3")
     tmp = tempfile.mkdtemp(prefix="dmn_sr3_")
@@ -4924,6 +4973,331 @@ def check_sr3(port, device, rows, models):
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[sr3] phase 16 in {time.perf_counter() - t16:.1f} s")
+
+
+RF_YAML = "examples/configs/rectified_flow/unet_small.yaml"
+# A unet_small forward at 32 px: #1 at its 35 GroupNorm + SiLU sites, #2 at
+# four levels, #3 once, #4 at the bottleneck.
+RF_PER = {"group_norm_silu": 35, "linear_attention_block": 4, "linear_attention_tokens": 1,
+          "attention_block_small": 1}
+RF_LIK_B = 32
+RF_BPD_TOL = 2e-2  # bits/dim, kernels vs plain path, relative, bf16
+RF_INTERP_B, RF_INTERP_STEPS = 16, 10  # interpolate's pairs and grid (encode's is the sampler's 50)
+RF_PAIR_STEPS = 50  # the reflow step's teacher chain (the YAML's sample_steps)
+RF_STEP_REPLAYS = 3  # captured reflow steps timed
+RF_ROUND_STEPS, RF_ROUND_PAIR_STEPS = 2, 10  # steps a reflow round (two rounds), their teacher chain
+RF_CLI_B, RF_CLI_STEPS, RF_CLI_PAIR_STEPS = 8, 2, 10
+
+
+def rf_model(port, device, overrides=()):
+    """RectifiedFlow from examples/configs/rectified_flow/unet_small.yaml at
+    32 px, full width (dim 32, [1, 2, 4, 8], bf16, the ResNet U-Net), random
+    weights from ``SEED``."""
+    from diffusion_model_nemo_tpu_torch.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent / RF_YAML,
+                      overrides=[*CLI_MODEL, "model.train_ds.name=synthetic", *overrides]).model
+    return port.models.RectifiedFlow(cfg, device=device, seed=SEED)
+
+
+def check_rf_kernels(port, device, rows, model):
+    """17a. The launches of a B=64 forward at float path times (the gates'
+    and 35/4/1/1), each #1-#4 call held against its plain version."""
+    import torch
+
+    x, _t = model_inputs(device, 32)
+    t = model.sampler.model_time(torch.rand((B,), generator=svc_generator(model), device=device))
+    calls = {"rectified_flow": record_calls(port, model, x, t)}
+    per = per_forward_counts(calls["rectified_flow"])
+    log(f"[rf] RectifiedFlow (the ResNet unet_small, float times t·1000) launches a forward: {json.dumps(per)}")
+    assert per == derived_counts(port, model, B, 32) == RF_PER, per
+    hold_kernels(port, calls, rows, tag="rf")
+    return per
+
+
+def check_rf_chain(port, model, per, card, solver):
+    """17c. The sampler's chain at B=64 (EMA weights) with ``solver``, all
+    under cudnn.deterministic: captured == eager bit for bit twice; the
+    captured and eager walls, device busy, NFE; launches = the graphs'
+    counts x replays (Heun: two forwards a step, the last Euler step a
+    graph of its own)."""
+    import torch
+
+    model.change_sampler(dict(model.cfg.sampler, solver=solver))
+    s = model.sampler
+    M, heun = s.sample_steps, solver == "heun"
+    nfe = 2 * M - 1 if heun else M
+    run = lambda graphs=None: model.sample(B, 32, generator=svc_generator(model), use_ema=True,  # noqa: E731
+                                           graphs=graphs)
+    with deterministic():
+        eager_s, ref = walled(lambda: run(False))
+        first_s, first = walled(run)  # the capture
+        port.ops.reset_launch_counts()
+        wall, again = walled(run, n=2)
+        counts = port.ops.launch_counts()
+        busy, _ = device_profile(run, iters=1)
+    assert torch.equal(ref, first) and torch.equal(ref, again), f"{solver}-{M}: captured differs from eager"
+    assert bool(torch.isfinite(ref).all()) and float(ref.std()) > 0, solver
+    graph = graph_of(s.graphs, "rf_down_heun" if heun else "rf_down_euler")
+    steps = M - 1 if heun else M
+    assert graph.delta == {k: v * (2 if heun else 1) for k, v in per.items()}, (solver, graph.delta, per)
+    graph_line(f"rf {solver}-{M} B={B} NFE {nfe} (first call with capture {first_s:.3f} s; == eager bit for bit; "
+               f"all under cudnn.deterministic)", wall, busy / 1e3, eager_s, graph, counts, 2 * steps,
+               {k: 2 * v for k, v in per.items()} if heun else None)
+    log(f"[rf] {solver}-{M} B={B}: NFE {nfe}, captured {wall * 1e3:.3f} ms a chain ({B / wall:.1f} images/s), "
+        f"device busy {busy:.3f} ms ({busy / nfe:.3f} ms a network call, {100 * busy / (wall * 1e3):.1f}% of the "
+        f"wall), eager {eager_s * 1e3:.3f} ms [{card}]")
+
+
+def check_rf_likelihood(port, model, device, per, card):
+    """17e. The exact NLL at B=32 (Euler on the 50 transitions, NFE 50), all
+    under cudnn.deterministic: captured == eager bit for bit; the captured
+    step (forward and εᵀJε backward) replayed, launches = one forward a
+    step and nothing in the backward, wall and busy; against the plain path
+    (captured on a sampler of its own, so that no graph of one path replays
+    for the other)."""
+    import torch
+
+    x0 = family_bpd_batch(device, RF_LIK_B)
+    eps = model.sampler.draw_epsilon(x0.shape, torch.Generator(device=device).manual_seed(SEED))
+    run = lambda graphs=None: model.likelihood(x0, epsilon=eps, graphs=graphs)  # noqa: E731
+    steps = model.sampler.sample_steps
+    with deterministic():
+        eager_s, eager = walled(lambda: run(False))
+        first_s, captured = walled(run)
+        port.ops.reset_launch_counts()
+        wall, (bpd, z, nfe) = walled(run)
+        counts = port.ops.launch_counts()
+        graph = graph_of(model.sampler.graphs, "rf_nll")
+        busy = replay_busy(graph, "i", 0, iters=3) * 1e3 * steps  # a step's replays traced, not the whole call's
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured)), "likelihood: captured differs from eager"
+    assert graph.delta == per, (graph.delta, per)
+    graph_line(f"rf likelihood B={RF_LIK_B} NFE {int(nfe)} (first call with capture {first_s:.3f} s; == eager bit "
+               f"for bit; all under cudnn.deterministic)", wall, busy / 1e3, eager_s, graph, counts, steps)
+    kernels = model.sampler
+    model.sampler = port.config.instantiate(model.cfg.sampler, device=device)  # its own graphs: the plain path's
+    try:
+        with plain_path(port):
+            plain, _z, _n = model.likelihood(x0, epsilon=eps)
+    finally:
+        model.sampler = kernels
+    rel = float(((bpd - plain).abs() / plain.abs()).max())
+    log(f"[rf] likelihood B={RF_LIK_B}: bits/dim kernels {float(bpd.mean()):.5f} plain {float(plain.mean()):.5f} "
+        f"(max relative difference {rel:.3e}, tol {RF_BPD_TOL}); NFE {int(nfe)}; captured {wall * 1e3:.3f} ms, busy "
+        f"{busy:.3f} ms, eager {eager_s * 1e3:.3f} ms [{card}]")
+    assert int(nfe) == steps and rel <= RF_BPD_TOL and bool(torch.isfinite(z).all())
+
+
+def reflow_draws(model, n, seed=SEED):
+    """``n`` steps' (z, time draw) at B=64, seeded."""
+    import torch
+
+    g = svc_generator(model, seed)
+    return [(torch.randn((B, 32, 32, 3), generator=g, device=model.device), model.sampler.draw_times(B, g))
+            for _ in range(n)]
+
+
+def check_rf_reflow_step(port, model, per, card):
+    """17f. The fused reflow step at B=64, pair_steps 50 (lr 1e-4, clip 1),
+    all under cudnn.deterministic: two steps from the teacher, eager and
+    captured (the first step the capture's eager warm-up, the second a
+    replay): the students and losses bit for bit; the graph launches one
+    forward's x 51 (the teacher's 50, the student's one; nothing in the
+    backward); then replays timed: wall, busy, the graph's nodes and
+    pool."""
+    import torch
+
+    draws = reflow_draws(model, 2)
+
+    def run(graphs):
+        trainer = port.training.ReflowTrainer(model, pair_steps=RF_PAIR_STEPS)
+        state = trainer.init_state(model.params)
+        losses = torch.stack([trainer.train_step(state, z, u, graphs=graphs) for z, u in draws])
+        torch.cuda.synchronize()
+        return trainer, state, losses
+
+    def diff(a, b):
+        return max(float((a[1].student[k] - b[1].student[k]).abs().max()) for k in a[1].student)
+
+    with deterministic():
+        t0 = time.perf_counter()
+        eager = run(False)
+        eager_s = (time.perf_counter() - t0) / len(draws)
+        captured = run(None)
+        max_diff = diff(captured, eager)  # before the replays below move the captured student on
+        equal = max_diff == 0 and torch.equal(captured[2], eager[2])
+        trainer, state, _ = captured
+        z, u = draws[0]
+        step = lambda: trainer.train_step(state, z, u)  # noqa: E731
+        port.ops.reset_launch_counts()
+        wall, loss = walled(step, n=RF_STEP_REPLAYS)
+        counts = port.ops.launch_counts()
+        busy, _ = device_profile(step, iters=1)
+    graph = graph_of(trainer.graphs, "reflow_step")
+    assert graph.delta == {k: v * (RF_PAIR_STEPS + 1) for k, v in per.items()}, (graph.delta, per)
+    graph_line(f"rf reflow step B={B} pair_steps {RF_PAIR_STEPS} (the teacher's chain, the student's forward and "
+               f"backward, clip, AdamW; cudnn.deterministic)", wall, busy / 1e3, eager_s, graph, counts,
+               RF_STEP_REPLAYS)
+    log(f"[rf] reflow step B={B} pair_steps {RF_PAIR_STEPS}: losses eager {eager[2].tolist()} captured "
+        f"{captured[2].tolist()}, students and losses bit-equal {equal} (max |diff| {max_diff:.3e}) under "
+        f"cudnn.deterministic; captured {wall * 1e3:.3f} ms a step, busy {busy:.3f} ms, eager {eager_s * 1e3:.3f} ms; "
+        f"capture {graph.info['capture_s']:.3f} s, {graph.info['nodes']} nodes, pool {graph.info['pool_mib']:.1f} "
+        f"MiB; loss {float(loss):.6f} [{card}]")
+    assert equal, "reflow: the captured step differs from the eager step"
+    assert bool(torch.isfinite(captured[2]).all())
+
+
+def check_rf_rounds_and_serving(port, model, per, tmp, card):
+    """17g. Two reflow rounds of two steps: round 1's teacher is the model's
+    weights, round 2's is round 1's student, and round 2's graph is captured
+    on it (round 1's is gone); ``student_model(sample_steps=1)``, its .dmn
+    restored (the same weights, one step), the sampler swaps refused, /edit
+    refused (400), /sample served over a window of four clients: images/s,
+    fill, launches = one forward's x batches."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    trainer = port.training.ReflowTrainer(model, pair_steps=RF_ROUND_PAIR_STEPS)
+    teachers, states, graphs = [], [], []
+    init = trainer.init_state
+
+    def init_state(teacher):
+        graphs.append(list(trainer.graphs.values()))
+        teachers.append(teacher)
+        states.append(init(teacher))
+        return states[-1]
+
+    trainer.init_state = init_state
+    t0 = time.perf_counter()
+    params, losses = trainer.reflow(RF_ROUND_STEPS, B, generator=svc_generator(model), rounds=2, log_every=1)
+    rounds_s = time.perf_counter() - t0
+    (graph,) = trainer.graphs.values()
+    assert teachers[0] is model.params and len(states) == 2
+    assert all(teachers[1][k].data_ptr() == states[0].student[k].data_ptr() for k in model.params)
+    assert all(graph is not g for g in graphs[1]) and graph.info["replays"] == RF_ROUND_STEPS - 1
+    assert all(any(s is t for s in graph.sources) for t in teachers[1].values()), "round 2's graph reads another teacher"
+    assert all(torch.equal(params[k], states[1].student[k]) for k in params)
+    student = trainer.student_model(params, sample_steps=1)
+    path = student.save_to(os.path.join(tmp, "RF1.dmn"))
+    back = port.models.restore_model_from_archive(path, use_ema=True, device=model.device)
+    assert type(back).__name__ == "RectifiedFlow" and back.sampler.sample_steps == 1
+    assert all(torch.equal(back.params[k], params[k]) for k in params)
+    try:
+        serve(back, port=0)
+        raise AssertionError("serve() swapped DDIM into a flow archive")
+    except ValueError as e:
+        refusal = str(e)
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve(back, port=0, max_batch=B, use_ddim_sampler=False, use_ema=True)
+    warm_s = time.perf_counter() - t0
+    server.start_background()
+    url = f"http://{server.host}:{server.port}"
+    buf = io.BytesIO()
+    np.save(buf, np.zeros((1, 32, 32, 3), np.uint8))
+    try:
+        try:
+            code, body = http("POST", url + "/edit", {"images_npy": base64.b64encode(buf.getvalue()).decode()})
+        except urllib.request.HTTPError as e:
+            code, body = e.code, e.read()
+        assert code == 400 and b"no edit surface" in body, (code, body)
+        answers, wall, stats, images = client_window(server, "rf one-step")
+    finally:
+        server.shutdown()
+    counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    batches = stats["batches"] + 1
+    log(f"[rf] two reflow rounds x {RF_ROUND_STEPS} steps B={B} pair_steps {RF_ROUND_PAIR_STEPS}: {rounds_s:.2f} s, losses "
+        f"{[round(v, 6) for v in losses]}; round 2 captured anew on round 1's student; student_model(sample_steps=1) "
+        f"restored from .dmn; swaps refused ({refusal[:50]}...); /edit {code}; /sample of the one-step student, "
+        f"warm-up {warm_s:.2f} s, {len(SVC_CLIENT_SIZES)} clients over {wall:.3f} s: {len(answers)} requests, "
+        f"{images} images in {stats['batches']} batches (fill {stats['avg_batch_fill']}), {images / wall:.2f} "
+        f"images/s served, latency {stats['avg_request_latency_ms']} ms, avg device ms a batch "
+        f"{stats['avg_device_ms_per_batch']}; launches {json.dumps(counts)} = one forward's x {batches} batches "
+        f"[{card}]")
+    assert np.isfinite(losses).all() and counts == {k: v * batches for k, v in per.items()}, (counts, per)
+
+
+def check_rf_clis(port, tmp):
+    """17h. ``train_rectified_flow`` (2 steps at batch 8, a sample dump at
+    step 2, the archive), ``eval_rectified_flow`` (Heun-10, batch 8, the
+    GIF), ``test_rectified_flow`` (batch 8: the loss, the exact bits/dim,
+    NFE 50), ``reflow_rectified_flow`` (2 steps at batch 8, pair steps 10,
+    the one-step archive); ``devices=2`` refused."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.cli import (eval_rectified_flow, reflow_rectified_flow, test_rectified_flow,
+                                                    train_rectified_flow)
+
+    t0 = time.perf_counter()
+    port.ops.reset_launch_counts()
+    model, trainer = train_rectified_flow.main([
+        *CLI_MODEL, "model.train_ds.name=synthetic", f"model.train_ds.batch_size={RF_CLI_B}",
+        f"trainer.max_steps={RF_CLI_STEPS}", f"model.save_every={RF_CLI_STEPS}", f"exp_manager.exp_dir={tmp}/exp",
+        "exp_manager.create_tensorboard_logger=false", "+exp_manager.version=run", f"+model.results_dir={tmp}/results"])
+    cli_counts(port, "train_rectified_flow", UNET_KERNELS)
+    dmn = next(trainer.exp_manager_hooks.log_dir.glob("*.dmn"))
+    train_s = time.perf_counter() - t0
+    assert all(np.isfinite(m["train_loss"]) for m in trainer.logged)
+    assert (Path(tmp) / "results" / "sample-1-1.png").is_file()
+    t0 = time.perf_counter()
+    out = eval_rectified_flow.main([f"model_path={dmn}", f"batch_size={RF_CLI_B}", "solver=heun", "num_steps=10",
+                                    "show_diffusion=true", f"output_dir={tmp}/samples", "add_timestamp=false"])
+    eval_s = time.perf_counter() - t0
+    assert (out / "diffusion.gif").is_file() and len(list(out.glob("sample_*.png"))) == RF_CLI_B
+    t0 = time.perf_counter()
+    result = test_rectified_flow.main([f"model_path={dmn}", f"batch_size={RF_CLI_B}", "limit_test_batches=1",
+                                       "dataset_name=synthetic"])
+    test_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    student, losses = reflow_rectified_flow.main([
+        f"model_path={dmn}", f"output_path={tmp}/RF_reflowed.dmn", f"steps={RF_CLI_STEPS}",
+        f"batch_size={RF_CLI_B}", f"pair_steps={RF_CLI_PAIR_STEPS}", "log_every=1"])
+    reflow_s = time.perf_counter() - t0
+    try:
+        reflow_rectified_flow.main([f"model_path={dmn}", "devices=2"])
+        raise AssertionError("reflow_rectified_flow ran on devices=2")
+    except NotImplementedError:
+        pass
+    log(f"[rf] train_rectified_flow {RF_CLI_STEPS} steps B={RF_CLI_B}: {train_s:.2f} s, logged "
+        f"{json.dumps(trainer.logged)}; eval_rectified_flow Heun-10 B={RF_CLI_B} (GIF): {eval_s:.2f} s; "
+        f"test_rectified_flow B={RF_CLI_B}: {json.dumps(result)} in {test_s:.2f} s; reflow_rectified_flow "
+        f"{RF_CLI_STEPS} steps B={RF_CLI_B} pair_steps {RF_CLI_PAIR_STEPS}: losses {losses} in {reflow_s:.2f} s; "
+        f"devices=2 refused")
+    assert result["avg_num_forward_evaluations"] == model.sampler.sample_steps
+    assert np.isfinite(result["test_total_bpd"]) and np.isfinite(result["test_fm_loss"])
+    assert student.sampler.sample_steps == 1 and np.isfinite(losses).all()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
+    assert not loaded, f"the flow CLIs loaded {loaded}"
+
+
+def check_rectified_flow(port, device, rows):
+    """17. Rectified flow and reflow on the card."""
+    t17 = time.perf_counter()
+    card = card_line()  # written beside every [rf] time
+    model = rf_model(port, device)
+    per = lapped("17a kernels", check_rf_kernels, port, device, rows, model, prefix="rf")
+    lapped("17b step", check_step_vs_plain, port, "rf", "rectified flow", model,
+           derived_counts(port, model, TRAIN_B, 32), card, False, prefix="rf")
+    lapped("17c Euler-50", check_rf_chain, port, model, per, card, "euler", prefix="rf")
+    lapped("17c Heun-50", check_rf_chain, port, model, per, card, "heun", prefix="rf")
+    model.change_sampler(dict(model.cfg.sampler, solver="euler"))
+    lapped("17d encode, interpolate", check_encode, model, device, card, "rf", model.sampler.sample_steps,
+           RF_INTERP_B, RF_INTERP_STEPS, prefix="rf")
+    lapped("17e likelihood", check_rf_likelihood, port, model, device, derived_counts(port, model, RF_LIK_B, 32),
+           card, prefix="rf")
+    lapped("17f reflow step", check_rf_reflow_step, port, model, per, card, prefix="rf")
+    tmp = tempfile.mkdtemp(prefix="dmn_rf_")
+    cwd = os.getcwd()
+    try:
+        lapped("17g rounds, /sample", check_rf_rounds_and_serving, port, model, per, tmp, card, prefix="rf")
+        os.chdir(tmp)
+        lapped("17h CLIs", check_rf_clis, port, tmp, prefix="rf")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[rf] phase 17 in {time.perf_counter() - t17:.1f} s")
 
 
 def main() -> int:
@@ -5072,6 +5446,12 @@ def main() -> int:
     # datasets.
     check_sr3(port, device, rows, models)
     phase_done("phase 16")
+
+    # 17. Rectified flow and reflow: the step, Euler and Heun chains,
+    # encode / interpolate, the exact likelihood, the fused reflow step, two
+    # rounds, the one-step student served, the CLIs.
+    check_rectified_flow(port, device, rows)
+    phase_done("phase 17")
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

@@ -8,7 +8,9 @@
 ``vocode``, ``interpolate_ddpm``, ``interpolate_ddim``,
 ``interpolate_improved_ddpm``, ``edit_ddpm``, ``inpaint_ddpm``,
 ``train_edm``, ``eval_edm``, ``test_edm``, ``train_sr3``, ``eval_sr3``,
-``cascade_sr3`` and ``serve`` (the JAX package's
-``examples/{ddpm,improved_ddpm,conditional_ddpm,score_sde,wavegrad_ddpm,edm,sr3}/*.py``
-and ``examples/serve.py``; ``serve`` restores any of the nine families).
+``cascade_sr3``, ``train_rectified_flow``, ``eval_rectified_flow``,
+``test_rectified_flow``, ``reflow_rectified_flow`` and ``serve`` (the JAX
+package's
+``examples/{ddpm,improved_ddpm,conditional_ddpm,score_sde,wavegrad_ddpm,edm,sr3,rectified_flow}/*.py``
+and ``examples/serve.py``; ``serve`` restores any of the ten families).
 Each ``main`` takes an explicit ``argv`` list too."""

@@ -6,6 +6,7 @@ from .gaussian_diffusion import GaussianDiffusion
 from .generalized_gaussian_diffusion import GeneralizedGaussianDiffusion
 from .karras_diffusion import KarrasDiffusion
 from .learned_gaussian_diffusion import LearnedGaussianDiffusion
+from .rectified_flow import RectifiedFlowProcess
 from .repaint import repaint_loop, repaint_schedule
 from .sde_lib import VESDE, VPSDE, LikelihoodEstimate, subVPSDE
 from .sde_samplers import PredictorCorrectorSampler, ProbabilityFlowSampler
@@ -26,6 +27,7 @@ __all__ = [
     "LikelihoodEstimate",
     "PredictorCorrectorSampler",
     "ProbabilityFlowSampler",
+    "RectifiedFlowProcess",
     "UniPCDiffusion",
     "Unet",
     "VESDE",

@@ -41,7 +41,7 @@ from ..config.registry import register_target
 from ..ops import graphs as graphs_lib
 from .diffusion_process import ModelFn
 from .gaussian_diffusion import _randn, new_frames
-from .table_loop import device_table, table_loop
+from .table_loop import device_table, draw_epsilon, ode_likelihood, slerp, table_loop
 
 __all__ = ["EDMProcess"]
 
@@ -288,12 +288,7 @@ class EDMProcess:
                            graphs_lib.use_graphs(graphs, x0.device))
         return state["x"].clone()
 
-    def draw_epsilon(self, shape, generator: Optional[torch.Generator], hutchinson_type: str = "rademacher"):
-        """The trace probe: Rademacher ±1 or a standard normal."""
-        if hutchinson_type == "gaussian":
-            return _randn(tuple(shape), generator, self.device)
-        bits = torch.randint(0, 2, tuple(shape), generator=generator, device=self.device)
-        return bits.to(torch.float32) * 2.0 - 1.0
+    draw_epsilon = draw_epsilon  # the trace probe: Rademacher ±1 or a standard normal
 
     def likelihood(
         self,
@@ -312,52 +307,21 @@ class EDMProcess:
         2(M − 1) for Heun, M − 1 for Euler. ``model_fn`` must let autograd
         through (the model's ``train_model_fn``); ``epsilon`` injects the
         probe, else it is drawn from ``generator``."""
-        if hutchinson_type not in ("rademacher", "gaussian"):
-            raise ValueError("`hutchinson_type` must be one of `rademacher` or `gaussian`")
-        shape = tuple(data.shape)
-        B = shape[0]
         M = self._steps(num_steps)
         heun = self.solver == "heun"
-
         table = device_table(self, f"edm_encode_{M}", lambda: self._encode_coefficients(M), COLUMNS)
-        dims = tuple(range(1, len(shape)))
 
-        def f_div(fn, x, sigma, probe):
-            """The slope and εᵀJε from one vjp."""
-            with torch.enable_grad():
-                xg = x.detach().requires_grad_(True)
-                f = (xg - self.denoise(fn, params, xg, sigma, clip=False)) / sigma.clamp_min(1e-12)
-                (eps_j,) = torch.autograd.grad(f, xg, grad_outputs=probe)
-            return f.detach(), torch.sum(eps_j * probe, dim=dims)
+        def times(row):  # dt in float32, as JAX takes it here (encode's is float64's, cast)
+            return row[0], row[2], row[2] - row[0]
 
-        def step(fn, s, row):
-            sigma_hat, _noise_std, sigma_next, _dt = row.unbind(0)
-            dt = sigma_next - sigma_hat  # in float32, as JAX takes it here (encode's is float64's, cast)
-            x, ld, probe = s["x"], s["logdet"], s["epsilon"]
-            v1, d1 = f_div(fn, x, sigma_hat, probe)
-            if heun:
-                v2, d2 = f_div(fn, x + dt * v1, sigma_next, probe)
-                x_n, ld_n = x + dt * 0.5 * (v1 + v2), ld + dt * 0.5 * (d1 + d2)
-            else:
-                x_n, ld_n = x + dt * v1, ld + dt * d1
-            x.copy_(x_n)
-            ld.copy_(ld_n)
+        def field(fn, x, sigma):
+            return (x - self.denoise(fn, params, x, sigma, clip=False)) / sigma.clamp_min(1e-12)
 
-        with torch.inference_mode(False), torch.no_grad():
-            eps = (self.draw_epsilon(shape, generator, hutchinson_type) if epsilon is None
-                   else epsilon.to(device=data.device, dtype=torch.float32))
-            state = {"x": data.to(torch.float32).clone(), "epsilon": eps.clone(),
-                     "logdet": torch.zeros((B,), dtype=torch.float32, device=data.device)}
-            state = table_loop(self, "edm_nll", model_fn, params, state, table, step, M - 1,
-                               graphs_lib.use_graphs(graphs, data.device))
-            z, delta = state["x"].clone(), state["logdet"].clone()
-            n_dims = int(np.prod(shape[1:]))
-            prior_var = self.sigma_max**2 + self.sigma_data**2
-            prior_logp = -0.5 * (torch.sum(z.reshape(B, -1) ** 2, dim=1) / prior_var
-                                 + n_dims * float(np.log(2.0 * np.pi * prior_var)))
-            bpd = -(prior_logp + delta) / float(np.log(2.0)) / n_dims + 7.0
-            nfe = 2 * (M - 1) if heun else M - 1
-            return bpd, z, torch.tensor(float(nfe), dtype=torch.float32, device=data.device)
+        bpd, z = ode_likelihood(self, "edm_nll", model_fn, params, data, table, M - 1, times, field, heun,
+                                graphs_lib.use_graphs(graphs, data.device), generator, hutchinson_type, epsilon,
+                                prior_var=self.sigma_max**2 + self.sigma_data**2)
+        nfe = 2 * (M - 1) if heun else M - 1
+        return bpd, z, torch.tensor(float(nfe), dtype=torch.float32, device=data.device)
 
     def interpolate(self, model_fn: ModelFn, params: Any, x1: torch.Tensor, x2: torch.Tensor,
                     generator: Optional[torch.Generator] = None, t: Optional[int] = None, lambd: float = 0.5,
@@ -369,12 +333,6 @@ class EDMProcess:
         num_steps = int(t) if t else None
         z1 = self.encode(model_fn, params, x1 * 2.0 - 1.0, num_steps, graphs)
         z2 = self.encode(model_fn, params, x2 * 2.0 - 1.0, num_steps, graphs)
-        f1, f2 = z1.reshape(z1.shape[0], -1), z2.reshape(z2.shape[0], -1)
-        n1 = f1 / torch.linalg.vector_norm(f1, dim=1, keepdim=True)
-        n2 = f2 / torch.linalg.vector_norm(f2, dim=1, keepdim=True)
-        omega = torch.arccos(torch.clamp(torch.sum(n1 * n2, dim=1), -1.0, 1.0))[:, None]
-        so = torch.clamp_min(torch.sin(omega), 1e-6)
-        lam = float(lambd)
-        z = (torch.sin((1.0 - lam) * omega) / so * f1 + torch.sin(lam * omega) / so * f2).reshape(z1.shape)
+        z = slerp(z1, z2, lambd)
         return self.p_sample_loop(model_fn, params, tuple(z.shape), generator, img=z, num_steps=num_steps,
                                   graphs=graphs, noise=noise)

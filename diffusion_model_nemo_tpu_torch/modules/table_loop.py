@@ -13,21 +13,26 @@ churn) live in static buffers, set before every chain: the order-1 first
 and last steps come from zero weights in the table, never from a host
 branch. ``graphs=False`` (and the CPU) runs the same step function eagerly
 on ``table[i]``, the same numbers, so the two loops agree bit for bit.
+
+The ODE families (EDM, rectified flow) share two pieces built on it:
+``ode_likelihood``, the exact NLL on a fixed grid, and ``slerp``, the
+latent interpolation between two encodings.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import graphs as graphs_lib
-from .gaussian_diffusion import fill_static, graph_key, put_frame, static_model_fn
+from .gaussian_diffusion import _randn, fill_static, graph_key, put_frame, static_model_fn
 
-__all__ = ["device_table", "table_loop"]
+__all__ = ["device_table", "draw_epsilon", "ode_likelihood", "slerp", "table_loop"]
 
 Step = Callable[[Any, Dict[str, torch.Tensor], torch.Tensor], None]
+Row = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def device_table(sampler, name: str, coefficients: Callable[[], Dict[str, np.ndarray]], columns: Sequence[str],
@@ -104,3 +109,78 @@ def table_loop(sampler, name: str, model_fn, params, state: Dict[str, torch.Tens
         if frames is not None:
             put_frame(frames, i, frame(static, table[i]))
     return static
+
+
+def draw_epsilon(sampler, shape, generator: Optional[torch.Generator], hutchinson_type: str = "rademacher"):
+    """The trace probe on the sampler's device: Rademacher ±1 or a standard
+    normal (a sampler's ``draw_epsilon`` method)."""
+    if hutchinson_type == "gaussian":
+        return _randn(tuple(shape), generator, sampler.device)
+    bits = torch.randint(0, 2, tuple(shape), generator=generator, device=sampler.device)
+    return bits.to(torch.float32) * 2.0 - 1.0
+
+
+def ode_likelihood(sampler, name: str, model_fn, params, data: torch.Tensor, table: torch.Tensor, n: int,
+                   times: Callable[[torch.Tensor], Row], field: Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor],
+                   heun: bool, graphs: bool, generator: Optional[torch.Generator] = None,
+                   hutchinson_type: str = "rademacher", epsilon: Optional[torch.Tensor] = None,
+                   prior_var: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bits/dim [B], latent z) of ``data`` ([−1, 1]) by the instantaneous
+    change of variables: the augmented state [x, log det] through the rows
+    0 … n−1 of ``table`` (``table_loop`` under ``name``), each row's
+    (t, t_next, dt) from ``times(row)``, Heun or Euler on every transition.
+    ``field(fn, x, t)`` is the ODE's drift; it and the Hutchinson term εᵀJε
+    of each evaluation come from one ``torch.autograd.grad`` (the JAX
+    ``jax.vjp``), so ``model_fn`` must let autograd through. ``epsilon``
+    injects the probe, else it is drawn from ``generator``. Prior
+    N(0, prior_var·I), +7 bits for data scaled from [0, 256]."""
+    if hutchinson_type not in ("rademacher", "gaussian"):
+        raise ValueError("`hutchinson_type` must be one of `rademacher` or `gaussian`")
+    shape = tuple(data.shape)
+    B = shape[0]
+    dims = tuple(range(1, len(shape)))
+
+    def v_div(fn, x, t, probe):
+        """The drift and εᵀJε from one vjp."""
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            v = field(fn, xg, t)
+            (eps_j,) = torch.autograd.grad(v, xg, grad_outputs=probe)
+        return v.detach(), torch.sum(eps_j * probe, dim=dims)
+
+    def step(fn, s, row):
+        t, t_next, dt = times(row)
+        x, ld, probe = s["x"], s["logdet"], s["epsilon"]
+        v1, d1 = v_div(fn, x, t, probe)
+        if heun:
+            v2, d2 = v_div(fn, x + dt * v1, t_next, probe)
+            x_n, ld_n = x + dt * 0.5 * (v1 + v2), ld + dt * 0.5 * (d1 + d2)
+        else:
+            x_n, ld_n = x + dt * v1, ld + dt * d1
+        x.copy_(x_n)
+        ld.copy_(ld_n)
+
+    with torch.inference_mode(False), torch.no_grad():
+        eps = (draw_epsilon(sampler, shape, generator, hutchinson_type) if epsilon is None
+               else epsilon.to(device=data.device, dtype=torch.float32))
+        state = {"x": data.to(torch.float32).clone(), "epsilon": eps.clone(),
+                 "logdet": torch.zeros((B,), dtype=torch.float32, device=data.device)}
+        state = table_loop(sampler, name, model_fn, params, state, table, step, n, graphs)
+        z, delta = state["x"].clone(), state["logdet"].clone()
+        n_dims = int(np.prod(shape[1:]))
+        prior_logp = -0.5 * (torch.sum(z.reshape(B, -1) ** 2, dim=1) / prior_var
+                             + n_dims * float(np.log(2.0 * np.pi * prior_var)))
+        return -(prior_logp + delta) / float(np.log(2.0)) / n_dims + 7.0, z
+
+
+def slerp(z1: torch.Tensor, z2: torch.Tensor, lambd: float) -> torch.Tensor:
+    """Spherical interpolation at ``lambd`` between the rows of two latent
+    batches, each pair's angle from its flattened rows (sin ω floored at
+    1e-6)."""
+    f1, f2 = z1.reshape(z1.shape[0], -1), z2.reshape(z2.shape[0], -1)
+    n1 = f1 / torch.linalg.vector_norm(f1, dim=1, keepdim=True)
+    n2 = f2 / torch.linalg.vector_norm(f2, dim=1, keepdim=True)
+    omega = torch.arccos(torch.clamp(torch.sum(n1 * n2, dim=1), -1.0, 1.0))[:, None]
+    so = torch.clamp_min(torch.sin(omega), 1e-6)
+    lam = float(lambd)
+    return (torch.sin((1.0 - lam) * omega) / so * f1 + torch.sin(lam * omega) / so * f2).reshape(z1.shape)

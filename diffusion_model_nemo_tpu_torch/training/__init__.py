@@ -4,6 +4,7 @@ from .exp_manager import ExpManagerHooks, exp_manager
 from .optim import Optimizer, build_lr_schedule, build_optimizer, clip_by_global_norm, global_norm
 from .posthoc_ema import PostHocEMA
 from .posthoc_ema import reconstruct as reconstruct_posthoc_ema
+from .reflow import ReflowState, ReflowTrainer
 from .trainer import Trainer, TrainState
 
 __all__ = [
@@ -11,6 +12,8 @@ __all__ = [
     "ExpManagerHooks",
     "Optimizer",
     "PostHocEMA",
+    "ReflowState",
+    "ReflowTrainer",
     "Trainer",
     "TrainState",
     "build_lr_schedule",
