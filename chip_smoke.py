@@ -8,7 +8,8 @@ Paths: unet_small (bf16, 32 px) trained at batch 128 and served, on kernels
 #1-#4 (also as ImprovedDDPM, as the class-conditional, guided
 ConditionalDDPM, as ScoreSDE, as WaveGrad's FiLM U-Net, as EDM and
 ConditionalEDM, with ConvNeXt blocks, and as SR3 with a 6-channel stem at
-32 and 64 px, served on /super_resolve and cascaded), and under the JAX package's two
+32 and 64 px, served on /super_resolve and cascaded, as rectified flow, and as
+latent diffusion's U-Net beside its KL autoencoder), and under the JAX package's two
 opt-in switches on #6
 (``DMN_TPU_PALLAS_NORM_BM=1``) and #9 (``DMN_TPU_PALLAS_LINATTN_BLOCK=1``);
 ``Block(x, scale_shift)`` at unet_small's GroupNorm sites on #5 (and #6
@@ -388,6 +389,44 @@ Phases:
           rectified_flow (Heun-10, the GIF), test_rectified_flow (loss,
           exact bits/dim, NFE 50), reflow_rectified_flow (2 steps, pair
           steps 10, a one-step archive; devices=2 refused).
+
+  18. Latent diffusion (bf16, full width, random weights from seed 0),
+      ``[ld]`` lines, each time beside the card's name and power limit:
+     18a the KL autoencoder (examples/configs/latent_diffusion/
+          autoencoder_kl.yaml: dim 64, [1, 2, 4], z 4, factor 4) and
+          LatentDiffusion (latent_ddpm.yaml: the U-Net dim 64, [1, 2, 4] on
+          the latent): launches a call of the encoder and the decoder at
+          32 and 64 px and of the latent U-Net at 32 px (8×8 latent) and
+          64 px (16×16) equal to the gates' (the encoder and decoder 17 #1
+          and one #4 at 32 px; the 32 px U-Net 27 #1 and one #3, the 64 px
+          one also two #2 and one #4),
+          #1-#4 held at every shape with device ms and bound; the
+          reconstruction and the U-Net forward against the plain path;
+     18b (run first, with 18c) the autoencoder's B=128 step against the
+          plain path (loss 1e-2, gradient 5e-2, no launch in the backward),
+          captured == eager (cudnn.deterministic), wall, busy, samples/s;
+          then 3 fitted steps and its archive, which LatentDiffusion
+          restores (18a holds the fitted autoencoder);
+     18c encode, decode and reconstruct at B=64, each a graph == eager bit
+          for bit, wall, busy;
+     18d the latent B=128 step (the encode inside, under no_grad) as 18b;
+          the optimizer, the EMA and a checkpoint hold the U-Net's tensors
+          only;
+     18e DDIM-50 and DPM-20 at B=64, the ancestral T = 1000 chain at B=16
+          and DDIM-50 at 64 px, B=32, each the chain's step graph then the
+          decode graph, == eager bit for bit, launches = the graphs' counts
+          x replays, wall, busy;
+     18f calibrate_scale_factor after a captured sample: the next replay
+          reads the refilled factor, == a fresh eager chain, no graph
+          captured anew;
+     18g interpolate (t = 50, captured == eager, timed), the archive
+          restored without the autoencoder's file (samples bit for bit),
+          /sample of the latent archive (DDIM-50) over a window of four
+          clients (images/s, fill), launches = (a forward x 50 + the
+          decoder) x batches;
+     18h train_autoencoder_kl (2 steps at batch 8, a dump),
+          train_latent_ddpm (calibrated, 2 steps at batch 8),
+          eval_latent_ddpm at batch 8 with DDIM-50 and DPM-Solver++-20.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -5300,6 +5339,417 @@ def check_rectified_flow(port, device, rows):
     log(f"[rf] phase 17 in {time.perf_counter() - t17:.1f} s")
 
 
+
+AE_YAML = "examples/configs/latent_diffusion/autoencoder_kl.yaml"
+LD_YAML = "examples/configs/latent_diffusion/latent_ddpm.yaml"
+LD_FIT_STEPS = 3  # the autoencoder's fitted steps before the archive the latent model restores
+LD_ANC_B, LD64_B, LD_INTERP_B, LD_INTERP_T = 16, 32, 16, 50  # the ancestral chain's, 64 px's, interpolate's
+LD_CLI_B, LD_CLI_STEPS = 8, 2
+
+
+def ae_model(port, device):
+    """AutoencoderKLModel from examples/configs/latent_diffusion/
+    autoencoder_kl.yaml at 32 px, full width (dim 64, [1, 2, 4], z 4, 8
+    groups, bf16; factor 4), random weights from ``SEED``."""
+    from diffusion_model_nemo_tpu_torch.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent / AE_YAML,
+                      overrides=[*CLI_MODEL, "model.train_ds.name=synthetic"]).model
+    return port.models.AutoencoderKLModel(cfg, device=device, seed=SEED)
+
+
+def ld_model(port, device, ae_path, size=32):
+    """LatentDiffusion from examples/configs/latent_diffusion/latent_ddpm.yaml
+    at ``size`` px (the U-Net dim 64, [1, 2, 4], ResNet blocks, bf16, on the
+    size/4 latent, T = 1000 cosine), its first stage restored from
+    ``ae_path`` (``first_stage.restore_from``, the documented route); the
+    YAML's sampler kept as ``base_sampler``."""
+    from diffusion_model_nemo_tpu_torch.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent / LD_YAML, overrides=[
+        f"model.image_size={size}", f"model.diffusion_model.input_dim={size // 4}", "model.train_ds.name=synthetic",
+        f"model.first_stage.restore_from={ae_path}"]).model
+    model = port.models.LatentDiffusion(cfg, device=device, seed=SEED)
+    model.base_sampler = dict(model.cfg.sampler)
+    return model
+
+
+def add_counts(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def ae_derived_counts(port, model, B, size):
+    """{"encode": ..., "decode": ...}: launches a call of each half of the
+    autoencoder at this batch and image size that the gates choose (a
+    shapes-only pass on meta tensors, as ``derived_counts``)."""
+    import torch
+
+    cfg = dict(model.cfg.diffusion_model)
+    net = port.config.get_target(cfg.pop("_target_"))(**cfg).to("meta")
+    s, out = size // net.downsample_factor, {}
+    for what, x in (("encode", torch.empty(B, size, size, net.channels, device="meta")),
+                    ("decode", torch.empty(B, s, s, net.z_channels, device="meta"))):
+        counts = out[what] = {}
+
+        def record(kernel, plain, *args, _counts=counts):
+            _counts[kernel_name(kernel)] = _counts.get(kernel_name(kernel), 0) + 1
+            return plain(*args)
+
+        with mock.patch.object(port.ops.norm, "kernel_call", record), \
+                mock.patch.object(port.ops.attention, "kernel_call", record):
+            getattr(net, what)(x)
+    return out
+
+
+def latent_inputs(model, Bn, s, seed=SEED):
+    import torch
+
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    x = torch.randn(Bn, s, s, model.latent_channels, generator=g, device=model.device)
+    return x, torch.randint(0, 1000, (Bn,), generator=g, device=model.device, dtype=torch.int32)
+
+
+def check_ld_kernels(port, device, rows, ae, ld, ld64):
+    """18a. Launches a call of the autoencoder's encoder and decoder at 32
+    and 64 px and of the latent U-Net at 32 px (8×8 latent) and 64 px
+    (16×16), B=64, each equal to the gates'; every recorded #1-#4 call held
+    against its plain version, its device ms and bound. Returns the
+    per-call counts."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.models.autoencoder_kl import first_stage_call
+
+    net, p = ae.diffusion_model, ae.params
+    calls, expect = {}, {}
+    for size in (32, 64):
+        x = model_inputs(device, size)[0].clamp(-1.0, 1.0)
+        with torch.inference_mode():
+            calls[f"ae_encoder_{size}"] = record_calls(port, None, None, None,
+                                                       run=lambda: first_stage_call(net, p, "encode", x))
+            z = first_stage_call(net, p, "encode", x)[0]
+            calls[f"ae_decoder_{size}"] = record_calls(port, None, None, None,
+                                                       run=lambda: first_stage_call(net, p, "decode", z))
+        d = ae_derived_counts(port, ae, B, size)
+        expect[f"ae_encoder_{size}"], expect[f"ae_decoder_{size}"] = d["encode"], d["decode"]
+    for name, model, s in (("ld_unet_32", ld, 8), ("ld_unet_64", ld64, 16)):
+        calls[name] = record_calls(port, model, *latent_inputs(model, B, s))
+        expect[name] = derived_counts(port, model, B, s)
+    per = {name: per_forward_counts(c) for name, c in calls.items()}
+    for name in calls:
+        log(f"[ld] {name} B={B} launches a call: {json.dumps(per[name])} (the gates': {json.dumps(expect[name])})")
+        assert per[name] == expect[name], (name, per[name], expect[name])
+    for half in ("encoder", "decoder"):
+        assert per[f"ae_{half}_32"] == {"group_norm_silu": 17, "attention_block_small": 1}, per[f"ae_{half}_32"]
+        assert per[f"ae_{half}_64"] == {"group_norm_silu": 17}, per[f"ae_{half}_64"]  # mid N = 256: plain
+    assert per["ld_unet_32"] == {"group_norm_silu": 27, "linear_attention_tokens": 1}, per["ld_unet_32"]
+    assert {"group_norm_silu", "linear_attention_block", "attention_block_small"} <= set(per["ld_unet_64"])
+    hold_kernels(port, calls, rows, tag="ld", timed=True)
+    return per
+
+
+def check_ld_forwards(port, ae, ld):
+    """The autoencoder's reconstruction and the latent U-Net's forward at
+    B=64 against the plain path (bf16 relative L2)."""
+    import torch
+
+    x = model_inputs(ae.device, 32)[0].clamp(-1.0, 1.0)
+    with torch.inference_mode():
+        out_k = ae.decode(ae.encode(x, graphs=False), graphs=False)
+        with plain_path(port):
+            out_p = ae.decode(ae.encode(x, graphs=False), graphs=False)
+    rel = float((out_k - out_p).norm() / out_p.norm())
+    log(f"[forward] ld autoencoder B={B} reconstruction kernels vs plain: rel_l2={rel:.3e} (tol {UNET_REL_TOL})")
+    assert rel <= UNET_REL_TOL and bool(torch.isfinite(out_k).all())
+    check_forward(port, "ld latent unet (8x8x4)", ld, *latent_inputs(ld, B, 8), UNET_REL_TOL)
+
+
+def check_ae_services(port, ae, halves, card):
+    """18c. encode (the mode), decode and reconstruct at B=64, each a
+    captured graph == its eager call bit for bit (cudnn.deterministic),
+    launches = the graph's counts x replays (``halves``: the gates' counts
+    of each half), wall, busy, eager wall."""
+    import torch
+
+    x = model_inputs(ae.device, 32)[0].clamp(-1.0, 1.0)
+    z = torch.randn(B, 8, 8, 4, generator=svc_generator(ae), device=ae.device)
+    cases = (("encode", lambda g: ae.encode(x, graphs=g), halves["encode"]),
+             ("decode", lambda g: ae.decode(z, graphs=g), halves["decode"]),
+             ("reconstruct", lambda g: ae.reconstruct((x + 1.0) * 0.5, graphs=g), add_counts(*halves.values())))
+    for tag, run, expect in cases:
+        with deterministic():
+            ref, first, again = run(False), run(None), run(None)
+            eager_s, _ = walled(lambda: run(False), n=5)
+            port.ops.reset_launch_counts()
+            wall, out = walled(lambda: run(None), n=20)
+            counts = port.ops.launch_counts()
+            busy, _ = device_profile(lambda: run(None), iters=2)
+        assert all(torch.equal(ref, o) for o in (first, again, out)), f"ae {tag}: the graph differs from eager"
+        graph = graph_of(ae.graphs, tag)
+        assert graph.delta == expect, (tag, graph.delta, expect)
+        graph_line(f"ld ae {tag} B={B} (== eager bit for bit, cudnn.deterministic)", wall, busy / 1e3, eager_s,
+                   graph, counts, 20)
+        log(f"[ld] ae {tag} B={B}: captured {wall * 1e3:.3f} ms, busy {busy:.3f} ms, eager {eager_s * 1e3:.3f} ms "
+            f"[{card}]")
+
+
+def check_ae_fit(port, ae, tmp, card):
+    """The autoencoder fitted LD_FIT_STEPS steps at B=128 (captured steps,
+    the configured clip and AdamW betas), then its archive."""
+    import numpy as np
+
+    trainer = port.Trainer(max_steps=LD_FIT_STEPS, log_every_n_steps=1, devices=1, gradient_clip_val=1.0)
+    t0 = time.perf_counter()
+    trainer.fit(ae)
+    fit_s = time.perf_counter() - t0
+    assert (trainer.optimizer.b1, trainer.optimizer.b2) == (0.9, 0.98)
+    assert all(np.isfinite(m["train_loss"]) for m in trainer.logged)
+    path = ae.save_to(os.path.join(tmp, "AutoencoderKL.dmn"))
+    log(f"[ld] autoencoder fit {LD_FIT_STEPS} steps B={TRAIN_B} in {fit_s:.2f} s, logged "
+        f"{json.dumps([{k: round(v, 6) for k, v in m.items()} for m in trainer.logged])}; archive {path} [{card}]")
+    return path
+
+
+def check_ld_frozen(port, ld):
+    """18d. The optimizer's moments, the EMA and a checkpoint's weights hold
+    the U-Net's tensors only; the first stage's weights need no grad."""
+    trainer = port.Trainer(max_steps=1, devices=1)
+    state = trainer.init_state(ld, 1)
+    unet = set(ld.diffusion_model.state_dict())
+    moments = [set(d) for d in state.opt_state.values() if isinstance(d, dict)]
+    ckpt = port.Trainer.checkpoint_state(state, svc_generator(ld), 1)
+    frozen = ld.frozen_tensors()
+    log(f"[ld] trained state: params {len(state.params)}, EMA {len(state.ema_params)}, optimizer moments "
+        f"{[len(m) for m in moments]}, checkpoint params {len(ckpt['params'])} = the U-Net's {len(unet)}; the first "
+        f"stage's {len(frozen)} tensors frozen")
+    assert set(state.params) == set(state.ema_params) == set(ckpt["params"]) == unet
+    assert moments and all(m == unet for m in moments)
+    assert frozen and not any(t.requires_grad for t in frozen)
+
+
+def ld_sampler(model, target, **fields):
+    """The YAML's sampler config (kept as ``model.base_sampler``) with
+    ``target`` and its ``fields``."""
+    model.change_sampler(dict(model.base_sampler, _target_=f"diffusion_model_nemo.modules.{target}", **fields))
+
+
+def check_ld_chain(port, model, size, Bn, target, fields, graph_name, per, dec, card):
+    """18e. ``sample`` with the sampler (EMA weights): the chain's captured
+    steps, then the captured decode; captured == eager bit for bit twice
+    (cudnn.deterministic); launches = the chain graph's counts x replays +
+    the decode graph's (+ the ancestral chain's eager t = 0 step); wall,
+    busy (not traced for the 1000-step chain), eager wall."""
+    import torch
+
+    ld_sampler(model, target, **fields)
+    run = lambda graphs=None: model.sample(Bn, size, generator=svc_generator(model), use_ema=True,  # noqa: E731
+                                           graphs=graphs)
+    with deterministic():
+        eager_s, ref = walled(lambda: run(False))
+        first_s, first = walled(run)  # the captures
+        graph, decode = graph_of(model.sampler.graphs, graph_name), graph_of(model.graphs, "decode")
+        r0, n = graph.info["replays"], 1 if graph_name == "ancestral" else 2
+        port.ops.reset_launch_counts()
+        wall, again = walled(run, n=n)
+        counts = port.ops.launch_counts()
+        replays = graph.info["replays"] - r0
+        busy, _ = device_profile(run, iters=1) if graph_name != "ancestral" else (None, None)
+    assert torch.equal(ref, first) and torch.equal(ref, again), f"{graph_name}: captured != eager"
+    assert tuple(again.shape) == (Bn, size, size, 3) and bool(torch.isfinite(again).all()) and float(again.std()) > 0
+    assert graph.delta == per and decode.delta == dec, (graph_name, graph.delta, decode.delta)
+    extra = add_counts(*([dec] * n), *([per] * n if graph_name == "ancestral" else []))
+    graph_line(f"ld {graph_name} {size} px B={Bn} ({replays // n} step replays a chain, then the decode graph; "
+               f"first call with capture {first_s:.3f} s; == eager bit for bit under cudnn.deterministic)", wall,
+               None if busy is None else busy / 1e3, eager_s, graph, counts, replays, extra)
+    log(f"[ld] {graph_name} {size} px B={Bn}: captured {wall * 1e3:.3f} ms a chain with its decode "
+        f"({Bn / wall:.2f} images/s), busy {'not measured' if busy is None else f'{busy:.3f} ms'}, eager "
+        f"{eager_s * 1e3:.3f} ms [{card}]")
+    return again
+
+
+def check_ld_calibrate(port, ld, card):
+    """18f. A captured DDIM-50 sample, then ``calibrate_scale_factor`` on a
+    B=64 batch: the next captured sample reads the refilled factor and
+    equals a fresh eager chain with it bit for bit, and no graph is
+    captured anew."""
+    import torch
+
+    ld_sampler(ld, "GeneralizedGaussianDiffusion", eta=0.0, ddim_timesteps=DDIM_STEPS)
+    run = lambda graphs=None: ld.sample(B, 32, generator=svc_generator(ld), use_ema=True, graphs=graphs)  # noqa: E731
+    with deterministic():
+        before = run()
+        held = {**ld.graphs, **ld.sampler.graphs}
+        old = ld.scale_factor
+        scale = ld.calibrate_scale_factor(training_batch(ld, B)[0])
+        after, eager = run(), run(False)
+    now = {**ld.graphs, **ld.sampler.graphs}
+    captured = sum(1 for k, g in now.items() if held.get(k) is not g)
+    log(f"[ld] calibrate_scale_factor: {old:.6f} -> {scale:.6f} (cfg {ld.cfg['scale_factor']:.6f}); the next "
+        f"captured DDIM-50 sample == a fresh eager chain bit for bit {torch.equal(after, eager)}, differs from the "
+        f"sample before {not torch.equal(after, before)}; graphs captured anew: {captured} [{card}]")
+    assert torch.equal(after, eager) and not torch.equal(after, before) and captured == 0
+    assert scale != old and abs(ld.cfg["scale_factor"] - scale) == 0
+
+
+def check_ld_interpolate_archive_serving(port, ld, ae_path, per, dec, tmp, card):
+    """18g. ``interpolate`` (the ancestral sampler) at t = LD_INTERP_T,
+    captured == eager, timed; the archive
+    saved, the autoencoder's file moved away, restored: the same weights,
+    factor and DDIM-50 samples bit for bit; ``/sample`` from the latent
+    archive (DDIM-50) over a window of four clients: images/s, fill,
+    launches = (one forward's x 50 + the decoder's) x batches."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    ld_sampler(ld, "GaussianDiffusion")
+    x = model_inputs(ld.device, 32, 2 * LD_INTERP_B)[0].clamp(-1.0, 1.0)
+    x1, x2 = x[:LD_INTERP_B], x[LD_INTERP_B:]
+    gen = lambda: svc_generator(ld)  # noqa: E731
+    with deterministic():
+        ref = ld.interpolate(x1, x2, t=LD_INTERP_T, generator=gen(), graphs=False)
+        first = ld.interpolate(x1, x2, t=LD_INTERP_T, generator=gen())  # the capture
+        wall, out = walled(lambda: ld.interpolate(x1, x2, t=LD_INTERP_T, generator=gen()))
+    assert torch.equal(ref, first) and torch.equal(ref, out) and tuple(out.shape) == tuple(x1.shape)
+    log(f"[ld] interpolate {LD_INTERP_B} pairs at t = {LD_INTERP_T}: captured == eager bit for bit (cudnn."
+        f"deterministic), {wall * 1e3:.3f} ms [{card}]")
+
+    ld_sampler(ld, "GeneralizedGaussianDiffusion", eta=0.0, ddim_timesteps=DDIM_STEPS)
+    path = ld.save_to(os.path.join(tmp, "LatentDDPM.dmn"))
+    moved = ae_path + ".moved"
+    os.rename(ae_path, moved)
+    try:
+        back = port.models.restore_model_from_archive(path, use_ema=False, device=ld.device)
+    finally:
+        os.rename(moved, ae_path)
+    back.base_sampler = dict(ld.base_sampler)
+    ld_sampler(back, "GeneralizedGaussianDiffusion", eta=0.0, ddim_timesteps=DDIM_STEPS)
+    with deterministic():
+        a = ld.sample(B, 32, generator=svc_generator(ld), use_ema=True)
+        b = back.sample(B, 32, generator=svc_generator(back), use_ema=True)
+    same = all(torch.equal(back.params[k], v) for k, v in ld.params.items()) and all(
+        torch.equal(back.first_stage_params[k], v) for k, v in ld.first_stage_params.items())
+    log(f"[ld] archive round trip without the autoencoder's file: {type(back).__name__}, weights equal {same}, "
+        f"scale {back.scale_factor:.6f} == {ld.scale_factor:.6f}, DDIM-50 samples bit for bit {torch.equal(a, b)}")
+    assert type(back).__name__ == "LatentDiffusion" and same and torch.equal(a, b)
+    assert back.scale_factor == ld.scale_factor
+
+    port.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve(path, port=0, max_batch=B, use_ddim_sampler=True, ddim_timesteps=DDIM_STEPS, use_ema=True,
+                   device=str(ld.device))
+    warm_s = time.perf_counter() - t0
+    server.start_background()
+    try:
+        answers, wall, stats, images = client_window(server, "ld /sample")
+    finally:
+        server.shutdown()
+    counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    batches = stats["batches"] + 1  # and the warm-up batch
+    expect = {k: v * batches for k, v in add_counts(*([per] * DDIM_STEPS), dec).items()}
+    log(f"[ld] /sample of the latent archive (DDIM-50, max_batch {B}): warm-up {warm_s:.2f} s, "
+        f"{len(SVC_CLIENT_SIZES)} clients over {wall:.3f} s: {len(answers)} requests, {images} images in "
+        f"{stats['batches']} batches (fill {stats['avg_batch_fill']}), {images / wall:.2f} images/s served, latency "
+        f"{stats['avg_request_latency_ms']} ms, avg device ms a batch {stats['avg_device_ms_per_batch']}; launches "
+        f"{json.dumps(counts)} = (one forward's x {DDIM_STEPS} + the decoder's) x {batches} batches [{card}]")
+    assert counts == expect, (counts, expect)
+
+
+def check_ld_clis(port, tmp):
+    """18h. ``train_autoencoder_kl`` (2 steps at batch 8, a prior-decode
+    dump, the archive), ``train_latent_ddpm`` on it (calibrated on the
+    first batch, 2 steps at batch 8), ``eval_latent_ddpm`` at batch 8 with
+    DDIM-50 and with DPM-Solver++-20."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.cli import eval_latent_ddpm, train_autoencoder_kl, train_latent_ddpm
+
+    # No step checkpoints (phase 8 drives them): the final archives only.
+    common = ["model.train_ds.name=synthetic", f"model.train_ds.batch_size={LD_CLI_B}",
+              f"trainer.max_steps={LD_CLI_STEPS}", f"exp_manager.exp_dir={tmp}/exp",
+              "exp_manager.create_tensorboard_logger=false", "exp_manager.create_checkpoint_callback=false",
+              "+exp_manager.version=run"]
+    t0 = time.perf_counter()
+    port.ops.reset_launch_counts()
+    ae, ae_trainer = train_autoencoder_kl.main([*CLI_MODEL, *common, f"model.save_every={LD_CLI_STEPS}",
+                                                f"+model.results_dir={tmp}/results"])
+    cli_counts(port, "train_autoencoder_kl", ("group_norm_silu", "attention_block_small"))
+    ae_dmn = next(ae_trainer.exp_manager_hooks.log_dir.glob("*.dmn"))
+    assert (Path(tmp) / "results" / "sample-1-1.png").is_file()
+    ae_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    port.ops.reset_launch_counts()
+    ld, trainer = train_latent_ddpm.main([*CLI_MODEL, "model.diffusion_model.input_dim=8",
+                                          f"model.first_stage.restore_from={ae_dmn}", *common, "model.save_every=0"])
+    cli_counts(port, "train_latent_ddpm", UNET_KERNELS[:1] + UNET_KERNELS[2:])
+    dmn = next(trainer.exp_manager_hooks.log_dir.glob("LatentDDPM.dmn"))
+    ld_s = time.perf_counter() - t0
+    assert all(np.isfinite(m["train_loss"]) for m in (*ae_trainer.logged, *trainer.logged)) and ld.scale_factor != 1.0
+    outs = []
+    for i, swap in enumerate(([], ["use_dpm_solver=true", "dpm_steps=20"])):
+        t0 = time.perf_counter()
+        port.ops.reset_launch_counts()
+        out = eval_latent_ddpm.main([f"model_path={dmn}", f"batch_size={LD_CLI_B}", *swap,
+                                     f"output_dir={tmp}/samples{i}", "add_timestamp=false"])
+        cli_counts(port, f"eval_latent_ddpm {swap or 'DDIM-50'}", UNET_KERNELS[:1] + UNET_KERNELS[2:])
+        assert len(list(out.glob("sample_*.png"))) == LD_CLI_B and (out / "samples_grid.png").is_file()
+        outs.append(time.perf_counter() - t0)
+    log(f"[ld] train_autoencoder_kl {LD_CLI_STEPS} steps B={LD_CLI_B} (a dump): {ae_s:.2f} s, logged "
+        f"{json.dumps(ae_trainer.logged)}; train_latent_ddpm {LD_CLI_STEPS} steps B={LD_CLI_B}, calibrated scale "
+        f"{ld.scale_factor:.6f}: {ld_s:.2f} s, logged {json.dumps(trainer.logged)}; eval_latent_ddpm B={LD_CLI_B} "
+        f"DDIM-50 {outs[0]:.2f} s, DPM-Solver++-20 {outs[1]:.2f} s")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NOT_ON_THE_CARD)
+    assert not loaded, f"the latent CLIs loaded {loaded}"
+
+
+def check_latent_diffusion(port, device, rows):
+    """18. Latent diffusion on the card: the KL autoencoder and
+    LatentDiffusion."""
+    t18 = time.perf_counter()
+    card = card_line()  # written beside every [ld] time
+    tmp = tempfile.mkdtemp(prefix="dmn_ld_")
+    cwd = os.getcwd()
+    try:
+        # The autoencoder first (18b, 18c, its fit and archive), so that the
+        # latent models are built once, on the fitted first stage.
+        ae = ae_model(port, device)
+        ae_train = add_counts(*ae_derived_counts(port, ae, TRAIN_B, 32).values())
+        lapped("18b autoencoder step", check_step_vs_plain, port, "ld", "autoencoder", ae, ae_train, card, False,
+               prefix="ld")
+        lapped("18c encode, decode, reconstruct", check_ae_services, port, ae, ae_derived_counts(port, ae, B, 32),
+               card, prefix="ld")
+        ae_path = lapped("18b autoencoder fit", check_ae_fit, port, ae, tmp, card, prefix="ld")
+        ld, ld64 = ld_model(port, device, ae_path), ld_model(port, device, ae_path, size=64)
+        per = lapped("18a kernels", check_ld_kernels, port, device, rows, ae, ld, ld64, prefix="ld")
+        check_ld_forwards(port, ae, ld)
+        ld_train = add_counts(ae_derived_counts(port, ae, TRAIN_B, 32)["encode"], derived_counts(port, ld, TRAIN_B, 8))
+        lapped("18d latent step", check_step_vs_plain, port, "ld", "latent ddpm", ld, ld_train, card, False,
+               prefix="ld")
+        check_ld_frozen(port, ld)
+        dec, dec64 = per["ae_decoder_32"], per["ae_decoder_64"]
+        ddim = {"eta": 0.0, "ddim_timesteps": DDIM_STEPS}
+        chains = (("DDIM-50", ld, 32, B, "GeneralizedGaussianDiffusion", ddim, "ddim"),
+                  ("DPM-20", ld, 32, B, "DPMSolverDiffusion", SVC["dpm"][1], "dpm_solver"),
+                  ("ancestral-1000", ld, 32, LD_ANC_B, "GaussianDiffusion", {}, "ancestral"),
+                  ("64 px DDIM-50", ld64, 64, LD64_B, "GeneralizedGaussianDiffusion", ddim, "ddim"))
+        for tag, model, size, Bn, target, fields, name in chains:
+            unet = per["ld_unet_64"] if size == 64 else per["ld_unet_32"]
+            lapped(f"18e {tag}", check_ld_chain, port, model, size, Bn, target, fields, name, unet,
+                   dec64 if size == 64 else dec, card, prefix="ld")
+        lapped("18f calibrate", check_ld_calibrate, port, ld, card, prefix="ld")
+        lapped("18g interpolate, archive, /sample", check_ld_interpolate_archive_serving, port, ld, ae_path,
+               per["ld_unet_32"], dec, tmp, card, prefix="ld")
+        os.chdir(tmp)
+        lapped("18h CLIs", check_ld_clis, port, tmp, prefix="ld")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[ld] phase 18 in {time.perf_counter() - t18:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -5452,6 +5902,13 @@ def main() -> int:
     # rounds, the one-step student served, the CLIs.
     check_rectified_flow(port, device, rows)
     phase_done("phase 17")
+
+    # 18. Latent diffusion: the KL autoencoder's kernels, step and services,
+    # LatentDiffusion's step with the encode inside, its chains with their
+    # decode, the calibrated factor, interpolate, the archive, /sample, the
+    # three CLIs.
+    check_latent_diffusion(port, device, rows)
+    phase_done("phase 18")
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

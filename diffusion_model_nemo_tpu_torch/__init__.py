@@ -8,18 +8,21 @@ hand-written Hopper kernels (``csrc/``, built at first use by
 Training: ``Trainer(...).fit(DDPM(cfg))`` (``training/``); the model families
 are ``DDPM``, ``ImprovedDDPM``, ``ConditionalDDPM``, ``ScoreSDE``,
 ``WavegradDDPM``, the mel → waveform ``WavegradVocoderModel``, ``EDM``,
-``ConditionalEDM`` and the super-resolution ``SR3``, which
-``pipelines.CascadePipeline`` chains behind a base generator.
+``ConditionalEDM``, the super-resolution ``SR3``, which
+``pipelines.CascadePipeline`` chains behind a base generator,
+``RectifiedFlow``, and latent diffusion: ``AutoencoderKLModel`` (the first
+stage) and ``LatentDiffusion``.
 """
 
 from . import config, data, loss, models, modules, ops, pipelines, serving, training, utils
 from .models import (
-    DDPM, EDM, SR3, ConditionalDDPM, ConditionalEDM, ImprovedDDPM, ScoreSDE, WavegradDDPM, WavegradVocoderModel,
+    DDPM, EDM, SR3, AutoencoderKLModel, ConditionalDDPM, ConditionalEDM, ImprovedDDPM, LatentDiffusion, RectifiedFlow,
+    ScoreSDE, WavegradDDPM, WavegradVocoderModel,
 )
 from .training import Trainer
 
 __all__ = [
     "config", "data", "loss", "models", "modules", "ops", "pipelines", "serving", "training", "utils",
     "DDPM", "ImprovedDDPM", "ConditionalDDPM", "ScoreSDE", "WavegradDDPM", "WavegradVocoderModel", "EDM",
-    "ConditionalEDM", "SR3", "Trainer",
+    "ConditionalEDM", "SR3", "RectifiedFlow", "AutoencoderKLModel", "LatentDiffusion", "Trainer",
 ]

@@ -2,24 +2,27 @@ import logging
 
 from ..modules.parts import not_ported
 from .abstract_diffusion_model import AbstractDiffusionModel, resolve_archive_path
+from .autoencoder_kl import AutoencoderKLModel
 from .conditional_ddpm import ConditionalDDPM
 from .conditional_edm import ConditionalEDM
 from .ddpm import DDPM
 from .edm import EDM
 from .improved_ddpm import ImprovedDDPM
+from .latent_diffusion import LatentDiffusion
 from .rectified_flow import RectifiedFlow
 from .score_sde import ScoreSDE
 from .sr3 import SR3
 from .wavegrad_ddpm import WavegradDDPM
 from .wavegrad_vocoder import WavegradVocoderModel
 
-__all__ = ["AbstractDiffusionModel", "ConditionalDDPM", "ConditionalEDM", "DDPM", "EDM", "ImprovedDDPM", "RectifiedFlow",
-           "ScoreSDE", "SR3", "WavegradDDPM", "WavegradVocoderModel", "restore_model_from_archive"]
+__all__ = ["AbstractDiffusionModel", "AutoencoderKLModel", "ConditionalDDPM", "ConditionalEDM", "DDPM", "EDM",
+           "ImprovedDDPM", "LatentDiffusion", "RectifiedFlow", "ScoreSDE", "SR3", "WavegradDDPM", "WavegradVocoderModel", "restore_model_from_archive"]
 
 _MODEL_CLASSES = {"DDPM": DDPM, "ImprovedDDPM": ImprovedDDPM, "ConditionalDDPM": ConditionalDDPM,
                   "ScoreSDE": ScoreSDE, "WavegradDDPM": WavegradDDPM, "WavegradVocoderModel": WavegradVocoderModel,
                   "EDM": EDM, "ConditionalEDM": ConditionalEDM, "SR3": SR3,
-                  "RectifiedFlow": RectifiedFlow}
+                  "RectifiedFlow": RectifiedFlow, "AutoencoderKLModel": AutoencoderKLModel,
+                  "LatentDiffusion": LatentDiffusion}
 
 
 def restore_model_from_archive(path: str, use_ema: bool = False, device="cuda"):

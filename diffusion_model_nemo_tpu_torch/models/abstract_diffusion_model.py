@@ -100,6 +100,11 @@ class AbstractDiffusionModel:
         2C) says so; None = the network's own ``channels``."""
         return None
 
+    def _example_spatial_size(self) -> int:
+        """The network's spatial input size (JAX's name): the image's,
+        or a latent model's latent size."""
+        return int(self.image_size)
+
     def init_params(self) -> Dict[str, torch.Tensor]:
         """Take the network's weights as ``params`` and copy them to ``ema_params``."""
         self.params = dict(self.diffusion_model.state_dict())

@@ -1,3 +1,4 @@
+from .autoencoder import AutoencoderKL, diagonal_gaussian_kl, diagonal_gaussian_sample
 from .diffusion_process import AbstractDiffusionProcess
 from .dit import DiT
 from .dpm_solver import DPMSolverDiffusion
@@ -17,6 +18,7 @@ from .wavegrad_diffusion import WaveGradDiffusion
 
 __all__ = [
     "AbstractDiffusionProcess",
+    "AutoencoderKL",
     "DiT",
     "DPMSolverDiffusion",
     "EDMProcess",
@@ -35,6 +37,8 @@ __all__ = [
     "WaveGradDiffusion",
     "WaveGradUNet",
     "WaveGradVocoder",
+    "diagonal_gaussian_kl",
+    "diagonal_gaussian_sample",
     "repaint_loop",
     "repaint_schedule",
     "subVPSDE",

@@ -29,6 +29,9 @@ replay needs nothing from the host.
   would count nothing. The counts a capture made are taken back and added
   again at every replay: launches stay "calls made" (captured x replays,
   plus the warm-up's own).
+- ``captured_call``: a one-shot function of tensors (the autoencoder's
+  encode, decode and reconstruct, the latent sampler's decode) as a
+  replay: its inputs are copied into static buffers, its outputs cloned.
 - A replay that writes the tensors it is held to (the training step) bumps
   their ``_version``, as an eager in-place update does, so that nothing
   derived from their old values is used again, and keeps the new versions.
@@ -50,7 +53,7 @@ import torch
 
 from .weights import _derived
 
-__all__ = ["Graph", "cached", "use_graphs"]
+__all__ = ["Graph", "cached", "captured_call", "use_graphs"]
 
 # The switches the wrappers read at call time (the JAX package's opt-in
 # routes): a graph keeps the routes of its capture, so they key it too.
@@ -212,3 +215,32 @@ def cached(store: Dict[tuple, Graph], key: tuple, sources: Iterable[torch.Tensor
     graph.sources, graph.versions = sources, _versions(sources)
     store[key] = graph
     return graph, True
+
+
+def captured_call(store: Dict[tuple, Graph], name: str, fn: Callable[..., Any], inputs: Dict[str, torch.Tensor],
+                  sources: Iterable[torch.Tensor], graphs: Optional[bool] = None):
+    """``fn(**inputs)`` (a tensor or a tuple of tensors) as a replay of a
+    graph kept in ``store``, keyed on ``name`` and the inputs' shapes and
+    dtypes and held to ``sources`` (the weights it reads): the first call
+    runs ``fn`` eagerly on static copies of the inputs and captures it,
+    later calls copy the inputs in and replay. Returns clones (never the
+    graph's own buffers). ``graphs``: as ``use_graphs`` (default: on CUDA);
+    False calls ``fn(**inputs)``. Tensors ``fn`` reads besides its inputs
+    and sources (a 0-d scale, say) are read at every replay, as buffers."""
+    device = next(iter(inputs.values())).device
+    if not use_graphs(graphs, device):
+        return fn(**inputs)
+
+    def build():
+        static = {k: v.clone() for k, v in inputs.items()}
+        return Graph(name, lambda: fn(**static), static, device=device, warmup=lambda: fn(**static))
+
+    key = (name, *((k, tuple(v.shape), v.dtype, v.device) for k, v in inputs.items()))
+    graph, built = cached(store, key, sources, build)
+    if built:
+        out = graph.warmup_out
+    else:
+        for k, v in inputs.items():
+            graph.static[k].copy_(v)
+        out = graph.replay()
+    return tuple(v.clone() for v in out) if isinstance(out, tuple) else out.clone()

@@ -337,7 +337,8 @@ class Trainer:
         moments = [v for d in state.opt_state.values() if isinstance(d, dict) for v in d.values()]
         key = ("train_step", *((k, tuple(v.shape), v.dtype) for k, v in {**host, **draws}.items()))
         tables = getattr(model.sampler, "table_tensors", tuple)()  # q_sample's, the noise level's
-        graph, built = graphs_lib.cached(state.graphs, key, [*writes, *moments, *tables], build)
+        frozen = getattr(model, "frozen_tensors", tuple)()  # a latent model's first stage
+        graph, built = graphs_lib.cached(state.graphs, key, [*writes, *moments, *tables, *frozen], build)
         if built:
             out = graph.warmup_out
         else:

@@ -3,8 +3,10 @@
 
 The port's modules carry the flax module names, so each flax leaf maps to
 one ``state_dict`` entry (``down_0_block1/block1/proj/kernel`` →
-``down_0_block1.block1.proj.weight``). The transforms, chosen by the type of
-the owning port module:
+``down_0_block1.block1.proj.weight``), at any depth: the autoencoder's
+``setup()`` submodules nest it one level further
+(``encoder/down_0_block1/...``, ``decoder/up_1_upsample/...``). The
+transforms, chosen by the type of the owning port module:
 
 - ``Conv2d``: HWIO → OIHW;
 - ``Conv1d`` (the vocoder's): [K, I, O] → [O, I, K];

@@ -37,6 +37,14 @@ TINY = [
 F32_REL_L2 = 2e-4  # tests/test_torch_export.py:78
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rel_l2(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
@@ -46,11 +54,18 @@ def _rel_l2(a, b) -> float:
 def jmodel():
     """The JAX DDPM with its own weights and an EMA that differs from them."""
     model = JDDPM(cfg=j_load_config(YAML, overrides=TINY).model)
-    model.init_params(jax.random.PRNGKey(0))
-    leaves, treedef = jax.tree.flatten(model.params)
-    keys = jax.random.split(jax.random.PRNGKey(1), len(leaves))
-    model.ema_params = jax.tree.unflatten(
-        treedef, [p + 0.05 * jax.random.normal(k, p.shape) for p, k in zip(leaves, keys)])
+    # ``init_params``'s init (its example input and key), compiled once
+    # instead of run op by op.
+    x, t = jnp.zeros((1, IMG, IMG, 3), jnp.float32), jnp.zeros((1,), jnp.float32)
+    model.params = jax.jit(model.diffusion_model.init)(jax.random.PRNGKey(0), x, t)["params"]
+
+    @jax.jit
+    def perturbed(params):
+        leaves, treedef = jax.tree.flatten(params)
+        keys = jax.random.split(jax.random.PRNGKey(1), len(leaves))
+        return jax.tree.unflatten(treedef, [p + 0.05 * jax.random.normal(k, p.shape) for p, k in zip(leaves, keys)])
+
+    model.ema_params = perturbed(model.params)
     return model
 
 

@@ -39,6 +39,14 @@ TINY = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     """train_ddpm for 6 steps (dumps at 3 and 6, checkpoints at 3 and 6),

@@ -46,6 +46,14 @@ COND = ["model.num_classes=4"]
 B = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _model(extra=()):
     return ConditionalEDM(load_config(YAML, overrides=[*TINY, *COND, *extra]).model, device="cpu", seed=0)
 

@@ -10,6 +10,7 @@ overrides, and each package's ``to_yaml`` is read back by the other reader.
 from pathlib import Path
 
 import pytest
+import torch
 import yaml
 
 from diffusion_model_nemo_tpu.config import yaml_config as J
@@ -40,6 +41,14 @@ OVERRIDES = [
     "+model.q='1.0'",
     "model.channels=1",
 ]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_every_config_file_is_covered():

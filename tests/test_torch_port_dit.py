@@ -45,6 +45,14 @@ BF16_REL_L2 = 2e-2
 BF16_ELEM = 1e-1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _perturb_zero_leaves(params, seed=0, std=0.02):
     """Redraw every all-zero leaf (adaLN-Zero kernels, every bias) from a
     seeded N(0, std²)."""

@@ -52,6 +52,14 @@ ANCESTRAL = "diffusion_model_nemo.modules.GaussianDiffusion"
 CHAIN_TOL = 1e-3  # the DDIM chain against JAX (tests/test_torch_port_unet.py)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _model(seed=0):
     return DDPM(load_config(YAML, overrides=TINY).model, device="cpu", seed=seed)
 

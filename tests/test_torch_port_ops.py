@@ -54,6 +54,14 @@ _JTOKENS = jax.jit(
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(a, b, tol):
     np.testing.assert_allclose(
         np.asarray(a, np.float32), np.asarray(b, np.float32), rtol=tol, atol=tol

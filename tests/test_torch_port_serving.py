@@ -31,6 +31,14 @@ IMG = 8
 MAX_BATCH = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tiny_model():
     cfg = unet_small_model_config(image_size=IMG, timesteps=10)
     cfg["diffusion_model"].update(dim=16, dim_mults=[1, 2])

@@ -31,6 +31,14 @@ BF16_TOL = 2e-2
 FAST = dict(device="cpu", reps=1, rounds=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _finite_rows(rows):
     assert rows and all(math.isfinite(r["us"]) and r["us"] > 0 and r["device"] == "cpu" for r in rows)
 
@@ -152,7 +160,7 @@ def test_tool_runs_as_a_module_without_jax(name):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'diffusion_model_nemo_tpu'))\n"
         "assert not bad, bad\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=300,
                          capture_output=True, text=True)
     assert "us" in out.stdout

@@ -46,10 +46,18 @@ from diffusion_model_nemo_tpu_torch.training import build_lr_schedule, build_opt
 from diffusion_model_nemo_tpu_torch.training.optim import clip_by_global_norm, global_norm
 from diffusion_model_nemo_tpu_torch.utils.weights import from_flax_params, to_flax_params
 
-STEPS = 8
+STEPS = 4
 IMG = 8
 BATCH = 4
 NET = dict(dim=8, dim_mults=[1, 2], resnet_block_groups=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 # ------------------------------------------------------------------- loss --
@@ -299,7 +307,6 @@ def run_lockstep(dtype: str):
     jloss = JLoss("l2", "mean")
     tx, j_sched = j_build_optimizer(cfg["optim"], STEPS, grad_clip=1.0)
 
-    @jax.jit
     def j_step(params, opt_state, ema, x0, t, noise, step):
         def loss_fn(p):
             x_t = proc.q_sample(x_start=x0, t=t, noise=noise)
@@ -313,6 +320,10 @@ def run_lockstep(dtype: str):
 
     images, flips, ts, noises = _draws()
     j_opt, j_ema = tx.init(jparams), jax.tree.map(jnp.copy, jparams)
+    # One compile at XLA's backend optimization level 0 (the step's shapes do not change).
+    j_step = jax.jit(j_step).lower(jparams, j_opt, j_ema, jnp.zeros((BATCH, IMG, IMG, 3)), jnp.asarray(ts[0]),
+                                   jnp.asarray(noises[0]), jnp.int32(0)).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
     out = {"ours": [], "ref": [], "gnorm": [], "ref_gnorm": [], "lr": [], "ref_lr": []}
     for i in range(STEPS):
         out["lr"].append(trainer.lr_schedule(state.step))
@@ -355,12 +366,12 @@ def test_lockstep_params_and_ema_match_jax(lockstep_f32, which):
     flat_ours = dict(jax.tree_util.tree_leaves_with_path(ours))
     flat_ref = jax.tree_util.tree_leaves_with_path(ref)
     assert len(flat_ours) == len(flat_ref)
-    moved = 0.0
     for path, leaf in flat_ref:
         np.testing.assert_allclose(flat_ours[path], leaf, atol=5e-4, rtol=5e-3, err_msg=str(path))
-    for path, leaf in jax.tree_util.tree_leaves_with_path(lockstep_f32["start"]):
-        moved = max(moved, float(np.abs(flat_ours[path] - leaf).max()))
-    assert moved > 1e-4  # the comparison is not vacuous: the leaves moved
+    moved = {path: float(np.abs(flat_ours[path] - leaf).max())
+             for path, leaf in jax.tree_util.tree_leaves_with_path(lockstep_f32["start"])}
+    # The comparison is not vacuous: every leaf moved, the most by more than 1e-4.
+    assert max(moved.values()) > 1e-4 and min(moved.values()) > 0, min(moved.items(), key=lambda kv: kv[1])
 
 
 def test_lockstep_bf16_losses_match_jax():

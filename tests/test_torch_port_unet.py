@@ -53,6 +53,14 @@ BF16_REL_L2 = 2e-2
 BF16_ELEM = 1e-1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _nets(dtype: str, params):
     """The JAX U-Net's jitted apply and the port's U-Net with the same weights."""
     jnet = JUnet(**NET, dtype=dtype)
@@ -321,7 +329,7 @@ def test_port_import_loads_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
         "assert 'diffusion_model_nemo_tpu_torch' in sys.modules\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
 
 
