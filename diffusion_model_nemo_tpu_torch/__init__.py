@@ -10,19 +10,22 @@ are ``DDPM``, ``ImprovedDDPM``, ``ConditionalDDPM``, ``ScoreSDE``,
 ``WavegradDDPM``, the mel → waveform ``WavegradVocoderModel``, ``EDM``,
 ``ConditionalEDM``, the super-resolution ``SR3``, which
 ``pipelines.CascadePipeline`` chains behind a base generator,
-``RectifiedFlow``, and latent diffusion: ``AutoencoderKLModel`` (the first
-stage) and ``LatentDiffusion``.
+``RectifiedFlow``, latent diffusion: ``AutoencoderKLModel`` (the first
+stage) and ``LatentDiffusion``, and the prompted ``TextConditionalDDPM`` (a
+cross-attention DiT over byte tokens). ``metrics/`` holds the host-side
+sample-quality scores (FID statistics, IS, KID, PSNR, SSIM).
 """
 
-from . import config, data, loss, models, modules, ops, pipelines, serving, training, utils
+from . import config, data, loss, metrics, models, modules, ops, pipelines, serving, training, utils
 from .models import (
     DDPM, EDM, SR3, AutoencoderKLModel, ConditionalDDPM, ConditionalEDM, ImprovedDDPM, LatentDiffusion, RectifiedFlow,
-    ScoreSDE, WavegradDDPM, WavegradVocoderModel,
+    ScoreSDE, TextConditionalDDPM, WavegradDDPM, WavegradVocoderModel,
 )
 from .training import Trainer
 
 __all__ = [
-    "config", "data", "loss", "models", "modules", "ops", "pipelines", "serving", "training", "utils",
+    "config", "data", "loss", "metrics", "models", "modules", "ops", "pipelines", "serving", "training", "utils",
     "DDPM", "ImprovedDDPM", "ConditionalDDPM", "ScoreSDE", "WavegradDDPM", "WavegradVocoderModel", "EDM",
-    "ConditionalEDM", "SR3", "RectifiedFlow", "AutoencoderKLModel", "LatentDiffusion", "Trainer",
+    "ConditionalEDM", "SR3", "RectifiedFlow", "AutoencoderKLModel", "LatentDiffusion", "TextConditionalDDPM",
+    "Trainer",
 ]

@@ -1,5 +1,6 @@
-"""Serve a DDPM, ImprovedDDPM, ConditionalDDPM, ScoreSDE, WavegradDDPM or
-WaveGrad vocoder archive as a batched sampling daemon with the port
+"""Serve an archive of any ported family (DDPM, ImprovedDDPM,
+ConditionalDDPM, TextConditionalDDPM, ScoreSDE, WavegradDDPM, the WaveGrad
+vocoder, ...) as a batched sampling daemon with the port
 (counterpart of ``examples/serve.py``; the archive's recorded class is
 restored through ``restore_model_from_archive``).
 
@@ -9,6 +10,9 @@ restored through ``restore_model_from_archive``).
     curl -s localhost:8000/healthz
     curl -s -X POST localhost:8000/sample -d '{"num_images": 4, "seed": 0, "format": "png"}'
     curl -s -X POST localhost:8000/sample -d '{"num_images": 4, "label": 3, "guidance_scale": 3.0}'
+    # a TextConditionalDDPM archive takes prompts (requests with different prompts share a batch):
+    curl -s -X POST localhost:8000/sample -d '{"num_images": 4, "text": "a photo of class 3",
+        "guidance_scale": 3.0, "negative_text": "a photo of class 5"}'
     # POST /edit {"images_npy": <base64 of np.save'd [N, H, W, C]>, "strength": 0.5, "seed": 0}
 
     ... use_dpm_solver=true dpm_steps=20   # or use_karras_sampler / use_unipc (UniPC > Karras > DPM > DDIM)

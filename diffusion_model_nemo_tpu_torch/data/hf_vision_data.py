@@ -14,9 +14,11 @@ fetches items on ``num_workers`` threads, so both packages give
 bit-identical batches; ``set_position`` replays the stream from (epoch,
 batch) for a deterministic resume. The synthetic sets have no splits: a
 ``test`` loader (``mode="test"``, no shuffle) reads the same items in order,
-as in the JAX package. Not ported: ``caption_len`` (the text family's byte
-tokenizer), Hugging Face datasets (they need a download) and multi-process
-sharding.
+as in the JAX package. ``caption_len = L`` adds byte-tokenized captions
+(``tokens`` [L] int32 an item, ``utils/text.py``): the synthetic set's
+``"a photo of class {label}"``, an image directory's ``captions.txt`` (one
+line an image, in the sorted file order). Not ported: Hugging Face datasets
+(they need a download) and multi-process sharding.
 """
 
 from __future__ import annotations
@@ -27,31 +29,39 @@ from typing import Dict, Iterator, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from ..modules.parts import not_ported
 from ..utils.image import decode_png, resize_bilinear_uint8
+from ..utils.text import ByteTokenizer
 
 __all__ = ["SyntheticVisionDataset", "SyntheticAudioDataset", "FileVisionDataset", "DataLoader",
            "build_dataloader", "preprocess_batch", "to_uint8_nhwc", "read_image_rgb"]
 
 
 class SyntheticVisionDataset:
-    """Deterministic random uint8 images (at most 512 distinct) and labels."""
+    """Deterministic random uint8 images (at most 512 distinct) and labels;
+    with ``caption_len`` the tokens of ``"a photo of class {label}"`` too."""
 
     def __init__(self, image_size: int = 32, channels: int = 3, num_classes: int = 10,
-                 length: int = 512, seed: int = 0):
+                 length: int = 512, seed: int = 0, caption_len: int = 0):
         self.image_size, self.channels, self.num_classes = image_size, channels, num_classes
         self.length = length
         rng = np.random.RandomState(seed)
         n = min(length, 512)
         self._images = rng.randint(0, 256, size=(n, image_size, image_size, channels), dtype=np.uint8)
         self._labels = rng.randint(0, num_classes, size=(n,)).astype(np.int32)
+        self._tokens = None
+        if caption_len:
+            self._tokens = ByteTokenizer(int(caption_len)).encode_batch(
+                [f"a photo of class {int(label)}" for label in self._labels])
 
     def __len__(self) -> int:
         return self.length
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         i = int(idx) % self._images.shape[0]
-        return {"image": self._images[i], "label": self._labels[i]}
+        out = {"image": self._images[i], "label": self._labels[i]}
+        if self._tokens is not None:
+            out["tokens"] = self._tokens[i]
+        return out
 
 
 def to_uint8_nhwc(arr: np.ndarray) -> np.ndarray:
@@ -103,18 +113,20 @@ class FileVisionDataset:
     - ``*.npy``: one image array (no labels);
     - a directory of image files (png / jpg / jpeg / bmp, sorted by name),
       read lazily as RGB (``read_image_rgb``), with an optional
-      ``labels.npy`` aligned to the sorted files.
+      ``labels.npy`` aligned to the sorted files and, under
+      ``caption_len``, an optional ``captions.txt`` (one caption a line,
+      in the same order), byte-tokenized.
 
     Arrays may be NCHW or NHWC, uint8 or floats in [0, 1] / [-1, 1]
     (``to_uint8_nhwc``)."""
 
     _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
 
-    def __init__(self, path: str, image_key: str = "images", label_key: str = "labels"):
+    def __init__(self, path: str, image_key: str = "images", label_key: str = "labels", caption_len: int = 0):
         p = Path(path)
         if not p.exists():
             raise FileNotFoundError(f"FileVisionDataset path does not exist: {path}")
-        self._files = self._images = self._labels = None
+        self._files = self._images = self._labels = self._tokens = None
         if p.is_dir():
             self._files = sorted(f for f in p.iterdir() if f.suffix.lower() in self._IMG_EXTS)
             if not self._files:
@@ -124,6 +136,12 @@ class FileVisionDataset:
                 self._labels = np.load(lbl).astype(np.int32)
                 if len(self._labels) != len(self._files):
                     raise ValueError(f"labels.npy has {len(self._labels)} entries for {len(self._files)} image files")
+            cap = p / "captions.txt"
+            if caption_len and cap.exists():
+                lines = cap.read_text().splitlines()
+                if len(lines) != len(self._files):
+                    raise ValueError(f"captions.txt has {len(lines)} lines for {len(self._files)} image files")
+                self._tokens = ByteTokenizer(int(caption_len)).encode_batch(lines)
         elif p.suffix == ".npz":
             data = np.load(p)
             if image_key not in data:
@@ -144,6 +162,8 @@ class FileVisionDataset:
         out = {"image": read_image_rgb(self._files[i]) if self._files is not None else self._images[i]}
         if self._labels is not None:
             out["label"] = np.int32(self._labels[i])
+        if self._tokens is not None:
+            out["tokens"] = self._tokens[i]
         return out
 
 
@@ -236,24 +256,24 @@ class DataLoader:
 def build_dataloader(cfg: Mapping, mode: str) -> DataLoader:
     """From a reference-style ``train_ds`` block: ``name: synthetic``,
     ``synthetic_audio`` or ``file`` (``path``, ``image_key``,
-    ``label_key``), with ``resize_to`` and ``num_workers``. A Hugging Face
-    dataset name raises: it needs a download. ``caption_len`` raises: it
-    needs the text family's tokenizer."""
+    ``label_key``), with ``resize_to``, ``num_workers`` and
+    ``caption_len`` (the image sets' tokenized captions). A Hugging Face
+    dataset name raises: it needs a download."""
     name = str(cfg.get("name"))
-    if cfg.get("caption_len"):
-        raise not_ported("build_dataloader", f"caption_len={cfg.get('caption_len')}", "text-conditioning family's")
+    caption_len = int(cfg.get("caption_len", 0) or 0)
     if name == "synthetic_audio":
         dataset = SyntheticAudioDataset(segment_length=int(cfg.get("segment_length", 7200)),
                                         length=int(cfg.get("length", 256)), mode=mode)
     elif name == "file":
         dataset = FileVisionDataset(path=str(cfg.get("path")), image_key=str(cfg.get("image_key", "images")),
-                                    label_key=str(cfg.get("label_key", "labels")))
+                                    label_key=str(cfg.get("label_key", "labels")), caption_len=caption_len)
     elif name.startswith("synthetic"):
         dataset = SyntheticVisionDataset(
             image_size=int(cfg.get("image_size", 32)),
             channels=int(cfg.get("channels", 3)),
             num_classes=int(cfg.get("num_classes", 10) or 10),
             length=int(cfg.get("length", 512)),
+            caption_len=caption_len,
         )
     else:
         raise NotImplementedError(
@@ -278,7 +298,8 @@ def preprocess_batch(
     """uint8 NHWC (a numpy array, or a tensor already on ``device``) →
     float32 in [-1, 1] on ``device``, then a horizontal flip of the samples
     where ``flip`` (a [B] bool tensor, drawn by the caller) is true — the
-    JAX package draws it with ``bernoulli(key, 0.5)``."""
+    JAX package draws it with ``bernoulli(key, 0.5)``. Labels and caption
+    tokens go along as int32."""
     img = batch["image"]
     if not torch.is_tensor(img):
         img = torch.as_tensor(np.ascontiguousarray(img))
@@ -291,4 +312,8 @@ def preprocess_batch(
         label = batch["label"]
         label = label if torch.is_tensor(label) else torch.as_tensor(np.asarray(label, np.int32))
         out["label"] = label.to(device=device, dtype=torch.int32)
+    if "tokens" in batch:
+        tokens = batch["tokens"]
+        tokens = tokens if torch.is_tensor(tokens) else torch.as_tensor(np.asarray(tokens, np.int32))
+        out["tokens"] = tokens.to(device=device, dtype=torch.int32)
     return out

@@ -12,17 +12,19 @@ from .latent_diffusion import LatentDiffusion
 from .rectified_flow import RectifiedFlow
 from .score_sde import ScoreSDE
 from .sr3 import SR3
+from .text_conditional_ddpm import TextConditionalDDPM
 from .wavegrad_ddpm import WavegradDDPM
 from .wavegrad_vocoder import WavegradVocoderModel
 
 __all__ = ["AbstractDiffusionModel", "AutoencoderKLModel", "ConditionalDDPM", "ConditionalEDM", "DDPM", "EDM",
-           "ImprovedDDPM", "LatentDiffusion", "RectifiedFlow", "ScoreSDE", "SR3", "WavegradDDPM", "WavegradVocoderModel", "restore_model_from_archive"]
+           "ImprovedDDPM", "LatentDiffusion", "RectifiedFlow", "ScoreSDE", "SR3", "TextConditionalDDPM", "WavegradDDPM",
+           "WavegradVocoderModel", "restore_model_from_archive"]
 
 _MODEL_CLASSES = {"DDPM": DDPM, "ImprovedDDPM": ImprovedDDPM, "ConditionalDDPM": ConditionalDDPM,
                   "ScoreSDE": ScoreSDE, "WavegradDDPM": WavegradDDPM, "WavegradVocoderModel": WavegradVocoderModel,
                   "EDM": EDM, "ConditionalEDM": ConditionalEDM, "SR3": SR3,
                   "RectifiedFlow": RectifiedFlow, "AutoencoderKLModel": AutoencoderKLModel,
-                  "LatentDiffusion": LatentDiffusion}
+                  "LatentDiffusion": LatentDiffusion, "TextConditionalDDPM": TextConditionalDDPM}
 
 
 def restore_model_from_archive(path: str, use_ema: bool = False, device="cuda"):

@@ -112,25 +112,31 @@ class AbstractDiffusionModel:
         return self.params
 
     def model_fn(self, params, x: torch.Tensor, t: torch.Tensor,
-                 classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 classes: Optional[torch.Tensor] = None, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The network with ``params`` (inference); ``classes`` [B] int for
-        a network built with ``num_classes``."""
+        a network built with ``num_classes``, ``context`` (tokens or a float
+        sequence) for one built with ``context_dim``."""
+        kwargs = {} if context is None else {"context": context}
         with torch.inference_mode():
-            return self.train_model_fn(params, x, t, classes)
+            return self.train_model_fn(params, x, t, classes, **kwargs)
 
     def train_model_fn(self, params, x: torch.Tensor, t: torch.Tensor,
                        classes: Optional[torch.Tensor] = None,
                        dropout_masks: Optional[Dict[str, torch.Tensor]] = None,
-                       aug_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       aug_cond: Optional[torch.Tensor] = None,
+                       context: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``model_fn`` with autograd on: gradients reach ``params``;
         ``dropout_masks`` ({site: keep mask}) turn the network's dropout on;
         ``aug_cond`` is an augmentation descriptor (a network with
-        ``aug_dim``)."""
+        ``aug_dim``); ``context`` the sequence a cross-attention network
+        attends to."""
         kwargs = {} if classes is None else {"classes": classes}
         if dropout_masks:
             kwargs["dropout_masks"] = dropout_masks
         if aug_cond is not None:
             kwargs["aug_cond"] = aug_cond
+        if context is not None:
+            kwargs["context"] = context
         return functional_call(self.diffusion_model, params, (x, t), kwargs)
 
     def get_model_fn(self, batch: Optional[Dict] = None, training: bool = False, label_mask=None,

@@ -19,16 +19,32 @@ U-Net's zero row.
 
 ``dropout`` acts in training only, on the self-attention output and the MLP
 output of each block (flax sites ``block_<i>/Dropout_0`` and
-``block_<i>/Dropout_1``), through injected keep masks (``dropout_shapes``);
-with no masks the forward is the deterministic one.
+``block_<i>/Dropout_1``; with cross-attention ``Dropout_1`` is its output and
+the MLP's is ``Dropout_2``, as flax numbers the sites in call order),
+through injected keep masks (``dropout_shapes``); with no masks the forward
+is the deterministic one.
 
 ``aug_dim = D`` adds ``aug_embed``, a zero-initialised no-bias Dense [D →
 dim] on the augmentation descriptor ``aug_cond`` [B, D] (None = zeros),
 added to c after the class embedding, as in the JAX DiT.
 
+``context_dim = D`` adds a cross-attention branch to every block, after the
+self-attention and before the MLP: a parameter-free LayerNorm ``norm_ca``,
+queries ``ca_q`` from the image tokens, keys and values ``ca_kv`` from the
+context sequence, and a zero-initialised ``ca_out`` added to x with no
+gate. The context is integer tokens [B, L] (``context_vocab`` > 0: embedded
+by ``context_embed`` [vocab, D] plus a fixed 1-D sin-cos table; id 0 is PAD
+and masked, position 0 always attended, so an all-PAD row attends to the
+PAD embedding alone) or a float [B, L, D] sequence from an outside encoder
+(no mask); None is the null context, one PAD token. As in the JAX block,
+both products of the branch are float32 from operands in the compute
+dtype, its softmax float32 with masked logits at the finite −1e9; it stays
+plain torch ops (the JAX package computes it outside any Pallas kernel).
+In bf16 the products are exact whatever TF32 says (a bf16 value fits
+TF32); in float32 they rely on PyTorch's default, TF32 off for matmuls.
+
 Options of the JAX DiT that later slices bring raise
-``NotImplementedError``: mixture-of-experts MLPs, cross-attention context
-and sequence parallelism.
+``NotImplementedError``: mixture-of-experts MLPs and sequence parallelism.
 """
 
 from __future__ import annotations
@@ -47,7 +63,18 @@ from .parts import (
     Conv2d, Dense, Embed, SinusoidalPositionEmbeddings, dropout, not_ported, remat_call, resolve_dtype,
 )
 
-__all__ = ["DiT", "DiTBlock", "sincos_position_embedding_2d", "depth_to_space"]
+__all__ = ["DiT", "DiTBlock", "sincos_position_embedding_1d", "sincos_position_embedding_2d", "depth_to_space"]
+
+
+def sincos_position_embedding_1d(n: int, dim: int) -> np.ndarray:
+    """Fixed 1-D sin‖cos table ``[n, dim]`` (base 10000) for the context
+    token sequence."""
+    if dim % 2:
+        raise ValueError(f"1-D position embedding needs dim % 2 == 0, got {dim}")
+    half = dim // 2
+    freq = np.exp(-math.log(10000.0) * np.arange(half) / half)
+    ang = np.arange(n, dtype=np.float64)[:, None] * freq[None, :]
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
 
 
 def sincos_position_embedding_2d(h: int, w: int, dim: int) -> np.ndarray:
@@ -90,27 +117,53 @@ def _modulate(h: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torc
 
 
 class DiTBlock(nn.Module):
-    """Pre-LN transformer block with adaLN-Zero conditioning."""
+    """Pre-LN transformer block with adaLN-Zero conditioning, and with
+    ``context_dim`` a cross-attention branch between the self-attention and
+    the MLP."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0, dtype=torch.float32,
-                 dropout: Optional[float] = None):
+                 dropout: Optional[float] = None, context_dim: int = 0):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} not divisible by heads {heads}")
         self.dim, self.heads, self.head_dim = dim, heads, dim // heads
         self.dropout = float(dropout or 0.0)
-        dt = resolve_dtype(dtype)
+        self.dtype = dt = resolve_dtype(dtype)
         hidden = int(dim * mlp_ratio)
         self.adaln_mod = Dense(dim, 6 * dim, dtype=dt)
         self.qkv = Dense(dim, 3 * dim, dtype=dt)
         self.attn_out = Dense(dim, dim, dtype=dt)
+        self.cross_attention = bool(context_dim)
+        if self.cross_attention:
+            self.ca_q = Dense(dim, dim, dtype=dt)
+            self.ca_kv = Dense(context_dim, 2 * dim, dtype=dt)
+            self.ca_out = Dense(dim, dim, dtype=dt)
         self.mlp_in = Dense(dim, hidden, dtype=dt)
         self.mlp_out = Dense(hidden, dim, dtype=dt)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
-                mlp_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``attn_mask`` / ``mlp_mask``: training's keep masks of the two
-        dropout sites (the attention and MLP outputs, before their gates)."""
+    def _cross_attention(self, x: torch.Tensor, ctx: torch.Tensor, ctx_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """``ca_out`` of the attention from x's tokens to ``ctx`` [B, L,
+        context_dim] (``ctx_mask`` [B, L] bool, None = every position)."""
+        B, N, D = x.shape
+        L = ctx.shape[1]
+        q = self.ca_q(_layer_norm(x)).reshape(B, N, self.heads, self.head_dim)
+        kv = self.ca_kv(ctx.to(self.dtype)).reshape(B, L, 2, self.heads, self.head_dim)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * self.head_dim**-0.5
+        if ctx_mask is not None:
+            logits = logits.masked_fill(~ctx_mask[:, None, None, :], -1e9)
+        w = torch.softmax(logits, dim=-1).to(self.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float())
+        return self.ca_out(o.to(self.dtype).reshape(B, N, D))
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor, ctx: Optional[torch.Tensor] = None,
+                ctx_mask: Optional[torch.Tensor] = None, attn_mask: Optional[torch.Tensor] = None,
+                ca_mask: Optional[torch.Tensor] = None, mlp_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``ctx`` / ``ctx_mask``: the embedded context and its mask (a
+        block with cross-attention); ``attn_mask`` / ``ca_mask`` /
+        ``mlp_mask``: training's keep masks of the dropout sites (the
+        self-attention, cross-attention and MLP outputs, before their
+        gates)."""
         sh1, sc1, g1, sh2, sc2, g2 = self.adaln_mod(F.silu(c)).chunk(6, dim=-1)
         h = _modulate(_layer_norm(x), sh1, sc1)
         B, N, D = h.shape
@@ -119,6 +172,8 @@ class DiTBlock(nn.Module):
         attn = A.fused_attention(q * self.head_dim**-0.5, k, v)
         attn = dropout(self.attn_out(attn.to(h.dtype).reshape(B, N, D)), attn_mask, self.dropout)
         x = x + g1[:, None, :] * attn
+        if self.cross_attention and ctx is not None:
+            x = x + dropout(self._cross_attention(x, ctx, ctx_mask), ca_mask, self.dropout)
         h = _modulate(_layer_norm(x), sh2, sc2)
         h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))  # flax nn.gelu: tanh form
         return x + g2[:, None, :] * dropout(h, mlp_mask, self.dropout)
@@ -127,8 +182,9 @@ class DiTBlock(nn.Module):
 @register_target("diffusion_model_nemo.modules.DiT", "diffusion_model_nemo_tpu.modules.DiT")
 class DiT(nn.Module):
     """Diffusion Transformer; drop-in for ``Unet`` in the DDPM family.
-    ``input_dim``, ``moe_every``, ``moe_capacity_factor`` and
-    ``context_vocab`` are accepted for config compatibility; ``dropout``
+    ``input_dim``, ``moe_every`` and ``moe_capacity_factor`` are accepted
+    for config compatibility; ``context_dim`` / ``context_vocab`` add the
+    cross-attention branch (the module docstring); ``dropout``
     acts in training through injected masks (the module docstring).
     ``remat`` recomputes each block's activations in the backward
     (``parts.remat_call``), as the JAX package's ``nn.remat`` does.
@@ -163,8 +219,6 @@ class DiT(nn.Module):
         super().__init__()
         if moe_experts:
             raise not_ported("DiT", f"moe_experts={moe_experts}", "DiT mixture-of-experts")
-        if context_dim:
-            raise not_ported("DiT", f"context_dim={context_dim}", "text-conditional DiT")
         if seq_axis_name is not None:
             raise not_ported("DiT", f"seq_axis_name={seq_axis_name!r}", "sequence-parallel ring attention")
         dt = resolve_dtype(dtype)
@@ -182,9 +236,13 @@ class DiT(nn.Module):
         self.aug_dim = int(aug_dim or 0)
         if self.aug_dim:
             self.aug_embed = Dense(self.aug_dim, dim, bias=False, dtype=dt)
+        self.context_dim, self.context_vocab = int(context_dim or 0), int(context_vocab or 0)
+        if self.context_dim and self.context_vocab:
+            self.context_embed = Embed(self.context_vocab, self.context_dim)
         self.dropout = float(dropout or 0.0)
         for i in range(depth):
-            self.add_module(f"block_{i}", DiTBlock(dim, heads, mlp_ratio, dt, dropout=self.dropout))
+            self.add_module(f"block_{i}", DiTBlock(dim, heads, mlp_ratio, dt, dropout=self.dropout,
+                                                   context_dim=self.context_dim))
         self.depth = depth
         self.final_mod = Dense(dim, 2 * dim, dtype=dt)
         self.final_linear = Dense(dim, p * p * self.out_dim, dtype=dt)
@@ -194,23 +252,27 @@ class DiT(nn.Module):
         """flax's initialisers, drawn from ``generator`` in module order:
         lecun-normal kernels (biases are zero from construction), and the
         adaLN-Zero layers (``adaln_mod``, ``final_mod``, ``final_linear``)
-        zero."""
+        and the cross-attention's ``ca_out`` zero."""
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
         zero = [self.final_mod, self.final_linear] + ([self.aug_embed] if self.aug_dim else [])
-        zero += [getattr(self, f"block_{i}").adaln_mod for i in range(self.depth)]
+        for i in range(self.depth):
+            blk = getattr(self, f"block_{i}")
+            zero += [blk.adaln_mod] + ([blk.ca_out] if blk.cross_attention else [])
         with torch.no_grad():
             for m in zero:
                 m.weight.zero_()
 
     def dropout_shapes(self, shape) -> Dict[str, Tuple[int, ...]]:
         """{site: the keep mask's shape} for an input of ``shape`` [B, H, W,
-        C]: two sites a block, [B, N, dim] each (none without dropout)."""
+        C]: two sites a block (three with cross-attention), [B, N, dim] each
+        (none without dropout)."""
         if not self.dropout:
             return {}
         n = (shape[1] // self.patch_size) * (shape[2] // self.patch_size)
-        return {f"block_{i}/Dropout_{j}": (shape[0], n, self.dim) for i in range(self.depth) for j in (0, 1)}
+        sites = 3 if self.context_dim else 2
+        return {f"block_{i}/Dropout_{j}": (shape[0], n, self.dim) for i in range(self.depth) for j in range(sites)}
 
     def _position_embedding(self, h: int, w: int, device) -> torch.Tensor:
         key = (h, w, str(device))
@@ -219,14 +281,36 @@ class DiT(nn.Module):
             self._pos[key] = torch.from_numpy(table).to(device=device, dtype=self.dtype)
         return self._pos[key]
 
+    def _context(self, context: Optional[torch.Tensor], B: int, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the context sequence in the compute dtype, its mask or None =
+        every position) from tokens [B, L], a float [B, L, context_dim] or
+        None (the null context: one PAD token), with the JAX DiT's errors."""
+        if context is None:
+            if not self.context_vocab:
+                raise ValueError("DiT(context_dim>0, context_vocab=0) needs an explicit float context "
+                                 "[B, L, context_dim]")
+            context = torch.zeros((B, 1), dtype=torch.int32, device=device)
+        if context.is_floating_point():
+            return context.to(self.dtype), None
+        if not self.context_vocab:
+            raise ValueError("integer token context needs context_vocab > 0")
+        mask = context != 0
+        mask[:, 0] = True  # an all-PAD row attends to the PAD embedding: the null context
+        L = context.shape[1]
+        key = ("ctx", L, str(device))
+        if key not in self._pos:
+            self._pos[key] = torch.from_numpy(sincos_position_embedding_1d(L, self.context_dim)).to(device)
+        return (self.context_embed(context) + self._pos[key][None]).to(self.dtype), mask
+
     def forward(self, x: torch.Tensor, time: torch.Tensor, classes: Optional[torch.Tensor] = None,
                 dropout_masks: Optional[Dict[str, torch.Tensor]] = None,
-                aug_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                aug_cond: Optional[torch.Tensor] = None, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, H, W, C] float; time: [B] (int or float); classes: [B] int
         (a network with ``num_classes``; None = the null class);
         ``dropout_masks``: training's keep mask of each site; ``aug_cond``:
-        the augmentation descriptor [B, aug_dim] (None = zeros) → [B, H, W,
-        out] float32."""
+        the augmentation descriptor [B, aug_dim] (None = zeros); ``context``
+        (a network with ``context_dim``): tokens [B, L] int, a float [B, L,
+        context_dim] or None (the null context) → [B, H, W, out] float32."""
         masks = dropout_masks or {}
         B, H, W, _ = x.shape
         p = self.patch_size
@@ -244,10 +328,15 @@ class DiT(nn.Module):
         if self.aug_dim:
             a = aug_cond if aug_cond is not None else torch.zeros((B, self.aug_dim), device=x.device)
             c = c + self.aug_embed(a.to(self.dtype))
+        ctx = ctx_mask = None
+        if self.context_dim:
+            ctx, ctx_mask = self._context(context, B, x.device)
         for i in range(self.depth):
             blk = getattr(self, f"block_{i}")
-            m = (masks.get(f"block_{i}/Dropout_0"), masks.get(f"block_{i}/Dropout_1"))
-            tok = remat_call(blk, tok, c, *m) if self.remat else blk(tok, c, *m)
+            site = lambda j: masks.get(f"block_{i}/Dropout_{j}")  # noqa: E731
+            m = (site(0), site(1), site(2)) if self.context_dim else (site(0), None, site(1))
+            args = (tok, c, ctx, ctx_mask, *m)
+            tok = remat_call(blk, *args) if self.remat else blk(*args)
         sh, sc = self.final_mod(F.silu(c)).chunk(2, dim=-1)
         out = self.final_linear(_modulate(_layer_norm(tok), sh, sc))
         return depth_to_space(out.reshape(B, h, w, p * p * self.out_dim), p).float()

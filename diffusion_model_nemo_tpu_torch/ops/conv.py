@@ -60,9 +60,10 @@ _MAX_WIDTH = 128  # a band of the kernel holds at most 128 output pixels
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    """cuDNN runs a float32 convolution in TF32 by default; the plain
-    version is the float32 reference, so TF32 is off around it."""
+def no_tf32():
+    """cuDNN runs a float32 convolution in TF32 by default; a float32
+    reference (the plain conv here, SSIM's windows in ``metrics/``) turns
+    TF32 off around its own."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -76,7 +77,7 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor
     ``conv3x3_reference``): w rounded to x's dtype, the bias added in f32."""
     xc = x.float().permute(0, 3, 1, 2)
     wc = w.to(x.dtype).float().permute(3, 2, 0, 1)
-    with _no_tf32():
+    with no_tf32():
         y = F.conv2d(xc, wc, padding=1)
     if b is not None:
         y = y + b.float()[:, None, None]

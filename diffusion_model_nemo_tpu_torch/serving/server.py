@@ -7,7 +7,9 @@ Counterpart of ``diffusion_model_nemo_tpu/serving/server.py``:
 - **Request coalescing.** Unseeded requests with the same class label
   and guidance scale coalesce into one device batch (linger window + size
   cap); a seeded request runs in a batch of its own, so its images are a
-  function of (weights, seed, label, guidance scale, n).
+  function of (weights, seed, label, guidance scale, n) and its prompts.
+  Prompts are data, not part of a graph: requests with different prompts
+  coalesce.
 - **One device owner; a batch is answered when its own chain ends.** One
   worker thread runs a batch's sampling chain (on CUDA replays of the
   sampler's captured chain, ``ops/graphs.py``, where the JAX server makes
@@ -22,7 +24,8 @@ Endpoints (standard library ``http.server``):
                    "mode": "sample"|"super_resolve"|"vocode"}
   GET  /stats    → request / batch / latency counters
   POST /sample   → JSON {"num_images": N, "seed": S?, "label": L?,
-                   "guidance_scale": W?, "format": "png"|"npy"}
+                   "guidance_scale": W?, "text": prompt?,
+                   "negative_text": anchor?, "format": "png"|"npy"}
                    → {"images": [b64 PNG, ...]} or raw .npy bytes
   POST /super_resolve → (SR3 archives) JSON {"images_npy": b64 of an
                    np.save'd [N, h, w, C] array (uint8, or floats in [0, 1])
@@ -50,9 +53,18 @@ Endpoints (standard library ``http.server``):
 ``label`` and ``guidance_scale`` need a class-conditional archive
 (``ConditionalDDPM``): a label in [0, K), no label = the null class, and
 a guidance scale only with a label (one network call on the 2B batch a
-step). Client faults (bad payload, failed validation: a label outside [0,
-K) or sent to an unconditional archive, a guidance scale without a label)
-answer 400, timeouts 504, faults in the worker or the response path 500.
+step). ``text`` and ``negative_text`` need a text-conditional archive
+(``TextConditionalDDPM``): each image of a batch gets its request's prompt
+as a row of tokens, the rows padded with "" (the null context) to
+``max_batch``; on it a guidance scale needs a prompt, and a negative prompt
+(the guidance anchor) needs a guidance scale; without guidance the anchor
+rows are not sent. The prompt rows, the anchor rows and the scale are
+static buffers of the captured chain, so a new prompt or scale captures
+nothing. Client faults (bad payload, failed validation: a label outside
+[0, K) or sent to an unconditional archive, a guidance scale without a
+label or prompt, prompts to an archive that takes none, a negative prompt
+without guidance) answer 400, timeouts 504, faults in the worker or the
+response path 500.
 A ScoreSDE archive is served with its own sampler (the predictor–corrector
 chain of its config, captured as in ``modules/sde_samplers.py``); DDIM
 cannot re-grid it and ``serve(use_ddim_sampler=True)`` raises, as the JAX
@@ -115,6 +127,8 @@ class _Request:
     mel: Optional[np.ndarray] = None  # vocoder mode: log-mel [n, F, n_mels]
     images: Optional[np.ndarray] = None  # edit sources [n, H, W, C] or SR3 LR inputs, in [0, 1]
     strength: Optional[float] = None  # edit requests: SDEdit strength in [0, 1]
+    text: Optional[str] = None  # text archives: the prompt ("" / None = the null context)
+    neg_text: Optional[str] = None  # text archives: the negative prompt (the guidance anchor)
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[str] = None
@@ -150,6 +164,8 @@ class BatchingSampler:
         # SR3 archives serve super-resolution: requests carry the LR inputs.
         self.sr_mode = hasattr(model, "super_resolve")
         self.lr_size = self.image_size // int(model.scale_factor) if self.sr_mode else None
+        # Text-conditional archives take a prompt a request.
+        self.text_mode = hasattr(model, "_tokens_array")
         self.max_batch = int(max_batch)
         self.linger_s = float(linger_ms) / 1e3
         self.use_ema = bool(use_ema)
@@ -225,6 +241,8 @@ class BatchingSampler:
         label: Optional[int] = None,
         timeout: Optional[float] = None,
         guidance_scale: Optional[float] = None,
+        text: Optional[str] = None,
+        negative_text: Optional[str] = None,
     ) -> np.ndarray:
         if self.sr_mode:
             raise ValueError("this archive is an SR3 super-resolution model: POST /super_resolve with input "
@@ -239,10 +257,17 @@ class BatchingSampler:
             label = int(label)
             if not 0 <= label < num_classes:
                 raise ValueError(f"label must be in [0, {num_classes}), got {label}")
+        if (text is not None or negative_text is not None) and not self.text_mode:
+            raise ValueError(f"{type(self.model).__name__} is not text-conditional; text/negative_text need a "
+                             "TextConditionalDDPM archive")
         if guidance_scale is not None:
-            if label is None:
+            if self.text_mode and not text:
+                raise ValueError("guidance_scale requires a text prompt on this archive")
+            if not self.text_mode and label is None:
                 raise ValueError("guidance_scale requires a class label")
             guidance_scale = float(guidance_scale)
+        if negative_text is not None and guidance_scale is None:
+            raise ValueError("negative_text requires guidance_scale")
         if num_images < 1:
             raise ValueError("num_images must be >= 1")
         if seed is not None:
@@ -252,11 +277,13 @@ class BatchingSampler:
             parts, remaining, chunk = [], num_images, 0
             while remaining > 0:
                 n = min(remaining, self.max_batch)
-                parts.append(self.submit(n, None if seed is None else seed + chunk, label, timeout, guidance_scale))
+                parts.append(self.submit(n, None if seed is None else seed + chunk, label, timeout, guidance_scale,
+                                         text, negative_text))
                 remaining -= n
                 chunk += 1
             return np.concatenate(parts, axis=0)
-        req = _Request(num_images=num_images, seed=seed, label=label, guidance_scale=guidance_scale)
+        req = _Request(num_images=num_images, seed=seed, label=label, guidance_scale=guidance_scale,
+                       text=text, neg_text=negative_text)
         return self._wait(req, timeout, "sample")
 
     def submit_vocode(self, mel: np.ndarray, seed: Optional[int] = None,
@@ -367,9 +394,11 @@ class BatchingSampler:
         return self._generator(int(seed))
 
     def _dispatch_sample(self, generator: torch.Generator, label: Optional[int],
-                         guidance_scale: Optional[float]):
+                         guidance_scale: Optional[float], texts: Optional[List[str]] = None,
+                         neg_texts: Optional[List[str]] = None):
         """Enqueue one fixed-shape batch (of ``label`` at ``guidance_scale``
-        on a conditional model), quantized to uint8 on the device (4x
+        on a conditional model; of the prompt rows ``texts`` and anchor rows
+        ``neg_texts`` on a text model), quantized to uint8 on the device (4x
         fewer bytes to copy than float32), and its copy to the host; returns
         (host tensor, event) without waiting: on CUDA the copy goes into
         pinned memory, non-blocking, and the event marks its end; elsewhere
@@ -377,6 +406,8 @@ class BatchingSampler:
         kwargs = {}
         if getattr(self.model, "num_classes", None) is not None:
             kwargs = {"label": label, "guidance_scale": guidance_scale}
+        elif self.text_mode:
+            kwargs = {"text": texts, "negative_text": neg_texts, "guidance_scale": guidance_scale}
         out = self.model.sample(
             batch_size=self.max_batch,
             image_size=self.image_size,
@@ -438,6 +469,18 @@ class BatchingSampler:
         if done is not None:
             done.synchronize()  # waits for the batch's chain and its copy
         return host.numpy()
+
+    def _prompt_rows(self, group: List[_Request]):
+        """(prompt rows, anchor rows) of a text model's batch: each image its
+        request's prompt and negative prompt, padded with "" (the null
+        context) to ``max_batch``; no anchor rows without guidance. (None,
+        None) for any other model."""
+        if not self.text_mode:
+            return None, None
+        texts = [r.text or "" for r in group for _ in range(r.num_images)]
+        negs = [r.neg_text or "" for r in group for _ in range(r.num_images)]
+        pad = [""] * (self.max_batch - len(texts))
+        return texts + pad, (negs + pad if group[0].guidance_scale is not None else None)
 
     def _take_group(self) -> List[_Request]:
         """Pop a coalescable group: one label, guidance scale and edit
@@ -514,7 +557,8 @@ class BatchingSampler:
                     dispatched = self._dispatch_edit(np.concatenate([r.images for r in group], axis=0),
                                                      group[0].strength, gen)
                 else:
-                    dispatched = self._dispatch_sample(gen, group[0].label, group[0].guidance_scale)
+                    dispatched = self._dispatch_sample(gen, group[0].label, group[0].guidance_scale,
+                                                       *self._prompt_rows(group))
             except Exception as e:  # worker boundary: report to every waiter
                 log.exception("sample dispatch failed")
                 for r in group:
@@ -610,6 +654,8 @@ class SamplingServer:
                     label=payload.get("label"),
                     timeout=float(payload.get("timeout", 600.0)),
                     guidance_scale=payload.get("guidance_scale"),
+                    text=payload.get("text"),
+                    negative_text=payload.get("negative_text"),
                 )
                 return images, payload.get("format", "png")
 

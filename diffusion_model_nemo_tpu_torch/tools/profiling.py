@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 
 __all__ = [
-    "PEAK_BYTES_PER_S", "PEAK_OPS", "EmptyTraceError", "tracing", "time_ms", "queued_us", "traced", "WindowTrace",
+    "PEAK_BYTES_PER_S", "PEAK_OPS", "EmptyTraceError", "tracing", "time_ms", "queued_us", "traced", "trace_events",
+    "WindowTrace",
     "device_profile",
     "device_ms", "kernel_launches", "work", "bound_us",
 ]
@@ -94,8 +95,8 @@ def traced(fn, calls: int = 1):
     is taken again with four times the markers (up to ``MAX_MARKERS``), one that
     kept nothing is taken again as it was, ``ATTEMPTS`` traces in all; then
     ``EmptyTraceError`` is raised: a measurement never reads a trace that
-    dropped its events. On the H100 a marker costs 73-104 us of host time
-    in a trace (event processing), the lead 1 ms on the card."""
+    dropped its events. A marker costs host time in the trace's event
+    processing, the lead 1 ms on the card."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
@@ -133,12 +134,37 @@ def _device_events(prof, t0: float):
     trace, counted in ``tracing`` with the host seconds since ``t0``."""
     import time
 
-    device = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = trace_events(prof, torch.autograd.DeviceType.CUDA)
     tracing["traces"] += 1
     tracing["seconds"] += time.perf_counter() - t0
     kept = sum(MARKER_KERNEL in name and us < LEAD_US / 2 for name, us in device)
     return kept, [(name, us) for name, us in device if MARKER_KERNEL not in name]
+
+
+def trace_events(prof, device_type):
+    """(name, us) of a finished trace's events on ``device_type``, read from
+    the kineto results directly: ``prof.events()`` builds a
+    ``FunctionEvent`` and the CPU tree for every event, many times the host
+    time of this read, and a traced chain holds tens of thousands of events.
+    The names and durations are those ``prof.events()`` gives (the same
+    filter, name rewrite and arithmetic); a torch without
+    ``kineto_results`` falls back to it."""
+    results = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if results is None or not hasattr(results, "events"):
+        return [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == device_type]
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    t0 = results.trace_start_ns()
+    out = []
+    for k in results.events():
+        if k.device_type() != device_type:
+            continue
+        name = k.name()
+        if _filter_name(name) or k.is_hidden_event():
+            continue
+        out.append((_rewrite_name(name=name, with_wildcard=True),
+                    (k.end_ns() - t0) / 1000 - (k.start_ns() - t0) / 1000))
+    return out
 
 
 def _kept_markers(n: int, kept: int) -> None:
@@ -189,7 +215,7 @@ class WindowTrace:
                                       f"{len(events)} device events; nothing was written to {path}")
             _kept_markers(self.markers, kept)
         else:
-            events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()]
+            events = trace_events(prof, torch.autograd.DeviceType.CPU)
             if not events:
                 raise EmptyTraceError(f"the trace of the window holds no events; nothing was written to {path}")
         prof.export_chrome_trace(str(path))

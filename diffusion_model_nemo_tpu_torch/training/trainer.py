@@ -294,14 +294,14 @@ class Trainer:
         return metrics | {"grad_norm": norm}
 
     def _replayed_step(self, model, state: TrainState, batch, draws, scalars) -> Dict[str, torch.Tensor]:
-        """``_step`` as a replay of the state's graph: the batch's image and
-        labels (through pinned memory on CUDA: a pageable copy cannot
-        overlap), the draws and the step's scalars go into its static
+        """``_step`` as a replay of the state's graph: the batch's image,
+        labels and caption tokens (through pinned memory on CUDA: a pageable
+        copy cannot overlap), the draws and the step's scalars go into its static
         buffers first. Captured with the derived-weights
         cache off: the prenorm folds, casts and re-layouts of the changing
         weights are recomputed at every replay."""
-        host = {}  # the batch's arrays: the image or the waveform, and the labels where the batch has them
-        for k in ("image", "audio", "label"):
+        host = {}  # the batch's arrays: the image or the waveform, and the labels and tokens where it has them
+        for k in ("image", "audio", "label", "tokens"):
             if k in batch:
                 v = batch[k]
                 v = v if torch.is_tensor(v) else torch.as_tensor(np.ascontiguousarray(v))

@@ -16,7 +16,7 @@ transforms, chosen by the type of the owning port module:
 - ``Dense``: [in, out] → [out, in];
 - ``Conv1x1``: [1, 1, C, F] → [F, C];
 - GroupNorm parameters: ``scale``/``bias`` → ``weight``/``bias``;
-- ``Embed`` (the class embedding): ``embedding`` [K + 1, dim] → ``weight``
+- ``Embed`` (the class and context embeddings): ``embedding`` → ``weight``
   as it is.
 """
 

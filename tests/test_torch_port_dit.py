@@ -177,15 +177,21 @@ def test_depth_to_space_matches_jax():
     "kw,slice_",
     [
         (dict(moe_experts=4), "mixture-of-experts"),
-        (dict(context_dim=32), "text-conditional"),
+        (dict(context_dim=32), None),  # ported: the cross-attention branch builds (tests/test_torch_port_text.py)
         (dict(aug_dim=9), None),  # ported: the augmentation input builds (tests/test_torch_port_convnext.py)
         (dict(seq_axis_name="seq"), "ring attention"),
     ],
     ids=["moe_experts", "context_dim", "aug_dim", "seq_axis_name"],
 )
 def test_unported_dit_options_raise(kw, slice_):
-    if slice_ is None:
+    if slice_ is None and "aug_dim" in kw:
         assert DiT(dim=32, depth=1, heads=2, **kw).aug_embed.weight.shape == (32, 9)
+        return
+    if slice_ is None:
+        blk = DiT(dim=32, depth=1, heads=2, **kw).block_0
+        shapes = (blk.ca_q.weight.shape, blk.ca_kv.weight.shape, blk.ca_out.weight.shape)
+        assert shapes == ((32, 32), (64, 32), (32, 32))
+        assert DiT(dim=32, depth=1, heads=2, context_vocab=257, **kw).context_embed.weight.shape == (257, 32)
         return
     with pytest.raises(NotImplementedError, match=slice_):
         DiT(dim=32, depth=1, heads=2, **kw)

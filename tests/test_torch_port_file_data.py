@@ -13,8 +13,8 @@ What is held:
   Pillow byte for byte (grey, grey + alpha, RGB, RGBA; shrinking,
   enlarging, one axis), and the loader's batches equal to JAX's;
 - ``num_workers`` 0 and 2 give identical batches over two shuffled epochs;
-- ``build_dataloader``'s refusals (``caption_len``, a Hugging Face name,
-  a missing path, an empty folder, a short ``labels.npy``);
+- ``build_dataloader``'s refusals (a Hugging Face name, a missing path,
+  an empty folder, a short ``labels.npy``), and ``caption_len``'s tokens;
 - an image directory as ``input_path`` of ``inpaint_ddpm`` and
   ``edit_ddpm``.
 """
@@ -194,8 +194,8 @@ def test_num_workers_give_the_serial_batches(tmp_path):
 
 
 def test_build_dataloader_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="text-conditioning"):
-        build_dataloader({"name": "synthetic", "caption_len": 16}, mode="train")
+    captioned = next(iter(build_dataloader({"name": "synthetic", "caption_len": 16, "batch_size": 2}, mode="train")))
+    assert captioned["tokens"].shape == (2, 16) and captioned["tokens"].dtype == np.int32  # ported: tokens yielded
     with pytest.raises(NotImplementedError, match="download"):
         build_dataloader({"name": "cifar10"}, mode="train")
     with pytest.raises(FileNotFoundError):

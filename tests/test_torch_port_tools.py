@@ -378,3 +378,22 @@ def test_traced_raises_on_a_trace_that_may_have_dropped_events(monkeypatch, name
     assert P.tracing["markers"] == markers_after and P.tracing["traces"] == stub.opened
     # Each trace opens with the lead (its cycles at the spin's clock) and the markers.
     assert spins[0] == P.LEAD_US * P.SPIN_CYCLES_PER_US and spins[1:9] == [1] * 8
+
+
+def test_trace_events_reads_what_prof_events_gives():
+    """``trace_events`` reads a finished trace's kineto results directly:
+    on a real (CPU) trace it gives the names and durations that
+    ``prof.events()`` gives, in the same order, exactly."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_model_nemo_tpu_torch.tools import profiling as P
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        x = torch.ones(32, 32)
+        for _ in range(8):
+            x = torch.softmax(x @ x.T * 0.01, dim=-1)
+    cpu = torch.autograd.DeviceType.CPU
+    fast = P.trace_events(prof, cpu)
+    full = [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == cpu]
+    assert len(fast) > 30 and fast == full
+    assert P.trace_events(prof, torch.autograd.DeviceType.CUDA) == []
