@@ -13,8 +13,10 @@ latent diffusion's U-Net beside its KL autoencoder), and under the JAX package's
 opt-in switches on #6
 (``DMN_TPU_PALLAS_NORM_BM=1``) and #9 (``DMN_TPU_PALLAS_LINATTN_BLOCK=1``);
 ``Block(x, scale_shift)`` at unet_small's GroupNorm sites on #5 (and #6
-under its switch); DiT-S/2 (bf16, 64 px) on kernel #7, also with class labels
-and as the text-conditional DiT with cross-attention; the float32
+under its switch); DiT-S/2 (bf16, 64 px) on kernel #7, also with class labels,
+as the text-conditional DiT with cross-attention and as the
+mixture-of-experts DiT; unet_small sampled for ``compute_fid`` (beside
+InceptionV3, cuDNN's float32 convolutions) and LoRA-fine-tuned; the float32
 unet_small on kernels #1 and #8; the kernel microbenchmarks
 (``diffusion_model_nemo_tpu_torch/tools/``) on #10-#13; the WaveGrad
 vocoder, whose 1-D convolutions are cuDNN's (no TPU kernel stands behind
@@ -460,6 +462,34 @@ Phases:
           context_npy) and train_dit at batch 8;
      19g PSNR and SSIM on the card == the CPU's within 1e-5; FID and KID of
           the prompted batch on the weight-free features.
+
+  20. Inception FID, the mixture-of-experts DiT and LoRA fine-tuning,
+      ``[fid]``, ``[moe]`` and ``[lora]`` lines, each time beside the card's
+      name and power limit:
+     20a InceptionV3 (``metrics/inception.py``, seeded random weights) at
+          B=64, 299 px, float32 with TF32 off, one captured call: the
+          features against the port on the CPU at B=4 (relative L2 1e-4),
+          ms a batch, images/s, the convolutions' bound; the ``with_logits``
+          probabilities sum to 1;
+     20b ``compute_fid`` from a unet_small archive: 256 samples by DDIM-50
+          at B=64 (captured) against the synthetic set, KID and IS, the
+          random-weights label; #1-#4 at 35/4/1/1 a forward x 50 x 4; a
+          second run prints the same lines; seconds in sampling, features,
+          the Fréchet distance, KID and IS;
+     20c the MoE DiT-S/2 (dit/dit_small.yaml at 64 px, ``moe_experts`` 8,
+          ``moe_every`` 2, capacity 1.0, bf16): 12 #7 a forward at [32,
+          1024, 6, 64] held with device ms and bound; the B=32 forward
+          against the plain path (3e-2), the tokens routed differently
+          counted; the B=32 step against the plain path (1e-2, 5e-2, no
+          launch in the backward) and its wall beside the dense DiT-S/2's;
+          DDIM-50 at B=32 captured == eager bit for bit; the archive on
+          /sample at max_batch 32, a seeded request twice bit-equal;
+     20d LoRA on unet_small (rank 8, every kernel, B=64): 3 captured steps
+          == eager (cudnn.deterministic), the base untouched, a step's
+          graph 35/4/1/1 launches; the merged model's forward == the adapted
+          one and within 3e-2 of the plain path on the merged weights; the
+          merged archive on /sample; ``finetune_lora`` for 5 steps; the
+          step's wall beside the full B=64 step's.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -6267,6 +6297,389 @@ def check_text(port, device, rows):
     log(f"[text] phase 19 in {time.perf_counter() - t19:.1f} s")
 
 
+INC_B, INC_CPU_B = 64, 4  # the card's Inception batch; the CPU reference's
+INC_REL_TOL = 1e-4  # Inception card vs CPU, relative L2, float32 with TF32 off
+FID_SAMPLES = 256
+MOE_EXPERTS, MOE_EVERY, MOE_B = 8, 2, 32
+DIT_S2_DDIM_MS = 773.690  # DiT-S/2 DDIM-50 at B=32, captured (H100, 700 W; PERF.md §5)
+LORA_RANK, LORA_B, LORA_STEPS, LORA_CLI_STEPS = 8, 64, 3, 5
+UNET_PER = {"group_norm_silu": 35, "linear_attention_block": 4, "linear_attention_tokens": 1,
+            "attention_block_small": 1}  # unet_small's launches a forward
+
+
+def synthetic_images(n, size=32, seed=SEED):
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.data import SyntheticVisionDataset
+
+    ds = SyntheticVisionDataset(image_size=size, channels=3, length=n, seed=seed)
+    return np.stack([ds[i]["image"] for i in range(n)])
+
+
+def check_inception(port, device, card):
+    """20a. InceptionV3 at B=64, 299 px, seeded random weights: the
+    features against the port on the CPU at B=4 (relative L2 1e-4, TF32
+    off), the captured batch's wall and images/s, the bound (the
+    convolutions' operations, counted on the CPU run, at 67 TFLOP/s f32);
+    the ``with_logits`` head's probabilities sum to 1."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.metrics import inception_feature_fn
+
+    images = synthetic_images(INC_B)
+    fn = inception_feature_fn(batch_size=INC_B, device=device)
+    first_s, feats = walled(lambda: fn(images))  # the eager warm-up and the capture
+    wall, again = walled(lambda: fn(images), n=5)
+    cpu_fn = inception_feature_fn(batch_size=INC_CPU_B, device="cpu")
+    flops = []  # each convolution's multiply-adds x 2 on the CPU batch, counted from its output's shape
+    hooks = [m.register_forward_hook(lambda m, i, o: flops.append(2 * o.numel() * m.weight[0].numel()))
+             for m in cpu_fn.net.modules() if type(m).__name__ == "_Conv"]
+    cpu = cpu_fn(images[:INC_CPU_B])
+    for h in hooks:
+        h.remove()
+    rel = float(np.linalg.norm(feats[:INC_CPU_B] - cpu) / np.linalg.norm(cpu))
+    graph = graph_of(fn.graphs, "inception")
+    per_image = sum(flops) / INC_CPU_B
+    bound_ms = per_image * INC_B / PEAK_OPS["f32"] * 1e3
+    lfn = inception_feature_fn(batch_size=INC_B, device=device, with_logits=True)
+    f2, probs = lfn(images)
+    sums = probs.sum(axis=1)
+    log(f"[fid] InceptionV3 B={INC_B} 299 px (random weights, TF32 off): card vs CPU B={INC_CPU_B} rel_l2 {rel:.3e} "
+        f"(tol {INC_REL_TOL}); first call with capture {first_s:.3f} s; captured {wall * 1e3:.3f} ms a batch "
+        f"({INC_B / wall:.1f} images/s), bound {bound_ms:.3f} ms ({per_image / 1e9:.3f} GFLOP of convolutions an "
+        f"image at 67 TFLOP/s f32), "
+        f"{graph.info['nodes']} nodes, pool {graph.info['pool_mib']:.1f} MiB; repeat bit-equal "
+        f"{np.array_equal(feats, again)}; with_logits: {lfn.num_logits} classes, probability sums "
+        f"[{sums.min():.7f}, {sums.max():.7f}], features == the trunk's {np.array_equal(f2, feats)} [{card}]")
+    assert feats.shape == (INC_B, 2048) and np.isfinite(feats).all() and feats.std() > 0
+    assert rel <= INC_REL_TOL and np.allclose(sums, 1.0, atol=1e-5)
+
+
+def check_compute_fid(port, device, tmp, card):
+    """20b. ``compute_fid`` from a unet_small DDPM archive: DDIM-50 captured,
+    256 samples at B=64 against the synthetic set, KID and IS, the random
+    weights labelled; #1-#4 at unet_small's counts a forward x 50 x 4
+    chains; a second run with the same seed prints the same lines; the
+    seconds in sampling, features and each host-side score."""
+    from diffusion_model_nemo_tpu_torch.cli import compute_fid
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+
+    path = port.DDPM(unet_small_model_config(), device=device, seed=SEED).save_to(os.path.join(tmp, "fid.dmn"))
+    argv = [f"model_path={path}", "dataset_name=synthetic", f"num_samples={FID_SAMPLES}", f"batch_size={B}",
+            f"ddim_timesteps={DDIM_STEPS}", "compute_kid=true", "compute_is=true", f"seed={SEED}"]
+    outs = []
+    for run in range(2):
+        port.ops.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with mock.patch("sys.stdout", buf):
+            result = compute_fid.main(argv)
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith(("FID:", "KID:", "IS:"))]
+        outs.append(lines)
+        log(f"[fid] compute_fid run {run + 1}: {' | '.join(lines)}; {wall:.2f} s: sampling {result['sample_s']:.3f} s "
+            f"({FID_SAMPLES // B} DDIM-{DDIM_STEPS} chains at B={B}), features {result['features_s']:.3f} s "
+            f"({2 * FID_SAMPLES} images), on the host: Fréchet distance {result['frechet_s']:.3f} s, KID "
+            f"{result['kid_s']:.3f} s, IS {result['is_s']:.3f} s; launches "
+            f"{json.dumps(counts)} [{card}]")
+        chains = FID_SAMPLES // B
+        assert counts == {k: v * DDIM_STEPS * chains for k, v in UNET_PER.items()}, counts
+        assert len(lines) == 3 and all("RANDOM weights" in ln for ln in lines), lines
+    assert outs[0] == outs[1], outs
+
+
+def moe_model(port, device):
+    """The DDPM of dit/dit_small.yaml at 64 px with ``moe_experts=8``,
+    ``moe_every=2``, capacity 1.0 (bf16), random weights from ``SEED``, the
+    zero leaves redrawn."""
+    from diffusion_model_nemo_tpu_torch.config import dit_small_model_config
+
+    cfg = dit_small_model_config()
+    cfg["diffusion_model"].update(moe_experts=MOE_EXPERTS, moe_every=MOE_EVERY, moe_capacity_factor=1.0)
+    cfg["train_ds"]["name"] = "synthetic"
+    model = port.DDPM(cfg, device=device, seed=SEED)
+    redraw_zero_leaves(model)
+    return model
+
+
+def routes_of(run):
+    """``run()`` with every ``ExpertChoiceMoE.route`` recorded: (its
+    result, [token indices [E, C] of each MoE layer, in call order])."""
+    from diffusion_model_nemo_tpu_torch.modules.dit import ExpertChoiceMoE
+
+    seen, real = [], ExpertChoiceMoE.route
+
+    def recorder(self, xt):
+        gates, idx = real(self, xt)
+        seen.append(idx.clone())
+        return gates, idx
+
+    with mock.patch.object(ExpertChoiceMoE, "route", recorder):
+        out = run()
+    return out, seen
+
+
+def check_moe_forward(port, model, rows, dense, card):
+    """20c. The MoE DiT-S/2 forward at B=32: 12 #7 at [32, 1024, 6, 64],
+    each held against its plain version (device ms, bound); the forward
+    against the plain path (3e-2), the routing differences counted; the
+    forward's wall beside the dense DiT-S/2's."""
+    import torch
+
+    x, t = model_inputs(model.device, DIT_IMG, MOE_B)
+    calls = {"moe_dit_32": record_calls(port, model, x, t)}
+    per = per_forward_counts(calls["moe_dit_32"])
+    assert per == {"attention": 12}, per
+    assert set(calls["moe_dit_32"]["attention"]) == {(MOE_B, 1024, 6, 64)}
+    hold_kernels(port, {"moe_dit_32": {"attention": calls["moe_dit_32"]["attention"]}}, rows, tag="moe", timed=True)
+    with torch.inference_mode():
+        out_k, idx_k = routes_of(lambda: model.forward(x, t))
+        with plain_path(port):
+            out_p, idx_p = routes_of(lambda: model.forward(x, t))
+        wall = time_ms(lambda: model.forward(x, t), iters=10)
+        dense_x, dense_t = model_inputs(model.device, DIT_IMG, MOE_B)
+        dense_wall = time_ms(lambda: dense.forward(dense_x, dense_t), iters=10)
+    rel = float((out_k - out_p).norm() / out_p.norm())
+    moved = [sum(len(set(a[e].tolist()) - set(b[e].tolist())) for e in range(a.shape[0])) for a, b in zip(idx_k, idx_p)]
+    C = idx_k[0].shape[1]
+    log(f"[moe] forward B={MOE_B} ({len(idx_k)} MoE layers, {MOE_EXPERTS} experts x {C} tokens): kernels vs plain "
+        f"rel_l2 {rel:.3e} (tol {UNET_REL_TOL}); tokens routed to another expert (kernel vs plain path), per MoE "
+        f"layer: {moved} of {MOE_EXPERTS * C}; forward wall {wall:.3f} ms vs the dense DiT-S/2's {dense_wall:.3f} ms "
+        f"({wall / dense_wall:.3f}x) [{card}]")
+    assert len(idx_k) == 6 and rel <= UNET_REL_TOL and bool(torch.isfinite(out_k).all()) and float(out_k.std()) > 0
+
+
+def moe_batch(model, Bn):
+    import torch
+
+    batch = {"image": synthetic_images(Bn, DIT_IMG)}
+    draws = model.draw_training_inputs(batch["image"].shape, torch.Generator(device=model.device).manual_seed(SEED))
+    return batch, draws
+
+
+def check_moe_step(port, model, dense, card):
+    """20c. The B=32 training step, kernels against the plain path (loss
+    1e-2, gradient 5e-2, no launch in the backward), then the captured
+    step's wall beside the dense DiT-S/2's on the same batch."""
+    batch, draws = moe_batch(model, MOE_B)
+    loss_k, g_k, fwd, bwd, _m = step_loss_and_grads(port, model, batch, draws)
+    assert_counts("moe step forward", fwd, {"attention": 12})
+    assert_counts("moe step backward", bwd, {})
+    with plain_path(port):
+        loss_p, g_p, _f, _b, _m = step_loss_and_grads(port, model, batch, draws)
+    rel_loss, rel_grad = abs(loss_k - loss_p) / abs(loss_p), float((g_k - g_p).norm() / g_p.norm())
+    trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+    state = trainer.init_state(model, TRAIN_STEPS)
+    run = lambda: trainer.train_step(model, state, batch, draws)  # noqa: E731
+    wall = time_ms(run, iters=5)
+    graph = graph_of(state.graphs, "train_step")
+    dense_state = trainer.init_state(dense, TRAIN_STEPS)
+    dense_wall = time_ms(lambda: trainer.train_step(dense, dense_state, batch, draws), iters=5)
+    log(f"[moe] step B={MOE_B}: loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel {rel_loss:.3e}, tol "
+        f"{LOSS_REL_TOL}); gradient ({g_k.numel()} values) rel_l2 {rel_grad:.3e} (tol {GRAD_REL_TOL}); captured "
+        f"step {wall:.3f} ms wall ({MOE_B / wall * 1e3:.1f} samples/s) vs the dense DiT-S/2's {dense_wall:.3f} ms "
+        f"({wall / dense_wall:.3f}x), graph launches {json.dumps(graph.delta)} [{card}]")
+    assert rel_loss <= LOSS_REL_TOL and rel_grad <= GRAD_REL_TOL and graph.delta == {"attention": 12}
+
+
+def check_moe_chain(port, model, card):
+    """20c. DDIM-50 at B=32 (EMA weights): replays of the captured step ==
+    the eager loop bit for bit (cudnn.deterministic; the combine adds each
+    expert's distinct rows in expert order, no atomics meet), launches =
+    12 x replays, wall beside DiT-S/2's."""
+    import torch
+
+    use_sampler(model, DDIM, eta=0.0, ddim_timesteps=DDIM_STEPS)
+    run = lambda graphs=None: model.sample(MOE_B, DIT_IMG, generator=svc_generator(model), use_ema=True,  # noqa: E731
+                                           graphs=graphs)
+    with deterministic():
+        eager_s, ref = walled(lambda: run(False))
+        first_s, first = walled(run)
+        port.ops.reset_launch_counts()
+        wall, again = walled(run)
+        counts = port.ops.launch_counts()
+    graph = graph_of(model.sampler.graphs, "ddim")
+    assert torch.equal(ref, first) and torch.equal(ref, again), "moe: the captured DDIM chain != eager"
+    assert tuple(again.shape) == (MOE_B, DIT_IMG, DIT_IMG, 3) and float(again.std()) > 0
+    graph_line(f"moe DDIM-{DDIM_STEPS} B={MOE_B} (first call with capture {first_s:.3f} s; == eager bit for bit "
+               f"under cudnn.deterministic)", wall, None, eager_s, graph, counts, DDIM_STEPS)
+    log(f"[moe] DDIM-{DDIM_STEPS} B={MOE_B}: captured {wall * 1e3:.3f} ms a chain ({MOE_B / wall:.2f} images/s), "
+        f"{wall * 1e3 / DIT_S2_DDIM_MS:.3f}x DiT-S/2's {DIT_S2_DDIM_MS} (PERF.md), eager {eager_s * 1e3:.3f} ms "
+        f"[{card}]")
+    assert graph.delta == {"attention": 12}, graph.delta
+
+
+def check_moe_serving(port, model, tmp, card):
+    """20c. The MoE archive restored and served (DDIM-50, max_batch 32):
+    a seeded request twice, bit-equal (the same padding to 32 rows: the
+    same batch composition, which expert choice needs), launches = 12 x 50
+    x batches."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    path = model.save_to(os.path.join(tmp, "moe.dmn"))
+    back = port.models.restore_model_from_archive(path, use_ema=False, device=model.device)
+    assert type(back).__name__ == "DDPM" and hasattr(back.diffusion_model.block_0, "moe")
+    t0 = time.perf_counter()
+    server = serve(back, port=0, max_batch=DIT_MAX_BATCH, ddim_timesteps=DDIM_STEPS, use_ema=True)
+    warm_s = time.perf_counter() - t0
+    server.start_background()
+    url = f"http://{server.host}:{server.port}"
+    try:
+        port.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        answers = [http("POST", url + "/sample", {"num_images": 3, "seed": 77, "format": "npy"}) for _ in range(2)]
+        wall = time.perf_counter() - t0
+        stats = json.loads(http("GET", url + "/stats")[1])
+    finally:
+        server.shutdown()
+    counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    a, b = (np.load(io.BytesIO(body)) for _code, body in answers)
+    log(f"[moe] /sample of the archive (DDIM-{DDIM_STEPS}, max_batch {DIT_MAX_BATCH}): warm-up {warm_s:.2f} s; two "
+        f"seeded requests in {wall:.2f} s, bit-equal {np.array_equal(a, b)}; launches {json.dumps(counts)} over "
+        f"{stats['batches']} batches [{card}]")
+    assert all(code == 200 for code, _ in answers) and a.shape == (3, DIT_IMG, DIT_IMG, 3) and np.array_equal(a, b)
+    assert counts == {"attention": 12 * DDIM_STEPS * stats["batches"]}, (counts, stats)
+
+
+def check_moe(port, device, rows, dense, tmp, card):
+    """20c. The MoE DiT-S/2: #7 and the forward, the step, DDIM-50, /sample."""
+    model = moe_model(port, device)
+    lapped("20c MoE forward", check_moe_forward, port, model, rows, dense, card, prefix="moe")
+    lapped("20c MoE step", check_moe_step, port, model, dense, card, prefix="moe")
+    lapped("20c MoE DDIM-50", check_moe_chain, port, model, card, prefix="moe")
+    lapped("20c MoE /sample", check_moe_serving, port, model, tmp, card, prefix="moe")
+
+
+def lora_run(port, model, start, batches, draws, graphs):
+    """LORA_STEPS adapter updates from ``start`` (rank 8, every kernel);
+    returns (the tuner, the losses)."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.training.lora import LoRAFinetuner
+
+    tuner = LoRAFinetuner(model, rank=LORA_RANK, targets=".*", learning_rate=1e-3)
+    tuner.adapters = start
+    losses = tuner.finetune(iter(batches), LORA_STEPS, draws=iter(draws), log_every=1, graphs=graphs)
+    torch.cuda.synchronize()
+    return tuner, losses
+
+
+def check_lora(port, device, tmp, card):
+    """20d. LoRA on unet_small (rank 8, every kernel, B=64): the captured
+    step against the eager one for 3 steps (cudnn.deterministic: bit for bit
+    where eager repeats itself), the base weights untouched, launches of a
+    step = a forward's 35/4/1/1 and none in the backward; the merged
+    model's forward against the adapted one and against the plain path on
+    the merged weights; the merged archive on /sample; ``finetune_lora``
+    for 5 steps; the step's wall beside the full B=64 step's."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.cli import finetune_lora
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+    from diffusion_model_nemo_tpu_torch.serving import serve
+    from diffusion_model_nemo_tpu_torch.training.lora import lora_init, merge_adapters
+
+    model = port.DDPM(unet_small_model_config(), device=device, seed=SEED)
+    base = {k: v.clone() for k, v in model.params.items()}
+    start = lora_init(model.params, model.diffusion_model, LORA_RANK, torch.Generator().manual_seed(SEED + 1))
+    images = synthetic_images(LORA_B * LORA_STEPS)
+    batches = [{"image": images[i * LORA_B:(i + 1) * LORA_B]} for i in range(LORA_STEPS)]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    draws = [model.draw_training_inputs((LORA_B, 32, 32, 3), gen) for _ in range(LORA_STEPS)]
+    with deterministic():
+        (e1, l1), (e2, l2) = (lora_run(port, model, start, batches, draws, False) for _ in range(2))
+        port.ops.reset_launch_counts()
+        g, lg = lora_run(port, model, start, batches, draws, None)
+        counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+
+    def flat(t):
+        return [v for ab in t.adapters.values() for v in ab.values()]
+
+    ee = all(torch.equal(a, b) for a, b in zip(flat(e1), flat(e2))) and l1 == l2
+    ge = all(torch.equal(a, b) for a, b in zip(flat(g), flat(e1))) and lg == l1
+    ge_diff = max(float((a - b).abs().max()) for a, b in zip(flat(g), flat(e1)))
+    untouched = all(torch.equal(base[k], v) for k, v in model.params.items())
+    graph = graph_of(g.graphs, "lora_step")
+    step = lambda: g.train_step(batches[0], draws[0])  # noqa: E731
+    wall = time_ms(step, iters=10)
+    trainer = port.Trainer(max_steps=TRAIN_STEPS, devices=1)
+    state = trainer.init_state(model, TRAIN_STEPS)
+    full = time_ms(lambda: trainer.train_step(model, state, batches[0], draws[0]), iters=10)
+    log(f"[lora] unet_small rank {LORA_RANK} (every kernel: {len(g.adapters)} adapters, "
+        f"{sum(v.numel() for v in flat(g))} values) B={LORA_B}: losses eager {l1}, captured {lg}; eager twice "
+        f"bit-equal {ee}, captured == eager bit for bit {ge} (max |diff| {ge_diff:.3e}); the base untouched "
+        f"{untouched}; launches in the {LORA_STEPS} captured-path steps {json.dumps(counts)}, a step's graph "
+        f"{json.dumps(graph.delta)}; captured step {wall:.3f} ms vs the full B={LORA_B} step {full:.3f} ms "
+        f"({wall / full:.3f}x) [{card}]")
+    assert ge if ee else ge_diff <= 1e-6, "lora: the captured step left the eager steps"
+    assert untouched and graph.delta == UNET_PER and counts == {k: v * LORA_STEPS for k, v in UNET_PER.items()}
+    assert all(np.isfinite(l1)) and any(float(ab["b"].abs().max()) > 0 for ab in g.adapters.values())
+
+    x, t = model_inputs(device, 32)
+    merged = g.merged_model()
+    with torch.inference_mode():
+        adapted = model.model_fn(merge_adapters(model.params, g.adapters, g.scale, model.diffusion_model), x, t)
+        out_m = merged.forward(x, t)
+        with plain_path(port):
+            plain = merged.forward(x, t)
+        out_base = model.forward(x, t)
+    rel_m = float((out_m - adapted).norm() / adapted.norm())
+    rel_p = float((out_m - plain).norm() / plain.norm())
+    moved = float((out_m - out_base).abs().max())
+    log(f"[lora] merged model forward B={B}: vs the adapted forward rel_l2 {rel_m:.3e} (bit-equal "
+        f"{torch.equal(out_m, adapted)}), vs the plain path on the merged weights rel_l2 {rel_p:.3e} (tol "
+        f"{UNET_REL_TOL}); moved from the base by max |d| {moved:.3e}")
+    assert rel_m <= UNET_REL_TOL and rel_p <= UNET_REL_TOL and moved > 0
+
+    path = merged.save_to(os.path.join(tmp, "lora_merged.dmn"))
+    served = port.models.restore_model_from_archive(path, use_ema=True, device=device)
+    server = serve(served, port=0, max_batch=16, ddim_timesteps=DDIM_STEPS, use_ema=True)
+    server.start_background()
+    try:
+        code, body = http("POST", f"http://{server.host}:{server.port}/sample",
+                          {"num_images": 4, "seed": 5, "format": "npy"})
+    finally:
+        server.shutdown()
+    served_imgs = np.load(io.BytesIO(body))
+    assert code == 200 and served_imgs.shape == (4, 32, 32, 3) and served_imgs.std() > 0
+
+    src = model.save_to(os.path.join(tmp, "lora_base.dmn"))
+    t0 = time.perf_counter()
+    port.ops.reset_launch_counts()
+    tuner, losses, cli_merged = finetune_lora.main([
+        f"model_path={src}", f"output_path={tmp}/lora_cli.dmn", f"adapters_path={tmp}/adapters.npz", "rank=8",
+        f"steps={LORA_CLI_STEPS}", f"batch_size={LORA_B}", "dataset_length=512", "log_every=1"])
+    cli_s = time.perf_counter() - t0
+    cli_counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    log(f"[lora] /sample of the merged archive: 200, {served_imgs.shape}; finetune_lora {LORA_CLI_STEPS} steps at "
+        f"B={LORA_B}: {cli_s:.2f} s, losses {losses}, launches {json.dumps(cli_counts)} [{card}]")
+    assert len(losses) == LORA_CLI_STEPS and all(np.isfinite(losses)) and os.path.isfile(f"{tmp}/lora_cli.dmn")
+    assert cli_counts == {k: v * LORA_CLI_STEPS for k, v in UNET_PER.items()}, cli_counts
+
+
+def check_fid_moe_lora(port, device, rows, dense):
+    """20. Inception FID, the MoE DiT and LoRA fine-tuning on the card."""
+    t20 = time.perf_counter()
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="dmn_fid_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        lapped("20a InceptionV3", check_inception, port, device, card, prefix="fid")
+        lapped("20b compute_fid", check_compute_fid, port, device, tmp, card, prefix="fid")
+        check_moe(port, device, rows, dense, tmp, card)
+        lapped("20d LoRA", check_lora, port, device, tmp, card, prefix="lora")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[fid] phase 20 in {time.perf_counter() - t20:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -6433,6 +6846,13 @@ def main() -> int:
     # CLIs, the metrics.
     check_text(port, device, rows)
     phase_done("phase 19")
+
+    # 20. Inception FID (InceptionV3 at B=64, compute_fid from a unet_small
+    # archive), the mixture-of-experts DiT-S/2 (#7, the step, DDIM-50,
+    # /sample) and LoRA on unet_small (the captured step, the merge, the
+    # CLI).
+    check_fid_moe_lora(port, device, rows, models["dit_s2"])
+    phase_done("phase 20")
 
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM

@@ -8,7 +8,7 @@ fitted Gaussians, tr√(Σ1Σ2) through symmetric eigendecompositions),
 channel moments; for regression tracking, not comparable to Inception
 FID) and ``FIDScorer``, which accumulates real and generated features from
 any ``feature_fn(images) -> [B, D]`` and scores FID and KID. The InceptionV3
-extractor comes with a later slice of the port.
+extractor of standard FID is ``inception.py:inception_feature_fn``.
 """
 
 from __future__ import annotations

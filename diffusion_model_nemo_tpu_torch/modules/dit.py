@@ -43,8 +43,11 @@ plain torch ops (the JAX package computes it outside any Pallas kernel).
 In bf16 the products are exact whatever TF32 says (a bf16 value fits
 TF32); in float32 they rely on PyTorch's default, TF32 off for matmuls.
 
-Options of the JAX DiT that later slices bring raise
-``NotImplementedError``: mixture-of-experts MLPs and sequence parallelism.
+``moe_experts = E`` swaps the MLP of every ``moe_every``-th block (block
+``i`` with ``i % max(moe_every, 1) == 0``) for ``ExpertChoiceMoE``
+(``block_<i>.moe``): expert-choice routing over all B·N tokens of the
+batch, so a sample's output depends on the other rows of its batch (in
+both packages). Sequence parallelism raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ from .parts import (
     Conv2d, Dense, Embed, SinusoidalPositionEmbeddings, dropout, not_ported, remat_call, resolve_dtype,
 )
 
-__all__ = ["DiT", "DiTBlock", "sincos_position_embedding_1d", "sincos_position_embedding_2d", "depth_to_space"]
+__all__ = ["DiT", "DiTBlock", "ExpertChoiceMoE", "sincos_position_embedding_1d", "sincos_position_embedding_2d",
+           "depth_to_space"]
 
 
 def sincos_position_embedding_1d(n: int, dim: int) -> np.ndarray:
@@ -116,13 +120,74 @@ def _modulate(h: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torc
     return h * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
+class ExpertChoiceMoE(nn.Module):
+    """The JAX package's expert-choice MoE MLP over [B, N, D] tokens.
+
+    A float32 ``router`` (Dense D → E) scores every token, softmax over the
+    experts; each expert then takes its top-C tokens of the whole batch
+    (``topk`` of the scores' transpose, C = max(1, int(capacity_factor ·
+    B·N / E))), runs its own GELU MLP on them (``experts_w1`` [E, D, H],
+    ``experts_b1`` [E, H], ``experts_w2`` [E, H, D], ``experts_b2`` [E, D],
+    stacked, flax's own layout: the carrier takes them as they are) and
+    adds its gate-weighted outputs back into their rows; a token no expert
+    took gives zero. The two products are batched matmuls in the compute
+    dtype with float32 accumulation, rounded once, as ``preferred_element_
+    type`` then ``astype`` in JAX. The combine is deterministic: one
+    ``index_add_`` an expert, in expert order, each with distinct rows (an
+    expert's top-C indices are distinct), so no two additions of one launch
+    meet and the sums are those of JAX's scatter-add in its update order,
+    whatever the device. ``torch.topk`` returns tied scores in no fixed
+    order; the combine does not depend on the order within an expert. No
+    kernel: the JAX package computes the layer with XLA outside Pallas."""
+
+    def __init__(self, dim: int, hidden: int, num_experts: int, capacity_factor: float = 1.0,
+                 dtype=torch.float32):
+        super().__init__()
+        E = int(num_experts)
+        self.num_experts, self.capacity_factor, self.dtype = E, float(capacity_factor), resolve_dtype(dtype)
+        self.router = Dense(dim, E, dtype=torch.float32)
+        self.experts_w1 = nn.Parameter(torch.empty(E, dim, hidden))
+        self.experts_b1 = nn.Parameter(torch.zeros(E, hidden))
+        self.experts_w2 = nn.Parameter(torch.empty(E, hidden, dim))
+        self.experts_b2 = nn.Parameter(torch.zeros(E, dim))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The stacked expert kernels: flax's ``lecun_normal(batch_axis=(0,))``
+        (fan-in D, then H); the router is reset as a Dense of its own."""
+        for w in (self.experts_w1, self.experts_w2):
+            with torch.no_grad():
+                w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(w.shape[1]))
+
+    def route(self, xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(gates [E, C] float32, token indices [E, C]) of tokens [T, D]."""
+        scores = torch.softmax(self.router(xt.float()), dim=-1)  # [T, E]
+        capacity = max(1, int(self.capacity_factor * xt.shape[0] / self.num_experts))
+        return torch.topk(scores.t(), capacity, dim=-1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, D = x.shape
+        dt = self.dtype
+        xt = x.reshape(B * N, D)
+        gates, idx = self.route(xt)
+        xe = xt[idx].to(dt)  # [E, C, D] dispatch
+        h = F.gelu(torch.bmm(xe, self.experts_w1.to(dt)) + self.experts_b1[:, None, :].to(dt), approximate="tanh")
+        ye = torch.bmm(h, self.experts_w2.to(dt)) + self.experts_b2[:, None, :].to(dt)
+        contrib = gates[..., None].to(dt) * ye
+        out = torch.zeros((B * N, D), dtype=dt, device=x.device)
+        for e in range(self.num_experts):
+            out.index_add_(0, idx[e], contrib[e])
+        return out.reshape(B, N, D)
+
+
 class DiTBlock(nn.Module):
     """Pre-LN transformer block with adaLN-Zero conditioning, and with
     ``context_dim`` a cross-attention branch between the self-attention and
-    the MLP."""
+    the MLP; ``moe_experts`` > 0 puts ``ExpertChoiceMoE`` (``moe``) in the
+    MLP's place."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0, dtype=torch.float32,
-                 dropout: Optional[float] = None, context_dim: int = 0):
+                 dropout: Optional[float] = None, context_dim: int = 0, moe_experts: int = 0,
+                 moe_capacity_factor: float = 1.0):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} not divisible by heads {heads}")
@@ -138,8 +203,11 @@ class DiTBlock(nn.Module):
             self.ca_q = Dense(dim, dim, dtype=dt)
             self.ca_kv = Dense(context_dim, 2 * dim, dtype=dt)
             self.ca_out = Dense(dim, dim, dtype=dt)
-        self.mlp_in = Dense(dim, hidden, dtype=dt)
-        self.mlp_out = Dense(hidden, dim, dtype=dt)
+        if moe_experts:
+            self.moe = ExpertChoiceMoE(dim, hidden, moe_experts, moe_capacity_factor, dtype=dt)
+        else:
+            self.mlp_in = Dense(dim, hidden, dtype=dt)
+            self.mlp_out = Dense(hidden, dim, dtype=dt)
 
     def _cross_attention(self, x: torch.Tensor, ctx: torch.Tensor, ctx_mask: Optional[torch.Tensor]) -> torch.Tensor:
         """``ca_out`` of the attention from x's tokens to ``ctx`` [B, L,
@@ -175,16 +243,20 @@ class DiTBlock(nn.Module):
         if self.cross_attention and ctx is not None:
             x = x + dropout(self._cross_attention(x, ctx, ctx_mask), ca_mask, self.dropout)
         h = _modulate(_layer_norm(x), sh2, sc2)
-        h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))  # flax nn.gelu: tanh form
+        if hasattr(self, "moe"):
+            h = self.moe(h)
+        else:
+            h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))  # flax nn.gelu: tanh form
         return x + g2[:, None, :] * dropout(h, mlp_mask, self.dropout)
 
 
 @register_target("diffusion_model_nemo.modules.DiT", "diffusion_model_nemo_tpu.modules.DiT")
 class DiT(nn.Module):
     """Diffusion Transformer; drop-in for ``Unet`` in the DDPM family.
-    ``input_dim``, ``moe_every`` and ``moe_capacity_factor`` are accepted
-    for config compatibility; ``context_dim`` / ``context_vocab`` add the
-    cross-attention branch (the module docstring); ``dropout``
+    ``input_dim`` is accepted for config compatibility; ``moe_experts``,
+    ``moe_every`` and ``moe_capacity_factor`` give every ``moe_every``-th
+    block an expert-choice MoE MLP, ``context_dim`` / ``context_vocab`` add
+    the cross-attention branch (the module docstring); ``dropout``
     acts in training through injected masks (the module docstring).
     ``remat`` recomputes each block's activations in the backward
     (``parts.remat_call``), as the JAX package's ``nn.remat`` does.
@@ -217,8 +289,6 @@ class DiT(nn.Module):
         in_channels: Optional[int] = None,
     ):
         super().__init__()
-        if moe_experts:
-            raise not_ported("DiT", f"moe_experts={moe_experts}", "DiT mixture-of-experts")
         if seq_axis_name is not None:
             raise not_ported("DiT", f"seq_axis_name={seq_axis_name!r}", "sequence-parallel ring attention")
         dt = resolve_dtype(dtype)
@@ -241,8 +311,10 @@ class DiT(nn.Module):
             self.context_embed = Embed(self.context_vocab, self.context_dim)
         self.dropout = float(dropout or 0.0)
         for i in range(depth):
+            moe = int(moe_experts or 0) if i % max(int(moe_every), 1) == 0 else 0
             self.add_module(f"block_{i}", DiTBlock(dim, heads, mlp_ratio, dt, dropout=self.dropout,
-                                                   context_dim=self.context_dim))
+                                                   context_dim=self.context_dim, moe_experts=moe,
+                                                   moe_capacity_factor=moe_capacity_factor))
         self.depth = depth
         self.final_mod = Dense(dim, 2 * dim, dtype=dt)
         self.final_linear = Dense(dim, p * p * self.out_dim, dtype=dt)

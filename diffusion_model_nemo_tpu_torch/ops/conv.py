@@ -62,14 +62,16 @@ _MAX_WIDTH = 128  # a band of the kernel holds at most 128 output pixels
 @contextlib.contextmanager
 def no_tf32():
     """cuDNN runs a float32 convolution in TF32 by default; a float32
-    reference (the plain conv here, SSIM's windows in ``metrics/``) turns
-    TF32 off around its own."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    reference (the plain conv here, SSIM's windows and InceptionV3 in
+    ``metrics/``) turns TF32 off around its own, for the convolutions and
+    for the matmuls (whose default is off, but a caller may have switched
+    it on), and leaves both switches as it found them."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:

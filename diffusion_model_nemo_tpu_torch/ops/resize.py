@@ -65,14 +65,14 @@ _KERNELS = {
 def weight_matrix(in_size: int, out_size: int, method: str, antialias: bool = True) -> np.ndarray:
     """The float32 [in, out] matrix that resizes one axis from ``in_size``
     to ``out_size`` (JAX ``compute_weight_mat`` at scale out/in and no
-    translation): the kernel at each output sample's distance to each
+    translation, its 1/scale rounded once from the Python float as JAX
+    rounds it, so a ratio such as 299/320 gives JAX's sample positions): the kernel at each output sample's distance to each
     input pixel, widened by the shrink factor under ``antialias``, each
     column divided by its sum (0 where the sum is ~0), and zero where the
     sample lies outside the input."""
     if _check(method) == "nearest":
         raise ValueError("nearest resizes by a gather (nearest_indices), not a weight matrix")
-    scale = _F32(out_size / in_size)
-    inv_scale = _F32(1.0) / scale
+    inv_scale = _F32(1.0 / (out_size / in_size))  # JAX takes 1 / scale in Python floats, then float32
     kernel_scale = max(inv_scale, _F32(1.0)) if antialias else _F32(1.0)
     sample_f = (np.arange(out_size, dtype=_F32) + _F32(0.5)) * inv_scale - _F32(0.0) * inv_scale - _F32(0.5)
     x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=_F32)[:, None]) / _F32(kernel_scale)

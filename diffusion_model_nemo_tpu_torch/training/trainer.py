@@ -195,15 +195,15 @@ class Trainer:
 
     # ------------------------------------------------------------------ fit ----
     def _check_ported(self, model) -> None:
-        def refuse(option: str):
-            raise not_ported("Trainer", option, "training services")
+        def refuse(option: str, slice_: str = "training services"):
+            raise not_ported("Trainer", option, slice_)
 
         strategy = None if self.strategy is None else str(self.strategy).lower()
         n = int(self.devices)
         if n in (-1, 0):
             n = torch.cuda.device_count() if model.device.type == "cuda" else 1
         if strategy not in _ONE_DEVICE_STRATEGIES or n > 1 or int(self.num_nodes) > 1:
-            refuse(f"strategy={self.strategy!r} on {n} device(s) x {self.num_nodes} node(s)")
+            refuse(f"strategy={self.strategy!r} on {n} device(s) x {self.num_nodes} node(s)", "parallelism")
         if self.resume_from_checkpoint:
             refuse("resume_from_checkpoint (resume through exp_manager.resume_if_exists)")
         if self.enable_checkpointing:

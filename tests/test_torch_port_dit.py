@@ -176,7 +176,7 @@ def test_depth_to_space_matches_jax():
 @pytest.mark.parametrize(
     "kw,slice_",
     [
-        (dict(moe_experts=4), "mixture-of-experts"),
+        (dict(moe_experts=4), None),  # ported: the MoE blocks build (tests/test_torch_port_moe.py)
         (dict(context_dim=32), None),  # ported: the cross-attention branch builds (tests/test_torch_port_text.py)
         (dict(aug_dim=9), None),  # ported: the augmentation input builds (tests/test_torch_port_convnext.py)
         (dict(seq_axis_name="seq"), "ring attention"),
@@ -184,6 +184,11 @@ def test_depth_to_space_matches_jax():
     ids=["moe_experts", "context_dim", "aug_dim", "seq_axis_name"],
 )
 def test_unported_dit_options_raise(kw, slice_):
+    if slice_ is None and "moe_experts" in kw:
+        moe = DiT(dim=32, depth=1, heads=2, **kw).block_0.moe
+        assert (moe.experts_w1.shape, moe.experts_w2.shape, moe.router.weight.shape) == ((4, 32, 128), (4, 128, 32),
+                                                                                         (4, 32))
+        return
     if slice_ is None and "aug_dim" in kw:
         assert DiT(dim=32, depth=1, heads=2, **kw).aug_embed.weight.shape == (32, 9)
         return
