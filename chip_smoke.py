@@ -3,6 +3,8 @@
 check them.
 
     python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py consistency-serving   # the consistency student's
+                                     # /sample windows, diagnosed (no phase)
 
 Paths: unet_small (bf16, 32 px) trained at batch 128 and served, on kernels
 #1-#4 (also as ImprovedDDPM, as the class-conditional, guided
@@ -490,6 +492,32 @@ Phases:
           one and within 3e-2 of the plain path on the merged weights; the
           merged archive on /sample; ``finetune_lora`` for 5 steps; the
           step's wall beside the full B=64 step's.
+
+  21. Progressive and consistency distillation, ``[distill]`` and ``[cd]``
+      lines, each time beside the card's name and power limit (unet_small
+      and conditional_ddpm/unet_small at B=64, random weights from seed 0):
+     21a the transfer pred_noise -> pred_v and the phases N = 500, 250 and
+          125 (2 steps each): the first step the capture's eager warm-up,
+          the replayed step == the same step run eagerly from the warm-up's
+          state, bit for bit (cudnn.deterministic), a step's graph 70/8/2/2 (transfer) or
+          105/12/3/3 launches (nothing in the backward), ms a step, busy,
+          pool MiB; the N = 500 step's loss and gradients against the plain
+          path (1e-2, 5e-2);
+     21b the guided phase on the ConditionalDDPM teacher (w = 3, its
+          teacher on 2B rows), the same checks;
+     21c the 125-step pred_v student: its DDIM-125 chain at B=64, its last
+          ``EAGER_TAIL`` steps captured == eager and the whole chain
+          captured, its archive restored and served on /sample (images/s);
+     21d CD at teacher order 2 (l2) and 1 (pseudo-Huber) and CT
+          (pseudo-Huber), 2 steps each: captured == eager, 140/16/4/4,
+          105/12/3/3 and 70/8/2/2 launches a step, the EMA target ==
+          μθ⁻ + (1 − μ)θ of the step's student; CD's loss and gradients
+          against the plain path;
+     21e the consistency student at 1 and 2 steps: the chains captured ==
+          eager, each archive on /sample (images/s);
+     21f ``distill_ddpm`` and ``consistency_ddpm`` from a unet_small
+          archive at one or two steps a stage; their students restore and
+          sample.
 
 The last two lines are a JSON object with one entry per kernel and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero and
@@ -3553,10 +3581,10 @@ def check_fast_sampler(port, model, base, name, per):
     return {"nfe": nfe, "wall_ms": wall * 1e3, "busy_ms": busy, "eager_ms": eager_s * 1e3}
 
 
-def client_window(server, tag, clients=None, size=32):
+def client_window(server, tag, clients=None, size=32, window=SVC_WINDOW_S):
     """One client a size of SVC_CLIENT_SIZES (or one a ``(n, payload)`` of
     ``clients``: its requests' size and extra /sample fields), each sending
-    unseeded /sample requests back to back until SVC_WINDOW_S closes, so
+    unseeded /sample requests back to back until ``window`` s close, so
     that the server coalesces them into batches: (answers [(code, n,
     good)], the window's wall to the last answer, /stats once its count has
     caught up, its requests, images and batches counted from the window's
@@ -3579,7 +3607,7 @@ def client_window(server, tag, clients=None, size=32):
 
     before = json.loads(http("GET", url + "/stats")[1])
     t1 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(n, extra, t1 + SVC_WINDOW_S)) for n, extra in clients]
+    threads = [threading.Thread(target=client, args=(n, extra, t1 + window)) for n, extra in clients]
     for th in threads:
         th.start()
     for th in threads:
@@ -6680,6 +6708,419 @@ def check_fid_moe_lora(port, device, rows, dense):
     log(f"[fid] phase 20 in {time.perf_counter() - t20:.1f} s")
 
 
+DISTILL_B, DISTILL_STEPS, DISTILL_REPLAYS = 64, 2, 3
+DISTILL_PHASES = (500, 250, 125)  # distill_ddpm's default halvings from T = 1000 to final_steps 125
+DISTILL_SCALE = 3.0  # the guided stage's w
+CD_GRID = 18  # consistency_ddpm's default grid_steps
+CD_CASES = (("distill", 2, "l2"), ("distill", 1, "pseudo_huber"), ("train", 2, "pseudo_huber"))
+CD_FORWARDS = {("distill", 2): 4, ("distill", 1): 3, ("train", 2): 2}  # a step's network calls
+STUDENT_WINDOW_S = 1.0  # each served consistency student's /sample window
+# the DDIM-125 student's: ~8 of its ~265 ms batches, so that the last
+# batches' fill moves its rate little
+DDIM_STUDENT_WINDOW_S = 2.0
+DISTILL_CLI_B = 16
+
+
+def times(per, n):
+    return {k: v * n for k, v in per.items()}
+
+
+def distill_batches(n, Bn=DISTILL_B):
+    """``n`` synthetic uint8 batches of ``Bn`` 32-px images with labels in
+    [0, NUM_CLASSES)."""
+    import numpy as np
+
+    from diffusion_model_nemo_tpu_torch.data import SyntheticVisionDataset
+
+    ds = SyntheticVisionDataset(image_size=32, channels=3, num_classes=NUM_CLASSES, length=n * Bn, seed=SEED)
+    return [{k: np.stack([ds[i * Bn + j][k] for j in range(Bn)]) for k in ("image", "label")} for i in range(n)]
+
+
+def fused_loss_vs_plain(port, tag, trainer, state, batch, draws, per_step, card):
+    """One fused step's loss and the student's gradient with the kernels
+    against the plain path (1e-2, 5e-2), the forward's launches = the step's
+    network calls, none in the backward."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.training.trainer import param_grads
+
+    def once():
+        with torch.inference_mode(False):
+            port.ops.reset_launch_counts()
+            loss = trainer.loss(state, batch, draws)
+            torch.cuda.synchronize()
+            fwd = port.ops.launch_counts()
+            port.ops.reset_launch_counts()
+            grads = param_grads(loss, state.student, trainer._unused())
+            torch.cuda.synchronize()
+            bwd = port.ops.launch_counts()
+        return float(loss.detach()), torch.cat([g.float().flatten() for g in grads.values()]), fwd, bwd
+
+    loss_k, g_k, fwd, bwd = once()
+    with plain_path(port):
+        loss_p, g_p, _f, _b = once()
+    assert_counts(f"{tag} forward", fwd, per_step)
+    assert_counts(f"{tag} backward", bwd, {})
+    rel_loss, rel_grad = abs(loss_k - loss_p) / abs(loss_p), float((g_k - g_p).norm() / g_p.norm())
+    log(f"[distill] {tag}: loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel {rel_loss:.3e}, tol {LOSS_REL_TOL}); "
+        f"gradient ({g_k.numel()} values) rel_l2 {rel_grad:.3e} (tol {GRAD_REL_TOL}) [{card}]")
+    assert rel_loss <= LOSS_REL_TOL and rel_grad <= GRAD_REL_TOL, tag
+
+
+def clone_state(state):
+    """A copy of a distiller's state (student, target, moments and count),
+    the teacher shared, no graph."""
+    import dataclasses
+
+    opt = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v) for k, v in state.opt_state.items()}
+    extra = {"target": {k: v.clone() for k, v in state.target.items()}} if hasattr(state, "target") else {}
+    return dataclasses.replace(state, student={k: v.detach().clone().requires_grad_(True)
+                                               for k, v in state.student.items()}, opt_state=opt, graphs={}, **extra)
+
+
+def fused_stage(port, prefix, tag, trainer, new_state, batches, draws, per_step, card, ema=None):
+    """A fused step's run of len(draws) steps captured (under
+    cudnn.deterministic): its first step the capture's eager warm-up, the
+    others replays; the replayed steps run again eagerly from a copy of the
+    state the warm-up left, every tensor they update and their losses bit
+    for bit; the captured run's launches = per_step x steps, its graph's =
+    per_step (the backward launches nothing); then DISTILL_REPLAYS replays
+    timed (wall, busy, the graph's pool). ``ema``: μ, checked on one more
+    replay (the target == μθ⁻ + (1 − μ)θ of the step's student). Returns the
+    captured state."""
+    import torch
+
+    def updated(state):
+        return {**{f"student/{k}": v.detach() for k, v in state.student.items()},
+                **{f"target/{k}": v for k, v in getattr(state, "target", {}).items()}}
+
+    with deterministic():
+        port.ops.reset_launch_counts()
+        captured = new_state()
+        losses = [trainer.train_step(captured, batches[0], draws[0])]  # the warm-up, then the capture
+        eager = clone_state(captured)
+        losses += [trainer.train_step(captured, b, d) for b, d in zip(batches[1:], draws[1:])]
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+        t0 = time.perf_counter()
+        eager_losses = [trainer.train_step(eager, b, d, graphs=False) for b, d in zip(batches[1:], draws[1:])]
+        torch.cuda.synchronize()
+        eager_s = (time.perf_counter() - t0) / len(eager_losses)
+        losses, eager_losses = torch.stack(losses), torch.stack(eager_losses)
+        a, b = updated(captured), updated(eager)
+        diff = max(float((a[k] - b[k]).abs().max()) for k in a)
+        equal = diff == 0 and torch.equal(losses[1:], eager_losses)
+        (graph,) = captured.graphs.values()
+        step = lambda: trainer.train_step(captured, batches[0], draws[0])  # noqa: E731
+        wall, _ = walled(step, n=DISTILL_REPLAYS)
+        busy, _ = device_profile(step, iters=1)
+        ema_line = ""
+        if ema is not None:
+            prior = {k: v.clone() for k, v in captured.target.items()}
+            step()
+            with torch.no_grad():
+                gap = max(float((captured.target[k] - (ema * prior[k] + (1.0 - ema) * captured.student[k])).abs().max())
+                          for k in prior)
+            ema_line = f"; EMA target vs μθ⁻ + (1 − μ)θ computed apart: max |diff| {gap:.3e}"
+            assert gap <= 1e-6, (tag, gap)
+    info = graph.info
+    log(f"[{prefix}] {tag} B={DISTILL_B}: losses captured {losses.tolist()} (the first the capture's eager warm-up), "
+        f"the replayed steps again eagerly from the warm-up's state {eager_losses.tolist()}: every updated tensor and "
+        f"the losses bit-equal {equal} (max |diff| {diff:.3e}, cudnn.deterministic); captured {wall * 1e3:.3f} ms a "
+        f"step ({DISTILL_B / wall:.1f} samples/s), busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), eager "
+        f"{eager_s * 1e3:.3f} ms; capture {info['capture_s']:.3f} s, {info['nodes']} nodes, pool "
+        f"{info['pool_mib']:.1f} MiB; launches in the {len(draws)} captured-path steps {json.dumps(counts)}, a step's "
+        f"graph {json.dumps(graph.delta)}{ema_line} [{card}]")
+    assert equal, f"{tag}: the replayed steps differ from the eager steps"
+    assert graph.delta == per_step and counts == times(per_step, len(draws)), (tag, graph.delta, counts, per_step)
+    assert bool(torch.isfinite(losses).all())
+    return captured
+
+
+def check_progressive(port, device, card):
+    """21a. The recipe's stages on unet_small at B=64: the transfer, then
+    N = 500, 250, 125, each from the last stage's student; returns (the
+    distiller, the last student)."""
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+
+    model = port.DDPM(unet_small_model_config(), device=device, seed=SEED)
+    pd = port.training.ProgressiveDistiller(model, student_objective="pred_v")
+    batches = distill_batches(DISTILL_STEPS)
+    gen = svc_generator(model)
+    shape = batches[0]["image"].shape
+    teacher, objective = model.params, pd.teacher_objective
+    stages = [("transfer", 1, 1)] + [(f"N={n}", model.timesteps // n, 2) for n in DISTILL_PHASES]
+    for name, stride, substeps in stages:
+        new_state = lambda: pd.init_state(teacher, objective, stride, substeps)  # noqa: E731
+        draws = [pd.draw_inputs(new_state(), shape, gen) for _ in batches]
+        per_step = times(UNET_PER, 1 + substeps)
+        if name == f"N={DISTILL_PHASES[0]}":
+            fused_loss_vs_plain(port, f"distill {name} step", pd, new_state(), batches[0], draws[0], per_step, card)
+        state = fused_stage(port, "distill", f"distill {name} step ({'two teacher half-steps' if substeps == 2 else 'objective transfer'}, teacher {objective})",
+                            pd, new_state, batches, draws, per_step, card)
+        teacher, objective = {k: v.detach() for k, v in state.student.items()}, pd.student_objective
+    return pd, teacher
+
+
+def check_guided_distill(port, device, card):
+    """21b. The guided phase N = 500 on conditional_ddpm/unet_small (w =
+    DISTILL_SCALE): its teacher one call on 2B rows a half-step."""
+    model = family_model(port, device, "conditional")
+    pd = port.training.ProgressiveDistiller(model, student_objective="pred_noise", guidance_scale=DISTILL_SCALE)
+    batches = distill_batches(DISTILL_STEPS)
+    stride = model.timesteps // DISTILL_PHASES[0]
+    new_state = lambda: pd.init_state(model.params, "pred_noise", stride, 2, guided=True)  # noqa: E731
+    gen = svc_generator(model)
+    draws = [pd.draw_inputs(new_state(), batches[0]["image"].shape, gen) for _ in batches]
+    per_step = times(UNET_PER, 3)
+    fused_loss_vs_plain(port, "distill guided N=500 step", pd, new_state(), batches[0], draws[0], per_step, card)
+    fused_stage(port, "distill", f"distill guided N={DISTILL_PHASES[0]} step (w {DISTILL_SCALE}, the teacher on "
+                f"{2 * DISTILL_B} rows)", pd, new_state, batches, draws, per_step, card)
+
+
+def student_chain(port, prefix, tag, student, nfe, card):
+    """A student's chain at B=64 (its own sampler, EMA weights): captured ==
+    eager bit for bit (cudnn.deterministic); a chain longer than
+    EAGER_TAIL steps, whose eager loop is host-bound, is held over its last
+    EAGER_TAIL steps (its table cut to those rows, from a seeded start),
+    then runs whole, captured, twice the same; launches = one forward's x
+    replays; wall, busy, eager wall."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.modules.table_loop import device_table
+
+    sampler = student.sampler
+    name = "ddim" if nfe > 2 else "consistency"
+    run = lambda graphs=None: student.sample(DISTILL_B, 32, generator=svc_generator(student),  # noqa: E731
+                                             use_ema=True, graphs=graphs)
+    tail = nfe > EAGER_TAIL
+    full = device_table(sampler, "ddim", sampler._ddim_table, ("t", "t_next"), dtype=np.int64) if tail else None
+
+    def held(graphs=None):
+        if not tail:
+            return run(graphs)
+        sampler._device_tables["ddim"] = full[-EAGER_TAIL:]
+        try:
+            with torch.inference_mode():
+                return sampler.p_sample_loop(student.get_model_fn(), student.ema_params, (DISTILL_B, 32, 32, 3),
+                                             svc_generator(student), graphs=graphs)
+        finally:
+            sampler._device_tables["ddim"] = full
+
+    with deterministic():
+        eager_s, ref = walled(lambda: held(False))
+        first_s, first = walled(held)  # the capture
+        whole = walled(run)[1] if tail else first  # the whole chain's capture
+        port.ops.reset_launch_counts()
+        wall, again = walled(run, n=2)
+        counts = port.ops.launch_counts()
+        graph = graph_of(sampler.graphs, name)
+        busy = replay_busy(graph, "i", 0, iters=1) * nfe * 1e3 if nfe > 2 else device_profile(run, iters=1)[0]
+    assert torch.equal(ref, first) and torch.equal(whole, again), f"{tag}: captured != eager"
+    assert bool(torch.isfinite(again).all()) and float(again.std()) > 0, tag
+    assert graph.delta == UNET_PER, (tag, graph.delta)
+    held_line = f"its last {EAGER_TAIL} steps == eager, the whole chain twice the same" if tail else "== eager"
+    graph_line(f"{prefix} {tag} B={DISTILL_B} NFE {nfe} (first call with capture {first_s:.3f} s; {held_line} bit "
+               f"for bit under cudnn.deterministic)", wall, busy / 1e3, None if tail else eager_s, graph, counts,
+               2 * nfe)
+    eager_line = f"eager {eager_s * 1e3 / EAGER_TAIL:.3f} ms a step (its last {EAGER_TAIL})" if tail else \
+        f"eager {eager_s * 1e3:.3f} ms"
+    log(f"[{prefix}] {tag} B={DISTILL_B}: NFE {nfe}, captured {wall * 1e3:.3f} ms a chain ({DISTILL_B / wall:.1f} "
+        f"images/s), busy {busy:.3f} ms ({100 * busy / 1e3 / wall:.1f}%), {eager_line} [{card}]")
+
+
+def serve_student(port, prefix, tag, student, nfe, tmp, card, window=STUDENT_WINDOW_S):
+    """The student's archive restored (the same sampler config and weights)
+    and served with its own sampler on /sample over a window: images/s,
+    launches = one forward's x NFE x batches (the warm-up's among them)."""
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.serving import serve
+
+    path = student.save_to(os.path.join(tmp, f"{tag.replace(' ', '_')}.dmn"))
+    back = port.models.restore_model_from_archive(path, use_ema=True, device=student.device)
+    assert dict(back.cfg.sampler) == dict(student.cfg.sampler), tag
+    assert all(torch.equal(back.params[k], student.params[k]) for k in student.params), tag
+    port.ops.reset_launch_counts()
+    server = serve(back, port=0, max_batch=DISTILL_B, use_ddim_sampler=False, use_ema=True)
+    server.start_background()
+    try:
+        answers, wall, stats, images = client_window(server, f"{prefix} {tag}", window=window)
+    finally:
+        server.shutdown()
+    counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    batches = stats["batches"] + 1
+    log(f"[{prefix}] /sample of the {tag} archive ({type(back.sampler).__name__}, NFE {nfe}): "
+        f"{len(SVC_CLIENT_SIZES)} clients over {wall:.3f} s, {len(answers)} requests, {images} images in "
+        f"{stats['batches']} batches (fill {stats['avg_batch_fill']}), {images / wall:.2f} images/s served, latency "
+        f"{stats['avg_request_latency_ms']} ms, avg device ms a batch {stats['avg_device_ms_per_batch']}; launches "
+        f"{json.dumps(counts)} = one forward's x {nfe} x {batches} batches [{card}]")
+    assert counts == times(UNET_PER, nfe * batches), (tag, counts)
+
+
+def check_consistency(port, device, teacher_model, card):
+    """21d. CD (Heun, Euler) and CT on unet_small at B=64; returns the
+    distiller and the CD-Heun student."""
+    cds, student = None, None
+    batches = distill_batches(DISTILL_STEPS)
+    for i, (mode, order, loss) in enumerate(CD_CASES):
+        cd = port.training.ConsistencyDistiller(teacher_model, grid_steps=CD_GRID, loss=loss, teacher_order=order,
+                                                mode=mode)
+        gen = svc_generator(teacher_model, SEED + i)
+        draws = [cd.draw_inputs(cd.init_state(), batches[0]["image"].shape, gen) for _ in batches]
+        per_step = times(UNET_PER, CD_FORWARDS[(mode, order)])
+        tag = f"{'CD' if mode == 'distill' else 'CT'} step ({'Heun' if order == 2 else 'Euler'}, {loss}, grid {CD_GRID})"
+        if i == 0:
+            fused_loss_vs_plain(port, f"cd {tag}", cd, cd.init_state(), batches[0], draws[0], per_step, card)
+        state = fused_stage(port, "cd", tag, cd, cd.init_state, batches, draws, per_step, card, ema=cd.ema_decay)
+        if i == 0:
+            cds, student = cd, {k: v.detach() for k, v in state.student.items()}
+    return cds, student
+
+
+def check_distill_clis(port, device, tmp, card):
+    """21f. distill_ddpm (transfer and halvings to 250 steps, one step a
+    stage) and consistency_ddpm (2 CD steps) from a unet_small archive at
+    batch DISTILL_CLI_B; launches = the stages' network calls; each student
+    restores and samples 4 images with its own sampler."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_nemo_tpu_torch.cli import consistency_ddpm, distill_ddpm
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+
+    src = port.DDPM(unet_small_model_config(), device=device, seed=SEED).save_to(os.path.join(tmp, "teacher.dmn"))
+    t0 = time.perf_counter()
+    port.ops.reset_launch_counts()
+    student, history = distill_ddpm.main([
+        f"model_path={src}", f"output_path={tmp}/distilled.dmn", "final_steps=250", "steps_per_phase=1",
+        "transfer_steps=1", f"batch_size={DISTILL_CLI_B}", "dataset_length=64", "log_every=1"])
+    distill_s = time.perf_counter() - t0
+    d_counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    t0 = time.perf_counter()
+    port.ops.reset_launch_counts()
+    cstudent, losses = consistency_ddpm.main([
+        f"model_path={src}", f"output_path={tmp}/consistency.dmn", "steps=2", "sample_steps=1",
+        f"batch_size={DISTILL_CLI_B}", "dataset_length=64", "log_every=1"])
+    cd_s = time.perf_counter() - t0
+    c_counts = {k: v for k, v in port.ops.launch_counts().items() if v}
+    outs = []
+    for path, steps in ((f"{tmp}/distilled.dmn", 250), (f"{tmp}/consistency.dmn", 1)):
+        back = port.models.restore_model_from_archive(path, use_ema=True, device=device)
+        outs.append((type(back.sampler).__name__, back.sample(4, 32, generator=svc_generator(back))))
+    log(f"[distill] distill_ddpm (transfer + N=500, 250; 1 step each, B={DISTILL_CLI_B}): {distill_s:.2f} s, losses "
+        f"{json.dumps(history)}, launches {json.dumps(d_counts)}; consistency_ddpm (2 CD steps, B={DISTILL_CLI_B}): "
+        f"{cd_s:.2f} s, losses {losses}, launches {json.dumps(c_counts)}; the students restored as "
+        f"{[o[0] for o in outs]} and sampled 4 images each [{card}]")
+    assert d_counts == times(UNET_PER, 2 + 3 + 3) and c_counts == times(UNET_PER, 2 * 4), (d_counts, c_counts)
+    assert all(np.isfinite(v).all() for v in history.values()) and np.isfinite(losses).all()
+    assert [o[0] for o in outs] == ["GeneralizedGaussianDiffusion", "ConsistencySampler"]
+    assert all(tuple(o.shape) == (4, 32, 32, 3) and bool(torch.isfinite(o).all()) for _n, o in outs)
+    assert student.sampler.ddim_timesteps == 250 and cstudent.sampler.sample_steps == 1
+
+
+def check_distillation(port, device):
+    """21. Progressive and consistency distillation on the card."""
+    t21 = time.perf_counter()
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="dmn_distill_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        pd, params = lapped("21a progressive", check_progressive, port, device, card, prefix="distill")
+        lapped("21b guided", check_guided_distill, port, device, card, prefix="distill")
+        student = pd.student_model(params, DISTILL_PHASES[-1])
+        lapped("21c DDIM-125 student", student_chain, port, "distill", f"pred_v student DDIM-{DISTILL_PHASES[-1]}",
+               student, DISTILL_PHASES[-1], card, prefix="distill")
+        lapped("21c /sample", serve_student, port, "distill", f"{DISTILL_PHASES[-1]}-step student", student,
+               DISTILL_PHASES[-1], tmp, card, DDIM_STUDENT_WINDOW_S, prefix="distill")
+        cd, cd_params = lapped("21d consistency", check_consistency, port, device, pd.model, card, prefix="cd")
+        for k in (1, 2):
+            cstudent = cd.student_model(cd_params, sample_steps=k)
+            lapped(f"21e {k}-step chain", student_chain, port, "cd", f"{k}-step consistency student", cstudent, k,
+                   card, prefix="cd")
+            lapped(f"21e {k}-step /sample", serve_student, port, "cd", f"{k}-step consistency student", cstudent, k,
+                   tmp, card, prefix="cd")
+        lapped("21f CLIs", check_distill_clis, port, device, tmp, card, prefix="distill")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[distill] phase 21 in {time.perf_counter() - t21:.1f} s")
+
+
+SERVING_DIAGNOSIS_WINDOW_S = 2.0
+
+
+def diagnose_consistency_serving() -> int:
+    """``python3 chip_smoke.py consistency-serving``: the one-step
+    consistency student of a seeded unet_small (B=64) served on /sample,
+    each window (SERVING_DIAGNOSIS_WINDOW_S) as the sampler ships (its
+    levels on the host) and with its σ grid made anew from the schedule's
+    device table at every dispatch, as the first version did: untraced
+    (images/s, device ms a batch), then traced with torch.profiler (the
+    card's busy share of the window; the host's time a batch in the
+    calls that wait on the card, and its busiest host calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
+        return 2
+    import diffusion_model_nemo_tpu_torch as port
+    from diffusion_model_nemo_tpu_torch.config import unet_small_model_config
+    from diffusion_model_nemo_tpu_torch.modules import ConsistencySampler
+    from diffusion_model_nemo_tpu_torch.ops import _build
+    from diffusion_model_nemo_tpu_torch.serving import serve
+    from diffusion_model_nemo_tpu_torch.tools.profiling import MARKER_KERNEL, _open_markers, trace_events
+
+    card = card_line()
+    _build.load_kernels()
+    model = port.DDPM(unet_small_model_config(), device="cuda", seed=SEED)
+    student = port.training.ConsistencyDistiller(model, grid_steps=CD_GRID).student_model(model.params, 1)
+    shipped = ConsistencySampler._consistency_sigmas
+
+    def per_dispatch(self):
+        sig, t_cond = self._sigma_grid()  # reads the schedule's device table: a sync
+        return sig[: self.sample_steps], t_cond[: self.sample_steps]
+
+    waits = ("cudaStreamSynchronize", "cudaMemcpyAsync", "cudaEventSynchronize", "cudaDeviceSynchronize",
+             "aten::_local_scalar_dense")
+    for way, levels in (("shipped", shipped), ("per-dispatch schedule read", per_dispatch)):
+        ConsistencySampler._consistency_sigmas = levels
+        try:
+            server = serve(student, port=0, max_batch=DISTILL_B, use_ddim_sampler=False, use_ema=True)
+            server.start_background()
+            try:
+                _answers, wall, stats, images = client_window(server, way, window=SERVING_DIAGNOSIS_WINDOW_S)
+                log(f"[serve-diagnosis] {way}: {images / wall:.2f} images/s over {wall:.3f} s, {stats['batches']} "
+                    f"batches (fill {stats['avg_batch_fill']}), device ms a batch {stats['avg_device_ms_per_batch']}, "
+                    f"latency {stats['avg_request_latency_ms']} ms [{card}]")
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    _open_markers()
+                    _answers, twall, tstats, timages = client_window(server, f"{way} traced",
+                                                                     window=SERVING_DIAGNOSIS_WINDOW_S)
+                    torch.cuda.synchronize()
+            finally:
+                server.shutdown()
+        finally:
+            ConsistencySampler._consistency_sigmas = shipped
+        device = [(n, us) for n, us in trace_events(prof, torch.autograd.DeviceType.CUDA) if MARKER_KERNEL not in n]
+        host: dict = {}
+        for n, us in trace_events(prof, torch.autograd.DeviceType.CPU):
+            host[n] = host.get(n, 0.0) + us
+        nb = max(tstats["batches"], 1)
+        busy_ms = sum(us for _n, us in device) / 1e3
+        top = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[serve-diagnosis] {way} traced: {timages / twall:.2f} images/s, {nb} batches; the card busy "
+            f"{busy_ms / nb:.3f} ms a batch ({100 * busy_ms / (twall * 1e3):.1f}% of the window); the host's waits a "
+            f"batch {json.dumps({n: round(host[n] / 1e3 / nb, 3) for n in waits if n in host})} ms; its busiest "
+            f"calls (ms a batch, nested calls counted in each) "
+            f"{json.dumps({n: round(us / 1e3 / nb, 3) for n, us in top})} [{card}]")
+    log(card_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6854,6 +7295,12 @@ def main() -> int:
     check_fid_moe_lora(port, device, rows, models["dit_s2"])
     phase_done("phase 20")
 
+    # 21. Progressive and consistency distillation: the transfer, the
+    # halving phases and the guided stage, CD and CT, as captured steps; the
+    # students' chains, archives and /sample; the two CLIs.
+    check_distillation(port, device)
+    phase_done("phase 21")
+
     # Launches from each kernel's main-path run: unet_small serving for #1-#4,
     # DiT-S/2 serving for #7, the float32 DDIM-10 chain for #8, the FiLM
     # Block pass for #5, the 5-step training run under both switches for #6
@@ -6905,4 +7352,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(diagnose_consistency_serving() if sys.argv[1:] == ["consistency-serving"] else main())

@@ -10,8 +10,8 @@
 ``train_edm``, ``eval_edm``, ``test_edm``, ``train_sr3``, ``eval_sr3``,
 ``cascade_sr3``, ``train_rectified_flow``, ``eval_rectified_flow``,
 ``test_rectified_flow``, ``reflow_rectified_flow``, ``train_dit``,
-``train_text_dit``, ``sample_text_dit``, ``compute_fid``, ``finetune_lora``
-and ``serve`` (the JAX package's
+``train_text_dit``, ``sample_text_dit``, ``compute_fid``, ``finetune_lora``,
+``distill_ddpm``, ``consistency_ddpm`` and ``serve`` (the JAX package's
 ``examples/{ddpm,improved_ddpm,conditional_ddpm,score_sde,wavegrad_ddpm,edm,sr3,rectified_flow,dit}/*.py``
 and ``examples/serve.py``; ``serve`` restores any of the families).
 Each ``main`` takes an explicit ``argv`` list too."""

@@ -25,7 +25,7 @@ from typing import Any, List, Mapping, Optional, Sequence
 
 from ..config.yaml_config import MISSING, Config, apply_overrides, from_dict, load_config, resolve_interpolations
 
-__all__ = ["hydra_runner", "parse_args", "REPO_ROOT"]
+__all__ = ["hydra_runner", "parse_args", "training_batches", "REPO_ROOT"]
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 
@@ -94,3 +94,30 @@ def hydra_runner(config_path: Optional[str] = None, config_name: Optional[str] =
         return wrapper
 
     return deco
+
+
+def training_batches(model, cfg):
+    """An endless iterator of the batches a fine-tuning CLI trains on: the
+    model's ``train_ds`` (``synthetic`` when it names none) or
+    ``cfg.dataset_name`` (``cfg.file_dir`` its path), at ``cfg.batch_size``,
+    a synthetic set ``cfg.dataset_length`` long unless the archive says."""
+    ds_cfg = dict(model.cfg.get("train_ds") or {})
+    if cfg.dataset_name:
+        ds_cfg["name"] = cfg.dataset_name
+    if ds_cfg.get("name") is None:
+        ds_cfg["name"] = "synthetic"
+    ds_cfg["batch_size"] = cfg.batch_size
+    if str(ds_cfg["name"]).startswith("synthetic"):
+        ds_cfg.setdefault("length", cfg.dataset_length)
+    if cfg.file_dir:
+        ds_cfg["path"] = cfg.file_dir
+    model.setup_training_data(ds_cfg)
+    loader = model._train_dl
+    if loader is None:
+        raise ValueError(f"could not build a dataloader from {ds_cfg}")
+
+    def batches():
+        while True:
+            yield from loader
+
+    return batches()

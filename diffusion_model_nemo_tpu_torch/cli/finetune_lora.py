@@ -25,7 +25,7 @@ import torch
 from ..models import restore_model_from_archive
 from ..modules.parts import not_ported
 from ..training.lora import LoRAFinetuner
-from .common import hydra_runner
+from .common import hydra_runner, training_batches
 
 log = logging.getLogger(__name__)
 
@@ -71,29 +71,11 @@ def main(cfg):
     log.info(f"LoRA fine-tuning {type(model).__name__} (rank={cfg.rank}, targets={cfg.targets!r}) for "
              f"{cfg.steps} steps")
 
-    ds_cfg = dict(model.cfg.get("train_ds") or {})
-    if cfg.dataset_name:
-        ds_cfg["name"] = cfg.dataset_name
-    if ds_cfg.get("name") is None:
-        ds_cfg["name"] = "synthetic"
-    ds_cfg["batch_size"] = cfg.batch_size
-    if str(ds_cfg["name"]).startswith("synthetic"):
-        ds_cfg.setdefault("length", cfg.dataset_length)
-    if cfg.file_dir:
-        ds_cfg["path"] = cfg.file_dir
-    model.setup_training_data(ds_cfg)
-    loader = model._train_dl
-    if loader is None:
-        raise ValueError(f"could not build a dataloader from {ds_cfg}")
-
-    def batches():
-        while True:
-            yield from loader
-
+    batches = training_batches(model, cfg)
     tuner = LoRAFinetuner(model, rank=cfg.rank, alpha=cfg.alpha, targets=cfg.targets,
                           learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip,
                           generator=torch.Generator().manual_seed(cfg.seed + 1))
-    losses = tuner.finetune(batches(), steps=cfg.steps,
+    losses = tuner.finetune(batches, steps=cfg.steps,
                             generator=torch.Generator(device=model.device).manual_seed(cfg.seed),
                             log_every=cfg.log_every)
     if losses:

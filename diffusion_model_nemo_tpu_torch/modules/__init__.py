@@ -1,4 +1,5 @@
 from .autoencoder import AutoencoderKL, diagonal_gaussian_kl, diagonal_gaussian_sample
+from .consistency_sampler import ConsistencySampler
 from .diffusion_process import AbstractDiffusionProcess
 from .dit import DiT
 from .dpm_solver import DPMSolverDiffusion
@@ -19,6 +20,7 @@ from .wavegrad_diffusion import WaveGradDiffusion
 __all__ = [
     "AbstractDiffusionProcess",
     "AutoencoderKL",
+    "ConsistencySampler",
     "DiT",
     "DPMSolverDiffusion",
     "EDMProcess",

@@ -1,4 +1,6 @@
 from .checkpoints import CheckpointManager, load_archive, load_aux_weights, save_archive
+from .consistency import ConsistencyDistiller, ConsistencyState
+from .distillation import DistillState, ProgressiveDistiller, predict_eps_x0
 from .ema import ema_decay_at, ema_decay_table, ema_update, init_ema
 from .exp_manager import ExpManagerHooks, exp_manager
 from .lora import LoRAFinetuner, load_adapters, lora_init, merge_adapters, save_adapters
@@ -10,10 +12,14 @@ from .trainer import Trainer, TrainState
 
 __all__ = [
     "CheckpointManager",
+    "ConsistencyDistiller",
+    "ConsistencyState",
+    "DistillState",
     "ExpManagerHooks",
     "LoRAFinetuner",
     "Optimizer",
     "PostHocEMA",
+    "ProgressiveDistiller",
     "ReflowState",
     "ReflowTrainer",
     "Trainer",
@@ -32,6 +38,7 @@ __all__ = [
     "load_archive",
     "load_aux_weights",
     "merge_adapters",
+    "predict_eps_x0",
     "reconstruct_posthoc_ema",
     "save_adapters",
     "save_archive",

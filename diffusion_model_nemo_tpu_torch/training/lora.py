@@ -46,6 +46,7 @@ from ..modules.parts import Conv1d, Conv2d, ConvTranspose2d, Dense, not_ported
 from ..ops import graphs as graphs_lib
 from ..utils.weights import kernel_to_flax, kernel_to_torch
 from .optim import Optimizer, clip_by_global_norm
+from .step_graph import OptimizerRows, adamw, replayed
 
 __all__ = ["lora_init", "merge_adapters", "adapter_param_count", "save_adapters", "load_adapters",
            "LoRAFinetuner"]
@@ -184,29 +185,23 @@ class LoRAFinetuner:
         self.scale = self.alpha / self.rank
         self.targets = targets
         self.adapters = lora_init(model.params, model.diffusion_model, self.rank, generator, targets)
-        lr = float(learning_rate)
         if optimizer == "adamw":
-            self.optimizer = Optimizer("adamw", lambda _count: lr, b1=0.9, b2=0.999, eps=1e-8,
-                                       weight_decay=float(weight_decay))
+            self.optimizer = adamw(learning_rate, weight_decay)
         elif optimizer == "sgd":
+            lr = float(learning_rate)
             self.optimizer = Optimizer("sgd", lambda _count: lr)
         else:
             raise ValueError(f"unknown optimizer {optimizer!r}")
         self.grad_clip = float(grad_clip)
         self.opt_state: Dict = {}
         self.graphs: dict = {}  # the captured step (ops/graphs.py)
-        self._table: Optional[torch.Tensor] = None  # the optimizer's rows (optim.Optimizer.table)
+        self._rows = OptimizerRows(self.optimizer, model.device)
         n_base = sum(int(p.numel()) for p in model.params.values())
         n_ad = adapter_param_count(self.adapters)
         log.info(f"LoRA r={self.rank} α={self.alpha}: {len(self.adapters)} kernels, {n_ad:,} trainable params "
                  f"({100.0 * n_ad / n_base:.2f}% of base)")
 
     # ---- the step ---------------------------------------------------------------
-    def _scalars(self, count: int) -> torch.Tensor:
-        if self._table is None or count >= self._table.shape[0]:
-            self._table = self.optimizer.table(max(2 * count, 64), self.model.device)
-        return self._table[count]
-
     def _step(self, batch, draws, scalars: torch.Tensor) -> torch.Tensor:
         """The step, device work only (the captured function): merge, the
         family's loss, the adapters' gradients, the clip and the update in
@@ -227,7 +222,7 @@ class LoRAFinetuner:
         family's ``draw_training_inputs``). ``graphs``: replay the captured
         step (default: on CUDA; the first call runs eagerly and captures) or
         run it eagerly. Returns the loss (a device tensor)."""
-        scalars = self._scalars(self.opt_state["count"])
+        scalars = self._rows[self.opt_state["count"]]
         with torch.inference_mode(False):
             if graphs_lib.use_graphs(graphs, self.model.device):
                 loss = self._replayed(batch, draws, scalars)
@@ -238,45 +233,14 @@ class LoRAFinetuner:
 
     def _replayed(self, batch, draws, scalars) -> torch.Tensor:
         model = self.model
-        dev = model.device
-        host = {}
-        for k in ("image", "audio", "label", "tokens"):
-            if k in batch:
-                v = batch[k]
-                v = v if torch.is_tensor(v) else torch.as_tensor(np.ascontiguousarray(v))
-                if dev.type == "cuda" and v.device.type == "cpu" and not v.is_pinned():
-                    v = v.pin_memory()
-                host[k] = v
-        inputs = {**draws, "opt": scalars}
-
-        def stage(static):
-            for k, v in host.items():
-                static[k].copy_(v, non_blocking=True)
-            for k, v in inputs.items():
-                static[k].copy_(v)
-
-        def build():
-            static = {**{k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in host.items()},
-                      **{k: torch.empty_like(v, device=dev) for k, v in inputs.items()}}
-            stage(static)
-
-            def step():
-                return self._step({k: static[k] for k in host}, {k: static[k] for k in draws}, static["opt"])
-
-            return graphs_lib.Graph("lora_step", step, static, device=dev, warmup=step, mutates=writes,
-                                    derived=False)
-
         writes = [*_flatten(self.adapters).values(),
                   *(v for d in self.opt_state.values() if isinstance(d, dict) for v in d.values())]
-        key = ("lora_step", *((k, tuple(v.shape), v.dtype) for k, v in {**host, **draws}.items()))
         tables = getattr(model.sampler, "table_tensors", tuple)()
         frozen = getattr(model, "frozen_tensors", tuple)()
-        graph, built = graphs_lib.cached(self.graphs, key, [*writes, *model.params.values(), *tables, *frozen],
-                                         build)
-        if built:
-            return graph.warmup_out.clone()
-        stage(graph.static)
-        return graph.replay().clone()
+        out = replayed(self.graphs, "lora_step", batch, {**draws, "opt": scalars},
+                       lambda b, i: self._step(b, {k: i[k] for k in draws}, i["opt"]), model.device, writes,
+                       [*model.params.values(), *tables, *frozen])
+        return out.clone()
 
     def finetune(self, batches: Iterator, steps: int, generator: Optional[torch.Generator] = None,
                  log_every: int = 50, draws: Optional[Iterable[Dict[str, torch.Tensor]]] = None,

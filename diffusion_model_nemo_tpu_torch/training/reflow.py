@@ -39,7 +39,8 @@ from ..config.yaml_config import from_dict
 from ..modules.gaussian_diffusion import _randn
 from ..modules.parts import not_ported
 from ..ops import graphs as graphs_lib
-from .optim import Optimizer, clip_by_global_norm
+from .optim import clip_by_global_norm
+from .step_graph import OptimizerRows, adamw, replayed
 from .trainer import param_grads
 
 __all__ = ["ReflowState", "ReflowTrainer"]
@@ -70,24 +71,15 @@ class ReflowTrainer:
         self.sampler = model.sampler
         self.pair_steps = int(pair_steps) if pair_steps else int(self.sampler.sample_steps)
         self.grad_clip = float(grad_clip)
-        lr = float(learning_rate)
-        self.optimizer = Optimizer("adamw", lambda _count: lr, b1=0.9, b2=0.999, eps=1e-8,
-                                   weight_decay=float(weight_decay))
+        self.optimizer = adamw(learning_rate, weight_decay)
         self.graphs: dict = {}  # the captured step (ops/graphs.py)
-        self._table: Optional[torch.Tensor] = None  # the optimizer's rows (optim.Optimizer.table)
+        self._rows = OptimizerRows(self.optimizer, model.device)
 
     # ---- the fused step -------------------------------------------------------
     def init_state(self, teacher: Dict[str, torch.Tensor]) -> ReflowState:
         """A round: the student a copy of ``teacher``, a fresh optimizer state."""
         student = {k: v.detach().clone().requires_grad_(True) for k, v in teacher.items()}
         return ReflowState(teacher, student, self.optimizer.init(student))
-
-    def _scalars(self, count: int) -> torch.Tensor:
-        """The optimizer's row for the update after ``count`` (its table
-        grown on the host when a step passes its end)."""
-        if self._table is None or count >= self._table.shape[0]:
-            self._table = self.optimizer.table(max(2 * count, 64), self.model.device)
-        return self._table[count]
 
     def _step(self, state: ReflowState, z: torch.Tensor, time: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
         """The step itself, device work only (the captured function): the
@@ -116,7 +108,7 @@ class ReflowTrainer:
         captures) or run it eagerly; the same numbers. Returns the loss."""
         dev = self.model.device
         z, time = z.to(dev, torch.float32), time.to(dev, torch.float32)
-        scalars = self._scalars(state.opt_state["count"])
+        scalars = self._rows[state.opt_state["count"]]
         with torch.inference_mode(False):
             if graphs_lib.use_graphs(graphs, dev):
                 loss = self._replayed(state, z, time, scalars)
@@ -126,23 +118,12 @@ class ReflowTrainer:
         return loss
 
     def _replayed(self, state: ReflowState, z, time, scalars) -> torch.Tensor:
-        inputs = {"z": z, "time": time, "opt": scalars}
-
-        def build():
-            static = {k: v.clone() for k, v in inputs.items()}
-            step = lambda: self._step(state, static["z"], static["time"], static["opt"])  # noqa: E731
-            return graphs_lib.Graph("reflow_step", step, static, device=self.model.device, warmup=step,
-                                    mutates=writes, derived=False)
-
         writes = [*state.student.values(), *(v for d in ("mu", "nu") for v in state.opt_state[d].values())]
         table = self.sampler._table(self.pair_steps, False)  # the teacher chain's grid, made before a capture
-        key = ("reflow_step", tuple(z.shape), self.pair_steps)
-        graph, built = graphs_lib.cached(self.graphs, key, [*writes, *state.teacher.values(), table], build)
-        if built:
-            return graph.warmup_out.clone()
-        for k, v in inputs.items():
-            graph.static[k].copy_(v)
-        return graph.replay().clone()
+        out = replayed(self.graphs, "reflow_step", {}, {"z": z, "time": time, "opt": scalars},
+                       lambda _b, i: self._step(state, i["z"], i["time"], i["opt"]), self.model.device, writes,
+                       [*state.teacher.values(), table], key=(self.pair_steps,))
+        return out.clone()
 
     # ---- the rounds -------------------------------------------------------------
     def reflow(self, steps: int, batch_size: int, generator: Optional[torch.Generator] = None, rounds: int = 1,

@@ -74,6 +74,7 @@ from ..tools.profiling import WindowTrace
 from .ema import ema_decay_table, ema_update, init_ema
 from .optim import Optimizer, build_optimizer, global_norm
 from .posthoc_ema import PostHocEMA
+from .step_graph import replayed
 
 __all__ = ["Trainer", "TrainState", "param_grads"]
 
@@ -294,56 +295,25 @@ class Trainer:
         return metrics | {"grad_norm": norm}
 
     def _replayed_step(self, model, state: TrainState, batch, draws, scalars) -> Dict[str, torch.Tensor]:
-        """``_step`` as a replay of the state's graph: the batch's image,
-        labels and caption tokens (through pinned memory on CUDA: a pageable
-        copy cannot overlap), the draws and the step's scalars go into its static
-        buffers first. Captured with the derived-weights
-        cache off: the prenorm folds, casts and re-layouts of the changing
-        weights are recomputed at every replay."""
-        host = {}  # the batch's arrays: the image or the waveform, and the labels and tokens where it has them
-        for k in ("image", "audio", "label", "tokens"):
-            if k in batch:
-                v = batch[k]
-                v = v if torch.is_tensor(v) else torch.as_tensor(np.ascontiguousarray(v))
-                if model.device.type == "cuda" and v.device.type == "cpu" and not v.is_pinned():
-                    v = v.pin_memory()
-                host[k] = v
-
+        """``_step`` as a replay of the state's graph (``step_graph.replayed``:
+        the batch's arrays, the draws and the step's scalars go into its
+        static buffers first). Captured with the derived-weights cache off:
+        the prenorm folds, casts and re-layouts of the changing weights are
+        recomputed at every replay."""
         inputs = {**draws, "opt": scalars[0], "ema": scalars[1]}
         if state.phema is not None:
             inputs["phema_t"] = scalars[2]
 
-        def stage(static):
-            for k, v in host.items():
-                static[k].copy_(v, non_blocking=True)
-            for k, v in inputs.items():
-                static[k].copy_(v)
-
-        def build():
-            dev = model.device
-            static = {**{k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in host.items()},
-                      **{k: torch.empty_like(v, device=dev) for k, v in inputs.items()}}
-            stage(static)
-
-            def step():
-                return self._step(model, state, {k: static[k] for k in host}, {k: static[k] for k in draws},
-                                  (static["opt"], static["ema"], static.get("phema_t")))
-
-            return graphs_lib.Graph("train_step", step, static, device=dev, warmup=step, mutates=writes,
-                                    derived=False)
+        def step(b, i):
+            return self._step(model, state, b, {k: i[k] for k in draws}, (i["opt"], i["ema"], i.get("phema_t")))
 
         writes = [*state.params.values(), *state.ema_params.values(),
                   *(v for tree in state.phema or () for v in tree.values())]
         moments = [v for d in state.opt_state.values() if isinstance(d, dict) for v in d.values()]
-        key = ("train_step", *((k, tuple(v.shape), v.dtype) for k, v in {**host, **draws}.items()))
         tables = getattr(model.sampler, "table_tensors", tuple)()  # q_sample's, the noise level's
         frozen = getattr(model, "frozen_tensors", tuple)()  # a latent model's first stage
-        graph, built = graphs_lib.cached(state.graphs, key, [*writes, *moments, *tables, *frozen], build)
-        if built:
-            out = graph.warmup_out
-        else:
-            stage(graph.static)
-            out = graph.replay()
+        out = replayed(state.graphs, "train_step", batch, inputs, step, model.device, writes,
+                       [*moments, *tables, *frozen])
         return {k: v.clone() for k, v in out.items()}
 
     @staticmethod
